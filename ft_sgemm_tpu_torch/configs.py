@@ -1,0 +1,128 @@
+"""Kernel shape configuration family, with the port's Hopper tile table.
+
+The reference drives its code generator with a 7-parameter tile
+description ``[ms, ns, ks, mw, nw, mr, nr]`` (block tile, K chunk, warp
+tile, thread tile — ``code_gen/main.py:8-16``). The JAX package collapsed
+that to 128-multiple MXU blocks (``huge`` is 512x512x512), which do not fit
+one CTA's registers on Hopper. The port therefore takes each named shape's
+``bm x bn`` straight from the paper's CUDA tile and runs it in the paper's
+register-tiled FFMA form: ``(bm/mr) x (bn/nr)`` threads, each holding an
+``mr x nr`` accumulator, with A/B staged through shared memory ``ks``
+columns at a time.
+
+``bk`` is the K depth of one scheduled step — the unit that fault
+injection and the check cadence count, like one K grid step of the JAX
+kernels. It is a multiple of the chunk ``ks``; the default ``bk = ks``
+gives the paper's own ``K/20`` injection cadence. ``test`` keeps the JAX
+package's 128x128x128 tile exactly, so the two packages can be compared
+tile for tile; on the card it runs the ``huge`` thread layout (ks = 8,
+8x8 per thread), 16 chunks per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelShape:
+    """A named block-tiling configuration for the SGEMM kernel family.
+
+    Attributes:
+      name: shape family name (reference ``main.py:8-16`` table key).
+      bm, bn: output tile of one CTA (rows, columns of C).
+      bk: K depth of one scheduled step (injection / check cadence unit).
+      ref_params: the reference's ``[ms, ns, ks, mw, nw, mr, nr]``.
+      layout: ``(ks, mr, nr)`` the CUDA kernel runs — shared-memory K chunk
+        and per-thread accumulator tile. ``None`` takes them from
+        ``ref_params``.
+    """
+
+    name: str
+    bm: int
+    bn: int
+    bk: int
+    ref_params: Tuple[int, int, int, int, int, int, int]
+    layout: Optional[Tuple[int, int, int]] = None
+
+    def __post_init__(self):
+        for field in ("bm", "bn", "bk"):
+            v = getattr(self, field)
+            if v <= 0:
+                raise ValueError(f"KernelShape.{field}={v} must be positive")
+        ks, mr, nr = self.thread_layout
+        if self.bk % ks:
+            raise ValueError(
+                f"KernelShape.bk={self.bk} must be a multiple of the"
+                f" shared-memory chunk ks={ks}")
+        if self.bm % mr or self.bn % nr:
+            raise ValueError(
+                f"KernelShape {self.bm}x{self.bn} is not divisible by the"
+                f" thread tile {mr}x{nr}")
+
+    @property
+    def block(self) -> Tuple[int, int, int]:
+        return (self.bm, self.bn, self.bk)
+
+    @property
+    def thread_layout(self) -> Tuple[int, int, int]:
+        """``(ks, mr, nr)``: K chunk and per-thread accumulator tile."""
+        if self.layout is not None:
+            return self.layout
+        _, _, ks, _, _, mr, nr = self.ref_params
+        return (ks, mr, nr)
+
+
+# Checksum strategies and threshold modes of the FT family, as spellings
+# (the JAX package's configs.py declares them; this slice runs
+# "weighted" and "rowcol" with the static threshold).
+STRATEGIES = ("rowcol", "global", "weighted", "fused")
+THRESHOLD_MODES = ("static", "auto", "adaptive")
+
+# The port's Hopper tile table: bm x bn and (ks, mr, nr) are the paper's
+# CUDA tiles (code_gen/main.py:8-16); bk = ks. "test" is the JAX
+# package's 128x128x128 tile on the huge thread layout.
+SHAPES = {
+    "small": KernelShape("small", 16, 16, 16, (16, 16, 16, 8, 16, 2, 2)),
+    "medium": KernelShape("medium", 32, 32, 8, (32, 32, 8, 16, 32, 4, 4)),
+    "large": KernelShape("large", 64, 64, 8, (64, 64, 8, 32, 64, 8, 8)),
+    "tall": KernelShape("tall", 128, 32, 8, (128, 32, 8, 64, 16, 8, 4)),
+    "wide": KernelShape("wide", 32, 128, 8, (32, 128, 8, 16, 64, 4, 8)),
+    "huge": KernelShape("huge", 128, 128, 8, (128, 128, 8, 32, 64, 8, 8)),
+    "test": KernelShape("test", 128, 128, 128, (64, 64, 8, 16, 32, 4, 4),
+                        layout=(8, 8, 8)),
+}
+
+# Kernel-id table, matching the reference binary's dispatch ladder and perf rows
+# (reference sgemm.cu:105-199 and sgemm.cu:235-237). Id 0 is the vendor
+# library (cuBLAS through torch.matmul); ids 1-6 the plain shapes; id 10
+# the non-fused two-pass ABFT baseline; ids 11-16 the fused-ABFT shapes.
+# Ids 7-9 are unused, as in the reference.
+KERNEL_TABLE = {
+    0: ("cublas", None, False),
+    1: ("kernel_sgemm_small", "small", False),
+    2: ("kernel_sgemm_medium", "medium", False),
+    3: ("kernel_sgemm_large", "large", False),
+    4: ("kernel_sgemm_tall", "tall", False),
+    5: ("kernel_sgemm_wide", "wide", False),
+    6: ("kernel_sgemm_huge", "huge", False),
+    10: ("abft_baseline", None, True),
+    11: ("abft_kernel_small", "small", True),
+    12: ("abft_kernel_medium", "medium", True),
+    13: ("abft_kernel_large", "large", True),
+    14: ("abft_kernel_tall", "tall", True),
+    15: ("abft_kernel_wide", "wide", True),
+    16: ("abft_kernel_huge", "huge", True),
+}
+
+PERF_ROW_IDS = (0, 1, 2, 3, 4, 5, 6, 10, 11, 12, 13, 14, 15, 16)
+
+
+def kernel_for_id(kernel_id: int) -> Tuple[str, Optional[KernelShape], bool]:
+    """Resolve a kernel id to (display name, shape or None, is_abft)."""
+    if kernel_id not in KERNEL_TABLE:
+        raise KeyError(f"unknown kernel id {kernel_id}")
+    name, shape_name, is_abft = KERNEL_TABLE[kernel_id]
+    shape = SHAPES[shape_name] if shape_name is not None else None
+    return name, shape, is_abft

@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled at first use, on the machine with the card,
+by ``nvcc`` into a shared library with a plain C interface, loaded with
+``ctypes``. Sources build in parallel, one ``nvcc`` each, into
+``csrc/_build/`` (ignored by git); a library's file name carries a digest
+of all sources and flags, so an edit rebuilds. ``-Xptxas -v`` output (the
+registers, shared memory and spills of every kernel) is kept beside each
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+
+KERNEL_SOURCES = ("sgemm", "ft_sgemm_weighted", "ft_sgemm_rowcol")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a"
+                           " machine with the CUDA toolkit")
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def so_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+
+
+def ptxas_log(name: str) -> str:
+    """What ``-Xptxas -v`` reported for one source's kernels."""
+    return so_path(name).with_suffix(".ptxas.txt").read_text()
+
+
+def build(names=KERNEL_SOURCES) -> float:
+    """Compile the named sources that are not built yet, all in parallel;
+    returns the wall seconds. Raises with the compiler's output on failure."""
+    todo = [n for n in names if not so_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, tmp, proc))
+    failures = []
+    for name, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failures.append(f"nvcc {name}.cu failed:\n{log}")
+            os.unlink(tmp)
+            continue
+        so_path(name).with_suffix(".ptxas.txt").write_text(log)
+        # Rename into place last: a concurrent loader never sees a
+        # half-written library.
+        os.replace(tmp, so_path(name))
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    build((name,))
+    return ctypes.CDLL(str(so_path(name)))
+
+
+def bind(lib: ctypes.CDLL, fname: str, argtypes):
+    """One C entry point with its argument types; every entry point returns
+    ``cudaGetLastError()`` as an int."""
+    fn = getattr(lib, fname)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+@functools.lru_cache(maxsize=1)
+def compiled_layouts() -> frozenset:
+    """The (bm, bn, ks, mr, nr) layouts the CUDA sources instantiate, read
+    from ``FTSG_FOR_EACH_LAYOUT`` in ``csrc/gemm_mainloop.cuh``."""
+    text = (CSRC / "gemm_mainloop.cuh").read_text()
+    macro = re.search(r"#define FTSG_FOR_EACH_LAYOUT\(X\)(.*?)\n\n", text, re.S)
+    return frozenset(tuple(map(int, x)) for x in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", macro.group(1)))
+
+
+def check_layout(shape) -> tuple:
+    """The (bm, bn, ks, mr, nr) of ``shape``; raises for a layout the CUDA
+    sources do not instantiate."""
+    ks, mr, nr = shape.thread_layout
+    layout = (shape.bm, shape.bn, ks, mr, nr)
+    if layout not in compiled_layouts():
+        raise ValueError(
+            f"KernelShape {shape.name!r} layout {layout} is not compiled;"
+            f" compiled (bm, bn, ks, mr, nr): {sorted(compiled_layouts())}")
+    return layout
+
+
+def check_operands(shape, a, b, c, *more) -> tuple:
+    """Validate a kernel launch: f32, contiguous, 16-byte aligned operands
+    on one CUDA device, A (M, K), B (N, K) and C (M, N) padded to the tile
+    (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled layout.
+    Returns (M, N, K, bm, bn, ks, mr, nr, bk)."""
+    dev = a.device
+    for t in (a, b, c, *more):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("kernel operands must lie on one CUDA device,"
+                             f" got {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"kernels take float32 operands, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernels take contiguous operands")
+        if t.data_ptr() % 16:
+            raise ValueError("kernels take 16-byte aligned operands")
+    (m, k), (n, kb) = a.shape, b.shape
+    if kb != k or tuple(c.shape) != (m, n):
+        raise ValueError(f"shapes A{tuple(a.shape)} B{tuple(b.shape)}"
+                         f" C{tuple(c.shape)} do not form A @ B.T + C")
+    if m % shape.bm or n % shape.bn or k % shape.bk or k < shape.bk:
+        raise ValueError(f"operands ({m}, {n}, {k}) are not padded to the"
+                         f" tile {shape.block}")
+    return (m, n, k, *check_layout(shape), shape.bk)

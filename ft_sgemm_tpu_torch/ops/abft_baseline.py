@@ -1,0 +1,70 @@
+"""Non-fused (two-pass) ABFT baseline, kernel id 10, as torch ops.
+
+Port of ``ft_sgemm_tpu/ops/abft_baseline.py:83-154`` (reference
+``include/baseline_ft_sgemm.cuh:1-33``): per 256-wide K panel it applies
+the panel's partial product to C, then re-reads all of C to recompute its
+row/column sums and compares them with checksums derived from the panel
+inputs. Detection only. The JAX package builds it from plain XLA ops with
+no Pallas kernel; here each panel is one cuBLAS ``addmm_`` plus matrix-
+vector products and reductions, and there is no hand kernel either.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+from ft_sgemm_tpu_torch.ops.common import as_f32, pad_to, resolve_device, strict_fp32
+
+PANEL_K = 256  # reference K-panel width, baseline_ft_sgemm.cuh:4
+
+
+class AbftBaselineResult(NamedTuple):
+    c: torch.Tensor                 # (M, N) alpha*A@B.T + beta*C
+    max_row_residual: torch.Tensor  # f32 scalar: max |expected - row sum|
+    max_col_residual: torch.Tensor  # f32 scalar
+    detected: torch.Tensor          # bool scalar: a residual above threshold
+
+
+def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
+                        inject: InjectionSpec | None = None,
+                        panel_k: int = PANEL_K,
+                        threshold: float = REFERENCE_THRESHOLD,
+                        device=None) -> AbftBaselineResult:
+    """Two-pass checksum-verified ``C = alpha*A@B.T + beta*C``.
+
+    ``inject`` adds a fault to one rotating element of C between pass 1 and
+    pass 2 of each scheduled panel (``panel % every == 0``). K is zero-padded
+    to a multiple of ``panel_k``. ``device=None`` runs on CUDA; the caller's
+    ``c`` is never written.
+    """
+    inject = inject or InjectionSpec.none()
+    dev = resolve_device(device)
+    strict_fp32()
+    a, b, c = (as_f32(x, dev) for x in (a, b, c))
+    m, n = c.shape
+    a, b = pad_to(a, 1, panel_k), pad_to(b, 1, panel_k)
+    c_acc = beta * c
+    # Expected running sums start at the sums of beta*C (the baseline checks
+    # full-C checksums after every panel update).
+    r_exp, c_exp = c_acc.sum(1), c_acc.sum(0)
+    max_r = torch.zeros((), device=dev)
+    max_c = torch.zeros((), device=dev)
+    for p in range(a.shape[1] // panel_k):
+        ap = a[:, p * panel_k:(p + 1) * panel_k]
+        bp = b[:, p * panel_k:(p + 1) * panel_k]
+        # Pass 1: the panel's partial product, applied to C.
+        c_acc.addmm_(ap, bp.T, alpha=alpha)
+        if inject.enabled and p % inject.every == 0:
+            # SDC between the GEMM pass and the checksum pass.
+            c_acc[(p * 131 + 7) % m, (p * 61 + 3) % n] += inject.magnitude
+        # Input-side checksum update (the reference's cublasSgemv).
+        r_exp += alpha * (ap @ bp.sum(0))
+        c_exp += alpha * (bp @ ap.sum(0))
+        # Pass 2: a full re-read of C (the non-fused cost).
+        max_r = torch.maximum(max_r, (r_exp - c_acc.sum(1)).abs().max())
+        max_c = torch.maximum(max_c, (c_exp - c_acc.sum(0)).abs().max())
+    return AbftBaselineResult(c_acc, max_r, max_c,
+                              (max_r > threshold) | (max_c > threshold))

@@ -1,0 +1,136 @@
+"""A/B-time the port's CUDA kernels across source trees on one GPU.
+
+Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
+package: a ``git archive`` of a commit, or such a copy with one change.
+The script builds every tree's kernels at once, then times B1, B2, B3 and
+B5 at M = N = K = 4096 on the huge, large and small tiles, after checking
+each FT kernel's fault counts and output. Each tree is measured in a fresh
+process per turn, the turns running the trees in order and then reversed,
+so a drift of the card shows as a difference between a tree's two turns.
+B2 and B3 run at the cadence ``make_ft_sgemm`` picks; B5 at that cadence
+where the weighted strategy runs it (the small tile), else at four checks
+per run. Needs nvcc and a CUDA device:
+
+    python3 scripts/torch_kernel_ab.py PARENT_TREE CHANGED_TREE [TREE ...]
+
+Prints the card's name and power limit, then one line of milliseconds per
+tree and turn.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+SIZE = 4096
+TILES = ("huge", "large", "small")
+
+
+def _import_port(tree: str):
+    """The tree's ``ft_sgemm_tpu_torch`` (and nothing else of that name)."""
+    root = pathlib.Path(tree).resolve()
+    sys.path.insert(0, str(root))
+    import ft_sgemm_tpu_torch
+
+    if not pathlib.Path(ft_sgemm_tpu_torch.__file__).is_relative_to(root):
+        raise RuntimeError(f"{tree} holds no ft_sgemm_tpu_torch package")
+
+
+def build(tree: str) -> None:
+    _import_port(tree)
+    from ft_sgemm_tpu_torch.ops import _build
+
+    _build.build()
+
+
+def measure(tree: str) -> dict:
+    """Milliseconds per launch of each kernel on each tile, in one tree."""
+    _import_port(tree)
+    import numpy as np
+    import torch
+
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+    from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
+    from ft_sgemm_tpu_torch.ops import sgemm as sg
+    from ft_sgemm_tpu_torch.ops.common import scalar_operand
+    from ft_sgemm_tpu_torch.utils.matrices import generate_random_matrix, verify_matrix
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    gen = np.random.default_rng(1)
+    a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
+               for _ in range(3))
+    want = sg.sgemm_plain(a, b, c, 1.0, -1.5).cpu().numpy()
+    row = {}
+    for name in TILES:
+        sh = SHAPES[name]
+        nk = SIZE // sh.bk
+        inj = InjectionSpec.reference_like(SIZE, sh.bk)
+        sc = scalar_operand(inj, (REFERENCE_THRESHOLD,) * 3)
+        kind, ce_w, _ = ft._plan("weighted", None, None, inj, nk, sh.bn)
+        ce_w = ce_w if kind == "running" else max(1, nk // 4)
+        _, ce_r, mf = ft._plan("rowcol", None, None, inj, nk, sh.bn)
+        expm = ft._expected_col_checksums(a, b, sh.bm)
+        runs = {
+            "B1": lambda: sg.sgemm_kernel(a, b, c, sh, 1.0, -1.5),
+            "B2": lambda: ft.ft_weighted_kernel(a, b, c, expm, sh, 1.0, -1.5, sc),
+            "B3": lambda: ft.ft_rowcol_kernel(a, b, c, sh, 1.0, -1.5, sc, ce_r, mf),
+            "B5": lambda: ft.ft_weighted_running_kernel(a, b, c, sh, 1.0, -1.5,
+                                                        sc, ce_w),
+        }
+        expected = (SIZE // sh.bm) * (SIZE // sh.bn) * inj.expected_faults(SIZE, sh.bk)
+        # B2 checks once, so it is held to the count only where the program
+        # runs it (a tile wide enough for the faults' distinct columns).
+        for kern in ("B3", "B5") + (("B2",) if kind == "precomp" else ()):
+            out, det, unc = runs[kern]()
+            if int(unc.sum()) or int(det.sum()) != expected or not verify_matrix(
+                    want, out.cpu().numpy(), verbose=False)[0]:
+                raise AssertionError(f"{tree}: {kern} {name}: wrong result")
+        for kern, fn in runs.items():
+            row[f"{kern} {name}"] = cuda_ms(fn, reps=5)
+    return row
+
+
+def _run(mode: str, tree: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, __file__, mode, tree],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--build":
+        build(argv[2])
+        return 0
+    if len(argv) == 3 and argv[1] == "--measure":
+        print(json.dumps(measure(argv[2])))
+        return 0
+    trees = argv[1:]
+    if not trees or any(t.startswith("--") for t in trees):
+        print(__doc__)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    for tree, proc in [(t, _run("--build", t)) for t in trees]:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{tree}: build failed:\n{log}")
+    print(f"built {len(trees)} trees in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for tree in trees + trees[::-1]:
+        proc = _run("--measure", tree)
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{tree}: measurement failed:\n{out}")
+        row = json.loads(out.strip().splitlines()[-1])
+        print(f"{pathlib.Path(tree).name:19s} "
+              + " ".join(f"{k}={v:.3f}" for k, v in row.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
