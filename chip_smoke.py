@@ -3,10 +3,12 @@
 Builds the port's hand-written CUDA kernels from ``ft_sgemm_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (at every tile of
 the port's table, and at every shape, cadence and multifault setting the
-paper's program gives it), drives that ``ft_sgemm`` program (verification
-at 4096 for ids 0-16 under the weighted and rowcol strategies, then the
-GFLOPS table at 2048 / 4096 / 6144) and shows through the kernels' launch
-counters that the program ran them. Prints one line per phase, a
+paper's program gives it under every (strategy, encode) pair), drives that
+``ft_sgemm`` program (verification at 4096 for ids 0-16 under the weighted
+and rowcol strategies and for ids 11-16 under global, fused, rowcol with
+encode mxu and global with encode mxu; the GFLOPS table at 2048 / 4096 /
+6144, and at 4096 for ids 11-16 under each of those four pairs) and shows
+through the kernels' launch counters that the program ran them. Prints one line per phase, a
 ``kernels`` JSON line with each kernel's launches, error and times against
 its bound, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -41,7 +43,14 @@ PEAK_BYTES_PER_S = 3.35e12
 # ops/ft_sgemm._plan's kernel kinds, and "sgemm" for B1.
 KIND_NAMES = {"sgemm": "sgemm", "precomp": "ft_sgemm_weighted_precomp",
               "running": "ft_sgemm_weighted_running",
-              "rowcol": "ft_sgemm_rowcol"}
+              "rowcol": "ft_sgemm_rowcol", "global": "ft_sgemm_global",
+              "fused": "ft_sgemm_fused", "rowcol_mxu": "ft_sgemm_rowcol_mxu",
+              "global_mxu": "ft_sgemm_global_mxu"}
+DETECT_ONLY = ("global", "global_mxu")
+# The (strategy, encode) pairs this slice added to the program; fused
+# encodes from moment rows whatever --encode says.
+NEW_PAIRS = (("global", "vpu"), ("fused", "mxu"), ("rowcol", "mxu"),
+             ("global", "mxu"))
 
 
 def log(msg: str) -> None:
@@ -82,6 +91,22 @@ class Kernels:
                 wrapper=ft.ft_rowcol_kernel,
                 source="ft_sgemm_tpu_torch/csrc/ft_sgemm_rowcol.cu",
                 replaces="ft_sgemm_tpu/ops/ft_sgemm.py:516"),
+            "ft_sgemm_global": dict(
+                wrapper=ft.ft_global_kernel,
+                source="ft_sgemm_tpu_torch/csrc/ft_sgemm_global.cu",
+                replaces="ft_sgemm_tpu/ops/ft_sgemm.py:832"),
+            "ft_sgemm_fused": dict(
+                wrapper=ft.ft_fused_kernel,
+                source="ft_sgemm_tpu_torch/csrc/ft_sgemm_aug.cu",
+                replaces="ft_sgemm_tpu/ops/ft_sgemm.py:1077"),
+            "ft_sgemm_rowcol_mxu": dict(
+                wrapper=ft.ft_rowcol_mxu_kernel,
+                source="ft_sgemm_tpu_torch/csrc/ft_sgemm_aug.cu",
+                replaces="ft_sgemm_tpu/ops/ft_sgemm.py:648"),
+            "ft_sgemm_global_mxu": dict(
+                wrapper=ft.ft_global_mxu_kernel,
+                source="ft_sgemm_tpu_torch/csrc/ft_sgemm_global.cu",
+                replaces="ft_sgemm_tpu/ops/ft_sgemm.py:758"),
         }
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
@@ -96,27 +121,17 @@ class Kernels:
     def calls(self, kind, shape, a, b, c, scalars=None, check_every=None,
               multifault=False):
         """(kernel thunk, plain thunk) for one launch of ``kind`` on padded
-        operands, with the program's alpha and beta. B2's expected moments
-        are made here, outside both thunks, as an input of the kernel."""
+        operands, with the program's alpha and beta. The wrapper-side inputs
+        (B2's expected moments, the mxu kernels' moment rows) are made
+        here, outside both thunks, as inputs of the kernel."""
         ft, sg, al, be = self.ft, self.sg, self.alpha, self.beta
         if kind == "sgemm":
             return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be),
                     lambda: sg.sgemm_plain(a, b, c, al, be))
-        if kind == "precomp":
-            expm = ft._expected_col_checksums(a, b, shape.bm)
-            return (lambda: ft.ft_weighted_kernel(a, b, c, expm, shape, al, be,
-                                                  scalars),
-                    lambda: ft.ft_weighted_plain(a, b, c, shape, al, be,
-                                                 scalars, expm=expm))
-        if kind == "running":
-            return (lambda: ft.ft_weighted_running_kernel(
-                        a, b, c, shape, al, be, scalars, check_every),
-                    lambda: ft.ft_weighted_plain(a, b, c, shape, al, be, scalars,
-                                                 check_every=check_every))
-        return (lambda: ft.ft_rowcol_kernel(a, b, c, shape, al, be, scalars,
-                                            check_every, multifault),
-                lambda: ft.ft_rowcol_plain(a, b, c, shape, al, be, scalars,
-                                           check_every, multifault))
+        args = (kind, shape, a, b, c, ft.kernel_inputs(kind, a, b, shape), al,
+                be, scalars, check_every, multifault)
+        return (lambda: ft.run_kernel(*args),
+                lambda: ft.run_kernel(*args, plain=True))
 
     def hold(self, kind, shape, a, b, c, scalars=None, check_every=None,
              multifault=False):
@@ -124,7 +139,9 @@ class Kernels:
         unc) grids equal, C within verify_matrix on every tile the kernel
         reports correctable. A tile reported uncorrectable (the adversarial
         schedule) may be miscorrected differently by the two — the weighted
-        ratio can fall on a rounding tie — so its C is not compared."""
+        ratio can fall on a rounding tie — so its C is not compared. The
+        detect-only global kernels correct nothing: both sides keep the
+        same faults, and C is compared everywhere."""
         from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 
         name = KIND_NAMES[kind]
@@ -141,8 +158,9 @@ class Kernels:
                     f"{name} {shape.name} {tuple(a.shape)}: grids differ: det"
                     f" {int(det.sum())} vs {int(pdet.sum())}, unc"
                     f" {int(unc.sum())} vs {int(punc.sum())}")
-            mask = (unc == 0).repeat_interleave(shape.bm, 0).repeat_interleave(
-                shape.bn, 1)
+            if kind not in DETECT_ONLY:
+                mask = (unc == 0).repeat_interleave(
+                    shape.bm, 0).repeat_interleave(shape.bn, 1)
         ok, nbad, first = verify_matrix(ref[mask].cpu().numpy(),
                                         out[mask].cpu().numpy(), verbose=False)
         if not ok:
@@ -220,9 +238,11 @@ def _scalars(inj):
 def phase_kernels(kern: Kernels):
     """Each kernel against its plain version at every tile of the port's
     table, at an aligned and an odd size, clean, with reference-like
-    injection and with the adversarial col_stride=0 schedule. B5 runs at
-    the program's cadence where the program runs it, else at four checks
-    per run; rowcol with multifault both off and on."""
+    injection and with the adversarial col_stride=0 schedule. Each FT
+    kernel runs at the cadence the program gives its strategy; B5 where the
+    program does not run it, and B6 besides, at four checks per run, so
+    that every tile sees intermediate checks; both rowcol kernels with
+    multifault off and on."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
@@ -234,17 +254,27 @@ def phase_kernels(kern: Kernels):
             a, b, c = _padded(_random(size, size, size, gen), shape)
             kern.hold("sgemm", shape, a, b, c)
             nk = a.shape[1] // shape.bk
+            quarter = max(1, nk // 4)
             ref = InjectionSpec.reference_like(size, shape.bk)
             for inj in (InjectionSpec.none(), ref,
                         InjectionSpec(True, ref.every, col_stride=0)):
                 sc = _scalars(inj)
+
+                def cadence(strategy):
+                    return ft._plan(strategy, None, None, inj, nk, shape.bn)[1]
+
                 kern.hold("precomp", shape, a, b, c, sc)
-                kind, ce, _ = ft._plan("weighted", None, None, inj, nk, shape.bn)
+                ce = cadence("weighted")
                 kern.hold("running", shape, a, b, c, sc,
-                          ce if kind == "running" else max(1, nk // 4))
-                _, ce, _ = ft._plan("rowcol", None, None, inj, nk, shape.bn)
+                          ce if ce < nk else quarter)
+                for ce in sorted({cadence("fused"), quarter}):
+                    kern.hold("fused", shape, a, b, c, sc, ce)
                 for mf in (False, True):
-                    kern.hold("rowcol", shape, a, b, c, sc, ce, mf)
+                    kern.hold("rowcol", shape, a, b, c, sc, cadence("rowcol"), mf)
+                    kern.hold("rowcol_mxu", shape, a, b, c, sc,
+                              cadence("rowcol"), mf)
+                kern.hold("global", shape, a, b, c, sc, cadence("global"))
+                kern.hold("global_mxu", shape, a, b, c, sc, cadence("global"))
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
@@ -255,68 +285,99 @@ def phase_path_shapes(kern: Kernels):
     for every kernel id of 1-16, its tile and the kernel, cadence and
     multifault setting ``make_ft_sgemm`` picks (``ops/ft_sgemm._plan``)
     under the program's injection, on the verification's inputs at 4096
-    under both strategies and on the table's inputs at each of its sizes
-    (weighted, as the table runs)."""
+    under every (strategy, encode) pair, on the table's inputs at each of
+    its sizes (weighted, as the table runs) and at 4096 under the pairs of
+    NEW_PAIRS. A launch that equals one already held (weighted with encode
+    mxu runs fused's kernel at fused's cadence) is held once."""
     from ft_sgemm_tpu_torch import cli, runtime
-    from ft_sgemm_tpu_torch.configs import KERNEL_TABLE, kernel_for_id
+    from ft_sgemm_tpu_torch.configs import ENCODE_MODES, KERNEL_TABLE, STRATEGIES, kernel_for_id
 
     ft = kern.ft
     before = dict(kern.checked)
     t0 = time.perf_counter()
     a, b = runtime.generate_reference_driver_inputs(VERIFY_SIZE)
     verify = (a, b, np.zeros_like(a))
-    runs = [(VERIFY_SIZE, strategy, verify) for strategy in cli.PORTED_STRATEGIES]
-    runs += [(size, "weighted", cli._host_inputs(size))
+    runs = [(VERIFY_SIZE, s, e, verify) for s in STRATEGIES for e in ENCODE_MODES]
+    runs += [(size, "weighted", "vpu", cli._host_inputs(size))
              for size in range(PERF_SIZES[0], PERF_SIZES[1] + 1, PERF_SIZES[2])]
-    for size, strategy, host in runs:
+    table = cli._host_inputs(TIMING_SIZE)
+    runs += [(TIMING_SIZE, s, e, table) for s, e in NEW_PAIRS]
+    seen = set()
+    for size, strategy, encode, host in runs:
         for kid in sorted(KERNEL_TABLE):
             _, shape, is_abft = kernel_for_id(kid)
-            if kid in (0, 10) or (not is_abft and strategy != "weighted"):
-                continue   # no hand kernel; B1 does not depend on the strategy
+            if kid in (0, 10):
+                continue   # no hand kernel
+            if is_abft:
+                _, inj = cli._build_ft(kid, size, strategy, encode, "cuda")
+                nk = -(-size // shape.bk)
+                kind, ce, mf = ft._plan(strategy, None, None, inj, nk,
+                                        shape.bn, encode)
+            else:
+                kind, inj, ce, mf = "sgemm", None, None, False
+            key = (id(host), kid, kind, ce, mf)
+            if key in seen:
+                continue   # B1 does not depend on the strategy
+            seen.add(key)
             a, b, c = _padded(host, shape)
-            if not is_abft:
-                kern.hold("sgemm", shape, a, b, c)
-                continue
-            _, inj = cli._build_ft(kid, size, strategy, "cuda")
-            kind, ce, mf = ft._plan(strategy, None, None, inj,
-                                    a.shape[1] // shape.bk, shape.bn)
-            kern.hold(kind, shape, a, b, c, _scalars(inj), ce, mf)
+            kern.hold(kind, shape, a, b, c,
+                      None if inj is None else _scalars(inj), ce, mf)
     done = {k: n - before[k] for k, n in kern.checked.items()}
     log(f"phase path shapes: {done} comparisons with the plain versions pass"
-        f" at {VERIFY_SIZE} (verification, both strategies) and"
-        f" {PERF_SIZES[0]}..{PERF_SIZES[1]} (table), max |dC| {kern.max_err}"
+        f" at {VERIFY_SIZE} (verification, every strategy and encode),"
+        f" {PERF_SIZES[0]}..{PERF_SIZES[1]} (table) and {TIMING_SIZE}"
+        f" (table, {NEW_PAIRS}), max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_main_path(kern: Kernels):
-    """The ``ft_sgemm`` program: verification at 4096 (ids 0-16, weighted
-    then rowcol) and the GFLOPS table, with the launch counters read
-    around it."""
+    """The ``ft_sgemm`` program: verification at 4096 (ids 0-16 under
+    weighted and rowcol, ids 11-16 under each pair of NEW_PAIRS), the
+    GFLOPS table (2048..6144, weighted) and the table at 4096 for ids
+    11-16 under each pair of NEW_PAIRS, with the launch counters read
+    around it all. A correcting strategy passes with every fault detected
+    and none left uncorrectable; the detect-only global strategy with
+    every fault event detected (each uncorrected) and a clean run that
+    passes the diff (``cli._verify_global_strategy``)."""
     from ft_sgemm_tpu_torch import cli
 
     kern.zero_counts()
     t0 = time.perf_counter()
-    for strategy in cli.PORTED_STRATEGIES:
+    runs = [("weighted", "vpu", 0), ("rowcol", "vpu", 0)]
+    runs += [(s, e, 11) for s, e in NEW_PAIRS]
+    for strategy, encode, first in runs:
         details = {}
-        ok = cli.run_verification(VERIFY_SIZE, 0, 16, strategy=strategy,
-                                  details=details)
+        ok = cli.run_verification(VERIFY_SIZE, first, 16, strategy=strategy,
+                                  encode=encode, details=details)
         if not ok:
-            raise AssertionError(f"run_verification failed under {strategy}")
+            raise AssertionError(
+                f"run_verification failed under {strategy}/{encode}")
         for kid, d in details.items():
-            if d["uncorrectable"] or d["detected"] != d["expected"]:
-                raise AssertionError(f"{strategy} id {kid}: {d}")
-        log(f"phase verify {strategy}: ids 0-16 pass at {VERIFY_SIZE};"
-            f" detected/expected faults "
+            want_unc = d["detected"] if strategy == "global" else 0
+            if d["uncorrectable"] != want_unc or d["detected"] != d["expected"]:
+                raise AssertionError(f"{strategy}/{encode} id {kid}: {d}")
+        log(f"phase verify {strategy}/{encode}: ids {first}-16 pass at"
+            f" {VERIFY_SIZE}; detected/expected faults "
             + ", ".join(f"{k}:{d['detected']}/{d['expected']}"
                         for k, d in sorted(details.items())))
-    table = cli.run_perf_table(*PERF_SIZES, 0, 16,
-                               min_device_time=PERF_MINTIME)
+    tables = {("weighted", "vpu"): cli.run_perf_table(
+        *PERF_SIZES, 0, 16, min_device_time=PERF_MINTIME)}
+    for strategy, encode in NEW_PAIRS:
+        log(f"phase table {strategy}/{encode}: ids 11-16 at {TIMING_SIZE}")
+        tables[strategy, encode] = cli.run_perf_table(
+            TIMING_SIZE, TIMING_SIZE, 1, 11, 16, min_device_time=PERF_MINTIME,
+            strategy=strategy, encode=encode)
     counts = kern.counts()
     log(f"phase main path: {time.perf_counter() - t0:.1f} s, launches {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return counts, table
+    return counts, tables
+
+
+# An mxu kernel computes its vpu kernel's function: the same bound.
+SAME_FUNCTION = {"fused": "running", "rowcol_mxu": "rowcol",
+                 "global_mxu": "global"}
 
 
 def work(kind, shape, n, check_every=None, multifault=False):
@@ -325,9 +386,12 @@ def work(kind, shape, n, check_every=None, multifault=False):
     written once. Beyond the product and the alpha/beta epilogue: each
     check's sums over the output (weighted: moments 1, w, w^2 by add, FMA,
     FMA; rowcol: row and column sums, plus the w-weighted column sums in
-    multifault mode) and, for the running kernels, the encode of the
-    expected checksums — the A- and B-side sums once per row or column
-    tile, and the per-tile updates once per tile and K column."""
+    multifault mode; global: one sum of the tile) and, for the kernels
+    with a running encode, the encode of the expected checksums — the A-
+    and B-side sums (or, for the mxu kernels, the wrapper's
+    ``_tile_moments``, the same sums) once per row or column tile, and the
+    per-tile updates once per tile and K column."""
+    kind = SAME_FUNCTION.get(kind, kind)
     mn = float(n * n)                       # also M*K and N*K
     gm, gn = n // shape.bm, n // shape.bn
     tiles = gm * gn
@@ -343,6 +407,10 @@ def work(kind, shape, n, check_every=None, multifault=False):
     elif kind == "running":
         # A's moments 1, w, w^2 (5 * M*K); 3 FMAs per tile, K column, column.
         flops += 5 * mn + tiles * n * 6.0 * shape.bn + 5 * mn * checks
+    elif kind == "global":
+        # A's and B's plain sums (M*K + N*K); one t_exp FMA per tile and K
+        # column; one sum of the output per check.
+        flops += 2 * mn + tiles * n * 2.0 + mn * checks
     else:
         # A's and B's plain sums (M*K + N*K); r_exp, c_exp FMAs per tile.
         flops += (2 * mn + tiles * n * 2.0 * (shape.bm + shape.bn)
@@ -358,12 +426,20 @@ def _bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# Which (strategy, encode) runs each kernel kind, for the timing's plan.
+KIND_PAIR = {"precomp": ("weighted", "vpu"), "running": ("weighted", "vpu"),
+             "rowcol": ("rowcol", "vpu"), "global": ("global", "vpu"),
+             "fused": ("fused", "mxu"), "rowcol_mxu": ("rowcol", "mxu"),
+             "global_mxu": ("global", "mxu")}
+
+
 def phase_timing(kern: Kernels, counts):
     """Each kernel at 4096 on the tile, cadence and multifault setting the
-    program gives it (B2, B3 at the huge tile; B5 at the small tile, the
-    only one where the weighted strategy runs it): the kernel, its plain
-    version, torch.addmm for the same alpha*A@B.T + beta*C, and the bound.
-    Also the worst clean checksum residual of the weighted check."""
+    program gives it (B1-B4, B6-B8 at the huge tile; B5 and B6 at the small
+    tile, where the clamp gives them intermediate checks): the kernel, its
+    plain version, torch.addmm for the same alpha*A@B.T + beta*C, and the
+    bound. The ``kernels`` row of B6 is its huge-tile timing. Also the
+    worst clean checksum residuals of the weighted and global checks."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
@@ -373,17 +449,19 @@ def phase_timing(kern: Kernels, counts):
     gen = np.random.default_rng(11)
     huge, small = SHAPES["huge"], SHAPES["small"]
     operands = {s.name: _padded(_random(n, n, n, gen), s) for s in (huge, small)}
-    rows = []
+    rows = {}
     for kind, shape in (("sgemm", huge), ("precomp", huge), ("rowcol", huge),
-                        ("running", small)):
+                        ("global", huge), ("running", small), ("fused", huge),
+                        ("fused", small), ("rowcol_mxu", huge),
+                        ("global_mxu", huge)):
         name = KIND_NAMES[kind]
         a, b, c = operands[shape.name]
         inj = InjectionSpec.reference_like(n, shape.bk)
         ce, mf = None, False
         if kind != "sgemm":
-            strategy = "rowcol" if kind == "rowcol" else "weighted"
+            strategy, encode = KIND_PAIR[kind]
             plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
-                                    shape.bn)
+                                    shape.bn, encode)
             if plan != kind:
                 raise AssertionError(f"the program runs {plan} at {shape.name},"
                                      f" not {kind}")
@@ -393,35 +471,48 @@ def phase_timing(kern: Kernels, counts):
         library_ms = cuda_ms(lambda: torch.addmm(
             c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
         bound_ms, bound_by = _bound(*work(kind, shape, n, ce, mf))
-        rows.append({"name": name, "route": "cuda",
-                     "source": kern.table[name]["source"],
-                     "replaces": kern.table[name]["replaces"],
-                     "launches": counts[name],
-                     "max_abs_err": kern.max_err[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+        rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": kern.table[name]["source"],
+            "replaces": kern.table[name]["replaces"],
+            "launches": counts[name], "max_abs_err": kern.max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "tile": shape.name})
         log(f"phase timing {name} ({shape.name}, {n}, check every {ce},"
             f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
             f" torch.addmm {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
             f" ({bound_by})")
 
-    # Worst clean residual of the weighted check at 4096 (C = 0, alpha = 1:
-    # the output is the accumulator): f32 column moments of the kernel's
-    # accumulator against the torch.matmul expectations.
+    # Worst clean residuals at 4096 (C = 0, alpha = 1: the output is the
+    # accumulator): f32 column moments of the weighted kernel's
+    # accumulator against the torch.matmul expectations, and each tile's
+    # total of the global kernel's accumulator against t_exp = s_a . s_b
+    # from the moment rows.
     a, b, _ = operands["huge"]
     gm = n // huge.bm
     zero = torch.zeros((n, n), device="cuda")
+    clean = _scalars(InjectionSpec.none())
     expm = ft._expected_col_checksums(a, b, huge.bm)
     acc, det, unc = ft.ft_weighted_kernel(a, b, zero, expm, huge, 1.0, 0.0,
-                                          _scalars(InjectionSpec.none()))
+                                          clean)
     t = acc.reshape(gm, huge.bm, n)
     w = torch.arange(1, huge.bm + 1, device="cuda", dtype=torch.float32)[None, :, None]
     worst = [float((expm[:, v] - (t * w ** v).sum(1)).abs().max()) for v in range(3)]
-    if int(det.sum()) or int(unc.sum()):
-        raise AssertionError("clean weighted run reported faults")
-    log(f"phase residual: worst clean weighted residual at {n} (moments 1, w,"
-        f" w^2): {worst} against the threshold 9500")
-    return rows
+    _, ce, _ = ft._plan("global", None, None, InjectionSpec.none(),
+                        n // huge.bk, huge.bn)
+    gacc, gdet, _ = ft.ft_global_kernel(a, b, zero, huge, 1.0, 0.0, clean, ce)
+    ma, mb = (ft._tile_moments(x, bt, 1)[:, 0]
+              for x, bt in ((a, huge.bm), (b, huge.bn)))
+    t_exp = ma @ mb.T
+    totals = gacc.reshape(gm, huge.bm, n // huge.bn, huge.bn).sum((1, 3))
+    worst_global = float((t_exp - totals).abs().max())
+    if int(det.sum()) or int(unc.sum()) or int(gdet.sum()):
+        raise AssertionError("a clean run reported faults")
+    log(f"phase residual: worst clean residual at {n}, huge tile, weighted"
+        f" (moments 1, w, w^2): {worst}, global (tile total, |t_exp| up to"
+        f" {float(t_exp.abs().max()):.1f}): {worst_global}; threshold 9500")
+    return list(rows.values())
 
 
 def main() -> int:

@@ -9,18 +9,26 @@ Two passes, like ``main()`` there and ``ft_sgemm_tpu/cli.py:494-621``:
   1. **Verification** at END_SIZE: every kernel id in [ST_KERNEL, END_KERNEL]
      is checked against the vendor GEMM (cuBLAS through ``torch.matmul``)
      under the ``utils.cu:61`` tolerance. FT kernels run with reference-like
-     fault injection ON and must also report ``uncorrectable == 0``.
+     fault injection ON and must also report ``uncorrectable == 0``; the
+     detect-only ``global`` strategy leaves its faults in C by design, so
+     its rows must instead detect exactly the injected fault events and
+     pass the diff on a clean run (``_verify_global_strategy``).
   2. **Performance**: a GFLOPS table over sizes START..END step GAP, one row
      per kernel id in the 14-row table (``sgemm.cu:235-237``), timed with
      CUDA events (``utils.timing.bench_seconds_per_call``).
 
 Usage:
     python -m ft_sgemm_tpu_torch.cli 1024 6144 512 0 16 \
-        [--strategy=weighted|rowcol] [--mintime=SECONDS] \
-        [--no-verify] [--no-perf] [--device=cuda|cpu]
+        [--strategy=weighted|rowcol|global|fused] [--encode=vpu|mxu] \
+        [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
 
-``--device=cpu`` runs the kernels' plain PyTorch versions (for tests);
-the default is the GPU, and the program raises when there is none.
+``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
+``--encode`` how their expected checksums are formed: ``vpu`` sums the
+staged operand chunks in the kernel, ``mxu`` takes the operands'
+precomputed moment rows (``fused`` always does; ``weighted`` with ``mxu``
+runs the same kernel). ``--device=cpu`` runs the kernels' plain PyTorch
+versions (for tests); the default is the GPU, and the program raises when
+there is none.
 """
 
 from __future__ import annotations
@@ -32,7 +40,13 @@ import numpy as np
 import torch
 
 from ft_sgemm_tpu_torch import runtime
-from ft_sgemm_tpu_torch.configs import KERNEL_TABLE, PERF_ROW_IDS, kernel_for_id
+from ft_sgemm_tpu_torch.configs import (
+    ENCODE_MODES,
+    KERNEL_TABLE,
+    PERF_ROW_IDS,
+    STRATEGIES,
+    kernel_for_id,
+)
 from ft_sgemm_tpu_torch.injection import InjectionSpec
 from ft_sgemm_tpu_torch.ops.abft_baseline import abft_baseline_sgemm
 from ft_sgemm_tpu_torch.ops.common import as_f32, resolve_device
@@ -44,20 +58,19 @@ from ft_sgemm_tpu_torch.utils.timing import bench_seconds_per_call
 
 ALPHA = 1.0   # sgemm.cu:22
 BETA = -1.5   # sgemm.cu:24,234
-PORTED_STRATEGIES = ("weighted", "rowcol")
 
 
-def _build_ft(kernel_id: int, size: int, strategy: str, device):
+def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device):
     """The fused-ABFT kernel + reference-like injection for one kernel id,
     the injection cadence following the tile the kernel runs."""
     _, shape, _ = kernel_for_id(kernel_id)
     ft = make_ft_sgemm(shape.name, alpha=ALPHA, beta=BETA, strategy=strategy,
-                       device=device)
+                       encode=encode, device=device)
     return ft, InjectionSpec.reference_like(size, ft.shape_config.bk)
 
 
 def _build_callable(kernel_id: int, size: int, inject_ft: bool,
-                    strategy: str, device):
+                    strategy: str, encode: str, device):
     """Return fn(a, b, c) -> (M, N) tensor for one kernel id."""
     _, shape, is_abft = kernel_for_id(kernel_id)
     if kernel_id == 0:
@@ -68,7 +81,7 @@ def _build_callable(kernel_id: int, size: int, inject_ft: bool,
                                                    device=device).c
     if not is_abft:
         return make_sgemm(shape.name, alpha=ALPHA, beta=BETA, device=device)
-    ft, inj = _build_ft(kernel_id, size, strategy, device)
+    ft, inj = _build_ft(kernel_id, size, strategy, encode, device)
     if not inject_ft:
         inj = InjectionSpec.none()
     return lambda a, b, c: ft(a, b, c, inj).c
@@ -95,15 +108,44 @@ def _host_inputs(size: int):
     return tuple(generate_random_matrix(size, size, rng=rng) for _ in range(3))
 
 
+def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
+                            encode: str, device):
+    """Verification gate of the detect-only ``global`` strategy (the JAX
+    package's cli.py:462-491): the output keeps the injected corruption by
+    design, so the row passes when (a) the injected run detects exactly
+    ``tiles * expected_faults`` fault events and (b) a clean run passes the
+    diff against the oracle. Returns (ok, status, injected result, expected
+    events)."""
+    ft, inj = _build_ft(kernel_id, end_size, "global", encode, device)
+    shape = ft.shape_config
+    res = ft(a, b, c, inj)
+    tiles = -(-end_size // shape.bm) * -(-end_size // shape.bn)
+    expected = tiles * inj.expected_faults(end_size, shape.bk)
+    events = int(res.num_detected)
+    ok_clean, nbad, first = verify_matrix(want, ft(a, b, c).c.cpu().numpy(),
+                                          verbose=False)
+    parts = []
+    if events != expected:
+        parts.append(f"detected {events}, expected {expected}")
+    if not ok_clean:
+        parts.append(f"clean run: {nbad} bad, first at {first}")
+    status = ("FAIL (" + "; ".join(parts) + ")" if parts else
+              f"pass (detected {events}/{expected}, clean diff ok)")
+    return not parts, status, res, expected
+
+
 def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                      out=None, strategy: str = "weighted", device=None,
-                     details: dict | None = None) -> bool:
+                     details: dict | None = None,
+                     encode: str = "vpu") -> bool:
     """Pass 1: diff every selected kernel against the ``torch.matmul``
     oracle. A and B are the reference binary's post-``srand(10)`` buffers
     (``runtime.generate_reference_driver_inputs``); C starts zeroed.
 
     ``details``, when given, receives per FT id the detected, expected and
-    uncorrectable fault counts of the injected run.
+    uncorrectable fault counts of the injected run. Under the detect-only
+    ``global`` strategy ``detected`` counts fault events and
+    ``uncorrectable`` equals ``detected`` (nothing is corrected).
     """
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
@@ -116,10 +158,17 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         if kernel_id < st_kernel or kernel_id > end_kernel:
             continue
         name, shape, is_abft = kernel_for_id(kernel_id)
-        if is_abft and kernel_id != 10:
+        if is_abft and kernel_id != 10 and strategy == "global":
+            ok, status, res, expected = _verify_global_strategy(
+                kernel_id, end_size, a, b, c, want, encode, dev)
+            if details is not None:
+                details[kernel_id] = {
+                    "detected": int(res.num_detected), "expected": expected,
+                    "uncorrectable": int(res.num_uncorrectable)}
+        elif is_abft and kernel_id != 10:
             # Correcting FT rows: diff gate PLUS the residual-after-correct
             # re-check.
-            ft, inj = _build_ft(kernel_id, end_size, strategy, dev)
+            ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev)
             res = ft(a, b, c, inj)
             ok, nbad, first = verify_matrix(want, res.c.cpu().numpy(),
                                             verbose=False)
@@ -138,7 +187,8 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                     "expected": tiles * inj.expected_faults(end_size, shape.bk),
                     "uncorrectable": unc}
         else:
-            fn = _build_callable(kernel_id, end_size, True, strategy, dev)
+            fn = _build_callable(kernel_id, end_size, True, strategy, encode,
+                                 dev)
             got = fn(a, b, c).cpu().numpy()
             ok, nbad, first = verify_matrix(want, got, verbose=False)
             status = "pass" if ok else f"FAIL ({nbad} bad, first at {first})"
@@ -151,7 +201,8 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
 def run_perf_table(start_size: int, end_size: int, gap_size: int,
                    st_kernel: int, end_kernel: int,
                    min_device_time: float = 1.0, out=None,
-                   strategy: str = "weighted", device=None) -> dict:
+                   strategy: str = "weighted", device=None,
+                   encode: str = "vpu") -> dict:
     """Pass 2: the GFLOPS table (format parity with sgemm.cu:240-439),
     measured size-major, printed row-major; per-cell progress on stderr."""
     out = sys.stdout if out is None else out
@@ -164,7 +215,7 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
               f"({len(row_ids)} kernel rows)...", file=sys.stderr, flush=True)
         a, b, c = (as_f32(x, dev) for x in _host_inputs(size))
         for kernel_id in row_ids:
-            fn = _build_callable(kernel_id, size, True, strategy, dev)
+            fn = _build_callable(kernel_id, size, True, strategy, encode, dev)
             sec_per_rep = bench_seconds_per_call(
                 fn, a, b, c, min_device_time=min_device_time)
             gf = 2.0 * size**3 / 1e9 / sec_per_rep
@@ -202,15 +253,22 @@ def main(argv=None) -> int:
         return 2
     min_device_time = 1.0
     strategy = "weighted"
+    encode = "vpu"
     device = None
     for f in flags:
         if f.startswith("--mintime="):
             min_device_time = float(f.split("=", 1)[1])
         elif f.startswith("--strategy="):
             strategy = f.split("=", 1)[1]
-            if strategy not in PORTED_STRATEGIES:
-                print(f"--strategy must be one of {PORTED_STRATEGIES}, got"
+            if strategy not in STRATEGIES:
+                print(f"--strategy must be one of {STRATEGIES}, got"
                       f" {strategy!r}", file=sys.stderr)
+                return 2
+        elif f.startswith("--encode="):
+            encode = f.split("=", 1)[1]
+            if encode not in ENCODE_MODES:
+                print(f"--encode must be one of {ENCODE_MODES}, got"
+                      f" {encode!r}", file=sys.stderr)
                 return 2
         elif f.startswith("--device="):
             device = f.split("=", 1)[1]
@@ -222,11 +280,11 @@ def main(argv=None) -> int:
     ok = True
     if "--no-verify" not in flags:
         ok = run_verification(end_size, st_kernel, end_kernel,
-                              strategy=strategy, device=dev)
+                              strategy=strategy, device=dev, encode=encode)
     if "--no-perf" not in flags:
         run_perf_table(start_size, end_size, gap_size, st_kernel, end_kernel,
                        min_device_time=min_device_time, strategy=strategy,
-                       device=dev)
+                       device=dev, encode=encode)
     return 0 if ok else 1
 
 

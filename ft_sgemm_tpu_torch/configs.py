@@ -74,11 +74,47 @@ class KernelShape:
         return (ks, mr, nr)
 
 
-# Checksum strategies and threshold modes of the FT family, as spellings
-# (the JAX package's configs.py declares them; this slice runs
-# "weighted" and "rowcol" with the static threshold).
+# Checksum strategies of the FT family (ops/ft_sgemm.py):
+#   "rowcol"   — row and column checksums, periodic intersection correction
+#                (the reference's shipped design);
+#   "global"   — one scalar checksum per tile, detect only;
+#   "weighted" — column moments 1, w, w^2, per-column localization;
+#   "fused"    — the weighted check with its expected moments taken from
+#                precomputed moment rows ("weighted" with encode="mxu").
 STRATEGIES = ("rowcol", "global", "weighted", "fused")
+# How a kernel forms its expected checksums: "vpu" sums the staged operand
+# chunks inside the kernel; "mxu" takes the operands' checksum-moment rows,
+# computed by the wrapper (ops/ft_sgemm._tile_moments), staged beside each
+# K chunk. The TPU appended those rows to the operand blocks (sublane-
+# padded ``aug_rows``); the port passes them as their own (g, R, K)
+# operand, so A and B are never copied.
+ENCODE_MODES = ("vpu", "mxu")
 THRESHOLD_MODES = ("static", "auto", "adaptive")
+IN_DTYPES = ("float32",)
+
+
+def check_kernel_legality(*, strategy: str, encode: str,
+                          in_dtype: str = "float32",
+                          threshold_mode: str = "static") -> None:
+    """Validate one (strategy, encode, dtype, threshold-mode) combination:
+    unknown spellings raise ``ValueError``; every (strategy, encode) pair is
+    legal in f32 with the static threshold, and what the port does not run
+    yet (other dtypes, the ``"auto"`` and ``"adaptive"`` thresholds) raises
+    ``NotImplementedError``."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
+    if encode not in ENCODE_MODES:
+        raise ValueError(f"unknown encode mode {encode!r}; pick from"
+                         f" {ENCODE_MODES}")
+    if threshold_mode not in THRESHOLD_MODES:
+        raise ValueError(f"threshold must be a float or one of"
+                         f" {THRESHOLD_MODES}, got {threshold_mode!r}")
+    if threshold_mode != "static":
+        raise NotImplementedError(
+            f"threshold={threshold_mode!r} is not ported yet (static only)")
+    if in_dtype not in IN_DTYPES:
+        raise NotImplementedError(
+            f"in_dtype={in_dtype!r} is not ported yet ({IN_DTYPES})")
 
 # The port's Hopper tile table: bm x bn and (ks, mr, nr) are the paper's
 # CUDA tiles (code_gen/main.py:8-16); bk = ks. "test" is the JAX

@@ -1,14 +1,17 @@
 // Device functions shared by the fused-ABFT kernels (ft_sgemm_weighted.cu,
-// ft_sgemm_rowcol.cu), written once. Each is the Hopper form of one JAX
-// device function in ft_sgemm_tpu/ops/ft_sgemm.py:
+// ft_sgemm_rowcol.cu, ft_sgemm_global.cu, ft_sgemm_aug.cu), written once.
+// Each is the Hopper form of one JAX device function in
+// ft_sgemm_tpu/ops/ft_sgemm.py:
 //
 //   inject                  <- _inject                 (:242-284)
-//   row_sum / col_sum       <- the whole-tile jnp.sum reductions: warp
-//                              shuffles plus a shared-memory pass, the
+//   row_sum / col_sum /     <- the whole-tile jnp.sum reductions: warp
+//   tile_sum                   shuffles plus a shared-memory pass, the
 //                              paper's design (code_gen.py:219-226, 352-424)
 //   weighted_localize       <- _weighted_localize      (:498-513)
 //   Encoder                 <- the per-K-step checksum encode of
-//                              _ft_kernel_rowcol / _ft_kernel_weighted
+//                              _ft_kernel_rowcol / _ft_kernel_weighted /
+//                              _ft_kernel_global (sums), and of their mxu
+//                              forms from staged moment rows (update)
 //   moment_detect_correct   <- _moment_detect_correct  (:287-339)
 //   rowcol_detect_correct   <- _rowcol_detect_correct  (:406-495)
 //   EPS8                    <- _correction_pads         (:342-357)
@@ -126,6 +129,27 @@ __device__ __forceinline__ void col_sum(const Mainloop<L>& ml, F f,
   __syncthreads();
 }
 
+// The sum of the whole tile's accumulator, returned to every thread (each
+// adds the warps' partials in the same order, so all hold the same value).
+// scratch holds NWARPS floats.
+template <class L>
+__device__ __forceinline__ float tile_sum(const Mainloop<L>& ml,
+                                          float* scratch) {
+  float p = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < L::TN; ++j) p += ml.acc[i][j];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = p;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < L::NWARPS; ++w) s += scratch[w];
+  __syncthreads();
+  return s;
+}
+
 // Fault row of a flagged column from the weighted-residual ratio:
 // round(res_cw / res_c) - 1, rounding half to even like jnp.round. -1 for a
 // column that did not flag.
@@ -138,7 +162,10 @@ __device__ __forceinline__ int weighted_localize(float res_c, float res_cw,
 // moments s_a (weights 1, w, w^2 with w = row + 1) give the expected column
 // checksums c[v][n] += sum_k B[n, k] * s_a[v][k]; with ROWS, the B-side sum
 // s_b gives the expected row checksum r[m] += sum_k A[m, k] * s_b[k].
-// Thread t holds row t's r and column t's c[].
+// Thread t holds row t's r and column t's c[]. `sums` forms s_a and s_b
+// from the staged chunk (the vpu encode); the mxu kernels instead pass the
+// chunk's staged moment rows straight to `update`, with no reduction and no
+// barrier.
 template <class L, int NMOM, bool ROWS>
 struct Encoder {
   struct Smem {
@@ -165,8 +192,9 @@ struct Encoder {
   static constexpr int G = lanes_per_job();
   static_assert(JOBS <= L::NT, "one pass needs a thread per job");
 
-  __device__ __forceinline__ void chunk(const Stage<L>& st, int buf,
-                                        Smem& es) {
+  // es.sa / es.sb of the chunk in buffer `buf`, ending with a barrier.
+  static __device__ __forceinline__ void sums(const Stage<L>& st, int buf,
+                                              Smem& es) {
     const int job = threadIdx.x / G, g = threadIdx.x % G;
     const int v = job / L::KS, kk = job % L::KS;
     float s = 0.f;
@@ -188,19 +216,32 @@ struct Encoder {
       else es.sa[v][kk] = s;
     }
     __syncthreads();
+  }
+
+  // r and c[] from the chunk in buffer `buf` and its sums sa[v][kk], sb[kk]
+  // (sb is read only with ROWS).
+  __device__ __forceinline__ void update(const Stage<L>& st, int buf,
+                                         const float (*sa)[L::KS],
+                                         const float* sb) {
     const int t = threadIdx.x;
     if (ROWS && t < L::BM) {
 #pragma unroll
-      for (int kk = 0; kk < L::KS; ++kk) r = fmaf(st.As[buf][kk][t], es.sb[kk], r);
+      for (int kk = 0; kk < L::KS; ++kk) r = fmaf(st.As[buf][kk][t], sb[kk], r);
     }
     if (t < L::BN) {
 #pragma unroll
       for (int kk = 0; kk < L::KS; ++kk) {
         const float b = st.Bs[buf][kk][t];
 #pragma unroll
-        for (int v = 0; v < NMOM; ++v) c[v] = fmaf(b, es.sa[v][kk], c[v]);
+        for (int v = 0; v < NMOM; ++v) c[v] = fmaf(b, sa[v][kk], c[v]);
       }
     }
+  }
+
+  __device__ __forceinline__ void chunk(const Stage<L>& st, int buf,
+                                        Smem& es) {
+    sums(st, buf, es);
+    update(st, buf, es.sa, es.sb);
   }
 };
 

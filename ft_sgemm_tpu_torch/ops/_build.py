@@ -27,7 +27,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 
-KERNEL_SOURCES = ("sgemm", "ft_sgemm_weighted", "ft_sgemm_rowcol")
+KERNEL_SOURCES = ("sgemm", "ft_sgemm_weighted", "ft_sgemm_rowcol",
+                  "ft_sgemm_global", "ft_sgemm_aug")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

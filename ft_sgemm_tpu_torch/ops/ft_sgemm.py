@@ -1,21 +1,37 @@
-"""Fused online-ABFT SGEMM: kernels B2, B5 (``csrc/ft_sgemm_weighted.cu``)
-and B3 (``csrc/ft_sgemm_rowcol.cu``), behind kernel ids 11-16.
+"""Fused online-ABFT SGEMM: kernels B2, B5 (``csrc/ft_sgemm_weighted.cu``),
+B3 (``csrc/ft_sgemm_rowcol.cu``), B4, B8 (``csrc/ft_sgemm_global.cu``) and
+B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16.
 
-Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` for this slice: the ``weighted``
-(default) and ``rowcol`` strategies with static thresholds in f32. Each
-kernel encodes, accumulates, injects, detects and corrects inside one
+Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32 with static thresholds.
+Each kernel encodes, accumulates, injects, detects and corrects inside one
 launch, as the Pallas kernels do (module docstring there):
 
-  - ``weighted``: column checksums with weights 1, w, w^2 (w = row + 1);
-    the weighted-residual ratio localizes each flagged column's fault row,
-    the w^2 moment re-checks the correction. At its default cadence (one
-    final check) the expected moments are precomputed by one FP32 matmul
-    outside the kernel (``_expected_col_checksums``) and B2 runs; a cadence
-    with intermediate checks runs B5, which encodes them as running sums.
+  - ``weighted`` (default): column checksums with weights 1, w, w^2
+    (w = row + 1); the weighted-residual ratio localizes each flagged
+    column's fault row, the w^2 moment re-checks the correction. At its
+    default cadence (one final check) the expected moments are
+    precomputed by one FP32 matmul outside the kernel
+    (``_expected_col_checksums``) and B2 runs; a cadence with intermediate
+    checks runs B5, which encodes them as running sums.
   - ``rowcol`` (reference parity): row and column checksums encoded per K
     step, corrections at flagged row/column intersections every
     ``check_every`` steps, and the multifault weighted localization when
     the intersection is ambiguous (B3).
+  - ``global``: one scalar checksum per tile, detect only (B4): each check
+    counts an EVENT when the residual moved by more than the threshold
+    since the previous check; ``uncorrectable`` equals ``detections``.
+  - ``fused``: the weighted check at any cadence, its expected moments
+    encoded from A's moment rows (B6); the same kernel runs ``weighted``
+    with ``encode="mxu"``.
+
+``encode="mxu"`` (``configs.ENCODE_MODES``) forms the expected checksums
+from the operands' checksum-moment rows (``_tile_moments``, torch ops in
+the wrapper, as XLA ops in the reference) instead of summing the staged
+operand chunks in the kernel: B6 (weighted / fused), B7 (rowcol) and B8
+(global). On the TPU those rows were appended to the operand blocks so one
+MXU dot yielded the product and the checksums; on Hopper the kernels stage
+them beside each K chunk, which removes the in-kernel column reductions
+and their barrier.
 
 Beside each kernel wrapper is its plain PyTorch version, which follows the
 tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,
@@ -33,9 +49,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ft_sgemm_tpu_torch.configs import SHAPES, STRATEGIES, THRESHOLD_MODES, KernelShape
+from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, check_kernel_legality
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
-from ft_sgemm_tpu_torch.ops._build import bind, check_launch, check_operands, library
+from ft_sgemm_tpu_torch.ops._build import bind, build, check_launch, check_operands, library
 from ft_sgemm_tpu_torch.ops.common import (
     as_f32,
     correction_pads,
@@ -47,15 +63,20 @@ from ft_sgemm_tpu_torch.ops.common import (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+FT_SOURCES = ("ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
+              "ft_sgemm_aug")
+
 
 class FtSgemmResult(NamedTuple):
     """Output of a fused-ABFT GEMM (``ft_sgemm_tpu/ops/ft_sgemm.py::FtSgemmResult``).
 
     ``detections`` (grid_m, grid_n) int32: corrected accumulator elements
-    per C tile, summed over checks. ``uncorrectable`` (grid_m, grid_n)
-    int32: checksum residuals still above threshold after the LAST check's
-    correction (a level, not a sum) — nonzero means the tile may still be
-    corrupted and the caller must re-run.
+    per C tile, summed over checks (``global``: fault events, see the
+    module docstring). ``uncorrectable`` (grid_m, grid_n) int32: checksum
+    residuals still above threshold after the LAST check's correction (a
+    level, not a sum) — nonzero means the tile may still be corrupted and
+    the caller must re-run. The detect-only ``global`` strategy corrects
+    nothing, so there every detection is uncorrectable.
     """
 
     c: torch.Tensor
@@ -81,13 +102,20 @@ def _weights(bm: int, device) -> torch.Tensor:
     return torch.arange(1, bm + 1, dtype=torch.float32, device=device)
 
 
-def _tile_moments(ap: torch.Tensor, bm: int) -> torch.Tensor:
-    """(gm, 3, K): the plain, w and w^2 column moments of each (bm, K) row
-    tile of the padded A (ops/ft_sgemm.py:1167-1200, f32 path)."""
+def _tile_moments(ap: torch.Tensor, bm: int, n_moments: int = 3) -> torch.Tensor:
+    """(g, n_moments, K): the first ``n_moments`` of the plain, w and w^2
+    column moments of each (bm, K) row tile of a padded operand
+    (ops/ft_sgemm.py:1167-1200, f32 path). A gives 3 (B2's expectations,
+    B6), 2 (B7) or 1 (B8); B gives 1 (B7, B8)."""
     m, kdim = ap.shape
     af = ap.reshape(m // bm, bm, kdim)
     w = _weights(bm, ap.device)[None, :, None]
-    return torch.stack([af.sum(1), (af * w).sum(1), (af * (w * w)).sum(1)], 1)
+    rows = [af.sum(1)]
+    if n_moments >= 2:
+        rows.append((af * w).sum(1))
+    if n_moments >= 3:
+        rows.append((af * (w * w)).sum(1))
+    return torch.stack(rows, 1)
 
 
 def _expected_col_checksums(ap: torch.Tensor, bp: torch.Tensor, bm: int
@@ -99,6 +127,23 @@ def _expected_col_checksums(ap: torch.Tensor, bp: torch.Tensor, bm: int
     rows = _tile_moments(ap, bm)
     gm, r, kdim = rows.shape
     return torch.matmul(rows.reshape(gm * r, kdim), bp.T).reshape(gm, r, -1)
+
+
+def kernel_inputs(kind: str, ap: torch.Tensor, bp: torch.Tensor,
+                  shape: KernelShape) -> tuple:
+    """The wrapper-side inputs of one launch of ``kind`` (see :func:`_plan`)
+    on the padded operands: B2's expected moments, the mxu kernels' moment
+    rows (A's 3 for B6, A's 2 and B's 1 for B7, A's 1 and B's 1 for B8);
+    none for the others."""
+    if kind == "precomp":
+        return (_expected_col_checksums(ap, bp, shape.bm),)
+    n_a = {"fused": 3, "rowcol_mxu": 2, "global_mxu": 1}.get(kind)
+    if n_a is None:
+        return ()
+    rows = (_tile_moments(ap, shape.bm, n_a),)
+    if kind != "fused":
+        rows += (_tile_moments(bp, shape.bn, 1),)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -116,6 +161,13 @@ def _tiles(ap, bp, cp, shape):
     b4 = bp.reshape(gn, bn, nk, bk)
     c4 = cp.reshape(gm, bm, gn, bn).permute(0, 2, 1, 3)
     return a4, b4, c4, nk
+
+
+def _step_rows(rows, nk: int):
+    """Moment rows (g, R, K) as (g, R, nk, bk): step k's rows are
+    ``[:, :, k]``."""
+    g, r, kdim = rows.shape
+    return rows.reshape(g, r, nk, kdim // nk)
 
 
 def _untile(t4: torch.Tensor) -> torch.Tensor:
@@ -209,10 +261,13 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
 
 
 def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                      check_every: Optional[int] = None, expm=None):
+                      check_every: Optional[int] = None, expm=None,
+                      moments=None):
     """Plain PyTorch version of B2 (``expm`` given: precomputed moments, one
-    final check) and B5 (``expm`` None: running moments, a check every
-    ``check_every`` steps and after the last). Returns (out, det, unc)."""
+    final check), B5 (running moments from the operand, a check every
+    ``check_every`` steps and after the last) and B6 (``moments`` given:
+    running moments from A's (gm, 3, K) moment rows). Returns
+    (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -224,15 +279,18 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     if expm is not None:
         exps = list(expm.reshape(gm, 3, gn, bn).unbind(1))
         check_every = nk
+    if moments is not None:
+        moments = _step_rows(moments, nk)
     thresholds = [float(t) for t in scalars[4:7]]
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
         acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
         if expm is None:
-            for e, s_a in zip(exps, (a_k.sum(1), (a_k * w).sum(1),
-                                     (a_k * (w * w)).sum(1))):
-                e += torch.einsum("jnk,ik->ijn", b_k, s_a)
+            s_a = (moments[:, :, k].unbind(1) if moments is not None else
+                   (a_k.sum(1), (a_k * w).sum(1), (a_k * (w * w)).sum(1)))
+            for e, s in zip(exps, s_a):
+                e += torch.einsum("jnk,ik->ijn", b_k, s)
         if (k + 1) % check_every == 0 or k == nk - 1:
             acc, hits, bad = _moment_detect_correct(acc, *exps, thresholds)
             det += hits.to(torch.int32)
@@ -241,8 +299,9 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 
 def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, multifault: bool):
-    """Plain PyTorch version of B3. Returns (out, det, unc)."""
+                    check_every: int, multifault: bool, moments=None):
+    """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
+    B's (gn, 1, K) moment rows), of B7. Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -253,16 +312,23 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     r_exp = torch.zeros((gm, gn, bm), device=a.device)
     c_exp = torch.zeros((gm, gn, bn), device=a.device)
     cw_exp = torch.zeros_like(c_exp)
+    if moments is not None:
+        ma, mb = (_step_rows(m, nk) for m in moments)
     thresholds = [float(t) for t in scalars[4:6]]
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
         acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
-        r_exp += torch.einsum("imk,jk->ijm", a_k, b_k.sum(1))
-        c_exp += torch.einsum("jnk,ik->ijn", b_k, a_k.sum(1))
+        if moments is None:
+            s_a, s_b = a_k.sum(1), b_k.sum(1)
+        else:
+            s_a, s_b = ma[:, 0, k], mb[:, 0, k]
+        r_exp += torch.einsum("imk,jk->ijm", a_k, s_b)
+        c_exp += torch.einsum("jnk,ik->ijn", b_k, s_a)
         if multifault:
-            cw_exp += torch.einsum("jnk,ik->ijn", b_k,
-                                   (a_k * w[None, :, None]).sum(1))
+            s_aw = ((a_k * w[None, :, None]).sum(1) if moments is None
+                    else ma[:, 1, k])
+            cw_exp += torch.einsum("jnk,ik->ijn", b_k, s_aw)
         if (k + 1) % check_every == 0 or k == nk - 1:
             res_cw = cw_exp - (acc * w[:, None]).sum(-2) if multifault else None
             acc, hits, bad = _rowcol_detect_correct(
@@ -273,6 +339,39 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     return _untile(alpha * acc + beta * c4), det, unc
 
 
+def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
+                    check_every: int, moments=None):
+    """Plain PyTorch version of B4 and, with ``moments`` = (A's (gm, 1, K),
+    B's (gn, 1, K) plain moment rows), of B8: per step ``t_exp += s_a .
+    s_b``; per check the residual ``t_exp - sum(acc)``, one event when it
+    moved by more than the threshold since the previous check. Returns
+    (out, det, unc) with unc equal to det."""
+    strict_fp32()
+    a4, b4, c4, nk = _tiles(a, b, c, shape)
+    gm, gn = c4.shape[:2]
+    acc = torch.zeros_like(c4)
+    det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
+    t_exp = torch.zeros((gm, gn), device=a.device)
+    prev = torch.zeros_like(t_exp)
+    if moments is not None:
+        ma, mb = (_step_rows(m, nk) for m in moments)
+    thr = float(scalars[4])
+    for k in range(nk):
+        _inject_plain(acc, scalars, k)
+        a_k, b_k = a4[:, :, k], b4[:, :, k]
+        acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
+        if moments is None:
+            s_a, s_b = a_k.sum(1), b_k.sum(1)
+        else:
+            s_a, s_b = ma[:, 0, k], mb[:, 0, k]
+        t_exp += s_a @ s_b.T
+        if (k + 1) % check_every == 0 or k == nk - 1:
+            res = t_exp - acc.sum((-2, -1))
+            det += ((res - prev).abs() > thr).to(torch.int32)
+            prev = res
+    return _untile(alpha * acc + beta * c4), det, det.clone()
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -280,7 +379,9 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 @functools.lru_cache(maxsize=None)
 def _entries():
-    weighted = library("ft_sgemm_weighted")
+    build(FT_SOURCES)  # all in parallel, before the first load
+    weighted, glob, aug = (library(n) for n in (
+        "ft_sgemm_weighted", "ft_sgemm_global", "ft_sgemm_aug"))
     tail = [_I] * 9
     return {
         "precomp": bind(weighted, "ftsg_ft_weighted_precomp",
@@ -289,22 +390,43 @@ def _entries():
                         [_P] * 6 + tail + [_I, _F, _F, _P, _P]),
         "rowcol": bind(library("ft_sgemm_rowcol"), "ftsg_ft_rowcol",
                        [_P] * 6 + tail + [_I, _I, _F, _F, _P, _P]),
+        "global": bind(glob, "ftsg_ft_global",
+                       [_P] * 6 + tail + [_I, _F, _F, _P, _P]),
+        "global_mxu": bind(glob, "ftsg_ft_global_mxu",
+                           [_P] * 8 + tail + [_I, _F, _F, _P, _P]),
+        "fused": bind(aug, "ftsg_ft_fused",
+                      [_P] * 7 + tail + [_I, _F, _F, _P, _P]),
+        "rowcol_mxu": bind(aug, "ftsg_ft_rowcol_mxu",
+                           [_P] * 8 + tail + [_I, _I, _F, _F, _P, _P]),
     }
 
 
-def _launch(name, shape, a, b, c, extra_in, extra_args, alpha, beta,
+def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
+    """The moment-row operands of an mxu kernel: A's (M/bm, n_a, K) and
+    B's (N/bn, 1, K)."""
+    (m, k), n = a.shape, b.shape[0]
+    for rows, want in ((ma, (m // shape.bm, n_a, k)), (mb, (n // shape.bn, 1, k))):
+        if rows is not None and tuple(rows.shape) != want:
+            raise ValueError(f"moment rows {tuple(rows.shape)}, expected {want}")
+
+
+def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars):
+    """Launch entry point ``name`` on validated operands and count it on
+    ``wrapper``; raises on a launch error. Returns (out, det, unc)."""
     dims = check_operands(shape, a, b, c, *extra_in)
     out = torch.empty_like(c)
     grid = (c.shape[0] // shape.bm, c.shape[1] // shape.bn)
     det = torch.empty(grid, dtype=torch.int32, device=c.device)
     unc = torch.empty_like(det)
-    rc = _entries()[name](
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        *(t.data_ptr() for t in extra_in), out.data_ptr(), det.data_ptr(),
-        unc.data_ptr(), *dims, *extra_args, alpha, beta,
-        scalars.ctypes.data, torch.cuda.current_stream(a.device).cuda_stream)
-    return rc, (out, det, unc)
+    fn = _entries()[name]
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            *(t.data_ptr() for t in extra_in), out.data_ptr(), det.data_ptr(),
+            unc.data_ptr(), *dims, *extra_args, alpha, beta,
+            scalars.ctypes.data, torch.cuda.current_stream(a.device).cuda_stream)
+    wrapper.launches += 1
+    check_launch(rc, fn.__name__)
+    return out, det, unc
 
 
 def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
@@ -315,11 +437,8 @@ def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  expm=expm)
-    rc, res = _launch("precomp", shape, a, b, c, (expm,), (), alpha, beta,
-                      scalars)
-    ft_weighted_kernel.launches += 1
-    check_launch(rc, "ftsg_ft_weighted_precomp")
-    return res
+    return _launch(ft_weighted_kernel, "precomp", shape, a, b, c, (expm,), (),
+                   alpha, beta, scalars)
 
 
 def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
@@ -329,11 +448,8 @@ def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  check_every=check_every)
-    rc, res = _launch("running", shape, a, b, c, (), (check_every,), alpha,
-                      beta, scalars)
-    ft_weighted_running_kernel.launches += 1
-    check_launch(rc, "ftsg_ft_weighted_running")
-    return res
+    return _launch(ft_weighted_running_kernel, "running", shape, a, b, c, (),
+                   (check_every,), alpha, beta, scalars)
 
 
 def ft_rowcol_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
@@ -343,52 +459,165 @@ def ft_rowcol_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, multifault)
-    rc, res = _launch("rowcol", shape, a, b, c, (),
-                      (check_every, int(multifault)), alpha, beta, scalars)
-    ft_rowcol_kernel.launches += 1
-    check_launch(rc, "ftsg_ft_rowcol")
-    return res
+    return _launch(ft_rowcol_kernel, "rowcol", shape, a, b, c, (),
+                   (check_every, int(multifault)), alpha, beta, scalars)
 
 
-ft_weighted_kernel.launches = 0
-ft_weighted_running_kernel.launches = 0
-ft_rowcol_kernel.launches = 0
+def ft_global_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
+                     check_every: int):
+    """B4: the detect-only scalar check every ``check_every`` K steps and
+    after the last, encoded from the staged chunks. Returns (out, det, unc),
+    unc equal to det."""
+    if a.device.type == "cpu":
+        return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
+                               check_every)
+    return _launch(ft_global_kernel, "global", shape, a, b, c, (),
+                   (check_every,), alpha, beta, scalars)
+
+
+def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
+                         scalars, check_every: int):
+    """B8: B4's check with ``t_exp`` from A's and B's plain moment rows
+    ``ma`` (M/bm, 1, K) and ``mb`` (N/bn, 1, K). Returns (out, det, unc)."""
+    _check_rows(shape, a, b, ma, mb)
+    if a.device.type == "cpu":
+        return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
+                               check_every, moments=(ma, mb))
+    return _launch(ft_global_mxu_kernel, "global_mxu", shape, a, b, c,
+                   (ma, mb), (check_every,), alpha, beta, scalars)
+
+
+def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
+                    check_every: int):
+    """B6: B5's weighted check every ``check_every`` K steps and after the
+    last, the expected moments encoded from A's moment rows ``ma``
+    (M/bm, 3, K). Returns (out, det, unc)."""
+    _check_rows(shape, a, b, ma, n_a=3)
+    if a.device.type == "cpu":
+        return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
+                                 check_every=check_every, moments=ma)
+    return _launch(ft_fused_kernel, "fused", shape, a, b, c, (ma,),
+                   (check_every,), alpha, beta, scalars)
+
+
+def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
+                         scalars, check_every: int, multifault: bool):
+    """B7: B3's rowcol check, the expected sums encoded from A's plain and
+    w moment rows ``ma`` (M/bm, 2, K) and B's plain rows ``mb``
+    (N/bn, 1, K). Returns (out, det, unc)."""
+    _check_rows(shape, a, b, ma, mb, n_a=2)
+    if a.device.type == "cpu":
+        return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
+                               check_every, multifault, moments=(ma, mb))
+    return _launch(ft_rowcol_mxu_kernel, "rowcol_mxu", shape, a, b, c,
+                   (ma, mb), (check_every, int(multifault)), alpha, beta,
+                   scalars)
+
+
+for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
+           ft_global_kernel, ft_global_mxu_kernel, ft_fused_kernel,
+           ft_rowcol_mxu_kernel):
+    _w.launches = 0
+
+
+def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
+               scalars, check_every: int, multifault: bool = False,
+               plain: bool = False):
+    """One launch of kernel ``kind`` (:func:`_plan`) on padded operands,
+    with its wrapper-side inputs ``extra`` (:func:`kernel_inputs`);
+    ``plain=True`` runs its plain version instead, on any device. Returns
+    (out, det, unc)."""
+    args = (shape, alpha, beta, scalars)
+    if kind == "precomp":
+        if plain:
+            return ft_weighted_plain(a, b, c, *args, expm=extra[0])
+        return ft_weighted_kernel(a, b, c, *extra, *args)
+    if kind == "running":
+        if plain:
+            return ft_weighted_plain(a, b, c, *args, check_every=check_every)
+        return ft_weighted_running_kernel(a, b, c, *args, check_every)
+    if kind == "fused":
+        if plain:
+            return ft_weighted_plain(a, b, c, *args, check_every=check_every,
+                                     moments=extra[0])
+        return ft_fused_kernel(a, b, c, *extra, *args, check_every)
+    if kind in ("rowcol", "rowcol_mxu"):
+        if plain:
+            return ft_rowcol_plain(a, b, c, *args, check_every, multifault,
+                                   moments=extra or None)
+        if kind == "rowcol":
+            return ft_rowcol_kernel(a, b, c, *args, check_every, multifault)
+        return ft_rowcol_mxu_kernel(a, b, c, *extra, *args, check_every,
+                                    multifault)
+    if kind in ("global", "global_mxu"):
+        if plain:
+            return ft_global_plain(a, b, c, *args, check_every,
+                                   moments=extra or None)
+        if kind == "global":
+            return ft_global_kernel(a, b, c, *args, check_every)
+        return ft_global_mxu_kernel(a, b, c, *extra, *args, check_every)
+    raise ValueError(f"unknown kernel kind {kind!r}")
 
 
 # --------------------------------------------------------------------------
 # Entry points
 # --------------------------------------------------------------------------
 
+# (strategy, encode="mxu") -> the kernel family that runs it
+# (ops/ft_sgemm.py:1297-1314). The fused strategy IS the weighted design's
+# mxu encode, so the two spellings share B6.
+_MXU_KERNEL_STRATEGY = {
+    "weighted": "fused",
+    "fused": "fused",
+    "rowcol": "rowcol_mxu",
+    "global": "global_mxu",
+}
+
+
+def resolve_kernel_strategy(strategy: str, encode: str) -> str:
+    """The kernel family a (strategy, encode) pair runs."""
+    if encode == "mxu" or strategy == "fused":
+        return _MXU_KERNEL_STRATEGY[strategy]
+    return strategy
+
 
 def _resolve_cadence(strategy, check_every, inject, nk, bn):
     """The check cadence in K steps (ops/ft_sgemm.py:1727-1762): weighted
-    checks once at the end, rowcol ~20 times per run like the reference's
-    K/20 cadence; with injection on and a column stride coprime to bn, at
-    most bn * every steps so the interval's faults land in distinct
-    columns."""
+    and fused check once at the end, rowcol and global ~20 times per run
+    like the reference's K/20 cadence. For the column-localized correcting
+    strategies (rowcol, weighted, fused), with injection on and a column
+    stride coprime to bn, at most bn * every steps, so the interval's
+    faults land in distinct columns; the detect-only global counts events
+    and is not clamped."""
     if check_every is not None:
         ce = check_every
-    elif strategy == "weighted":
+    elif strategy in ("weighted", "fused"):
         ce = nk
     else:
         ce = max(1, round(nk / 20))
-    if inject.enabled and math.gcd(inject.col_stride, bn) == 1:
+    if (inject.enabled and strategy in ("rowcol", "weighted", "fused")
+            and math.gcd(inject.col_stride, bn) == 1):
         ce = min(ce, bn * max(1, inject.every))
     return ce
 
 
-def _plan(strategy, check_every, multifault, inject, nk, bn):
+def _plan(strategy, check_every, multifault, inject, nk, bn, encode="vpu"):
     """What :func:`make_ft_sgemm` launches for one call: the kernel
-    (``"precomp"`` B2, ``"running"`` B5 or ``"rowcol"`` B3), its cadence in
-    K steps, and whether rowcol keeps the multifault weighted checksum."""
+    (``"precomp"`` B2, ``"running"`` B5, ``"rowcol"`` B3, ``"global"`` B4,
+    ``"fused"`` B6, ``"rowcol_mxu"`` B7 or ``"global_mxu"`` B8), its cadence
+    in K steps, and whether rowcol (either encode) keeps the multifault
+    weighted checksum."""
     ce = _resolve_cadence(strategy, check_every, inject, nk, bn)
-    if strategy == "weighted":
-        return ("precomp" if ce >= nk else "running"), ce, False
-    # Auto multifault: the weighted checksum is dead weight iff the schedule
-    # guarantees <= 1 fault per check interval.
-    mf = (not (inject.enabled and ce <= max(1, inject.every))
-          if multifault is None else multifault)
-    return "rowcol", ce, mf
+    kind = resolve_kernel_strategy(strategy, encode)
+    if kind == "weighted":
+        kind = "precomp" if ce >= nk else "running"
+    mf = False
+    if strategy == "rowcol":
+        # Auto multifault: the weighted checksum is dead weight iff the
+        # schedule guarantees <= 1 fault per check interval.
+        mf = (not (inject.enabled and ce <= max(1, inject.every))
+              if multifault is None else multifault)
+    return kind, ce, mf
 
 
 def make_ft_sgemm(
@@ -397,38 +626,36 @@ def make_ft_sgemm(
     alpha: float = 1.0,
     beta: float = -1.5,
     strategy: str = "weighted",
+    encode: str = "vpu",
     threshold=REFERENCE_THRESHOLD,
     check_every: Optional[int] = None,
+    in_dtype: str = "float32",
     multifault: Optional[bool] = None,
     device=None,
 ):
     """Build the fused-ABFT SGEMM for one named shape (or ``KernelShape``).
 
     Returns ``fn(a, b, c, inject=None) -> FtSgemmResult``; ``inject`` is an
-    :class:`InjectionSpec` (default: none). ``strategy`` is ``"weighted"``
-    or ``"rowcol"``. ``threshold`` is one static detection threshold (a
-    float, or ``"static"`` for the reference's 9500) or a
-    ``(threshold, thr_m1, thr_m2)`` triple for the detection and the w / w^2
-    re-checks. ``check_every`` is the cadence in K steps (default: the
-    strategy's, see ``_resolve_cadence``); ``multifault`` (rowcol) defaults
-    to on unless the injection schedule proves at most one fault per check
+    :class:`InjectionSpec` (default: none). ``strategy`` is ``"weighted"``,
+    ``"rowcol"``, ``"global"`` (detect only) or ``"fused"``; ``encode``
+    ``"vpu"`` or ``"mxu"`` (``"fused"`` always encodes from moment rows).
+    ``threshold`` is one static detection threshold (a float, or
+    ``"static"`` for the reference's 9500) or a ``(threshold, thr_m1,
+    thr_m2)`` triple for the detection and the w / w^2 re-checks.
+    ``check_every`` is the cadence in K steps (default: the strategy's,
+    see ``_resolve_cadence``); ``multifault`` (rowcol) defaults to on
+    unless the injection schedule proves at most one fault per check
     interval (ops/ft_sgemm.py:1802-1812). ``device=None`` runs on CUDA.
 
-    Not ported yet, and raising: the ``global`` and ``fused`` strategies,
-    the ``"auto"`` and ``"adaptive"`` thresholds, and non-f32 inputs.
+    Not ported yet, and raising ``NotImplementedError``: the ``"auto"`` and
+    ``"adaptive"`` thresholds and ``in_dtype`` other than float32.
     """
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
-    if strategy not in ("weighted", "rowcol"):
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported yet (weighted, rowcol)")
-    if isinstance(threshold, str):
-        if threshold not in THRESHOLD_MODES:
-            raise ValueError(f"threshold must be a float or one of"
-                             f" {THRESHOLD_MODES}, got {threshold!r}")
-        if threshold != "static":
-            raise NotImplementedError(
-                f"threshold={threshold!r} is not ported yet (static only)")
+    check_kernel_legality(
+        strategy=strategy, encode=encode, in_dtype=in_dtype,
+        threshold_mode=threshold if isinstance(threshold, str) else "static")
+    if strategy == "fused":
+        encode = "mxu"  # the fused strategy IS the weighted mxu encode
+    if isinstance(threshold, str):  # "static", the only mode that passed
         threshold = REFERENCE_THRESHOLD
     thresholds = (tuple(float(t) for t in threshold)
                   if isinstance(threshold, (tuple, list))
@@ -445,33 +672,29 @@ def make_ft_sgemm(
         ap, bp = pad_to(a, bm, bk), pad_to(b, bn, bk)
         cp = pad_to(c, bm, bn)
         kind, ce, mf = _plan(strategy, check_every, multifault, inject,
-                             ap.shape[1] // bk, bn)
-        scalars = scalar_operand(inject, thresholds)
-        if kind == "precomp":
-            out, det, unc = ft_weighted_kernel(
-                ap, bp, cp, _expected_col_checksums(ap, bp, bm), shape,
-                alpha, beta, scalars)
-        elif kind == "running":
-            out, det, unc = ft_weighted_running_kernel(
-                ap, bp, cp, shape, alpha, beta, scalars, ce)
-        else:
-            out, det, unc = ft_rowcol_kernel(ap, bp, cp, shape, alpha, beta,
-                                             scalars, ce, mf)
+                             ap.shape[1] // bk, bn, encode)
+        out, det, unc = run_kernel(
+            kind, shape, ap, bp, cp, kernel_inputs(kind, ap, bp, shape),
+            alpha, beta, scalar_operand(inject, thresholds), ce, mf)
         return FtSgemmResult(out[:m, :n], det, unc)
 
-    fn.__name__ = f"ft_sgemm_{shape.name}_{strategy}"
+    fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"
+                   + ("_mxu" if encode == "mxu" and strategy != "fused" else ""))
     fn.shape_config = shape
     fn.strategy = strategy
+    fn.encode = encode
     return fn
 
 
 def ft_sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0,
              beta=-1.5, inject: Optional[InjectionSpec] = None,
-             strategy: str = "weighted", threshold=REFERENCE_THRESHOLD,
+             strategy: str = "weighted", encode: str = "vpu",
+             threshold=REFERENCE_THRESHOLD,
              check_every: Optional[int] = None,
              multifault: Optional[bool] = None, device=None) -> FtSgemmResult:
     """One-shot fused-ABFT SGEMM (see :func:`make_ft_sgemm`)."""
     return make_ft_sgemm(
-        shape, alpha=alpha, beta=beta, strategy=strategy, threshold=threshold,
-        check_every=check_every, multifault=multifault, device=device,
+        shape, alpha=alpha, beta=beta, strategy=strategy, encode=encode,
+        threshold=threshold, check_every=check_every, multifault=multifault,
+        device=device,
     )(a, b, c, inject)

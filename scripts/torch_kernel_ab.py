@@ -2,14 +2,16 @@
 
 Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
 package: a ``git archive`` of a commit, or such a copy with one change.
-The script builds every tree's kernels at once, then times B1, B2, B3 and
-B5 at M = N = K = 4096 on the huge, large and small tiles, after checking
-each FT kernel's fault counts and output. Each tree is measured in a fresh
-process per turn, the turns running the trees in order and then reversed,
-so a drift of the card shows as a difference between a tree's two turns.
-B2 and B3 run at the cadence ``make_ft_sgemm`` picks; B5 at that cadence
-where the weighted strategy runs it (the small tile), else at four checks
-per run. Needs nvcc and a CUDA device:
+The script builds every tree's kernels at once, then times B1-B8 at
+M = N = K = 4096 on the huge, large and small tiles, after checking each FT
+kernel's fault counts and output (B4 and B8, detect only: their event
+counts). Each tree is measured in a fresh process per turn, the turns
+running the trees in order and then reversed, so a drift of the card shows
+as a difference between a tree's two turns. Every FT kernel runs at the
+cadence ``make_ft_sgemm`` picks for its strategy; B5 at that cadence where
+the weighted strategy runs it (the small tile), else at four checks per
+run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
+B3 and B5 only. Needs nvcc and a CUDA device:
 
     python3 scripts/torch_kernel_ab.py PARENT_TREE CHANGED_TREE [TREE ...]
 
@@ -19,6 +21,7 @@ tree and turn.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -27,6 +30,9 @@ import time
 
 SIZE = 4096
 TILES = ("huge", "large", "small")
+# The kernels the (strategy, encode) pairs of this slice run.
+NEW_KERNELS = {"B4": ("global", "vpu"), "B6": ("fused", "mxu"),
+               "B7": ("rowcol", "mxu"), "B8": ("global", "mxu")}
 
 
 def _import_port(tree: str):
@@ -81,13 +87,27 @@ def measure(tree: str) -> dict:
             "B5": lambda: ft.ft_weighted_running_kernel(a, b, c, sh, 1.0, -1.5,
                                                         sc, ce_w),
         }
-        expected = (SIZE // sh.bm) * (SIZE // sh.bn) * inj.expected_faults(SIZE, sh.bk)
         # B2 checks once, so it is held to the count only where the program
         # runs it (a tile wide enough for the faults' distinct columns).
-        for kern in ("B3", "B5") + (("B2",) if kind == "precomp" else ()):
+        checked = ["B3", "B5"] + (["B2"] if kind == "precomp" else [])
+        if hasattr(ft, "run_kernel"):
+            for kern, (strategy, encode) in NEW_KERNELS.items():
+                knd, ce, mfk = ft._plan(strategy, None, None, inj, nk, sh.bn,
+                                        encode)
+                args = (knd, sh, a, b, c, ft.kernel_inputs(knd, a, b, sh), 1.0,
+                        -1.5, sc, ce, mfk)
+                runs[kern] = functools.partial(ft.run_kernel, *args)
+            checked += list(NEW_KERNELS)
+        expected = (SIZE // sh.bm) * (SIZE // sh.bn) * inj.expected_faults(SIZE, sh.bk)
+        for kern in checked:
             out, det, unc = runs[kern]()
-            if int(unc.sum()) or int(det.sum()) != expected or not verify_matrix(
-                    want, out.cpu().numpy(), verbose=False)[0]:
+            if kern in ("B4", "B8"):  # detect only: faults stay in C
+                bad = int(det.sum()) != expected or not torch.equal(det, unc)
+            else:
+                bad = (int(unc.sum()) or int(det.sum()) != expected
+                       or not verify_matrix(want, out.cpu().numpy(),
+                                            verbose=False)[0])
+            if bad:
                 raise AssertionError(f"{tree}: {kern} {name}: wrong result")
         for kern, fn in runs.items():
             row[f"{kern} {name}"] = cuda_ms(fn, reps=5)
@@ -127,7 +147,7 @@ def main(argv) -> int:
         if proc.returncode:
             raise RuntimeError(f"{tree}: measurement failed:\n{out}")
         row = json.loads(out.strip().splitlines()[-1])
-        print(f"{pathlib.Path(tree).name:19s} "
+        print(f"{pathlib.Path(tree).resolve().name:19s} "
               + " ".join(f"{k}={v:.3f}" for k, v in row.items()), flush=True)
     return 0
 

@@ -38,6 +38,38 @@ def test_run_verification_passes_all_ids(strategy):
         assert d["detected"] == d["expected"] > 0 and d["uncorrectable"] == 0
 
 
+@pytest.mark.parametrize("strategy,encode", [
+    ("global", "vpu"), ("fused", "vpu"), ("weighted", "mxu"),
+    ("rowcol", "mxu"), ("global", "mxu")])
+def test_run_verification_passes_every_pair(strategy, encode):
+    out = io.StringIO()
+    details = {}
+    assert cli.run_verification(256, 0, 16, out=out, strategy=strategy,
+                                encode=encode, device="cpu", details=details)
+    lines = out.getvalue().splitlines()
+    assert len(lines) == len(KERNEL_TABLE)
+    assert sorted(details) == [11, 12, 13, 14, 15, 16]
+    for d in details.values():
+        assert d["detected"] == d["expected"] > 0
+        # global is detect only: every event stays uncorrected.
+        assert d["uncorrectable"] == (d["detected"] if strategy == "global"
+                                      else 0)
+    for line in lines[-6:]:
+        status = LINE.match(line)["status"]
+        assert status.startswith("pass"), line
+        if strategy == "global":
+            assert status.endswith("clean diff ok)"), line
+
+
+def test_main_takes_encode(capsys):
+    assert cli.main(["ft_sgemm", "64", "128", "64", "11", "16",
+                     "--device=cpu", "--no-perf", "--strategy=global",
+                     "--encode=mxu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 + 6 and all("pass (detected" in ln
+                                       for ln in lines[1:])
+
+
 def test_verification_line_format_matches_jax():
     out, jout = io.StringIO(), io.StringIO()
     cli.run_verification(128, 1, 1, out=out, device="cpu")
@@ -57,7 +89,8 @@ def test_perf_table_and_main(capsys):
 
 
 @pytest.mark.parametrize("argv", [["1", "2"], ["a", "b", "c", "d", "e"],
-                                  ["64", "64", "64", "0", "1", "--strategy=global"]])
+                                  ["64", "64", "64", "0", "1", "--strategy=bogus"],
+                                  ["64", "64", "64", "0", "1", "--encode=bogus"]])
 def test_main_rejects_bad_arguments(argv, capsys):
     assert cli.main(["ft_sgemm", *argv, "--device=cpu"]) == 2
 

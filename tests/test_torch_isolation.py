@@ -80,6 +80,17 @@ def test_wrappers_raise_on_non_cpu_tensors():
         ft.ft_rowcol_kernel(a, b, c, shape, 1.0, -1.5, sc, 1, False)
     with pytest.raises(ValueError, match="CUDA device"):
         ft.ft_weighted_running_kernel(a, b, c, shape, 1.0, -1.5, sc, 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ft.ft_global_kernel(a, b, c, shape, 1.0, -1.5, sc, 1)
+    rows = {r: torch.empty((1, r, 128), device="meta") for r in (1, 2, 3)}
+    with pytest.raises(ValueError, match="CUDA device"):
+        ft.ft_global_mxu_kernel(a, b, c, rows[1], rows[1], shape, 1.0, -1.5,
+                                sc, 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ft.ft_fused_kernel(a, b, c, rows[3], shape, 1.0, -1.5, sc, 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ft.ft_rowcol_mxu_kernel(a, b, c, rows[2], rows[1], shape, 1.0, -1.5,
+                                sc, 1, True)
 
 
 def test_chip_smoke_fails_without_gpu_or_port(tmp_path):
