@@ -3,8 +3,10 @@
 Builds the port's hand-written CUDA kernels from ``ft_sgemm_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (at every tile of
 the port's table, and at every shape, cadence and multifault setting the
-paper's program gives it under every (strategy, encode) pair), drives that
-``ft_sgemm`` program (verification at 4096 for ids 0-16 under the weighted
+paper's program gives it under every (strategy, encode) pair), holds the
+3xTF32 wgmma kernels' accuracy against a float64 product and cuBLAS FP32
+at 4096, drives that ``ft_sgemm`` program (verification at 4096 for ids
+0-16 under the weighted
 and rowcol strategies and for ids 11-16 under global, fused, rowcol with
 encode mxu and global with encode mxu; the GFLOPS table at 2048 / 4096 /
 6144, and at 4096 for ids 11-16 under each of those four pairs) and shows
@@ -36,9 +38,14 @@ PERF_MINTIME = 0.1            # seconds per timed loop (the CLI default is 1)
 TIMING_SIZE = 4096
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): FP32 outside the
-# tensor cores and HBM3 bandwidth.
+# tensor cores, TF32 on them, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop.
+WGMMA_TILES = ("large", "tall", "huge")
+# The clean weighted residuals must stay this far under the threshold.
+RESIDUAL_MARGIN = 100.0
 
 # ops/ft_sgemm._plan's kernel kinds, and "sgemm" for B1.
 KIND_NAMES = {"sgemm": "sgemm", "precomp": "ft_sgemm_weighted_precomp",
@@ -200,14 +207,16 @@ def ptxas_summary(text: str):
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
-        dims = re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        dims = (re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+                or re.search(r"WgTileILi(\d+)ELi(\d+)E", fn))
         flag = re.search(r"EELb([01])E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
         tag = ",".join(dims.groups()) + (f",{flag.group(1)}" if flag else "")
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
-                      if spill and spill.group(1) != "0" else ""))
+                      if spill and spill.group(1) != "0" else "")
+                   + (", wgmma serialized" if "serialized" in body else ""))
     return sorted(out)
 
 
@@ -278,6 +287,39 @@ def phase_kernels(kern: Kernels):
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_accuracy(kern: Kernels):
+    """B1 at the wgmma tiles against a float64 product of the same operands,
+    beside cuBLAS FP32 (``torch.addmm`` with TF32 off): on the program's
+    libc-rand verification inputs (C zero) and on the table's inputs at
+    4096, the kernel's largest error must be at most twice cuBLAS's."""
+    from ft_sgemm_tpu_torch import cli, runtime
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.ops.common import strict_fp32
+
+    a, b = runtime.generate_reference_driver_inputs(VERIFY_SIZE)
+    inputs = {"verification": (a, b, np.zeros_like(a)),
+              "table": cli._host_inputs(TIMING_SIZE)}
+    al, be = kern.alpha, kern.beta
+    strict_fp32()
+    for label, host in inputs.items():
+        a, b, c = (torch.from_numpy(x).cuda() for x in host)
+        exact = al * (a.double() @ b.double().T) + be * c.double()
+        cublas = float((torch.addmm(c, a, b.T, beta=be, alpha=al).double()
+                        - exact).abs().max())
+        errs = {}
+        for name in WGMMA_TILES:
+            out = kern.sg.sgemm_kernel(*_padded(host, SHAPES[name]),
+                                       SHAPES[name], al, be)
+            errs[name] = float((out[:a.shape[0], :b.shape[0]].double()
+                                - exact).abs().max())
+        log(f"phase accuracy ({label} inputs, {a.shape[0]}): max |C - C_f64|"
+            f" B1 3xTF32 {errs}, cuBLAS FP32 {cublas}")
+        bad = {k: e for k, e in errs.items() if e > 2 * cublas}
+        if bad:
+            raise AssertionError(f"3xTF32 error {bad} exceeds twice cuBLAS"
+                                 f" FP32's {cublas} ({label} inputs)")
 
 
 def phase_path_shapes(kern: Kernels):
@@ -420,8 +462,14 @@ def work(kind, shape, n, check_every=None, multifault=False):
     return flops, nbytes
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def _bound(flops: float, nbytes: float, tc_products: float = 0.0):
+    """(ms, bound_by): the larger of the operations over their peak rate
+    and the bytes over the memory rate. ``tc_products`` of the flops are
+    products that run as three TF32 products each on the tensor cores (the
+    3xTF32 wgmma kernels); the rest run at the FP32 rate."""
+    t_ops = (3 * tc_products / PEAK_TF32_FLOPS
+             + (flops - tc_products) / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -436,24 +484,32 @@ KIND_PAIR = {"precomp": ("weighted", "vpu"), "running": ("weighted", "vpu"),
 def phase_timing(kern: Kernels, counts):
     """Each kernel at 4096 on the tile, cadence and multifault setting the
     program gives it (B1-B4, B6-B8 at the huge tile; B5 and B6 at the small
-    tile, where the clamp gives them intermediate checks): the kernel, its
-    plain version, torch.addmm for the same alpha*A@B.T + beta*C, and the
-    bound. The ``kernels`` row of B6 is its huge-tile timing. Also the
-    worst clean checksum residuals of the weighted and global checks."""
+    tile, where the clamp gives them intermediate checks; B1 and B2 also at
+    the large and tall tiles): the kernel, its plain version, torch.addmm
+    for the same alpha*A@B.T + beta*C, and the bound. The ``kernels`` row
+    of B1, B2 and B6 is its huge-tile timing; B1's and B2's rows name their
+    mainloop and carry both bounds, FFMA and 3xTF32 on the tensor cores.
+    Also the worst clean checksum residuals of the weighted and global
+    checks, which must stay RESIDUAL_MARGIN times under the threshold."""
     from ft_sgemm_tpu_torch.configs import SHAPES
-    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
 
     ft = kern.ft
     n = TIMING_SIZE
     gen = np.random.default_rng(11)
-    huge, small = SHAPES["huge"], SHAPES["small"]
-    operands = {s.name: _padded(_random(n, n, n, gen), s) for s in (huge, small)}
+    huge, small, large, tall = (SHAPES[s] for s in ("huge", "small", "large",
+                                                    "tall"))
+    operands = {s.name: _padded(_random(n, n, n, gen), s)
+                for s in (huge, small, large, tall)}
     rows = {}
     for kind, shape in (("sgemm", huge), ("precomp", huge), ("rowcol", huge),
                         ("global", huge), ("running", small), ("fused", huge),
                         ("fused", small), ("rowcol_mxu", huge),
-                        ("global_mxu", huge)):
+                        ("global_mxu", huge), ("sgemm", large),
+                        ("sgemm", tall), ("precomp", large),
+                        ("precomp", tall)):
         name = KIND_NAMES[kind]
         a, b, c = operands[shape.name]
         inj = InjectionSpec.reference_like(n, shape.bk)
@@ -470,19 +526,28 @@ def phase_timing(kern: Kernels, counts):
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(lambda: torch.addmm(
             c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
-        bound_ms, bound_by = _bound(*work(kind, shape, n, ce, mf))
-        rows.setdefault(name, {
-            "name": name, "route": "cuda",
-            "source": kern.table[name]["source"],
-            "replaces": kern.table[name]["replaces"],
-            "launches": counts[name], "max_abs_err": kern.max_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "tile": shape.name})
-        log(f"phase timing {name} ({shape.name}, {n}, check every {ce},"
-            f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
-            f" torch.addmm {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
-            f" ({bound_by})")
+        flops, nbytes = work(kind, shape, n, ce, mf)
+        ffma_ms, ffma_by = _bound(flops, nbytes)
+        tc_ms, tc_by = _bound(flops, nbytes, 2.0 * n ** 3)
+        mainloop = _build.mainloop(kind, shape)
+        wgmma = mainloop == "wgmma-3xtf32"
+        bound_ms, bound_by = (tc_ms, tc_by) if wgmma else (ffma_ms, ffma_by)
+        row = {"name": name, "route": "cuda",
+               "source": kern.table[name]["source"],
+               "replaces": kern.table[name]["replaces"],
+               "launches": counts[name], "max_abs_err": kern.max_err[name],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms,
+               "tile": shape.name}
+        if kind in ("sgemm", "precomp"):
+            row.update(mainloop=mainloop, tc_bound_ms=tc_ms,
+                       ffma_bound_ms=ffma_ms)
+        rows.setdefault(name, row)
+        log(f"phase timing {name} ({shape.name}, {mainloop}, {n}, check every"
+            f" {ce}, multifault {mf}): kernel {ms:.3f} ms, plain"
+            f" {plain_ms:.3f} ms, torch.addmm {library_ms:.3f} ms, bound"
+            f" {bound_ms:.3f} ms ({bound_by}; FFMA {ffma_ms:.3f}, 3xTF32"
+            f" {tc_ms:.3f})")
 
     # Worst clean residuals at 4096 (C = 0, alpha = 1: the output is the
     # accumulator): f32 column moments of the weighted kernel's
@@ -510,8 +575,13 @@ def phase_timing(kern: Kernels, counts):
     if int(det.sum()) or int(unc.sum()) or int(gdet.sum()):
         raise AssertionError("a clean run reported faults")
     log(f"phase residual: worst clean residual at {n}, huge tile, weighted"
-        f" (moments 1, w, w^2): {worst}, global (tile total, |t_exp| up to"
-        f" {float(t_exp.abs().max()):.1f}): {worst_global}; threshold 9500")
+        f" (moments 1, w, w^2; {_build.mainloop('precomp', huge)}): {worst},"
+        f" global (tile total, |t_exp| up to {float(t_exp.abs().max()):.1f}):"
+        f" {worst_global}; threshold 9500")
+    limit = REFERENCE_THRESHOLD / RESIDUAL_MARGIN
+    if max(worst) > limit:
+        raise AssertionError(f"clean weighted residuals {worst} are not"
+                             f" {RESIDUAL_MARGIN:g}x under the threshold")
     return list(rows.values())
 
 
@@ -528,6 +598,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_kernels(kern)
+    phase_accuracy(kern)
     phase_path_shapes(kern)
     counts, _ = phase_main_path(kern)
     rows = phase_timing(kern, counts)

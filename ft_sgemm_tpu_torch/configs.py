@@ -8,7 +8,9 @@ one CTA's registers on Hopper. The port therefore takes each named shape's
 ``bm x bn`` straight from the paper's CUDA tile and runs it in the paper's
 register-tiled FFMA form: ``(bm/mr) x (bn/nr)`` threads, each holding an
 ``mr x nr`` accumulator, with A/B staged through shared memory ``ks``
-columns at a time.
+columns at a time. B1 and B2 run the tiles of 64 rows or more (large,
+tall, huge, test) as 3xTF32 on wgmma instead (``csrc/gemm_wgmma.cuh``),
+whatever the thread layout says.
 
 ``bk`` is the K depth of one scheduled step — the unit that fault
 injection and the check cadence count, like one K grid step of the JAX

@@ -253,6 +253,36 @@ struct MomentSmem {
   int hit_row[L::BN];
 };
 
+// The per-column decision of the weighted check, for any accumulator layout:
+// from a column's expected moments (exp_*) and the accumulator's (cs*), the
+// residuals, the fault row by the weighted ratio, the correction `delta` at
+// `row` (-1: none) and the three-moment re-check after it (`bad`).
+struct ColumnVerdict {
+  bool hit, bad;
+  float delta;
+  int row;
+};
+
+__device__ __forceinline__ ColumnVerdict weighted_column(
+    float exp_c, float exp_cw, float exp_cw2, float cs, float csw, float csw2,
+    int bm, float thr, float thr_m1, float thr_m2) {
+  const float res_c = exp_c - cs;
+  const float res_cw = exp_cw - csw;
+  const bool det = fabsf(res_c) > thr;
+  const int loc = weighted_localize(res_c, res_cw, det);
+  const bool hit = det && loc >= 0 && loc < bm;
+  const float w = hit ? (float)(loc + 1) : 0.f;
+  const float delta = hit ? res_c : 0.f;
+  const float ad = fabsf(delta);
+  const float res_c2 = res_c - delta;
+  const float res_cw2 = res_cw - delta * w;
+  const float res_cm2 = exp_cw2 - csw2 - delta * (w * w);
+  const bool bad = fabsf(res_c2) > thr + EPS8 * ad ||
+                   fabsf(res_cw2) > thr_m1 + EPS8 * (ad * w) ||
+                   fabsf(res_cm2) > thr_m2 + EPS8 * (ad * (w * w));
+  return {hit, bad, delta, hit ? loc : -1};
+}
+
 // Three-moment detect / localize / correct / re-check of the weighted
 // strategy. Thread t < BN passes column t's expected moments (exp_c, exp_cw,
 // exp_cw2). Each flagged column is corrected at its localized row; the
@@ -273,22 +303,13 @@ __device__ __forceinline__ void moment_detect_correct(
   const int t = threadIdx.x;
   bool hit = false, bad = false;
   if (t < L::BN) {
-    const float res_c = exp_c - sm.cs[t];
-    const float res_cw = exp_cw - sm.csw[t];
-    const bool det = fabsf(res_c) > thr;
-    const int loc = weighted_localize(res_c, res_cw, det);
-    hit = det && loc >= 0 && loc < L::BM;
-    const float w = hit ? (float)(loc + 1) : 0.f;
-    const float delta = hit ? res_c : 0.f;
-    const float ad = fabsf(delta);
-    const float res_c2 = res_c - delta;
-    const float res_cw2 = res_cw - delta * w;
-    const float res_cm2 = exp_cw2 - sm.csw2[t] - delta * (w * w);
-    bad = fabsf(res_c2) > thr + EPS8 * ad ||
-          fabsf(res_cw2) > thr_m1 + EPS8 * (ad * w) ||
-          fabsf(res_cm2) > thr_m2 + EPS8 * (ad * (w * w));
-    sm.delta[t] = delta;
-    sm.hit_row[t] = hit ? loc : -1;
+    const ColumnVerdict v =
+        weighted_column(exp_c, exp_cw, exp_cw2, sm.cs[t], sm.csw[t],
+                        sm.csw2[t], L::BM, thr, thr_m1, thr_m2);
+    hit = v.hit;
+    bad = v.bad;
+    sm.delta[t] = v.delta;
+    sm.hit_row[t] = v.row;
   }
   n_hit = __syncthreads_count(hit);
   n_unc = __syncthreads_count(bad);

@@ -1,0 +1,588 @@
+// Hopper mainloop of B1 (sgemm.cu) and B2 (ft_sgemm_weighted.cu) at the
+// tiles whose rows fill wgmma's 64-row granularity: large (64 x 64), tall
+// (128 x 32), huge (128 x 128) and test (huge with bk = 128). 3xTF32 on
+// wgmma, fed by TMA through a ring of shared-memory stages. The narrower
+// tiles, and B3-B8, keep the FFMA mainloop of gemm_mainloop.cuh.
+//
+// One CTA computes one (BM, BN) tile of C = alpha * A @ B^T + beta * C with
+// A (M, K) and B (N, K) row-major: both K-major, the layout wgmma requires
+// for tf32. The wrapper pads M and N to the tile and K to bk, a multiple of
+// 8 at these tiles, so every row stride is a multiple of 32 bytes (TMA
+// needs 16); the ragged last stage past K is zero-filled by TMA.
+//
+// Roles: warps 0 .. 4 * NWG - 1 form NWG consumer warpgroups, one per 64
+// tile rows; the last warpgroup is the producer, which gives most of its
+// registers to the consumers (setmaxnreg), whose first thread issues the
+// TMA loads and whose warps 1-3 split B. A stage holds SK = 32 K columns:
+// A's (BM, 32) box and B's (BN, 32) box, 128 bytes a row in TMA's 128-byte
+// swizzle, and a second buffer of B's shape for B's low part. STAGES stages
+// form a ring run by full / ready / empty mbarriers. Consumer-only
+// synchronisation uses named barrier 1, so the producer may exit once its
+// work is issued.
+//
+// 3xTF32: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+// hi); every 8-deep k step adds a_lo b_hi, a_hi b_lo and a_hi b_hi, small
+// terms first, into the stage's wgmma sum, which goes into the f32
+// accumulator once per stage (WgMainloop; the dropped a_lo b_lo is ~2^-22
+// of the product). Never bare TF32. wgmma reads B from shared memory only, so
+// the producer's warps 1-3 split each landed stage of B in place (hi) and
+// into the second buffer (lo), then fence.proxy.async before wgmma reads
+// it; A's fragments are split in registers (wgmma takes a tf32 A from
+// registers). While stage s's wgmmas run, the consumers split stage s + 1's
+// A into the other register set.
+//
+// Accumulator: wgmma's m64nBN f32 fragment. Consumer thread (warpgroup g,
+// warp w of the group, lane l) holds element i at tile row 64g + 16w + l/4
+// + 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (l % 4) + i % 2 (row(),
+// col(); ops/tf32x3.wgmma_fragment_map mirrors the map for the CPU tests).
+// The FT hooks use that map and keep their logic.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace ftsg {
+
+// The (BM, BN) tiles that run this mainloop; ops/_build.wgmma_tiles reads
+// this list.
+#define FTSG_FOR_EACH_WGMMA_TILE(X) X(64, 64) X(128, 32) X(128, 128)
+
+template <int BM, int BN>
+constexpr bool wgmma_tile() {
+#define FTSG_IS_TILE(BM_, BN_) \
+  if (BM == BM_ && BN == BN_) return true;
+  FTSG_FOR_EACH_WGMMA_TILE(FTSG_IS_TILE)
+#undef FTSG_IS_TILE
+  return false;
+}
+
+template <int BM_, int BN_>
+struct WgTile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int SK = 32;       // K columns per stage: one swizzle row
+  static constexpr int KK = SK / 8;   // 8-deep wgmma steps per stage
+  static constexpr int STAGES = 4;
+  static constexpr int NWG = BM / 64;  // consumer warpgroups
+  static constexpr int NCONS = 128 * NWG;
+  static constexpr int NT = NCONS + 128;  // and the producer warpgroup
+  // The 64-row tile is small enough for two CTAs per SM.
+  static constexpr int MIN_CTAS = NWG == 1 ? 2 : 1;
+  // Registers per thread: REGS at launch (the __launch_bounds__ share of
+  // the SM's 65536), then the producer keeps REGS_PRODUCER and hands the
+  // rest to the consumers (setmaxnreg).
+  static constexpr int REGS = 65536 / (MIN_CTAS * NT) / 8 * 8;
+  static constexpr int REGS_PRODUCER = 40;
+  static constexpr int REGS_CONSUMER =
+      (REGS + (REGS - REGS_PRODUCER) * 128 / NCONS) / 8 * 8;
+  static constexpr int NACC = BN / 2;  // accumulator floats per thread
+  static constexpr int A_BYTES = BM * SK * 4, B_BYTES = BN * SK * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  // The ring, its 3 * STAGES mbarriers, and slack to align the ring to the
+  // 1024 bytes of the swizzle pattern.
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 24 * STAGES + 1024;
+  static constexpr int SPLITTERS = 96;  // producer warps 1-3 split B
+  static_assert(BM % 64 == 0 && BN % 8 == 0 && BN <= 256, "m64nBNk8 tile");
+  static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
+  static_assert(B_BYTES % 1024 == 0, "buffers keep the swizzle alignment");
+};
+
+// ---------------------------------------------------------------- PTX ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the (rows, SK) box at (k0, row0) of `map` into `dst`, completing on
+// `bar` with the box's bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
+      "r"(row0)
+      : "memory");
+}
+
+// Generic-proxy shared-memory writes made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier 1 over the NT consumer threads, and its popcount form.
+template <int NT>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+}
+template <int NT>
+__device__ __forceinline__ int consumer_count(bool pred) {
+  int n;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.popc.u32 %0, 1, %2, p;\n}\n"
+      : "=r"(n)
+      : "r"((int)pred), "n"(NT)
+      : "memory");
+  return n;
+}
+
+// Move registers between warpgroups (every warp of the group runs it).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: x = hi + lo, both TF32 (ops/tf32x3.split mirrors it).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: start address, stride 1024 bytes between 8-row groups, layout
+// type 1. Adding 2 to it advances one 8-deep (32-byte) k step.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// d (m64 x N, f32) = A (m64 x k8, tf32 fragment in registers) @ B^T (+ d
+// when scale_d is 1), B an (N x k8) tf32 tile in shared memory;
+// asynchronous until wgmma_wait_all.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// ------------------------------------------------------------ mainloop ----
+
+extern __shared__ unsigned char ftsg_wg_smem[];
+
+// The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
+// A's box, B's box (hi after the split) and B's lo; then the mbarriers:
+// full(s) when TMA has landed the stage, ready(s) when its B is split,
+// empty(s) when the consumers are done with it.
+template <class T>
+struct WgSmem {
+  unsigned char* base;
+
+  __device__ __forceinline__ WgSmem()
+      : base(ftsg_wg_smem + ((1024 - (smem_u32(ftsg_wg_smem) & 1023)) & 1023)) {}
+  __device__ __forceinline__ float* a(int s) const {
+    return reinterpret_cast<float*>(base + s * T::STAGE_BYTES);
+  }
+  __device__ __forceinline__ float* b(int s) const {
+    return reinterpret_cast<float*>(base + s * T::STAGE_BYTES + T::A_BYTES);
+  }
+  __device__ __forceinline__ float* blo(int s) const {
+    return reinterpret_cast<float*>(base + s * T::STAGE_BYTES + T::A_BYTES +
+                                    T::B_BYTES);
+  }
+  __device__ __forceinline__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + T::STAGES * T::STAGE_BYTES) + s;
+  }
+  __device__ __forceinline__ uint64_t* ready(int s) const {
+    return full(T::STAGES) + s;
+  }
+  __device__ __forceinline__ uint64_t* empty(int s) const {
+    return full(2 * T::STAGES) + s;
+  }
+
+  // Thread 0 initialises the barriers; the whole CTA waits for it.
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < T::STAGES; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(ready(s), T::SPLITTERS);
+        mbar_init(empty(s), T::NCONS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // The producer warpgroup, for nst stages of A's rows m0.. and B's rows
+  // n0..: its first thread streams the TMA loads through the ring, each
+  // slot refilled once the consumers released it; warps 1-3 split each
+  // landed stage's B, hi in place and lo into the second buffer, so the
+  // consumer warpgroups never wait for one another.
+  __device__ __forceinline__ void produce(const CUtensorMap* ta,
+                                          const CUtensorMap* tb, int m0,
+                                          int n0, int nst) const {
+    const int p = threadIdx.x - T::NCONS;
+    if (p == 0) {
+      for (int st = 0; st < nst; ++st) {
+        const int s = st % T::STAGES;
+        if (st >= T::STAGES) mbar_wait(empty(s), (st / T::STAGES - 1) & 1);
+        mbar_expect_tx(full(s), T::A_BYTES + T::B_BYTES);
+        tma_load(a(s), ta, full(s), st * T::SK, m0);
+        tma_load(b(s), tb, full(s), st * T::SK, n0);
+      }
+    } else if (p >= 32) {
+      for (int st = 0; st < nst; ++st) {
+        const int s = st % T::STAGES;
+        mbar_wait(full(s), (st / T::STAGES) & 1);
+        float4* hi = reinterpret_cast<float4*>(b(s));
+        float4* lo = reinterpret_cast<float4*>(blo(s));
+        for (int e = p - 32; e < T::BN * T::SK / 4; e += T::SPLITTERS) {
+          const float4 v = hi[e];
+          uint32_t h[4], l[4];
+          split_tf32(v.x, h[0], l[0]);
+          split_tf32(v.y, h[1], l[1]);
+          split_tf32(v.z, h[2], l[2]);
+          split_tf32(v.w, h[3], l[3]);
+          hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                              __uint_as_float(h[2]), __uint_as_float(h[3]));
+          lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                              __uint_as_float(l[2]), __uint_as_float(l[3]));
+        }
+        fence_proxy_async();  // the split is visible to wgmma
+        mbar_arrive(ready(s));
+      }
+    }
+  }
+};
+
+// No fault injection (B1).
+struct NoInject {
+  __device__ __forceinline__ bool at(int) const { return false; }
+  __device__ __forceinline__ bool within(int) const { return false; }
+  template <class M>
+  __device__ __forceinline__ void apply(M&, int) {}
+};
+
+// A consumer thread's part of the K loop and its accumulator. The tensor
+// cores truncate when they accumulate, so a long sum inside wgmma drifts by
+// up to an ulp per add (~11x cuBLAS's FP32 error at K = 4096); each stage's
+// wgmmas therefore sum into `part`, started fresh, and `part` is added into
+// `acc` with a rounded f32 add once the stage has landed. `Inject` hooks
+// fault injection in before an 8-column k step t: at(t) says whether it
+// fires there and within(st) whether it fires in stage st (the same for the
+// whole CTA); apply(ml, t) adds it to `acc` after every earlier product has
+// landed and been added there.
+template <class T>
+struct WgMainloop {
+  static constexpr int NF = 4 * T::KK;  // A fragment registers per stage
+  float acc[T::NACC];
+  float part[T::NACC];  // this stage's wgmma sum
+  WgSmem<T> sm;
+  int g, w, l;
+
+  __device__ __forceinline__ explicit WgMainloop(const WgSmem<T>& sm_)
+      : sm(sm_), g(threadIdx.x / 128),
+        w((threadIdx.x / 32) % 4), l(threadIdx.x % 32) {
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc[i] = part[i] = 0.f;
+  }
+
+  // Tile-local row / column of accumulator element i.
+  __device__ __forceinline__ int row(int i) const {
+    return 64 * g + 16 * w + (l >> 2) + 8 * ((i >> 1) & 1);
+  }
+  __device__ __forceinline__ int col(int i) const {
+    return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+  }
+
+  // After wgmma_wait_all: `part` holds its final sum (the empty asm keeps
+  // the compiler from reading it earlier); add it into `acc`.
+  __device__ __forceinline__ void promote() {
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) {
+      asm volatile("" : "+f"(part[i])::"memory");
+      acc[i] += part[i];
+    }
+  }
+
+  // Wait until stage st has landed and its B is split; load this thread's
+  // A fragments of its KK k steps and split them into hi / lo. A fragment
+  // register j of k step kk holds row r0 + 8 * (j % 2), column 8 * kk + 4 *
+  // (j / 2) + l % 4, read through the swizzle.
+  __device__ __forceinline__ void prepare(int st, uint32_t (&ah)[NF],
+                                          uint32_t (&al)[NF]) const {
+    const int s = st % T::STAGES;
+    mbar_wait(sm.ready(s), (st / T::STAGES) & 1);
+    const float* a = sm.a(s);
+    const int r0 = 64 * g + 16 * w + (l >> 2);
+#pragma unroll
+    for (int kk = 0; kk < T::KK; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = r0 + 8 * (j & 1), chunk = 2 * kk + (j >> 1);
+        split_tf32(a[r * T::SK + ((chunk ^ (l >> 2)) << 2) + (l & 3)],
+                   ah[4 * kk + j], al[4 * kk + j]);
+      }
+  }
+
+  // One 8-deep k step into `part`: a_lo b_hi, a_hi b_lo, a_hi b_hi; the
+  // first of them restarts `part` when `fresh`.
+  __device__ __forceinline__ void mma3(const uint32_t (&ah)[NF],
+                                       const uint32_t (&al)[NF], int kk,
+                                       uint64_t dh, uint64_t dl, bool fresh) {
+    Wgmma<T::BN>::run(part, &al[4 * kk], dh + 2 * kk, fresh ? 0 : 1);
+    Wgmma<T::BN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
+    Wgmma<T::BN>::run(part, &ah[4 * kk], dh + 2 * kk, 1);
+  }
+
+  // Issue stage st's wgmmas (k steps t0 = KK * st ..) as one group; a
+  // ragged last stage multiplies TMA's zero fill. At a scheduled fault the
+  // steps so far land and go into `acc` before the fault does.
+  template <class Inject>
+  __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
+                                            const uint32_t (&al)[NF],
+                                            Inject& inj) {
+    const int s = st % T::STAGES, t0 = st * T::KK;
+    const uint64_t dh = smem_desc(sm.b(s)), dl = smem_desc(sm.blo(s));
+    wgmma_fence();
+    if (!inj.within(st)) {
+#pragma unroll
+      for (int kk = 0; kk < T::KK; ++kk) mma3(ah, al, kk, dh, dl, kk == 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < T::KK; ++kk) {
+        const bool fault = inj.at(t0 + kk);
+        if (fault) {
+          if (kk > 0) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote();
+          }
+          inj.apply(*this, t0 + kk);
+          wgmma_fence();
+        }
+        mma3(ah, al, kk, dh, dl, kk == 0 || fault);
+      }
+    }
+    wgmma_commit();
+  }
+
+  // Stage st on registers (ch, cl) while stage st + 1 is prepared into
+  // (nh, nl); then add st's sum into acc and release st's slot.
+  template <class Inject>
+  __device__ __forceinline__ void step(int st, int nst, Inject& inj,
+                                       const uint32_t (&ch)[NF],
+                                       const uint32_t (&cl)[NF],
+                                       uint32_t (&nh)[NF], uint32_t (&nl)[NF]) {
+    mma_stage(st, ch, cl, inj);
+    if (st + 1 < nst) prepare(st + 1, nh, nl);
+    wgmma_wait_all();
+    promote();
+    mbar_arrive(sm.empty(st % T::STAGES));
+  }
+
+  // The whole K loop: nst stages.
+  template <class Inject>
+  __device__ __forceinline__ void run(int nst, Inject& inj) {
+    uint32_t h0[NF], l0[NF], h1[NF], l1[NF];
+    prepare(0, h0, l0);
+    for (int st = 0; st < nst; st += 2) {
+      step(st, nst, inj, h0, l0, h1, l1);
+      if (st + 1 < nst) step(st + 1, nst, inj, h1, l1, h0, l0);
+    }
+  }
+
+  // out = alpha * acc + beta * C for this CTA's tile, a float2 per
+  // column pair (out never aliases C).
+  __device__ __forceinline__ void store(float* out, const float* C, int N,
+                                        int m0, int n0, float alpha,
+                                        float beta) const {
+#pragma unroll
+    for (int i = 0; i < T::NACC; i += 2) {
+      const size_t o = (size_t)(m0 + row(i)) * N + n0 + col(i);
+      const float2 c = *reinterpret_cast<const float2*>(C + o);
+      *reinterpret_cast<float2*>(out + o) = make_float2(
+          alpha * acc[i] + beta * c.x, alpha * acc[i + 1] + beta * c.y);
+    }
+  }
+};
+
+// ---------------------------------------------------------------- host ----
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime's
+// entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (rows, K) row-major f32 operand at p, in (box_rows, SK) boxes with the
+// 128-byte swizzle; out-of-range columns read as zero.
+inline bool tensor_map(CUtensorMap* map, const float* p, int rows, int K,
+                       int box_rows, int sk) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)sk, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Before a launch of `kernel` on tile T: A's and B's tensor maps and the
+// kernel's dynamic shared-memory limit. Returns 0, or the error the entry
+// point reports like a launch error.
+template <class T, class Kernel>
+inline int wgmma_setup(Kernel kernel, CUtensorMap* ta, CUtensorMap* tb,
+                       const float* A, const float* B, int M, int N, int K) {
+  if (K % 8 || !tensor_map(ta, A, M, K, T::BM, T::SK) ||
+      !tensor_map(tb, B, N, K, T::BN, T::SK))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+}
+
+}  // namespace ftsg

@@ -117,12 +117,34 @@ def check_launch(rc: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=1)
 def compiled_layouts() -> frozenset:
-    """The (bm, bn, ks, mr, nr) layouts the CUDA sources instantiate, read
-    from ``FTSG_FOR_EACH_LAYOUT`` in ``csrc/gemm_mainloop.cuh``."""
+    """The (bm, bn, ks, mr, nr) layouts of the FFMA mainloop, read from
+    ``FTSG_FOR_EACH_LAYOUT`` in ``csrc/gemm_mainloop.cuh``: every tile the
+    sources take, and each tile's thread layout where a kernel runs the
+    FFMA mainloop on it (see :func:`mainloop`)."""
     text = (CSRC / "gemm_mainloop.cuh").read_text()
     macro = re.search(r"#define FTSG_FOR_EACH_LAYOUT\(X\)(.*?)\n\n", text, re.S)
     return frozenset(tuple(map(int, x)) for x in re.findall(
         r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", macro.group(1)))
+
+
+@functools.lru_cache(maxsize=1)
+def wgmma_tiles() -> frozenset:
+    """The (bm, bn) tiles on which B1 and B2 run the 3xTF32 wgmma mainloop,
+    read from ``FTSG_FOR_EACH_WGMMA_TILE`` in ``csrc/gemm_wgmma.cuh``; B1
+    and B2 run the FFMA mainloop on the other tiles, B3-B8 on all."""
+    text = (CSRC / "gemm_wgmma.cuh").read_text()
+    macro = re.search(r"#define FTSG_FOR_EACH_WGMMA_TILE\(X\)(.*?)\n", text)
+    return frozenset(tuple(map(int, x)) for x in re.findall(
+        r"X\((\d+), (\d+)\)", macro.group(1)))
+
+
+def mainloop(kind: str, shape) -> str:
+    """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
+    ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"`` or
+    ``"ffma"``."""
+    wgmma = (kind in ("sgemm", "precomp")
+             and (shape.bm, shape.bn) in wgmma_tiles())
+    return "wgmma-3xtf32" if wgmma else "ffma"
 
 
 def check_layout(shape) -> tuple:

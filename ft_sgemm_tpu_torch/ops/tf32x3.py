@@ -1,0 +1,113 @@
+"""3xTF32 on the CPU: the arithmetic of B1 and B2 at the wgmma tiles.
+
+At the large, tall, huge and test tiles, ``csrc/gemm_wgmma.cuh`` computes
+the FP32 product on the tensor cores: each operand is split into two TF32
+numbers, ``x = hi + lo``, and every 8-deep k step adds ``a_lo b_hi``,
+``a_hi b_lo`` and ``a_hi b_hi`` into a stage sum that is added to the f32
+accumulator once per 32-column stage (or at a fault, before the fault).
+The helpers here repeat that arithmetic in PyTorch so that the CPU tests
+can hold it against the JAX package, and mirror the wgmma accumulator's
+fragment map. Nothing on the main path calls them: the kernels' plain
+versions stay FP32 products (``ops/sgemm.sgemm_plain``,
+``ops/ft_sgemm.ft_weighted_plain``), since 3xTF32 is how the kernel
+computes the FP32 product, not another function.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
+from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32
+
+KK = 8       # K depth of one tf32 wgmma
+STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` bit for bit: f32 rounded to TF32's 10 mantissa
+    bits, to nearest with ties away from zero, on the bit pattern (so
+    subnormals round like normals, and the largest finite f32 rounds up to
+    inf). inf stays inf and NaN stays NaN."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def split(x: torch.Tensor):
+    """The 3xTF32 split ``(hi, lo)``: ``hi = rna(x)``, ``lo = rna(x - hi)``
+    (``gemm_wgmma.cuh::split_tf32``)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _fault_steps(scalars, nk: int) -> set:
+    """The bk steps that ``_inject_plain`` puts a fault before."""
+    every = max(int(scalars[1]), 1)
+    return {k for k in range(nk) if scalars[0] > 0.0 and k % every == 0}
+
+
+def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=()):
+    """acc (gm, gn, bm, bn) += the 3xTF32 product of A (gm, bm, K) and
+    B (gn, bn, K) as the wgmma mainloop sums it: per 8-column k step t
+    three products into the stage sum ``part``, ``part`` into ``acc`` at
+    every 32-column stage end and, when t starts a bk step (``cps`` k steps
+    each) in ``faults``, before ``on_fault(acc, k)``."""
+    (ah, al), (bh, bl) = split(a4), split(b4)
+    nk8 = a4.shape[-1] // KK
+    part = torch.zeros_like(acc)
+    for t in range(nk8):
+        if t % cps == 0 and t // cps in faults:
+            acc += part
+            part.zero_()
+            on_fault(acc, t // cps)
+        cols = slice(t * KK, (t + 1) * KK)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part += torch.einsum("imk,jnk->ijmn", x[..., cols], y[..., cols])
+        if (t + 1) % (STAGE // KK) == 0 or t == nk8 - 1:
+            acc += part
+            part.zero_()
+    return acc
+
+
+def sgemm_tf32x3(a, b, c, alpha: float, beta: float) -> torch.Tensor:
+    """``alpha * a @ b.T + beta * c`` as B1 computes it at a wgmma tile
+    (one tile spans the whole output: the sum does not depend on tiling)."""
+    strict_fp32()
+    ap, bp = pad_to(a, 1, KK), pad_to(b, 1, KK)
+    acc = torch.zeros((1, 1) + tuple(c.shape), device=c.device)
+    _tile_product(ap[None], bp[None], acc, 1)
+    return alpha * acc[0, 0] + beta * c
+
+
+def ft_weighted_tf32x3(a, b, c, shape, alpha, beta, scalars, expm):
+    """B2 at a wgmma tile on padded operands: the 3xTF32 tile product with
+    the faults of ``scalars`` in place, then ``_moment_detect_correct``
+    against ``expm`` (gm, 3, N) and the epilogue. Returns (out, det, unc)
+    like ``ops/ft_sgemm.ft_weighted_plain``."""
+    strict_fp32()
+    a4, b4, c4, nk = ft._tiles(a, b, c, shape)
+    gm, gn, bm, bn = c4.shape
+    acc = torch.zeros_like(c4)
+    _tile_product(a4.reshape(gm, bm, -1), b4.reshape(gn, bn, -1), acc,
+                  shape.bk // KK,
+                  lambda t, k: ft._inject_plain(t, scalars, k),
+                  _fault_steps(scalars, nk))
+    exps = expm.reshape(gm, 3, gn, bn).unbind(1)
+    acc, hits, bad = ft._moment_detect_correct(
+        acc, *exps, [float(t) for t in scalars[4:7]])
+    return (ft._untile(alpha * acc + beta * c4), hits.to(torch.int32),
+            bad.to(torch.int32))
+
+
+def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
+    """(bm // 64 * 128, bn // 2, 2): the tile (row, column) of accumulator
+    element i of consumer thread t (``WgMainloop::row`` / ``col``): thread
+    t is lane l of warp w of warpgroup g, and holds row 64g + 16w + l/4 +
+    8 ((i/2) % 2), column 8 (i/4) + 2 (l % 4) + i % 2."""
+    t = torch.arange(bm // 64 * 128)[:, None]
+    i = torch.arange(bn // 2)[None, :]
+    g, w, l = t // 128, t // 32 % 4, t % 32
+    row = 64 * g + 16 * w + l // 4 + 8 * (i // 2 % 2)
+    col = 8 * (i // 4) + 2 * (l % 4) + i % 2
+    return torch.stack(torch.broadcast_tensors(row, col), -1)

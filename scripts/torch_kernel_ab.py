@@ -3,11 +3,13 @@
 Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
 package: a ``git archive`` of a commit, or such a copy with one change.
 The script builds every tree's kernels at once, then times B1-B8 at
-M = N = K = 4096 on the huge, large and small tiles, after checking each FT
-kernel's fault counts and output (B4 and B8, detect only: their event
-counts). Each tree is measured in a fresh process per turn, the turns
-running the trees in order and then reversed, so a drift of the card shows
-as a difference between a tree's two turns. Every FT kernel runs at the
+M = N = K = 4096 on the huge, large, tall and small tiles, after checking
+each FT kernel's fault counts and output (B4 and B8, detect only: their
+event counts), and reports B1's largest error against a float64 product
+at each tile beside cuBLAS FP32's (``torch.addmm``, TF32 off). Each tree
+is measured in a fresh process per turn, the turns running the trees in
+order and then reversed, so a drift of the card shows as a difference
+between a tree's two turns. Every FT kernel runs at the
 cadence ``make_ft_sgemm`` picks for its strategy; B5 at that cadence where
 the weighted strategy runs it (the small tile), else at four checks per
 run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
@@ -15,8 +17,10 @@ B3 and B5 only. Needs nvcc and a CUDA device:
 
     python3 scripts/torch_kernel_ab.py PARENT_TREE CHANGED_TREE [TREE ...]
 
-Prints the card's name and power limit, then one line of milliseconds per
-tree and turn.
+Prints the card's name and power limit, then one line per tree and turn:
+milliseconds per kernel and tile, and the ``err`` entries. A kernel whose
+check fails is printed as ``wrong`` and not timed, and the script then
+exits 1.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import sys
 import time
 
 SIZE = 4096
-TILES = ("huge", "large", "small")
+TILES = ("huge", "large", "tall", "small")
 # The kernels the (strategy, encode) pairs of this slice run.
 NEW_KERNELS = {"B4": ("global", "vpu"), "B6": ("fused", "mxu"),
                "B7": ("rowcol", "mxu"), "B8": ("global", "mxu")}
@@ -62,7 +66,7 @@ def measure(tree: str) -> dict:
     from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
     from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
     from ft_sgemm_tpu_torch.ops import sgemm as sg
-    from ft_sgemm_tpu_torch.ops.common import scalar_operand
+    from ft_sgemm_tpu_torch.ops.common import scalar_operand, strict_fp32
     from ft_sgemm_tpu_torch.utils.matrices import generate_random_matrix, verify_matrix
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
 
@@ -70,7 +74,10 @@ def measure(tree: str) -> dict:
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
     want = sg.sgemm_plain(a, b, c, 1.0, -1.5).cpu().numpy()
-    row = {}
+    strict_fp32()
+    exact = a.double() @ b.double().T - 1.5 * c.double()
+    row = {"err cublas": float((torch.addmm(c, a, b.T, beta=-1.5).double()
+                                - exact).abs().max())}
     for name in TILES:
         sh = SHAPES[name]
         nk = SIZE // sh.bk
@@ -108,9 +115,11 @@ def measure(tree: str) -> dict:
                        or not verify_matrix(want, out.cpu().numpy(),
                                             verbose=False)[0])
             if bad:
-                raise AssertionError(f"{tree}: {kern} {name}: wrong result")
+                row[f"{kern} {name}"] = "wrong"
+        row[f"err B1 {name}"] = float((runs["B1"]().double() - exact).abs().max())
         for kern, fn in runs.items():
-            row[f"{kern} {name}"] = cuda_ms(fn, reps=5)
+            if f"{kern} {name}" not in row:
+                row[f"{kern} {name}"] = cuda_ms(fn, reps=5)
     return row
 
 
@@ -141,15 +150,19 @@ def main(argv) -> int:
             raise RuntimeError(f"{tree}: build failed:\n{log}")
     print(f"built {len(trees)} trees in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    wrong = 0
     for tree in trees + trees[::-1]:
         proc = _run("--measure", tree)
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{tree}: measurement failed:\n{out}")
         row = json.loads(out.strip().splitlines()[-1])
-        print(f"{pathlib.Path(tree).resolve().name:19s} "
-              + " ".join(f"{k}={v:.3f}" for k, v in row.items()), flush=True)
-    return 0
+        wrong += list(row.values()).count("wrong")
+        print(f"{pathlib.Path(tree).resolve().name:19s} " + " ".join(
+            f"{k}={v}" if isinstance(v, str) else
+            f"{k}={v:.3g}" if k.startswith("err") else f"{k}={v:.3f}"
+            for k, v in row.items()), flush=True)
+    return 1 if wrong else 0
 
 
 if __name__ == "__main__":

@@ -5,9 +5,13 @@ Builds the sources of the ``ft_sgemm_tpu_torch`` package found under TREE
 ``cuobjdump -sass`` and prints, for every kernel on the named layouts, how
 many instructions of each class its code holds: FFMA, shared loads and
 stores, global loads, cp.async (LDGSTS), local loads and stores (register
-spills), barriers, shuffles, and the total. Counts are static (the code as
-compiled, each loop body once), so they tell what a kernel carries beside
-its FFMA loop, not how often it runs it. Needs nvcc and cuobjdump:
+spills), barriers, shuffles, the tensor-core products of the wgmma kernels
+(HGMMA), their TMA loads (UTMALDG) and warpgroup fences and waits
+(WARPGROUP), and the total. Counts are static (the code as compiled, each
+loop body once), so they tell what a kernel carries beside its main loop,
+not how often it runs it. A wgmma kernel (B1 and B2 at the 64-row tiles)
+is labelled by its (bm, bn) and listed with the layouts of that tile.
+Needs nvcc and cuobjdump:
 
     python3 scripts/torch_sass_census.py [TREE] [--layouts=128,128,8,8,8;16,16,16,2,2]
 """
@@ -21,7 +25,8 @@ import shutil
 import subprocess
 import sys
 
-CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL")
+CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL",
+           "HGMMA", "UTMALDG", "WARPGROUP")
 DEFAULT_LAYOUTS = ("128,128,8,8,8", "64,64,8,8,8", "16,16,16,2,2")
 
 
@@ -38,7 +43,8 @@ def census(sass: str) -> dict:
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
                                re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn)
-        dims = re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        dims = (re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+                or re.search(r"WgTileILi(\d+)ELi(\d+)E", fn))
         if not (kind and dims):
             continue
         flag = re.search(r"EELb([01])E", fn)
@@ -71,7 +77,9 @@ def main(argv) -> int:
         sass = subprocess.run([cuobjdump(), "-sass", str(_build.so_path(name))],
                               capture_output=True, text=True, check=True).stdout
         for label, counts in sorted(census(sass).items()):
-            if any(f"<{lay}" in label for lay in layouts):
+            dims = label[label.index("<") + 1:-1] + ","
+            if any(dims.startswith(f"{lay},") or f"{lay},".startswith(dims)
+                   for lay in layouts):
                 print(f"{label:44s}" + "".join(
                     f"{counts[c]:8d}" for c in CLASSES + ("total",)))
     return 0
