@@ -2,11 +2,12 @@
 
 Builds the port's hand-written CUDA kernels from ``ft_sgemm_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (at every tile of
-the port's table, and at every shape, cadence and multifault setting the
-paper's program gives it under every (strategy, encode) pair), holds the
-3xTF32 wgmma kernels' accuracy against a float64 product and cuBLAS FP32
-at 4096, drives that ``ft_sgemm`` program (verification at 4096 for ids
-0-16 under the weighted
+the port's table, B5 and B6 also with checks inside a pipeline stage, and
+at every shape, cadence and multifault setting the paper's program gives it
+under every (strategy, encode) pair), holds the 3xTF32 wgmma kernels'
+accuracy against a float64 product and cuBLAS FP32 at 4096 and their clean
+checksum residuals 100x under the threshold, drives that ``ft_sgemm``
+program (verification at 4096 for ids 0-16 under the weighted
 and rowcol strategies and for ids 11-16 under global, fused, rowcol with
 encode mxu and global with encode mxu; the GFLOPS table at 2048 / 4096 /
 6144, and at 4096 for ids 11-16 under each of those four pairs) and shows
@@ -31,7 +32,9 @@ import time
 import numpy as np
 import torch
 
-SIZES = (1024, 1000)          # kernel-vs-plain sizes: aligned and odd
+# Kernel-vs-plain sizes: aligned, odd, and one that leaves B5's and B6's
+# 128 x 128 CTA partly past the operands at every tile narrower than 128.
+SIZES = (1024, 1000, 300)
 VERIFY_SIZE = 4096
 PERF_SIZES = (2048, 6144, 2048)  # start, end, gap
 PERF_MINTIME = 0.1            # seconds per timed loop (the CLI default is 1)
@@ -42,8 +45,11 @@ TIMING_SIZE = 4096
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop.
+# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B5 and B6
+# run it at every tile).
 WGMMA_TILES = ("large", "tall", "huge")
+# A check cadence in bk steps that ends checks inside a 32-column stage.
+MID_STAGE_EVERY = 3
 # The clean weighted residuals must stay this far under the threshold.
 RESIDUAL_MARGIN = 100.0
 
@@ -200,19 +206,22 @@ def phase_device():
 
 
 def ptxas_summary(text: str):
-    """``kernel<bm,bn,ks,mr,nr[,flag]>: R regs[, S B spilled]`` for each
-    kernel in one source's ``-Xptxas -v`` log (names demangled just enough
-    to tell the layouts and the RUNNING / multifault flag apart)."""
+    """``kernel<dims[,flag]>: R regs[, S B spilled]`` for each kernel in one
+    source's ``-Xptxas -v`` log (names demangled just enough to tell the
+    layouts apart: an FFMA layout's bm, bn, ks, mr, nr; a wgmma tile's bm,
+    bn, sub-tile bm, bn and moment rows; the multifault flag or the
+    moment-row source)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
-        dims = (re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
-                or re.search(r"WgTileILi(\d+)ELi(\d+)E", fn))
-        flag = re.search(r"EELb([01])E", fn)
+        dims = (re.search(r"LayoutI((?:Li\d+E){5})", fn)
+                or re.search(r"WgTileI((?:Li\d+E){5})", fn))
+        flag = re.search(r"EEL[bi](\d+)E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        tag = ",".join(dims.groups()) + (f",{flag.group(1)}" if flag else "")
+        tag = (",".join(re.findall(r"\d+", dims.group(1)))
+               + (f",{flag.group(1)}" if flag else ""))
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
@@ -246,12 +255,13 @@ def _scalars(inj):
 
 def phase_kernels(kern: Kernels):
     """Each kernel against its plain version at every tile of the port's
-    table, at an aligned and an odd size, clean, with reference-like
+    table, at the sizes of SIZES, clean, with reference-like
     injection and with the adversarial col_stride=0 schedule. Each FT
     kernel runs at the cadence the program gives its strategy; B5 where the
-    program does not run it, and B6 besides, at four checks per run, so
-    that every tile sees intermediate checks; both rowcol kernels with
-    multifault off and on."""
+    program does not run it, and B5 and B6 besides, at four checks per run
+    and (clean and reference-like) every MID_STAGE_EVERY bk steps (checks
+    inside a 32-column stage), so that every tile sees intermediate
+    checks; both rowcol kernels with multifault off and on."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
@@ -273,10 +283,15 @@ def phase_kernels(kern: Kernels):
                     return ft._plan(strategy, None, None, inj, nk, shape.bn)[1]
 
                 kern.hold("precomp", shape, a, b, c, sc)
+                # Checks inside a stage under the schedules with one fault
+                # per column and interval; col_stride=0 puts one or two
+                # faults in a column per MID_STAGE_EVERY steps, and two
+                # equal faults make the weighted ratio a rounding tie.
+                mid = {MID_STAGE_EVERY} if inj.col_stride else set()
                 ce = cadence("weighted")
-                kern.hold("running", shape, a, b, c, sc,
-                          ce if ce < nk else quarter)
-                for ce in sorted({cadence("fused"), quarter}):
+                for ce in sorted({ce if ce < nk else quarter} | mid):
+                    kern.hold("running", shape, a, b, c, sc, ce)
+                for ce in sorted({cadence("fused"), quarter} | mid):
                     kern.hold("fused", shape, a, b, c, sc, ce)
                 for mf in (False, True):
                     kern.hold("rowcol", shape, a, b, c, sc, cadence("rowcol"), mf)
@@ -474,44 +489,58 @@ def _bound(flops: float, nbytes: float, tc_products: float = 0.0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def tc_products(kind, shape, n):
+    """The flops of ``work`` that a 3xTF32 wgmma kernel runs on the tensor
+    cores: the product and, for B5 and B6, the expected moments E = B_tile
+    . M^T (3 moment rows per row tile: 2 * N * K * 3 M / bm)."""
+    kind = SAME_FUNCTION.get(kind, kind)
+    return 2.0 * n ** 3 + (6.0 * n ** 3 / shape.bm if kind == "running" else 0.0)
+
+
 # Which (strategy, encode) runs each kernel kind, for the timing's plan.
 KIND_PAIR = {"precomp": ("weighted", "vpu"), "running": ("weighted", "vpu"),
              "rowcol": ("rowcol", "vpu"), "global": ("global", "vpu"),
              "fused": ("fused", "mxu"), "rowcol_mxu": ("rowcol", "mxu"),
              "global_mxu": ("global", "mxu")}
 
+# (kind, tile) of every timing row: each kernel at every tile on which the
+# program launches it. The first row of a kernel is its ``kernels`` row.
+TIMED = (("sgemm", "huge"), ("precomp", "huge"), ("rowcol", "huge"),
+         ("global", "huge"), ("running", "small"), ("fused", "huge"),
+         ("rowcol_mxu", "huge"), ("global_mxu", "huge"),
+         ("fused", "small"), ("fused", "medium"), ("fused", "large"),
+         ("fused", "tall"), ("fused", "wide"),
+         ("sgemm", "large"), ("sgemm", "tall"), ("sgemm", "small"),
+         ("sgemm", "medium"), ("sgemm", "wide"),
+         ("precomp", "large"), ("precomp", "tall"), ("precomp", "medium"),
+         ("precomp", "wide"),
+         ("rowcol", "small"), ("global", "small"), ("rowcol_mxu", "small"),
+         ("global_mxu", "small"))
+
 
 def phase_timing(kern: Kernels, counts):
-    """Each kernel at 4096 on the tile, cadence and multifault setting the
-    program gives it (B1-B4, B6-B8 at the huge tile; B5 and B6 at the small
-    tile, where the clamp gives them intermediate checks; B1 and B2 also at
-    the large and tall tiles): the kernel, its plain version, torch.addmm
-    for the same alpha*A@B.T + beta*C, and the bound. The ``kernels`` row
-    of B1, B2 and B6 is its huge-tile timing; B1's and B2's rows name their
-    mainloop and carry both bounds, FFMA and 3xTF32 on the tensor cores.
-    Also the worst clean checksum residuals of the weighted and global
-    checks, which must stay RESIDUAL_MARGIN times under the threshold."""
+    """Each kernel at 4096 on every tile, cadence and multifault setting the
+    program gives it (``TIMED``): the kernel, its plain version,
+    torch.addmm for the same alpha*A@B.T + beta*C, and the bound (3xTF32
+    on the tensor cores where the kernel runs the wgmma mainloop, counting
+    B5's and B6's expected-moment product; else FFMA). Rows name their
+    mainloop and carry both bounds."""
     from ft_sgemm_tpu_torch.configs import SHAPES
-    from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
 
     ft = kern.ft
     n = TIMING_SIZE
     gen = np.random.default_rng(11)
-    huge, small, large, tall = (SHAPES[s] for s in ("huge", "small", "large",
-                                                    "tall"))
-    operands = {s.name: _padded(_random(n, n, n, gen), s)
-                for s in (huge, small, large, tall)}
+    operands = {}
     rows = {}
-    for kind, shape in (("sgemm", huge), ("precomp", huge), ("rowcol", huge),
-                        ("global", huge), ("running", small), ("fused", huge),
-                        ("fused", small), ("rowcol_mxu", huge),
-                        ("global_mxu", huge), ("sgemm", large),
-                        ("sgemm", tall), ("precomp", large),
-                        ("precomp", tall)):
+    for kind, tile in TIMED:
+        shape = SHAPES[tile]
+        if tile not in operands:
+            operands[tile] = _padded(_random(n, n, n, gen), shape)
         name = KIND_NAMES[kind]
-        a, b, c = operands[shape.name]
+        a, b, c = operands[tile]
         inj = InjectionSpec.reference_like(n, shape.bk)
         ce, mf = None, False
         if kind != "sgemm":
@@ -528,7 +557,7 @@ def phase_timing(kern: Kernels, counts):
             c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
         flops, nbytes = work(kind, shape, n, ce, mf)
         ffma_ms, ffma_by = _bound(flops, nbytes)
-        tc_ms, tc_by = _bound(flops, nbytes, 2.0 * n ** 3)
+        tc_ms, tc_by = _bound(flops, nbytes, tc_products(kind, shape, n))
         mainloop = _build.mainloop(kind, shape)
         wgmma = mainloop == "wgmma-3xtf32"
         bound_ms, bound_by = (tc_ms, tc_by) if wgmma else (ffma_ms, ffma_by)
@@ -538,51 +567,94 @@ def phase_timing(kern: Kernels, counts):
                "launches": counts[name], "max_abs_err": kern.max_err[name],
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms,
-               "tile": shape.name}
-        if kind in ("sgemm", "precomp"):
-            row.update(mainloop=mainloop, tc_bound_ms=tc_ms,
-                       ffma_bound_ms=ffma_ms)
+               "tile": shape.name, "mainloop": mainloop,
+               "tc_bound_ms": tc_ms, "ffma_bound_ms": ffma_ms}
         rows.setdefault(name, row)
         log(f"phase timing {name} ({shape.name}, {mainloop}, {n}, check every"
             f" {ce}, multifault {mf}): kernel {ms:.3f} ms, plain"
             f" {plain_ms:.3f} ms, torch.addmm {library_ms:.3f} ms, bound"
             f" {bound_ms:.3f} ms ({bound_by}; FFMA {ffma_ms:.3f}, 3xTF32"
             f" {tc_ms:.3f})")
+    phase_residual(kern, operands)
+    return list(rows.values())
 
-    # Worst clean residuals at 4096 (C = 0, alpha = 1: the output is the
-    # accumulator): f32 column moments of the weighted kernel's
-    # accumulator against the torch.matmul expectations, and each tile's
-    # total of the global kernel's accumulator against t_exp = s_a . s_b
-    # from the moment rows.
-    a, b, _ = operands["huge"]
-    gm = n // huge.bm
+
+def phase_residual(kern: Kernels, operands):
+    """Worst clean checksum residuals at 4096 (C = 0, alpha = 1: the output
+    is the accumulator), which must stay RESIDUAL_MARGIN times under the
+    threshold: the f32 column moments of B2's (huge) and B5's and B6's
+    (small, huge) accumulators against the torch.matmul expectations, and
+    each tile's total of the global kernel's accumulator against t_exp =
+    s_a . s_b from the moment rows. B5 and B6 also run clean with the
+    threshold cut RESIDUAL_MARGIN times: their in-kernel residuals (E from
+    the expected-moment product against the accumulator's moments) must
+    flag nothing."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.ops.common import scalar_operand
+
+    ft = kern.ft
+    n = TIMING_SIZE
+    huge = SHAPES["huge"]
     zero = torch.zeros((n, n), device="cuda")
     clean = _scalars(InjectionSpec.none())
-    expm = ft._expected_col_checksums(a, b, huge.bm)
-    acc, det, unc = ft.ft_weighted_kernel(a, b, zero, expm, huge, 1.0, 0.0,
-                                          clean)
-    t = acc.reshape(gm, huge.bm, n)
-    w = torch.arange(1, huge.bm + 1, device="cuda", dtype=torch.float32)[None, :, None]
-    worst = [float((expm[:, v] - (t * w ** v).sum(1)).abs().max()) for v in range(3)]
+    limit = REFERENCE_THRESHOLD / RESIDUAL_MARGIN
+    tight = scalar_operand(InjectionSpec.none(), (limit,) * 3)
+
+    def moments_residual(acc, expm, bm):
+        t = acc.reshape(n // bm, bm, n)
+        w = torch.arange(1, bm + 1, device="cuda",
+                         dtype=torch.float32)[None, :, None]
+        return [float((expm[:, v] - (t * w ** v).sum(1)).abs().max())
+                for v in range(3)]
+
+    worst = {}
+    faults = 0
+    for kind, tile in (("precomp", "huge"), ("running", "small"),
+                       ("running", "huge"), ("fused", "small"),
+                       ("fused", "huge")):
+        shape = SHAPES[tile]
+        a, b, _ = operands[tile]
+        expm = ft._expected_col_checksums(a, b, shape.bm)
+        extra = ft.kernel_inputs(kind, a, b, shape)
+        nk = n // shape.bk
+        ce = ft._plan(KIND_PAIR[kind][0], None, None, InjectionSpec.none(), nk,
+                      shape.bn, KIND_PAIR[kind][1])[1]
+        if kind != "precomp":
+            ce = max(1, nk // 4)   # intermediate checks
+        acc, det, unc = ft.run_kernel(kind, shape, a, b, zero, extra, 1.0,
+                                      0.0, clean, ce)
+        faults += int(det.sum()) + int(unc.sum())
+        if kind != "precomp":
+            _, tdet, tunc = ft.run_kernel(kind, shape, a, b, zero, extra, 1.0,
+                                          0.0, tight, ce)
+            if int(tdet.sum()) or int(tunc.sum()):
+                raise AssertionError(
+                    f"{KIND_NAMES[kind]} {tile}: clean in-kernel residuals"
+                    f" above {limit:g} ({int(tdet.sum())} flagged)")
+        worst[f"{KIND_NAMES[kind]} {tile}"] = moments_residual(acc, expm,
+                                                               shape.bm)
+    a, b, _ = operands["huge"]
     _, ce, _ = ft._plan("global", None, None, InjectionSpec.none(),
                         n // huge.bk, huge.bn)
     gacc, gdet, _ = ft.ft_global_kernel(a, b, zero, huge, 1.0, 0.0, clean, ce)
     ma, mb = (ft._tile_moments(x, bt, 1)[:, 0]
               for x, bt in ((a, huge.bm), (b, huge.bn)))
     t_exp = ma @ mb.T
-    totals = gacc.reshape(gm, huge.bm, n // huge.bn, huge.bn).sum((1, 3))
+    totals = gacc.reshape(n // huge.bm, huge.bm, n // huge.bn, huge.bn).sum((1, 3))
     worst_global = float((t_exp - totals).abs().max())
-    if int(det.sum()) or int(unc.sum()) or int(gdet.sum()):
+    if faults or int(gdet.sum()):
         raise AssertionError("a clean run reported faults")
-    log(f"phase residual: worst clean residual at {n}, huge tile, weighted"
-        f" (moments 1, w, w^2; {_build.mainloop('precomp', huge)}): {worst},"
-        f" global (tile total, |t_exp| up to {float(t_exp.abs().max()):.1f}):"
-        f" {worst_global}; threshold 9500")
-    limit = REFERENCE_THRESHOLD / RESIDUAL_MARGIN
-    if max(worst) > limit:
-        raise AssertionError(f"clean weighted residuals {worst} are not"
+    log(f"phase residual: worst clean residual at {n} (moments 1, w, w^2;"
+        f" {_build.mainloop('precomp', huge)} at huge, every B5 / B6 tile"
+        f" wgmma): {worst}, global (huge, tile total, |t_exp| up to"
+        f" {float(t_exp.abs().max()):.1f}): {worst_global}; threshold 9500;"
+        f" B5 and B6 flag nothing at threshold {limit:g}")
+    bad = {k: v for k, v in worst.items() if max(v) > limit}
+    if bad:
+        raise AssertionError(f"clean weighted residuals {bad} are not"
                              f" {RESIDUAL_MARGIN:g}x under the threshold")
-    return list(rows.values())
 
 
 def main() -> int:

@@ -1,5 +1,6 @@
 // Device functions shared by the fused-ABFT kernels (ft_sgemm_weighted.cu,
-// ft_sgemm_rowcol.cu, ft_sgemm_global.cu, ft_sgemm_aug.cu), written once.
+// ft_sgemm_rowcol.cu, ft_sgemm_global.cu, ft_sgemm_aug.cu,
+// ft_sgemm_running.cuh), written once.
 // Each is the Hopper form of one JAX device function in
 // ft_sgemm_tpu/ops/ft_sgemm.py:
 //
@@ -9,14 +10,16 @@
 //                              paper's design (code_gen.py:219-226, 352-424)
 //   weighted_localize       <- _weighted_localize      (:498-513)
 //   Encoder                 <- the per-K-step checksum encode of
-//                              _ft_kernel_rowcol / _ft_kernel_weighted /
-//                              _ft_kernel_global (sums), and of their mxu
-//                              forms from staged moment rows (update)
+//                              _ft_kernel_rowcol / _ft_kernel_global
+//                              (sums), and of their mxu forms from staged
+//                              moment rows (update); B5 and B6 encode on
+//                              the tensor cores (ft_sgemm_running.cuh)
 //   moment_detect_correct   <- _moment_detect_correct  (:287-339)
 //   rowcol_detect_correct   <- _rowcol_detect_correct  (:406-495)
 //   EPS8                    <- _correction_pads         (:342-357)
 //
-// The accumulator lives in registers, TM x TN per thread (gemm_mainloop.cuh),
+// In the FFMA kernels the accumulator lives in registers, TM x TN per
+// thread (gemm_mainloop.cuh),
 // so the whole-tile reductions of the Pallas kernels become per-thread
 // partial sums, shuffles among the lanes that share a row or a column, and
 // one shared-memory pass across warps. The per-tile counters are computed

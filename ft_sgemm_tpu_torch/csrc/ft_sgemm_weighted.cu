@@ -10,25 +10,21 @@
 // sums, for cadences with intermediate checks. The port's small tile is
 // 16 columns wide, narrower than the ~20 faults of the reference-like
 // schedule, so the injection clamp gives it intermediate checks and id 11
-// runs this body on ft_sgemm's main path.
+// runs B5 on ft_sgemm's main path. B5 is ft_sgemm_running.cuh's kernel with
+// its moment rows summed from A's stage (kSumRows), at every tile.
 //
-// Both add, per step, the fault injection of abft_common.cuh::inject, and
-// at each check the three column moments (weights 1, w, w^2 with w = row
+// B2 adds, per step, the fault injection of abft_common.cuh::inject, and
+// at its check the three column moments (weights 1, w, w^2 with w = row
 // + 1) of the register accumulator, per-column localization by the
 // weighted-residual ratio, the correction, and the three-moment re-check
 // (moment_detect_correct). Correction precedes alpha / beta.
 //
-// What bounds them on an H100: as B1, by tile. At the large, tall, huge and
+// What bounds B2 on an H100: as B1, by tile. At the large, tall, huge and
 // test tiles B2 runs B1's 3xTF32 wgmma mainloop (gemm_wgmma.cuh), bound by
 // three TF32 tensor-core products per multiply-add and the split pass; at
-// the others, and always for B5, the FP32 FFMA rate. B2 adds a per-tile
-// check costing about 6 * BM * BN operations, once per run, and, at a
-// scheduled fault (~20 per tile at 4096), one wait for the in-flight
-// wgmmas. B5 adds, per K chunk, the A-side moment sums (~6 * KS * BM
-// operations) and the expected-moment update (6 * KS * BN), against the
-// chunk's KS * BM * BN FFMAs: 9 % at the huge tile, 19-38 % at the others
-// (75 % at 16 x 16), plus one extra barrier per chunk, whose latency costs
-// more than the operations (PERF.md).
+// the others the FP32 FFMA rate. It adds a per-tile check costing about 6 *
+// BM * BN operations, once per run, and, at a scheduled fault (~20 per
+// tile at 4096), one wait for the in-flight wgmmas.
 //
 // What the design does about it: the mainloop is B1's, unchanged; B2's
 // check runs after it. A fault is added between two k steps' wgmmas, after
@@ -37,45 +33,11 @@
 // warp shuffles over the lanes that share a column and one shared-memory
 // pass across the consumer warps, and only at checks.
 
-#include <type_traits>
-
 #include "abft_common.cuh"
+#include "ft_sgemm_running.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace ftsg {
-
-// Fault injection for the wgmma mainloop, the schedule of
-// abft_common.cuh::inject counted down in 8-column k steps: the fault of bk
-// step k = f * every (f = 0, 1, ..) comes before k step next = k * bk / 8
-// (while next < K / 8), at ordinal f + 3 ti + 5 tj, so no k step divides.
-// Branch-free selects over the fragment, as inject.
-template <class T>
-struct FragInject {
-  int next, period, nk8, ord, col_stride;
-  float mag;
-
-  __device__ __forceinline__ FragInject(const Scalars& sc, int bk, int K,
-                                        int ti, int tj)
-      : next(sc.s[SLOT_ENABLED] > 0.f ? 0 : K / 8),
-        period(bk / 8 * max((int)sc.s[SLOT_EVERY], 1)), nk8(K / 8),
-        ord(3 * ti + 5 * tj), col_stride((int)sc.s[SLOT_COL_STRIDE]),
-        mag(sc.s[SLOT_MAGNITUDE]) {}
-  // t < nk8: no fault in the zero columns of a ragged last stage.
-  __device__ __forceinline__ bool at(int t) const {
-    return t == next && t < nk8;
-  }
-  __device__ __forceinline__ bool within(int st) const {
-    return next < min((st + 1) * T::KK, nk8);
-  }
-  __device__ __forceinline__ void apply(WgMainloop<T>& ml, int) {
-    const int r = (ord * 131 + 7) % T::BM, c = (ord * col_stride + 3) % T::BN;
-#pragma unroll
-    for (int i = 0; i < T::NACC; ++i)
-      ml.acc[i] += (ml.row(i) == r && ml.col(i) == c) ? mag : 0.f;
-    next += period;
-    ++ord;
-  }
-};
 
 template <class T>
 struct WgCheckSmem {
@@ -186,58 +148,34 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
   }
 }
 
-struct NoSmem {};
-
-template <class L, bool RUNNING>
+// B2 at the small, medium and wide tiles (FFMA mainloop): `expm` is the
+// (M / BM, 3, N) expected moments.
+template <class L>
 __global__ void __launch_bounds__(L::NT, L::MIN_CTAS) ft_weighted_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ C, const float* __restrict__ expm,
     float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
-    int N, int K, int bk, int check_every, float alpha, float beta,
-    Scalars sc) {
-  using Enc = Encoder<L, 3, false>;
+    int N, int K, int bk, float alpha, float beta, Scalars sc) {
   __shared__ Stage<L> st;
   __shared__ MomentSmem<L> ms;
-  __shared__ typename std::conditional<RUNNING, typename Enc::Smem, NoSmem>::type es;
   const int ti = blockIdx.y, tj = blockIdx.x;
   const int m0 = ti * L::BM, n0 = tj * L::BN;
-  const int nk = K / bk;
   Mainloop<L> ml(A, B, K, m0, n0);
-  Enc enc;
-  int n_det = 0, n_unc = 0;
-  auto check = [&]() {
-    float ec = 0.f, ecw = 0.f, ecw2 = 0.f;
-    const int t = threadIdx.x;
-    if (t < L::BN) {
-      if constexpr (RUNNING) {
-        ec = enc.c[0];
-        ecw = enc.c[1];
-        ecw2 = enc.c[2];
-      } else {
-        // expm is (M / BM, 3, N): rows 1, w, w^2 of row tile ti.
-        const float* e = expm + (size_t)ti * 3 * N + n0 + t;
-        ec = e[0];
-        ecw = e[N];
-        ecw2 = e[2 * (size_t)N];
-      }
-    }
-    int hit, bad;
-    moment_detect_correct(ml, ms, ec, ecw, ecw2, sc.s[SLOT_THRESHOLD],
-                          sc.s[SLOT_THR_M1], sc.s[SLOT_THR_M2], hit, bad);
-    n_det += hit;
-    n_unc = bad;  // LEVEL: the state after the latest check
-  };
-  k_loop(
-      ml, st, nk, bk / L::KS,
-      [&](int s) { inject(ml, sc, s, ti, tj); },
-      [&](int buf) {
-        if constexpr (RUNNING) enc.chunk(st, buf, es);
-      },
-      [&](int s) {
-        if (RUNNING && ((s + 1) % check_every == 0 || s == nk - 1)) check();
-      });
-  // B2's single check runs after the K loop, outside its code.
-  if constexpr (!RUNNING) check();
+  auto none = [](int) {};
+  k_loop(ml, st, K / bk, bk / L::KS, [&](int s) { inject(ml, sc, s, ti, tj); },
+         none, none);
+  float ec = 0.f, ecw = 0.f, ecw2 = 0.f;
+  const int t = threadIdx.x;
+  if (t < L::BN) {
+    // expm is (M / BM, 3, N): rows 1, w, w^2 of row tile ti.
+    const float* e = expm + (size_t)ti * 3 * N + n0 + t;
+    ec = e[0];
+    ecw = e[N];
+    ecw2 = e[2 * (size_t)N];
+  }
+  int n_det, n_unc;
+  moment_detect_correct(ml, ms, ec, ecw, ecw2, sc.s[SLOT_THRESHOLD],
+                        sc.s[SLOT_THR_M1], sc.s[SLOT_THR_M2], n_det, n_unc);
   ml.store(out, C, N, m0, n0, alpha, beta);
   if (threadIdx.x == 0) {
     det[ti * gridDim.x + tj] = n_det;
@@ -245,18 +183,16 @@ __global__ void __launch_bounds__(L::NT, L::MIN_CTAS) ft_weighted_kernel(
   }
 }
 
-template <class L, bool RUNNING>
+template <class L>
 int launch_ffma(const float* A, const float* B, const float* C,
                 const float* expm, float* out, int* det, int* unc, int M,
-                int N, int K, int bk, int check_every, float alpha, float beta,
+                int N, int K, int bk, float alpha, float beta,
                 const Scalars& sc, cudaStream_t stream) {
-  if constexpr (!RUNNING && wgmma_tile<L::BM, L::BN>()) {
+  if constexpr (wgmma_tile<L::BM, L::BN>()) {
     return (int)cudaErrorInvalidValue;  // B2 runs ft_weighted_wgmma_kernel
   } else {
-    ft_weighted_kernel<L, RUNNING><<<dim3(N / L::BN, M / L::BM), L::NT, 0,
-                                     stream>>>(A, B, C, expm, out, det, unc, N,
-                                               K, bk, check_every, alpha,
-                                               beta, sc);
+    ft_weighted_kernel<L><<<dim3(N / L::BN, M / L::BM), L::NT, 0, stream>>>(
+        A, B, C, expm, out, det, unc, N, K, bk, alpha, beta, sc);
     return (int)cudaGetLastError();
   }
 }
@@ -277,52 +213,42 @@ int launch_wgmma(const float* A, const float* B, const float* C,
   return (int)cudaGetLastError();
 }
 
-template <bool RUNNING>
-int launch(const float* A, const float* B, const float* C, const float* expm,
-           float* out, int* det, int* unc, int M, int N, int K, int bm,
-           int bn, int ks, int mr, int nr, int bk, int check_every,
-           float alpha, float beta, const float* scalars, void* stream) {
-  Scalars sc;
-  for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
-  const auto s = (cudaStream_t)stream;
-  if constexpr (!RUNNING) {
-#define FTSG_LAUNCH_WGMMA(BM_, BN_)                                          \
-  if (bm == BM_ && bn == BN_)                                                  \
-    return launch_wgmma<WgTile<BM_, BN_>>(A, B, C, expm, out, det, unc, M, N, \
-                                          K, bk, alpha, beta, sc, s);
-    FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
-#undef FTSG_LAUNCH_WGMMA
-  }
-#define FTSG_LAUNCH(BM_, BN_, KS_, TM_, TN_)                                 \
-  if (bm == BM_ && bn == BN_ && ks == KS_ && mr == TM_ && nr == TN_)         \
-    return launch_ffma<Layout<BM_, BN_, KS_, TM_, TN_>, RUNNING>(            \
-        A, B, C, expm, out, det, unc, M, N, K, bk, check_every, alpha, beta, \
-        sc, s);
-  FTSG_FOR_EACH_LAYOUT(FTSG_LAUNCH)
-#undef FTSG_LAUNCH
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace ftsg
 
 // B2. `scalars` is a host array of 8 floats (contracts.SCALAR_SLOTS);
-// `expm` the (M / bm, 3, N) expected moments. Returns cudaGetLastError().
+// `expm` the (M / bm, 3, N) expected moments. Returns cudaGetLastError()
+// (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_ft_weighted_precomp(
     const float* A, const float* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
     int ks, int mr, int nr, int bk, float alpha, float beta,
     const float* scalars, void* stream) {
-  return ftsg::launch<false>(A, B, C, expm, out, det, unc, M, N, K, bm, bn, ks,
-                             mr, nr, bk, K / bk, alpha, beta, scalars, stream);
+  ftsg::Scalars sc;
+  for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
+  const auto s = (cudaStream_t)stream;
+#define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTile<BM_, BN_>>(                     \
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+  FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
+#undef FTSG_LAUNCH_WGMMA
+#define FTSG_LAUNCH(BM_, BN_, KS_, TM_, TN_)                               \
+  if (bm == BM_ && bn == BN_ && ks == KS_ && mr == TM_ && nr == TN_)       \
+    return ftsg::launch_ffma<ftsg::Layout<BM_, BN_, KS_, TM_, TN_>>(       \
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+  FTSG_FOR_EACH_LAYOUT(FTSG_LAUNCH)
+#undef FTSG_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-// B5: checks after every `check_every` K steps and after the last.
+// B5: checks after every `check_every` K steps and after the last, on the
+// 128 x 128 wgmma CTA over (bm, bn) sub-tiles (ks, mr, nr are not read).
 extern "C" int ftsg_ft_weighted_running(
     const float* A, const float* B, const float* C, float* out, int* det,
     int* unc, int M, int N, int K, int bm, int bn, int ks, int mr, int nr,
     int bk, int check_every, float alpha, float beta, const float* scalars,
     void* stream) {
-  return ftsg::launch<true>(A, B, C, nullptr, out, det, unc, M, N, K, bm, bn,
-                            ks, mr, nr, bk, check_every, alpha, beta, scalars,
-                            stream);
+  return ftsg::launch_running<ftsg::kSumRows>(
+      A, B, C, nullptr, out, det, unc, M, N, K, bm, bn, bk, check_every,
+      alpha, beta, scalars, (cudaStream_t)stream);
 }

@@ -1,24 +1,27 @@
-// Hopper mainloop of B1 (sgemm.cu) and B2 (ft_sgemm_weighted.cu) at the
-// tiles whose rows fill wgmma's 64-row granularity: large (64 x 64), tall
-// (128 x 32), huge (128 x 128) and test (huge with bk = 128). 3xTF32 on
-// wgmma, fed by TMA through a ring of shared-memory stages. The narrower
-// tiles, and B3-B8, keep the FFMA mainloop of gemm_mainloop.cuh.
+// Hopper mainloop of the 3xTF32 wgmma kernels: B1 (sgemm.cu) and B2
+// (ft_sgemm_weighted.cu) at the tiles whose rows fill wgmma's 64-row
+// granularity, large (64 x 64), tall (128 x 32), huge (128 x 128) and test
+// (huge with bk = 128); and B5 and B6 (ft_sgemm_running.cuh) at every tile,
+// on one 128 x 128 CTA whose (SBM, SBN) sub-tiles are the paper's tile, the
+// granularity of their checks. The narrower B1 / B2 tiles, and B3, B4, B7,
+// B8, keep the FFMA mainloop of gemm_mainloop.cuh.
 //
 // One CTA computes one (BM, BN) tile of C = alpha * A @ B^T + beta * C with
 // A (M, K) and B (N, K) row-major: both K-major, the layout wgmma requires
-// for tf32. The wrapper pads M and N to the tile and K to bk, a multiple of
-// 8 at these tiles, so every row stride is a multiple of 32 bytes (TMA
-// needs 16); the ragged last stage past K is zero-filled by TMA.
+// for tf32. The wrapper pads M and N to the paper's tile and K to bk, a
+// multiple of 8, so every row stride is a multiple of 32 bytes (TMA needs
+// 16); TMA zero-fills the rows of a CTA past M or N and the ragged last
+// stage past K.
 //
 // Roles: warps 0 .. 4 * NWG - 1 form NWG consumer warpgroups, one per 64
 // tile rows; the last warpgroup is the producer, which gives most of its
 // registers to the consumers (setmaxnreg), whose first thread issues the
 // TMA loads and whose warps 1-3 split B. A stage holds SK = 32 K columns:
 // A's (BM, 32) box and B's (BN, 32) box, 128 bytes a row in TMA's 128-byte
-// swizzle, and a second buffer of B's shape for B's low part. STAGES stages
-// form a ring run by full / ready / empty mbarriers. Consumer-only
-// synchronisation uses named barrier 1, so the producer may exit once its
-// work is issued.
+// swizzle, and a second buffer of B's shape for B's low part; with R > 0
+// also R moment rows, hi and lo (below). STAGES stages form a ring run by
+// full / ready / empty mbarriers. Consumer-only synchronisation uses named
+// barrier 1, so the producer may exit once its work is issued.
 //
 // 3xTF32: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
 // hi); every 8-deep k step adds a_lo b_hi, a_hi b_lo and a_hi b_hi, small
@@ -31,11 +34,23 @@
 // registers). While stage s's wgmmas run, the consumers split stage s + 1's
 // A into the other register set.
 //
+// Expected moments (R > 0): the R = 3 * BM / SBM rows of column moments
+// (weights 1, w, w^2, w = row within the sub-tile + 1) of each sub-tile row
+// band of A, padded to a multiple of 8, ride each stage (loaded by TMA for
+// B6, summed from A's landed stage by the splitter warps for B5) and are
+// split hi / lo like B. A second accumulator takes E = B_tile . M^T, one
+// m64nRk8 wgmma per term with both operands in shared memory (B's stage
+// as the A operand), with the same 3xTF32 terms and per-stage promotion as
+// the product, so both sides of a check's residual carry the same
+// precision.
+//
 // Accumulator: wgmma's m64nBN f32 fragment. Consumer thread (warpgroup g,
 // warp w of the group, lane l) holds element i at tile row 64g + 16w + l/4
 // + 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (l % 4) + i % 2 (row(),
 // col(); ops/tf32x3.wgmma_fragment_map mirrors the map for the CPU tests).
-// The FT hooks use that map and keep their logic.
+// E's fragment has the same map with B's row for the tile row and the
+// moment row for the column (ops/tf32x3.moment_fragment_map). The FT hooks
+// use those maps and keep their logic.
 
 #pragma once
 
@@ -46,8 +61,8 @@
 
 namespace ftsg {
 
-// The (BM, BN) tiles that run this mainloop; ops/_build.wgmma_tiles reads
-// this list.
+// The (BM, BN) tiles on which B1 and B2 run this mainloop;
+// ops/_build.wgmma_tiles reads this list.
 #define FTSG_FOR_EACH_WGMMA_TILE(X) X(64, 64) X(128, 32) X(128, 128)
 
 template <int BM, int BN>
@@ -59,12 +74,22 @@ constexpr bool wgmma_tile() {
   return false;
 }
 
-template <int BM_, int BN_>
+// The (SBM, SBN) sub-tiles of the 128 x 128 CTA on which B5 and B6 run,
+// the paper's tiles; ops/_build.subtiles reads this list.
+#define FTSG_FOR_EACH_SUBTILE(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 32) X(32, 128) X(128, 128)
+
+// A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with R moment rows per
+// stage (0: none, B1 and B2) and CHECK bytes of check scratch beside the
+// ring. The ring has four stages where they fit in the 232448 bytes of
+// shared memory a CTA may have, else three.
+template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int R_ = 0,
+          int CHECK_ = 0>
 struct WgTile {
-  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_, R = R_;
+  static constexpr int NBM = BM / SBM, NBN = BN / SBN, NSUB = NBM * NBN;
   static constexpr int SK = 32;       // K columns per stage: one swizzle row
   static constexpr int KK = SK / 8;   // 8-deep wgmma steps per stage
-  static constexpr int STAGES = 4;
   static constexpr int NWG = BM / 64;  // consumer warpgroups
   static constexpr int NCONS = 128 * NWG;
   static constexpr int NT = NCONS + 128;  // and the producer warpgroup
@@ -75,18 +100,33 @@ struct WgTile {
   // rest to the consumers (setmaxnreg).
   static constexpr int REGS = 65536 / (MIN_CTAS * NT) / 8 * 8;
   static constexpr int REGS_PRODUCER = 40;
-  static constexpr int REGS_CONSUMER =
-      (REGS + (REGS - REGS_PRODUCER) * 128 / NCONS) / 8 * 8;
+  // The consumers' share when the producer keeps `producer` registers.
+  static constexpr __host__ __device__ int consumer_regs(int producer) {
+    return (REGS + (REGS - producer) * 128 / NCONS) / 8 * 8;
+  }
+  static constexpr int REGS_CONSUMER = consumer_regs(REGS_PRODUCER);
   static constexpr int NACC = BN / 2;  // accumulator floats per thread
+  static constexpr int NACC_E = R / 2;  // expected-moment floats per thread
   static constexpr int A_BYTES = BM * SK * 4, B_BYTES = BN * SK * 4;
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
-  // The ring, its 3 * STAGES mbarriers, and slack to align the ring to the
-  // 1024 bytes of the swizzle pattern.
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 24 * STAGES + 1024;
+  static constexpr int M_BYTES = R * SK * 4;  // one buffer of moment rows
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES + 2 * M_BYTES;
+  static constexpr int CHECK_BYTES = CHECK_;
+  // The ring, its 3 * stages mbarriers, the check scratch, and slack to
+  // align the ring to the 1024 bytes of the swizzle pattern.
+  static constexpr int smem(int stages) {
+    return stages * STAGE_BYTES + 24 * stages + CHECK_BYTES + 1024;
+  }
+  static constexpr int STAGES = smem(4) <= 232448 ? 4 : 3;
+  static constexpr int SMEM = smem(STAGES);
   static constexpr int SPLITTERS = 96;  // producer warps 1-3 split B
   static_assert(BM % 64 == 0 && BN % 8 == 0 && BN <= 256, "m64nBNk8 tile");
+  static_assert(BM % SBM == 0 && BN % SBN == 0 && SBM % 16 == 0,
+                "sub-tiles of whole warp bands");
+  static_assert(R % 8 == 0 && R <= 24, "m64nRk8 expected-moment product");
   static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
-  static_assert(B_BYTES % 1024 == 0, "buffers keep the swizzle alignment");
+  static_assert(B_BYTES % 1024 == 0 && M_BYTES % 1024 == 0,
+                "buffers keep the swizzle alignment");
+  static_assert(SMEM <= 232448, "the ring fits in shared memory");
 };
 
 // ---------------------------------------------------------------- PTX ----
@@ -286,14 +326,72 @@ struct Wgmma<128> {
   }
 };
 
+// d (m64 x N, f32) = A (m64 x k8) @ B^T (+ d when scale_d is 1), both
+// tf32 tiles in shared memory (descriptors a, b): the expected-moment
+// product E = B_tile . M^T, whose A operand is B's stage.
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<24> {
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11},"
+        " %12, %13, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 // ------------------------------------------------------------ mainloop ----
 
 extern __shared__ unsigned char ftsg_wg_smem[];
 
+// Where a stage's moment rows come from: none (B1, B2), a TMA box of the
+// wrapper's (gm * 3, K) moment rows (B6), or sums over A's landed stage
+// (B5).
+enum MomentRows { kNoRows = 0, kLoadRows = 1, kSumRows = 2 };
+
 // The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
-// A's box, B's box (hi after the split) and B's lo; then the mbarriers:
-// full(s) when TMA has landed the stage, ready(s) when its B is split,
-// empty(s) when the consumers are done with it.
+// A's box, B's box (hi after the split), B's lo and, with R > 0, the moment
+// rows' hi and lo; then the mbarriers: full(s) when TMA has landed the
+// stage, ready(s) when its B (and moment rows) are split, empty(s) when the
+// consumers are done with it; then the check scratch.
 template <class T>
 struct WgSmem {
   unsigned char* base;
@@ -310,6 +408,13 @@ struct WgSmem {
     return reinterpret_cast<float*>(base + s * T::STAGE_BYTES + T::A_BYTES +
                                     T::B_BYTES);
   }
+  __device__ __forceinline__ float* mhi(int s) const {
+    return reinterpret_cast<float*>(base + s * T::STAGE_BYTES + T::A_BYTES +
+                                    2 * T::B_BYTES);
+  }
+  __device__ __forceinline__ float* mlo(int s) const {
+    return mhi(s) + T::R * T::SK;
+  }
   __device__ __forceinline__ uint64_t* full(int s) const {
     return reinterpret_cast<uint64_t*>(base + T::STAGES * T::STAGE_BYTES) + s;
   }
@@ -319,6 +424,7 @@ struct WgSmem {
   __device__ __forceinline__ uint64_t* empty(int s) const {
     return full(2 * T::STAGES) + s;
   }
+  __device__ __forceinline__ void* check() const { return full(3 * T::STAGES); }
 
   // Thread 0 initialises the barriers; the whole CTA waits for it.
   __device__ __forceinline__ void init() const {
@@ -333,41 +439,93 @@ struct WgSmem {
     __syncthreads();
   }
 
-  // The producer warpgroup, for nst stages of A's rows m0.. and B's rows
-  // n0..: its first thread streams the TMA loads through the ring, each
-  // slot refilled once the consumers released it; warps 1-3 split each
-  // landed stage's B, hi in place and lo into the second buffer, so the
-  // consumer warpgroups never wait for one another.
+  // Split n float4 at p in place (hi) and into lo, over the splitter
+  // threads e = 0 .. SPLITTERS - 1.
+  static __device__ __forceinline__ void split4(float* p, float* lo, int n,
+                                                int e) {
+    float4* hi4 = reinterpret_cast<float4*>(p);
+    float4* lo4 = reinterpret_cast<float4*>(lo);
+    for (; e < n; e += T::SPLITTERS) {
+      const float4 v = hi4[e];
+      uint32_t h[4], l[4];
+      split_tf32(v.x, h[0], l[0]);
+      split_tf32(v.y, h[1], l[1]);
+      split_tf32(v.z, h[2], l[2]);
+      split_tf32(v.w, h[3], l[3]);
+      hi4[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                           __uint_as_float(h[2]), __uint_as_float(h[3]));
+      lo4[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                           __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  }
+
+  // B5's moment rows of stage s: for each sub-tile row band b and column k,
+  // the sums of A's rows with weights 1, w, w^2 (w = row in the band + 1)
+  // into rows 3b .. 3b + 2, split hi / lo, in the swizzled K-major layout
+  // of a TMA box; the padding rows are zero.
+  __device__ __forceinline__ void sum_rows(int s, int e) const {
+    const float* a_ = a(s);
+    float* hi = mhi(s);
+    float* lo = mlo(s);
+    for (int j = e; j < T::NBM * T::SK; j += T::SPLITTERS) {
+      const int band = j / T::SK, k = j % T::SK;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll 8
+      for (int rr = 0; rr < T::SBM; ++rr) {
+        const int r = band * T::SBM + rr;
+        const float x = a_[r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)];
+        const float w = (float)(rr + 1);
+        s0 += x;
+        s1 += w * x;
+        s2 += (w * w) * x;
+      }
+      const float sv[3] = {s0, s1, s2};
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        const int r = 3 * band + v;
+        const int o = r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+        uint32_t h, l;
+        split_tf32(sv[v], h, l);
+        hi[o] = __uint_as_float(h);
+        lo[o] = __uint_as_float(l);
+      }
+    }
+    for (int j = 3 * T::NBM * T::SK + e; j < T::R * T::SK; j += T::SPLITTERS)
+      hi[j] = lo[j] = 0.f;
+  }
+
+  // The producer warpgroup, for nst stages of A's rows m0.., B's rows n0..
+  // and (ROWS == kLoadRows) the moment rows r0.. of tm: its first thread
+  // streams the TMA loads through the ring, each slot refilled once the
+  // consumers released it; warps 1-3 split each landed stage's B (and
+  // moment rows, or form them: kSumRows), hi in place and lo into the
+  // second buffer, so the consumer warpgroups never wait for one another.
+  template <int ROWS = kNoRows>
   __device__ __forceinline__ void produce(const CUtensorMap* ta,
                                           const CUtensorMap* tb, int m0,
-                                          int n0, int nst) const {
+                                          int n0, int nst,
+                                          const CUtensorMap* tm = nullptr,
+                                          int r0 = 0) const {
     const int p = threadIdx.x - T::NCONS;
     if (p == 0) {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         if (st >= T::STAGES) mbar_wait(empty(s), (st / T::STAGES - 1) & 1);
-        mbar_expect_tx(full(s), T::A_BYTES + T::B_BYTES);
+        mbar_expect_tx(full(s), T::A_BYTES + T::B_BYTES +
+                                    (ROWS == kLoadRows ? T::M_BYTES : 0));
         tma_load(a(s), ta, full(s), st * T::SK, m0);
         tma_load(b(s), tb, full(s), st * T::SK, n0);
+        if constexpr (ROWS == kLoadRows)
+          tma_load(mhi(s), tm, full(s), st * T::SK, r0);
       }
     } else if (p >= 32) {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         mbar_wait(full(s), (st / T::STAGES) & 1);
-        float4* hi = reinterpret_cast<float4*>(b(s));
-        float4* lo = reinterpret_cast<float4*>(blo(s));
-        for (int e = p - 32; e < T::BN * T::SK / 4; e += T::SPLITTERS) {
-          const float4 v = hi[e];
-          uint32_t h[4], l[4];
-          split_tf32(v.x, h[0], l[0]);
-          split_tf32(v.y, h[1], l[1]);
-          split_tf32(v.z, h[2], l[2]);
-          split_tf32(v.w, h[3], l[3]);
-          hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                              __uint_as_float(h[2]), __uint_as_float(h[3]));
-          lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                              __uint_as_float(l[2]), __uint_as_float(l[3]));
-        }
+        split4(b(s), blo(s), T::BN * T::SK / 4, p - 32);
+        if constexpr (ROWS == kLoadRows)
+          split4(mhi(s), mlo(s), T::R * T::SK / 4, p - 32);
+        if constexpr (ROWS == kSumRows) sum_rows(s, p - 32);
         fence_proxy_async();  // the split is visible to wgmma
         mbar_arrive(ready(s));
       }
@@ -375,28 +533,36 @@ struct WgSmem {
   }
 };
 
-// No fault injection (B1).
+// No fault injection and no check inside the K loop (B1).
 struct NoInject {
   __device__ __forceinline__ bool at(int) const { return false; }
   __device__ __forceinline__ bool within(int) const { return false; }
+  __device__ __forceinline__ bool check_after(int) const { return false; }
   template <class M>
   __device__ __forceinline__ void apply(M&, int) {}
+  template <class M>
+  __device__ __forceinline__ void check(M&) {}
 };
 
 // A consumer thread's part of the K loop and its accumulator. The tensor
 // cores truncate when they accumulate, so a long sum inside wgmma drifts by
 // up to an ulp per add (~11x cuBLAS's FP32 error at K = 4096); each stage's
 // wgmmas therefore sum into `part`, started fresh, and `part` is added into
-// `acc` with a rounded f32 add once the stage has landed. `Inject` hooks
-// fault injection in before an 8-column k step t: at(t) says whether it
-// fires there and within(st) whether it fires in stage st (the same for the
-// whole CTA); apply(ml, t) adds it to `acc` after every earlier product has
-// landed and been added there.
+// `acc` with a rounded f32 add once the stage has landed. With R > 0 the
+// expected moments sum the same way, `part_e` into `acc_e`. `Hook` hooks
+// fault injection in before an 8-column k step t and a check after one:
+// at(t) and check_after(t) say whether either fires there and within(st)
+// whether either fires in stage st (the same for the whole CTA); apply(ml,
+// t) adds the fault to `acc` and check(ml) checks `acc` against `acc_e`,
+// each after every earlier product has landed and been added there.
 template <class T>
 struct WgMainloop {
   static constexpr int NF = 4 * T::KK;  // A fragment registers per stage
+  static constexpr int NE = T::R > 0 ? T::NACC_E : 1;
   float acc[T::NACC];
   float part[T::NACC];  // this stage's wgmma sum
+  float acc_e[NE];      // expected moments E[row(i)][col(i)] (R > 0)
+  float part_e[NE];
   WgSmem<T> sm;
   int g, w, l;
 
@@ -405,9 +571,14 @@ struct WgMainloop {
         w((threadIdx.x / 32) % 4), l(threadIdx.x % 32) {
 #pragma unroll
     for (int i = 0; i < T::NACC; ++i) acc[i] = part[i] = 0.f;
+    if constexpr (T::R > 0) {
+#pragma unroll
+      for (int i = 0; i < NE; ++i) acc_e[i] = part_e[i] = 0.f;
+    }
   }
 
-  // Tile-local row / column of accumulator element i.
+  // Tile-local row / column of accumulator element i (for acc_e: B's row,
+  // i.e. the tile column, and the moment row).
   __device__ __forceinline__ int row(int i) const {
     return 64 * g + 16 * w + (l >> 2) + 8 * ((i >> 1) & 1);
   }
@@ -423,6 +594,22 @@ struct WgMainloop {
       asm volatile("" : "+f"(part[i])::"memory");
       acc[i] += part[i];
     }
+    if constexpr (T::R > 0) {
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        asm volatile("" : "+f"(part_e[i])::"memory");
+        acc_e[i] += part_e[i];
+      }
+    }
+  }
+
+  // promote() and restart both stage sums at zero.
+  __device__ __forceinline__ void promote_clear() {
+    promote();
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) part[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NE; ++i) part_e[i] = 0.f;
   }
 
   // Wait until stage st has landed and its B is split; load this thread's
@@ -446,42 +633,63 @@ struct WgMainloop {
   }
 
   // One 8-deep k step into `part`: a_lo b_hi, a_hi b_lo, a_hi b_hi; the
-  // first of them restarts `part` when `fresh`.
+  // first of them restarts `part` when `fresh`. With R > 0 the same three
+  // terms of B's stage (this warpgroup's 64 rows) times the moment rows
+  // into `part_e`.
   __device__ __forceinline__ void mma3(const uint32_t (&ah)[NF],
                                        const uint32_t (&al)[NF], int kk,
-                                       uint64_t dh, uint64_t dl, bool fresh) {
+                                       uint64_t dh, uint64_t dl, bool fresh,
+                                       int s) {
     Wgmma<T::BN>::run(part, &al[4 * kk], dh + 2 * kk, fresh ? 0 : 1);
     Wgmma<T::BN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
     Wgmma<T::BN>::run(part, &ah[4 * kk], dh + 2 * kk, 1);
+    if constexpr (T::R > 0) {
+      const uint64_t bh = smem_desc(sm.b(s) + 64 * g * T::SK) + 2 * kk;
+      const uint64_t bl = smem_desc(sm.blo(s) + 64 * g * T::SK) + 2 * kk;
+      const uint64_t mh = smem_desc(sm.mhi(s)) + 2 * kk;
+      const uint64_t ml = smem_desc(sm.mlo(s)) + 2 * kk;
+      WgmmaSS<T::R>::run(part_e, bl, mh, fresh ? 0 : 1);
+      WgmmaSS<T::R>::run(part_e, bh, ml, 1);
+      WgmmaSS<T::R>::run(part_e, bh, mh, 1);
+    }
   }
 
   // Issue stage st's wgmmas (k steps t0 = KK * st ..) as one group; a
   // ragged last stage multiplies TMA's zero fill. At a scheduled fault the
-  // steps so far land and go into `acc` before the fault does.
-  template <class Inject>
+  // steps so far land and go into `acc` before the fault does; at a check,
+  // the steps so far land and go into `acc` (and `acc_e`), then the check
+  // runs and the stage sums restart from zero.
+  template <class Hook>
   __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
                                             const uint32_t (&al)[NF],
-                                            Inject& inj) {
+                                            Hook& hook) {
     const int s = st % T::STAGES, t0 = st * T::KK;
     const uint64_t dh = smem_desc(sm.b(s)), dl = smem_desc(sm.blo(s));
     wgmma_fence();
-    if (!inj.within(st)) {
+    if (!hook.within(st)) {
 #pragma unroll
-      for (int kk = 0; kk < T::KK; ++kk) mma3(ah, al, kk, dh, dl, kk == 0);
+      for (int kk = 0; kk < T::KK; ++kk) mma3(ah, al, kk, dh, dl, kk == 0, s);
     } else {
 #pragma unroll
       for (int kk = 0; kk < T::KK; ++kk) {
-        const bool fault = inj.at(t0 + kk);
+        const bool fault = hook.at(t0 + kk);
         if (fault) {
           if (kk > 0) {
             wgmma_commit();
             wgmma_wait_all();
             promote();
           }
-          inj.apply(*this, t0 + kk);
+          hook.apply(*this, t0 + kk);
           wgmma_fence();
         }
-        mma3(ah, al, kk, dh, dl, kk == 0 || fault);
+        mma3(ah, al, kk, dh, dl, kk == 0 || fault, s);
+        if (hook.check_after(t0 + kk)) {
+          wgmma_commit();
+          wgmma_wait_all();
+          promote_clear();
+          hook.check(*this);
+          wgmma_fence();
+        }
       }
     }
     wgmma_commit();
@@ -489,12 +697,12 @@ struct WgMainloop {
 
   // Stage st on registers (ch, cl) while stage st + 1 is prepared into
   // (nh, nl); then add st's sum into acc and release st's slot.
-  template <class Inject>
-  __device__ __forceinline__ void step(int st, int nst, Inject& inj,
+  template <class Hook>
+  __device__ __forceinline__ void step(int st, int nst, Hook& hook,
                                        const uint32_t (&ch)[NF],
                                        const uint32_t (&cl)[NF],
                                        uint32_t (&nh)[NF], uint32_t (&nl)[NF]) {
-    mma_stage(st, ch, cl, inj);
+    mma_stage(st, ch, cl, hook);
     if (st + 1 < nst) prepare(st + 1, nh, nl);
     wgmma_wait_all();
     promote();
@@ -502,23 +710,26 @@ struct WgMainloop {
   }
 
   // The whole K loop: nst stages.
-  template <class Inject>
-  __device__ __forceinline__ void run(int nst, Inject& inj) {
+  template <class Hook>
+  __device__ __forceinline__ void run(int nst, Hook& hook) {
     uint32_t h0[NF], l0[NF], h1[NF], l1[NF];
     prepare(0, h0, l0);
     for (int st = 0; st < nst; st += 2) {
-      step(st, nst, inj, h0, l0, h1, l1);
-      if (st + 1 < nst) step(st + 1, nst, inj, h1, l1, h0, l0);
+      step(st, nst, hook, h0, l0, h1, l1);
+      if (st + 1 < nst) step(st + 1, nst, hook, h1, l1, h0, l0);
     }
   }
 
   // out = alpha * acc + beta * C for this CTA's tile, a float2 per
-  // column pair (out never aliases C).
+  // column pair (out never aliases C); with MASK only the rows below M and
+  // columns below N (a CTA larger than the padded operands).
+  template <bool MASK = false>
   __device__ __forceinline__ void store(float* out, const float* C, int N,
                                         int m0, int n0, float alpha,
-                                        float beta) const {
+                                        float beta, int M = 0) const {
 #pragma unroll
     for (int i = 0; i < T::NACC; i += 2) {
+      if (MASK && (m0 + row(i) >= M || n0 + col(i) >= N)) continue;
       const size_t o = (size_t)(m0 + row(i)) * N + n0 + col(i);
       const float2 c = *reinterpret_cast<const float2*>(C + o);
       *reinterpret_cast<float2*>(out + o) = make_float2(

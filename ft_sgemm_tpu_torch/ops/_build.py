@@ -127,23 +127,36 @@ def compiled_layouts() -> frozenset:
         r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", macro.group(1)))
 
 
+def _tile_list(macro: str) -> frozenset:
+    """The (bm, bn) pairs of the X-macro ``macro`` in ``csrc/gemm_wgmma.cuh``."""
+    text = (CSRC / "gemm_wgmma.cuh").read_text()
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", text, re.S)
+    return frozenset(tuple(map(int, x)) for x in re.findall(
+        r"X\((\d+), (\d+)\)", body.group(1)))
+
+
 @functools.lru_cache(maxsize=1)
 def wgmma_tiles() -> frozenset:
-    """The (bm, bn) tiles on which B1 and B2 run the 3xTF32 wgmma mainloop,
-    read from ``FTSG_FOR_EACH_WGMMA_TILE`` in ``csrc/gemm_wgmma.cuh``; B1
-    and B2 run the FFMA mainloop on the other tiles, B3-B8 on all."""
-    text = (CSRC / "gemm_wgmma.cuh").read_text()
-    macro = re.search(r"#define FTSG_FOR_EACH_WGMMA_TILE\(X\)(.*?)\n", text)
-    return frozenset(tuple(map(int, x)) for x in re.findall(
-        r"X\((\d+), (\d+)\)", macro.group(1)))
+    """The (bm, bn) tiles on which B1 and B2 run the 3xTF32 wgmma mainloop
+    (``FTSG_FOR_EACH_WGMMA_TILE``); they run the FFMA mainloop on the
+    other tiles."""
+    return _tile_list("FTSG_FOR_EACH_WGMMA_TILE")
+
+
+@functools.lru_cache(maxsize=1)
+def subtiles() -> frozenset:
+    """The (bm, bn) tiles on which B5 and B6 run: sub-tiles of one 128 x 128
+    3xTF32 wgmma CTA (``FTSG_FOR_EACH_SUBTILE``)."""
+    return _tile_list("FTSG_FOR_EACH_SUBTILE")
 
 
 def mainloop(kind: str, shape) -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"`` or
-    ``"ffma"``."""
-    wgmma = (kind in ("sgemm", "precomp")
-             and (shape.bm, shape.bn) in wgmma_tiles())
+    ``"ffma"`` (B3, B4, B7, B8 at every tile)."""
+    tile = (shape.bm, shape.bn)
+    wgmma = ((kind in ("sgemm", "precomp") and tile in wgmma_tiles())
+             or (kind in ("running", "fused") and tile in subtiles()))
     return "wgmma-3xtf32" if wgmma else "ffma"
 
 

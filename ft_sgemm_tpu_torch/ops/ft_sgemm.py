@@ -1,6 +1,9 @@
 """Fused online-ABFT SGEMM: kernels B2, B5 (``csrc/ft_sgemm_weighted.cu``),
 B3 (``csrc/ft_sgemm_rowcol.cu``), B4, B8 (``csrc/ft_sgemm_global.cu``) and
-B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16.
+B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B5 and B6 run
+one 128 x 128 CTA over the paper's (bm, bn) tile as sub-tiles
+(``csrc/ft_sgemm_running.cuh``): the grids, cadence and fault placement
+stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32 with static thresholds.
 Each kernel encodes, accumulates, injects, detects and corrects inside one
@@ -30,8 +33,8 @@ the wrapper, as XLA ops in the reference) instead of summing the staged
 operand chunks in the kernel: B6 (weighted / fused), B7 (rowcol) and B8
 (global). On the TPU those rows were appended to the operand blocks so one
 MXU dot yielded the product and the checksums; on Hopper the kernels stage
-them beside each K chunk, which removes the in-kernel column reductions
-and their barrier.
+them beside each K chunk (B6: as one more TMA box of each pipeline stage),
+which removes the in-kernel column reductions and their barrier.
 
 Beside each kernel wrapper is its plain PyTorch version, which follows the
 tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,

@@ -1,16 +1,20 @@
-"""3xTF32 on the CPU: the arithmetic of B1 and B2 at the wgmma tiles.
+"""3xTF32 on the CPU: the arithmetic of the wgmma kernels.
 
-At the large, tall, huge and test tiles, ``csrc/gemm_wgmma.cuh`` computes
-the FP32 product on the tensor cores: each operand is split into two TF32
-numbers, ``x = hi + lo``, and every 8-deep k step adds ``a_lo b_hi``,
-``a_hi b_lo`` and ``a_hi b_hi`` into a stage sum that is added to the f32
-accumulator once per 32-column stage (or at a fault, before the fault).
-The helpers here repeat that arithmetic in PyTorch so that the CPU tests
-can hold it against the JAX package, and mirror the wgmma accumulator's
-fragment map. Nothing on the main path calls them: the kernels' plain
-versions stay FP32 products (``ops/sgemm.sgemm_plain``,
+B1 and B2 at the large, tall, huge and test tiles, and B5 and B6 at every
+tile, run ``csrc/gemm_wgmma.cuh``, which computes the FP32 product on the
+tensor cores: each operand is split into two TF32 numbers, ``x = hi +
+lo``, and every 8-deep k step adds ``a_lo b_hi``, ``a_hi b_lo`` and ``a_hi
+b_hi`` into a stage sum that is added to the f32 accumulator once per
+32-column stage (or at a fault, before the fault; or at a check, before
+the check). B5 and B6 form their expected moments the same way, ``E = B .
+M^T`` from the split moment rows. The helpers here repeat that arithmetic
+in PyTorch so that the CPU tests can hold it against the JAX package, and
+mirror the fragment maps: the accumulator's, its sub-tiles' (B5 and B6
+check the paper's tile as a sub-tile of one 128 x 128 CTA) and the
+expected-moment product's. Nothing on the main path calls them: the
+kernels' plain versions stay FP32 (``ops/sgemm.sgemm_plain``,
 ``ops/ft_sgemm.ft_weighted_plain``), since 3xTF32 is how the kernel
-computes the FP32 product, not another function.
+computes the FP32 function, not another function.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32
 
 KK = 8       # K depth of one tf32 wgmma
 STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
+CTA = 128    # rows and columns of B5's and B6's CTA
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -111,3 +116,89 @@ def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
     row = 64 * g + 16 * w + l // 4 + 8 * (i // 2 % 2)
     col = 8 * (i // 4) + 2 * (l % 4) + i % 2
     return torch.stack(torch.broadcast_tensors(row, col), -1)
+
+
+def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
+                      moments=None):
+    """B5 (``moments`` None: A's moment sums of each tile, formed in the
+    kernel) and B6 (``moments``: A's (gm, 3, K) moment rows) on padded
+    operands, as the wgmma kernel computes them: per 8-column k step the
+    3xTF32 product into the stage sum and the 3xTF32 expected moments
+    ``B_tile . M^T`` into theirs, both promoted at every 32-column stage
+    end, before a fault (``_inject_plain`` at the first k step of its bk
+    step) and before a check (after the last k step of every
+    ``check_every``-th bk step and of the last, also inside a stage); each
+    check is ``_moment_detect_correct``. Returns (out, det, unc) like
+    ``ops/ft_sgemm.ft_weighted_plain``."""
+    strict_fp32()
+    a4, b4, c4, nk = ft._tiles(a, b, c, shape)
+    gm, gn, bm, bn = c4.shape
+    if moments is None:
+        moments = ft._tile_moments(a, bm)
+    (ah, al), (bh, bl) = split(a4.reshape(gm, bm, -1)), split(b4.reshape(gn, bn, -1))
+    mh, ml = split(moments)
+    cps, nk8 = shape.bk // KK, a.shape[1] // KK
+    faults = _fault_steps(scalars, nk)
+    thresholds = [float(t) for t in scalars[4:7]]
+    acc, part = torch.zeros_like(c4), torch.zeros_like(c4)
+    exp = torch.zeros((gm, gn, 3, bn), device=a.device)
+    part_e = torch.zeros_like(exp)
+    det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
+    unc = torch.zeros_like(det)
+
+    def promote():
+        acc.add_(part)
+        exp.add_(part_e)
+        part.zero_()
+        part_e.zero_()
+
+    for t in range(nk8):
+        if t % cps == 0 and t // cps in faults:
+            promote()
+            ft._inject_plain(acc, scalars, t // cps)
+        cols = slice(t * KK, (t + 1) * KK)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part += torch.einsum("imk,jnk->ijmn", x[..., cols], y[..., cols])
+        for x, y in ((bl, mh), (bh, ml), (bh, mh)):
+            part_e += torch.einsum("jnk,ivk->ijvn", x[..., cols], y[..., cols])
+        s = (t + 1) // cps - 1   # the bk step that k step t ends, if any
+        if (t + 1) % cps == 0 and ((s + 1) % check_every == 0 or s == nk - 1):
+            promote()
+            corrected, hits, bad = ft._moment_detect_correct(
+                acc, *exp.unbind(2), thresholds)
+            acc.copy_(corrected)
+            det += hits.to(torch.int32)
+            unc = bad.to(torch.int32)
+        if (t + 1) % (STAGE // KK) == 0 or t == nk8 - 1:
+            promote()
+    return ft._untile(alpha * acc + beta * c4), det, unc
+
+
+def subtile_fragment_map(sbm: int, sbn: int) -> torch.Tensor:
+    """(256, 64, 4): for accumulator element i of consumer thread t of B5's
+    and B6's 128 x 128 CTA, its sub-tile (row band, column band) and its
+    row and column inside that (sbm, sbn) sub-tile; the check's weight is
+    the row inside the sub-tile + 1 (``RunHook::check``)."""
+    rc = wgmma_fragment_map(CTA, CTA)
+    row, col = rc[..., 0], rc[..., 1]
+    return torch.stack((row // sbm, col // sbn, row % sbm, col % sbn), -1)
+
+
+def moment_rows(sbm: int) -> int:
+    """R, the moment rows of B5's and B6's CTA: three per sub-tile row
+    band, padded to a multiple of 8 (``RunTileOf::R``)."""
+    return -(-3 * CTA // sbm // 8) * 8
+
+
+def moment_fragment_map(r: int) -> torch.Tensor:
+    """(256, r // 2, 2): the (B row, moment row) of element i of consumer
+    thread t's expected-moment accumulator, E = B_tile . M^T, the m64nRk8
+    product whose 64 rows are warpgroup g's rows 64 g .. of B's stage: the
+    accumulator's map with B's row for the tile row and the moment row for
+    the column; the check writes it transposed into shared memory."""
+    t = torch.arange(2 * 128)[:, None]
+    i = torch.arange(r // 2)[None, :]
+    g, w, l = t // 128, t // 32 % 4, t % 32
+    n = 64 * g + 16 * w + l // 4 + 8 * (i // 2 % 2)
+    m = 8 * (i // 4) + 2 * (l % 4) + i % 2
+    return torch.stack(torch.broadcast_tensors(n, m), -1)

@@ -3,9 +3,9 @@
 Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
 package: a ``git archive`` of a commit, or such a copy with one change.
 The script builds every tree's kernels at once, then times B1-B8 at
-M = N = K = 4096 on the huge, large, tall and small tiles, after checking
-each FT kernel's fault counts and output (B4 and B8, detect only: their
-event counts), and reports B1's largest error against a float64 product
+M = N = K = 4096 on the huge, large, tall, small, medium and wide tiles,
+after checking each FT kernel's fault counts and output (B4 and B8,
+detect only: their event counts), and reports B1's largest error against a float64 product
 at each tile beside cuBLAS FP32's (``torch.addmm``, TF32 off). Each tree
 is measured in a fresh process per turn, the turns running the trees in
 order and then reversed, so a drift of the card shows as a difference
@@ -15,7 +15,9 @@ the weighted strategy runs it (the small tile), else at four checks per
 run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
 B3 and B5 only. Needs nvcc and a CUDA device:
 
-    python3 scripts/torch_kernel_ab.py PARENT_TREE CHANGED_TREE [TREE ...]
+    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] PARENT_TREE CHANGED_TREE [TREE ...]
+
+``--tiles`` times only the named tiles.
 
 Prints the card's name and power limit, then one line per tree and turn:
 milliseconds per kernel and tile, and the ``err`` entries. A kernel whose
@@ -33,7 +35,7 @@ import sys
 import time
 
 SIZE = 4096
-TILES = ("huge", "large", "tall", "small")
+TILES = ("huge", "large", "tall", "small", "medium", "wide")
 # The kernels the (strategy, encode) pairs of this slice run.
 NEW_KERNELS = {"B4": ("global", "vpu"), "B6": ("fused", "mxu"),
                "B7": ("rowcol", "mxu"), "B8": ("global", "mxu")}
@@ -56,7 +58,7 @@ def build(tree: str) -> None:
     _build.build()
 
 
-def measure(tree: str) -> dict:
+def measure(tree: str, tiles=TILES) -> dict:
     """Milliseconds per launch of each kernel on each tile, in one tree."""
     _import_port(tree)
     import numpy as np
@@ -78,7 +80,7 @@ def measure(tree: str) -> dict:
     exact = a.double() @ b.double().T - 1.5 * c.double()
     row = {"err cublas": float((torch.addmm(c, a, b.T, beta=-1.5).double()
                                 - exact).abs().max())}
-    for name in TILES:
+    for name in tiles:
         sh = SHAPES[name]
         nk = SIZE // sh.bk
         inj = InjectionSpec.reference_like(SIZE, sh.bk)
@@ -123,8 +125,8 @@ def measure(tree: str) -> dict:
     return row
 
 
-def _run(mode: str, tree: str) -> subprocess.Popen:
-    return subprocess.Popen([sys.executable, __file__, mode, tree],
+def _run(mode: str, tree: str, *more) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, __file__, mode, tree, *more],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -133,9 +135,13 @@ def main(argv) -> int:
     if len(argv) == 3 and argv[1] == "--build":
         build(argv[2])
         return 0
-    if len(argv) == 3 and argv[1] == "--measure":
-        print(json.dumps(measure(argv[2])))
+    if len(argv) == 4 and argv[1] == "--measure":
+        print(json.dumps(measure(argv[2], argv[3].split(","))))
         return 0
+    tiles = TILES
+    if len(argv) > 1 and argv[1].startswith("--tiles="):
+        tiles = tuple(argv[1][len("--tiles="):].split(","))
+        argv = argv[:1] + argv[2:]
     trees = argv[1:]
     if not trees or any(t.startswith("--") for t in trees):
         print(__doc__)
@@ -152,7 +158,7 @@ def main(argv) -> int:
           flush=True)
     wrong = 0
     for tree in trees + trees[::-1]:
-        proc = _run("--measure", tree)
+        proc = _run("--measure", tree, ",".join(tiles))
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{tree}: measurement failed:\n{out}")
