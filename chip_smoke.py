@@ -2,16 +2,17 @@
 
 Builds the port's hand-written CUDA kernels from ``ft_sgemm_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (at every tile of
-the port's table, B5 and B6 also with checks inside a pipeline stage, and
-at every shape, cadence and multifault setting the paper's program gives it
+the port's table, B3-B6 also with checks inside a pipeline stage, and at
+every shape, cadence and multifault setting the paper's program gives it
 under every (strategy, encode) pair), holds the 3xTF32 wgmma kernels'
 accuracy against a float64 product and cuBLAS FP32 at 4096 and their clean
 checksum residuals 100x under the threshold, drives that ``ft_sgemm``
 program (verification at 4096 for ids 0-16 under the weighted
 and rowcol strategies and for ids 11-16 under global, fused, rowcol with
 encode mxu and global with encode mxu; the GFLOPS table at 2048 / 4096 /
-6144, and at 4096 for ids 11-16 under each of those four pairs) and shows
-through the kernels' launch counters that the program ran them. Prints one line per phase, a
+6144, and at 4096 for ids 11-16 under rowcol and each of those four
+pairs) and shows through the kernels' launch counters that the program
+ran them. Prints one line per phase, a
 ``kernels`` JSON line with each kernel's launches, error and times against
 its bound, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -45,8 +46,8 @@ TIMING_SIZE = 4096
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B5 and B6
-# run it at every tile).
+# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B3-B6 run it
+# at every tile).
 WGMMA_TILES = ("large", "tall", "huge")
 # A check cadence in bk steps that ends checks inside a 32-column stage.
 MID_STAGE_EVERY = 3
@@ -64,6 +65,9 @@ DETECT_ONLY = ("global", "global_mxu")
 # encodes from moment rows whatever --encode says.
 NEW_PAIRS = (("global", "vpu"), ("fused", "mxu"), ("rowcol", "mxu"),
              ("global", "mxu"))
+# The pairs whose ids 11-16 get a table of their own at 4096: every pair but
+# weighted, whose table runs at every size.
+TABLE_PAIRS = (("rowcol", "vpu"),) + NEW_PAIRS
 
 
 def log(msg: str) -> None:
@@ -217,7 +221,8 @@ def ptxas_summary(text: str):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
         dims = (re.search(r"LayoutI((?:Li\d+E){5})", fn)
                 or re.search(r"WgTileI((?:Li\d+E){5})", fn))
-        flag = re.search(r"EEL[bi](\d+)E", fn)
+        flag = (re.search(r"WgTileI(?:Li\d+E){7}Li(\d+)E", fn)
+                or re.search(r"EEL[bi](\d+)E", fn))
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
         tag = (",".join(re.findall(r"\d+", dims.group(1)))
@@ -261,7 +266,9 @@ def phase_kernels(kern: Kernels):
     program does not run it, and B5 and B6 besides, at four checks per run
     and (clean and reference-like) every MID_STAGE_EVERY bk steps (checks
     inside a 32-column stage), so that every tile sees intermediate
-    checks; both rowcol kernels with multifault off and on."""
+    checks; both rowcol kernels with multifault off and on; B3 (multifault
+    on) and B4 besides every MID_STAGE_EVERY bk steps, clean and
+    reference-like."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
@@ -297,7 +304,11 @@ def phase_kernels(kern: Kernels):
                     kern.hold("rowcol", shape, a, b, c, sc, cadence("rowcol"), mf)
                     kern.hold("rowcol_mxu", shape, a, b, c, sc,
                               cadence("rowcol"), mf)
+                for ce in sorted(mid):   # several faults an interval: multifault
+                    kern.hold("rowcol", shape, a, b, c, sc, ce, True)
                 kern.hold("global", shape, a, b, c, sc, cadence("global"))
+                for ce in sorted(mid):
+                    kern.hold("global", shape, a, b, c, sc, ce)
                 kern.hold("global_mxu", shape, a, b, c, sc, cadence("global"))
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
@@ -344,7 +355,7 @@ def phase_path_shapes(kern: Kernels):
     under the program's injection, on the verification's inputs at 4096
     under every (strategy, encode) pair, on the table's inputs at each of
     its sizes (weighted, as the table runs) and at 4096 under the pairs of
-    NEW_PAIRS. A launch that equals one already held (weighted with encode
+    TABLE_PAIRS. A launch that equals one already held (weighted with encode
     mxu runs fused's kernel at fused's cadence) is held once."""
     from ft_sgemm_tpu_torch import cli, runtime
     from ft_sgemm_tpu_torch.configs import ENCODE_MODES, KERNEL_TABLE, STRATEGIES, kernel_for_id
@@ -358,7 +369,7 @@ def phase_path_shapes(kern: Kernels):
     runs += [(size, "weighted", "vpu", cli._host_inputs(size))
              for size in range(PERF_SIZES[0], PERF_SIZES[1] + 1, PERF_SIZES[2])]
     table = cli._host_inputs(TIMING_SIZE)
-    runs += [(TIMING_SIZE, s, e, table) for s, e in NEW_PAIRS]
+    runs += [(TIMING_SIZE, s, e, table) for s, e in TABLE_PAIRS]
     seen = set()
     for size, strategy, encode, host in runs:
         for kid in sorted(KERNEL_TABLE):
@@ -383,7 +394,7 @@ def phase_path_shapes(kern: Kernels):
     log(f"phase path shapes: {done} comparisons with the plain versions pass"
         f" at {VERIFY_SIZE} (verification, every strategy and encode),"
         f" {PERF_SIZES[0]}..{PERF_SIZES[1]} (table) and {TIMING_SIZE}"
-        f" (table, {NEW_PAIRS}), max |dC| {kern.max_err}"
+        f" (table, {TABLE_PAIRS}), max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -391,7 +402,7 @@ def phase_main_path(kern: Kernels):
     """The ``ft_sgemm`` program: verification at 4096 (ids 0-16 under
     weighted and rowcol, ids 11-16 under each pair of NEW_PAIRS), the
     GFLOPS table (2048..6144, weighted) and the table at 4096 for ids
-    11-16 under each pair of NEW_PAIRS, with the launch counters read
+    11-16 under each pair of TABLE_PAIRS, with the launch counters read
     around it all. A correcting strategy passes with every fault detected
     and none left uncorrectable; the detect-only global strategy with
     every fault event detected (each uncorrected) and a clean run that
@@ -419,7 +430,7 @@ def phase_main_path(kern: Kernels):
                         for k, d in sorted(details.items())))
     tables = {("weighted", "vpu"): cli.run_perf_table(
         *PERF_SIZES, 0, 16, min_device_time=PERF_MINTIME)}
-    for strategy, encode in NEW_PAIRS:
+    for strategy, encode in TABLE_PAIRS:
         log(f"phase table {strategy}/{encode}: ids 11-16 at {TIMING_SIZE}")
         tables[strategy, encode] = cli.run_perf_table(
             TIMING_SIZE, TIMING_SIZE, 1, 11, 16, min_device_time=PERF_MINTIME,
@@ -489,12 +500,23 @@ def _bound(flops: float, nbytes: float, tc_products: float = 0.0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def tc_products(kind, shape, n):
+def tc_products(kind, shape, n, multifault=False):
     """The flops of ``work`` that a 3xTF32 wgmma kernel runs on the tensor
-    cores: the product and, for B5 and B6, the expected moments E = B_tile
-    . M^T (3 moment rows per row tile: 2 * N * K * 3 M / bm)."""
+    cores: the product, and the expected sums that the function itself
+    needs and the kernel computes beside it as products. For B5 and B6 the
+    expected moments E = B_tile . M^T (3 moment rows per row tile: 2 * N *
+    K * 3 M / bm, ``work``'s running updates); for B3 the expected column
+    sums (1 row per row tile, 2 with multifault: 2 * N * K * M / bm each)
+    and the expected row sums, A times B's band sums (2 * M * K * N / bn),
+    which are ``work``'s r_exp and c_exp updates. B4 needs only one t_exp
+    FMA per tile and K column, which stays at the FP32 rate: its design's
+    8 extra product columns are more work than the function needs, so they
+    are not counted."""
     kind = SAME_FUNCTION.get(kind, kind)
-    return 2.0 * n ** 3 + (6.0 * n ** 3 / shape.bm if kind == "running" else 0.0)
+    return 2.0 * n ** 3 + {
+        "running": 6.0 * n ** 3 / shape.bm,
+        "rowcol": 2.0 * n ** 3 / shape.bn
+        + (4.0 if multifault else 2.0) * n ** 3 / shape.bm}.get(kind, 0.0)
 
 
 # Which (strategy, encode) runs each kernel kind, for the timing's plan.
@@ -516,6 +538,9 @@ TIMED = (("sgemm", "huge"), ("precomp", "huge"), ("rowcol", "huge"),
          ("precomp", "wide"),
          ("rowcol", "small"), ("global", "small"), ("rowcol_mxu", "small"),
          ("global_mxu", "small"))
+TIMED += tuple((kind, tile)
+               for kind in ("rowcol", "global", "rowcol_mxu", "global_mxu")
+               for tile in ("medium", "large", "tall", "wide"))
 
 
 def phase_timing(kern: Kernels, counts):
@@ -523,8 +548,8 @@ def phase_timing(kern: Kernels, counts):
     program gives it (``TIMED``): the kernel, its plain version,
     torch.addmm for the same alpha*A@B.T + beta*C, and the bound (3xTF32
     on the tensor cores where the kernel runs the wgmma mainloop, counting
-    B5's and B6's expected-moment product; else FFMA). Rows name their
-    mainloop and carry both bounds."""
+    the expected-sum products that run there, ``tc_products``; else FFMA).
+    Rows name their mainloop and carry both bounds."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -557,7 +582,7 @@ def phase_timing(kern: Kernels, counts):
             c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
         flops, nbytes = work(kind, shape, n, ce, mf)
         ffma_ms, ffma_by = _bound(flops, nbytes)
-        tc_ms, tc_by = _bound(flops, nbytes, tc_products(kind, shape, n))
+        tc_ms, tc_by = _bound(flops, nbytes, tc_products(kind, shape, n, mf))
         mainloop = _build.mainloop(kind, shape)
         wgmma = mainloop == "wgmma-3xtf32"
         bound_ms, bound_by = (tc_ms, tc_by) if wgmma else (ffma_ms, ffma_by)
@@ -584,11 +609,13 @@ def phase_residual(kern: Kernels, operands):
     is the accumulator), which must stay RESIDUAL_MARGIN times under the
     threshold: the f32 column moments of B2's (huge) and B5's and B6's
     (small, huge) accumulators against the torch.matmul expectations, and
-    each tile's total of the global kernel's accumulator against t_exp =
-    s_a . s_b from the moment rows. B5 and B6 also run clean with the
-    threshold cut RESIDUAL_MARGIN times: their in-kernel residuals (E from
-    the expected-moment product against the accumulator's moments) must
-    flag nothing."""
+    B3's (small, huge) row and column sums against A . s_b and the plain
+    expected column checksums; and each tile's total of B4's accumulator
+    (small, huge) against t_exp = s_a . s_b from the moment rows. B3, B5 and
+    B6 also run clean with the threshold cut RESIDUAL_MARGIN times: their
+    in-kernel residuals (the expected sums from the tensor-core products
+    against the accumulator's sums) must flag nothing; B4 flags nothing at
+    the threshold."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -635,25 +662,53 @@ def phase_residual(kern: Kernels, operands):
                     f" above {limit:g} ({int(tdet.sum())} flagged)")
         worst[f"{KIND_NAMES[kind]} {tile}"] = moments_residual(acc, expm,
                                                                shape.bm)
-    a, b, _ = operands["huge"]
-    _, ce, _ = ft._plan("global", None, None, InjectionSpec.none(),
-                        n // huge.bk, huge.bn)
-    gacc, gdet, _ = ft.ft_global_kernel(a, b, zero, huge, 1.0, 0.0, clean, ce)
-    ma, mb = (ft._tile_moments(x, bt, 1)[:, 0]
-              for x, bt in ((a, huge.bm), (b, huge.bn)))
-    t_exp = ma @ mb.T
-    totals = gacc.reshape(n // huge.bm, huge.bm, n // huge.bn, huge.bn).sum((1, 3))
-    worst_global = float((t_exp - totals).abs().max())
-    if faults or int(gdet.sum()):
+    # B3: the row sums against A . s_b (B's band sums) and the column sums
+    # against the plain expected column checksums; clean, nothing flags, also
+    # at the cut threshold.
+    for tile in ("small", "huge"):
+        shape = SHAPES[tile]
+        a, b, _ = operands[tile]
+        _, ce, mf = ft._plan("rowcol", None, None, InjectionSpec.none(),
+                             n // shape.bk, shape.bn)
+        for sc in (clean, tight):
+            acc, det, unc = ft.ft_rowcol_kernel(a, b, zero, shape, 1.0, 0.0,
+                                                sc, ce, mf)
+            if int(det.sum()) or int(unc.sum()):
+                raise AssertionError(
+                    f"ft_sgemm_rowcol {tile}: a clean run flagged"
+                    f" {int(det.sum())} at threshold {float(sc[4]):g}")
+        r_exp = a @ ft._tile_moments(b, shape.bn, 1)[:, 0].T
+        c_exp = ft._expected_col_checksums(a, b, shape.bm)[:, 0]
+        worst[f"ft_sgemm_rowcol {tile} (rows, columns)"] = [
+            float((r_exp - acc.reshape(n, -1, shape.bn).sum(-1)).abs().max()),
+            float((c_exp - acc.reshape(-1, shape.bm, n).sum(1)).abs().max())]
+    # B4: each tile's total against t_exp = s_a . s_b from the moment rows.
+    worst_global = {}
+    for tile in ("small", "huge"):
+        shape = SHAPES[tile]
+        a, b, _ = operands[tile]
+        _, ce, _ = ft._plan("global", None, None, InjectionSpec.none(),
+                            n // shape.bk, shape.bn)
+        gacc, gdet, _ = ft.ft_global_kernel(a, b, zero, shape, 1.0, 0.0, clean,
+                                            ce)
+        faults += int(gdet.sum())
+        ma, mb = (ft._tile_moments(x, bt, 1)[:, 0]
+                  for x, bt in ((a, shape.bm), (b, shape.bn)))
+        t_exp = ma @ mb.T
+        totals = gacc.reshape(n // shape.bm, shape.bm, n // shape.bn,
+                              shape.bn).sum((1, 3))
+        worst_global[tile] = (float((t_exp - totals).abs().max()),
+                              float(t_exp.abs().max()))
+    if faults:
         raise AssertionError("a clean run reported faults")
-    log(f"phase residual: worst clean residual at {n} (moments 1, w, w^2;"
-        f" {_build.mainloop('precomp', huge)} at huge, every B5 / B6 tile"
-        f" wgmma): {worst}, global (huge, tile total, |t_exp| up to"
-        f" {float(t_exp.abs().max()):.1f}): {worst_global}; threshold 9500;"
-        f" B5 and B6 flag nothing at threshold {limit:g}")
+    log(f"phase residual: worst clean residual at {n} (weighted: moments 1,"
+        f" w, w^2; rowcol: rows, columns; {_build.mainloop('precomp', huge)}"
+        f" at huge, every B3-B6 tile wgmma): {worst}; global (tile total,"
+        f" largest |t_exp|): {worst_global}; threshold 9500; B3, B5 and B6"
+        f" flag nothing at threshold {limit:g}")
     bad = {k: v for k, v in worst.items() if max(v) > limit}
     if bad:
-        raise AssertionError(f"clean weighted residuals {bad} are not"
+        raise AssertionError(f"clean residuals {bad} are not"
                              f" {RESIDUAL_MARGIN:g}x under the threshold")
 
 

@@ -1,6 +1,5 @@
 // Device functions shared by the fused-ABFT kernels (ft_sgemm_weighted.cu,
-// ft_sgemm_rowcol.cu, ft_sgemm_global.cu, ft_sgemm_aug.cu,
-// ft_sgemm_running.cuh), written once.
+// ft_sgemm_global.cu, ft_sgemm_aug.cu, ft_sgemm_running.cuh), written once.
 // Each is the Hopper form of one JAX device function in
 // ft_sgemm_tpu/ops/ft_sgemm.py:
 //
@@ -10,10 +9,9 @@
 //                              paper's design (code_gen.py:219-226, 352-424)
 //   weighted_localize       <- _weighted_localize      (:498-513)
 //   Encoder                 <- the per-K-step checksum encode of
-//                              _ft_kernel_rowcol / _ft_kernel_global
-//                              (sums), and of their mxu forms from staged
-//                              moment rows (update); B5 and B6 encode on
-//                              the tensor cores (ft_sgemm_running.cuh)
+//                              _ft_kernel_rowcol_mxu from staged moment
+//                              rows; B3-B6 encode on the tensor cores
+//                              (ft_sgemm_running.cuh)
 //   moment_detect_correct   <- _moment_detect_correct  (:287-339)
 //   rowcol_detect_correct   <- _rowcol_detect_correct  (:406-495)
 //   EPS8                    <- _correction_pads         (:342-357)
@@ -161,64 +159,20 @@ __device__ __forceinline__ int weighted_localize(float res_c, float res_cw,
   return det ? __float2int_rn(res_cw / res_c) - 1 : -1;
 }
 
-// Per-chunk checksum encode from the staged chunk. NMOM A-side column
-// moments s_a (weights 1, w, w^2 with w = row + 1) give the expected column
-// checksums c[v][n] += sum_k B[n, k] * s_a[v][k]; with ROWS, the B-side sum
-// s_b gives the expected row checksum r[m] += sum_k A[m, k] * s_b[k].
-// Thread t holds row t's r and column t's c[]. `sums` forms s_a and s_b
-// from the staged chunk (the vpu encode); the mxu kernels instead pass the
-// chunk's staged moment rows straight to `update`, with no reduction and no
-// barrier.
+// Per-chunk checksum encode of the mxu kernels (B7) from the chunk's staged
+// moment rows: NMOM A-side column moments s_a (weights 1, w, w^2 with w =
+// row + 1) give the expected column checksums c[v][n] += sum_k B[n, k] *
+// s_a[v][k]; with ROWS, the B-side sum s_b gives the expected row checksum
+// r[m] += sum_k A[m, k] * s_b[k]. Thread t holds row t's r and column t's
+// c[]. No reduction and no barrier.
 template <class L, int NMOM, bool ROWS>
 struct Encoder {
-  struct Smem {
-    float sa[NMOM][L::KS];
-    float sb[L::KS];
-  };
   float r = 0.f;
   float c[NMOM];
 
   __device__ __forceinline__ Encoder() {
 #pragma unroll
     for (int v = 0; v < NMOM; ++v) c[v] = 0.f;
-  }
-
-  // One job per (vector, chunk column): JOBS column sums per chunk, each
-  // spread over G adjacent lanes (a power of two, at most a warp, with
-  // JOBS * G <= NT) so that all of them finish in one pass of the CTA.
-  static constexpr int JOBS = (NMOM + (ROWS ? 1 : 0)) * L::KS;
-  static constexpr int lanes_per_job() {
-    int g = 1;
-    while (2 * g <= 32 && 2 * g * JOBS <= L::NT) g *= 2;
-    return g;
-  }
-  static constexpr int G = lanes_per_job();
-  static_assert(JOBS <= L::NT, "one pass needs a thread per job");
-
-  // es.sa / es.sb of the chunk in buffer `buf`, ending with a barrier.
-  static __device__ __forceinline__ void sums(const Stage<L>& st, int buf,
-                                              Smem& es) {
-    const int job = threadIdx.x / G, g = threadIdx.x % G;
-    const int v = job / L::KS, kk = job % L::KS;
-    float s = 0.f;
-    if (job < JOBS) {
-      if (v == NMOM) {
-        for (int n = g; n < L::BN; n += G) s += st.Bs[buf][kk][n];
-      } else {
-        for (int m = g; m < L::BM; m += G) {
-          const float w = (float)(m + 1);
-          const float x = st.As[buf][kk][m];
-          s += v == 0 ? x : (v == 1 ? w * x : (w * w) * x);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (job < JOBS && g == 0) {
-      if (v == NMOM) es.sb[kk] = s;
-      else es.sa[v][kk] = s;
-    }
-    __syncthreads();
   }
 
   // r and c[] from the chunk in buffer `buf` and its sums sa[v][kk], sb[kk]
@@ -239,12 +193,6 @@ struct Encoder {
         for (int v = 0; v < NMOM; ++v) c[v] = fmaf(b, sa[v][kk], c[v]);
       }
     }
-  }
-
-  __device__ __forceinline__ void chunk(const Stage<L>& st, int buf,
-                                        Smem& es) {
-    sums(st, buf, es);
-    update(st, buf, es.sa, es.sb);
   }
 };
 

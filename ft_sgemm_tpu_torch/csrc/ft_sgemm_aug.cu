@@ -88,7 +88,7 @@ extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
                              int mr, int nr, int bk, int check_every,
                              float alpha, float beta, const float* scalars,
                              void* stream) {
-  return ftsg::launch_running<ftsg::kLoadRows>(
+  return ftsg::launch_running<ftsg::WeightedOf<ftsg::kLoadRows>::At>(
       A, B, C, MA, out, det, unc, M, N, K, bm, bn, bk, check_every, alpha,
       beta, scalars, (cudaStream_t)stream);
 }

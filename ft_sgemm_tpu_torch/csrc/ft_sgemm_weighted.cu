@@ -248,7 +248,7 @@ extern "C" int ftsg_ft_weighted_running(
     int* unc, int M, int N, int K, int bm, int bn, int ks, int mr, int nr,
     int bk, int check_every, float alpha, float beta, const float* scalars,
     void* stream) {
-  return ftsg::launch_running<ftsg::kSumRows>(
+  return ftsg::launch_running<ftsg::WeightedOf<ftsg::kSumRows>::At>(
       A, B, C, nullptr, out, det, unc, M, N, K, bm, bn, bk, check_every,
       alpha, beta, scalars, (cudaStream_t)stream);
 }

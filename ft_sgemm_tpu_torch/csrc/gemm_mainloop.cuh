@@ -1,6 +1,6 @@
-// Register-tiled FFMA mainloop shared by the port's GEMM kernels (sgemm.cu,
-// ft_sgemm_weighted.cu, ft_sgemm_rowcol.cu, ft_sgemm_global.cu,
-// ft_sgemm_aug.cu).
+// Register-tiled FFMA mainloop shared by the port's FFMA kernels: B1 and B2
+// at the small, medium and wide tiles (sgemm.cu, ft_sgemm_weighted.cu), B7
+// (ft_sgemm_aug.cu) and B8 (ft_sgemm_global.cu).
 //
 // One CTA computes one (BM, BN) output tile of C = alpha * A @ B^T + beta * C
 // with A (M, K) and B (N, K) row-major, all dimensions already zero-padded

@@ -1,10 +1,10 @@
 // Hopper mainloop of the 3xTF32 wgmma kernels: B1 (sgemm.cu) and B2
 // (ft_sgemm_weighted.cu) at the tiles whose rows fill wgmma's 64-row
 // granularity, large (64 x 64), tall (128 x 32), huge (128 x 128) and test
-// (huge with bk = 128); and B5 and B6 (ft_sgemm_running.cuh) at every tile,
-// on one 128 x 128 CTA whose (SBM, SBN) sub-tiles are the paper's tile, the
-// granularity of their checks. The narrower B1 / B2 tiles, and B3, B4, B7,
-// B8, keep the FFMA mainloop of gemm_mainloop.cuh.
+// (huge with bk = 128); and B3-B6 (ft_sgemm_running.cuh) at every tile, on
+// one 128 x 128 CTA whose (SBM, SBN) sub-tiles are the paper's tile, the
+// granularity of their checks. The narrower B1 / B2 tiles, and B7 and B8,
+// keep the FFMA mainloop of gemm_mainloop.cuh.
 //
 // One CTA computes one (BM, BN) tile of C = alpha * A @ B^T + beta * C with
 // A (M, K) and B (N, K) row-major: both K-major, the layout wgmma requires
@@ -34,20 +34,28 @@
 // registers). While stage s's wgmmas run, the consumers split stage s + 1's
 // A into the other register set.
 //
-// Expected moments (R > 0): the R = 3 * BM / SBM rows of column moments
-// (weights 1, w, w^2, w = row within the sub-tile + 1) of each sub-tile row
-// band of A, padded to a multiple of 8, ride each stage (loaded by TMA for
-// B6, summed from A's landed stage by the splitter warps for B5) and are
-// split hi / lo like B. A second accumulator takes E = B_tile . M^T, one
-// m64nRk8 wgmma per term with both operands in shared memory (B's stage
-// as the A operand), with the same 3xTF32 terms and per-stage promotion as
-// the product, so both sides of a check's residual carry the same
-// precision.
+// Expected column sums (R > 0): the MOM * BM / SBM rows of column moments
+// (weights 1, w, w^2 up to MOM, w = row within the sub-tile + 1) of each
+// sub-tile row band of A, padded to R, a multiple of 8, ride each stage
+// (loaded by TMA for B6, summed from A's landed stage by the splitter warps
+// for B5 and B3) and are split hi / lo like B. A second accumulator takes
+// E = B_tile . M^T, one m64nRk8 wgmma per term with both operands in shared
+// memory (B's stage as the A operand), with the same 3xTF32 terms and
+// per-stage promotion as the product, so both sides of a check's residual
+// carry the same precision.
+//
+// Expected row sums (XN = 8, B3 and B4): the splitter warps also write the
+// sums of B's rows over each sub-tile column band as 8 more rows of B's
+// stage (hi and lo, zero past the last band), and the product runs as
+// m64n(BN + 8)k8: its extra columns BN + j are A times band j's sums, each
+// row's expected sum over band j, from the same 3xTF32 terms and promotion
+// as the product they check.
 //
 // Accumulator: wgmma's m64nBN f32 fragment. Consumer thread (warpgroup g,
 // warp w of the group, lane l) holds element i at tile row 64g + 16w + l/4
 // + 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (l % 4) + i % 2 (row(),
-// col(); ops/tf32x3.wgmma_fragment_map mirrors the map for the CPU tests).
+// col(); ops/tf32x3.wgmma_fragment_map mirrors the map for the CPU tests);
+// the extra columns follow the same map, at elements NACC ...
 // E's fragment has the same map with B's row for the tile row and the
 // moment row for the column (ops/tf32x3.moment_fragment_map). The FT hooks
 // use those maps and keep their logic.
@@ -57,6 +65,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace ftsg {
@@ -74,20 +83,38 @@ constexpr bool wgmma_tile() {
   return false;
 }
 
-// The (SBM, SBN) sub-tiles of the 128 x 128 CTA on which B5 and B6 run,
-// the paper's tiles; ops/_build.subtiles reads this list.
+// The (SBM, SBN) sub-tiles of the 128 x 128 CTA on which B3-B6 run, the
+// paper's tiles; ops/_build.subtiles reads this list.
 #define FTSG_FOR_EACH_SUBTILE(X) \
   X(16, 16) X(32, 32) X(64, 64) X(128, 32) X(32, 128) X(128, 128)
 
-// A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with R moment rows per
-// stage (0: none, B1 and B2) and CHECK bytes of check scratch beside the
-// ring. The ring has four stages where they fit in the 232448 bytes of
-// shared memory a CTA may have, else three.
-template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int R_ = 0,
-          int CHECK_ = 0>
+// Where a stage's moment rows come from: none (B1, B2, B4), a TMA box of
+// the wrapper's (gm * 3, K) moment rows (B6), or sums over A's landed stage
+// by the splitter warps, one job per sub-tile row band and column after
+// B's split (B5: WgSmem::sum_rows) or in 8-row groups beside B's split
+// (B3: WgSmem::split_b). B5 on the 8-row groups ran 13-30 % slower at the
+// 16- to 64-row sub-tiles (PERF.md).
+enum MomentRows {
+  kNoRows = 0,
+  kLoadRows = 1,
+  kSumRows = 2,
+  kSumRowGroups = 3
+};
+
+// A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with MOM moment rows
+// per sub-tile row band in each stage (0: none, B1, B2, B4; padded to R, a
+// multiple of 8) from ROWS, CHECK bytes of check scratch beside the ring,
+// and XN = 8 extra product columns (0: none): B's column-band sums, so
+// that the product's columns BN .. BN + NBN - 1 are the expected row sums
+// of each band (B3, B4). The ring has four stages where they fit in the
+// 232448 bytes of shared memory a CTA may have, else three.
+template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int MOM_ = 0,
+          int CHECK_ = 0, int XN_ = 0, int ROWS_ = kNoRows>
 struct WgTile {
-  static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_, R = R_;
+  static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_;
   static constexpr int NBM = BM / SBM, NBN = BN / SBN, NSUB = NBM * NBN;
+  static constexpr int MOM = MOM_, R = (MOM * NBM + 7) / 8 * 8, XN = XN_;
+  static constexpr int ROWS = ROWS_;
   static constexpr int SK = 32;       // K columns per stage: one swizzle row
   static constexpr int KK = SK / 8;   // 8-deep wgmma steps per stage
   static constexpr int NWG = BM / 64;  // consumer warpgroups
@@ -105,24 +132,45 @@ struct WgTile {
     return (REGS + (REGS - producer) * 128 / NCONS) / 8 * 8;
   }
   static constexpr int REGS_CONSUMER = consumer_regs(REGS_PRODUCER);
-  static constexpr int NACC = BN / 2;  // accumulator floats per thread
+  static constexpr int NACC = BN / 2;  // product floats per thread
+  static constexpr int NACC_W = (BN + XN) / 2;  // with the extra columns
   static constexpr int NACC_E = R / 2;  // expected-moment floats per thread
-  static constexpr int A_BYTES = BM * SK * 4, B_BYTES = BN * SK * 4;
+  static constexpr int A_BYTES = BM * SK * 4;
+  static constexpr int B_BOX = BN * SK * 4;  // the TMA box of B
+  static constexpr int B_BYTES = (BN + XN) * SK * 4;
   static constexpr int M_BYTES = R * SK * 4;  // one buffer of moment rows
   static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES + 2 * M_BYTES;
   static constexpr int CHECK_BYTES = CHECK_;
-  // The ring, its 3 * stages mbarriers, the check scratch, and slack to
-  // align the ring to the 1024 bytes of the swizzle pattern.
-  static constexpr int smem(int stages) {
-    return stages * STAGE_BYTES + 24 * stages + CHECK_BYTES + 1024;
+  // The splitters' 8-row sums (WgSmem::split_b) of B (XN > 0) and of A's
+  // moments (ROWS == kSumRowGroups), rows of SK floats per stage.
+  static constexpr int PROD_ROWS =
+      (XN ? BN / 8 : 0) + (ROWS == kSumRowGroups ? MOM * BM / 8 : 0);
+  // The ring's 3 * stages mbarriers, padded to keep what follows 16-byte
+  // aligned (float4 stores).
+  static constexpr __host__ __device__ int bar_bytes(int stages) {
+    return (24 * stages + 15) / 16 * 16;
   }
-  static constexpr int STAGES = smem(4) <= 232448 ? 4 : 3;
-  static constexpr int SMEM = smem(STAGES);
+  // The ring, its mbarriers, `sets` stages of the splitters' scratch, the
+  // check scratch, and slack to align the ring to the 1024 bytes of the
+  // swizzle pattern.
+  static constexpr int smem(int stages, int sets) {
+    return stages * STAGE_BYTES + bar_bytes(stages) +
+           sets * PROD_ROWS * SK * 4 + CHECK_BYTES + 1024;
+  }
+  static constexpr int STAGES = smem(4, 1) <= 232448 ? 4 : 3;
+  // The scratch for two stages (by stage parity) where it fits beside the
+  // ring, else for one, and the splitters then meet once more per stage.
+  static constexpr int PROD_SETS = smem(STAGES, 2) <= 232448 ? 2 : 1;
+  static constexpr int PROD_BYTES = PROD_SETS * PROD_ROWS * SK * 4;
+  static constexpr int SMEM = smem(STAGES, PROD_SETS);
   static constexpr int SPLITTERS = 96;  // producer warps 1-3 split B
-  static_assert(BM % 64 == 0 && BN % 8 == 0 && BN <= 256, "m64nBNk8 tile");
+  static_assert(BM % 64 == 0 && BN % 8 == 0 && BN + XN <= 256,
+                "m64nBNk8 tile");
   static_assert(BM % SBM == 0 && BN % SBN == 0 && SBM % 16 == 0,
                 "sub-tiles of whole warp bands");
-  static_assert(R % 8 == 0 && R <= 24, "m64nRk8 expected-moment product");
+  static_assert(R <= 24, "m64nRk8 expected-moment product");
+  static_assert(XN == 0 || (XN == 8 && NBN <= 8 && SBN % 8 == 0),
+                "one extra column per column band");
   static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
   static_assert(B_BYTES % 1024 == 0 && M_BYTES % 1024 == 0,
                 "buffers keep the swizzle alignment");
@@ -326,6 +374,43 @@ struct Wgmma<128> {
   }
 };
 
+// The product widened by B's XN = 8 band-sum rows (B3, B4).
+template <>
+struct Wgmma<136> {
+  static __device__ __forceinline__ void run(float (&d)[68], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %73, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67}, "
+        "{%68, %69, %70, %71}, %72, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // d (m64 x N, f32) = A (m64 x k8) @ B^T (+ d when scale_d is 1), both
 // tf32 tiles in shared memory (descriptors a, b): the expected-moment
 // product E = B_tile . M^T, whose A operand is B's stage.
@@ -382,16 +467,13 @@ struct WgmmaSS<24> {
 
 extern __shared__ unsigned char ftsg_wg_smem[];
 
-// Where a stage's moment rows come from: none (B1, B2), a TMA box of the
-// wrapper's (gm * 3, K) moment rows (B6), or sums over A's landed stage
-// (B5).
-enum MomentRows { kNoRows = 0, kLoadRows = 1, kSumRows = 2 };
-
 // The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
-// A's box, B's box (hi after the split), B's lo and, with R > 0, the moment
-// rows' hi and lo; then the mbarriers: full(s) when TMA has landed the
-// stage, ready(s) when its B (and moment rows) are split, empty(s) when the
-// consumers are done with it; then the check scratch.
+// A's box, B's box (hi after the split; with XN > 0 followed by B's band
+// sums), B's lo (likewise) and, with R > 0, the moment rows' hi and lo;
+// then the mbarriers: full(s) when TMA has landed the stage, ready(s) when
+// its B (and moment rows) are split, empty(s) when the consumers are done
+// with it; then the splitters' scratch (16-byte aligned) and the check
+// scratch.
 template <class T>
 struct WgSmem {
   unsigned char* base;
@@ -424,7 +506,13 @@ struct WgSmem {
   __device__ __forceinline__ uint64_t* empty(int s) const {
     return full(2 * T::STAGES) + s;
   }
-  __device__ __forceinline__ void* check() const { return full(3 * T::STAGES); }
+  __device__ __forceinline__ float* prod() const {
+    return reinterpret_cast<float*>(base + T::STAGES * T::STAGE_BYTES +
+                                    T::bar_bytes(T::STAGES));
+  }
+  __device__ __forceinline__ void* check() const {
+    return reinterpret_cast<unsigned char*>(prod()) + T::PROD_BYTES;
+  }
 
   // Thread 0 initialises the barriers; the whole CTA waits for it.
   __device__ __forceinline__ void init() const {
@@ -494,13 +582,140 @@ struct WgSmem {
       hi[j] = lo[j] = 0.f;
   }
 
+  // B's stage s split like split4; with XN > 0 also its column-band sums
+  // (B3, B4) and, with ROWS == kSumRowGroups, A's row-band moment sums (B3).
+  // Row BN + j (j < NBN; the rest zero) of B's stage is the sum of the rows
+  // of column band j (of hi + lo, the value the product multiplies), split
+  // hi / lo in the same swizzled layout, so that the product's extra column
+  // BN + j is each row's expected sum over band j; moment row MOM b + v
+  // (the rest zero) is the sum of A's rows of row band b with weight w^v
+  // (w = row in the band + 1). A job takes 8 rows of one 4-column chunk of
+  // B (split, and summed with XN > 0) or of A (summed), a whole warp the
+  // same kind; the 8-row sums meet in the producer scratch after a named
+  // barrier over the splitter warps, and one job per output row and column
+  // adds a band's 8-row sums. The zero rows are written once per ring slot.
+  __device__ __forceinline__ void split_b(int st, int e) const {
+    const int s = st % T::STAGES;
+    constexpr bool SA = T::ROWS == kSumRowGroups;
+    if constexpr (T::XN == 0 && !SA) {
+      split4(b(s), blo(s), T::BN * T::SK / 4, e);
+    } else {
+      constexpr int G = T::BN / 8, GA = T::BM / 8;  // 8-row groups
+      float4* hi4 = reinterpret_cast<float4*>(b(s));
+      float4* lo4 = reinterpret_cast<float4*>(blo(s));
+      const float4* a4 = reinterpret_cast<const float4*>(a(s));
+      float* pb = prod() + (T::PROD_SETS == 2 ? st & 1 : 0) * T::PROD_ROWS *
+                               T::SK;
+      float* pa = pb + (T::XN ? G : 0) * T::SK;
+      // B's jobs 0 .. 8 G - 1 and A's 0 .. 8 GA - 1, alternating by warp.
+      static_assert(!SA || G == GA, "as many A jobs as B jobs");
+      constexpr int NJ = 8 * G + (SA ? 8 * GA : 0);
+      for (int job = e; job < NJ; job += T::SPLITTERS) {
+        const bool is_a = SA && ((job >> 5) & 1);
+        const int idx = SA ? ((job >> 6) << 5) | (job & 31) : job;
+        const int grp = idx / 8, c = idx % 8;  // rows 8 grp .., chunk c
+        if (!is_a) {
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int rr = 0; rr < 8; ++rr) {
+            const int o = (8 * grp + rr) * 8 + (c ^ rr);
+            const float4 v = hi4[o];
+            uint32_t h[4], l[4];
+            split_tf32(v.x, h[0], l[0]);
+            split_tf32(v.y, h[1], l[1]);
+            split_tf32(v.z, h[2], l[2]);
+            split_tf32(v.w, h[3], l[3]);
+            const float4 vh = make_float4(
+                __uint_as_float(h[0]), __uint_as_float(h[1]),
+                __uint_as_float(h[2]), __uint_as_float(h[3]));
+            const float4 vl = make_float4(
+                __uint_as_float(l[0]), __uint_as_float(l[1]),
+                __uint_as_float(l[2]), __uint_as_float(l[3]));
+            hi4[o] = vh;
+            lo4[o] = vl;
+            sum.x += vh.x + vl.x;
+            sum.y += vh.y + vl.y;
+            sum.z += vh.z + vl.z;
+            sum.w += vh.w + vl.w;
+          }
+          if constexpr (T::XN > 0)
+            reinterpret_cast<float4*>(pb)[grp * 8 + c] = sum;
+        } else if constexpr (SA) {
+          float4 sv[T::MOM];
+#pragma unroll
+          for (int v = 0; v < T::MOM; ++v)
+            sv[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int rr = 0; rr < 8; ++rr) {
+            const int n = 8 * grp + rr;
+            const float4 x = a4[n * 8 + (c ^ rr)];
+            const float w = (float)(n % T::SBM + 1);
+            float wv = 1.f;
+#pragma unroll
+            for (int v = 0; v < T::MOM; ++v) {
+              sv[v].x += wv * x.x;
+              sv[v].y += wv * x.y;
+              sv[v].z += wv * x.z;
+              sv[v].w += wv * x.w;
+              wv *= w;
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < T::MOM; ++v)
+            reinterpret_cast<float4*>(pa)[(v * GA + grp) * 8 + c] = sv[v];
+        }
+      }
+      asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+      constexpr int NB = T::XN ? T::NBN * T::SK : 0;
+      constexpr int NA = SA ? T::MOM * T::NBM * T::SK : 0;
+      for (int job = e; job < NB + NA; job += T::SPLITTERS) {
+        float sum = 0.f;
+        int n, k;
+        float *hi, *lo;
+        if (job < NB) {  // B's band sum j
+          const int j = job / T::SK;
+          k = job % T::SK;
+          n = T::BN + j;
+#pragma unroll
+          for (int g = 0; g < T::SBN / 8; ++g)
+            sum += pb[(j * (T::SBN / 8) + g) * T::SK + k];
+          hi = b(s);
+          lo = blo(s);
+        } else {  // A's moment row n = MOM b + v
+          n = (job - NB) / T::SK;
+          k = (job - NB) % T::SK;
+          const int band = n / T::MOM, v = n % T::MOM;
+#pragma unroll
+          for (int g = 0; g < T::SBM / 8; ++g)
+            sum += pa[((v * GA) + band * (T::SBM / 8) + g) * T::SK + k];
+          hi = mhi(s);
+          lo = mlo(s);
+        }
+        uint32_t h, l;
+        split_tf32(sum, h, l);
+        const int o = n * T::SK + (((k >> 2) ^ (n & 7)) << 2) + (k & 3);
+        hi[o] = __uint_as_float(h);
+        lo[o] = __uint_as_float(l);
+      }
+      if constexpr (T::PROD_SETS == 1)  // the scratch is read before reuse
+        asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+      if (st < T::STAGES) {  // the zero rows, never written otherwise
+        for (int z = (T::BN + T::NBN) * T::SK + e; z < (T::BN + T::XN) * T::SK;
+             z += T::SPLITTERS)
+          b(s)[z] = blo(s)[z] = 0.f;
+        for (int z = NA + e; z < T::R * T::SK; z += T::SPLITTERS)
+          mhi(s)[z] = mlo(s)[z] = 0.f;
+      }
+    }
+  }
+
   // The producer warpgroup, for nst stages of A's rows m0.., B's rows n0..
-  // and (ROWS == kLoadRows) the moment rows r0.. of tm: its first thread
+  // and (T::ROWS == kLoadRows) the moment rows r0.. of tm: its first thread
   // streams the TMA loads through the ring, each slot refilled once the
   // consumers released it; warps 1-3 split each landed stage's B (and
-  // moment rows, or form them: kSumRows), hi in place and lo into the
-  // second buffer, so the consumer warpgroups never wait for one another.
-  template <int ROWS = kNoRows>
+  // moment rows, or form them: kSumRows, kSumRowGroups), hi in place and lo
+  // into the second buffer, so the consumer warpgroups never wait for one
+  // another.
   __device__ __forceinline__ void produce(const CUtensorMap* ta,
                                           const CUtensorMap* tb, int m0,
                                           int n0, int nst,
@@ -511,21 +726,21 @@ struct WgSmem {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         if (st >= T::STAGES) mbar_wait(empty(s), (st / T::STAGES - 1) & 1);
-        mbar_expect_tx(full(s), T::A_BYTES + T::B_BYTES +
-                                    (ROWS == kLoadRows ? T::M_BYTES : 0));
+        mbar_expect_tx(full(s), T::A_BYTES + T::B_BOX +
+                                    (T::ROWS == kLoadRows ? T::M_BYTES : 0));
         tma_load(a(s), ta, full(s), st * T::SK, m0);
         tma_load(b(s), tb, full(s), st * T::SK, n0);
-        if constexpr (ROWS == kLoadRows)
+        if constexpr (T::ROWS == kLoadRows)
           tma_load(mhi(s), tm, full(s), st * T::SK, r0);
       }
     } else if (p >= 32) {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         mbar_wait(full(s), (st / T::STAGES) & 1);
-        split4(b(s), blo(s), T::BN * T::SK / 4, p - 32);
-        if constexpr (ROWS == kLoadRows)
+        split_b(st, p - 32);
+        if constexpr (T::ROWS == kLoadRows)
           split4(mhi(s), mlo(s), T::R * T::SK / 4, p - 32);
-        if constexpr (ROWS == kSumRows) sum_rows(s, p - 32);
+        if constexpr (T::ROWS == kSumRows) sum_rows(s, p - 32);
         fence_proxy_async();  // the split is visible to wgmma
         mbar_arrive(ready(s));
       }
@@ -535,6 +750,7 @@ struct WgSmem {
 
 // No fault injection and no check inside the K loop (B1).
 struct NoInject {
+  static constexpr bool kSegmented = false;
   __device__ __forceinline__ bool at(int) const { return false; }
   __device__ __forceinline__ bool within(int) const { return false; }
   __device__ __forceinline__ bool check_after(int) const { return false; }
@@ -551,16 +767,18 @@ struct NoInject {
 // `acc` with a rounded f32 add once the stage has landed. With R > 0 the
 // expected moments sum the same way, `part_e` into `acc_e`. `Hook` hooks
 // fault injection in before an 8-column k step t and a check after one:
-// at(t) and check_after(t) say whether either fires there and within(st)
-// whether either fires in stage st (the same for the whole CTA); apply(ml,
-// t) adds the fault to `acc` and check(ml) checks `acc` against `acc_e`,
-// each after every earlier product has landed and been added there.
+// at(t) and check_after(t) say whether either fires there, within(st)
+// whether either fires in stage st (the same for the whole CTA), and, for
+// a hook whose kSegmented is set, fault_step() and check_step() the next
+// such k steps (INT_MAX: none); apply(ml, t) adds the fault to `acc` and
+// check(ml) checks `acc` against `acc_e`, each after every earlier product
+// has landed and been added there.
 template <class T>
 struct WgMainloop {
   static constexpr int NF = 4 * T::KK;  // A fragment registers per stage
   static constexpr int NE = T::R > 0 ? T::NACC_E : 1;
-  float acc[T::NACC];
-  float part[T::NACC];  // this stage's wgmma sum
+  float acc[T::NACC_W];   // the product, then (XN > 0) its extra columns
+  float part[T::NACC_W];  // this stage's wgmma sum
   float acc_e[NE];      // expected moments E[row(i)][col(i)] (R > 0)
   float part_e[NE];
   WgSmem<T> sm;
@@ -570,7 +788,7 @@ struct WgMainloop {
       : sm(sm_), g(threadIdx.x / 128),
         w((threadIdx.x / 32) % 4), l(threadIdx.x % 32) {
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) acc[i] = part[i] = 0.f;
+    for (int i = 0; i < T::NACC_W; ++i) acc[i] = part[i] = 0.f;
     if constexpr (T::R > 0) {
 #pragma unroll
       for (int i = 0; i < NE; ++i) acc_e[i] = part_e[i] = 0.f;
@@ -590,7 +808,7 @@ struct WgMainloop {
   // the compiler from reading it earlier); add it into `acc`.
   __device__ __forceinline__ void promote() {
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) {
+    for (int i = 0; i < T::NACC_W; ++i) {
       asm volatile("" : "+f"(part[i])::"memory");
       acc[i] += part[i];
     }
@@ -607,7 +825,7 @@ struct WgMainloop {
   __device__ __forceinline__ void promote_clear() {
     promote();
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) part[i] = 0.f;
+    for (int i = 0; i < T::NACC_W; ++i) part[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NE; ++i) part_e[i] = 0.f;
   }
@@ -640,9 +858,9 @@ struct WgMainloop {
                                        const uint32_t (&al)[NF], int kk,
                                        uint64_t dh, uint64_t dl, bool fresh,
                                        int s) {
-    Wgmma<T::BN>::run(part, &al[4 * kk], dh + 2 * kk, fresh ? 0 : 1);
-    Wgmma<T::BN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
-    Wgmma<T::BN>::run(part, &ah[4 * kk], dh + 2 * kk, 1);
+    Wgmma<T::BN + T::XN>::run(part, &al[4 * kk], dh + 2 * kk, fresh ? 0 : 1);
+    Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
+    Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dh + 2 * kk, 1);
     if constexpr (T::R > 0) {
       const uint64_t bh = smem_desc(sm.b(s) + 64 * g * T::SK) + 2 * kk;
       const uint64_t bl = smem_desc(sm.blo(s) + 64 * g * T::SK) + 2 * kk;
@@ -658,7 +876,12 @@ struct WgMainloop {
   // ragged last stage multiplies TMA's zero fill. At a scheduled fault the
   // steps so far land and go into `acc` before the fault does; at a check,
   // the steps so far land and go into `acc` (and `acc_e`), then the check
-  // runs and the stage sums restart from zero.
+  // runs and the stage sums restart from zero. A hook that sets kSegmented
+  // (B3's and B4's checks, ~20 per run) has a stage with events issued in
+  // segments that each end at one, so that its large check is inlined once
+  // per call site of mma_stage and not once per k step (their kernels ran
+  // 0.5-0.8 ms faster); the other hooks keep the unrolled form, which
+  // segments made slower (B2 at the 64-row tiles 22-44 %; PERF.md).
   template <class Hook>
   __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
                                             const uint32_t (&al)[NF],
@@ -669,6 +892,42 @@ struct WgMainloop {
     if (!hook.within(st)) {
 #pragma unroll
       for (int kk = 0; kk < T::KK; ++kk) mma3(ah, al, kk, dh, dl, kk == 0, s);
+    } else if constexpr (Hook::kSegmented) {
+      int k0 = 0;          // the first k step not issued
+      bool fresh = false;  // k0 restarts the stage sum (after a fault)
+      for (;;) {
+        // The segment k0 .. k1: up to the step before the next fault or up
+        // to the next check, whichever comes first.
+        const int kf = min(hook.fault_step() - t0, T::KK);
+        const int kc = min(hook.check_step() - t0, T::KK);
+        const int k1 = min(kf - 1, kc);
+#pragma unroll
+        for (int kk = 0; kk < T::KK; ++kk)
+          if (kk >= k0 && kk <= k1)
+            mma3(ah, al, kk, dh, dl, kk == 0 || (kk == k0 && fresh), s);
+        if (k1 == kc && kc < T::KK) {
+          wgmma_commit();
+          wgmma_wait_all();
+          promote_clear();
+          hook.check(*this);
+          wgmma_fence();
+          k0 = kc + 1;
+          fresh = false;
+        } else if (kf < T::KK) {
+          if (kf > 0) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote();
+          }
+          hook.apply(*this, t0 + kf);
+          wgmma_fence();
+          k0 = kf;
+          fresh = true;
+        } else {
+          break;
+        }
+        if (k0 >= T::KK) break;
+      }
     } else {
 #pragma unroll
       for (int kk = 0; kk < T::KK; ++kk) {

@@ -1,7 +1,7 @@
 """Fused online-ABFT SGEMM: kernels B2, B5 (``csrc/ft_sgemm_weighted.cu``),
 B3 (``csrc/ft_sgemm_rowcol.cu``), B4, B8 (``csrc/ft_sgemm_global.cu``) and
-B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B5 and B6 run
-one 128 x 128 CTA over the paper's (bm, bn) tile as sub-tiles
+B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3, B4, B5 and
+B6 run one 128 x 128 CTA over the paper's (bm, bn) tile as sub-tiles
 (``csrc/ft_sgemm_running.cuh``): the grids, cadence and fault placement
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 

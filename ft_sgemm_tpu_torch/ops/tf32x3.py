@@ -1,20 +1,22 @@
 """3xTF32 on the CPU: the arithmetic of the wgmma kernels.
 
-B1 and B2 at the large, tall, huge and test tiles, and B5 and B6 at every
+B1 and B2 at the large, tall, huge and test tiles, and B3-B6 at every
 tile, run ``csrc/gemm_wgmma.cuh``, which computes the FP32 product on the
 tensor cores: each operand is split into two TF32 numbers, ``x = hi +
 lo``, and every 8-deep k step adds ``a_lo b_hi``, ``a_hi b_lo`` and ``a_hi
 b_hi`` into a stage sum that is added to the f32 accumulator once per
 32-column stage (or at a fault, before the fault; or at a check, before
-the check). B5 and B6 form their expected moments the same way, ``E = B .
-M^T`` from the split moment rows. The helpers here repeat that arithmetic
-in PyTorch so that the CPU tests can hold it against the JAX package, and
-mirror the fragment maps: the accumulator's, its sub-tiles' (B5 and B6
-check the paper's tile as a sub-tile of one 128 x 128 CTA) and the
-expected-moment product's. Nothing on the main path calls them: the
-kernels' plain versions stay FP32 (``ops/sgemm.sgemm_plain``,
-``ops/ft_sgemm.ft_weighted_plain``), since 3xTF32 is how the kernel
-computes the FP32 function, not another function.
+the check). B3, B5 and B6 form their expected column sums the same way,
+``E = B . M^T`` from the split moment rows, and B3 and B4 their expected
+row sums as 8 more columns of the product, A times B's column-band sums.
+The helpers here repeat that arithmetic in PyTorch so that the CPU tests
+can hold it against the JAX package, and mirror the fragment maps: the
+accumulator's, its sub-tiles' (B3-B6 check the paper's tile as a sub-tile
+of one 128 x 128 CTA), the expected-moment product's and the row sums'.
+Nothing on the main path calls them: the kernels' plain versions stay FP32
+(``ops/sgemm.sgemm_plain``, ``ops/ft_sgemm.ft_weighted_plain`` and the
+others), since 3xTF32 is how the kernel computes the FP32 function, not
+another function.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32
 
 KK = 8       # K depth of one tf32 wgmma
 STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
-CTA = 128    # rows and columns of B5's and B6's CTA
+CTA = 128    # rows and columns of the sub-tiled kernels' CTA
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -118,39 +120,48 @@ def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(row, col), -1)
 
 
-def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
-                      moments=None):
-    """B5 (``moments`` None: A's moment sums of each tile, formed in the
-    kernel) and B6 (``moments``: A's (gm, 3, K) moment rows) on padded
-    operands, as the wgmma kernel computes them: per 8-column k step the
-    3xTF32 product into the stage sum and the 3xTF32 expected moments
-    ``B_tile . M^T`` into theirs, both promoted at every 32-column stage
+def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
+                    check, moments=None, band_sums=False):
+    """The sub-tiled wgmma kernel (``csrc/ft_sgemm_running.cuh``) on padded
+    operands: per 8-column k step the 3xTF32 product into the stage sum
+    and, beside it, the 3xTF32 expected column sums ``B_tile . M^T`` of the
+    (gm, MOM, K) moment rows ``moments`` (B3, B5, B6) and the expected row
+    sums ``A . s_b`` of B's column-band sums ``s_b`` (B3, B4: the product's
+    extra columns; ``band_sums``), all promoted at every 32-column stage
     end, before a fault (``_inject_plain`` at the first k step of its bk
     step) and before a check (after the last k step of every
-    ``check_every``-th bk step and of the last, also inside a stage); each
-    check is ``_moment_detect_correct``. Returns (out, det, unc) like
-    ``ops/ft_sgemm.ft_weighted_plain``."""
+    ``check_every``-th bk step and of the last, also inside a stage).
+    ``check(acc, exp, r_exp)`` with exp (gm, gn, MOM, bn) and r_exp (gm,
+    gn, bm) returns (corrected acc, per-tile hits, per-tile uncorrectable
+    level). Returns (out, det, unc) like ``ops/ft_sgemm.ft_weighted_plain``."""
     strict_fp32()
     a4, b4, c4, nk = ft._tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
-    if moments is None:
-        moments = ft._tile_moments(a, bm)
     (ah, al), (bh, bl) = split(a4.reshape(gm, bm, -1)), split(b4.reshape(gn, bn, -1))
-    mh, ml = split(moments)
     cps, nk8 = shape.bk // KK, a.shape[1] // KK
     faults = _fault_steps(scalars, nk)
-    thresholds = [float(t) for t in scalars[4:7]]
     acc, part = torch.zeros_like(c4), torch.zeros_like(c4)
-    exp = torch.zeros((gm, gn, 3, bn), device=a.device)
-    part_e = torch.zeros_like(exp)
+    sums = [(acc, part)]
+    exp = r_exp = None
+    if moments is not None:
+        mh, ml = split(moments)
+        exp = torch.zeros((gm, gn, moments.shape[1], bn), device=a.device)
+        part_e = torch.zeros_like(exp)
+        sums.append((exp, part_e))
+    if band_sums:
+        # The splitter warps sum the split B (hi + lo, what the product
+        # multiplies) over each column band, then split the sums.
+        sh, sl = split((bh + bl).sum(1))
+        r_exp = torch.zeros((gm, gn, bm), device=a.device)
+        part_r = torch.zeros_like(r_exp)
+        sums.append((r_exp, part_r))
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
     unc = torch.zeros_like(det)
 
     def promote():
-        acc.add_(part)
-        exp.add_(part_e)
-        part.zero_()
-        part_e.zero_()
+        for total, stage in sums:
+            total.add_(stage)
+            stage.zero_()
 
     for t in range(nk8):
         if t % cps == 0 and t // cps in faults:
@@ -159,19 +170,93 @@ def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         cols = slice(t * KK, (t + 1) * KK)
         for x, y in ((al, bh), (ah, bl), (ah, bh)):
             part += torch.einsum("imk,jnk->ijmn", x[..., cols], y[..., cols])
-        for x, y in ((bl, mh), (bh, ml), (bh, mh)):
-            part_e += torch.einsum("jnk,ivk->ijvn", x[..., cols], y[..., cols])
+        if moments is not None:
+            for x, y in ((bl, mh), (bh, ml), (bh, mh)):
+                part_e += torch.einsum("jnk,ivk->ijvn", x[..., cols], y[..., cols])
+        if band_sums:
+            for x, y in ((al, sh), (ah, sl), (ah, sh)):
+                part_r += torch.einsum("imk,jk->ijm", x[..., cols], y[..., cols])
         s = (t + 1) // cps - 1   # the bk step that k step t ends, if any
         if (t + 1) % cps == 0 and ((s + 1) % check_every == 0 or s == nk - 1):
             promote()
-            corrected, hits, bad = ft._moment_detect_correct(
-                acc, *exp.unbind(2), thresholds)
+            corrected, hits, level = check(acc, exp, r_exp)
             acc.copy_(corrected)
             det += hits.to(torch.int32)
-            unc = bad.to(torch.int32)
+            unc = level.to(torch.int32)
         if (t + 1) % (STAGE // KK) == 0 or t == nk8 - 1:
             promote()
     return ft._untile(alpha * acc + beta * c4), det, unc
+
+
+def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
+                      moments=None):
+    """B5 (``moments`` None: A's moment sums of each tile, formed in the
+    kernel) and B6 (``moments``: A's (gm, 3, K) moment rows) as the wgmma
+    kernel computes them (:func:`_subtile_tf32x3`); each check is
+    ``_moment_detect_correct``. Returns (out, det, unc) like
+    ``ops/ft_sgemm.ft_weighted_plain``."""
+    if moments is None:
+        moments = ft._tile_moments(a, shape.bm)
+    thresholds = [float(t) for t in scalars[4:7]]
+    return _subtile_tf32x3(
+        a, b, c, shape, alpha, beta, scalars, check_every,
+        lambda acc, exp, _: ft._moment_detect_correct(acc, *exp.unbind(2),
+                                                      thresholds),
+        moments=moments)
+
+
+def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
+                     multifault: bool):
+    """B3 as the wgmma kernel computes it (:func:`_subtile_tf32x3`): the
+    expected column sums from A's plain (and, with ``multifault``, w)
+    moment rows of each tile, the expected row sums from B's column-band
+    sums; each check is ``_rowcol_detect_correct``. Returns (out, det, unc)
+    like ``ops/ft_sgemm.ft_rowcol_plain``."""
+    w = ft._weights(shape.bm, a.device)[:, None]
+    thresholds = [float(t) for t in scalars[4:6]]
+
+    def check(acc, exp, r_exp):
+        res_cw = exp[:, :, 1] - (acc * w).sum(-2) if multifault else None
+        return ft._rowcol_detect_correct(
+            acc, r_exp - acc.sum(-1), exp[:, :, 0] - acc.sum(-2), res_cw,
+            thresholds, multifault)
+
+    return _subtile_tf32x3(
+        a, b, c, shape, alpha, beta, scalars, check_every, check,
+        moments=ft._tile_moments(a, shape.bm, 2 if multifault else 1),
+        band_sums=True)
+
+
+def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int):
+    """B4 as the wgmma kernel computes it (:func:`_subtile_tf32x3`): each
+    tile's residual is the sum over its rows of (expected row sum - the
+    row's accumulator sum), one event when it moved by more than the
+    threshold since the previous check. Returns (out, det, unc) like
+    ``ops/ft_sgemm.ft_global_plain``, unc equal to det."""
+    thr = float(scalars[4])
+    state = {}
+
+    def check(acc, _, r_exp):
+        res = (r_exp - acc.sum(-1)).sum(-1)
+        prev = state.get("prev", torch.zeros_like(res))
+        events = ((res - prev).abs() > thr).to(torch.int32)
+        state["prev"] = res
+        state["det"] = state.get("det", 0) + events
+        return acc, events, state["det"]
+
+    return _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every,
+                           check, band_sums=True)
+
+
+def row_sum_fragment_map(sbn: int) -> torch.Tensor:
+    """(256, 4, 2): the (tile row, column band) of the expected row sum that
+    B3's and B4's consumer thread t holds at extra accumulator element
+    NACC + i (i < 4), the product's column 128 + j for band j; band -1 past
+    the CTA's 128 / sbn bands (the zero rows of B's stage)."""
+    rc = wgmma_fragment_map(CTA, CTA + KK)[:, CTA // 2:]
+    band = rc[..., 1] - CTA
+    return torch.stack((rc[..., 0], torch.where(band < CTA // sbn, band, -1)),
+                       -1)
 
 
 def subtile_fragment_map(sbm: int, sbn: int) -> torch.Tensor:
@@ -184,10 +269,11 @@ def subtile_fragment_map(sbm: int, sbn: int) -> torch.Tensor:
     return torch.stack((row // sbm, col // sbn, row % sbm, col % sbn), -1)
 
 
-def moment_rows(sbm: int) -> int:
-    """R, the moment rows of B5's and B6's CTA: three per sub-tile row
-    band, padded to a multiple of 8 (``RunTileOf::R``)."""
-    return -(-3 * CTA // sbm // 8) * 8
+def moment_rows(sbm: int, mom: int = 3) -> int:
+    """R, the moment rows of the sub-tiled CTA: ``mom`` per sub-tile row
+    band (B5 and B6: 3; B3: 1, or 2 with multifault), padded to a multiple
+    of 8 (``WgTile::R``)."""
+    return -(-mom * CTA // sbm // 8) * 8
 
 
 def moment_fragment_map(r: int) -> torch.Tensor:

@@ -125,10 +125,37 @@ def measure(tree: str, tiles=TILES) -> dict:
     return row
 
 
-def _run(mode: str, tree: str, *more) -> subprocess.Popen:
-    return subprocess.Popen([sys.executable, __file__, mode, tree, *more],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def turns(script: str, trees, *measure_args):
+    """Build every tree at once (``script --build TREE``), then measure
+    each in a fresh process per turn (``script --measure TREE ARGS``), the
+    trees in order and then reversed; yields (tree's name, the JSON object
+    on the measurement's last line)."""
+    t0 = time.perf_counter()
+    builds = [(t, subprocess.Popen([sys.executable, script, "--build", t],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+              for t in trees]
+    for tree, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{tree}: build failed:\n{log}")
+    print(f"built {len(trees)} trees in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for tree in list(trees) + list(trees)[::-1]:
+        res = subprocess.run([sys.executable, script, "--measure", tree,
+                              *measure_args], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"{tree}: measurement failed:\n{res.stdout}"
+                               f"{res.stderr}")
+        yield (pathlib.Path(tree).resolve().name,
+               json.loads(res.stdout.strip().splitlines()[-1]))
 
 
 def main(argv) -> int:
@@ -146,25 +173,11 @@ def main(argv) -> int:
     if not trees or any(t.startswith("--") for t in trees):
         print(__doc__)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    t0 = time.perf_counter()
-    for tree, proc in [(t, _run("--build", t)) for t in trees]:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{tree}: build failed:\n{log}")
-    print(f"built {len(trees)} trees in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(card(), flush=True)
     wrong = 0
-    for tree in trees + trees[::-1]:
-        proc = _run("--measure", tree, ",".join(tiles))
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{tree}: measurement failed:\n{out}")
-        row = json.loads(out.strip().splitlines()[-1])
+    for name, row in turns(__file__, trees, ",".join(tiles)):
         wrong += list(row.values()).count("wrong")
-        print(f"{pathlib.Path(tree).resolve().name:19s} " + " ".join(
+        print(f"{name:19s} " + " ".join(
             f"{k}={v}" if isinstance(v, str) else
             f"{k}={v:.3g}" if k.startswith("err") else f"{k}={v:.3f}"
             for k, v in row.items()), flush=True)

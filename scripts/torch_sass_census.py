@@ -9,8 +9,9 @@ spills), barriers, shuffles, the tensor-core products of the wgmma kernels
 (HGMMA), their TMA loads (UTMALDG) and warpgroup fences and waits
 (WARPGROUP), and the total. Counts are static (the code as compiled, each
 loop body once), so they tell what a kernel carries beside its main loop,
-not how often it runs it. A wgmma kernel (B1 and B2 at the 64-row tiles)
-is labelled by its (bm, bn) and listed with the layouts of that tile.
+not how often it runs it. A wgmma kernel is labelled by its tile's
+parameters (bm, bn, then for B3-B6 the sub-tile, moment rows, check
+scratch, extra columns) and listed with the layouts they start with.
 Needs nvcc and cuobjdump:
 
     python3 scripts/torch_sass_census.py [TREE] [--layouts=128,128,8,8,8;16,16,16,2,2]
@@ -43,12 +44,13 @@ def census(sass: str) -> dict:
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
                                re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn)
-        dims = (re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
-                or re.search(r"WgTileILi(\d+)ELi(\d+)E", fn))
-        if not (kind and dims):
+        dims = re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        wg = re.search(r"WgTileI((?:Li\d+E)+)E", fn)
+        if not (kind and (dims or wg)):
             continue
+        dims = dims.groups() if dims else re.findall(r"Li(\d+)E", wg.group(1))
         flag = re.search(r"EELb([01])E", fn)
-        label = (f"{kind.group(1)}<{','.join(dims.groups())}"
+        label = (f"{kind.group(1)}<{','.join(dims)}"
                  + (f",{flag.group(1)}" if flag else "") + ">")
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
                          body)
@@ -74,6 +76,7 @@ def main(argv) -> int:
                          text=True, check=True).stdout.strip())
     print(f"{'kernel':44s}" + "".join(f"{c:>8s}" for c in CLASSES + ("total",)))
     for name in _build.KERNEL_SOURCES:
+        print(f"{name}.cu")
         sass = subprocess.run([cuobjdump(), "-sass", str(_build.so_path(name))],
                               capture_output=True, text=True, check=True).stdout
         for label, counts in sorted(census(sass).items()):

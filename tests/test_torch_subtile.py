@@ -234,9 +234,9 @@ def test_mainloop_routes_running_and_fused_to_wgmma():
     for name in PROGRAM_TILES + ("test",):
         shape = SHAPES[name]
         assert (shape.bm, shape.bn) in _build.subtiles()
-        for kind in ("running", "fused"):
+        for kind in ("rowcol", "global", "running", "fused"):
             assert _build.mainloop(kind, shape) == "wgmma-3xtf32", name
-        for kind in ("rowcol", "global", "rowcol_mxu", "global_mxu"):
+        for kind in ("rowcol_mxu", "global_mxu"):
             assert _build.mainloop(kind, shape) == "ffma"
 
 
