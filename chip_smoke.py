@@ -2,7 +2,7 @@
 
 Builds the port's hand-written CUDA kernels from ``ft_sgemm_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (at every tile of
-the port's table, B3-B6 also with checks inside a pipeline stage, and at
+the port's table, B3-B8 also with checks inside a pipeline stage, and at
 every shape, cadence and multifault setting the paper's program gives it
 under every (strategy, encode) pair), holds the 3xTF32 wgmma kernels'
 accuracy against a float64 product and cuBLAS FP32 at 4096 and their clean
@@ -46,7 +46,7 @@ TIMING_SIZE = 4096
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B3-B6 run it
+# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B3-B8 run it
 # at every tile).
 WGMMA_TILES = ("large", "tall", "huge")
 # A check cadence in bk steps that ends checks inside a 32-column stage.
@@ -212,21 +212,22 @@ def phase_device():
 def ptxas_summary(text: str):
     """``kernel<dims[,flag]>: R regs[, S B spilled]`` for each kernel in one
     source's ``-Xptxas -v`` log (names demangled just enough to tell the
-    layouts apart: an FFMA layout's bm, bn, ks, mr, nr; a wgmma tile's bm,
-    bn, sub-tile bm, bn and moment rows; the multifault flag or the
-    moment-row source)."""
+    layouts apart: an FFMA layout's bm, bn, ks, mr, nr and the multifault
+    flag; a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per band and
+    the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows`` and
+    ``MomentRows``)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
         dims = (re.search(r"LayoutI((?:Li\d+E){5})", fn)
                 or re.search(r"WgTileI((?:Li\d+E){5})", fn))
-        flag = (re.search(r"WgTileI(?:Li\d+E){7}Li(\d+)E", fn)
+        flag = (re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
                 or re.search(r"EEL[bi](\d+)E", fn))
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        tag = (",".join(re.findall(r"\d+", dims.group(1)))
-               + (f",{flag.group(1)}" if flag else ""))
+        tag = ",".join(re.findall(r"\d+", dims.group(1))
+                       + (list(flag.groups()) if flag else []))
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
@@ -266,9 +267,9 @@ def phase_kernels(kern: Kernels):
     program does not run it, and B5 and B6 besides, at four checks per run
     and (clean and reference-like) every MID_STAGE_EVERY bk steps (checks
     inside a 32-column stage), so that every tile sees intermediate
-    checks; both rowcol kernels with multifault off and on; B3 (multifault
-    on) and B4 besides every MID_STAGE_EVERY bk steps, clean and
-    reference-like."""
+    checks; both rowcol kernels with multifault off and on; B3 and B7
+    (multifault on) and B4 and B8 besides every MID_STAGE_EVERY bk steps,
+    clean and reference-like."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
@@ -306,10 +307,10 @@ def phase_kernels(kern: Kernels):
                               cadence("rowcol"), mf)
                 for ce in sorted(mid):   # several faults an interval: multifault
                     kern.hold("rowcol", shape, a, b, c, sc, ce, True)
-                kern.hold("global", shape, a, b, c, sc, cadence("global"))
-                for ce in sorted(mid):
-                    kern.hold("global", shape, a, b, c, sc, ce)
-                kern.hold("global_mxu", shape, a, b, c, sc, cadence("global"))
+                    kern.hold("rowcol_mxu", shape, a, b, c, sc, ce, True)
+                for kind in ("global", "global_mxu"):
+                    for ce in sorted({cadence("global")} | mid):
+                        kern.hold(kind, shape, a, b, c, sc, ce)
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
@@ -609,13 +610,13 @@ def phase_residual(kern: Kernels, operands):
     is the accumulator), which must stay RESIDUAL_MARGIN times under the
     threshold: the f32 column moments of B2's (huge) and B5's and B6's
     (small, huge) accumulators against the torch.matmul expectations, and
-    B3's (small, huge) row and column sums against A . s_b and the plain
-    expected column checksums; and each tile's total of B4's accumulator
-    (small, huge) against t_exp = s_a . s_b from the moment rows. B3, B5 and
-    B6 also run clean with the threshold cut RESIDUAL_MARGIN times: their
-    in-kernel residuals (the expected sums from the tensor-core products
-    against the accumulator's sums) must flag nothing; B4 flags nothing at
-    the threshold."""
+    B3's and B7's (small, huge) row and column sums against A . s_b and the
+    plain expected column checksums; and each tile's total of B4's and B8's
+    accumulators (small, huge) against t_exp = s_a . s_b from the moment
+    rows. B3, B5, B6 and B7 also run clean with the threshold cut
+    RESIDUAL_MARGIN times: their in-kernel residuals (the expected sums from
+    the tensor-core products against the accumulator's sums) must flag
+    nothing; B4 and B8 flag nothing at the threshold."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -662,50 +663,56 @@ def phase_residual(kern: Kernels, operands):
                     f" above {limit:g} ({int(tdet.sum())} flagged)")
         worst[f"{KIND_NAMES[kind]} {tile}"] = moments_residual(acc, expm,
                                                                shape.bm)
-    # B3: the row sums against A . s_b (B's band sums) and the column sums
-    # against the plain expected column checksums; clean, nothing flags, also
-    # at the cut threshold.
-    for tile in ("small", "huge"):
+    # B3 and B7: the row sums against A . s_b (B's band sums) and the column
+    # sums against the plain expected column checksums; clean, nothing
+    # flags, also at the cut threshold.
+    for kind, tile in (("rowcol", "small"), ("rowcol", "huge"),
+                       ("rowcol_mxu", "small"), ("rowcol_mxu", "huge")):
         shape = SHAPES[tile]
         a, b, _ = operands[tile]
+        extra = ft.kernel_inputs(kind, a, b, shape)
         _, ce, mf = ft._plan("rowcol", None, None, InjectionSpec.none(),
-                             n // shape.bk, shape.bn)
+                             n // shape.bk, shape.bn, KIND_PAIR[kind][1])
         for sc in (clean, tight):
-            acc, det, unc = ft.ft_rowcol_kernel(a, b, zero, shape, 1.0, 0.0,
-                                                sc, ce, mf)
+            acc, det, unc = ft.run_kernel(kind, shape, a, b, zero, extra, 1.0,
+                                          0.0, sc, ce, mf)
             if int(det.sum()) or int(unc.sum()):
                 raise AssertionError(
-                    f"ft_sgemm_rowcol {tile}: a clean run flagged"
+                    f"{KIND_NAMES[kind]} {tile}: a clean run flagged"
                     f" {int(det.sum())} at threshold {float(sc[4]):g}")
         r_exp = a @ ft._tile_moments(b, shape.bn, 1)[:, 0].T
         c_exp = ft._expected_col_checksums(a, b, shape.bm)[:, 0]
-        worst[f"ft_sgemm_rowcol {tile} (rows, columns)"] = [
+        worst[f"{KIND_NAMES[kind]} {tile} (rows, columns)"] = [
             float((r_exp - acc.reshape(n, -1, shape.bn).sum(-1)).abs().max()),
             float((c_exp - acc.reshape(-1, shape.bm, n).sum(1)).abs().max())]
-    # B4: each tile's total against t_exp = s_a . s_b from the moment rows.
+    # B4 and B8: each tile's total against t_exp = s_a . s_b from the moment
+    # rows.
     worst_global = {}
-    for tile in ("small", "huge"):
+    for kind, tile in (("global", "small"), ("global", "huge"),
+                       ("global_mxu", "small"), ("global_mxu", "huge")):
         shape = SHAPES[tile]
         a, b, _ = operands[tile]
+        extra = ft.kernel_inputs(kind, a, b, shape)
         _, ce, _ = ft._plan("global", None, None, InjectionSpec.none(),
-                            n // shape.bk, shape.bn)
-        gacc, gdet, _ = ft.ft_global_kernel(a, b, zero, shape, 1.0, 0.0, clean,
-                                            ce)
+                            n // shape.bk, shape.bn, KIND_PAIR[kind][1])
+        gacc, gdet, _ = ft.run_kernel(kind, shape, a, b, zero, extra, 1.0, 0.0,
+                                      clean, ce)
         faults += int(gdet.sum())
         ma, mb = (ft._tile_moments(x, bt, 1)[:, 0]
                   for x, bt in ((a, shape.bm), (b, shape.bn)))
         t_exp = ma @ mb.T
         totals = gacc.reshape(n // shape.bm, shape.bm, n // shape.bn,
                               shape.bn).sum((1, 3))
-        worst_global[tile] = (float((t_exp - totals).abs().max()),
-                              float(t_exp.abs().max()))
+        worst_global[f"{KIND_NAMES[kind]} {tile}"] = (
+            float((t_exp - totals).abs().max()), float(t_exp.abs().max()))
     if faults:
         raise AssertionError("a clean run reported faults")
     log(f"phase residual: worst clean residual at {n} (weighted: moments 1,"
         f" w, w^2; rowcol: rows, columns; {_build.mainloop('precomp', huge)}"
-        f" at huge, every B3-B6 tile wgmma): {worst}; global (tile total,"
-        f" largest |t_exp|): {worst_global}; threshold 9500; B3, B5 and B6"
-        f" flag nothing at threshold {limit:g}")
+        f" at huge, every B3-B8 tile wgmma): {worst}; global (tile total,"
+        f" largest |t_exp|): {worst_global}; threshold 9500, at which B4 and"
+        f" B8 flag nothing; B3, B5, B6 and B7 flag nothing at threshold"
+        f" {limit:g}")
     bad = {k: v for k, v in worst.items() if max(v) > limit}
     if bad:
         raise AssertionError(f"clean residuals {bad} are not"

@@ -1,27 +1,22 @@
 // Device functions shared by the fused-ABFT kernels (ft_sgemm_weighted.cu,
-// ft_sgemm_global.cu, ft_sgemm_aug.cu, ft_sgemm_running.cuh), written once.
-// Each is the Hopper form of one JAX device function in
-// ft_sgemm_tpu/ops/ft_sgemm.py:
+// ft_sgemm_running.cuh), written once. Each is the Hopper form of one JAX
+// device function in ft_sgemm_tpu/ops/ft_sgemm.py:
 //
 //   inject                  <- _inject                 (:242-284)
-//   row_sum / col_sum /     <- the whole-tile jnp.sum reductions: warp
-//   tile_sum                   shuffles plus a shared-memory pass, the
+//   col_sum                 <- the whole-tile jnp.sum over rows: warp
+//                              shuffles plus a shared-memory pass, the
 //                              paper's design (code_gen.py:219-226, 352-424)
 //   weighted_localize       <- _weighted_localize      (:498-513)
-//   Encoder                 <- the per-K-step checksum encode of
-//                              _ft_kernel_rowcol_mxu from staged moment
-//                              rows; B3-B6 encode on the tensor cores
-//                              (ft_sgemm_running.cuh)
 //   moment_detect_correct   <- _moment_detect_correct  (:287-339)
-//   rowcol_detect_correct   <- _rowcol_detect_correct  (:406-495)
 //   EPS8                    <- _correction_pads         (:342-357)
 //
-// In the FFMA kernels the accumulator lives in registers, TM x TN per
-// thread (gemm_mainloop.cuh),
-// so the whole-tile reductions of the Pallas kernels become per-thread
-// partial sums, shuffles among the lanes that share a row or a column, and
-// one shared-memory pass across warps. The per-tile counters are computed
-// with __syncthreads_count; each CTA writes only its own det / unc cell.
+// In B2's FFMA kernel the accumulator lives in registers, TM x TN per
+// thread (gemm_mainloop.cuh), so the whole-tile reductions of the Pallas
+// kernels become per-thread partial sums, shuffles among the lanes that
+// share a column, and one shared-memory pass across warps. The per-tile
+// counters are computed with __syncthreads_count; each CTA writes only its
+// own det / unc cell. The sub-tiled wgmma kernels' checks
+// (ft_sgemm_running.cuh) share Scalars, EPS8 and weighted_column.
 
 #pragma once
 
@@ -76,29 +71,6 @@ __device__ __forceinline__ void inject(Mainloop<L>& ml, const Scalars& sc,
       ml.acc[i][j] += (i == di && j == dj) ? mag : 0.f;
 }
 
-// out[r] = sum over the tile's columns of f(i, j), for every tile row r.
-// The lanes holding one row are the NTX consecutive lanes of one warp.
-template <class L, class F>
-__device__ __forceinline__ void row_sum(const Mainloop<L>& ml, F f,
-                                        float* out) {
-  float p[L::TM];
-#pragma unroll
-  for (int i = 0; i < L::TM; ++i) {
-    p[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < L::TN; ++j) p[i] += f(i, j);
-  }
-#pragma unroll
-  for (int off = 1; off < L::NTX; off <<= 1)
-#pragma unroll
-    for (int i = 0; i < L::TM; ++i) p[i] += __shfl_xor_sync(0xffffffffu, p[i], off);
-  if (ml.tx == 0) {
-#pragma unroll
-    for (int i = 0; i < L::TM; ++i) out[ml.row(i)] = p[i];
-  }
-  __syncthreads();
-}
-
 // out[c] = sum over the tile's rows of f(i, j), for every tile column c:
 // shuffles across the lanes of a warp that share the column, then one
 // shared-memory pass over the warps (scratch holds NWARPS * BN floats).
@@ -130,27 +102,6 @@ __device__ __forceinline__ void col_sum(const Mainloop<L>& ml, F f,
   __syncthreads();
 }
 
-// The sum of the whole tile's accumulator, returned to every thread (each
-// adds the warps' partials in the same order, so all hold the same value).
-// scratch holds NWARPS floats.
-template <class L>
-__device__ __forceinline__ float tile_sum(const Mainloop<L>& ml,
-                                          float* scratch) {
-  float p = 0.f;
-#pragma unroll
-  for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < L::TN; ++j) p += ml.acc[i][j];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = p;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < L::NWARPS; ++w) s += scratch[w];
-  __syncthreads();
-  return s;
-}
-
 // Fault row of a flagged column from the weighted-residual ratio:
 // round(res_cw / res_c) - 1, rounding half to even like jnp.round. -1 for a
 // column that did not flag.
@@ -158,43 +109,6 @@ __device__ __forceinline__ int weighted_localize(float res_c, float res_cw,
                                                  bool det) {
   return det ? __float2int_rn(res_cw / res_c) - 1 : -1;
 }
-
-// Per-chunk checksum encode of the mxu kernels (B7) from the chunk's staged
-// moment rows: NMOM A-side column moments s_a (weights 1, w, w^2 with w =
-// row + 1) give the expected column checksums c[v][n] += sum_k B[n, k] *
-// s_a[v][k]; with ROWS, the B-side sum s_b gives the expected row checksum
-// r[m] += sum_k A[m, k] * s_b[k]. Thread t holds row t's r and column t's
-// c[]. No reduction and no barrier.
-template <class L, int NMOM, bool ROWS>
-struct Encoder {
-  float r = 0.f;
-  float c[NMOM];
-
-  __device__ __forceinline__ Encoder() {
-#pragma unroll
-    for (int v = 0; v < NMOM; ++v) c[v] = 0.f;
-  }
-
-  // r and c[] from the chunk in buffer `buf` and its sums sa[v][kk], sb[kk]
-  // (sb is read only with ROWS).
-  __device__ __forceinline__ void update(const Stage<L>& st, int buf,
-                                         const float (*sa)[L::KS],
-                                         const float* sb) {
-    const int t = threadIdx.x;
-    if (ROWS && t < L::BM) {
-#pragma unroll
-      for (int kk = 0; kk < L::KS; ++kk) r = fmaf(st.As[buf][kk][t], sb[kk], r);
-    }
-    if (t < L::BN) {
-#pragma unroll
-      for (int kk = 0; kk < L::KS; ++kk) {
-        const float b = st.Bs[buf][kk][t];
-#pragma unroll
-        for (int v = 0; v < NMOM; ++v) c[v] = fmaf(b, sa[v][kk], c[v]);
-      }
-    }
-  }
-};
 
 template <class L>
 struct MomentSmem {
@@ -270,94 +184,6 @@ __device__ __forceinline__ void moment_detect_correct(
     for (int j = 0; j < L::TN; ++j)
       if (sm.hit_row[ml.col(j)] == ml.row(i)) ml.acc[i][j] += sm.delta[ml.col(j)];
   __syncthreads();
-}
-
-template <class L>
-struct RowcolSmem {
-  float scratch[L::NWARPS * L::BN];
-  float rs[L::BM], res_r[L::BM], dr[L::BM], adr[L::BM];
-  float cs[L::BN], csw[L::BN], res_c[L::BN], res_cw[L::BN];
-  float dc[L::BN], adc[L::BN], dcw[L::BN], adcw[L::BN];
-  int loc[L::BN];
-  bool det_r[L::BM], det_c[L::BN];
-};
-
-// Row/column detect / correct / re-check of the rowcol strategy. Thread
-// t < BM passes row t's expected sum r_exp, thread t < BN column t's c_exp
-// (and cw_exp, the row-weighted column sum, in multifault mode MF).
-// Corrections land where a flagged row meets a flagged column (from the
-// column residual when exactly one row and several columns flag); in MF
-// mode, >1 flagged rows AND columns localize each column's fault row by the
-// weighted ratio instead. n_hit counts corrected elements; n_unc the rows
-// and columns still above threshold after correction (a LEVEL).
-template <class L, bool MF>
-__device__ __forceinline__ void rowcol_detect_correct(
-    Mainloop<L>& ml, RowcolSmem<L>& sm, float r_exp, float c_exp,
-    float cw_exp, float thr, float thr_m1, int& n_hit, int& n_unc) {
-  row_sum(ml, [&](int i, int j) { return ml.acc[i][j]; }, sm.rs);
-  col_sum(ml, [&](int i, int j) { return ml.acc[i][j]; }, sm.scratch, sm.cs);
-  if (MF)
-    col_sum(ml, [&](int i, int j) { return (float)(ml.row(i) + 1) * ml.acc[i][j]; },
-            sm.scratch, sm.csw);
-  const int t = threadIdx.x;
-  bool dr = false, dc = false;
-  if (t < L::BM) {
-    const float res = r_exp - sm.rs[t];
-    dr = fabsf(res) > thr;
-    sm.res_r[t] = res;
-    sm.det_r[t] = dr;
-  }
-  if (t < L::BN) {
-    const float res = c_exp - sm.cs[t];
-    dc = fabsf(res) > thr;
-    sm.res_c[t] = res;
-    sm.det_c[t] = dc;
-    if (MF) {
-      const float res_w = cw_exp - sm.csw[t];
-      sm.res_cw[t] = res_w;
-      sm.loc[t] = weighted_localize(res, res_w, dc);
-    }
-  }
-  const int nr = __syncthreads_count(dr);
-  const int nc = __syncthreads_count(dc);
-  const bool use_col = nr == 1 && nc > 1;
-  const bool ambiguous = MF && nr > 1 && nc > 1;
-  auto delta = [&](int r, int c) -> float {
-    if (ambiguous) return (sm.det_c[c] && sm.loc[c] == r) ? sm.res_c[c] : 0.f;
-    if (!(sm.det_r[r] && sm.det_c[c])) return 0.f;
-    return use_col ? sm.res_c[c] : sm.res_r[r];
-  };
-  const int n_loc = __syncthreads_count(
-      ambiguous && t < L::BN && sm.det_c[t] && sm.loc[t] >= 0 && sm.loc[t] < L::BM);
-  n_hit = ambiguous ? n_loc : nr * nc;
-#pragma unroll
-  for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < L::TN; ++j) ml.acc[i][j] += delta(ml.row(i), ml.col(j));
-  // Residual-after-correct re-check: residuals are linear in the
-  // accumulator, so subtract delta's row / column sums from them.
-  auto d = [&](int i, int j) { return delta(ml.row(i), ml.col(j)); };
-  auto ad = [&](int i, int j) { return fabsf(delta(ml.row(i), ml.col(j))); };
-  row_sum(ml, d, sm.dr);
-  row_sum(ml, ad, sm.adr);
-  col_sum(ml, d, sm.scratch, sm.dc);
-  col_sum(ml, ad, sm.scratch, sm.adc);
-  if (MF) {
-    col_sum(ml, [&](int i, int j) { return d(i, j) * (float)(ml.row(i) + 1); },
-            sm.scratch, sm.dcw);
-    col_sum(ml, [&](int i, int j) { return ad(i, j) * (float)(ml.row(i) + 1); },
-            sm.scratch, sm.adcw);
-  }
-  bool bad_r = false, bad_c = false, bad_w = false;
-  if (t < L::BM) bad_r = fabsf(sm.res_r[t] - sm.dr[t]) > thr + EPS8 * sm.adr[t];
-  if (t < L::BN) {
-    bad_c = fabsf(sm.res_c[t] - sm.dc[t]) > thr + EPS8 * sm.adc[t];
-    if (MF)
-      bad_w = !bad_c &&
-              fabsf(sm.res_cw[t] - sm.dcw[t]) > thr_m1 + EPS8 * sm.adcw[t];
-  }
-  n_unc = __syncthreads_count(bad_r) + __syncthreads_count(bad_c) +
-          __syncthreads_count(bad_w);
 }
 
 }  // namespace ftsg

@@ -5,78 +5,44 @@
 // pallas_call at ops/ft_sgemm.py:1468), which runs --strategy=fused and
 // --strategy=weighted --encode=mxu: A's moment rows 1, w, w^2 (w = row + 1)
 // give the expected column moments E = B_tile . M^T, then B5's weighted
-// check at any cadence. B6 is ft_sgemm_running.cuh's kernel with its moment
-// rows loaded by TMA (kLoadRows): 3xTF32 on wgmma, one 128 x 128 CTA over
-// the paper's (bm, bn) sub-tiles, at every tile.
-// B7 replaces _ft_kernel_rowcol_mxu (:648), --strategy=rowcol --encode=mxu:
-// A's plain and w rows and B's plain row give r += sum_kk A[t, kk] *
-// Mb[kk] and c[0..1] += sum_kk B[t, kk] * Ma[0..1][kk], then B3's rowcol
-// check (rowcol_detect_correct). c[1] (cw_exp) is always accumulated and
-// read only in multifault mode MF.
+// check at any cadence. B7 replaces _ft_kernel_rowcol_mxu (:648),
+// --strategy=rowcol --encode=mxu: A's plain and w rows and B's plain row
+// give r += sum_kk A[t, kk] * Mb[kk] and c[0..1] += sum_kk B[t, kk] *
+// Ma[0..1][kk], then B3's rowcol check; the w row (cw_exp) is read only in
+// multifault mode.
+//
 // On the TPU the moment rows were appended to the operand blocks so that
 // one MXU dot gave the product and the expectations. Here the wrapper
-// computes them with torch ops (ops/ft_sgemm._tile_moments) as a separate
-// (g, R, K) operand — A and B are never copied — and the kernels stage
-// each chunk's rows beside the operand chunk (B7: MomentStage; B6: one more
-// TMA box per stage).
+// computes them with torch ops (ops/ft_sgemm._tile_moments) as separate
+// (g, rows, K) operands, A and B are never copied, and each kernel is
+// ft_sgemm_running.cuh's sub-tiled kernel (3xTF32 on wgmma, one 128 x 128
+// CTA over the paper's (bm, bn) tile as sub-tiles, at every tile) with the
+// rows loaded by TMA as more boxes of each pipeline stage: B6 is B5's
+// kernel with A's 3 moment rows per row band loaded (kLoadRows); B7 is
+// B3's (RowcolCheck) with A's plain row (and, with multifault, its w row)
+// per row band loaded as the moment rows of the expected column sums
+// (kLoadRows, a 3-D box that takes the first 1 or 2 of the wrapper's 2
+// rows per band) and B's plain rows of the CTA's column bands loaded as
+// B's rows 128 .. 128 + NBN - 1 (kLoadBands), the extra product columns
+// that give the expected row sums.
 //
-// What bounds B7 on an H100: the FP32 FFMA rate at ft_sgemm's sizes, as
-// B1's FFMA tiles. Against B3, the staged rows remove the per-chunk column
-// sums of A and B and the barrier that separates them from the update
-// (Encoder::sums); what stays per chunk is the update, 2 FMAs per owned
-// column and one per owned row per chunk column, and the cp.async of 3
-// rows of KS floats. Each check is B3's shuffle-and-shared-memory
-// reductions of the accumulator.
+// What bounds B7 on an H100: three TF32 tensor-core products per
+// multiply-add for the product (2 M N K), the expected row sums (2 M K N /
+// bn, the 8 extra product columns) and the expected column sums (2 N K M /
+// bm, twice that with multifault), at 495 TFLOP/s, as B3. Against B3 the
+// producer's splitter warps no longer sum A's row bands and B's column
+// bands; they only split the loaded rows. What stays is B3's check, ~20
+// per run at the program's cadence, each on the correction path at
+// reference-like injection: it stalls the CTA's pipeline and costs five
+// consumer barriers (three when nothing flagged).
 //
-// What the design does about it: the mainloop is B1's FFMA one
-// (gemm_mainloop.cuh), the rows ride the mainloop's own double buffer and
-// barrier, and the expected sums stay in registers of the thread that owns
-// the row / column.
+// What the design does about it: the rows ride the ring's own stages and
+// full barrier (their bytes counted exactly, their padding rows zeroed once
+// per ring slot), so the producer's only extra work is their hi / lo split;
+// both expected sums come out of the tensor cores beside the product, with
+// its precision, and the check is B3's (ft_sgemm_rowcol.cu).
 
-#include "abft_common.cuh"
 #include "ft_sgemm_running.cuh"
-
-namespace ftsg {
-
-template <class L, bool MF>
-__global__ void __launch_bounds__(L::NT, L::MIN_CTAS) ft_rowcol_mxu_kernel(
-    const float* __restrict__ A, const float* __restrict__ B,
-    const float* __restrict__ C, const float* __restrict__ MA,
-    const float* __restrict__ MB, float* __restrict__ out,
-    int* __restrict__ det, int* __restrict__ unc, int N, int K, int bk,
-    int check_every, float alpha, float beta, Scalars sc) {
-  using Rows = MomentStage<L, 2, 1>;
-  __shared__ Stage<L> st;
-  __shared__ RowcolSmem<L> rcs;
-  __shared__ typename Rows::Smem rs;
-  const int ti = blockIdx.y, tj = blockIdx.x;
-  const int m0 = ti * L::BM, n0 = tj * L::BN;
-  const int nk = K / bk;
-  Mainloop<L> ml(A, B, K, m0, n0);
-  Encoder<L, 2, true> enc;
-  int n_det = 0, n_unc = 0;
-  k_loop(
-      ml, st, nk, bk / L::KS,
-      [&](int s) { inject(ml, sc, s, ti, tj); },
-      [&](int buf) { enc.update(st, buf, rs.ma[buf], rs.mb[buf][0]); },
-      [&](int s) {
-        if (!((s + 1) % check_every == 0 || s == nk - 1)) return;
-        int hit, bad;
-        rowcol_detect_correct<L, MF>(ml, rcs, enc.r, enc.c[0], enc.c[1],
-                                     sc.s[SLOT_THRESHOLD], sc.s[SLOT_THR_M1],
-                                     hit, bad);
-        n_det += hit;
-        n_unc = bad;  // LEVEL: the state after the latest check
-      },
-      Rows(rs, MA, MB, K, ti, tj));
-  ml.store(out, C, N, m0, n0, alpha, beta);
-  if (threadIdx.x == 0) {
-    det[ti * gridDim.x + tj] = n_det;
-    unc[ti * gridDim.x + tj] = n_unc;
-  }
-}
-
-}  // namespace ftsg
 
 // B6. `MA` is A's (M / bm, 3, K) moment rows; `scalars` a host array of 8
 // floats (contracts.SCALAR_SLOTS); ks, mr, nr are not read. Returns
@@ -89,12 +55,12 @@ extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
                              float alpha, float beta, const float* scalars,
                              void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kLoadRows>::At>(
-      A, B, C, MA, out, det, unc, M, N, K, bm, bn, bk, check_every, alpha,
-      beta, scalars, (cudaStream_t)stream);
+      A, B, C, MA, nullptr, 3, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, (cudaStream_t)stream);
 }
 
 // B7. `MA` is A's (M / bm, 2, K) plain and w rows, `MB` B's (N / bn, 1, K)
-// plain rows.
+// plain rows; ks, mr, nr are not read.
 extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
                                   const float* C, const float* MA,
                                   const float* MB, float* out, int* det,
@@ -103,25 +69,14 @@ extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
                                   int check_every, int multifault,
                                   float alpha, float beta,
                                   const float* scalars, void* stream) {
-  ftsg::Scalars sc;
-  for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
-#define FTSG_LAUNCH_MF(MF_)                                                   \
-  ftsg::ft_rowcol_mxu_kernel<L, MF_>                                          \
-      <<<dim3(N / L::BN, M / L::BM), L::NT, 0, (cudaStream_t)stream>>>(       \
-          A, B, C, MA, MB, out, det, unc, N, K, bk, check_every, alpha, beta, \
-          sc);
-#define FTSG_LAUNCH(BM_, BN_, KS_, TM_, TN_)                                  \
-  if (bm == BM_ && bn == BN_ && ks == KS_ && mr == TM_ && nr == TN_) {        \
-    using L = ftsg::Layout<BM_, BN_, KS_, TM_, TN_>;                          \
-    if (multifault) {                                                         \
-      FTSG_LAUNCH_MF(true)                                                    \
-    } else {                                                                  \
-      FTSG_LAUNCH_MF(false)                                                   \
-    }                                                                         \
-    return (int)cudaGetLastError();                                           \
-  }
-  FTSG_FOR_EACH_LAYOUT(FTSG_LAUNCH)
-#undef FTSG_LAUNCH
-#undef FTSG_LAUNCH_MF
-  return (int)cudaErrorInvalidValue;
+  const auto s = (cudaStream_t)stream;
+  if (multifault)
+    return ftsg::launch_running<
+        ftsg::RowcolOf<true, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
+        A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
+        alpha, beta, scalars, s);
+  return ftsg::launch_running<
+      ftsg::RowcolOf<false, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
+      A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
+      alpha, beta, scalars, s);
 }

@@ -51,10 +51,12 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
                               void* stream) {
   const auto s = (cudaStream_t)stream;
   if (multifault)
-    return ftsg::launch_running<ftsg::RowcolOf<true>::At>(
-        A, B, C, nullptr, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, s);
-  return ftsg::launch_running<ftsg::RowcolOf<false>::At>(
-      A, B, C, nullptr, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, s);
+    return ftsg::launch_running<
+        ftsg::RowcolOf<true, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
+        A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+        check_every, alpha, beta, scalars, s);
+  return ftsg::launch_running<
+      ftsg::RowcolOf<false, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, s);
 }

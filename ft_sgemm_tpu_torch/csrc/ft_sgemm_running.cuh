@@ -1,4 +1,4 @@
-// Kernels B3-B6 on the 3xTF32 wgmma mainloop (gemm_wgmma.cuh): one kernel
+// Kernels B3-B8 on the 3xTF32 wgmma mainloop (gemm_wgmma.cuh): one kernel
 // skeleton over sub-tiles, three checks, and the fault injection they share
 // with B2.
 //
@@ -18,7 +18,10 @@
 // re-check as a LEVEL. B4 replaces _ft_kernel_global (:832): one checksum
 // per tile, detect only, an EVENT when the residual moves by more than the
 // threshold. Each check runs after every `check_every` bk steps and after
-// the last.
+// the last. B7 (ft_sgemm_aug.cu) and B8 (ft_sgemm_global.cu), the mxu
+// encodes of B3 and B4, run B3's and B4's checks with their checksum rows
+// loaded by TMA from the wrapper's moment rows instead of summed in the
+// kernel (gemm_wgmma.cuh: MomentRows, BandRows).
 //
 // The paper's (bm, bn) tile is the granularity of the check, not the CTA:
 // one 128 x 128 CTA (two consumer warpgroups and the producer) covers
@@ -31,14 +34,15 @@
 // What bounds them on an H100: three TF32 tensor-core products per
 // multiply-add at 495 TFLOP/s, for C (2 M N K) and for the expected sums:
 // the column side E = B_tile . M^T (2 N K * MOM M / bm; MOM = 3 for B5 and
-// B6, 19 % more work at the 16-row tile; 1 or 2 for B3) and the row side,
-// A times B's column-band sums (2 M K * N / bn: B3, B4), as 8 more columns
-// of the product (6 % more). B5 and B3 add their A-side moment sums, and
-// B3 and B4 the band sums of B, on the producer's splitter warps, beside
-// the products. A check stalls the CTA's pipeline (its k steps land first)
-// and costs a few shuffles per accumulator element and one to five
-// consumer barriers; B3 and B4 check ~20 times per run at the program's
-// cadence, B5 and B6 once or twice.
+// B6, 19 % more work at the 16-row tile; 1 or 2 for B3 and B7) and the row
+// side, A times B's column-band sums (2 M K * N / bn: B3, B4, B7, B8), as 8
+// more columns of the product (6 % more). B5 and B3 add their A-side
+// moment sums, and B3 and B4 the band sums of B, on the producer's
+// splitter warps, beside the products; B6, B7 and B8 load those rows and
+// only split them. A check stalls the CTA's pipeline (its k steps land
+// first) and costs a few shuffles per accumulator element and one to five
+// consumer barriers; B3, B4, B7 and B8 check ~20 times per run at the
+// program's cadence, B5 and B6 once or twice.
 //
 // What the design does about it: the products and the expected sums run on
 // the tensor cores from the same split stages, each promoted into an f32
@@ -218,7 +222,8 @@ struct WeightedOf {
   struct At {
     using Smem = WeightedSmem<(3 * 128 / SBM + 7) / 8 * 8, 128, 8, 128 / SBM,
                               (128 / SBM) * (128 / SBN)>;
-    using type = WgTile<128, 128, SBM, SBN, 3, (int)sizeof(Smem), 0, ROWS>;
+    using type = WgTile<128, 128, SBM, SBN, 3, (int)sizeof(Smem), kNoBands,
+                        ROWS>;
     using Check = WeightedCheck<type>;
   };
 };
@@ -273,7 +278,7 @@ __device__ __forceinline__ void scatter_round(float (&p)[NV][NQ][2], int l) {
       }
 }
 
-// B3's check (_rowcol_detect_correct) of every sub-tile, on consumer
+// B3's and B7's check (_rowcol_detect_correct) of every sub-tile, on consumer
 // threads only. The expected row sums of a thread's two rows are the
 // product's extra columns, band j at column BN + j in the lane of the quad
 // with lane % 4 == j / 2: the row sums over each band come from the thread's
@@ -510,16 +515,17 @@ struct RowcolCheck {
   }
 };
 
-// B3: 1 moment row (2 with multifault) per row band, and B's band sums as
-// the product's extra columns.
-template <bool MF>
+// B3 (BANDS = kSumBands, ROWS = kSumRowGroups) and B7 (kLoadBands,
+// kLoadRows): 1 moment row (2 with multifault) per row band, and B's band
+// rows as the product's extra columns.
+template <bool MF, int BANDS, int ROWS>
 struct RowcolOf {
   template <int SBM, int SBN>
   struct At {
     static constexpr int NBM = 128 / SBM, NSUB = NBM * (128 / SBN);
     using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF>;
-    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1, (int)sizeof(Smem), 8,
-                        kSumRowGroups>;
+    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1, (int)sizeof(Smem),
+                        BANDS, ROWS>;
     using Check = RowcolCheck<type, MF>;
   };
 };
@@ -531,7 +537,7 @@ struct GlobalSubSmem {
   float part[2][NWARPS][NBN];  // by check parity: each warp's band sums
 };
 
-// B4's check (_ft_kernel_global) of every sub-tile: res = t_exp - the
+// B4's and B8's check (_ft_kernel_global) of every sub-tile: res = t_exp - the
 // sub-tile's total, where t_exp is the total of its rows' expected sums
 // (the product's extra columns), taken as one sum of the differences: each
 // thread's share per column band, a warp's butterfly, one shared-memory
@@ -588,12 +594,16 @@ struct GlobalCheck {
   }
 };
 
-// B4: no moment rows; B's band sums as the product's extra columns.
-template <int SBM, int SBN>
+// B4 (BANDS = kSumBands) and B8 (kLoadBands): no moment rows; B's band
+// rows as the product's extra columns.
+template <int BANDS>
 struct GlobalOf {
-  using Smem = GlobalSubSmem<8, 128 / SBN>;
-  using type = WgTile<128, 128, SBM, SBN, 0, (int)sizeof(Smem), 8>;
-  using Check = GlobalCheck<type>;
+  template <int SBM, int SBN>
+  struct At {
+    using Smem = GlobalSubSmem<8, 128 / SBN>;
+    using type = WgTile<128, 128, SBM, SBN, 0, (int)sizeof(Smem), BANDS>;
+    using Check = GlobalCheck<type>;
+  };
 };
 
 // ------------------------------------------------------------ kernel ----
@@ -642,13 +652,15 @@ struct RunRegs {
   static constexpr int CONSUMER = T::consumer_regs(PRODUCER);
 };
 
-// B3-B6 on M x N (padded to the sub-tile) with a check every `check_every`
-// bk steps and after the last; `tm` the moment rows' tensor map (B6).
+// B3-B8 on M x N (padded to the sub-tile) with a check every `check_every`
+// bk steps and after the last; `tm` the moment rows' tensor map (B6, B7),
+// `tbb` the band rows' (B7, B8).
 template <class T, class Check>
 __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb,
-    const __grid_constant__ CUtensorMap tm, const float* __restrict__ C,
+    const __grid_constant__ CUtensorMap tm,
+    const __grid_constant__ CUtensorMap tbb, const float* __restrict__ C,
     float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
     int M, int N, int K, int bk, int check_every, float alpha, float beta,
     Scalars sc) {
@@ -659,7 +671,7 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
     setmaxnreg_dec<RunRegs<T>::PRODUCER>();
-    sm.produce(&ta, &tb, m0, n0, nst, &tm, 3 * ti0);
+    sm.produce(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0);
     return;
   }
   setmaxnreg_inc<RunRegs<T>::CONSUMER>();
@@ -676,16 +688,19 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 }
 
 // One launch of a sub-tiled kernel for sub-tile (bm, bn): `Of<bm, bn>`
-// names its tile (and where its moment rows come from) and its check
-// (WeightedOf<ROWS>::At, RowcolOf<MF>::At, GlobalOf); `MA` the (M / bm *
-// 3, K) moment rows (B6 only). Returns 0 or the CUDA error, also when a
-// tensor map cannot be encoded or no sub-tile matches.
+// names its tile (and where its moment and band rows come from) and its
+// check (WeightedOf<ROWS>::At, RowcolOf<MF, BANDS, ROWS>::At,
+// GlobalOf<BANDS>::At); `MA` the wrapper's (M / bm, n_rows, K) moment rows
+// (kLoadRows: B6, B7; the kernel loads the first MOM of each band's rows),
+// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8). Returns 0 or the
+// CUDA error, also when a tensor map cannot be encoded or no sub-tile
+// matches.
 template <template <int, int> class Of>
 int launch_running(const float* A, const float* B, const float* C,
-                   const float* MA, float* out, int* det, int* unc, int M,
-                   int N, int K, int bm, int bn, int bk, int check_every,
-                   float alpha, float beta, const float* scalars,
-                   cudaStream_t stream) {
+                   const float* MA, const float* MB, int n_rows, float* out,
+                   int* det, int* unc, int M, int N, int K, int bm, int bn,
+                   int bk, int check_every, float alpha, float beta,
+                   const float* scalars, cudaStream_t stream) {
   Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
   if (K % 8 || bk % 8 || check_every < 1) return (int)cudaErrorInvalidValue;
@@ -694,18 +709,21 @@ int launch_running(const float* A, const float* B, const float* C,
     using T = typename Of<SBM_, SBN_>::type;                                   \
     const auto kernel =                                                        \
         ft_running_wgmma_kernel<T, typename Of<SBM_, SBN_>::Check>;            \
-    CUtensorMap ta, tb, tm = {};                                               \
+    CUtensorMap ta, tb, tm = {}, tbb = {};                                     \
     if (!tensor_map(&ta, A, M, K, T::BM, T::SK) ||                             \
         !tensor_map(&tb, B, N, K, T::BN, T::SK) ||                             \
         (T::ROWS == kLoadRows &&                                               \
-         !tensor_map(&tm, MA, M / SBM_ * 3, K, T::R, T::SK)))                  \
+         (n_rows < T::MOM || !tensor_map3(&tm, MA, M / SBM_, n_rows, K,        \
+                                          T::NBM, T::MOM, T::SK))) ||          \
+        (T::BANDS == kLoadBands &&                                             \
+         !tensor_map(&tbb, MB, N / SBN_, K, T::NBN, T::SK)))                   \
       return (int)cudaErrorInvalidValue;                                       \
     if (const cudaError_t e = cudaFuncSetAttribute(                            \
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM))     \
       return (int)e;                                                           \
     kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,    \
-             T::SMEM, stream>>>(ta, tb, tm, C, out, det, unc, M, N, K, bk,     \
-                                check_every, alpha, beta, sc);                 \
+             T::SMEM, stream>>>(ta, tb, tm, tbb, C, out, det, unc, M, N, K,   \
+                                bk, check_every, alpha, beta, sc);             \
     return (int)cudaGetLastError();                                            \
   }
   FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)

@@ -161,9 +161,8 @@ __global__ void __launch_bounds__(L::NT, L::MIN_CTAS) ft_weighted_kernel(
   const int ti = blockIdx.y, tj = blockIdx.x;
   const int m0 = ti * L::BM, n0 = tj * L::BN;
   Mainloop<L> ml(A, B, K, m0, n0);
-  auto none = [](int) {};
   k_loop(ml, st, K / bk, bk / L::KS, [&](int s) { inject(ml, sc, s, ti, tj); },
-         none, none);
+         [](int) {});
   float ec = 0.f, ecw = 0.f, ecw2 = 0.f;
   const int t = threadIdx.x;
   if (t < L::BN) {
@@ -249,6 +248,6 @@ extern "C" int ftsg_ft_weighted_running(
     int bk, int check_every, float alpha, float beta, const float* scalars,
     void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kSumRows>::At>(
-      A, B, C, nullptr, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, (cudaStream_t)stream);
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, (cudaStream_t)stream);
 }

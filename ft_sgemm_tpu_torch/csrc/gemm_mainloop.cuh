@@ -1,6 +1,5 @@
-// Register-tiled FFMA mainloop shared by the port's FFMA kernels: B1 and B2
-// at the small, medium and wide tiles (sgemm.cu, ft_sgemm_weighted.cu), B7
-// (ft_sgemm_aug.cu) and B8 (ft_sgemm_global.cu).
+// Register-tiled FFMA mainloop of the port's FFMA kernels: B1 and B2 at the
+// small, medium and wide tiles (sgemm.cu, ft_sgemm_weighted.cu).
 //
 // One CTA computes one (BM, BN) output tile of C = alpha * A @ B^T + beta * C
 // with A (M, K) and B (N, K) row-major, all dimensions already zero-padded
@@ -12,9 +11,9 @@
 // (code_gen/code_gen.py). Every product is a plain fp32 FFMA: no TF32, no
 // tensor cores, so the result keeps full FP32 accuracy.
 //
-// K is scheduled in steps of bk = cps * KS columns; the FT kernels hook
-// fault injection before a step and their checks after it, which is the
-// unit InjectionSpec and check_every count.
+// K is scheduled in steps of bk = cps * KS columns; B2 hooks fault
+// injection before a step and its check after the last, the unit that
+// InjectionSpec and check_every count.
 
 #pragma once
 
@@ -29,8 +28,8 @@ struct Layout {
   static constexpr int NTY = BM / TM;  // threads across the tile's rows
   static constexpr int NT = NTX * NTY;
   static constexpr int NWARPS = NT / 32;
-  // The FT kernels ask for two 256-thread CTAs per SM (at most 128
-  // registers): a second CTA hides the checksum encode's barriers.
+  // B2 asks for two 256-thread CTAs per SM (at most 128 registers): a
+  // second CTA hides its check's barriers.
   static constexpr int MIN_CTAS = NT >= 256 ? 2 : 1;
   static constexpr int A_F4 = BM * KS / 4;  // float4 loads per A chunk
   static constexpr int B_F4 = BN * KS / 4;
@@ -190,81 +189,17 @@ struct Mainloop {
   }
 };
 
-// 16-byte copy global -> shared that bypasses the registers (cp.async,
-// sm_80+); cp_async_wait_all() waits for the calling thread's copies.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Checksum-moment rows staged beside each K chunk: RA rows of this CTA's A
-// row tile and RB rows of its B row tile, taken from the wrapper's
-// (g, R, K) moment arrays (ops/ft_sgemm._tile_moments). They are the Hopper
-// form of the rows the TPU's mxu encode appended to the operand blocks. Each
-// chunk's rows go into the stage buffer of that chunk by cp.async, issued
-// with the chunk's operand loads and landed before the same barrier, so
-// they cost no registers and no barrier of their own.
-template <class L, int RA, int RB>
-struct MomentStage {
-  static constexpr int C4 = L::KS / 4;       // 16-byte copies per row chunk
-  static constexpr int FA = RA * C4, FB = RB * C4;
-  static_assert(FA + FB <= L::NT, "one copy per thread and chunk");
-  struct __align__(16) Smem {
-    float ma[2][RA][L::KS];
-    float mb[2][RB > 0 ? RB : 1][L::KS];
-  };
-  Smem& s;
-  const float* a;  // row tile ti of A's rows
-  const float* b;  // row tile tj of B's rows
-  int K;
-
-  __device__ __forceinline__ MomentStage(Smem& s_, const float* MA,
-                                         const float* MB, int K_, int ti,
-                                         int tj)
-      : s(s_), a(MA + (size_t)ti * RA * K_),
-        b(RB > 0 ? MB + (size_t)tj * RB * K_ : nullptr), K(K_) {}
-
-  // Copy the chunk of K columns starting at k0 into buffer `buf`.
-  __device__ __forceinline__ void fetch(int k0, int buf) const {
-    const int f = threadIdx.x;
-    if (f < FA) {
-      const int v = f / C4, c = (f % C4) * 4;
-      cp_async16(&s.ma[buf][v][c], a + (size_t)v * K + k0 + c);
-    } else if (RB > 0 && f < FA + FB) {
-      const int v = (f - FA) / C4, c = ((f - FA) % C4) * 4;
-      cp_async16(&s.mb[buf][v][c], b + (size_t)v * K + k0 + c);
-    }
-  }
-  __device__ __forceinline__ void land() const { cp_async_wait_all(); }
-};
-
-// No rows staged beside the chunks (the kernels that encode in-kernel).
-struct NoRows {
-  __device__ __forceinline__ void fetch(int, int) const {}
-  __device__ __forceinline__ void land() const {}
-};
-
 // The K loop: nk steps of cps chunks each. `begin(s)` runs before step s's
-// products (fault injection), `chunk(buf)` after each chunk's products while
-// the chunk is still staged in shared buffer `buf` (checksum encode), and
-// `end(s)` after step s (detect / correct). The next chunk's global loads
-// are issued before the current chunk's FFMAs, so one __syncthreads per
-// chunk suffices: buffer buf^1 is written only after every thread passed
-// the barrier that ended its last read. `rows` (a MomentStage) stages each
-// chunk's moment rows the same way: copies into buffer buf^1 start with the
-// operand loads and land before the barrier.
-template <class L, class Begin, class Chunk, class End, class Rows = NoRows>
+// products (fault injection) and `end(s)` after step s (detect / correct).
+// The next chunk's global loads are issued before the current chunk's
+// FFMAs, so one __syncthreads per chunk suffices: buffer buf^1 is written
+// only after every thread passed the barrier that ended its last read.
+template <class L, class Begin, class End>
 __device__ __forceinline__ void k_loop(Mainloop<L>& ml, Stage<L>& st, int nk,
-                                       int cps, Begin begin, Chunk chunk,
-                                       End end, const Rows& rows = Rows{}) {
+                                       int cps, Begin begin, End end) {
   const int nchunks = nk * cps;
   ml.fetch(0);
-  rows.fetch(0, 0);
   ml.stash(st, 0);
-  rows.land();
   __syncthreads();
   int buf = 0;
   for (int s = 0; s < nk; ++s) {
@@ -272,16 +207,9 @@ __device__ __forceinline__ void k_loop(Mainloop<L>& ml, Stage<L>& st, int nk,
     for (int c = 0; c < cps; ++c) {
       const int t = s * cps + c;
       const bool more = t + 1 < nchunks;
-      if (more) {
-        ml.fetch((t + 1) * L::KS);
-        rows.fetch((t + 1) * L::KS, buf ^ 1);
-      }
+      if (more) ml.fetch((t + 1) * L::KS);
       ml.fma_chunk(st, buf);
-      chunk(buf);
-      if (more) {
-        ml.stash(st, buf ^ 1);
-        rows.land();
-      }
+      if (more) ml.stash(st, buf ^ 1);
       __syncthreads();
       buf ^= 1;
     }

@@ -1,10 +1,10 @@
 // Hopper mainloop of the 3xTF32 wgmma kernels: B1 (sgemm.cu) and B2
 // (ft_sgemm_weighted.cu) at the tiles whose rows fill wgmma's 64-row
 // granularity, large (64 x 64), tall (128 x 32), huge (128 x 128) and test
-// (huge with bk = 128); and B3-B6 (ft_sgemm_running.cuh) at every tile, on
+// (huge with bk = 128); and B3-B8 (ft_sgemm_running.cuh) at every tile, on
 // one 128 x 128 CTA whose (SBM, SBN) sub-tiles are the paper's tile, the
-// granularity of their checks. The narrower B1 / B2 tiles, and B7 and B8,
-// keep the FFMA mainloop of gemm_mainloop.cuh.
+// granularity of their checks. The narrower B1 / B2 tiles keep the FFMA
+// mainloop of gemm_mainloop.cuh.
 //
 // One CTA computes one (BM, BN) tile of C = alpha * A @ B^T + beta * C with
 // A (M, K) and B (N, K) row-major: both K-major, the layout wgmma requires
@@ -37,19 +37,20 @@
 // Expected column sums (R > 0): the MOM * BM / SBM rows of column moments
 // (weights 1, w, w^2 up to MOM, w = row within the sub-tile + 1) of each
 // sub-tile row band of A, padded to R, a multiple of 8, ride each stage
-// (loaded by TMA for B6, summed from A's landed stage by the splitter warps
-// for B5 and B3) and are split hi / lo like B. A second accumulator takes
-// E = B_tile . M^T, one m64nRk8 wgmma per term with both operands in shared
-// memory (B's stage as the A operand), with the same 3xTF32 terms and
-// per-stage promotion as the product, so both sides of a check's residual
-// carry the same precision.
+// (loaded by TMA for B6 and B7, summed from A's landed stage by the
+// splitter warps for B5 and B3) and are split hi / lo like B. A second
+// accumulator takes E = B_tile . M^T, one m64nRk8 wgmma per term with both
+// operands in shared memory (B's stage as the A operand), with the same
+// 3xTF32 terms and per-stage promotion as the product, so both sides of a
+// check's residual carry the same precision.
 //
-// Expected row sums (XN = 8, B3 and B4): the splitter warps also write the
-// sums of B's rows over each sub-tile column band as 8 more rows of B's
-// stage (hi and lo, zero past the last band), and the product runs as
-// m64n(BN + 8)k8: its extra columns BN + j are A times band j's sums, each
-// row's expected sum over band j, from the same 3xTF32 terms and promotion
-// as the product they check.
+// Expected row sums (XN = 8; B3, B4, B7, B8): rows BN .. BN + NBN - 1 of
+// B's stage (hi and lo; zero up to BN + 8) hold the sums of B's rows over
+// each sub-tile column band, written by the splitter warps (B3, B4) or
+// loaded by TMA from the wrapper's band rows and split like B (B7, B8), and
+// the product runs as m64n(BN + 8)k8: its extra columns BN + j are A times
+// band j's sums, each row's expected sum over band j, from the same 3xTF32
+// terms and promotion as the product they check.
 //
 // Accumulator: wgmma's m64nBN f32 fragment. Consumer thread (warpgroup g,
 // warp w of the group, lane l) holds element i at tile row 64g + 16w + l/4
@@ -83,17 +84,18 @@ constexpr bool wgmma_tile() {
   return false;
 }
 
-// The (SBM, SBN) sub-tiles of the 128 x 128 CTA on which B3-B6 run, the
+// The (SBM, SBN) sub-tiles of the 128 x 128 CTA on which B3-B8 run, the
 // paper's tiles; ops/_build.subtiles reads this list.
 #define FTSG_FOR_EACH_SUBTILE(X) \
   X(16, 16) X(32, 32) X(64, 64) X(128, 32) X(32, 128) X(128, 128)
 
-// Where a stage's moment rows come from: none (B1, B2, B4), a TMA box of
-// the wrapper's (gm * 3, K) moment rows (B6), or sums over A's landed stage
-// by the splitter warps, one job per sub-tile row band and column after
-// B's split (B5: WgSmem::sum_rows) or in 8-row groups beside B's split
-// (B3: WgSmem::split_b). B5 on the 8-row groups ran 13-30 % slower at the
-// 16- to 64-row sub-tiles (PERF.md).
+// Where a stage's moment rows come from: none (B1, B2, B4, B8), a TMA box
+// of the MOM rows per row band that the check reads out of the wrapper's
+// (gm, rows, K) moment rows (B6: 3 of 3; B7: 1, or 2 with multifault, of
+// 2), or sums over A's landed stage by the splitter warps, one job per
+// sub-tile row band and column after B's split (B5: WgSmem::sum_rows) or
+// in 8-row groups beside B's split (B3: WgSmem::split_b). B5 on the 8-row
+// groups ran 13-30 % slower at the 16- to 64-row sub-tiles (PERF.md).
 enum MomentRows {
   kNoRows = 0,
   kLoadRows = 1,
@@ -101,20 +103,32 @@ enum MomentRows {
   kSumRowGroups = 3
 };
 
+// Where B's band rows (rows BN .. BN + NBN - 1 of B's stage, the operand of
+// the expected row sums) come from: none (B1, B2, B5, B6), sums over B's
+// landed stage by the splitter warps in 8-row groups (B3, B4:
+// WgSmem::split_b), or a TMA box of the wrapper's (N / SBN, K) band rows
+// (B7, B8), which the splitter warps only split.
+enum BandRows {
+  kNoBands = 0,
+  kSumBands = 1,
+  kLoadBands = 2
+};
+
 // A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with MOM moment rows
-// per sub-tile row band in each stage (0: none, B1, B2, B4; padded to R, a
-// multiple of 8) from ROWS, CHECK bytes of check scratch beside the ring,
-// and XN = 8 extra product columns (0: none): B's column-band sums, so
-// that the product's columns BN .. BN + NBN - 1 are the expected row sums
-// of each band (B3, B4). The ring has four stages where they fit in the
-// 232448 bytes of shared memory a CTA may have, else three.
+// per sub-tile row band in each stage (0: none, B1, B2, B4, B8; padded to
+// R, a multiple of 8) from ROWS, CHECK bytes of check scratch beside the
+// ring, and, with BANDS, XN = 8 extra product columns: B's column-band
+// sums, so that the product's columns BN .. BN + NBN - 1 are the expected
+// row sums of each band (B3, B4, B7, B8). The ring has four stages where
+// they fit in the 232448 bytes of shared memory a CTA may have, else three.
 template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int MOM_ = 0,
-          int CHECK_ = 0, int XN_ = 0, int ROWS_ = kNoRows>
+          int CHECK_ = 0, int BANDS_ = kNoBands, int ROWS_ = kNoRows>
 struct WgTile {
   static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_;
   static constexpr int NBM = BM / SBM, NBN = BN / SBN, NSUB = NBM * NBN;
-  static constexpr int MOM = MOM_, R = (MOM * NBM + 7) / 8 * 8, XN = XN_;
-  static constexpr int ROWS = ROWS_;
+  static constexpr int MOM = MOM_, R = (MOM * NBM + 7) / 8 * 8;
+  static constexpr int BANDS = BANDS_, ROWS = ROWS_;
+  static constexpr int XN = BANDS == kNoBands ? 0 : 8;
   static constexpr int SK = 32;       // K columns per stage: one swizzle row
   static constexpr int KK = SK / 8;   // 8-deep wgmma steps per stage
   static constexpr int NWG = BM / 64;  // consumer warpgroups
@@ -140,11 +154,16 @@ struct WgTile {
   static constexpr int B_BYTES = (BN + XN) * SK * 4;
   static constexpr int M_BYTES = R * SK * 4;  // one buffer of moment rows
   static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES + 2 * M_BYTES;
+  // The rows a stage's TMA boxes fill: where loaded, exactly the NBN band
+  // rows and the MOM * NBM moment rows the checks read; the full barrier
+  // expects these bytes, and the padding rows past them stay zero.
+  static constexpr int BAND_BOX = BANDS == kLoadBands ? NBN * SK * 4 : 0;
+  static constexpr int M_BOX = ROWS == kLoadRows ? MOM * NBM * SK * 4 : 0;
   static constexpr int CHECK_BYTES = CHECK_;
-  // The splitters' 8-row sums (WgSmem::split_b) of B (XN > 0) and of A's
-  // moments (ROWS == kSumRowGroups), rows of SK floats per stage.
-  static constexpr int PROD_ROWS =
-      (XN ? BN / 8 : 0) + (ROWS == kSumRowGroups ? MOM * BM / 8 : 0);
+  // The splitters' 8-row sums (WgSmem::split_b) of B (kSumBands) and of A's
+  // moments (kSumRowGroups), rows of SK floats per stage.
+  static constexpr int PROD_ROWS = (BANDS == kSumBands ? BN / 8 : 0) +
+                                   (ROWS == kSumRowGroups ? MOM * BM / 8 : 0);
   // The ring's 3 * stages mbarriers, padded to keep what follows 16-byte
   // aligned (float4 stores).
   static constexpr __host__ __device__ int bar_bytes(int stages) {
@@ -174,6 +193,8 @@ struct WgTile {
   static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
   static_assert(B_BYTES % 1024 == 0 && M_BYTES % 1024 == 0,
                 "buffers keep the swizzle alignment");
+  static_assert(BANDS != kLoadBands || B_BOX % 1024 == 0,
+                "the band-row box starts on a swizzle atom");
   static_assert(SMEM <= 232448, "the ring fits in shared memory");
 };
 
@@ -225,6 +246,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
       "r"(row0)
+      : "memory");
+}
+
+// TMA of a 3-D map: the (groups, planes, SK) box at (k0, plane0, group0).
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int k0, int plane0,
+                                          int group0) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
+      "r"(plane0), "r"(group0)
       : "memory");
 }
 
@@ -374,7 +407,7 @@ struct Wgmma<128> {
   }
 };
 
-// The product widened by B's XN = 8 band-sum rows (B3, B4).
+// The product widened by B's XN = 8 band-sum rows (B3, B4, B7, B8).
 template <>
 struct Wgmma<136> {
   static __device__ __forceinline__ void run(float (&d)[68], const uint32_t* a,
@@ -469,7 +502,7 @@ extern __shared__ unsigned char ftsg_wg_smem[];
 
 // The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
 // A's box, B's box (hi after the split; with XN > 0 followed by B's band
-// sums), B's lo (likewise) and, with R > 0, the moment rows' hi and lo;
+// rows), B's lo (likewise) and, with R > 0, the moment rows' hi and lo;
 // then the mbarriers: full(s) when TMA has landed the stage, ready(s) when
 // its B (and moment rows) are split, empty(s) when the consumers are done
 // with it; then the splitters' scratch (16-byte aligned) and the check
@@ -582,23 +615,42 @@ struct WgSmem {
       hi[j] = lo[j] = 0.f;
   }
 
-  // B's stage s split like split4; with XN > 0 also its column-band sums
-  // (B3, B4) and, with ROWS == kSumRowGroups, A's row-band moment sums (B3).
+  // Whether a stage has padding rows that no box and no sum writes: B's
+  // band rows past NBN up to BN + XN, and the moment rows past MOM * NBM up
+  // to R (B5's sum_rows writes its own zeros).
+  static constexpr bool PADS =
+      T::XN > T::NBN || (T::R > T::MOM * T::NBM && T::ROWS != kSumRows);
+
+  // Those rows of ring slot s, zeroed once before the first stage. (Zeroed
+  // in each slot's first stage instead, inside the splitters' stage loop,
+  // they made B6 5-10 % slower; PERF.md.)
+  __device__ __forceinline__ void zero_pads(int s, int e) const {
+    for (int z = (T::BN + T::NBN) * T::SK + e; z < (T::BN + T::XN) * T::SK;
+         z += T::SPLITTERS)
+      b(s)[z] = blo(s)[z] = 0.f;
+    for (int z = T::MOM * T::NBM * T::SK + e; z < T::R * T::SK;
+         z += T::SPLITTERS)
+      mhi(s)[z] = mlo(s)[z] = 0.f;
+  }
+
+  // B's stage s split like split4: B's box and, where loaded (kLoadBands),
+  // its band rows; with kSumBands also B's column-band sums (B3, B4) and,
+  // with kSumRowGroups, A's row-band moment sums (B3).
   // Row BN + j (j < NBN; the rest zero) of B's stage is the sum of the rows
   // of column band j (of hi + lo, the value the product multiplies), split
   // hi / lo in the same swizzled layout, so that the product's extra column
   // BN + j is each row's expected sum over band j; moment row MOM b + v
   // (the rest zero) is the sum of A's rows of row band b with weight w^v
   // (w = row in the band + 1). A job takes 8 rows of one 4-column chunk of
-  // B (split, and summed with XN > 0) or of A (summed), a whole warp the
+  // B (split, and summed with kSumBands) or of A (summed), a whole warp the
   // same kind; the 8-row sums meet in the producer scratch after a named
   // barrier over the splitter warps, and one job per output row and column
-  // adds a band's 8-row sums. The zero rows are written once per ring slot.
+  // adds a band's 8-row sums.
   __device__ __forceinline__ void split_b(int st, int e) const {
     const int s = st % T::STAGES;
-    constexpr bool SA = T::ROWS == kSumRowGroups;
-    if constexpr (T::XN == 0 && !SA) {
-      split4(b(s), blo(s), T::BN * T::SK / 4, e);
+    constexpr bool SB = T::BANDS == kSumBands, SA = T::ROWS == kSumRowGroups;
+    if constexpr (!SB && !SA) {
+      split4(b(s), blo(s), (T::B_BOX + T::BAND_BOX) / 16, e);
     } else {
       constexpr int G = T::BN / 8, GA = T::BM / 8;  // 8-row groups
       float4* hi4 = reinterpret_cast<float4*>(b(s));
@@ -606,7 +658,7 @@ struct WgSmem {
       const float4* a4 = reinterpret_cast<const float4*>(a(s));
       float* pb = prod() + (T::PROD_SETS == 2 ? st & 1 : 0) * T::PROD_ROWS *
                                T::SK;
-      float* pa = pb + (T::XN ? G : 0) * T::SK;
+      float* pa = pb + (SB ? G : 0) * T::SK;
       // B's jobs 0 .. 8 G - 1 and A's 0 .. 8 GA - 1, alternating by warp.
       static_assert(!SA || G == GA, "as many A jobs as B jobs");
       constexpr int NJ = 8 * G + (SA ? 8 * GA : 0);
@@ -638,7 +690,7 @@ struct WgSmem {
             sum.z += vh.z + vl.z;
             sum.w += vh.w + vl.w;
           }
-          if constexpr (T::XN > 0)
+          if constexpr (SB)
             reinterpret_cast<float4*>(pb)[grp * 8 + c] = sum;
         } else if constexpr (SA) {
           float4 sv[T::MOM];
@@ -666,7 +718,7 @@ struct WgSmem {
         }
       }
       asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
-      constexpr int NB = T::XN ? T::NBN * T::SK : 0;
+      constexpr int NB = SB ? T::NBN * T::SK : 0;
       constexpr int NA = SA ? T::MOM * T::NBM * T::SK : 0;
       for (int job = e; job < NB + NA; job += T::SPLITTERS) {
         float sum = 0.f;
@@ -699,47 +751,48 @@ struct WgSmem {
       }
       if constexpr (T::PROD_SETS == 1)  // the scratch is read before reuse
         asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
-      if (st < T::STAGES) {  // the zero rows, never written otherwise
-        for (int z = (T::BN + T::NBN) * T::SK + e; z < (T::BN + T::XN) * T::SK;
-             z += T::SPLITTERS)
-          b(s)[z] = blo(s)[z] = 0.f;
-        for (int z = NA + e; z < T::R * T::SK; z += T::SPLITTERS)
-          mhi(s)[z] = mlo(s)[z] = 0.f;
-      }
     }
   }
 
-  // The producer warpgroup, for nst stages of A's rows m0.., B's rows n0..
-  // and (T::ROWS == kLoadRows) the moment rows r0.. of tm: its first thread
-  // streams the TMA loads through the ring, each slot refilled once the
-  // consumers released it; warps 1-3 split each landed stage's B (and
-  // moment rows, or form them: kSumRows, kSumRowGroups), hi in place and lo
-  // into the second buffer, so the consumer warpgroups never wait for one
-  // another.
+  // The producer warpgroup, for nst stages of A's rows m0.., B's rows n0..,
+  // (kLoadRows) the moment rows of row bands ti0.. of tm, MOM of each band's
+  // rows, landing as row MOM * b + v, and (kLoadBands) the band rows tj0..
+  // of tbb as B's rows BN..: its first thread streams the TMA loads through
+  // the ring, each slot refilled once the consumers released it; warps 1-3
+  // split each landed stage's B (and moment rows, or form them: kSumRows,
+  // kSumRowGroups), hi in place and lo into the second buffer, so the
+  // consumer warpgroups never wait for one another.
   __device__ __forceinline__ void produce(const CUtensorMap* ta,
                                           const CUtensorMap* tb, int m0,
                                           int n0, int nst,
                                           const CUtensorMap* tm = nullptr,
-                                          int r0 = 0) const {
+                                          int ti0 = 0,
+                                          const CUtensorMap* tbb = nullptr,
+                                          int tj0 = 0) const {
     const int p = threadIdx.x - T::NCONS;
     if (p == 0) {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         if (st >= T::STAGES) mbar_wait(empty(s), (st / T::STAGES - 1) & 1);
-        mbar_expect_tx(full(s), T::A_BYTES + T::B_BOX +
-                                    (T::ROWS == kLoadRows ? T::M_BYTES : 0));
+        mbar_expect_tx(full(s),
+                       T::A_BYTES + T::B_BOX + T::BAND_BOX + T::M_BOX);
         tma_load(a(s), ta, full(s), st * T::SK, m0);
         tma_load(b(s), tb, full(s), st * T::SK, n0);
+        if constexpr (T::BANDS == kLoadBands)
+          tma_load(b(s) + T::BN * T::SK, tbb, full(s), st * T::SK, tj0);
         if constexpr (T::ROWS == kLoadRows)
-          tma_load(mhi(s), tm, full(s), st * T::SK, r0);
+          tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
       }
     } else if (p >= 32) {
+      if constexpr (PADS) {
+        for (int s = 0; s < T::STAGES; ++s) zero_pads(s, p - 32);
+      }
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         mbar_wait(full(s), (st / T::STAGES) & 1);
         split_b(st, p - 32);
         if constexpr (T::ROWS == kLoadRows)
-          split4(mhi(s), mlo(s), T::R * T::SK / 4, p - 32);
+          split4(mhi(s), mlo(s), T::M_BOX / 16, p - 32);
         if constexpr (T::ROWS == kSumRows) sum_rows(s, p - 32);
         fence_proxy_async();  // the split is visible to wgmma
         mbar_arrive(ready(s));
@@ -1037,6 +1090,28 @@ inline bool tensor_map(CUtensorMap* map, const float* p, int rows, int K,
   const cuuint32_t box[2] = {(cuuint32_t)sk, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The (groups, planes, K) row-major f32 operand at p (the wrapper's moment
+// rows), in boxes of box_planes rows of each of box_groups groups, SK
+// columns, with the 128-byte swizzle: a box's row box_planes * g + v holds
+// plane v of group g; out-of-range columns and groups read as zero.
+inline bool tensor_map3(CUtensorMap* map, const float* p, int groups,
+                        int planes, int K, int box_groups, int box_planes,
+                        int sk) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)planes,
+                              (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * sizeof(float),
+                                 (cuuint64_t)planes * K * sizeof(float)};
+  const cuuint32_t box[3] = {(cuuint32_t)sk, (cuuint32_t)box_planes,
+                             (cuuint32_t)box_groups};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

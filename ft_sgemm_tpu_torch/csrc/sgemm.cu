@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(L::NT)
   const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
   Mainloop<L> ml(A, B, K, m0, n0);
   auto none = [](int) {};
-  k_loop(ml, st, K / bk, bk / L::KS, none, none, none);
+  k_loop(ml, st, K / bk, bk / L::KS, none, none);
   ml.store(out, C, N, m0, n0, alpha, beta);
 }
 

@@ -145,7 +145,7 @@ def wgmma_tiles() -> frozenset:
 
 @functools.lru_cache(maxsize=1)
 def subtiles() -> frozenset:
-    """The (bm, bn) tiles on which B3-B6 run: sub-tiles of one 128 x 128
+    """The (bm, bn) tiles on which B3-B8 run: sub-tiles of one 128 x 128
     3xTF32 wgmma CTA (``FTSG_FOR_EACH_SUBTILE``)."""
     return _tile_list("FTSG_FOR_EACH_SUBTILE")
 
@@ -154,13 +154,12 @@ def mainloop(kind: str, shape) -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"`` (B1
     and B2 at the tiles of :func:`wgmma_tiles`; B3 ``rowcol``, B4
-    ``global``, B5 ``running`` and B6 ``fused`` at every tile of
-    :func:`subtiles`) or ``"ffma"`` (B1 and B2 at the other tiles, B7 and
-    B8 at every tile)."""
+    ``global``, B5 ``running``, B6 ``fused``, B7 ``rowcol_mxu`` and B8
+    ``global_mxu`` at every tile of :func:`subtiles`) or ``"ffma"`` (B1 and
+    B2 at the other tiles)."""
     tile = (shape.bm, shape.bn)
     wgmma = ((kind in ("sgemm", "precomp") and tile in wgmma_tiles())
-             or (kind in ("rowcol", "global", "running", "fused")
-                 and tile in subtiles()))
+             or (kind not in ("sgemm", "precomp") and tile in subtiles()))
     return "wgmma-3xtf32" if wgmma else "ffma"
 
 

@@ -1,7 +1,7 @@
 """Fused online-ABFT SGEMM: kernels B2, B5 (``csrc/ft_sgemm_weighted.cu``),
 B3 (``csrc/ft_sgemm_rowcol.cu``), B4, B8 (``csrc/ft_sgemm_global.cu``) and
-B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3, B4, B5 and
-B6 run one 128 x 128 CTA over the paper's (bm, bn) tile as sub-tiles
+B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3-B8 run one
+128 x 128 CTA over the paper's (bm, bn) tile as sub-tiles
 (``csrc/ft_sgemm_running.cuh``): the grids, cadence and fault placement
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
@@ -32,9 +32,11 @@ from the operands' checksum-moment rows (``_tile_moments``, torch ops in
 the wrapper, as XLA ops in the reference) instead of summing the staged
 operand chunks in the kernel: B6 (weighted / fused), B7 (rowcol) and B8
 (global). On the TPU those rows were appended to the operand blocks so one
-MXU dot yielded the product and the checksums; on Hopper the kernels stage
-them beside each K chunk (B6: as one more TMA box of each pipeline stage),
-which removes the in-kernel column reductions and their barrier.
+MXU dot yielded the product and the checksums; on Hopper the kernels load
+them by TMA as more boxes of each pipeline stage (A's as the moment rows of
+the expected column sums, B's as the extra rows of B's stage that give the
+expected row sums), which removes the in-kernel sums of A and B. B8 reads
+only B's rows; its A rows are built for its plain version.
 
 Beside each kernel wrapper is its plain PyTorch version, which follows the
 tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,

@@ -1,14 +1,16 @@
 """3xTF32 on the CPU: the arithmetic of the wgmma kernels.
 
-B1 and B2 at the large, tall, huge and test tiles, and B3-B6 at every
+B1 and B2 at the large, tall, huge and test tiles, and B3-B8 at every
 tile, run ``csrc/gemm_wgmma.cuh``, which computes the FP32 product on the
 tensor cores: each operand is split into two TF32 numbers, ``x = hi +
 lo``, and every 8-deep k step adds ``a_lo b_hi``, ``a_hi b_lo`` and ``a_hi
 b_hi`` into a stage sum that is added to the f32 accumulator once per
 32-column stage (or at a fault, before the fault; or at a check, before
-the check). B3, B5 and B6 form their expected column sums the same way,
-``E = B . M^T`` from the split moment rows, and B3 and B4 their expected
-row sums as 8 more columns of the product, A times B's column-band sums.
+the check). B3 and B5-B7 form their expected column sums the same way,
+``E = B . M^T`` from the split moment rows, and B3, B4, B7 and B8 their
+expected row sums as 8 more columns of the product, A times B's
+column-band sums (summed from the split B in the kernel for B3 and B4,
+the wrapper's f32 band rows for B7 and B8).
 The helpers here repeat that arithmetic in PyTorch so that the CPU tests
 can hold it against the JAX package, and mirror the fragment maps: the
 accumulator's, its sub-tiles' (B3-B6 check the paper's tile as a sub-tile
@@ -121,13 +123,15 @@ def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
 
 
 def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
-                    check, moments=None, band_sums=False):
+                    check, moments=None, band_sums=False, band_rows=None):
     """The sub-tiled wgmma kernel (``csrc/ft_sgemm_running.cuh``) on padded
     operands: per 8-column k step the 3xTF32 product into the stage sum
     and, beside it, the 3xTF32 expected column sums ``B_tile . M^T`` of the
-    (gm, MOM, K) moment rows ``moments`` (B3, B5, B6) and the expected row
-    sums ``A . s_b`` of B's column-band sums ``s_b`` (B3, B4: the product's
-    extra columns; ``band_sums``), all promoted at every 32-column stage
+    (gm, MOM, K) moment rows ``moments`` (B3, B5-B7) and the expected row
+    sums ``A . s_b`` of B's column-band sums ``s_b`` (the product's extra
+    columns): summed from the split B (B3, B4; ``band_sums``) or the
+    wrapper's (gn, 1, K) f32 band rows ``band_rows`` (B7, B8), all promoted
+    at every 32-column stage
     end, before a fault (``_inject_plain`` at the first k step of its bk
     step) and before a check (after the last k step of every
     ``check_every``-th bk step and of the last, also inside a stage).
@@ -148,10 +152,12 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         exp = torch.zeros((gm, gn, moments.shape[1], bn), device=a.device)
         part_e = torch.zeros_like(exp)
         sums.append((exp, part_e))
-    if band_sums:
-        # The splitter warps sum the split B (hi + lo, what the product
-        # multiplies) over each column band, then split the sums.
-        sh, sl = split((bh + bl).sum(1))
+    if band_sums or band_rows is not None:
+        # B3, B4: the splitter warps sum the split B (hi + lo, what the
+        # product multiplies) over each column band, then split the sums;
+        # B7, B8: they split the loaded f32 band rows.
+        sh, sl = split((bh + bl).sum(1) if band_rows is None
+                       else band_rows[:, 0])
         r_exp = torch.zeros((gm, gn, bm), device=a.device)
         part_r = torch.zeros_like(r_exp)
         sums.append((r_exp, part_r))
@@ -173,7 +179,7 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         if moments is not None:
             for x, y in ((bl, mh), (bh, ml), (bh, mh)):
                 part_e += torch.einsum("jnk,ivk->ijvn", x[..., cols], y[..., cols])
-        if band_sums:
+        if r_exp is not None:
             for x, y in ((al, sh), (ah, sl), (ah, sh)):
                 part_r += torch.einsum("imk,jk->ijm", x[..., cols], y[..., cols])
         s = (t + 1) // cps - 1   # the bk step that k step t ends, if any
@@ -206,12 +212,15 @@ def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
 
 
 def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
-                     multifault: bool):
-    """B3 as the wgmma kernel computes it (:func:`_subtile_tf32x3`): the
-    expected column sums from A's plain (and, with ``multifault``, w)
-    moment rows of each tile, the expected row sums from B's column-band
-    sums; each check is ``_rowcol_detect_correct``. Returns (out, det, unc)
-    like ``ops/ft_sgemm.ft_rowcol_plain``."""
+                     multifault: bool, rows=None):
+    """B3 (``rows`` None) and B7 (``rows`` = A's (gm, 2, K) and B's (gn, 1,
+    K) moment rows of ``ops/ft_sgemm.kernel_inputs``) as the wgmma kernel
+    computes them (:func:`_subtile_tf32x3`): the expected column sums from
+    A's plain (and, with ``multifault``, w) moment rows of each tile, summed
+    in the kernel (B3) or the first one or two of the loaded rows (B7); the
+    expected row sums from B's column-band sums, summed from the split B
+    (B3) or the loaded rows (B7); each check is ``_rowcol_detect_correct``.
+    Returns (out, det, unc) like ``ops/ft_sgemm.ft_rowcol_plain``."""
     w = ft._weights(shape.bm, a.device)[:, None]
     thresholds = [float(t) for t in scalars[4:6]]
 
@@ -221,18 +230,24 @@ def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
             acc, r_exp - acc.sum(-1), exp[:, :, 0] - acc.sum(-2), res_cw,
             thresholds, multifault)
 
-    return _subtile_tf32x3(
-        a, b, c, shape, alpha, beta, scalars, check_every, check,
-        moments=ft._tile_moments(a, shape.bm, 2 if multifault else 1),
-        band_sums=True)
+    mom = 2 if multifault else 1
+    if rows is None:
+        return _subtile_tf32x3(
+            a, b, c, shape, alpha, beta, scalars, check_every, check,
+            moments=ft._tile_moments(a, shape.bm, mom), band_sums=True)
+    return _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every,
+                           check, moments=rows[0][:, :mom], band_rows=rows[1])
 
 
-def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int):
-    """B4 as the wgmma kernel computes it (:func:`_subtile_tf32x3`): each
-    tile's residual is the sum over its rows of (expected row sum - the
-    row's accumulator sum), one event when it moved by more than the
-    threshold since the previous check. Returns (out, det, unc) like
-    ``ops/ft_sgemm.ft_global_plain``, unc equal to det."""
+def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
+                     rows=None):
+    """B4 (``rows`` None) and B8 (``rows`` = A's and B's (g, 1, K) moment
+    rows; only B's are read) as the wgmma kernel computes them
+    (:func:`_subtile_tf32x3`): each tile's residual is the sum over its
+    rows of (expected row sum - the row's accumulator sum), one event when
+    it moved by more than the threshold since the previous check. Returns
+    (out, det, unc) like ``ops/ft_sgemm.ft_global_plain``, unc equal to
+    det."""
     thr = float(scalars[4])
     state = {}
 
@@ -245,7 +260,8 @@ def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int):
         return acc, events, state["det"]
 
     return _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every,
-                           check, band_sums=True)
+                           check, band_sums=rows is None,
+                           band_rows=None if rows is None else rows[1])
 
 
 def row_sum_fragment_map(sbn: int) -> torch.Tensor:
@@ -274,6 +290,24 @@ def moment_rows(sbm: int, mom: int = 3) -> int:
     band (B5 and B6: 3; B3: 1, or 2 with multifault), padded to a multiple
     of 8 (``WgTile::R``)."""
     return -(-mom * CTA // sbm // 8) * 8
+
+
+def loaded_rows(rows: torch.Tensor, g0: int, n_groups: int, per_group: int,
+                pad: int, k0: int = 0) -> torch.Tensor:
+    """(pad, STAGE): the rows that one stage's TMA box of the wrapper's
+    (g, P, K) checksum rows lands in shared memory (``WgSmem::produce``),
+    with the padding rows the splitter warps zero (``WgSmem::zero_pads``):
+    row ``per_group * b + v`` holds row v of group g0 + b at K columns k0
+    .. k0 + STAGE, zero past the last group and past K (TMA's fill), and
+    the rows from ``n_groups * per_group`` on are zero. B7 and B8 take B's
+    band rows (per_group 1, n_groups NBN) as B's stage rows 128 .. 135;
+    B6 and B7 A's moment rows (per_group MOM, padded to R)."""
+    out = torch.zeros((pad, STAGE), dtype=rows.dtype)
+    for b in range(min(n_groups, rows.shape[0] - g0)):
+        for v in range(per_group):
+            cols = rows[g0 + b, v, k0:k0 + STAGE]
+            out[per_group * b + v, :cols.shape[0]] = cols
+    return out
 
 
 def moment_fragment_map(r: int) -> torch.Tensor:

@@ -1,14 +1,18 @@
-"""Time B3 and B4 of several port trees at 4096, without checking them.
+"""Time the sub-tiled kernels B3, B4, B6, B7 and B8 of several port trees
+at 4096, without checking them.
 
 Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
 package, as for ``scripts/torch_kernel_ab.py``; unlike that script, this
 one does not hold the kernels' output or fault counts to anything, so it
 also times copies that break the check on purpose (a check that returns
 early, a product without its extra columns) to see what a part costs.
-Only ``ft_sgemm_rowcol.cu`` and ``ft_sgemm_global.cu`` are built, all
-trees in parallel. B3 and B4 run at the cadence and multifault setting
-the program gives them, with reference-like injection, at the small,
-medium, large, tall, wide and huge tiles; each tree is measured in a
+Only ``ft_sgemm_rowcol.cu``, ``ft_sgemm_global.cu`` and
+``ft_sgemm_aug.cu`` are built, all trees in parallel. Each kernel runs at
+the cadence and multifault setting the program gives it, with
+reference-like injection, at the small, medium, large, tall, wide and
+huge tiles, on the moment rows the wrapper builds for it (B6-B8,
+``ops/ft_sgemm.kernel_inputs``, made once per tile outside the timed
+launches); each tree is measured in a
 fresh process per turn, the trees in order and then reversed
 (``torch_kernel_ab.turns``). Needs nvcc and a CUDA device:
 
@@ -29,7 +33,16 @@ from torch_kernel_ab import _import_port, card, turns
 
 SIZE = 4096
 TILES = ("small", "medium", "large", "tall", "wide", "huge")
-SOURCES = ("ft_sgemm_rowcol", "ft_sgemm_global")
+SOURCES = ("ft_sgemm_rowcol", "ft_sgemm_global", "ft_sgemm_aug")
+# kernel -> (source, entry point, pointer arguments before out, ints
+# after the 9 dimensions, the (strategy, encode) whose plan it runs)
+KERNELS = {
+    "B3": ("ft_sgemm_rowcol", "ftsg_ft_rowcol", 3, 2, ("rowcol", "vpu")),
+    "B4": ("ft_sgemm_global", "ftsg_ft_global", 3, 1, ("global", "vpu")),
+    "B6": ("ft_sgemm_aug", "ftsg_ft_fused", 4, 1, ("fused", "mxu")),
+    "B7": ("ft_sgemm_aug", "ftsg_ft_rowcol_mxu", 5, 2, ("rowcol", "mxu")),
+    "B8": ("ft_sgemm_global", "ftsg_ft_global_mxu", 5, 1, ("global", "mxu")),
+}
 
 
 def build(tree: str) -> None:
@@ -40,7 +53,7 @@ def build(tree: str) -> None:
 
 
 def measure(tree: str) -> dict:
-    """Milliseconds per launch of B3 and B4 on each tile, and their counts."""
+    """Milliseconds per launch of each kernel on each tile, and its counts."""
     _import_port(tree)
     import numpy as np
     import torch
@@ -55,11 +68,9 @@ def measure(tree: str) -> dict:
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entries = {
-        "B3": _build.bind(_build.library("ft_sgemm_rowcol"), "ftsg_ft_rowcol",
-                          [p] * 6 + [i] * 11 + [f, f, p, p]),
-        "B4": _build.bind(_build.library("ft_sgemm_global"), "ftsg_ft_global",
-                          [p] * 6 + [i] * 10 + [f, f, p, p]),
-    }
+        kern: _build.bind(_build.library(src), entry,
+                          [p] * (n_in + 3) + [i] * (9 + n_int) + [f, f, p, p])
+        for kern, (src, entry, n_in, n_int, _) in KERNELS.items()}
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
@@ -74,13 +85,18 @@ def measure(tree: str) -> dict:
                           device="cuda")
         unc = torch.empty_like(det)
         dims = (SIZE, SIZE, SIZE, sh.bm, sh.bn, *sh.thread_layout, sh.bk)
-        _, ce, mf = ft._plan("rowcol", None, None, inj, SIZE // sh.bk, sh.bn)
-        extra = {"B3": (ce, int(mf)), "B4": (ce,)}
         for kern, fn in entries.items():
-            def launch(fn=fn, kern=kern):
+            strategy, encode = KERNELS[kern][4]
+            kind, ce, mf = ft._plan(strategy, None, None, inj, SIZE // sh.bk,
+                                    sh.bn, encode)
+            rows = ft.kernel_inputs(kind, a, b, sh)
+            ints = (ce, int(mf))[:KERNELS[kern][3]]
+
+            def launch(fn=fn, kern=kern, rows=rows, ints=ints):
                 _build.check_launch(
-                    fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                       det.data_ptr(), unc.data_ptr(), *dims, *extra[kern],
+                    fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                       *(r.data_ptr() for r in rows), out.data_ptr(),
+                       det.data_ptr(), unc.data_ptr(), *dims, *ints,
                        1.0, -1.5, sc.ctypes.data, stream), kern)
 
             row[f"{kern} {name}"] = cuda_ms(launch, reps=5)

@@ -21,7 +21,7 @@ checks fall inside a 32-column stage. (c) The fragment maps: each
 sub-tile's elements tile the CTA, the lanes a column sum combines share
 the column and the sub-tile, the weights are sub-tile-local, and the
 expected-moment product covers B's rows times the moment rows. (d) The
-routing: ``_build.mainloop`` sends B5 and B6 to wgmma at every tile, and a
+routing: ``_build.mainloop`` sends B3-B8 to wgmma at every tile, and a
 launch error raises. The card tests (marker ``cuda``) hold the CUDA
 kernels against their plain versions at ragged sizes and mid-stage checks.
 """
@@ -234,10 +234,13 @@ def test_mainloop_routes_running_and_fused_to_wgmma():
     for name in PROGRAM_TILES + ("test",):
         shape = SHAPES[name]
         assert (shape.bm, shape.bn) in _build.subtiles()
-        for kind in ("rowcol", "global", "running", "fused"):
+        for kind in ("rowcol", "global", "running", "fused", "rowcol_mxu",
+                     "global_mxu"):
             assert _build.mainloop(kind, shape) == "wgmma-3xtf32", name
-        for kind in ("rowcol_mxu", "global_mxu"):
-            assert _build.mainloop(kind, shape) == "ffma"
+    # FFMA serves only B1 and B2 at the tiles narrower than wgmma's 64 rows.
+    for name in ("small", "medium", "wide"):
+        for kind in ("sgemm", "precomp"):
+            assert _build.mainloop(kind, SHAPES[name]) == "ffma"
 
 
 def test_a_launch_error_raises(monkeypatch):
