@@ -46,9 +46,10 @@ TIMING_SIZE = 4096
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# The tiles on which B1 and B2 run the 3xTF32 wgmma mainloop (B3-B8 run it
-# at every tile).
-WGMMA_TILES = ("large", "tall", "huge")
+# The tiles on which B1's accuracy is held: every program tile, since every
+# kernel runs the 3xTF32 wgmma mainloop at every tile (B1 on the tile's own
+# CTA at large, tall and huge, on the 128 x 128 one at small, medium, wide).
+WGMMA_TILES = ("small", "medium", "large", "tall", "wide", "huge")
 # A check cadence in bk steps that ends checks inside a 32-column stage.
 MID_STAGE_EVERY = 3
 # The clean weighted residuals must stay this far under the threshold.
@@ -212,22 +213,20 @@ def phase_device():
 def ptxas_summary(text: str):
     """``kernel<dims[,flag]>: R regs[, S B spilled]`` for each kernel in one
     source's ``-Xptxas -v`` log (names demangled just enough to tell the
-    layouts apart: an FFMA layout's bm, bn, ks, mr, nr and the multifault
-    flag; a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per band and
-    the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows`` and
-    ``MomentRows``)."""
+    kernels apart: a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per
+    band and the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows``
+    and ``MomentRows``, then B1's ragged-store flag)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
-        dims = (re.search(r"LayoutI((?:Li\d+E){5})", fn)
-                or re.search(r"WgTileI((?:Li\d+E){5})", fn))
-        flag = (re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
-                or re.search(r"EEL[bi](\d+)E", fn))
+        dims = re.search(r"WgTileI((?:Li\d+E){5})", fn)
+        rows = re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
+        ragged = re.search(r"EELb(\d)E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        tag = ",".join(re.findall(r"\d+", dims.group(1))
-                       + (list(flag.groups()) if flag else []))
+        tag = ",".join(re.findall(r"\d+", dims.group(1)) + list(rows.groups())
+                       + ([ragged.group(1)] if ragged else []))
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
@@ -317,7 +316,7 @@ def phase_kernels(kern: Kernels):
 
 
 def phase_accuracy(kern: Kernels):
-    """B1 at the wgmma tiles against a float64 product of the same operands,
+    """B1 at every program tile against a float64 product of the same operands,
     beside cuBLAS FP32 (``torch.addmm`` with TF32 off): on the program's
     libc-rand verification inputs (C zero) and on the table's inputs at
     4096, the kernel's largest error must be at most twice cuBLAS's."""
@@ -542,15 +541,19 @@ TIMED = (("sgemm", "huge"), ("precomp", "huge"), ("rowcol", "huge"),
 TIMED += tuple((kind, tile)
                for kind in ("rowcol", "global", "rowcol_mxu", "global_mxu")
                for tile in ("medium", "large", "tall", "wide"))
+# Timed though the program does not launch them: B2 at small.
+OFF_PATH = (("precomp", "small"),)
+TIMED += OFF_PATH
 
 
 def phase_timing(kern: Kernels, counts):
     """Each kernel at 4096 on every tile, cadence and multifault setting the
     program gives it (``TIMED``): the kernel, its plain version,
     torch.addmm for the same alpha*A@B.T + beta*C, and the bound (3xTF32
-    on the tensor cores where the kernel runs the wgmma mainloop, counting
-    the expected-sum products that run there, ``tc_products``; else FFMA).
-    Rows name their mainloop and carry both bounds."""
+    on the tensor cores, counting the expected-sum products that run there,
+    ``tc_products``). Rows name their mainloop and carry the FFMA bound
+    beside it. B2 at small, which the program does not launch (id 11 runs
+    B5 there), is timed too (OFF_PATH)."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -573,7 +576,9 @@ def phase_timing(kern: Kernels, counts):
             strategy, encode = KIND_PAIR[kind]
             plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
                                     shape.bn, encode)
-            if plan != kind:
+            if (kind, tile) in OFF_PATH:
+                ce, mf = n // shape.bk, False
+            elif plan != kind:
                 raise AssertionError(f"the program runs {plan} at {shape.name},"
                                      f" not {kind}")
         run, plain = kern.calls(kind, shape, a, b, c, _scalars(inj), ce, mf)
@@ -582,11 +587,10 @@ def phase_timing(kern: Kernels, counts):
         library_ms = cuda_ms(lambda: torch.addmm(
             c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
         flops, nbytes = work(kind, shape, n, ce, mf)
-        ffma_ms, ffma_by = _bound(flops, nbytes)
+        ffma_ms, _ = _bound(flops, nbytes)
         tc_ms, tc_by = _bound(flops, nbytes, tc_products(kind, shape, n, mf))
         mainloop = _build.mainloop(kind, shape)
-        wgmma = mainloop == "wgmma-3xtf32"
-        bound_ms, bound_by = (tc_ms, tc_by) if wgmma else (ffma_ms, ffma_by)
+        bound_ms, bound_by = tc_ms, tc_by
         row = {"name": name, "route": "cuda",
                "source": kern.table[name]["source"],
                "replaces": kern.table[name]["replaces"],
@@ -608,15 +612,16 @@ def phase_timing(kern: Kernels, counts):
 def phase_residual(kern: Kernels, operands):
     """Worst clean checksum residuals at 4096 (C = 0, alpha = 1: the output
     is the accumulator), which must stay RESIDUAL_MARGIN times under the
-    threshold: the f32 column moments of B2's (huge) and B5's and B6's
-    (small, huge) accumulators against the torch.matmul expectations, and
-    B3's and B7's (small, huge) row and column sums against A . s_b and the
-    plain expected column checksums; and each tile's total of B4's and B8's
-    accumulators (small, huge) against t_exp = s_a . s_b from the moment
-    rows. B3, B5, B6 and B7 also run clean with the threshold cut
-    RESIDUAL_MARGIN times: their in-kernel residuals (the expected sums from
-    the tensor-core products against the accumulator's sums) must flag
-    nothing; B4 and B8 flag nothing at the threshold."""
+    threshold: the f32 column moments of B2's (huge, and medium and wide
+    on the 128 x 128 CTA) and B5's and B6's (small, huge) accumulators
+    against the torch.matmul expectations, and B3's and B7's (small, huge)
+    row and column sums against A . s_b and the plain expected column
+    checksums; and each tile's total of B4's and B8's accumulators (small,
+    huge) against t_exp = s_a . s_b from the moment rows. B3, B5, B6 and B7
+    also run clean with the threshold cut RESIDUAL_MARGIN times: their
+    in-kernel residuals (the expected sums from the tensor-core products
+    against the accumulator's sums) must flag nothing; B4 and B8 flag
+    nothing at the threshold."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -639,7 +644,8 @@ def phase_residual(kern: Kernels, operands):
 
     worst = {}
     faults = 0
-    for kind, tile in (("precomp", "huge"), ("running", "small"),
+    for kind, tile in (("precomp", "huge"), ("precomp", "medium"),
+                       ("precomp", "wide"), ("running", "small"),
                        ("running", "huge"), ("fused", "small"),
                        ("fused", "huge")):
         shape = SHAPES[tile]
@@ -708,8 +714,8 @@ def phase_residual(kern: Kernels, operands):
     if faults:
         raise AssertionError("a clean run reported faults")
     log(f"phase residual: worst clean residual at {n} (weighted: moments 1,"
-        f" w, w^2; rowcol: rows, columns; {_build.mainloop('precomp', huge)}"
-        f" at huge, every B3-B8 tile wgmma): {worst}; global (tile total,"
+        f" w, w^2; rowcol: rows, columns; every kernel"
+        f" {_build.mainloop('precomp', huge)}): {worst}; global (tile total,"
         f" largest |t_exp|): {worst_global}; threshold 9500, at which B4 and"
         f" B8 flag nothing; B3, B5, B6 and B7 flag nothing at threshold"
         f" {limit:g}")

@@ -5,20 +5,22 @@ description ``[ms, ns, ks, mw, nw, mr, nr]`` (block tile, K chunk, warp
 tile, thread tile — ``code_gen/main.py:8-16``). The JAX package collapsed
 that to 128-multiple MXU blocks (``huge`` is 512x512x512), which do not fit
 one CTA's registers on Hopper. The port therefore takes each named shape's
-``bm x bn`` straight from the paper's CUDA tile and runs it in the paper's
-register-tiled FFMA form: ``(bm/mr) x (bn/nr)`` threads, each holding an
-``mr x nr`` accumulator, with A/B staged through shared memory ``ks``
-columns at a time. B1 and B2 run the tiles of 64 rows or more (large,
-tall, huge, test) as 3xTF32 on wgmma instead (``csrc/gemm_wgmma.cuh``),
-whatever the thread layout says.
+``bm x bn`` straight from the paper's CUDA tile: the unit of padding, of
+fault placement and of the checks and their grids. Every kernel runs it as
+3xTF32 on wgmma (``csrc/gemm_wgmma.cuh``): B1 and B2 in one CTA per tile
+at the tiles of 64 rows or more (large, tall, huge, test), every other
+launch in one 128 x 128 CTA that covers several tiles
+(``ops/_build.mainloop``). The paper's thread layout ``(ks, mr, nr)``
+stays in the table and is passed to the entry points, which do not read
+it.
 
 ``bk`` is the K depth of one scheduled step — the unit that fault
 injection and the check cadence count, like one K grid step of the JAX
 kernels. It is a multiple of the chunk ``ks``; the default ``bk = ks``
 gives the paper's own ``K/20`` injection cadence. ``test`` keeps the JAX
 package's 128x128x128 tile exactly, so the two packages can be compared
-tile for tile; on the card it runs the ``huge`` thread layout (ks = 8,
-8x8 per thread), 16 chunks per step.
+tile for tile; on the card it runs the ``huge`` CTA with 16 k steps of 8
+columns per step.
 """
 
 from __future__ import annotations
@@ -36,9 +38,9 @@ class KernelShape:
       bm, bn: output tile of one CTA (rows, columns of C).
       bk: K depth of one scheduled step (injection / check cadence unit).
       ref_params: the reference's ``[ms, ns, ks, mw, nw, mr, nr]``.
-      layout: ``(ks, mr, nr)`` the CUDA kernel runs — shared-memory K chunk
-        and per-thread accumulator tile. ``None`` takes them from
-        ``ref_params``.
+      layout: the paper's ``(ks, mr, nr)`` — shared-memory K chunk and
+        per-thread accumulator tile, which the entry points take and do
+        not read. ``None`` takes them from ``ref_params``.
     """
 
     name: str

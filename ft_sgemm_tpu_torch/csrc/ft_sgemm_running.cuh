@@ -1,6 +1,6 @@
 // Kernels B3-B8 on the 3xTF32 wgmma mainloop (gemm_wgmma.cuh): one kernel
-// skeleton over sub-tiles, three checks, and the fault injection they share
-// with B2.
+// skeleton over sub-tiles, three checks, and the fault injection and the
+// weighted check they share with B2.
 //
 // B5 replaces ft_sgemm_tpu/ops/ft_sgemm.py::_ft_kernel_weighted (:917) and
 // B6 _ft_kernel_fused (:1077; pallas_call at ops/ft_sgemm.py:1468): the
@@ -65,12 +65,15 @@
 namespace ftsg {
 
 // Fault injection for the wgmma mainloop, the schedule of
-// abft_common.cuh::inject counted down in 8-column k steps: the fault of bk
-// step k = f * every (f = 0, 1, ..) comes before k step next = k * bk / 8
-// (while next < K / 8). Per sub-tile (ti, tj) (global indices: the CTA's
-// first is (ti0, tj0)) at ordinal f + 3 ti + 5 tj, row (131 ord + 7) % SBM
-// and column (col_stride ord + 3) % SBN of the sub-tile, so no k step
-// divides. Branch-free selects over the fragment, as inject.
+// ft_sgemm_tpu/ops/ft_sgemm.py::_inject (:242-284) counted down in
+// 8-column k steps: the fault of bk step k = f * every (f = 0, 1, ..) comes
+// before k step next = k * bk / 8 (while next < K / 8). Per sub-tile (ti,
+// tj) (global indices: the CTA's first is (ti0, tj0)) at ordinal f + 3 ti +
+// 5 tj, row (131 ord + 7) % SBM and column (col_stride ord + 3) % SBN of
+// the sub-tile, so no k step divides. Every thread runs the same
+// branch-free selects over its fragment: a divergent branch around
+// per-register conditional adds made the whole K loop of the first FT
+// kernels ~3x slower on an H100 (PERF.md).
 template <class T>
 struct FragInject {
   static constexpr bool kSegmented = false;  // B2 checks once, after the loop
@@ -135,10 +138,14 @@ struct WeightedSmem {
 // the column moments of each warp's 16 rows by shuffles over the 8 lanes
 // that share a column (equal lane % 4); one thread per (band, column) adds
 // its band's warps and decides (weighted_column); the correction in place.
+// B2 (ft_sgemm_weighted.cu: PrecompCheck) stages the wrapper's moments in
+// E's place and decides the same way.
 template <class T>
 struct WeightedCheck {
   static constexpr bool kSegmented = false;  // one or two checks per run
-  using Smem = WeightedSmem<T::R, T::BN, T::NCONS / 32, T::NBM, T::NSUB>;
+  // E's R rows, or B2's 3 per band (R = 0: no second product).
+  static constexpr int ER = T::R > 0 ? T::R : 3 * T::NBM;
+  using Smem = WeightedSmem<ER, T::BN, T::NCONS / 32, T::NBM, T::NSUB>;
   Smem& cm;
   float thr, thr_m1, thr_m2;
   int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
@@ -149,12 +156,18 @@ struct WeightedCheck {
   __device__ __forceinline__ int unc() const { return n_unc; }
 
   __device__ void check(WgMainloop<T>& ml) {
-    constexpr int NQ = T::BN / 8, WPB = T::SBM / 16;
-    const int t = threadIdx.x, warp = t / 32;
     consumer_sync<T::NCONS>();  // the last check's readers are done
 #pragma unroll
     for (int i = 0; i < T::NACC_E; ++i)
       if (ml.col(i) < 3 * T::NBM) cm.e[ml.col(i)][ml.row(i)] = ml.acc_e[i];
+    decide(ml);
+  }
+
+  // The check against the expected moments in cm.e (row 3 b + v: moment v
+  // of row band b), once they are written.
+  __device__ __forceinline__ void decide(WgMainloop<T>& ml) {
+    constexpr int NQ = T::BN / 8, WPB = T::SBM / 16;
+    const int t = threadIdx.x, warp = t / 32;
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       float p[3][2];

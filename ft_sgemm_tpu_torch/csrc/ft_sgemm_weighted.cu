@@ -13,25 +13,28 @@
 // runs B5 on ft_sgemm's main path. B5 is ft_sgemm_running.cuh's kernel with
 // its moment rows summed from A's stage (kSumRows), at every tile.
 //
-// B2 adds, per step, the fault injection of abft_common.cuh::inject, and
-// at its check the three column moments (weights 1, w, w^2 with w = row
-// + 1) of the register accumulator, per-column localization by the
-// weighted-residual ratio, the correction, and the three-moment re-check
-// (moment_detect_correct). Correction precedes alpha / beta.
+// B2 adds to B1's product the fault injection of _inject (FragInject) and,
+// after the last k step, the three column moments (weights 1, w, w^2 with
+// w = row in the tile + 1) of the register accumulator, per-column
+// localization by the weighted-residual ratio, the correction, and the
+// three-moment re-check (_moment_detect_correct). Correction precedes
+// alpha / beta.
 //
-// What bounds B2 on an H100: as B1, by tile. At the large, tall, huge and
-// test tiles B2 runs B1's 3xTF32 wgmma mainloop (gemm_wgmma.cuh), bound by
-// three TF32 tensor-core products per multiply-add and the split pass; at
-// the others the FP32 FFMA rate. It adds a per-tile check costing about 6 *
-// BM * BN operations, once per run, and, at a scheduled fault (~20 per
-// tile at 4096), one wait for the in-flight wgmmas.
+// What bounds B2 on an H100: B1's three TF32 tensor-core products per
+// multiply-add and split pass (gemm_wgmma.cuh). It adds a per-tile check
+// costing about 6 * BM * BN operations, once per run, and, at a scheduled
+// fault (~20 per tile at 4096), one wait for the in-flight wgmmas.
 //
 // What the design does about it: the mainloop is B1's, unchanged; B2's
-// check runs after it. A fault is added between two k steps' wgmmas, after
-// they have landed, so it takes the same place in the sum as in the plain
-// version (ops/ft_sgemm.py::_inject_plain). The moments are reduced with
-// warp shuffles over the lanes that share a column and one shared-memory
-// pass across the consumer warps, and only at checks.
+// check runs once, after it, in the drained ring. A fault is added between
+// two k steps' wgmmas, after they have landed, so it takes the same place
+// in the sum as in the plain version (ops/ft_sgemm.py::_inject_plain). The
+// moments are reduced with warp shuffles over the lanes that share a
+// column and one shared-memory pass across the consumer warps. As B1, B2
+// runs the tile's own CTA at large, tall, huge and test (wg_moment_check);
+// at small, medium and wide the 128 x 128 CTA over (bm, bn) sub-tiles, each
+// with its own fault ordinal, weights, check (PrecompCheck: B5's
+// WeightedCheck against the wrapper's moments) and grid cells.
 
 #include "abft_common.cuh"
 #include "ft_sgemm_running.cuh"
@@ -50,12 +53,13 @@ struct WgCheckSmem {
 // thread's two rows per column, shuffles over the 8 lanes of a warp that
 // share a column (equal lane % 4), one shared-memory pass over the
 // consumer warps), weighted_column per column, the correction in place.
-// Consumer threads only (named barrier 1); `cm` reuses the ring.
+// Consumer threads only (named barrier 1); `cm` reuses the drained ring.
 template <class T>
 __device__ __forceinline__ void wg_moment_check(
     WgMainloop<T>& ml, WgCheckSmem<T>& cm, const float* e, int N,
     const Scalars& sc, int& n_hit, int& n_unc) {
   constexpr int NQ = T::BN / 8;
+  consumer_sync<T::NCONS>();  // no consumer reads the ring any more
   float p[3][NQ][2];
 #pragma unroll
   for (int q = 0; q < NQ; ++q)
@@ -113,17 +117,40 @@ __device__ __forceinline__ void wg_moment_check(
   }
 }
 
-// B2 at the wgmma tiles: `expm` is the (M / BM, 3, N) expected moments.
+// B2 on the sub-tiles of a 128 x 128 CTA: B5's check (WeightedCheck) of
+// every sub-tile, once, against the wrapper's expected moments, which it
+// stages in its scratch: expm (gm, 3, N) row band ti0 + b as rows 3 b ..
+// 3 b + 2, where B5 stages its product E. A band past gm reads nothing (a
+// sub-tile there writes no grid cell).
+template <class T>
+struct PrecompCheck : WeightedCheck<T> {
+  using WeightedCheck<T>::WeightedCheck;
+
+  __device__ void check(WgMainloop<T>& ml, const float* expm, int gm, int N,
+                        int ti0, int n0) {
+    consumer_sync<T::NCONS>();  // no consumer reads the ring any more
+    for (int j = threadIdx.x; j < 3 * T::NBM * T::BN; j += T::NCONS) {
+      const int r = j / T::BN, c = j % T::BN;
+      this->cm.e[r][c] = ti0 + r / 3 < gm && n0 + c < N
+                             ? expm[(size_t)(3 * ti0 + r) * N + n0 + c]
+                             : 0.f;
+    }
+    this->decide(ml);
+  }
+};
+
+// B2 on tile T: the tile's own CTA (NSUB = 1) or the 128 x 128 CTA over
+// (SBM, SBN) sub-tiles; `expm` is the (M / SBM, 3, N) expected moments.
 template <class T>
 __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ C,
     const float* __restrict__ expm, float* __restrict__ out,
-    int* __restrict__ det, int* __restrict__ unc, int N, int K, int bk,
+    int* __restrict__ det, int* __restrict__ unc, int M, int N, int K, int bk,
     float alpha, float beta, Scalars sc) {
   const WgSmem<T> sm;
-  const int ti = blockIdx.y, tj = blockIdx.x;
-  const int m0 = ti * T::BM, n0 = tj * T::BN;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
   const int nst = (K + T::SK - 1) / T::SK;
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
@@ -133,66 +160,33 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
   }
   setmaxnreg_inc<T::REGS_CONSUMER>();
   WgMainloop<T> ml(sm);
-  FragInject<T> inj(sc, bk, K, ti, tj);
+  FragInject<T> inj(sc, bk, K, ti0, tj0);
   ml.run(nst, inj);
   // Every wgmma and TMA write has landed: the ring is free for the check.
-  static_assert(sizeof(WgCheckSmem<T>) <= T::STAGES * T::STAGE_BYTES,
-                "the check fits in the ring");
-  int n_hit, n_unc;
-  wg_moment_check(ml, *reinterpret_cast<WgCheckSmem<T>*>(sm.base),
-                  expm + (size_t)ti * 3 * N + n0, N, sc, n_hit, n_unc);
-  ml.store(out, C, N, m0, n0, alpha, beta);
-  if (threadIdx.x == 0) {
-    det[ti * gridDim.x + tj] = n_hit;
-    unc[ti * gridDim.x + tj] = n_unc;
-  }
-}
-
-// B2 at the small, medium and wide tiles (FFMA mainloop): `expm` is the
-// (M / BM, 3, N) expected moments.
-template <class L>
-__global__ void __launch_bounds__(L::NT, L::MIN_CTAS) ft_weighted_kernel(
-    const float* __restrict__ A, const float* __restrict__ B,
-    const float* __restrict__ C, const float* __restrict__ expm,
-    float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
-    int N, int K, int bk, float alpha, float beta, Scalars sc) {
-  __shared__ Stage<L> st;
-  __shared__ MomentSmem<L> ms;
-  const int ti = blockIdx.y, tj = blockIdx.x;
-  const int m0 = ti * L::BM, n0 = tj * L::BN;
-  Mainloop<L> ml(A, B, K, m0, n0);
-  k_loop(ml, st, K / bk, bk / L::KS, [&](int s) { inject(ml, sc, s, ti, tj); },
-         [](int) {});
-  float ec = 0.f, ecw = 0.f, ecw2 = 0.f;
-  const int t = threadIdx.x;
-  if (t < L::BN) {
-    // expm is (M / BM, 3, N): rows 1, w, w^2 of row tile ti.
-    const float* e = expm + (size_t)ti * 3 * N + n0 + t;
-    ec = e[0];
-    ecw = e[N];
-    ecw2 = e[2 * (size_t)N];
-  }
-  int n_det, n_unc;
-  moment_detect_correct(ml, ms, ec, ecw, ecw2, sc.s[SLOT_THRESHOLD],
-                        sc.s[SLOT_THR_M1], sc.s[SLOT_THR_M2], n_det, n_unc);
-  ml.store(out, C, N, m0, n0, alpha, beta);
-  if (threadIdx.x == 0) {
-    det[ti * gridDim.x + tj] = n_det;
-    unc[ti * gridDim.x + tj] = n_unc;
-  }
-}
-
-template <class L>
-int launch_ffma(const float* A, const float* B, const float* C,
-                const float* expm, float* out, int* det, int* unc, int M,
-                int N, int K, int bk, float alpha, float beta,
-                const Scalars& sc, cudaStream_t stream) {
-  if constexpr (wgmma_tile<L::BM, L::BN>()) {
-    return (int)cudaErrorInvalidValue;  // B2 runs ft_weighted_wgmma_kernel
+  if constexpr (T::NSUB == 1) {
+    static_assert(sizeof(WgCheckSmem<T>) <= T::STAGES * T::STAGE_BYTES,
+                  "the check fits in the ring");
+    int n_hit, n_unc;
+    wg_moment_check(ml, *reinterpret_cast<WgCheckSmem<T>*>(sm.base),
+                    expm + (size_t)ti0 * 3 * N + n0, N, sc, n_hit, n_unc);
+    ml.store(out, C, N, m0, n0, alpha, beta);
+    if (threadIdx.x == 0) {
+      det[ti0 * gridDim.x + tj0] = n_hit;
+      unc[ti0 * gridDim.x + tj0] = n_unc;
+    }
   } else {
-    ft_weighted_kernel<L><<<dim3(N / L::BN, M / L::BM), L::NT, 0, stream>>>(
-        A, B, C, expm, out, det, unc, N, K, bk, alpha, beta, sc);
-    return (int)cudaGetLastError();
+    static_assert(sizeof(typename PrecompCheck<T>::Smem) <=
+                      T::STAGES * T::STAGE_BYTES,
+                  "the check fits in the ring");
+    const int gm = M / T::SBM, gn = N / T::SBN;
+    PrecompCheck<T> ck(sc, sm.base);
+    ck.check(ml, expm, gm, N, ti0, n0);
+    ml.template store<true>(out, C, N, m0, n0, alpha, beta, M);
+    const int t = threadIdx.x, ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
+    if (t < T::NSUB && ti < gm && tj < gn) {
+      det[ti * gn + tj] = ck.n_det;
+      unc[ti * gn + tj] = ck.unc();
+    }
   }
 }
 
@@ -206,17 +200,18 @@ int launch_wgmma(const float* A, const float* B, const float* C,
   if (const int rc = wgmma_setup<T>(ft_weighted_wgmma_kernel<T>, &ta, &tb, A,
                                     B, M, N, K))
     return rc;
-  ft_weighted_wgmma_kernel<T><<<dim3(N / T::BN, M / T::BM), T::NT, T::SMEM,
-                                stream>>>(ta, tb, C, expm, out, det, unc, N,
-                                          K, bk, alpha, beta, sc);
+  ft_weighted_wgmma_kernel<T>
+      <<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,
+          T::SMEM, stream>>>(ta, tb, C, expm, out, det, unc, M, N, K, bk,
+                             alpha, beta, sc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace ftsg
 
 // B2. `scalars` is a host array of 8 floats (contracts.SCALAR_SLOTS);
-// `expm` the (M / bm, 3, N) expected moments. Returns cudaGetLastError()
-// (cudaErrorInvalidValue when no tile matches).
+// `expm` the (M / bm, 3, N) expected moments; ks, mr and nr are not read.
+// Returns cudaGetLastError() (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_ft_weighted_precomp(
     const float* A, const float* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
@@ -231,12 +226,12 @@ extern "C" int ftsg_ft_weighted_precomp(
         A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
-#define FTSG_LAUNCH(BM_, BN_, KS_, TM_, TN_)                               \
-  if (bm == BM_ && bn == BN_ && ks == KS_ && mr == TM_ && nr == TN_)       \
-    return ftsg::launch_ffma<ftsg::Layout<BM_, BN_, KS_, TM_, TN_>>(       \
+#define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_>>(           \
         A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
-  FTSG_FOR_EACH_LAYOUT(FTSG_LAUNCH)
-#undef FTSG_LAUNCH
+  FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
+#undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,11 @@
-// Hopper mainloop of the 3xTF32 wgmma kernels: B1 (sgemm.cu) and B2
-// (ft_sgemm_weighted.cu) at the tiles whose rows fill wgmma's 64-row
-// granularity, large (64 x 64), tall (128 x 32), huge (128 x 128) and test
-// (huge with bk = 128); and B3-B8 (ft_sgemm_running.cuh) at every tile, on
-// one 128 x 128 CTA whose (SBM, SBN) sub-tiles are the paper's tile, the
-// granularity of their checks. The narrower B1 / B2 tiles keep the FFMA
-// mainloop of gemm_mainloop.cuh.
+// The port's one mainloop, 3xTF32 on wgmma, on one of two CTAs. B1
+// (sgemm.cu) and B2 (ft_sgemm_weighted.cu) run the tile's own CTA at the
+// tiles whose rows fill wgmma's 64-row granularity, large (64 x 64), tall
+// (128 x 32), huge (128 x 128) and test (huge with bk = 128). At every other
+// tile, and B3-B8 (ft_sgemm_running.cuh) at every tile, one 128 x 128 CTA
+// covers several of the paper's tiles: its (SBM, SBN) sub-tiles, the
+// granularity of the checks (B1 has none, so for B1 the paper's tile is
+// only the unit the wrapper pads M and N to).
 //
 // One CTA computes one (BM, BN) tile of C = alpha * A @ B^T + beta * C with
 // A (M, K) and B (N, K) row-major: both K-major, the layout wgmma requires
@@ -71,15 +72,19 @@
 
 namespace ftsg {
 
-// The (BM, BN) tiles on which B1 and B2 run this mainloop;
+// The (BM, BN) tiles on which B1 and B2 run the tile's own CTA;
 // ops/_build.wgmma_tiles reads this list.
 #define FTSG_FOR_EACH_WGMMA_TILE(X) X(64, 64) X(128, 32) X(128, 128)
 
-template <int BM, int BN>
-constexpr bool wgmma_tile() {
+// The tiles narrower than wgmma's 64 rows, on which B1 and B2 run the
+// 128 x 128 CTA (B2 checking them as its sub-tiles);
+// ops/_build.narrow_tiles reads this list.
+#define FTSG_FOR_EACH_NARROW_TILE(X) X(16, 16) X(32, 32) X(32, 128)
+
+inline bool narrow_tile(int bm, int bn) {
 #define FTSG_IS_TILE(BM_, BN_) \
-  if (BM == BM_ && BN == BN_) return true;
-  FTSG_FOR_EACH_WGMMA_TILE(FTSG_IS_TILE)
+  if (bm == BM_ && bn == BN_) return true;
+  FTSG_FOR_EACH_NARROW_TILE(FTSG_IS_TILE)
 #undef FTSG_IS_TILE
   return false;
 }

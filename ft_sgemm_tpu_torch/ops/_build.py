@@ -115,18 +115,6 @@ def check_launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-@functools.lru_cache(maxsize=1)
-def compiled_layouts() -> frozenset:
-    """The (bm, bn, ks, mr, nr) layouts of the FFMA mainloop, read from
-    ``FTSG_FOR_EACH_LAYOUT`` in ``csrc/gemm_mainloop.cuh``: every tile the
-    sources take, and each tile's thread layout where a kernel runs the
-    FFMA mainloop on it (see :func:`mainloop`)."""
-    text = (CSRC / "gemm_mainloop.cuh").read_text()
-    macro = re.search(r"#define FTSG_FOR_EACH_LAYOUT\(X\)(.*?)\n\n", text, re.S)
-    return frozenset(tuple(map(int, x)) for x in re.findall(
-        r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", macro.group(1)))
-
-
 def _tile_list(macro: str) -> frozenset:
     """The (bm, bn) pairs of the X-macro ``macro`` in ``csrc/gemm_wgmma.cuh``."""
     text = (CSRC / "gemm_wgmma.cuh").read_text()
@@ -137,10 +125,17 @@ def _tile_list(macro: str) -> frozenset:
 
 @functools.lru_cache(maxsize=1)
 def wgmma_tiles() -> frozenset:
-    """The (bm, bn) tiles on which B1 and B2 run the 3xTF32 wgmma mainloop
-    (``FTSG_FOR_EACH_WGMMA_TILE``); they run the FFMA mainloop on the
-    other tiles."""
+    """The (bm, bn) tiles on which B1 and B2 run the tile's own CTA
+    (``FTSG_FOR_EACH_WGMMA_TILE``): large, tall, huge and test."""
     return _tile_list("FTSG_FOR_EACH_WGMMA_TILE")
+
+
+@functools.lru_cache(maxsize=1)
+def narrow_tiles() -> frozenset:
+    """The (bm, bn) tiles narrower than wgmma's 64 rows, on which B1 and B2
+    run the 128 x 128 CTA (``FTSG_FOR_EACH_NARROW_TILE``): small, medium
+    and wide."""
+    return _tile_list("FTSG_FOR_EACH_NARROW_TILE")
 
 
 @functools.lru_cache(maxsize=1)
@@ -150,35 +145,36 @@ def subtiles() -> frozenset:
     return _tile_list("FTSG_FOR_EACH_SUBTILE")
 
 
+def check_layout(shape) -> tuple:
+    """The (bm, bn, ks, mr, nr) that the entry points take for ``shape``
+    (ks, mr and nr are not read); raises for a (bm, bn) tile that some
+    kernel's source does not instantiate."""
+    tile = (shape.bm, shape.bn)
+    if tile not in (wgmma_tiles() | narrow_tiles()) or tile not in subtiles():
+        raise ValueError(
+            f"KernelShape {shape.name!r} tile {tile} is not compiled;"
+            f" compiled (bm, bn): {sorted(subtiles())}")
+    return (*tile, *shape.thread_layout)
+
+
 def mainloop(kind: str, shape) -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
-    ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"`` (B1
-    and B2 at the tiles of :func:`wgmma_tiles`; B3 ``rowcol``, B4
-    ``global``, B5 ``running``, B6 ``fused``, B7 ``rowcol_mxu`` and B8
-    ``global_mxu`` at every tile of :func:`subtiles`) or ``"ffma"`` (B1 and
-    B2 at the other tiles)."""
-    tile = (shape.bm, shape.bn)
-    wgmma = ((kind in ("sgemm", "precomp") and tile in wgmma_tiles())
-             or (kind not in ("sgemm", "precomp") and tile in subtiles()))
-    return "wgmma-3xtf32" if wgmma else "ffma"
-
-
-def check_layout(shape) -> tuple:
-    """The (bm, bn, ks, mr, nr) of ``shape``; raises for a layout the CUDA
-    sources do not instantiate."""
-    ks, mr, nr = shape.thread_layout
-    layout = (shape.bm, shape.bn, ks, mr, nr)
-    if layout not in compiled_layouts():
-        raise ValueError(
-            f"KernelShape {shape.name!r} layout {layout} is not compiled;"
-            f" compiled (bm, bn, ks, mr, nr): {sorted(compiled_layouts())}")
-    return layout
+    ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"``, for
+    every kernel at every compiled tile; raises for another tile. The CTA
+    differs: B1 and B2 (``precomp``) run the tile's own CTA at the tiles of
+    :func:`wgmma_tiles` and the 128 x 128 CTA at those of
+    :func:`narrow_tiles` (B2 checking the tile as its sub-tile); B3
+    ``rowcol``, B4 ``global``, B5 ``running``, B6 ``fused``, B7
+    ``rowcol_mxu`` and B8 ``global_mxu`` run the 128 x 128 CTA over the
+    tile as its sub-tile at every tile of :func:`subtiles`."""
+    check_layout(shape)
+    return "wgmma-3xtf32"
 
 
 def check_operands(shape, a, b, c, *more) -> tuple:
     """Validate a kernel launch: f32, contiguous, 16-byte aligned operands
     on one CUDA device, A (M, K), B (N, K) and C (M, N) padded to the tile
-    (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled layout.
+    (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled tile.
     Returns (M, N, K, bm, bn, ks, mr, nr, bk)."""
     dev = a.device
     for t in (a, b, c, *more):

@@ -3,10 +3,11 @@
 Port of ``ft_sgemm_tpu/ops/sgemm.py``: ``C = alpha * A @ B.T + beta * C``
 with A (M, K), B (N, K) (``sgemm.cu:108``: ``cublasSgemm(OP_N, OP_T)``),
 zero-padded to the tile and sliced back. On the card the product runs in
-the hand-written kernel: 3xTF32 on wgmma at the large, tall, huge and test
-tiles (``ops/_build.mainloop``), the register-tiled FFMA loop at the
-others; on CPU tensors, in its plain PyTorch version (one FP32 matmul: the
-function is the FP32 product, however the kernel computes it).
+the hand-written kernel, 3xTF32 on wgmma (``ops/_build.mainloop``): one
+CTA per tile at the large, tall, huge and test tiles, the 128 x 128 CTA
+at the others; on CPU tensors, in its plain PyTorch version (one FP32
+matmul: the function is the FP32 product, however the kernel computes
+it).
 """
 
 from __future__ import annotations

@@ -1,16 +1,15 @@
 """3xTF32 on the CPU: the arithmetic of the wgmma kernels.
 
-B1 and B2 at the large, tall, huge and test tiles, and B3-B8 at every
-tile, run ``csrc/gemm_wgmma.cuh``, which computes the FP32 product on the
-tensor cores: each operand is split into two TF32 numbers, ``x = hi +
-lo``, and every 8-deep k step adds ``a_lo b_hi``, ``a_hi b_lo`` and ``a_hi
-b_hi`` into a stage sum that is added to the f32 accumulator once per
-32-column stage (or at a fault, before the fault; or at a check, before
-the check). B3 and B5-B7 form their expected column sums the same way,
-``E = B . M^T`` from the split moment rows, and B3, B4, B7 and B8 their
-expected row sums as 8 more columns of the product, A times B's
-column-band sums (summed from the split B in the kernel for B3 and B4,
-the wrapper's f32 band rows for B7 and B8).
+Every kernel, B1-B8, at every tile runs ``csrc/gemm_wgmma.cuh``, which
+computes the FP32 product on the tensor cores: each operand is split into
+two TF32 numbers, ``x = hi + lo``, and every 8-deep k step adds ``a_lo
+b_hi``, ``a_hi b_lo`` and ``a_hi b_hi`` into a stage sum that is added to
+the f32 accumulator once per 32-column stage (or at a fault, before the
+fault; or at a check, before the check). B3 and B5-B7 form their expected
+column sums the same way, ``E = B . M^T`` from the split moment rows, and
+B3, B4, B7 and B8 their expected row sums as 8 more columns of the product,
+A times B's column-band sums (summed from the split B in the kernel for B3
+and B4, the wrapper's f32 band rows for B7 and B8).
 The helpers here repeat that arithmetic in PyTorch so that the CPU tests
 can hold it against the JAX package, and mirror the fragment maps: the
 accumulator's, its sub-tiles' (B3-B6 check the paper's tile as a sub-tile
@@ -80,8 +79,9 @@ def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=()):
 
 
 def sgemm_tf32x3(a, b, c, alpha: float, beta: float) -> torch.Tensor:
-    """``alpha * a @ b.T + beta * c`` as B1 computes it at a wgmma tile
-    (one tile spans the whole output: the sum does not depend on tiling)."""
+    """``alpha * a @ b.T + beta * c`` as B1 computes it, on either CTA at
+    every tile (one tile spans the whole output: the sum does not depend on
+    tiling)."""
     strict_fp32()
     ap, bp = pad_to(a, 1, KK), pad_to(b, 1, KK)
     acc = torch.zeros((1, 1) + tuple(c.shape), device=c.device)
@@ -90,10 +90,13 @@ def sgemm_tf32x3(a, b, c, alpha: float, beta: float) -> torch.Tensor:
 
 
 def ft_weighted_tf32x3(a, b, c, shape, alpha, beta, scalars, expm):
-    """B2 at a wgmma tile on padded operands: the 3xTF32 tile product with
-    the faults of ``scalars`` in place, then ``_moment_detect_correct``
-    against ``expm`` (gm, 3, N) and the epilogue. Returns (out, det, unc)
-    like ``ops/ft_sgemm.ft_weighted_plain``."""
+    """B2 on padded operands: the 3xTF32 tile product with the faults of
+    ``scalars`` in place, then ``_moment_detect_correct`` against ``expm``
+    (gm, 3, N) and the epilogue. Returns (out, det, unc) like
+    ``ops/ft_sgemm.ft_weighted_plain``. The same on both of B2's CTAs: an
+    element's sum does not depend on the CTA, and every tile's faults fall
+    on the same k steps, so the stage sums are promoted at the same
+    places."""
     strict_fp32()
     a4, b4, c4, nk = ft._tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape

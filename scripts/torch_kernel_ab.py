@@ -132,13 +132,14 @@ def card() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def turns(script: str, trees, *measure_args):
-    """Build every tree at once (``script --build TREE``), then measure
-    each in a fresh process per turn (``script --measure TREE ARGS``), the
-    trees in order and then reversed; yields (tree's name, the JSON object
-    on the measurement's last line)."""
+def turns(script: str, trees, *measure_args, build_args=()):
+    """Build every tree at once (``script --build TREE BUILD_ARGS``), then
+    measure each in a fresh process per turn (``script --measure TREE
+    ARGS``), the trees in order and then reversed; yields (tree's name, the
+    JSON object on the measurement's last line)."""
     t0 = time.perf_counter()
-    builds = [(t, subprocess.Popen([sys.executable, script, "--build", t],
+    builds = [(t, subprocess.Popen([sys.executable, script, "--build", t,
+                                    *build_args],
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True))
               for t in trees]

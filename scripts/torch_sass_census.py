@@ -2,19 +2,20 @@
 
 Builds the sources of the ``ft_sgemm_tpu_torch`` package found under TREE
 (default: the current directory), disassembles each library with
-``cuobjdump -sass`` and prints, for every kernel on the named layouts, how
+``cuobjdump -sass`` and prints, for every kernel on the named tiles, how
 many instructions of each class its code holds: FFMA, shared loads and
 stores, global loads, cp.async (LDGSTS), local loads and stores (register
 spills), barriers, shuffles, the tensor-core products of the wgmma kernels
 (HGMMA), their TMA loads (UTMALDG) and warpgroup fences and waits
 (WARPGROUP), and the total. Counts are static (the code as compiled, each
 loop body once), so they tell what a kernel carries beside its main loop,
-not how often it runs it. A wgmma kernel is labelled by its tile's
-parameters (bm, bn, then for B3-B6 the sub-tile, moment rows, check
-scratch, extra columns) and listed with the layouts they start with.
-Needs nvcc and cuobjdump:
+not how often it runs it. A kernel is labelled by its ``WgTile``'s
+parameters (CTA bm, bn, sub-tile bm, bn, moment rows per band, check
+scratch, band-row and moment-row sources) and its last template flag (B1's
+ragged store), and listed when the labels start with one of the named
+tiles (default: every kernel). Needs nvcc and cuobjdump:
 
-    python3 scripts/torch_sass_census.py [TREE] [--layouts=128,128,8,8,8;16,16,16,2,2]
+    python3 scripts/torch_sass_census.py [TREE] [--tiles=128,128,16,16;64,64]
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import sys
 
 CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL",
            "HGMMA", "UTMALDG", "WARPGROUP")
-DEFAULT_LAYOUTS = ("128,128,8,8,8", "64,64,8,8,8", "16,16,16,2,2")
 
 
 def cuobjdump() -> str:
@@ -44,11 +44,10 @@ def census(sass: str) -> dict:
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
                                re.S):
         kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn)
-        dims = re.search(r"LayoutILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
         wg = re.search(r"WgTileI((?:Li\d+E)+)E", fn)
-        if not (kind and (dims or wg)):
+        if not (kind and wg):
             continue
-        dims = dims.groups() if dims else re.findall(r"Li(\d+)E", wg.group(1))
+        dims = re.findall(r"Li(\d+)E", wg.group(1))
         flag = re.search(r"EELb([01])E", fn)
         label = (f"{kind.group(1)}<{','.join(dims)}"
                  + (f",{flag.group(1)}" if flag else "") + ">")
@@ -62,10 +61,10 @@ def census(sass: str) -> dict:
 
 def main(argv) -> int:
     tree = next((a for a in argv[1:] if not a.startswith("--")), ".")
-    layouts = DEFAULT_LAYOUTS
+    tiles = ("",)
     for a in argv[1:]:
-        if a.startswith("--layouts="):
-            layouts = tuple(a.split("=", 1)[1].split(";"))
+        if a.startswith("--tiles="):
+            tiles = tuple(a.split("=", 1)[1].split(";"))
     root = pathlib.Path(tree).resolve()
     sys.path.insert(0, str(root))
     from ft_sgemm_tpu_torch.ops import _build
@@ -81,8 +80,7 @@ def main(argv) -> int:
                               capture_output=True, text=True, check=True).stdout
         for label, counts in sorted(census(sass).items()):
             dims = label[label.index("<") + 1:-1] + ","
-            if any(dims.startswith(f"{lay},") or f"{lay},".startswith(dims)
-                   for lay in layouts):
+            if any(dims.startswith(f"{tile},".lstrip(",")) for tile in tiles):
                 print(f"{label:44s}" + "".join(
                     f"{counts[c]:8d}" for c in CLASSES + ("total",)))
     return 0

@@ -15,7 +15,7 @@ from ft_sgemm_tpu.injection import InjectionSpec as JInjectionSpec
 from ft_sgemm_tpu.utils import matrices as jmatrices
 from ft_sgemm_tpu_torch import configs, contracts, interop, runtime
 from ft_sgemm_tpu_torch.injection import InjectionSpec
-from ft_sgemm_tpu_torch.ops._build import compiled_layouts
+from ft_sgemm_tpu_torch.ops import _build
 from ft_sgemm_tpu_torch.utils import matrices
 
 SPECS = [
@@ -73,8 +73,12 @@ def test_scalar_slots_equal():
 def test_tile_table_is_compiled_and_test_tile_matches():
     for shape in configs.SHAPES.values():
         ks, mr, nr = shape.thread_layout
-        assert (shape.bm, shape.bn, ks, mr, nr) in compiled_layouts()
-        assert shape.bk % ks == 0
+        tile = (shape.bm, shape.bn)
+        # B1 and B2 on either CTA, B3-B8 on the sub-tiled one.
+        assert tile in _build.wgmma_tiles() | _build.narrow_tiles()
+        assert tile in _build.subtiles()
+        assert _build.check_layout(shape) == (*tile, ks, mr, nr)
+        assert shape.bk % ks == 0 and shape.bk % 8 == 0
         if shape.name != "test":
             ms, ns, ks_ref = shape.ref_params[:3]
             assert (shape.bm, shape.bn, shape.bk) == (ms, ns, ks_ref)

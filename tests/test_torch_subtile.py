@@ -21,8 +21,9 @@ checks fall inside a 32-column stage. (c) The fragment maps: each
 sub-tile's elements tile the CTA, the lanes a column sum combines share
 the column and the sub-tile, the weights are sub-tile-local, and the
 expected-moment product covers B's rows times the moment rows. (d) The
-routing: ``_build.mainloop`` sends B3-B8 to wgmma at every tile, and a
-launch error raises. The card tests (marker ``cuda``) hold the CUDA
+routing: ``_build.mainloop`` sends every kernel to wgmma at every tile
+(B1 and B2 on the tile's own CTA or the 128 x 128 one), and a launch
+error raises. The card tests (marker ``cuda``) hold the CUDA
 kernels against their plain versions at ragged sizes and mid-stage checks.
 """
 
@@ -234,13 +235,17 @@ def test_mainloop_routes_running_and_fused_to_wgmma():
     for name in PROGRAM_TILES + ("test",):
         shape = SHAPES[name]
         assert (shape.bm, shape.bn) in _build.subtiles()
-        for kind in ("rowcol", "global", "running", "fused", "rowcol_mxu",
-                     "global_mxu"):
+        for kind in ("sgemm", "precomp", "rowcol", "global", "running",
+                     "fused", "rowcol_mxu", "global_mxu"):
             assert _build.mainloop(kind, shape) == "wgmma-3xtf32", name
-    # FFMA serves only B1 and B2 at the tiles narrower than wgmma's 64 rows.
-    for name in ("small", "medium", "wide"):
-        for kind in ("sgemm", "precomp"):
-            assert _build.mainloop(kind, SHAPES[name]) == "ffma"
+    # B1 and B2 run the tile's own CTA where its rows fill wgmma's 64, the
+    # 128 x 128 CTA of the sub-tiled kernels elsewhere.
+    own = {(s.bm, s.bn) for s in SHAPES.values() if s.bm >= 64}
+    assert _build.wgmma_tiles() == own
+    assert _build.narrow_tiles() == _build.subtiles() - own
+    with pytest.raises(ValueError):
+        _build.mainloop("sgemm", KernelShape("x", 64, 128, 8, (0,) * 7,
+                                             layout=(8, 8, 8)))
 
 
 def test_a_launch_error_raises(monkeypatch):
