@@ -12,12 +12,18 @@ and rowcol strategies and for ids 11-16 under global, fused, rowcol with
 encode mxu and global with encode mxu; the GFLOPS table at 2048 / 4096 /
 6144, and at 4096 for ids 11-16 under rowcol and each of those four
 pairs) and shows through the kernels' launch counters that the program
-ran them. Prints one line per phase, a
-``kernels`` JSON line with each kernel's launches, error and times against
-its bound, the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``. Any failure raises and the script exits
-nonzero without the last line; so does a host without a CUDA device or a
-directory without the port.
+ran them. The threshold modes: B3-B8's adaptive builds against their plain
+versions at every tile (checks inside a stage too) and, at 4096, against
+the host twin's per-tile thresholds, each 0.125-2 times its tile's fault;
+then the program under ``--threshold=auto`` and ``--threshold=adaptive``
+at 4096 in every pair (verification, clean runs that flag nothing, and
+magnitude-5 faults that the static threshold misses and both modes catch),
+counted apart, and each adaptive kernel's time beside its static build's.
+Prints one line per phase, a ``kernels`` JSON line with each kernel's
+launches, error and times against its bound, the card's name and power
+limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises and
+the script exits nonzero without the last line; so does a host without a
+CUDA device or a directory without the port.
 
     python3 chip_smoke.py
 """
@@ -54,6 +60,15 @@ WGMMA_TILES = ("small", "medium", "large", "tall", "wide", "huge")
 MID_STAGE_EVERY = 3
 # The clean weighted residuals must stay this far under the threshold.
 RESIDUAL_MARGIN = 100.0
+# Adaptive kernel-vs-plain sizes: aligned, and not a multiple of the CTA.
+ADAPTIVE_SIZES = (1024, 1000)
+# The adaptive bracket: tile (i, j)'s threshold at BRACKET_A[i % 2] *
+# BRACKET_B[j % 2] times the fault (0.5, 0.125, 2 and 0.5).
+BRACKET_A = (0.5, 2.0)
+BRACKET_B = (1.0, 0.25)
+# The fault magnitude that the reference's 9500 misses and the auto and
+# adaptive thresholds catch (tests/test_ft_sgemm.py:640-682).
+TINY_MAGNITUDE = 5.0
 
 # ops/ft_sgemm._plan's kernel kinds, and "sgemm" for B1.
 KIND_NAMES = {"sgemm": "sgemm", "precomp": "ft_sgemm_weighted_precomp",
@@ -62,6 +77,7 @@ KIND_NAMES = {"sgemm": "sgemm", "precomp": "ft_sgemm_weighted_precomp",
               "fused": "ft_sgemm_fused", "rowcol_mxu": "ft_sgemm_rowcol_mxu",
               "global_mxu": "ft_sgemm_global_mxu"}
 DETECT_ONLY = ("global", "global_mxu")
+WEIGHTED_KINDS = ("running", "fused")
 # The (strategy, encode) pairs this slice added to the program; fused
 # encodes from moment rows whatever --encode says.
 NEW_PAIRS = (("global", "vpu"), ("fused", "mxu"), ("rowcol", "mxu"),
@@ -69,6 +85,12 @@ NEW_PAIRS = (("global", "vpu"), ("fused", "mxu"), ("rowcol", "mxu"),
 # The pairs whose ids 11-16 get a table of their own at 4096: every pair but
 # weighted, whose table runs at every size.
 TABLE_PAIRS = (("rowcol", "vpu"),) + NEW_PAIRS
+ALL_PAIRS = (("weighted", "vpu"),) + TABLE_PAIRS
+# The kernels with an adaptive build (KIND_PAIR names the pair whose program
+# runs each under threshold="adaptive"; weighted runs B5 at every tile then).
+ADAPTIVE_KINDS = ("running", "fused", "rowcol", "rowcol_mxu", "global",
+                  "global_mxu")
+PROGRAM_TILES = ("huge", "small", "medium", "large", "tall", "wide")
 
 
 def log(msg: str) -> None:
@@ -126,33 +148,42 @@ class Kernels:
                 source="ft_sgemm_tpu_torch/csrc/ft_sgemm_global.cu",
                 replaces="ft_sgemm_tpu/ops/ft_sgemm.py:758"),
         }
+        for k in self.table.values():
+            k["counter"] = "launches"
+        # The adaptive builds of B3-B8: the same wrappers, counted apart.
+        for kind in ADAPTIVE_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            self.table[KIND_NAMES[kind] + "_adaptive"] = dict(
+                static, counter="adaptive_launches")
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
 
     def zero_counts(self):
         for k in self.table.values():
-            k["wrapper"].launches = 0
+            setattr(k["wrapper"], k["counter"], 0)
 
     def counts(self):
-        return {name: k["wrapper"].launches for name, k in self.table.items()}
+        return {name: getattr(k["wrapper"], k["counter"])
+                for name, k in self.table.items()}
 
     def calls(self, kind, shape, a, b, c, scalars=None, check_every=None,
-              multifault=False):
-        """(kernel thunk, plain thunk) for one launch of ``kind`` on padded
-        operands, with the program's alpha and beta. The wrapper-side inputs
-        (B2's expected moments, the mxu kernels' moment rows) are made
-        here, outside both thunks, as inputs of the kernel."""
+              multifault=False, adaptive=False):
+        """(kernel thunk, plain thunk) for one launch of ``kind`` (its
+        adaptive build with ``adaptive``) on padded operands, with the
+        program's alpha and beta. The wrapper-side inputs (B2's expected
+        moments, the mxu kernels' moment rows) are made here, outside both
+        thunks, as inputs of the kernel."""
         ft, sg, al, be = self.ft, self.sg, self.alpha, self.beta
         if kind == "sgemm":
             return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be),
                     lambda: sg.sgemm_plain(a, b, c, al, be))
         args = (kind, shape, a, b, c, ft.kernel_inputs(kind, a, b, shape), al,
                 be, scalars, check_every, multifault)
-        return (lambda: ft.run_kernel(*args),
-                lambda: ft.run_kernel(*args, plain=True))
+        return (lambda: ft.run_kernel(*args, adaptive=adaptive),
+                lambda: ft.run_kernel(*args, plain=True, adaptive=adaptive))
 
     def hold(self, kind, shape, a, b, c, scalars=None, check_every=None,
-             multifault=False):
+             multifault=False, adaptive=False):
         """One launch against its plain version on the same operands: (det,
         unc) grids equal, C within verify_matrix on every tile the kernel
         reports correctable. A tile reported uncorrectable (the adversarial
@@ -162,9 +193,9 @@ class Kernels:
         same faults, and C is compared everywhere."""
         from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 
-        name = KIND_NAMES[kind]
+        name = KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
         run, plain = self.calls(kind, shape, a, b, c, scalars, check_every,
-                                multifault)
+                                multifault, adaptive)
         got, want = run(), plain()
         torch.cuda.synchronize()
         out, ref = (got, want) if kind == "sgemm" else (got[0], want[0])
@@ -199,9 +230,9 @@ def phase_device():
         f"{torch.cuda.device_count()} | {smi} | torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
     secs = _build.build()
-    log(f"phase build: {len(_build.KERNEL_SOURCES)} sources in parallel,"
+    log(f"phase build: {len(_build.KERNEL_LIBS)} libraries in parallel,"
         f" {secs:.1f} s")
-    for name in _build.KERNEL_SOURCES:
+    for name in _build.KERNEL_LIBS:
         log(f"  ptxas {name}: " + ", ".join(ptxas_summary(_build.ptxas_log(name))))
     # Without a host compiler the verification would silently draw numpy
     # inputs instead of the reference binary's libc-rand stream.
@@ -219,7 +250,7 @@ def ptxas_summary(text: str):
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
-        kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn).group(1)
+        kind = re.search(r"ftsg\d+(?:adaptive\d+)?(\w+?_kernel)I", fn).group(1)
         dims = re.search(r"WgTileI((?:Li\d+E){5})", fn)
         rows = re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
         ragged = re.search(r"EELb(\d)E", fn)
@@ -256,6 +287,14 @@ def _scalars(inj):
     from ft_sgemm_tpu_torch.ops.common import scalar_operand
 
     return scalar_operand(inj, (REFERENCE_THRESHOLD,) * 3)
+
+
+def _adaptive_scalars(inj):
+    """The adaptive builds' scalar argument: slots 4-6 zero, the default
+    margin in slot 7, as ``make_ft_sgemm(threshold="adaptive")`` gives."""
+    from ft_sgemm_tpu_torch.ops.common import DEFAULT_THRESHOLD_MARGIN, scalar_operand
+
+    return scalar_operand(inj, (0.0,) * 3, DEFAULT_THRESHOLD_MARGIN)
 
 
 def phase_kernels(kern: Kernels):
@@ -312,6 +351,176 @@ def phase_kernels(kern: Kernels):
                         kern.hold(kind, shape, a, b, c, sc, ce)
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_adaptive_kernels(kern: Kernels):
+    """The adaptive builds of B3-B8 against their plain versions at every
+    tile of the port's table, at ADAPTIVE_SIZES, clean, with the
+    reference-like schedule and with col_stride=0, each at the cadence the
+    program gives it under threshold="adaptive" and (clean and
+    reference-like) every MID_STAGE_EVERY bk steps, checks inside a
+    32-column stage; both rowcol kernels with multifault off and on at the
+    program's cadence, on at the mid-stage one (several faults an
+    interval). The faults have magnitude TINY_MAGNITUDE, the faults these
+    thresholds exist to catch: a corrected fault of 1e4 leaves a rounding
+    residue of the order of the adaptive thresholds at later checks, where
+    any two summation orders decide differently (phase threshold path)."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    ft = kern.ft
+    gen = np.random.default_rng(13)
+    before = dict(kern.checked)
+    t0 = time.perf_counter()
+    for shape in SHAPES.values():
+        for size in ADAPTIVE_SIZES:
+            a, b, c = _padded(_random(size, size, size, gen), shape)
+            nk = a.shape[1] // shape.bk
+            ref = InjectionSpec.reference_like(size, shape.bk,
+                                               magnitude=TINY_MAGNITUDE)
+            for inj in (InjectionSpec.none(), ref,
+                        InjectionSpec(True, ref.every, TINY_MAGNITUDE, 0)):
+                sc = _adaptive_scalars(inj)
+                mid = {MID_STAGE_EVERY} if inj.col_stride else set()
+                for kind in ADAPTIVE_KINDS:
+                    strategy, encode = KIND_PAIR[kind]
+                    plan, ce, _ = ft._plan(strategy, None, None, inj, nk,
+                                           shape.bn, encode, adaptive=True)
+                    if plan != kind:
+                        raise AssertionError(f"adaptive {strategy}/{encode}"
+                                             f" runs {plan}, not {kind}")
+                    runs = [(ce, False)]
+                    if kind in ("rowcol", "rowcol_mxu"):
+                        runs = [(ce, False), (ce, True)]
+                    runs += [(m, kind in ("rowcol", "rowcol_mxu"))
+                             for m in sorted(mid - {ce})]
+                    for every, mf in runs:
+                        kern.hold(kind, shape, a, b, c, sc, every, mf,
+                                  adaptive=True)
+    done = {k: n - before[k] for k, n in kern.checked.items()
+            if n - before[k]}
+    errs = {k: kern.max_err[k] for k in done}
+    log(f"phase adaptive kernels: {done} comparisons with the plain versions"
+        f" pass (grids equal), max |dC| {errs}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def _bracket_operands(base, shape, tk, global_tile):
+    """Banded copies of the host operands ``base`` (A's row bands scaled by
+    BRACKET_A, B's by BRACKET_B, in turn) and a fault magnitude, the mean
+    of the unscaled tiles' adaptive thresholds at the check that closes
+    column ``tk`` (host twin, ``analysis.adaptive_threshold_grid``), so
+    that tile (i, j)'s threshold sits near BRACKET_A[i % 2] *
+    BRACKET_B[j % 2] times the fault: (a, b, the twin's thresholds over the
+    magnitude, the magnitude)."""
+    from ft_sgemm_tpu_torch import analysis
+
+    def grid(a, b):
+        return analysis.adaptive_threshold_grid(
+            a, b, bm=shape.bm, bn=shape.bn, k_cols=tk,
+            global_tile=global_tile)
+
+    a, b = base
+    magnitude = float(np.float32(np.mean(grid(a, b))))
+    sa = np.resize(np.asarray(BRACKET_A, np.float32), a.shape[0] // shape.bm)
+    sb = np.resize(np.asarray(BRACKET_B, np.float32), b.shape[0] // shape.bn)
+    a = a * np.repeat(sa, shape.bm)[:, None]
+    b = b * np.repeat(sb, shape.bn)[:, None]
+    return a, b, grid(a, b) / magnitude, magnitude
+
+
+def phase_adaptive_bracket(kern: Kernels):
+    """Each adaptive build at every tile at VERIFY_SIZE, at the cadence
+    and multifault setting the program gives it under threshold="adaptive"
+    (the rowcol kernels with multifault off and on), with one fault in
+    every tile at the first bk step, on banded operands that put each
+    tile's threshold at the check that catches it (the first) near 0.125,
+    0.5 or 2 times the fault by the host twin (``_bracket_operands``). A threshold off by a factor of 2 either way
+    changes the grids. The kernel and its plain version must each give:
+    rowcol, a detection and its correction in exactly the tiles under the
+    fault (C then held to the plain version's); global, a detection,
+    uncorrected, in exactly those tiles (C too); weighted, no detection in
+    a tile over the fault, and a detection or an uncorrectable report in
+    every tile under it. A fault this near the threshold is too small for
+    the weighted ratio to place reliably (a re-check may pass a neighbouring
+    row), and the w^2 re-check can flag one the detection missed; the
+    rounding of either side decides those, so the weighted grids and C are
+    not compared with each other."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
+
+    ft = kern.ft
+    n = VERIFY_SIZE
+    gen = np.random.default_rng(17)
+    base = _random(n, n, n, gen)[:2]
+    zero = np.zeros((n, n), np.float32)
+    launches = {}
+    weighted = {}
+    t0 = time.perf_counter()
+    for tile in PROGRAM_TILES:
+        shape = SHAPES[tile]
+        nk = n // shape.bk
+        operands = {}
+        for kind in ADAPTIVE_KINDS:
+            strategy, encode = KIND_PAIR[kind]
+            _, ce, mf = ft._plan(strategy, None, None,
+                                 InjectionSpec.reference_like(n, shape.bk),
+                                 nk, shape.bn, encode, adaptive=True)
+            glob = kind in DETECT_ONLY
+            tk = min(ce, nk) * shape.bk
+            if (tk, glob) not in operands:
+                a, b, ratio, mag = _bracket_operands(base, shape, tk, glob)
+                under = ratio < 1.0
+                if ratio[under].max() > 0.7 or ratio[~under].min() < 1.4:
+                    raise AssertionError(
+                        f"bracket at {tile}, column {tk}: thresholds"
+                        f" {ratio.min()}..{ratio.max()} times the fault")
+                # one fault a tile, at bk step 0
+                sc = _adaptive_scalars(InjectionSpec(True, nk, mag))
+                operands[tk, glob] = (_padded((a, b, zero), shape), sc,
+                                      torch.from_numpy(under).cuda())
+            ops, sc, want = operands[tk, glob]
+            for multi in ((False, True) if kind in ("rowcol", "rowcol_mxu")
+                          else (mf,)):
+                name = KIND_NAMES[kind] + "_adaptive"
+                what = f"{name} {tile} (check every {ce}, multifault {multi})"
+                run, plain = kern.calls(kind, shape, *ops, sc, ce, multi, True)
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                for side, (_, det, unc) in (("kernel", got), ("plain", ref)):
+                    det, unc = det > 0, unc > 0
+                    if kind in WEIGHTED_KINDS:
+                        ok = (not (det & ~want).any()
+                              and not (want & ~(det | unc)).any())
+                        weighted.setdefault(what, []).append(
+                            (int((det != want).sum()), int(unc.sum())))
+                    else:
+                        ok = (torch.equal(det, want)
+                              and torch.equal(unc, want & glob))
+                    if not ok:
+                        raise AssertionError(
+                            f"{what}, {side}: {int(det.sum())} tiles detect,"
+                            f" {int(unc.sum())} uncorrectable, where the"
+                            f" host twin puts {int(want.sum())} of"
+                            f" {want.numel()} faults over the threshold")
+                if kind not in WEIGHTED_KINDS:
+                    ok, nbad, first = verify_matrix(
+                        ref[0].cpu().numpy(), got[0].cpu().numpy(),
+                        verbose=False)
+                    if not ok:
+                        raise AssertionError(
+                            f"{what}: C differs from the plain version at"
+                            f" {nbad} elements (first {first})")
+                    kern.max_err[name] = max(kern.max_err[name], float(
+                        (got[0] - ref[0]).abs().max()))
+                launches[name] = launches.get(name, 0) + 1
+    log(f"phase adaptive bracket: {launches} launches at {VERIFY_SIZE} flag"
+        f" the faults over their tiles' thresholds (host twin at"
+        f" {BRACKET_A} x {BRACKET_B} of the fault) and no other, as the plain"
+        f" versions do; weighted (kernel, plain) tiles whose detection is not"
+        f" placed, and tiles uncorrectable: {weighted}"
         f" ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -437,10 +646,173 @@ def phase_main_path(kern: Kernels):
             strategy=strategy, encode=encode)
     counts = kern.counts()
     log(f"phase main path: {time.perf_counter() - t0:.1f} s, launches {counts}")
-    missing = [name for name, n in counts.items() if n == 0]
+    missing = [name for name, n in counts.items()
+               if n == 0 and kern.table[name]["counter"] == "launches"]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return counts, tables
+
+
+def _device_verify(want, got):
+    """``verify_matrix``'s rule on the card: the number of elements off by
+    more than 0.01 absolute AND 0.01 relative to ``want``."""
+    diff = (got - want).abs()
+    return int(((diff > 0.01) & (diff > 0.01 * want.abs())).sum())
+
+
+def _plain_verdicts(kern: Kernels, host, want):
+    """What the plain versions give each FT id of the program under
+    threshold="adaptive" on the verification inputs ``host``, at the launch
+    the program makes (``_plan``, reference-like faults), on the card:
+    {(strategy, encode, id): (passes the gate, detected, uncorrectable,
+    elements off the oracle)}. The gate is the program's: a correcting
+    strategy passes with C within the oracle's tolerance and nothing left
+    uncorrectable, global with every fault event detected."""
+    from ft_sgemm_tpu_torch.configs import kernel_for_id
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    n = host[0].shape[0]
+    out = {}
+    for strategy, encode in ALL_PAIRS:
+        for kid in range(11, 17):
+            _, shape, _ = kernel_for_id(kid)
+            inj = InjectionSpec.reference_like(n, shape.bk)
+            kind, ce, mf = kern.ft._plan(strategy, None, None, inj,
+                                         -(-n // shape.bk), shape.bn, encode,
+                                         adaptive=True)
+            _, plain = kern.calls(kind, shape, *_padded(host, shape),
+                                  _adaptive_scalars(inj), ce, mf, True)
+            c, det, unc = plain()
+            det, unc = int(det.sum()), int(unc.sum())
+            nbad = _device_verify(want, c[:n, :n])
+            tiles = -(-n // shape.bm) * -(-n // shape.bn)
+            expected = tiles * inj.expected_faults(n, shape.bk)
+            ok = (det == expected if strategy == "global"
+                  else nbad == 0 and unc == 0)
+            out[strategy, encode, kid] = (ok, det, unc, nbad)
+    return out
+
+
+def phase_threshold_path(kern: Kernels):
+    """The program under ``--threshold=auto`` and ``--threshold=adaptive``
+    at VERIFY_SIZE, every (strategy, encode) pair of ALL_PAIRS, with the
+    launch counters read around it all:
+
+    (b) the verification of ids 11-16 (``cli.run_verification``, its
+    reference-like faults of magnitude 1e4). Under auto every row passes
+    with every fault detected (global: every event) and none left
+    uncorrectable. Under adaptive every row must give the verdict that the
+    kernels' plain versions give the same launch on the card, and, where
+    that passes, every fault detected and the plain versions' detected and
+    uncorrectable counts exactly. Where it fails (rowcol, and weighted and
+    fused at id 11), the counts are printed beside the plain versions' and
+    not compared: the reference's adaptive thresholds sit near the rounding
+    of a corrected 1e4 fault at later checks, which flags the residue as a
+    new fault and cascades; any two summation orders cascade differently
+    (ROADMAP, Queue C).
+    (c) Clean runs of ids 11-16 under both modes flag nothing.
+    (d) Reference-like faults of magnitude TINY_MAGNITUDE, which the static
+    threshold misses (nothing detected or corrected, C off the oracle) and
+    both modes catch:
+    the correcting pairs detect and correct every one (C within the
+    oracle's tolerance, none uncorrectable), global counts every event.
+
+    Every adaptive build must have launched."""
+    from ft_sgemm_tpu_torch import cli, runtime
+    from ft_sgemm_tpu_torch.configs import kernel_for_id
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops.common import as_f32
+    from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
+    from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
+
+    n = VERIFY_SIZE
+    a, b = runtime.generate_reference_driver_inputs(n)
+    host = (a, b, np.zeros_like(a))
+    a, b, c = (as_f32(x, "cuda") for x in host)
+    want = sgemm_reference(a, b, c, kern.alpha, kern.beta, device="cuda")
+    t0 = time.perf_counter()
+    plain = _plain_verdicts(kern, host, want)
+    log(f"phase threshold plain verdicts (adaptive, {n}; passes, detected,"
+        f" uncorrectable, elements off): {plain}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    kern.zero_counts()
+    t0 = time.perf_counter()
+    for mode in ("auto", "adaptive"):
+        for strategy, encode in ALL_PAIRS:
+            details = {}
+            cli.run_verification(n, 11, 16, strategy=strategy, encode=encode,
+                                 threshold=mode, details=details)
+            for kid, d in details.items():
+                p_ok, p_det, p_unc, _ = plain[strategy, encode, kid]
+                want_ok = mode == "auto" or p_ok
+                # Where the plain versions pass, the adaptive counts must be
+                # theirs exactly.
+                counts = mode == "auto" or not p_ok or (
+                    d["detected"] == p_det and d["uncorrectable"] == p_unc)
+                if d["passed"] != want_ok or not counts or (d["passed"] and (
+                        d["detected"] != d["expected"]
+                        or d["uncorrectable"] != (
+                            d["detected"] if strategy == "global" else 0))):
+                    raise AssertionError(
+                        f"{strategy}/{encode} threshold {mode} id {kid}: {d},"
+                        f" the plain versions' (verdict, detected,"
+                        f" uncorrectable) {(p_ok, p_det, p_unc)}")
+            log(f"phase verify {strategy}/{encode} threshold {mode} at {n}:"
+                f" ids 11-16 (passed, detected/expected, uncorrectable) "
+                + ", ".join(f"{k}:({d['passed']}, {d['detected']}/"
+                            f"{d['expected']}, {d['uncorrectable']})"
+                            for k, d in sorted(details.items())))
+    tiny = {}
+    for strategy, encode in ALL_PAIRS:
+        for kid in range(11, 17):
+            _, shape, _ = kernel_for_id(kid)
+            inj = InjectionSpec.reference_like(n, shape.bk,
+                                               magnitude=TINY_MAGNITUDE)
+            tiles = -(-n // shape.bm) * -(-n // shape.bn)
+            expected = tiles * inj.expected_faults(n, shape.bk)
+            for mode in ("static", "auto", "adaptive"):
+                ft = make_ft_sgemm(shape.name, alpha=kern.alpha,
+                                   beta=kern.beta, strategy=strategy,
+                                   encode=encode, threshold=mode,
+                                   device="cuda")
+                what = f"{strategy}/{encode} id {kid} threshold {mode}"
+                if mode != "static":
+                    clean = ft(a, b, c)
+                    if int(clean.num_detected) or int(clean.num_uncorrectable):
+                        raise AssertionError(
+                            f"{what}: a clean run flagged"
+                            f" {int(clean.num_detected)}")
+                res = ft(a, b, c, inj)
+                det, unc = int(res.num_detected), int(res.num_uncorrectable)
+                nbad = _device_verify(want, res.c)
+                tiny[what] = (det, unc, nbad)
+                if mode == "static":
+                    # Missed, and C keeps the faults. (The weighted check's
+                    # w^2 re-check may still report a tile uncorrectable:
+                    # w^2 times the fault can pass 9500.)
+                    ok = det == 0 and nbad > 0
+                elif strategy == "global":
+                    ok = det == expected and unc == det
+                else:
+                    ok = det == expected and unc == 0 and nbad == 0
+                if not ok:
+                    raise AssertionError(
+                        f"{what}, faults of magnitude {TINY_MAGNITUDE}:"
+                        f" detected {det} of {expected}, uncorrectable {unc},"
+                        f" {nbad} elements off the oracle")
+    counts = kern.counts()
+    log(f"phase threshold clean: ids 11-16 under {ALL_PAIRS}, auto and"
+        f" adaptive, flag nothing at {n}")
+    log(f"phase threshold tiny faults (magnitude {TINY_MAGNITUDE}, (detected,"
+        f" uncorrectable, elements off)): {tiny}")
+    log(f"phase threshold path: {time.perf_counter() - t0:.1f} s, launches"
+        f" {counts}")
+    missing = [name for name, k in kern.table.items()
+               if k["counter"] == "adaptive_launches" and counts[name] == 0]
+    if missing:
+        raise AssertionError(f"adaptive kernels never launched on the"
+                             f" threshold path: {missing}")
+    return counts
 
 
 # An mxu kernel computes its vpu kernel's function: the same bound.
@@ -448,7 +820,7 @@ SAME_FUNCTION = {"fused": "running", "rowcol_mxu": "rowcol",
                  "global_mxu": "global"}
 
 
-def work(kind, shape, n, check_every=None, multifault=False):
+def work(kind, shape, n, check_every=None, multifault=False, adaptive=False):
     """(flops, bytes) that one launch's function needs at M = N = K = n.
     An FMA counts as two flops; each input is read once and each output
     written once. Beyond the product and the alpha/beta epilogue: each
@@ -458,7 +830,8 @@ def work(kind, shape, n, check_every=None, multifault=False):
     with a running encode, the encode of the expected checksums — the A-
     and B-side sums (or, for the mxu kernels, the wrapper's
     ``_tile_moments``, the same sums) once per row or column tile, and the
-    per-tile updates once per tile and K column."""
+    per-tile updates once per tile and K column. The adaptive thresholds
+    add the sums and sums of squares of A and B (4 * n^2)."""
     kind = SAME_FUNCTION.get(kind, kind)
     mn = float(n * n)                       # also M*K and N*K
     gm, gn = n // shape.bm, n // shape.bn
@@ -468,6 +841,8 @@ def work(kind, shape, n, check_every=None, multifault=False):
     if kind == "sgemm":
         return flops, nbytes
     nbytes += 4.0 * 2 * tiles               # det, unc
+    if adaptive:
+        flops += 4 * mn
     checks = -(-(n // shape.bk) // check_every) if check_every else 1
     if kind == "precomp":
         flops += 5 * mn
@@ -546,14 +921,17 @@ OFF_PATH = (("precomp", "small"),)
 TIMED += OFF_PATH
 
 
-def phase_timing(kern: Kernels, counts):
+def phase_timing(kern: Kernels, counts, threshold_counts):
     """Each kernel at 4096 on every tile, cadence and multifault setting the
     program gives it (``TIMED``): the kernel, its plain version,
     torch.addmm for the same alpha*A@B.T + beta*C, and the bound (3xTF32
     on the tensor cores, counting the expected-sum products that run there,
     ``tc_products``). Rows name their mainloop and carry the FFMA bound
     beside it. B2 at small, which the program does not launch (id 11 runs
-    B5 there), is timed too (OFF_PATH)."""
+    B5 there), is timed too (OFF_PATH). Then each adaptive build at every
+    tile and cadence the program gives it under threshold="adaptive",
+    beside its static build on the same launch (``static_ms``); its
+    launches are the threshold path's (``threshold_counts``)."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
@@ -605,6 +983,44 @@ def phase_timing(kern: Kernels, counts):
             f" {plain_ms:.3f} ms, torch.addmm {library_ms:.3f} ms, bound"
             f" {bound_ms:.3f} ms ({bound_by}; FFMA {ffma_ms:.3f}, 3xTF32"
             f" {tc_ms:.3f})")
+    for kind in ADAPTIVE_KINDS:
+        strategy, encode = KIND_PAIR[kind]
+        for tile in PROGRAM_TILES:
+            shape = SHAPES[tile]
+            a, b, c = operands[tile]
+            inj = InjectionSpec.reference_like(n, shape.bk)
+            plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
+                                    shape.bn, encode, adaptive=True)
+            if plan != kind:
+                raise AssertionError(f"adaptive {strategy}/{encode} runs"
+                                     f" {plan} at {tile}, not {kind}")
+            name = KIND_NAMES[kind] + "_adaptive"
+            static, _ = kern.calls(kind, shape, a, b, c, _scalars(inj), ce, mf)
+            run, plain = kern.calls(kind, shape, a, b, c,
+                                    _adaptive_scalars(inj), ce, mf, True)
+            static_ms = cuda_ms(static, reps=5)
+            ms = cuda_ms(run, reps=5)
+            flops, nbytes = work(kind, shape, n, ce, mf, adaptive=True)
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        tc_products(kind, shape, n, mf))
+            log(f"phase timing {name} ({tile}, {n}, check every {ce},"
+                f" multifault {mf}): kernel {ms:.3f} ms, static build"
+                f" {static_ms:.3f} ms ({(ms / static_ms - 1) * 100:+.1f} %),"
+                f" bound {bound_ms:.3f} ms ({bound_by})")
+            if name in rows:
+                continue
+            library_ms = cuda_ms(lambda: torch.addmm(
+                c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": kern.table[name]["source"],
+                "replaces": kern.table[name]["replaces"],
+                "launches": threshold_counts[name],
+                "max_abs_err": kern.max_err[name], "ms": ms,
+                "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
+                "mainloop": _build.mainloop(kind, shape),
+                "static_ms": static_ms}
     phase_residual(kern, operands)
     return list(rows.values())
 
@@ -737,11 +1153,14 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     smi = phase_device()
+    phase_adaptive_kernels(kern)
+    phase_adaptive_bracket(kern)
     phase_kernels(kern)
     phase_accuracy(kern)
     phase_path_shapes(kern)
     counts, _ = phase_main_path(kern)
-    rows = phase_timing(kern, counts)
+    threshold_counts = phase_threshold_path(kern)
+    rows = phase_timing(kern, counts, threshold_counts)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

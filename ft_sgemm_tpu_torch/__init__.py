@@ -3,8 +3,9 @@ Hopper (sm_90a).
 
 Fault-tolerant SGEMM with fused online ABFT (arXiv:2305.01024): the plain
 SGEMM family and the weighted, rowcol, global and fused checksum kernels
-(each strategy with its in-kernel and its moment-row encode), each a CUDA
-C++ kernel written by hand for Hopper and built at first use
+(each strategy with its in-kernel and its moment-row encode, under the
+static, auto and adaptive thresholds), each a CUDA C++ kernel written by
+hand for Hopper and built at first use
 (``ops/_build.py``), with a plain PyTorch version beside it. Entry points
 run on the GPU unless given ``device="cpu"``. The JAX package
 ``ft_sgemm_tpu`` is the reference this port is held against; this package

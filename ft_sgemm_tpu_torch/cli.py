@@ -20,15 +20,20 @@ Two passes, like ``main()`` there and ``ft_sgemm_tpu/cli.py:494-621``:
 Usage:
     python -m ft_sgemm_tpu_torch.cli 1024 6144 512 0 16 \
         [--strategy=weighted|rowcol|global|fused] [--encode=vpu|mxu] \
+        [--threshold=static|auto|adaptive|FLOAT] \
         [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
 
 ``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
 ``--encode`` how their expected checksums are formed: ``vpu`` sums the
 staged operand chunks in the kernel, ``mxu`` takes the operands'
 precomputed moment rows (``fused`` always does; ``weighted`` with ``mxu``
-runs the same kernel). ``--device=cpu`` runs the kernels' plain PyTorch
-versions (for tests); the default is the GPU, and the program raises when
-there is none.
+runs the same kernel). ``--threshold`` picks the FT rows' detection
+threshold (``ft_sgemm_tpu/cli.py:2602-2610``): ``static`` (default: the
+reference's fixed 9500, or any float), ``auto`` (one threshold per call
+from the inputs' moments) or ``adaptive`` (per tile and check, inside the
+kernels, from the running moments of the operands). ``--device=cpu`` runs
+the kernels' plain PyTorch versions (for tests); the default is the GPU,
+and the program raises when there is none.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ft_sgemm_tpu_torch.configs import (
     KERNEL_TABLE,
     PERF_ROW_IDS,
     STRATEGIES,
+    THRESHOLD_MODES,
     kernel_for_id,
 )
 from ft_sgemm_tpu_torch.injection import InjectionSpec
@@ -60,17 +66,18 @@ ALPHA = 1.0   # sgemm.cu:22
 BETA = -1.5   # sgemm.cu:24,234
 
 
-def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device):
+def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device,
+              threshold="static"):
     """The fused-ABFT kernel + reference-like injection for one kernel id,
     the injection cadence following the tile the kernel runs."""
     _, shape, _ = kernel_for_id(kernel_id)
     ft = make_ft_sgemm(shape.name, alpha=ALPHA, beta=BETA, strategy=strategy,
-                       encode=encode, device=device)
+                       encode=encode, threshold=threshold, device=device)
     return ft, InjectionSpec.reference_like(size, ft.shape_config.bk)
 
 
 def _build_callable(kernel_id: int, size: int, inject_ft: bool,
-                    strategy: str, encode: str, device):
+                    strategy: str, encode: str, device, threshold="static"):
     """Return fn(a, b, c) -> (M, N) tensor for one kernel id."""
     _, shape, is_abft = kernel_for_id(kernel_id)
     if kernel_id == 0:
@@ -81,7 +88,7 @@ def _build_callable(kernel_id: int, size: int, inject_ft: bool,
                                                    device=device).c
     if not is_abft:
         return make_sgemm(shape.name, alpha=ALPHA, beta=BETA, device=device)
-    ft, inj = _build_ft(kernel_id, size, strategy, encode, device)
+    ft, inj = _build_ft(kernel_id, size, strategy, encode, device, threshold)
     if not inject_ft:
         inj = InjectionSpec.none()
     return lambda a, b, c: ft(a, b, c, inj).c
@@ -109,14 +116,15 @@ def _host_inputs(size: int):
 
 
 def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
-                            encode: str, device):
+                            encode: str, device, threshold="static"):
     """Verification gate of the detect-only ``global`` strategy (the JAX
     package's cli.py:462-491): the output keeps the injected corruption by
     design, so the row passes when (a) the injected run detects exactly
     ``tiles * expected_faults`` fault events and (b) a clean run passes the
     diff against the oracle. Returns (ok, status, injected result, expected
     events)."""
-    ft, inj = _build_ft(kernel_id, end_size, "global", encode, device)
+    ft, inj = _build_ft(kernel_id, end_size, "global", encode, device,
+                        threshold)
     shape = ft.shape_config
     res = ft(a, b, c, inj)
     tiles = -(-end_size // shape.bm) * -(-end_size // shape.bn)
@@ -137,15 +145,18 @@ def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
 def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                      out=None, strategy: str = "weighted", device=None,
                      details: dict | None = None,
-                     encode: str = "vpu") -> bool:
+                     encode: str = "vpu", threshold="static") -> bool:
     """Pass 1: diff every selected kernel against the ``torch.matmul``
     oracle. A and B are the reference binary's post-``srand(10)`` buffers
-    (``runtime.generate_reference_driver_inputs``); C starts zeroed.
+    (``runtime.generate_reference_driver_inputs``); C starts zeroed. The FT
+    rows run under ``threshold`` (a float or a mode of
+    ``configs.THRESHOLD_MODES``).
 
     ``details``, when given, receives per FT id the detected, expected and
-    uncorrectable fault counts of the injected run. Under the detect-only
-    ``global`` strategy ``detected`` counts fault events and
-    ``uncorrectable`` equals ``detected`` (nothing is corrected).
+    uncorrectable fault counts of the injected run and whether the row
+    passed. Under the detect-only ``global`` strategy ``detected`` counts
+    fault events and ``uncorrectable`` equals ``detected`` (nothing is
+    corrected).
     """
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
@@ -160,15 +171,16 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         name, shape, is_abft = kernel_for_id(kernel_id)
         if is_abft and kernel_id != 10 and strategy == "global":
             ok, status, res, expected = _verify_global_strategy(
-                kernel_id, end_size, a, b, c, want, encode, dev)
+                kernel_id, end_size, a, b, c, want, encode, dev, threshold)
             if details is not None:
                 details[kernel_id] = {
                     "detected": int(res.num_detected), "expected": expected,
-                    "uncorrectable": int(res.num_uncorrectable)}
+                    "uncorrectable": int(res.num_uncorrectable), "passed": ok}
         elif is_abft and kernel_id != 10:
             # Correcting FT rows: diff gate PLUS the residual-after-correct
             # re-check.
-            ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev)
+            ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev,
+                                threshold)
             res = ft(a, b, c, inj)
             ok, nbad, first = verify_matrix(want, res.c.cpu().numpy(),
                                             verbose=False)
@@ -185,7 +197,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                 details[kernel_id] = {
                     "detected": int(res.num_detected),
                     "expected": tiles * inj.expected_faults(end_size, shape.bk),
-                    "uncorrectable": unc}
+                    "uncorrectable": unc, "passed": ok}
         else:
             fn = _build_callable(kernel_id, end_size, True, strategy, encode,
                                  dev)
@@ -202,7 +214,7 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
                    st_kernel: int, end_kernel: int,
                    min_device_time: float = 1.0, out=None,
                    strategy: str = "weighted", device=None,
-                   encode: str = "vpu") -> dict:
+                   encode: str = "vpu", threshold="static") -> dict:
     """Pass 2: the GFLOPS table (format parity with sgemm.cu:240-439),
     measured size-major, printed row-major; per-cell progress on stderr."""
     out = sys.stdout if out is None else out
@@ -215,7 +227,8 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
               f"({len(row_ids)} kernel rows)...", file=sys.stderr, flush=True)
         a, b, c = (as_f32(x, dev) for x in _host_inputs(size))
         for kernel_id in row_ids:
-            fn = _build_callable(kernel_id, size, True, strategy, encode, dev)
+            fn = _build_callable(kernel_id, size, True, strategy, encode, dev,
+                                 threshold)
             sec_per_rep = bench_seconds_per_call(
                 fn, a, b, c, min_device_time=min_device_time)
             gf = 2.0 * size**3 / 1e9 / sec_per_rep
@@ -254,6 +267,7 @@ def main(argv=None) -> int:
     min_device_time = 1.0
     strategy = "weighted"
     encode = "vpu"
+    threshold = "static"
     device = None
     for f in flags:
         if f.startswith("--mintime="):
@@ -270,6 +284,15 @@ def main(argv=None) -> int:
                 print(f"--encode must be one of {ENCODE_MODES}, got"
                       f" {encode!r}", file=sys.stderr)
                 return 2
+        elif f.startswith("--threshold="):
+            threshold = f.split("=", 1)[1]
+            if threshold not in THRESHOLD_MODES:
+                try:
+                    threshold = float(threshold)
+                except ValueError:
+                    print(f"--threshold must be one of {THRESHOLD_MODES} or"
+                          f" a float, got {threshold!r}", file=sys.stderr)
+                    return 2
         elif f.startswith("--device="):
             device = f.split("=", 1)[1]
         elif f not in ("--no-verify", "--no-perf"):
@@ -280,11 +303,12 @@ def main(argv=None) -> int:
     ok = True
     if "--no-verify" not in flags:
         ok = run_verification(end_size, st_kernel, end_kernel,
-                              strategy=strategy, device=dev, encode=encode)
+                              strategy=strategy, device=dev, encode=encode,
+                              threshold=threshold)
     if "--no-perf" not in flags:
         run_perf_table(start_size, end_size, gap_size, st_kernel, end_kernel,
                        min_device_time=min_device_time, strategy=strategy,
-                       device=dev, encode=encode)
+                       device=dev, encode=encode, threshold=threshold)
     return 0 if ok else 1
 
 

@@ -10,17 +10,16 @@ fault placement and of the checks and their grids. Every kernel runs it as
 3xTF32 on wgmma (``csrc/gemm_wgmma.cuh``): B1 and B2 in one CTA per tile
 at the tiles of 64 rows or more (large, tall, huge, test), every other
 launch in one 128 x 128 CTA that covers several tiles
-(``ops/_build.mainloop``). The paper's thread layout ``(ks, mr, nr)``
-stays in the table and is passed to the entry points, which do not read
-it.
+(``ops/_build.mainloop``). The paper's thread layout stays in
+``ref_params`` only.
 
 ``bk`` is the K depth of one scheduled step — the unit that fault
 injection and the check cadence count, like one K grid step of the JAX
-kernels. It is a multiple of the chunk ``ks``; the default ``bk = ks``
-gives the paper's own ``K/20`` injection cadence. ``test`` keeps the JAX
-package's 128x128x128 tile exactly, so the two packages can be compared
-tile for tile; on the card it runs the ``huge`` CTA with 16 k steps of 8
-columns per step.
+kernels. It is a multiple of the kernels' 8-column k step; the paper's
+``bk = ks`` gives its own ``K/20`` injection cadence. ``test`` keeps the
+JAX package's 128x128x128 tile exactly, so the two packages can be
+compared tile for tile; on the card it runs the ``huge`` CTA with 16 k
+steps of 8 columns per step.
 """
 
 from __future__ import annotations
@@ -38,9 +37,6 @@ class KernelShape:
       bm, bn: output tile of one CTA (rows, columns of C).
       bk: K depth of one scheduled step (injection / check cadence unit).
       ref_params: the reference's ``[ms, ns, ks, mw, nw, mr, nr]``.
-      layout: the paper's ``(ks, mr, nr)`` — shared-memory K chunk and
-        per-thread accumulator tile, which the entry points take and do
-        not read. ``None`` takes them from ``ref_params``.
     """
 
     name: str
@@ -48,34 +44,24 @@ class KernelShape:
     bn: int
     bk: int
     ref_params: Tuple[int, int, int, int, int, int, int]
-    layout: Optional[Tuple[int, int, int]] = None
 
     def __post_init__(self):
         for field in ("bm", "bn", "bk"):
             v = getattr(self, field)
             if v <= 0:
                 raise ValueError(f"KernelShape.{field}={v} must be positive")
-        ks, mr, nr = self.thread_layout
-        if self.bk % ks:
+        if self.bk % 8:
             raise ValueError(
                 f"KernelShape.bk={self.bk} must be a multiple of the"
-                f" shared-memory chunk ks={ks}")
-        if self.bm % mr or self.bn % nr:
+                " kernels' 8-column k step")
+        if self.bm % 8 or self.bn % 8:
             raise ValueError(
-                f"KernelShape {self.bm}x{self.bn} is not divisible by the"
-                f" thread tile {mr}x{nr}")
+                f"KernelShape {self.bm}x{self.bn} is not a tile of whole"
+                " 8-row groups")
 
     @property
     def block(self) -> Tuple[int, int, int]:
         return (self.bm, self.bn, self.bk)
-
-    @property
-    def thread_layout(self) -> Tuple[int, int, int]:
-        """``(ks, mr, nr)``: K chunk and per-thread accumulator tile."""
-        if self.layout is not None:
-            return self.layout
-        _, _, ks, _, _, mr, nr = self.ref_params
-        return (ks, mr, nr)
 
 
 # Checksum strategies of the FT family (ops/ft_sgemm.py):
@@ -102,9 +88,8 @@ def check_kernel_legality(*, strategy: str, encode: str,
                           threshold_mode: str = "static") -> None:
     """Validate one (strategy, encode, dtype, threshold-mode) combination:
     unknown spellings raise ``ValueError``; every (strategy, encode) pair is
-    legal in f32 with the static threshold, and what the port does not run
-    yet (other dtypes, the ``"auto"`` and ``"adaptive"`` thresholds) raises
-    ``NotImplementedError``."""
+    legal in f32 under every threshold mode, and what the port does not run
+    yet (every other dtype) raises ``NotImplementedError``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -113,16 +98,13 @@ def check_kernel_legality(*, strategy: str, encode: str,
     if threshold_mode not in THRESHOLD_MODES:
         raise ValueError(f"threshold must be a float or one of"
                          f" {THRESHOLD_MODES}, got {threshold_mode!r}")
-    if threshold_mode != "static":
-        raise NotImplementedError(
-            f"threshold={threshold_mode!r} is not ported yet (static only)")
     if in_dtype not in IN_DTYPES:
         raise NotImplementedError(
             f"in_dtype={in_dtype!r} is not ported yet ({IN_DTYPES})")
 
-# The port's Hopper tile table: bm x bn and (ks, mr, nr) are the paper's
-# CUDA tiles (code_gen/main.py:8-16); bk = ks. "test" is the JAX
-# package's 128x128x128 tile on the huge thread layout.
+# The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA
+# tiles (code_gen/main.py:8-16). "test" is the JAX package's 128x128x128
+# tile.
 SHAPES = {
     "small": KernelShape("small", 16, 16, 16, (16, 16, 16, 8, 16, 2, 2)),
     "medium": KernelShape("medium", 32, 32, 8, (32, 32, 8, 16, 32, 4, 4)),
@@ -130,8 +112,7 @@ SHAPES = {
     "tall": KernelShape("tall", 128, 32, 8, (128, 32, 8, 64, 16, 8, 4)),
     "wide": KernelShape("wide", 32, 128, 8, (32, 128, 8, 16, 64, 4, 8)),
     "huge": KernelShape("huge", 128, 128, 8, (128, 128, 8, 32, 64, 8, 8)),
-    "test": KernelShape("test", 128, 128, 128, (64, 64, 8, 16, 32, 4, 4),
-                        layout=(8, 8, 8)),
+    "test": KernelShape("test", 128, 128, 128, (64, 64, 8, 16, 32, 4, 4)),
 }
 
 # Kernel-id table, matching the reference binary's dispatch ladder and perf rows

@@ -2,9 +2,12 @@
 // ft_sgemm_running.cuh), written once. Each is the Hopper form of one JAX
 // device function in ft_sgemm_tpu/ops/ft_sgemm.py:
 //
-//   weighted_localize       <- _weighted_localize      (:498-513)
-//   weighted_column         <- _moment_detect_correct  (:287-339), per column
-//   EPS8                    <- _correction_pads         (:342-357)
+//   weighted_localize        <- _weighted_localize      (:498-513)
+//   weighted_column          <- _moment_detect_correct  (:287-339), per column
+//   EPS8                     <- _correction_pads         (:342-357)
+//   variance_bound_threshold <- ops/common.py::variance_bound_threshold
+//                               (:148-185), as _adaptive_threshold (:360)
+//                               evaluates it per tile and check
 //
 // The kernels reduce the accumulator's column moments over their own
 // fragment maps (gemm_wgmma.cuh) and call weighted_column once per column.
@@ -15,7 +18,29 @@
 
 #include <cfloat>
 
-namespace ftsg {
+// FTSG_ADAPTIVE=1 builds B3-B8 for threshold="adaptive": each check derives
+// every sub-tile's threshold from that sub-tile's running moments
+// (ft_sgemm_running.cuh: SubTileThresholds). The default build reads the
+// thresholds from the scalar argument (static and "auto").
+#ifndef FTSG_ADAPTIVE
+#define FTSG_ADAPTIVE 0
+#endif
+
+// The two builds are loaded into one process and share their sources, so
+// the adaptive build's C++ symbols live in an inline namespace of their own:
+// no mangled name has two bodies (the C entry points are looked up per
+// library).
+#if FTSG_ADAPTIVE
+#define FTSG_NAMESPACE_BEGIN namespace ftsg { inline namespace adaptive {
+#define FTSG_NAMESPACE_END } }
+#else
+#define FTSG_NAMESPACE_BEGIN namespace ftsg {
+#define FTSG_NAMESPACE_END }
+#endif
+
+FTSG_NAMESPACE_BEGIN
+
+constexpr bool kAdaptive = FTSG_ADAPTIVE != 0;
 
 // The kernels' scalar argument, passed by value. Slot meanings are
 // contracts.SCALAR_SLOTS, shared with the JAX kernels' SMEM operand.
@@ -30,7 +55,45 @@ enum Slot {
   SLOT_THRESHOLD = 4,
   SLOT_THR_M1 = 5,
   SLOT_THR_M2 = 6,
+  SLOT_MARGIN = 7,
 };
+
+// The clean-residual noise model's host constants (ops/common.py): the
+// static log2 of the full padded run's accumulation length, nk * bk *
+// max(bm, bn), and the calibrated random-walk and bias coefficients.
+// Passed by value; only the adaptive build reads them.
+struct NoiseModel {
+  float log2_t, c_rand, c_bias;
+};
+
+// Thresholds saturate at a finite huge value (ops/common.THRESHOLD_CAP): an
+// inf threshold would disable the check it parameterizes.
+constexpr float THRESHOLD_CAP = FLT_MAX / 16.0f;
+
+// margin * eps * (c_rand sqrt(t_ab) sigma + c_bias log2_t t_ab |mu|) with
+// sigma = sqrt((s_a2 / n_a) (s_b2 / n_b)) and mu = (s_a1 / n_a) (s_b1 / n_b):
+// the noise bound of one tile from the sums and sums of squares of the n_a
+// A and n_b B elements it has consumed, at accumulation length t_ab. The
+// same formula, in the same order, as ops/common.variance_bound_threshold,
+// in f32; no transcendental beyond sqrtf.
+__device__ __forceinline__ float variance_bound_threshold(
+    float s_a1, float s_a2, float s_b1, float s_b2, float n_a, float n_b,
+    float t_ab, const NoiseModel& nm, float margin) {
+  const float mu = (s_a1 / n_a) * (s_b1 / n_b);
+  const float sigma = sqrtf((s_a2 / n_a) * (s_b2 / n_b));
+  const float noise = FLT_EPSILON * (nm.c_rand * sqrtf(t_ab) * sigma +
+                                     nm.c_bias * nm.log2_t * t_ab * fabsf(mu));
+  return fminf(margin * noise, THRESHOLD_CAP);
+}
+
+// sqrt of a positive constant, evaluated at compile time (Newton's method in
+// double): the adaptive thresholds' fixed factors bm / sqrt(3), bm^2 /
+// sqrt(5) and sqrt(bn), rounded to f32 once, as the JAX package's
+// float(bm / np.sqrt(3.0)).
+__host__ __device__ constexpr double const_sqrt(double x, double r = 1.0,
+                                                int it = 64) {
+  return it == 0 ? r : const_sqrt(x, 0.5 * (r + x / r), it - 1);
+}
 
 // A correction of magnitude |delta| cannot verify tighter than its own f32
 // rounding: the re-checks widen each threshold by 8 * eps * sum |delta|
@@ -75,4 +138,4 @@ __device__ __forceinline__ ColumnVerdict weighted_column(
   return {hit, bad, delta, hit ? loc : -1};
 }
 
-}  // namespace ftsg
+FTSG_NAMESPACE_END  // ftsg

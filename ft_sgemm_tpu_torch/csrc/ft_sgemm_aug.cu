@@ -45,38 +45,41 @@
 #include "ft_sgemm_running.cuh"
 
 // B6. `MA` is A's (M / bm, 3, K) moment rows; `scalars` a host array of 8
-// floats (contracts.SCALAR_SLOTS); ks, mr, nr are not read. Returns
-// cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
-// tensor map cannot be encoded).
+// floats (contracts.SCALAR_SLOTS); log2_t, c_rand and
+// c_bias the noise model's constants (NoiseModel), read by the adaptive
+// build. Returns cudaGetLastError() (cudaErrorInvalidValue when no sub-tile
+// matches or a tensor map cannot be encoded).
 extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
                              const float* MA, float* out, int* det, int* unc,
-                             int M, int N, int K, int bm, int bn, int ks,
-                             int mr, int nr, int bk, int check_every,
-                             float alpha, float beta, const float* scalars,
-                             void* stream) {
+                             int M, int N, int K, int bm, int bn, int bk,
+                             int check_every, float alpha, float beta,
+                             const float* scalars, float log2_t, float c_rand,
+                             float c_bias, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kLoadRows>::At>(
       A, B, C, MA, nullptr, 3, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, (cudaStream_t)stream);
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }
 
 // B7. `MA` is A's (M / bm, 2, K) plain and w rows, `MB` B's (N / bn, 1, K)
-// plain rows; ks, mr, nr are not read.
+// plain rows. Returns as B6.
 extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
                                   const float* C, const float* MA,
                                   const float* MB, float* out, int* det,
                                   int* unc, int M, int N, int K, int bm,
-                                  int bn, int ks, int mr, int nr, int bk,
-                                  int check_every, int multifault,
-                                  float alpha, float beta,
-                                  const float* scalars, void* stream) {
+                                  int bn, int bk, int check_every,
+                                  int multifault, float alpha, float beta,
+                                  const float* scalars, float log2_t,
+                                  float c_rand, float c_bias, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
         A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, s);
+        alpha, beta, scalars, nm, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
       A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, s);
+      alpha, beta, scalars, nm, s);
 }

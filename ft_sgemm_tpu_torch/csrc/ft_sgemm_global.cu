@@ -42,29 +42,35 @@
 
 #include "ft_sgemm_running.cuh"
 
-// B4. `scalars` is a host array of 8 floats (contracts.SCALAR_SLOTS); ks,
-// mr, nr are not read. Returns cudaGetLastError() (cudaErrorInvalidValue
-// when no sub-tile matches or a tensor map cannot be encoded).
+// B4. `scalars` is a host array of 8 floats
+// (contracts.SCALAR_SLOTS); log2_t, c_rand and c_bias the noise model's
+// constants (NoiseModel), read by the adaptive build. Returns
+// cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
+// tensor map cannot be encoded).
 extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
                               float* out, int* det, int* unc, int M, int N,
-                              int K, int bm, int bn, int ks, int mr, int nr,
-                              int bk, int check_every, float alpha,
-                              float beta, const float* scalars, void* stream) {
+                              int K, int bm, int bn, int bk, int check_every,
+                              float alpha, float beta, const float* scalars,
+                              float log2_t, float c_rand, float c_bias,
+                              void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, (cudaStream_t)stream);
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }
 
 // B8: `MB` (N / bn, 1, K) is B's plain moment rows; `MA` (M / bm, 1, K),
-// A's, is not read, nor are ks, mr, nr. Returns as B4.
+// A's, is not read. Returns as B4.
 extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
                                   const float* C, const float* MA,
                                   const float* MB, float* out, int* det,
                                   int* unc, int M, int N, int K, int bm,
-                                  int bn, int ks, int mr, int nr, int bk,
-                                  int check_every, float alpha, float beta,
-                                  const float* scalars, void* stream) {
+                                  int bn, int bk, int check_every,
+                                  float alpha, float beta,
+                                  const float* scalars, float log2_t,
+                                  float c_rand, float c_bias, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kLoadBands>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, (cudaStream_t)stream);
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }

@@ -40,23 +40,26 @@
 
 #include "ft_sgemm_running.cuh"
 
-// `scalars` is a host array of 8 floats (contracts.SCALAR_SLOTS); ks, mr,
-// nr are not read. Returns cudaGetLastError() (cudaErrorInvalidValue when
-// no sub-tile matches or a tensor map cannot be encoded).
+// `scalars` is a host array of 8 floats
+// (contracts.SCALAR_SLOTS); log2_t, c_rand and c_bias the noise model's
+// constants (NoiseModel), read by the adaptive build. Returns
+// cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
+// tensor map cannot be encoded).
 extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
                               float* out, int* det, int* unc, int M, int N,
-                              int K, int bm, int bn, int ks, int mr, int nr,
-                              int bk, int check_every, int multifault,
-                              float alpha, float beta, const float* scalars,
-                              void* stream) {
+                              int K, int bm, int bn, int bk, int check_every,
+                              int multifault, float alpha, float beta,
+                              const float* scalars, float log2_t,
+                              float c_rand, float c_bias, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
         A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-        check_every, alpha, beta, scalars, s);
+        check_every, alpha, beta, scalars, nm, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, s);
+      check_every, alpha, beta, scalars, nm, s);
 }

@@ -54,6 +54,14 @@
 // one warp's band) and one shared-memory pass over the warps of a band;
 // the counts per sub-tile are shared-memory atomics; B3 skips its
 // correction pass when nothing in the CTA flagged.
+//
+// Thresholds: the checks take each sub-tile's from SubTileThresholds. The
+// default build reads slots 4-6 of the scalar argument (threshold "static",
+// or "auto", whose per-call value the wrapper computes from the inputs); the
+// build with FTSG_ADAPTIVE (threshold "adaptive") derives them at every
+// check from the sub-tile's running sums and sums of squares of A and B,
+// which the consumers add up as they issue each k step, with two more
+// consumer barriers a check.
 
 #pragma once
 
@@ -62,7 +70,7 @@
 #include "abft_common.cuh"
 #include "gemm_wgmma.cuh"
 
-namespace ftsg {
+FTSG_NAMESPACE_BEGIN
 
 // Fault injection for the wgmma mainloop, the schedule of
 // ft_sgemm_tpu/ops/ft_sgemm.py::_inject (:242-284) counted down in
@@ -118,7 +126,164 @@ struct FragInject {
   }
   template <class M>
   __device__ __forceinline__ void check(M&) {}
+  template <class M, class F>
+  __device__ __forceinline__ void kstep(const M&, const F&, const F&, int,
+                                        int) {}
 };
+
+// ------------------------------------------------------ thresholds ----
+
+// The adaptive thresholds' scratch: per consumer warp its threads' running
+// moment sums (sum a, sum a^2 over its A rows; sum b, sum b^2 over its B
+// rows), and per sub-tile the latest check's three thresholds.
+template <int NWARPS, int NSUB>
+struct BoundSmem {
+  float part[NWARPS][4];
+  float thr[NSUB][3];
+};
+
+// Bytes of a sub-tiled check's scratch: the check's own (`Smem`), then, in
+// the adaptive build, the thresholds' (16-byte aligned). The static build's
+// scratch is the check's alone, so its kernels keep their ring.
+template <class Smem, int NSUB>
+constexpr int check_bytes() {
+  return kAdaptive ? ((int)sizeof(Smem) + 15) / 16 * 16 +
+                         (int)sizeof(BoundSmem<8, NSUB>)
+                   : (int)sizeof(Smem);
+}
+
+// The thresholds a check compares with, per sub-tile: get(sub, v) is the
+// detection threshold (v = 0) and the w and w^2 re-checks' (v = 1, 2) of
+// sub-tile `sub`. This form holds slots 4-6 of the scalar argument for every
+// sub-tile (threshold "static" or "auto"): get() returns a register.
+template <class T, bool ADAPTIVE, bool GLOBAL>
+struct SubTileThresholds {
+  static constexpr int BYTES = 0;
+  float thr[3];
+
+  __device__ __forceinline__ SubTileThresholds(const Scalars& sc,
+                                               const NoiseModel&, void*)
+      : thr{sc.s[SLOT_THRESHOLD], sc.s[SLOT_THR_M1], sc.s[SLOT_THR_M2]} {}
+  __device__ __forceinline__ float get(int, int v) const { return thr[v]; }
+  template <class M, class F>
+  __device__ __forceinline__ void kstep(const M&, const F&, const F&, int,
+                                        int) {}
+  template <class M>
+  __device__ __forceinline__ void update(const M&, int) {}
+};
+
+// threshold="adaptive" (_adaptive_threshold and _accumulate_moments,
+// ops/ft_sgemm.py:360-403): each sub-tile's thresholds at each check come
+// from the running sums and sums of squares of the A and B elements it has
+// consumed through that check's k step, tk = (t + 1) * 8 columns, counting
+// the zero rows of a padded tile (n_a = tk * SBM, n_b = tk * SBN), at
+// accumulation length tk * max(SBM, SBN) with the full run's static log2
+// (NoiseModel) and slot 7's margin: thr, thr * SBM / sqrt(3) and thr *
+// SBM^2 / sqrt(5); the global check's whole-tile residual takes thr *
+// sqrt(SBN).
+//
+// The sums ride the consumers' issue of each k step (kstep), so that at a
+// check they cover exactly the columns through its k step, also inside a
+// stage: the producer runs up to a ring's depth ahead. Each consumer thread
+// adds its four A fragment values of the k step (two rows of one warp band,
+// hi + lo as split, the value the product multiplies) and one float4 of B
+// (row threadIdx.x / 2, the k step's 4-column chunk threadIdx.x % 2, hi + lo
+// from B's split stage), so that the CTA's 256 threads cover A's and B's 128
+// x 8 values of the k step once; a warp's threads hold 16 rows of A and 16
+// rows of B, inside one sub-tile band. At a check (update) a warp's
+// butterfly and one shared-memory pass give each sub-tile its band sums;
+// thread `sub` < NSUB evaluates the bound; two consumer barriers. The sums
+// live in four registers a thread, the bands' in the check scratch.
+template <class T, bool GLOBAL>
+struct SubTileThresholds<T, true, GLOBAL> {
+  using Smem = BoundSmem<T::NCONS / 32, T::NSUB>;
+  static constexpr int BYTES = (int)sizeof(Smem);
+  static_assert(T::NCONS == 2 * T::BN && T::SBN % 16 == 0,
+                "two threads a B row, a warp's B rows in one band");
+  Smem& sm;
+  NoiseModel nm;
+  float margin;
+  float st[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's sums a, a^2, b, b^2
+
+  __device__ __forceinline__ SubTileThresholds(const Scalars& sc,
+                                               const NoiseModel& nm_, void* p)
+      : sm(*reinterpret_cast<Smem*>(p)), nm(nm_), margin(sc.s[SLOT_MARGIN]) {}
+  __device__ __forceinline__ float get(int sub, int v) const {
+    return sm.thr[sub][v];
+  }
+
+  template <class M, class F>
+  __device__ __forceinline__ void kstep(const M& ml, const F& ah, const F& al,
+                                        int kk, int s) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x =
+          __uint_as_float(ah[4 * kk + j]) + __uint_as_float(al[4 * kk + j]);
+      st[0] += x;
+      st[1] = fmaf(x, x, st[1]);
+    }
+    const int n = threadIdx.x >> 1, chunk = 2 * kk + (threadIdx.x & 1);
+    const int o = n * T::SK + ((chunk ^ (n & 7)) << 2);
+    const float4 h = *reinterpret_cast<const float4*>(ml.sm.b(s) + o);
+    const float4 l = *reinterpret_cast<const float4*>(ml.sm.blo(s) + o);
+    const float xb[4] = {h.x + l.x, h.y + l.y, h.z + l.z, h.w + l.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      st[2] += xb[j];
+      st[3] = fmaf(xb[j], xb[j], st[3]);
+    }
+  }
+
+  // Every sub-tile's thresholds at the check after k step t.
+  template <class M>
+  __device__ void update(const M& ml, int t) {
+    constexpr unsigned FULL = 0xffffffffu;
+    constexpr int WA = T::SBM / 16, WB = T::SBN / 16;  // warps a band
+    constexpr int TMAX = T::SBM > T::SBN ? T::SBM : T::SBN;
+    constexpr float W1 = (float)(T::SBM / const_sqrt(3.0));
+    constexpr float W2 = (float)((double)T::SBM * T::SBM / const_sqrt(5.0));
+    constexpr float SQRT_BN = (float)const_sqrt((double)T::SBN);
+    float v[4] = {st[0], st[1], st[2], st[3]};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(FULL, v[i], off);
+    const int tid = threadIdx.x;
+    if (ml.l == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sm.part[tid / 32][i] = v[i];
+    }
+    consumer_sync<T::NCONS>();
+    if (tid < T::NSUB) {
+      const int bi = tid / T::NBN, bj = tid % T::NBN;
+      float sa1 = 0.f, sa2 = 0.f, sb1 = 0.f, sb2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < WA; ++w) {
+        sa1 += sm.part[bi * WA + w][0];
+        sa2 += sm.part[bi * WA + w][1];
+      }
+#pragma unroll
+      for (int w = 0; w < WB; ++w) {
+        sb1 += sm.part[bj * WB + w][2];
+        sb2 += sm.part[bj * WB + w][3];
+      }
+      const float tk = (float)((t + 1) * 8);
+      float thr = variance_bound_threshold(sa1, sa2, sb1, sb2, tk * T::SBM,
+                                           tk * T::SBN, tk * TMAX, nm, margin);
+      if constexpr (GLOBAL) thr *= SQRT_BN;
+      sm.thr[tid][0] = thr;
+      sm.thr[tid][1] = thr * W1;
+      sm.thr[tid][2] = thr * W2;
+    }
+    consumer_sync<T::NCONS>();
+  }
+};
+
+// The byte offset of the thresholds' scratch after a check's own.
+template <class Smem>
+__device__ __forceinline__ void* bound_scratch(void* scratch) {
+  return static_cast<unsigned char*>(scratch) + (sizeof(Smem) + 15) / 16 * 16;
+}
 
 // ------------------------------------------------ the weighted check ----
 
@@ -139,20 +304,22 @@ struct WeightedSmem {
 // that share a column (equal lane % 4); one thread per (band, column) adds
 // its band's warps and decides (weighted_column); the correction in place.
 // B2 (ft_sgemm_weighted.cu: PrecompCheck) stages the wrapper's moments in
-// E's place and decides the same way.
-template <class T>
+// E's place and decides the same way. `TH` gives each sub-tile's thresholds
+// (SubTileThresholds).
+template <class T, class TH = SubTileThresholds<T, false, false>>
 struct WeightedCheck {
   static constexpr bool kSegmented = false;  // one or two checks per run
   // E's R rows, or B2's 3 per band (R = 0: no second product).
   static constexpr int ER = T::R > 0 ? T::R : 3 * T::NBM;
   using Smem = WeightedSmem<ER, T::BN, T::NCONS / 32, T::NBM, T::NSUB>;
   Smem& cm;
-  float thr, thr_m1, thr_m2;
+  TH th;
   int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
 
-  __device__ __forceinline__ WeightedCheck(const Scalars& sc, void* scratch)
-      : cm(*reinterpret_cast<Smem*>(scratch)), thr(sc.s[SLOT_THRESHOLD]),
-        thr_m1(sc.s[SLOT_THR_M1]), thr_m2(sc.s[SLOT_THR_M2]) {}
+  __device__ __forceinline__ WeightedCheck(const Scalars& sc,
+                                           const NoiseModel& nm, void* scratch)
+      : cm(*reinterpret_cast<Smem*>(scratch)),
+        th(sc, nm, bound_scratch<Smem>(scratch)) {}
   __device__ __forceinline__ int unc() const { return n_unc; }
 
   __device__ void check(WgMainloop<T>& ml) {
@@ -206,12 +373,12 @@ struct WeightedCheck {
       for (int wp = 0; wp < WPB; ++wp)
 #pragma unroll
         for (int v = 0; v < 3; ++v) s[v] += cm.part[v][b * WPB + wp][c];
+      const int sub = b * T::NBN + c / T::SBN;
       const ColumnVerdict cv = weighted_column(
           cm.e[3 * b][c], cm.e[3 * b + 1][c], cm.e[3 * b + 2][c], s[0], s[1],
-          s[2], T::SBM, thr, thr_m1, thr_m2);
+          s[2], T::SBM, th.get(sub, 0), th.get(sub, 1), th.get(sub, 2));
       cm.delta[b][c] = cv.delta;
       cm.hit_row[b][c] = cv.row;
-      const int sub = b * T::NBN + c / T::SBN;
       if (cv.hit) atomicAdd(&cm.cnt[0][sub], 1);
       if (cv.bad) atomicAdd(&cm.cnt[1][sub], 1);
     }
@@ -233,11 +400,13 @@ template <int ROWS>
 struct WeightedOf {
   template <int SBM, int SBN>
   struct At {
+    static constexpr int NSUB = (128 / SBM) * (128 / SBN);
     using Smem = WeightedSmem<(3 * 128 / SBM + 7) / 8 * 8, 128, 8, 128 / SBM,
-                              (128 / SBM) * (128 / SBN)>;
-    using type = WgTile<128, 128, SBM, SBN, 3, (int)sizeof(Smem), kNoBands,
-                        ROWS>;
-    using Check = WeightedCheck<type>;
+                              NSUB>;
+    using type = WgTile<128, 128, SBM, SBN, 3, check_bytes<Smem, NSUB>(),
+                        kNoBands, ROWS>;
+    using Check =
+        WeightedCheck<type, SubTileThresholds<type, kAdaptive, false>>;
   };
 };
 
@@ -308,7 +477,7 @@ __device__ __forceinline__ void scatter_round(float (&p)[NV][NQ][2], int l) {
 // them) from the residuals, with the EPS8 pads: five barriers. (A cheaper
 // re-check for sub-tiles with one flagged row and column, behind one more
 // popcount barrier, was slower: PERF.md.)
-template <class T, bool MF>
+template <class T, bool MF, class TH = SubTileThresholds<T, false, false>>
 struct RowcolCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
   static constexpr int MOM = MF ? 2 : 1, NV = MF ? 2 : 1;
@@ -316,12 +485,13 @@ struct RowcolCheck {
   using Smem = RowcolSubSmem<T::NCONS / 32, T::BN, T::NBM, T::NSUB,
                              MOM * T::NBM, MF>;
   Smem& cm;
-  float thr, thr_m1;
+  TH th;
   int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
 
-  __device__ __forceinline__ RowcolCheck(const Scalars& sc, void* scratch)
-      : cm(*reinterpret_cast<Smem*>(scratch)), thr(sc.s[SLOT_THRESHOLD]),
-        thr_m1(sc.s[SLOT_THR_M1]) {
+  __device__ __forceinline__ RowcolCheck(const Scalars& sc,
+                                         const NoiseModel& nm, void* scratch)
+      : cm(*reinterpret_cast<Smem*>(scratch)),
+        th(sc, nm, bound_scratch<Smem>(scratch)) {
     // Ordered before the first check's use by its first barrier.
     if (threadIdx.x < (MF ? 4 : 3) * T::NSUB) (&cm.cnt[0][0])[threadIdx.x] = 0;
   }
@@ -356,7 +526,7 @@ struct RowcolCheck {
         const float r_exp = __shfl_sync(
             FULL, ml.acc[T::NACC + 2 * h + (j & 1)], (l & ~3) | (j >> 1));
         res_r[h][j] = r_exp - rs;
-        if (fabsf(res_r[h][j]) > thr) {
+        if (fabsf(res_r[h][j]) > th.get(b * NBN + j, 0)) {
           det_r |= 1u << (2 * j + h);
           if (q == j >> 1) atomicAdd(&cm.cnt[0][b * NBN + j], 1);
         }
@@ -398,12 +568,12 @@ struct RowcolCheck {
         if constexpr (MF) csw += cm.in.sums[1][bb * WPB + wp][c];
       }
       const float res = cm.in.e[MOM * bb][c] - cs;
-      const bool det = fabsf(res) > thr;
+      const bool det = fabsf(res) > th.get(sub, 0);
       int code = det ? 0 : kUnflagged;
       if constexpr (MF) {
         const float res_w = cm.in.e[MOM * bb + 1][c] - csw;
         cm.res_cw.v[bb][c] = res_w;
-        flag |= fabsf(res_w) > thr_m1;
+        flag |= fabsf(res_w) > th.get(sub, 1);
         if (det) {  // weighted_localize, in range or -1
           const int lr = __float2int_rn(res_w / res);
           code = lr < 1 || lr > T::SBM ? -1 : lr - 1;
@@ -494,7 +664,7 @@ struct RowcolCheck {
       if (q == j >> 1) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          if (fabsf(res_r[h][j] - ds[h]) > thr + EPS8 * ads[h])
+          if (fabsf(res_r[h][j] - ds[h]) > th.get(sub, 0) + EPS8 * ads[h])
             atomicAdd(&cm.cnt[2][sub], 1);
       }
     }
@@ -509,11 +679,12 @@ struct RowcolCheck {
       for (int wp = 0; wp < WPB; ++wp)
 #pragma unroll
         for (int v = 0; v < 2 * NV; ++v) s[v] += cm.corr[v][bb * WPB + wp][c];
-      const bool bad_c = fabsf(cm.res_c[bb][c] - s[0]) > thr + EPS8 * s[1];
+      const bool bad_c =
+          fabsf(cm.res_c[bb][c] - s[0]) > th.get(sub, 0) + EPS8 * s[1];
       if (bad_c) atomicAdd(&cm.cnt[2][sub], 1);
       if constexpr (MF) {
         if (!bad_c &&
-            fabsf(cm.res_cw.v[bb][c] - s[2]) > thr_m1 + EPS8 * s[3])
+            fabsf(cm.res_cw.v[bb][c] - s[2]) > th.get(sub, 1) + EPS8 * s[3])
           atomicAdd(&cm.cnt[2][sub], 1);
       }
     }
@@ -537,9 +708,10 @@ struct RowcolOf {
   struct At {
     static constexpr int NBM = 128 / SBM, NSUB = NBM * (128 / SBN);
     using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF>;
-    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1, (int)sizeof(Smem),
-                        BANDS, ROWS>;
-    using Check = RowcolCheck<type, MF>;
+    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1,
+                        check_bytes<Smem, NSUB>(), BANDS, ROWS>;
+    using Check =
+        RowcolCheck<type, MF, SubTileThresholds<type, kAdaptive, false>>;
   };
 };
 
@@ -558,16 +730,19 @@ struct GlobalSubSmem {
 // barrier per check). An EVENT when |res - prev| exceeds the threshold,
 // prev = res, kept per sub-tile by thread threadIdx.x < NSUB; nothing is
 // corrected, so unc = det.
-template <class T>
+template <class T, class TH = SubTileThresholds<T, false, true>>
 struct GlobalCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
   using Smem = GlobalSubSmem<T::NCONS / 32, T::NBN>;
   Smem& cm;
-  float thr, prev = 0.f;
+  TH th;
+  float prev = 0.f;
   int n_det = 0, parity = 0;
 
-  __device__ __forceinline__ GlobalCheck(const Scalars& sc, void* scratch)
-      : cm(*reinterpret_cast<Smem*>(scratch)), thr(sc.s[SLOT_THRESHOLD]) {}
+  __device__ __forceinline__ GlobalCheck(const Scalars& sc,
+                                         const NoiseModel& nm, void* scratch)
+      : cm(*reinterpret_cast<Smem*>(scratch)),
+        th(sc, nm, bound_scratch<Smem>(scratch)) {}
   __device__ __forceinline__ int unc() const { return n_det; }
 
   __device__ void check(WgMainloop<T>& ml) {
@@ -600,7 +775,7 @@ struct GlobalCheck {
       for (int wp = 0; wp < WPB; ++wp) res += cm.part[parity][bb * WPB + wp][j];
       // Fault EVENTS: an uncorrected fault keeps the residual high, so
       // only a move of the residual counts.
-      n_det += fabsf(res - prev) > thr ? 1 : 0;
+      n_det += fabsf(res - prev) > th.get(t, 0) ? 1 : 0;
       prev = res;
     }
     parity ^= 1;
@@ -614,8 +789,9 @@ struct GlobalOf {
   template <int SBM, int SBN>
   struct At {
     using Smem = GlobalSubSmem<8, 128 / SBN>;
-    using type = WgTile<128, 128, SBM, SBN, 0, (int)sizeof(Smem), BANDS>;
-    using Check = GlobalCheck<type>;
+    using type = WgTile<128, 128, SBM, SBN, 0,
+                        check_bytes<Smem, (128 / SBM) * (128 / SBN)>(), BANDS>;
+    using Check = GlobalCheck<type, SubTileThresholds<type, kAdaptive, true>>;
   };
 };
 
@@ -628,16 +804,16 @@ struct GlobalOf {
 template <class T, class Check>
 struct RunHook {
   static constexpr bool kSegmented = Check::kSegmented;
-  static_assert(sizeof(typename Check::Smem) <= T::CHECK_BYTES,
+  static_assert(check_bytes<typename Check::Smem, T::NSUB>() <= T::CHECK_BYTES,
                 "the check fits its scratch");
   FragInject<T> inj;
   Check ck;
   int chk, every8, nk8;
 
-  __device__ __forceinline__ RunHook(const Scalars& sc, int bk, int K,
-                                     int check_every, int ti0, int tj0,
-                                     void* scratch)
-      : inj(sc, bk, K, ti0, tj0), ck(sc, scratch),
+  __device__ __forceinline__ RunHook(const Scalars& sc, const NoiseModel& nm,
+                                     int bk, int K, int check_every, int ti0,
+                                     int tj0, void* scratch)
+      : inj(sc, bk, K, ti0, tj0), ck(sc, nm, scratch),
         chk(min(check_every * (bk / 8), K / 8) - 1),
         every8(check_every * (bk / 8)), nk8(K / 8) {}
 
@@ -651,7 +827,13 @@ struct RunHook {
   __device__ __forceinline__ void apply(WgMainloop<T>& ml, int t) {
     inj.apply(ml, t);
   }
+  template <class F>
+  __device__ __forceinline__ void kstep(const WgMainloop<T>& ml, const F& ah,
+                                        const F& al, int kk, int s) {
+    ck.th.kstep(ml, ah, al, kk, s);
+  }
   __device__ __forceinline__ void check(WgMainloop<T>& ml) {
+    ck.th.update(ml, chk);
     ck.check(ml);
     chk = chk == nk8 - 1 ? INT_MAX : min(chk + every8, nk8 - 1);
   }
@@ -676,7 +858,7 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
     const __grid_constant__ CUtensorMap tbb, const float* __restrict__ C,
     float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
     int M, int N, int K, int bk, int check_every, float alpha, float beta,
-    Scalars sc) {
+    Scalars sc, NoiseModel nm) {
   const WgSmem<T> sm;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
   const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
@@ -689,7 +871,7 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   }
   setmaxnreg_inc<RunRegs<T>::CONSUMER>();
   WgMainloop<T> ml(sm);
-  RunHook<T, Check> hook(sc, bk, K, check_every, ti0, tj0, sm.check());
+  RunHook<T, Check> hook(sc, nm, bk, K, check_every, ti0, tj0, sm.check());
   ml.run(nst, hook);
   ml.template store<true>(out, C, N, m0, n0, alpha, beta, M);
   const int t = threadIdx.x, gn = N / T::SBN;
@@ -705,15 +887,17 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // check (WeightedOf<ROWS>::At, RowcolOf<MF, BANDS, ROWS>::At,
 // GlobalOf<BANDS>::At); `MA` the wrapper's (M / bm, n_rows, K) moment rows
 // (kLoadRows: B6, B7; the kernel loads the first MOM of each band's rows),
-// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8). Returns 0 or the
-// CUDA error, also when a tensor map cannot be encoded or no sub-tile
-// matches.
+// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8); `scalars` the
+// host array of the scalar argument, `nm` the noise model's constants (read
+// by the adaptive build). Returns 0 or the CUDA error, also when a tensor
+// map cannot be encoded or no sub-tile matches.
 template <template <int, int> class Of>
 int launch_running(const float* A, const float* B, const float* C,
                    const float* MA, const float* MB, int n_rows, float* out,
                    int* det, int* unc, int M, int N, int K, int bm, int bn,
                    int bk, int check_every, float alpha, float beta,
-                   const float* scalars, cudaStream_t stream) {
+                   const float* scalars, const NoiseModel& nm,
+                   cudaStream_t stream) {
   Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
   if (K % 8 || bk % 8 || check_every < 1) return (int)cudaErrorInvalidValue;
@@ -736,7 +920,7 @@ int launch_running(const float* A, const float* B, const float* C,
       return (int)e;                                                           \
     kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,    \
              T::SMEM, stream>>>(ta, tb, tm, tbb, C, out, det, unc, M, N, K,   \
-                                bk, check_every, alpha, beta, sc);             \
+                                bk, check_every, alpha, beta, sc, nm);         \
     return (int)cudaGetLastError();                                            \
   }
   FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)
@@ -744,4 +928,4 @@ int launch_running(const float* A, const float* B, const float* C,
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace ftsg
+FTSG_NAMESPACE_END  // ftsg

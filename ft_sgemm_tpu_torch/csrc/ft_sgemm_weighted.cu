@@ -40,7 +40,7 @@
 #include "ft_sgemm_running.cuh"
 #include "gemm_wgmma.cuh"
 
-namespace ftsg {
+FTSG_NAMESPACE_BEGIN
 
 template <class T>
 struct WgCheckSmem {
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
                       T::STAGES * T::STAGE_BYTES,
                   "the check fits in the ring");
     const int gm = M / T::SBM, gn = N / T::SBN;
-    PrecompCheck<T> ck(sc, sm.base);
+    PrecompCheck<T> ck(sc, NoiseModel{}, sm.base);
     ck.check(ml, expm, gm, N, ti0, n0);
     ml.template store<true>(out, C, N, m0, n0, alpha, beta, M);
     const int t = threadIdx.x, ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
@@ -207,16 +207,18 @@ int launch_wgmma(const float* A, const float* B, const float* C,
   return (int)cudaGetLastError();
 }
 
-}  // namespace ftsg
+FTSG_NAMESPACE_END  // ftsg
 
-// B2. `scalars` is a host array of 8 floats (contracts.SCALAR_SLOTS);
-// `expm` the (M / bm, 3, N) expected moments; ks, mr and nr are not read.
-// Returns cudaGetLastError() (cudaErrorInvalidValue when no tile matches).
+#if !FTSG_ADAPTIVE
+// B2 (no adaptive form: its expected moments are the wrapper's, and the
+// adaptive weighted strategy runs B5). `scalars` is a host array of 8
+// floats (contracts.SCALAR_SLOTS); `expm` the (M / bm, 3, N) expected
+// moments. Returns cudaGetLastError() (cudaErrorInvalidValue when no tile
+// matches).
 extern "C" int ftsg_ft_weighted_precomp(
     const float* A, const float* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
-    int ks, int mr, int nr, int bk, float alpha, float beta,
-    const float* scalars, void* stream) {
+    int bk, float alpha, float beta, const float* scalars, void* stream) {
   ftsg::Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
   const auto s = (cudaStream_t)stream;
@@ -234,15 +236,18 @@ extern "C" int ftsg_ft_weighted_precomp(
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
 // B5: checks after every `check_every` K steps and after the last, on the
-// 128 x 128 wgmma CTA over (bm, bn) sub-tiles (ks, mr, nr are not read).
+// 128 x 128 wgmma CTA over (bm, bn) sub-tiles; log2_t, c_rand and c_bias
+// are the noise model's constants (NoiseModel), read by the adaptive build.
 extern "C" int ftsg_ft_weighted_running(
     const float* A, const float* B, const float* C, float* out, int* det,
-    int* unc, int M, int N, int K, int bm, int bn, int ks, int mr, int nr,
-    int bk, int check_every, float alpha, float beta, const float* scalars,
-    void* stream) {
+    int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
+    float alpha, float beta, const float* scalars, float log2_t,
+    float c_rand, float c_bias, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kSumRows>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, (cudaStream_t)stream);
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }

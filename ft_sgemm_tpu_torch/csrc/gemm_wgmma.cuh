@@ -70,7 +70,9 @@
 #include <climits>
 #include <cstdint>
 
-namespace ftsg {
+#include "abft_common.cuh"
+
+FTSG_NAMESPACE_BEGIN
 
 // The (BM, BN) tiles on which B1 and B2 run the tile's own CTA;
 // ops/_build.wgmma_tiles reads this list.
@@ -816,6 +818,9 @@ struct NoInject {
   __device__ __forceinline__ void apply(M&, int) {}
   template <class M>
   __device__ __forceinline__ void check(M&) {}
+  template <class M, class F>
+  __device__ __forceinline__ void kstep(const M&, const F&, const F&, int,
+                                        int) {}
 };
 
 // A consumer thread's part of the K loop and its accumulator. The tensor
@@ -830,7 +835,9 @@ struct NoInject {
 // a hook whose kSegmented is set, fault_step() and check_step() the next
 // such k steps (INT_MAX: none); apply(ml, t) adds the fault to `acc` and
 // check(ml) checks `acc` against `acc_e`, each after every earlier product
-// has landed and been added there.
+// has landed and been added there; kstep(ml, ah, al, kk, s) sees each k
+// step kk of stage slot s as its wgmmas are issued, in order, before any
+// check after it (the adaptive checks' running moments of A and B).
 template <class T>
 struct WgMainloop {
   static constexpr int NF = 4 * T::KK;  // A fragment registers per stage
@@ -949,7 +956,10 @@ struct WgMainloop {
     wgmma_fence();
     if (!hook.within(st)) {
 #pragma unroll
-      for (int kk = 0; kk < T::KK; ++kk) mma3(ah, al, kk, dh, dl, kk == 0, s);
+      for (int kk = 0; kk < T::KK; ++kk) {
+        mma3(ah, al, kk, dh, dl, kk == 0, s);
+        hook.kstep(*this, ah, al, kk, s);
+      }
     } else if constexpr (Hook::kSegmented) {
       int k0 = 0;          // the first k step not issued
       bool fresh = false;  // k0 restarts the stage sum (after a fault)
@@ -961,8 +971,10 @@ struct WgMainloop {
         const int k1 = min(kf - 1, kc);
 #pragma unroll
         for (int kk = 0; kk < T::KK; ++kk)
-          if (kk >= k0 && kk <= k1)
+          if (kk >= k0 && kk <= k1) {
             mma3(ah, al, kk, dh, dl, kk == 0 || (kk == k0 && fresh), s);
+            hook.kstep(*this, ah, al, kk, s);
+          }
         if (k1 == kc && kc < T::KK) {
           wgmma_commit();
           wgmma_wait_all();
@@ -1000,6 +1012,7 @@ struct WgMainloop {
           wgmma_fence();
         }
         mma3(ah, al, kk, dh, dl, kk == 0 || fault, s);
+        hook.kstep(*this, ah, al, kk, s);
         if (hook.check_after(t0 + kk)) {
           wgmma_commit();
           wgmma_wait_all();
@@ -1135,4 +1148,4 @@ inline int wgmma_setup(Kernel kernel, CUtensorMap* ta, CUtensorMap* tb,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
 }
 
-}  // namespace ftsg
+FTSG_NAMESPACE_END  // ftsg

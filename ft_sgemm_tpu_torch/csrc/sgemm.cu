@@ -31,7 +31,7 @@
 
 #include "gemm_wgmma.cuh"
 
-namespace ftsg {
+FTSG_NAMESPACE_BEGIN
 
 template <class T, bool RAGGED>
 __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
@@ -67,15 +67,13 @@ int launch_wgmma(const float* A, const float* B, const float* C, float* out,
   return (int)cudaGetLastError();
 }
 
-}  // namespace ftsg
+FTSG_NAMESPACE_END  // ftsg
 
-// Launch on `stream` for one compiled tile (ks, mr, nr and bk are not
-// read); returns cudaGetLastError() (cudaErrorInvalidValue when no tile
-// matches).
+// Launch on `stream` for one compiled tile (bk is not read); returns
+// cudaGetLastError() (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
                           float* out, int M, int N, int K, int bm, int bn,
-                          int ks, int mr, int nr, int bk, float alpha,
-                          float beta, void* stream) {
+                          int bk, float alpha, float beta, void* stream) {
   const auto s = (cudaStream_t)stream;
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \

@@ -1,8 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled at first use, on the machine with the card,
-by ``nvcc`` into a shared library with a plain C interface, loaded with
-``ctypes``. Sources build in parallel, one ``nvcc`` each, into
+Every library of :data:`LIBRARIES` is compiled at first use, on the machine
+with the card, by ``nvcc`` from one ``csrc/*.cu`` into a shared library with
+a plain C interface, loaded with ``ctypes``. The FT sources build twice:
+as they are (static thresholds and ``threshold="auto"``) and with
+``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
+sub-tile's threshold in the kernel), two libraries with the same entry
+points. Libraries build in parallel, one ``nvcc`` each, into
 ``csrc/_build/`` (ignored by git); a library's file name carries a digest
 of all sources and flags, so an edit rebuilds. ``-Xptxas -v`` output (the
 registers, shared memory and spills of every kernel) is kept beside each
@@ -27,12 +31,24 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 
-KERNEL_SOURCES = ("sgemm", "ft_sgemm_weighted", "ft_sgemm_rowcol",
-                  "ft_sgemm_global", "ft_sgemm_aug")
+# Each library: its source and the macros it is compiled with. The
+# adaptive libraries hold B3-B8 only (ft_sgemm_weighted.cu leaves B2 out).
+ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
+LIBRARIES = {
+    "sgemm": ("sgemm", ()),
+    "ft_sgemm_weighted": ("ft_sgemm_weighted", ()),
+    "ft_sgemm_rowcol": ("ft_sgemm_rowcol", ()),
+    "ft_sgemm_global": ("ft_sgemm_global", ()),
+    "ft_sgemm_aug": ("ft_sgemm_aug", ()),
+    "ft_sgemm_weighted_adaptive": ("ft_sgemm_weighted", ADAPTIVE),
+    "ft_sgemm_rowcol_adaptive": ("ft_sgemm_rowcol", ADAPTIVE),
+    "ft_sgemm_global_adaptive": ("ft_sgemm_global", ADAPTIVE),
+    "ft_sgemm_aug_adaptive": ("ft_sgemm_aug", ADAPTIVE),
+}
+KERNEL_LIBS = tuple(LIBRARIES)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 
 
 def nvcc() -> str:
@@ -61,8 +77,8 @@ def ptxas_log(name: str) -> str:
     return so_path(name).with_suffix(".ptxas.txt").read_text()
 
 
-def build(names=KERNEL_SOURCES) -> float:
-    """Compile the named sources that are not built yet, all in parallel;
+def build(names=KERNEL_LIBS) -> float:
+    """Compile the named libraries that are not built yet, all in parallel;
     returns the wall seconds. Raises with the compiler's output on failure."""
     todo = [n for n in names if not so_path(n).exists()]
     if not todo:
@@ -74,8 +90,9 @@ def build(names=KERNEL_SOURCES) -> float:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        source, defines = LIBRARIES[name]
         proc = subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [exe, *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, tmp, proc))
     failures = []
@@ -96,7 +113,8 @@ def build(names=KERNEL_SOURCES) -> float:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library ``name`` of :data:`LIBRARIES`, building it if
+    needed."""
     build((name,))
     return ctypes.CDLL(str(so_path(name)))
 
@@ -145,16 +163,15 @@ def subtiles() -> frozenset:
     return _tile_list("FTSG_FOR_EACH_SUBTILE")
 
 
-def check_layout(shape) -> tuple:
-    """The (bm, bn, ks, mr, nr) that the entry points take for ``shape``
-    (ks, mr and nr are not read); raises for a (bm, bn) tile that some
-    kernel's source does not instantiate."""
+def check_tile(shape) -> tuple:
+    """The (bm, bn) that the entry points take for ``shape``; raises for a
+    tile that some kernel's source does not instantiate."""
     tile = (shape.bm, shape.bn)
     if tile not in (wgmma_tiles() | narrow_tiles()) or tile not in subtiles():
         raise ValueError(
             f"KernelShape {shape.name!r} tile {tile} is not compiled;"
             f" compiled (bm, bn): {sorted(subtiles())}")
-    return (*tile, *shape.thread_layout)
+    return tile
 
 
 def mainloop(kind: str, shape) -> str:
@@ -167,7 +184,7 @@ def mainloop(kind: str, shape) -> str:
     ``rowcol``, B4 ``global``, B5 ``running``, B6 ``fused``, B7
     ``rowcol_mxu`` and B8 ``global_mxu`` run the 128 x 128 CTA over the
     tile as its sub-tile at every tile of :func:`subtiles`."""
-    check_layout(shape)
+    check_tile(shape)
     return "wgmma-3xtf32"
 
 
@@ -175,7 +192,7 @@ def check_operands(shape, a, b, c, *more) -> tuple:
     """Validate a kernel launch: f32, contiguous, 16-byte aligned operands
     on one CUDA device, A (M, K), B (N, K) and C (M, N) padded to the tile
     (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled tile.
-    Returns (M, N, K, bm, bn, ks, mr, nr, bk)."""
+    Returns (M, N, K, bm, bn, bk)."""
     dev = a.device
     for t in (a, b, c, *more):
         if not t.is_cuda or t.device != dev:
@@ -194,4 +211,4 @@ def check_operands(shape, a, b, c, *more) -> tuple:
     if m % shape.bm or n % shape.bn or k % shape.bk or k < shape.bk:
         raise ValueError(f"operands ({m}, {n}, {k}) are not padded to the"
                          f" tile {shape.block}")
-    return (m, n, k, *check_layout(shape), shape.bk)
+    return (m, n, k, *check_tile(shape), shape.bk)

@@ -1,11 +1,15 @@
 """Helpers shared by the port's ops: device resolution, padding, the FP32
-matmul setting, the correction-pad rule and the scalar argument.
+matmul setting, the correction-pad rule, the scalar argument, and the
+clean-residual noise model behind ``threshold="auto"`` and
+``threshold="adaptive"``.
 
-Only what this slice's kernels use of ``ft_sgemm_tpu/ops/common.py`` and
+Only what the port's kernels use of ``ft_sgemm_tpu/ops/common.py`` and
 ``ft_sgemm_tpu/ops/ft_sgemm.py`` lives here.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -20,6 +24,15 @@ EPS8 = 8.0 * float(np.finfo(np.float32).eps)
 # Thresholds saturate at a finite huge value (ops/ft_sgemm.py:1354): the
 # moment scalings could otherwise re-overflow a saturated bound to inf.
 THRESHOLD_CAP = np.float32(np.finfo(np.float32).max / 16.0)
+
+# The calibrated constants of the clean-residual noise model (the JAX
+# package's ops/common.py:92-97; calibration in analysis.py there): the
+# random-walk and bias coefficients, and the default margin between the
+# bound and a detection threshold.
+NOISE_C_RAND = 32.0
+NOISE_C_BIAS = 4.0
+DEFAULT_THRESHOLD_MARGIN = 8.0
+F32_EPS = float(np.finfo(np.float32).eps)
 
 
 def resolve_device(device) -> torch.device:
@@ -78,11 +91,101 @@ def correction_pads(delta: torch.Tensor, dim: int, *weights):
     return pads
 
 
-def scalar_operand(inject, thresholds) -> np.ndarray:
+def scalar_operand(inject, thresholds, margin: float = 0.0) -> np.ndarray:
     """The FT kernels' (8,) f32 scalar argument (contracts.SCALAR_SLOTS):
-    injection in slots 0-3, the saturated thresholds in 4-6, slot 7 (the
-    adaptive margin) zero."""
+    injection in slots 0-3, the saturated thresholds in 4-6, and in slot 7
+    the margin of ``threshold="adaptive"`` (zero otherwise; the adaptive
+    kernels read it and not slots 4-6)."""
     out = np.zeros(N_SCALAR_SLOTS, np.float32)
     out[:4] = inject.as_operand()
     out[4:7] = np.minimum(np.asarray(thresholds, np.float32), THRESHOLD_CAP)
+    out[7] = margin
     return out
+
+
+def estimate_noise_floor(a: torch.Tensor, b: torch.Tensor, c, alpha: float,
+                         beta: float) -> torch.Tensor:
+    """Closed-form bound on a clean run's checksum residual, from the
+    inputs' moments, as a 0-d f32 tensor on the inputs' device (no host
+    sync): the torch twin of ``estimate_noise_floor_jnp``
+    (ops/common.py:100-145 of the JAX package), what ``threshold="auto"``
+    evaluates per call.
+
+    ``eps * (C_RAND * sqrt(T) * sigma + C_BIAS * log2(T) * T * |mu|)`` for
+    the product (T = K * max(M, N), sigma = rms(a) rms(b), mu = mean(a)
+    mean(b), times |alpha|) plus the beta * C term (T = max(M, N), rms and
+    mean of C, times |beta|). Pass ``c=None`` only with beta = 0. The rms
+    is scale-safe (normalised by max |x| before squaring), and the bound
+    saturates at a finite value: an inf threshold would disable detection.
+    """
+    (m, k), n = a.shape, b.shape[0]
+    tmax = float(max(m, n))
+
+    def rms(x):
+        # max |x|, then y . y of y = x / max |x| (one BLAS dot): three
+        # passes over x and one over y.
+        xf = x.to(torch.float32)
+        scale = torch.clamp(torch.linalg.vector_norm(xf, ord=float("inf")),
+                            min=1e-30)
+        y = (xf / scale).reshape(-1)
+        return scale * torch.sqrt(torch.dot(y, y) / xf.numel())
+
+    def term(t, sigma, mu):
+        return F32_EPS * (NOISE_C_RAND * float(np.sqrt(t)) * sigma
+                          + NOISE_C_BIAS * float(np.log2(max(t, 2.0))) * t
+                          * torch.abs(mu))
+
+    noise = abs(alpha) * term(
+        float(k) * tmax, rms(a) * rms(b),
+        torch.mean(a.to(torch.float32)) * torch.mean(b.to(torch.float32)))
+    if c is not None and beta != 0.0:
+        cf = c.to(torch.float32)
+        noise = noise + abs(beta) * term(tmax, rms(cf), torch.mean(cf))
+    elif beta != 0.0:
+        raise ValueError(
+            "estimate_noise_floor: pass c (or beta=0): the beta*C term"
+            " contributes residual noise the bound must include")
+    return torch.clamp(noise, max=float(THRESHOLD_CAP))
+
+
+def _sqrt(x):
+    if isinstance(x, torch.Tensor):
+        return torch.sqrt(x)
+    return np.sqrt(x) if isinstance(x, np.ndarray) else math.sqrt(x)
+
+
+def variance_bound_threshold(s_a1, s_a2, s_b1, s_b2, *, n_a, n_b, t_ab,
+                             log2_t, margin, c_rand=NOISE_C_RAND,
+                             c_bias=NOISE_C_BIAS, eps=None):
+    """Per-tile detection threshold from running moments
+    (``threshold="adaptive"``; ops/common.py:148-185 of the JAX package):
+    the noise model of :func:`estimate_noise_floor` on one tile's sums
+    ``s_a1 = sum a``, ``s_a2 = sum a^2`` over its ``n_a`` A elements so far
+    (``s_b1``, ``s_b2``, ``n_b`` for B), at the accumulation length
+    ``t_ab`` with the static full-run ``log2_t``:
+
+        sigma = sqrt((s_a2 / n_a) (s_b2 / n_b)),  mu = (s_a1 / n_a) (s_b1 / n_b)
+        margin * eps * (c_rand sqrt(t_ab) sigma + c_bias log2_t t_ab |mu|)
+
+    saturated at ``THRESHOLD_CAP``. One formula for Python floats, numpy and
+    torch (the kernels' plain versions); ``csrc/abft_common.cuh::
+    variance_bound_threshold`` is the same formula in f32 on the card.
+    """
+    eps = F32_EPS if eps is None else eps
+    mu_ab = (s_a1 / n_a) * (s_b1 / n_b)
+    sigma = _sqrt((s_a2 / n_a) * (s_b2 / n_b))
+    noise = eps * (c_rand * _sqrt(t_ab) * sigma
+                   + c_bias * log2_t * t_ab * abs(mu_ab))
+    cap = float(THRESHOLD_CAP)
+    if isinstance(noise, torch.Tensor):
+        return torch.clamp(margin * noise, max=cap)
+    if isinstance(noise, np.ndarray):
+        return np.minimum(margin * noise, cap)
+    return min(margin * noise, cap)
+
+
+def full_run_log2(nk: int, bk: int, bm: int, bn: int) -> float:
+    """The static ``log2`` of an adaptive check's bias term: that of the
+    full padded run's accumulation length ``nk * bk * max(bm, bn)``
+    (ops/ft_sgemm.py:382-388 of the JAX package)."""
+    return float(np.log2(max(float(nk * bk) * float(max(bm, bn)), 2.0)))

@@ -5,7 +5,12 @@ B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3-B8 run one
 (``csrc/ft_sgemm_running.cuh``): the grids, cadence and fault placement
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
-Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32 with static thresholds.
+Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
+modes: ``"static"`` (one threshold, the reference's 9500 by default),
+``"auto"`` (one threshold per call from the inputs' moments, reduced by
+torch ops on the inputs' device and read back into the same kernels'
+scalar argument) and ``"adaptive"`` (each tile's threshold at each check
+from its running moments, inside B3-B8 as built with ``FTSG_ADAPTIVE``).
 Each kernel encodes, accumulates, injects, detects and corrects inside one
 launch, as the Pallas kernels do (module docstring there):
 
@@ -52,24 +57,32 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, check_kernel_legality
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
 from ft_sgemm_tpu_torch.ops._build import bind, build, check_launch, check_operands, library
 from ft_sgemm_tpu_torch.ops.common import (
+    DEFAULT_THRESHOLD_MARGIN,
+    NOISE_C_BIAS,
+    NOISE_C_RAND,
+    THRESHOLD_CAP,
     as_f32,
     correction_pads,
+    estimate_noise_floor,
+    full_run_log2,
     pad_to,
     resolve_device,
     scalar_operand,
     strict_fp32,
+    variance_bound_threshold,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-FT_SOURCES = ("ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
-              "ft_sgemm_aug")
+FT_LIBS = ("ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
+           "ft_sgemm_aug")
 
 
 class FtSgemmResult(NamedTuple):
@@ -196,6 +209,42 @@ def _inject_plain(acc, scalars, k: int) -> None:
     acc[ii, jj, rows, cols] += float(scalars[2])
 
 
+def _accumulate_moments(mom, a_k, b_k) -> list:
+    """``_accumulate_moments`` (ops/ft_sgemm.py:394-403) of one K step for
+    every tile: the running [sum a, sum a^2] of each (bm, bk) A block, (gm,),
+    and [sum b, sum b^2] of each (bn, bk) B block, (gn,), added to ``mom``
+    (None before the first step)."""
+    step = (a_k.sum((1, 2)), (a_k * a_k).sum((1, 2)), b_k.sum((1, 2)),
+            (b_k * b_k).sum((1, 2)))
+    return list(step) if mom is None else [m + x for m, x in zip(mom, step)]
+
+
+def _adaptive_threshold(mom, k: int, shape: KernelShape, nk: int, margin,
+                        global_tile: bool = False) -> torch.Tensor:
+    """``_adaptive_threshold`` (ops/ft_sgemm.py:360-391) of every tile at
+    the check after K step ``k``: the variance bound on the running sums
+    ``mom`` = [sum a (gm,), sum a^2, sum b (gn,), sum b^2] over tk = (k + 1)
+    bk columns (n_a = tk bm, n_b = tk bn: a padded tile's zero rows count),
+    at accumulation length tk max(bm, bn) with the full padded run's static
+    log2; times sqrt(bn) for the global check. (gm, gn)."""
+    bm, bn, bk = shape.block
+    tk = float((k + 1) * bk)
+    thr = variance_bound_threshold(
+        mom[0][:, None], mom[1][:, None], mom[2][None, :], mom[3][None, :],
+        n_a=tk * bm, n_b=tk * bn, t_ab=tk * max(bm, bn),
+        log2_t=full_run_log2(nk, bk, bm, bn), margin=margin)
+    return thr * float(np.sqrt(bn)) if global_tile else thr
+
+
+def _recheck_thresholds(thr, bm: int) -> tuple:
+    """The detection threshold and the w and w^2 re-checks' from one
+    adaptive threshold (gm, gn): thr, thr bm / sqrt(3), thr bm^2 / sqrt(5),
+    each (gm, gn, 1) against a tile's residuals."""
+    thr = thr[..., None]
+    return (thr, thr * float(bm / np.sqrt(3.0)),
+            thr * float(bm ** 2 / np.sqrt(5.0)))
+
+
 def _weighted_localize(res_c, res_cw, det_c, bm: int) -> torch.Tensor:
     """(..., bm, bn) mask of the element to correct in each flagged column:
     row ``round(res_cw / res_c) - 1`` (torch.round is half to even, like
@@ -267,12 +316,13 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
 
 def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                       check_every: Optional[int] = None, expm=None,
-                      moments=None):
+                      moments=None, adaptive: bool = False):
     """Plain PyTorch version of B2 (``expm`` given: precomputed moments, one
     final check), B5 (running moments from the operand, a check every
     ``check_every`` steps and after the last) and B6 (``moments`` given:
-    running moments from A's (gm, 3, K) moment rows). Returns
-    (out, det, unc)."""
+    running moments from A's (gm, 3, K) moment rows); ``adaptive``: each
+    tile's thresholds at each check from its running moments of A's and B's
+    own rows (B5, B6). Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -287,6 +337,7 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     if moments is not None:
         moments = _step_rows(moments, nk)
     thresholds = [float(t) for t in scalars[4:7]]
+    mom = None
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
@@ -296,7 +347,12 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                    (a_k.sum(1), (a_k * w).sum(1), (a_k * (w * w)).sum(1)))
             for e, s in zip(exps, s_a):
                 e += torch.einsum("jnk,ik->ijn", b_k, s)
+        if adaptive:
+            mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
+            if adaptive:
+                thresholds = _recheck_thresholds(_adaptive_threshold(
+                    mom, k, shape, nk, float(scalars[7])), bm)
             acc, hits, bad = _moment_detect_correct(acc, *exps, thresholds)
             det += hits.to(torch.int32)
             unc = bad.to(torch.int32)
@@ -304,9 +360,12 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 
 def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, multifault: bool, moments=None):
+                    check_every: int, multifault: bool, moments=None,
+                    adaptive: bool = False):
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
-    B's (gn, 1, K) moment rows), of B7. Returns (out, det, unc)."""
+    B's (gn, 1, K) moment rows), of B7; ``adaptive``: each tile's
+    thresholds at each check from its running moments of A's and B's own
+    rows. Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -320,6 +379,7 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     if moments is not None:
         ma, mb = (_step_rows(m, nk) for m in moments)
     thresholds = [float(t) for t in scalars[4:6]]
+    mom = None
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
@@ -334,7 +394,12 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
             s_aw = ((a_k * w[None, :, None]).sum(1) if moments is None
                     else ma[:, 1, k])
             cw_exp += torch.einsum("jnk,ik->ijn", b_k, s_aw)
+        if adaptive:
+            mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
+            if adaptive:
+                thresholds = _recheck_thresholds(_adaptive_threshold(
+                    mom, k, shape, nk, float(scalars[7])), bm)[:2]
             res_cw = cw_exp - (acc * w[:, None]).sum(-2) if multifault else None
             acc, hits, bad = _rowcol_detect_correct(
                 acc, r_exp - acc.sum(-1), c_exp - acc.sum(-2), res_cw,
@@ -345,12 +410,14 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 
 def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, moments=None):
+                    check_every: int, moments=None, adaptive: bool = False):
     """Plain PyTorch version of B4 and, with ``moments`` = (A's (gm, 1, K),
     B's (gn, 1, K) plain moment rows), of B8: per step ``t_exp += s_a .
     s_b``; per check the residual ``t_exp - sum(acc)``, one event when it
-    moved by more than the threshold since the previous check. Returns
-    (out, det, unc) with unc equal to det."""
+    moved by more than the threshold since the previous check; ``adaptive``:
+    each tile's threshold at each check from its running moments of A's and
+    B's own rows, times sqrt(bn). Returns (out, det, unc) with unc equal to
+    det."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a, b, c, shape)
     gm, gn = c4.shape[:2]
@@ -361,6 +428,7 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     if moments is not None:
         ma, mb = (_step_rows(m, nk) for m in moments)
     thr = float(scalars[4])
+    mom = None
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
@@ -370,7 +438,12 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
         else:
             s_a, s_b = ma[:, 0, k], mb[:, 0, k]
         t_exp += s_a @ s_b.T
+        if adaptive:
+            mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
+            if adaptive:
+                thr = _adaptive_threshold(mom, k, shape, nk,
+                                          float(scalars[7]), global_tile=True)
             res = t_exp - acc.sum((-2, -1))
             det += ((res - prev).abs() > thr).to(torch.int32)
             prev = res
@@ -383,27 +456,31 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 
 @functools.lru_cache(maxsize=None)
-def _entries():
-    build(FT_SOURCES)  # all in parallel, before the first load
-    weighted, glob, aug = (library(n) for n in (
-        "ft_sgemm_weighted", "ft_sgemm_global", "ft_sgemm_aug"))
-    tail = [_I] * 9
-    return {
-        "precomp": bind(weighted, "ftsg_ft_weighted_precomp",
-                        [_P] * 7 + tail + [_F, _F, _P, _P]),
+def _entries(adaptive: bool = False):
+    """The C entry points of the static build (``adaptive=False``: B2-B8) or
+    of the adaptive build (``FTSG_ADAPTIVE``: B3-B8), by kernel kind."""
+    libs = tuple(n + ("_adaptive" if adaptive else "") for n in FT_LIBS)
+    build(libs)  # all in parallel, before the first load
+    weighted, rowcol, glob, aug = (library(n) for n in libs)
+    dims = [_I] * 6  # M, N, K, bm, bn, bk
+    # alpha, beta, the scalar argument, the noise model, the stream
+    tail = [_F, _F, _P, _F, _F, _F, _P]
+    entries = {
         "running": bind(weighted, "ftsg_ft_weighted_running",
-                        [_P] * 6 + tail + [_I, _F, _F, _P, _P]),
-        "rowcol": bind(library("ft_sgemm_rowcol"), "ftsg_ft_rowcol",
-                       [_P] * 6 + tail + [_I, _I, _F, _F, _P, _P]),
-        "global": bind(glob, "ftsg_ft_global",
-                       [_P] * 6 + tail + [_I, _F, _F, _P, _P]),
+                        [_P] * 6 + dims + [_I] + tail),
+        "rowcol": bind(rowcol, "ftsg_ft_rowcol",
+                       [_P] * 6 + dims + [_I, _I] + tail),
+        "global": bind(glob, "ftsg_ft_global", [_P] * 6 + dims + [_I] + tail),
         "global_mxu": bind(glob, "ftsg_ft_global_mxu",
-                           [_P] * 8 + tail + [_I, _F, _F, _P, _P]),
-        "fused": bind(aug, "ftsg_ft_fused",
-                      [_P] * 7 + tail + [_I, _F, _F, _P, _P]),
+                           [_P] * 8 + dims + [_I] + tail),
+        "fused": bind(aug, "ftsg_ft_fused", [_P] * 7 + dims + [_I] + tail),
         "rowcol_mxu": bind(aug, "ftsg_ft_rowcol_mxu",
-                           [_P] * 8 + tail + [_I, _I, _F, _F, _P, _P]),
+                           [_P] * 8 + dims + [_I, _I] + tail),
     }
+    if not adaptive:
+        entries["precomp"] = bind(weighted, "ftsg_ft_weighted_precomp",
+                                  [_P] * 7 + dims + [_F, _F, _P, _P])
+    return entries
 
 
 def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
@@ -416,29 +493,41 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 
 
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
-            scalars):
-    """Launch entry point ``name`` on validated operands and count it on
-    ``wrapper``; raises on a launch error. Returns (out, det, unc)."""
+            scalars, adaptive=False):
+    """Launch entry point ``name`` of the static or the adaptive build on
+    validated operands and count it on ``wrapper`` (``launches``, or
+    ``adaptive_launches``); raises on a launch error. Returns (out, det,
+    unc)."""
     dims = check_operands(shape, a, b, c, *extra_in)
+    sc = np.ascontiguousarray(scalars, np.float32)  # taken by value
+    if sc.shape != (8,):
+        raise ValueError(f"the scalar argument has 8 slots, got {sc.shape}")
     out = torch.empty_like(c)
     grid = (c.shape[0] // shape.bm, c.shape[1] // shape.bn)
     det = torch.empty(grid, dtype=torch.int32, device=c.device)
     unc = torch.empty_like(det)
-    fn = _entries()[name]
+    fn = _entries(adaptive)[name]
+    noise = () if name == "precomp" else (
+        full_run_log2(a.shape[1] // shape.bk, shape.bk, shape.bm, shape.bn),
+        NOISE_C_RAND, NOISE_C_BIAS)
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
             *(t.data_ptr() for t in extra_in), out.data_ptr(), det.data_ptr(),
-            unc.data_ptr(), *dims, *extra_args, alpha, beta,
-            scalars.ctypes.data, torch.cuda.current_stream(a.device).cuda_stream)
-    wrapper.launches += 1
-    check_launch(rc, fn.__name__)
+            unc.data_ptr(), *dims, *extra_args, alpha, beta, sc.ctypes.data,
+            *noise, torch.cuda.current_stream(a.device).cuda_stream)
+    if adaptive:
+        wrapper.adaptive_launches += 1
+    else:
+        wrapper.launches += 1
+    check_launch(rc, fn.__name__ + (" (adaptive build)" if adaptive else ""))
     return out, det, unc
 
 
 def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
                        scalars):
     """B2 on operands padded to the tile, with the (gm, 3, N) expected
-    moments ``expm``; ``scalars`` the (8,) f32 scalar argument. Returns
-    (out, det, unc). A CPU tensor runs the plain version."""
+    moments ``expm``; ``scalars`` the (8,) f32 scalar argument, a host array
+    (the plain versions also take a CPU tensor). Returns (out, det, unc). A
+    CPU tensor runs the plain version."""
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  expm=expm)
@@ -447,120 +536,136 @@ def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
 
 
 def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
-                               scalars, check_every: int):
+                               scalars, check_every: int, adaptive=False):
     """B5: the weighted check every ``check_every`` K steps and after the
-    last, with running in-kernel moments. Returns (out, det, unc)."""
+    last, with running in-kernel moments; ``adaptive`` runs the adaptive
+    build (each sub-tile's thresholds from its running moments and slot
+    7's margin). Returns (out, det, unc)."""
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
-                                 check_every=check_every)
+                                 check_every=check_every, adaptive=adaptive)
     return _launch(ft_weighted_running_kernel, "running", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars)
+                   (check_every,), alpha, beta, scalars, adaptive)
 
 
 def ft_rowcol_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                     check_every: int, multifault: bool):
+                     check_every: int, multifault: bool, adaptive=False):
     """B3: the rowcol check every ``check_every`` K steps and after the
-    last. Returns (out, det, unc)."""
+    last (``adaptive``: as B5). Returns (out, det, unc)."""
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every, multifault)
+                               check_every, multifault, adaptive=adaptive)
     return _launch(ft_rowcol_kernel, "rowcol", shape, a, b, c, (),
-                   (check_every, int(multifault)), alpha, beta, scalars)
+                   (check_every, int(multifault)), alpha, beta, scalars,
+                   adaptive)
 
 
 def ft_global_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                     check_every: int):
+                     check_every: int, adaptive=False):
     """B4: the detect-only scalar check every ``check_every`` K steps and
-    after the last, encoded from the staged chunks. Returns (out, det, unc),
-    unc equal to det."""
+    after the last, encoded from the staged chunks (``adaptive``: as B5).
+    Returns (out, det, unc), unc equal to det."""
     if a.device.type == "cpu":
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every)
+                               check_every, adaptive=adaptive)
     return _launch(ft_global_kernel, "global", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars)
+                   (check_every,), alpha, beta, scalars, adaptive)
 
 
 def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
-                         scalars, check_every: int):
+                         scalars, check_every: int, adaptive=False):
     """B8: B4's check with ``t_exp`` from A's and B's plain moment rows
-    ``ma`` (M/bm, 1, K) and ``mb`` (N/bn, 1, K). Returns (out, det, unc)."""
+    ``ma`` (M/bm, 1, K) and ``mb`` (N/bn, 1, K) (``adaptive``: as B5, the
+    moments of A's and B's own rows). Returns (out, det, unc)."""
     _check_rows(shape, a, b, ma, mb)
     if a.device.type == "cpu":
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every, moments=(ma, mb))
+                               check_every, moments=(ma, mb),
+                               adaptive=adaptive)
     return _launch(ft_global_mxu_kernel, "global_mxu", shape, a, b, c,
-                   (ma, mb), (check_every,), alpha, beta, scalars)
+                   (ma, mb), (check_every,), alpha, beta, scalars, adaptive)
 
 
 def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int):
+                    check_every: int, adaptive=False):
     """B6: B5's weighted check every ``check_every`` K steps and after the
     last, the expected moments encoded from A's moment rows ``ma``
-    (M/bm, 3, K). Returns (out, det, unc)."""
+    (M/bm, 3, K) (``adaptive``: as B8). Returns (out, det, unc)."""
     _check_rows(shape, a, b, ma, n_a=3)
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
-                                 check_every=check_every, moments=ma)
+                                 check_every=check_every, moments=ma,
+                                 adaptive=adaptive)
     return _launch(ft_fused_kernel, "fused", shape, a, b, c, (ma,),
-                   (check_every,), alpha, beta, scalars)
+                   (check_every,), alpha, beta, scalars, adaptive)
 
 
 def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
-                         scalars, check_every: int, multifault: bool):
+                         scalars, check_every: int, multifault: bool,
+                         adaptive=False):
     """B7: B3's rowcol check, the expected sums encoded from A's plain and
     w moment rows ``ma`` (M/bm, 2, K) and B's plain rows ``mb``
-    (N/bn, 1, K). Returns (out, det, unc)."""
+    (N/bn, 1, K) (``adaptive``: as B8). Returns (out, det, unc)."""
     _check_rows(shape, a, b, ma, mb, n_a=2)
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every, multifault, moments=(ma, mb))
+                               check_every, multifault, moments=(ma, mb),
+                               adaptive=adaptive)
     return _launch(ft_rowcol_mxu_kernel, "rowcol_mxu", shape, a, b, c,
                    (ma, mb), (check_every, int(multifault)), alpha, beta,
-                   scalars)
+                   scalars, adaptive)
 
 
 for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
            ft_global_kernel, ft_global_mxu_kernel, ft_fused_kernel,
            ft_rowcol_mxu_kernel):
     _w.launches = 0
+    _w.adaptive_launches = 0
 
 
 def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
                scalars, check_every: int, multifault: bool = False,
-               plain: bool = False):
+               plain: bool = False, adaptive: bool = False):
     """One launch of kernel ``kind`` (:func:`_plan`) on padded operands,
     with its wrapper-side inputs ``extra`` (:func:`kernel_inputs`);
-    ``plain=True`` runs its plain version instead, on any device. Returns
-    (out, det, unc)."""
+    ``plain=True`` runs its plain version instead, on any device;
+    ``adaptive`` the adaptive build of B3-B8 (B2 has none). Returns (out,
+    det, unc)."""
     args = (shape, alpha, beta, scalars)
+    ad = dict(adaptive=adaptive)
     if kind == "precomp":
+        if adaptive:
+            raise ValueError("B2 has no adaptive build: the adaptive weighted"
+                             " strategy runs B5 (_plan)")
         if plain:
             return ft_weighted_plain(a, b, c, *args, expm=extra[0])
         return ft_weighted_kernel(a, b, c, *extra, *args)
     if kind == "running":
         if plain:
-            return ft_weighted_plain(a, b, c, *args, check_every=check_every)
-        return ft_weighted_running_kernel(a, b, c, *args, check_every)
+            return ft_weighted_plain(a, b, c, *args, check_every=check_every,
+                                     **ad)
+        return ft_weighted_running_kernel(a, b, c, *args, check_every, **ad)
     if kind == "fused":
         if plain:
             return ft_weighted_plain(a, b, c, *args, check_every=check_every,
-                                     moments=extra[0])
-        return ft_fused_kernel(a, b, c, *extra, *args, check_every)
+                                     moments=extra[0], **ad)
+        return ft_fused_kernel(a, b, c, *extra, *args, check_every, **ad)
     if kind in ("rowcol", "rowcol_mxu"):
         if plain:
             return ft_rowcol_plain(a, b, c, *args, check_every, multifault,
-                                   moments=extra or None)
+                                   moments=extra or None, **ad)
         if kind == "rowcol":
-            return ft_rowcol_kernel(a, b, c, *args, check_every, multifault)
+            return ft_rowcol_kernel(a, b, c, *args, check_every, multifault,
+                                    **ad)
         return ft_rowcol_mxu_kernel(a, b, c, *extra, *args, check_every,
-                                    multifault)
+                                    multifault, **ad)
     if kind in ("global", "global_mxu"):
         if plain:
             return ft_global_plain(a, b, c, *args, check_every,
-                                   moments=extra or None)
+                                   moments=extra or None, **ad)
         if kind == "global":
-            return ft_global_kernel(a, b, c, *args, check_every)
-        return ft_global_mxu_kernel(a, b, c, *extra, *args, check_every)
+            return ft_global_kernel(a, b, c, *args, check_every, **ad)
+        return ft_global_mxu_kernel(a, b, c, *extra, *args, check_every, **ad)
     raise ValueError(f"unknown kernel kind {kind!r}")
 
 
@@ -606,16 +711,19 @@ def _resolve_cadence(strategy, check_every, inject, nk, bn):
     return ce
 
 
-def _plan(strategy, check_every, multifault, inject, nk, bn, encode="vpu"):
+def _plan(strategy, check_every, multifault, inject, nk, bn, encode="vpu",
+          adaptive=False):
     """What :func:`make_ft_sgemm` launches for one call: the kernel
     (``"precomp"`` B2, ``"running"`` B5, ``"rowcol"`` B3, ``"global"`` B4,
     ``"fused"`` B6, ``"rowcol_mxu"`` B7 or ``"global_mxu"`` B8), its cadence
     in K steps, and whether rowcol (either encode) keeps the multifault
-    weighted checksum."""
+    weighted checksum. Under ``threshold="adaptive"`` the weighted strategy
+    runs B5 at every cadence: B2 has no encode pass for the moment
+    statistics to ride (ops/ft_sgemm.py:1367-1371)."""
     ce = _resolve_cadence(strategy, check_every, inject, nk, bn)
     kind = resolve_kernel_strategy(strategy, encode)
     if kind == "weighted":
-        kind = "precomp" if ce >= nk else "running"
+        kind = "precomp" if ce >= nk and not adaptive else "running"
     mf = False
     if strategy == "rowcol":
         # Auto multifault: the weighted checksum is dead weight iff the
@@ -633,6 +741,7 @@ def make_ft_sgemm(
     strategy: str = "weighted",
     encode: str = "vpu",
     threshold=REFERENCE_THRESHOLD,
+    threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
     check_every: Optional[int] = None,
     in_dtype: str = "float32",
     multifault: Optional[bool] = None,
@@ -645,49 +754,105 @@ def make_ft_sgemm(
     ``"rowcol"``, ``"global"`` (detect only) or ``"fused"``; ``encode``
     ``"vpu"`` or ``"mxu"`` (``"fused"`` always encodes from moment rows).
     ``threshold`` is one static detection threshold (a float, or
-    ``"static"`` for the reference's 9500) or a ``(threshold, thr_m1,
-    thr_m2)`` triple for the detection and the w / w^2 re-checks.
+    ``"static"`` for the reference's 9500), a ``(threshold, thr_m1,
+    thr_m2)`` triple for the detection and the w / w^2 re-checks, or a mode
+    (ops/ft_sgemm.py:1577-1599 of the JAX package):
+
+    - ``"auto"``: per call, ``threshold_margin`` times the noise floor of
+      the pre-pad inputs (``ops.common.estimate_noise_floor``; C only when
+      beta is not 0), times sqrt(bn) for ``global``, and the re-checks at
+      bm / sqrt(3) and bm^2 / sqrt(5) times that, reduced by torch ops on
+      the inputs' device; the kernels are the static ones, which take the
+      thresholds by value, so the launch reads them back (one wait a
+      call).
+    - ``"adaptive"``: per tile and check, inside the kernels (the adaptive
+      build of B3-B8), from the running sums and sums of squares of the A
+      and B elements the tile has consumed; ``threshold_margin`` rides
+      slot 7. The weighted strategy then runs B5 at every cadence.
+
     ``check_every`` is the cadence in K steps (default: the strategy's,
     see ``_resolve_cadence``); ``multifault`` (rowcol) defaults to on
     unless the injection schedule proves at most one fault per check
     interval (ops/ft_sgemm.py:1802-1812). ``device=None`` runs on CUDA.
 
-    Not ported yet, and raising ``NotImplementedError``: the ``"auto"`` and
-    ``"adaptive"`` thresholds and ``in_dtype`` other than float32.
+    Not ported yet, and raising ``NotImplementedError``: ``in_dtype`` other
+    than float32.
     """
-    check_kernel_legality(
-        strategy=strategy, encode=encode, in_dtype=in_dtype,
-        threshold_mode=threshold if isinstance(threshold, str) else "static")
+    if isinstance(threshold, str):
+        threshold_mode = threshold
+    else:
+        threshold_mode = "static"
+    check_kernel_legality(strategy=strategy, encode=encode, in_dtype=in_dtype,
+                          threshold_mode=threshold_mode)
     if strategy == "fused":
         encode = "mxu"  # the fused strategy IS the weighted mxu encode
-    if isinstance(threshold, str):  # "static", the only mode that passed
-        threshold = REFERENCE_THRESHOLD
-    thresholds = (tuple(float(t) for t in threshold)
-                  if isinstance(threshold, (tuple, list))
-                  else (float(threshold),) * 3)
+    adaptive = threshold_mode == "adaptive"
+    thresholds = (0.0,) * 3
+    if threshold_mode == "static":
+        if threshold == "static":
+            threshold = REFERENCE_THRESHOLD
+        thresholds = (tuple(float(t) for t in threshold)
+                      if isinstance(threshold, (tuple, list))
+                      else (float(threshold),) * 3)
     if isinstance(shape, str):
         shape = SHAPES[shape]
     dev = resolve_device(device)
+    bm, bn, bk = shape.block
+
+    def scalars_for(inject, a, b, c):
+        if threshold_mode != "auto":
+            return scalar_operand(inject, thresholds,
+                                  threshold_margin if adaptive else 0.0)
+        # From the pre-pad inputs (padding zeros would dilute the moments),
+        # on their device (ops/ft_sgemm.py:1820-1834).
+        floor = estimate_noise_floor(a, b, c if beta != 0.0 else None,
+                                     alpha, beta)
+        thr = threshold_margin * floor
+        if strategy == "global":
+            thr = thr * float(np.sqrt(bn))
+        thr3 = torch.stack((thr, thr * float(bm / np.sqrt(3.0)),
+                            thr * float(bm ** 2 / np.sqrt(5.0))))
+        base = torch.as_tensor(scalar_operand(inject, (0.0,) * 3),
+                               device=a.device)
+        return torch.cat((base[:4], torch.clamp(thr3, max=float(THRESHOLD_CAP)),
+                          base[7:]))
+
+    # threshold="auto" on the card: the thresholds come back through one
+    # pinned buffer, waited for by an event, so that the wrapper's other
+    # inputs are queued behind the floor's reductions and run while the
+    # host waits.
+    readback = {}
 
     def fn(a, b, c, inject: Optional[InjectionSpec] = None) -> FtSgemmResult:
         inject = inject or InjectionSpec.none()
         a, b, c = (as_f32(x, dev) for x in (a, b, c))
         m, n = c.shape
-        bm, bn, bk = shape.block
         ap, bp = pad_to(a, bm, bk), pad_to(b, bn, bk)
         cp = pad_to(c, bm, bn)
         kind, ce, mf = _plan(strategy, check_every, multifault, inject,
-                             ap.shape[1] // bk, bn, encode)
-        out, det, unc = run_kernel(
-            kind, shape, ap, bp, cp, kernel_inputs(kind, ap, bp, shape),
-            alpha, beta, scalar_operand(inject, thresholds), ce, mf)
+                             ap.shape[1] // bk, bn, encode, adaptive)
+        scalars = scalars_for(inject, a, b, c)
+        if isinstance(scalars, torch.Tensor) and scalars.is_cuda:
+            if "host" not in readback:
+                readback["host"] = torch.empty(8, pin_memory=True)
+            readback["host"].copy_(scalars, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        extra = kernel_inputs(kind, ap, bp, shape)
+        if isinstance(scalars, torch.Tensor) and scalars.is_cuda:
+            ready.synchronize()
+            scalars = readback["host"].numpy().copy()
+        out, det, unc = run_kernel(kind, shape, ap, bp, cp, extra, alpha,
+                                   beta, scalars, ce, mf, adaptive=adaptive)
         return FtSgemmResult(out[:m, :n], det, unc)
 
     fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"
-                   + ("_mxu" if encode == "mxu" and strategy != "fused" else ""))
+                   + ("_mxu" if encode == "mxu" and strategy != "fused" else "")
+                   + ("_adaptive" if adaptive else ""))
     fn.shape_config = shape
     fn.strategy = strategy
     fn.encode = encode
+    fn.threshold_mode = threshold_mode
     return fn
 
 
@@ -695,11 +860,12 @@ def ft_sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0,
              beta=-1.5, inject: Optional[InjectionSpec] = None,
              strategy: str = "weighted", encode: str = "vpu",
              threshold=REFERENCE_THRESHOLD,
+             threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
              check_every: Optional[int] = None,
              multifault: Optional[bool] = None, device=None) -> FtSgemmResult:
     """One-shot fused-ABFT SGEMM (see :func:`make_ft_sgemm`)."""
     return make_ft_sgemm(
         shape, alpha=alpha, beta=beta, strategy=strategy, encode=encode,
-        threshold=threshold, check_every=check_every, multifault=multifault,
-        device=device,
+        threshold=threshold, threshold_margin=threshold_margin,
+        check_every=check_every, multifault=multifault, device=device,
     )(a, b, c, inject)

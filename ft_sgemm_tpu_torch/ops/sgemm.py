@@ -27,7 +27,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _entry():
     return bind(library("sgemm"), "ftsg_sgemm",
-                [_P] * 4 + [_I] * 9 + [_F] * 2 + [_P])
+                [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P])
 
 
 def sgemm_plain(a, b, c, alpha, beta) -> torch.Tensor:

@@ -43,7 +43,7 @@ def census(sass: str) -> dict:
     out = {}
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
                                re.S):
-        kind = re.search(r"ftsg\d+(\w+?_kernel)I", fn)
+        kind = re.search(r"ftsg\d+(?:adaptive\d+)?(\w+?_kernel)I", fn)
         wg = re.search(r"WgTileI((?:Li\d+E)+)E", fn)
         if not (kind and wg):
             continue
@@ -74,8 +74,9 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"{'kernel':44s}" + "".join(f"{c:>8s}" for c in CLASSES + ("total",)))
-    for name in _build.KERNEL_SOURCES:
-        print(f"{name}.cu")
+    # A tree from before the adaptive libraries names its sources instead.
+    for name in getattr(_build, "KERNEL_LIBS", None) or _build.KERNEL_SOURCES:
+        print(name)
         sass = subprocess.run([cuobjdump(), "-sass", str(_build.so_path(name))],
                               capture_output=True, text=True, check=True).stdout
         for label, counts in sorted(census(sass).items()):

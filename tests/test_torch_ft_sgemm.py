@@ -30,8 +30,7 @@ from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 TILES = {
     "t128": (JKernelShape("t128", 128, 128, 128, (0,) * 7), SHAPES["test"]),
     "t256x128": (JKernelShape("t256x128", 256, 128, 128, (0,) * 7),
-                 KernelShape("t256x128", 256, 128, 128, (0,) * 7,
-                             layout=(8, 8, 8))),
+                 KernelShape("t256x128", 256, 128, 128, (0,) * 7)),
 }
 DENSE = dict(enabled=True, every=1)
 # (name, (m, n, k), injection kwargs or "reference_like", check_every)
@@ -138,8 +137,16 @@ def test_plan_names_the_launch_of_the_entry_point():
 
 @pytest.mark.parametrize("threshold", ["auto", "adaptive"])
 def test_unported_threshold_modes_raise(threshold):
+    # Both modes run in f32 (tests/test_torch_ft_adaptive.py); with a dtype
+    # the port does not run yet they still raise, and a misspelled mode
+    # is refused.
+    assert make_ft_sgemm("huge", threshold=threshold,
+                         device="cpu").threshold_mode == threshold
     with pytest.raises(NotImplementedError):
-        make_ft_sgemm("huge", threshold=threshold, device="cpu")
+        make_ft_sgemm("huge", threshold=threshold, in_dtype="bfloat16",
+                      device="cpu")
+    with pytest.raises(ValueError, match="threshold"):
+        make_ft_sgemm("huge", threshold=threshold + "x", device="cpu")
 
 
 @pytest.fixture

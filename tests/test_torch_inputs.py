@@ -72,13 +72,12 @@ def test_scalar_slots_equal():
 
 def test_tile_table_is_compiled_and_test_tile_matches():
     for shape in configs.SHAPES.values():
-        ks, mr, nr = shape.thread_layout
         tile = (shape.bm, shape.bn)
         # B1 and B2 on either CTA, B3-B8 on the sub-tiled one.
         assert tile in _build.wgmma_tiles() | _build.narrow_tiles()
         assert tile in _build.subtiles()
-        assert _build.check_layout(shape) == (*tile, ks, mr, nr)
-        assert shape.bk % ks == 0 and shape.bk % 8 == 0
+        assert _build.check_tile(shape) == tile
+        assert shape.bk % 8 == 0
         if shape.name != "test":
             ms, ns, ks_ref = shape.ref_params[:3]
             assert (shape.bm, shape.bn, shape.bk) == (ms, ns, ks_ref)
@@ -88,9 +87,9 @@ def test_tile_table_is_compiled_and_test_tile_matches():
 
 def test_kernel_shape_rejects_bad_layout():
     with pytest.raises(ValueError):
-        configs.KernelShape("x", 128, 128, 12, (0,) * 7, layout=(8, 8, 8))
+        configs.KernelShape("x", 128, 128, 12, (0,) * 7)
     with pytest.raises(ValueError):
-        configs.KernelShape("x", 100, 128, 8, (0,) * 7, layout=(8, 8, 8))
+        configs.KernelShape("x", 100, 128, 8, (0,) * 7)
 
 
 def test_libc_driver_inputs_equal():

@@ -49,8 +49,7 @@ from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 JAX_TILES = {
     "t128": (JKernelShape("t128", 128, 128, 128, (0,) * 7), SHAPES["test"]),
     "t256x128": (JKernelShape("t256x128", 256, 128, 128, (0,) * 7),
-                 KernelShape("t256x128", 256, 128, 128, (0,) * 7,
-                             layout=(8, 8, 8))),
+                 KernelShape("t256x128", 256, 128, 128, (0,) * 7)),
 }
 PROGRAM_TILES = ("small", "medium", "large", "tall", "wide", "huge")
 SUBTILES = sorted(_build.subtiles())
@@ -244,8 +243,7 @@ def test_mainloop_routes_running_and_fused_to_wgmma():
     assert _build.wgmma_tiles() == own
     assert _build.narrow_tiles() == _build.subtiles() - own
     with pytest.raises(ValueError):
-        _build.mainloop("sgemm", KernelShape("x", 64, 128, 8, (0,) * 7,
-                                             layout=(8, 8, 8)))
+        _build.mainloop("sgemm", KernelShape("x", 64, 128, 8, (0,) * 7))
 
 
 def test_a_launch_error_raises(monkeypatch):
@@ -262,9 +260,10 @@ def test_a_launch_error_raises(monkeypatch):
         return 1   # cudaErrorInvalidValue
 
     entry.__name__ = "ftsg_ft_weighted_running"
-    monkeypatch.setattr(ft, "_entries", lambda: {"running": entry})
+    monkeypatch.setattr(ft, "_entries",
+                        lambda adaptive=False: {"running": entry})
     monkeypatch.setattr(ft, "check_operands",
-                        lambda shape, *t: (16, 16, 16, 16, 16, 16, 2, 2, 16))
+                        lambda shape, *t: (16, 16, 16, 16, 16, 16))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(ft, "ft_weighted_plain",
@@ -330,6 +329,6 @@ def test_unknown_subtile_returns_an_error_on_card(cuda_device):
     sc = scalar_operand(InjectionSpec.none(), (9500.0,) * 3)
     rc = ft._entries()["running"](
         a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-        det.data_ptr(), unc.data_ptr(), 64, 64, 64, 8, 8, 8, 2, 2, 8, 1,
-        1.0, -1.5, sc.ctypes.data, torch.cuda.current_stream().cuda_stream)
+        det.data_ptr(), unc.data_ptr(), 64, 64, 64, 8, 8, 8, 1, 1.0, -1.5,
+        sc.ctypes.data, 16.0, 32.0, 4.0, torch.cuda.current_stream().cuda_stream)
     assert rc != 0

@@ -45,8 +45,7 @@ from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 JAX_TILES = {
     "t128": (JKernelShape("t128", 128, 128, 128, (0,) * 7), SHAPES["test"]),
     "t256x128": (JKernelShape("t256x128", 256, 128, 128, (0,) * 7),
-                 KernelShape("t256x128", 256, 128, 128, (0,) * 7,
-                             layout=(8, 8, 8))),
+                 KernelShape("t256x128", 256, 128, 128, (0,) * 7)),
 }
 SUBTILES = sorted(_build.subtiles())
 # (strategy, multifault) of each modelled kernel: B3 both ways, B4.
