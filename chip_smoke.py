@@ -19,6 +19,16 @@ then the program under ``--threshold=auto`` and ``--threshold=adaptive``
 at 4096 in every pair (verification, clean runs that flag nothing, and
 magnitude-5 faults that the static threshold misses and both modes catch),
 counted apart, and each adaptive kernel's time beside its static build's.
+The bf16 input mode (``--dtype=bfloat16``, the vpu encodes): B1-B5's bf16
+builds against their plain versions at every tile (checks and faults
+inside a 16-deep k step too) and, clean, to within BF16_ACCURACY of max
+|C| of the f32 product of the rounded operands (C must stay f32), then
+the program in bf16 at 4096 under the weighted, rowcol and global
+strategies with the static and auto thresholds (verification, the table,
+clean runs that flag nothing and keep that accuracy), counted apart. And, as a regression, B6 at the small tile built with its
+scalar argument read from device memory
+(``scripts/torch_variant_time.py --variant=device-scalars-small``) must
+count every fault, as its by-value build does.
 Prints one line per phase, a ``kernels`` JSON line with each kernel's
 launches, error and times against its bound, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -30,8 +40,11 @@ CUDA device or a directory without the port.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -51,6 +64,7 @@ TIMING_SIZE = 4096
 # tensor cores, TF32 on them, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # The tiles on which B1's accuracy is held: every program tile, since every
 # kernel runs the 3xTF32 wgmma mainloop at every tile (B1 on the tile's own
@@ -60,8 +74,9 @@ WGMMA_TILES = ("small", "medium", "large", "tall", "wide", "huge")
 MID_STAGE_EVERY = 3
 # The clean weighted residuals must stay this far under the threshold.
 RESIDUAL_MARGIN = 100.0
-# Adaptive kernel-vs-plain sizes: aligned, and not a multiple of the CTA.
-ADAPTIVE_SIZES = (1024, 1000)
+# Adaptive kernel-vs-plain size: not a multiple of the CTA (the aligned
+# 1024 went with the bf16 phases, for time).
+ADAPTIVE_SIZES = (1000,)
 # The adaptive bracket: tile (i, j)'s threshold at BRACKET_A[i % 2] *
 # BRACKET_B[j % 2] times the fault (0.5, 0.125, 2 and 0.5).
 BRACKET_A = (0.5, 2.0)
@@ -91,6 +106,25 @@ ALL_PAIRS = (("weighted", "vpu"),) + TABLE_PAIRS
 ADAPTIVE_KINDS = ("running", "fused", "rowcol", "rowcol_mxu", "global",
                   "global_mxu")
 PROGRAM_TILES = ("huge", "small", "medium", "large", "tall", "wide")
+# The bf16 slice: its (strategy, encode) pairs, the kernels their program
+# runs, threshold modes, and kernel-vs-plain sizes (aligned, and not a
+# multiple of the CTA). A fault schedule with an odd period puts faults
+# between the halves of a 16-deep k step at every tile whose bk is 8.
+BF16_PAIRS = (("weighted", "vpu"), ("rowcol", "vpu"), ("global", "vpu"))
+BF16_KINDS = ("sgemm", "precomp", "running", "rowcol", "global")
+BF16_MODES = ("static", "auto")
+BF16_SIZES = (1024, 1000)
+ODD_EVERY = 5
+# bf16 keeps C and the accumulator in f32: B1 and every clean FT launch
+# must stay within this share of max |C| of the f32 product of the rounded
+# operands (the kernels measured ~1e-6 of it; C or a stage sum rounded to
+# bf16 costs ~2e-3, and the smoke checks that such a rounding fails it).
+BF16_ACCURACY = 1e-4
+# The regression variant of B6 (the device-memory scalar argument, at the
+# small tile), built beside the kernels into this directory.
+VARIANT = "device-scalars-small"
+VARIANT_DIR = pathlib.Path(__file__).resolve().parent / (
+    "ft_sgemm_tpu_torch/csrc/_build/variant")
 
 
 def log(msg: str) -> None:
@@ -150,11 +184,16 @@ class Kernels:
         }
         for k in self.table.values():
             k["counter"] = "launches"
-        # The adaptive builds of B3-B8: the same wrappers, counted apart.
+        # The adaptive builds of B3-B8 and the bf16 builds of B1-B5: the
+        # same wrappers, counted apart.
         for kind in ADAPTIVE_KINDS:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_adaptive"] = dict(
                 static, counter="adaptive_launches")
+        for kind in BF16_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            self.table[KIND_NAMES[kind] + "_bf16"] = dict(
+                static, counter="bf16_launches")
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
 
@@ -186,14 +225,13 @@ class Kernels:
              multifault=False, adaptive=False):
         """One launch against its plain version on the same operands: (det,
         unc) grids equal, C within verify_matrix on every tile the kernel
-        reports correctable. A tile reported uncorrectable (the adversarial
+        reports correctable (its rule, in float64 on the card, and every
+        element finite). A tile reported uncorrectable (the adversarial
         schedule) may be miscorrected differently by the two — the weighted
         ratio can fall on a rounding tie — so its C is not compared. The
         detect-only global kernels correct nothing: both sides keep the
         same faults, and C is compared everywhere."""
-        from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
-
-        name = KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
+        name = kernel_name(kind, a, adaptive)
         run, plain = self.calls(kind, shape, a, b, c, scalars, check_every,
                                 multifault, adaptive)
         got, want = run(), plain()
@@ -210,15 +248,80 @@ class Kernels:
             if kind not in DETECT_ONLY:
                 mask = (unc == 0).repeat_interleave(
                     shape.bm, 0).repeat_interleave(shape.bn, 1)
-        ok, nbad, first = verify_matrix(ref[mask].cpu().numpy(),
-                                        out[mask].cpu().numpy(), verbose=False)
-        if not ok:
+        diff = (out.double() - ref.double()).abs()
+        bad = mask & (((diff > 0.01) & (diff > 0.01 * ref.double().abs()))
+                      | ~torch.isfinite(out))
+        nbad = int(bad.sum())
+        if nbad:
             raise AssertionError(
                 f"{name} {shape.name} {tuple(a.shape)}: C differs from the"
-                f" plain version at {nbad} elements (first {first})")
-        err = float((out - ref)[mask].abs().max()) if mask.any() else 0.0
+                f" plain version at {nbad} elements (first"
+                f" {tuple(bad.nonzero()[0].tolist())})")
+        err = float(diff[mask].max()) if mask.any() else 0.0
         self.max_err[name] = max(self.max_err[name], err)
         self.checked[name] += 1
+        return out
+
+
+def rounded_oracle(kern: Kernels, a, b, c):
+    """The bf16 oracle: the f32 product of the bf16-rounded A and B (TF32
+    off), with the program's alpha and beta; C stays f32."""
+    from ft_sgemm_tpu_torch.ops.common import strict_fp32
+
+    strict_fp32()
+    return kern.alpha * torch.matmul(a.float(), b.float().T) + kern.beta * c
+
+
+def bf16_accuracy(out, oracle, what, worst=None):
+    """max |out - oracle| over max |oracle|, raising above BF16_ACCURACY (C
+    or a sum rounded to bf16 somewhere). ``worst`` keeps the largest share
+    per ``what``'s first word."""
+    share = float((out - oracle).abs().max() / oracle.abs().max())
+    if not share <= BF16_ACCURACY:
+        raise AssertionError(f"{what}: max |dC| is {share:.3g} of max |C|"
+                             f" against the rounded operands' f32 product,"
+                             f" over {BF16_ACCURACY} (C not kept in f32)")
+    if worst is not None:
+        key = what.split()[0]
+        worst[key] = max(worst.get(key, 0.0), share)
+    return share
+
+
+def bf16_control(oracle, what):
+    """The accuracy gate's control: the oracle rounded to bf16 must fail
+    it, or the gate could not see a kernel that rounds C."""
+    share = float((oracle.bfloat16().float() - oracle).abs().max()
+                  / oracle.abs().max())
+    if share <= BF16_ACCURACY:
+        raise AssertionError(f"{what}: C rounded to bf16 is off by only"
+                             f" {share:.3g} of max |C|, within the gate's"
+                             f" {BF16_ACCURACY}")
+    return share
+
+
+def kernel_name(kind, a, adaptive=False):
+    """The ``Kernels`` table's name of kernel ``kind`` on A ``a``."""
+    return (KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
+            + ("_bf16" if a.dtype == torch.bfloat16 else ""))
+
+
+def start_variant_build():
+    """Write the B6 regression variant into VARIANT_DIR and start its nvcc
+    (only its aug library), beside the kernels' own build; returns the
+    process and the library's path."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
+    import torch_variant_time
+
+    from ft_sgemm_tpu_torch.ops import _build
+
+    shutil.rmtree(VARIANT_DIR, ignore_errors=True)
+    torch_variant_time.write_variant(VARIANT, str(VARIANT_DIR))
+    so = VARIANT_DIR / "libft_sgemm_aug.so"
+    src = VARIANT_DIR / "ft_sgemm_tpu_torch/csrc/ft_sgemm_aug.cu"
+    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, so
 
 
 def phase_device():
@@ -226,19 +329,31 @@ def phase_device():
     from ft_sgemm_tpu_torch.ops import _build
 
     smi = nvidia_smi_line()
+    nvcc_version = subprocess.run([_build.nvcc(), "--version"], check=True,
+                                  capture_output=True, text=True).stdout
     log(f"phase device: {torch.cuda.get_device_name(0)} x"
         f"{torch.cuda.device_count()} | {smi} | torch {torch.__version__}"
-        f" cuda {torch.version.cuda}")
+        f" cuda {torch.version.cuda} | nvcc"
+        f" {nvcc_version.strip().splitlines()[-1]}")
+    t0 = time.perf_counter()
+    variant = start_variant_build()
     secs = _build.build()
     log(f"phase build: {len(_build.KERNEL_LIBS)} libraries in parallel,"
-        f" {secs:.1f} s")
+        f" {max(secs.values(), default=0.0):.1f} s (each: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"), and the {VARIANT} variant's aug library beside them")
     for name in _build.KERNEL_LIBS:
         log(f"  ptxas {name}: " + ", ".join(ptxas_summary(_build.ptxas_log(name))))
     # Without a host compiler the verification would silently draw numpy
     # inputs instead of the reference binary's libc-rand stream.
     if runtime.load() is None:
         raise AssertionError("hostutils.cpp did not build: no libc-rand inputs")
-    return smi
+    proc, so = variant
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise AssertionError(f"the {VARIANT} variant did not build:\n{out}")
+    log(f"phase build: all done in {time.perf_counter() - t0:.1f} s")
+    return smi, so
 
 
 def ptxas_summary(text: str):
@@ -246,7 +361,8 @@ def ptxas_summary(text: str):
     source's ``-Xptxas -v`` log (names demangled just enough to tell the
     kernels apart: a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per
     band and the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows``
-    and ``MomentRows``, then B1's ragged-store flag)."""
+    and ``MomentRows``, then B1's ragged-store flag, and ``bf16`` for a bf16
+    tile)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
@@ -256,8 +372,10 @@ def ptxas_summary(text: str):
         ragged = re.search(r"EELb(\d)E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
+        bf16 = re.search(r"WgTileI(?:Li\d+E){8}Li1E", fn)
         tag = ",".join(re.findall(r"\d+", dims.group(1)) + list(rows.groups())
-                       + ([ragged.group(1)] if ragged else []))
+                       + ([ragged.group(1)] if ragged else [])
+                       + (["bf16"] if bf16 else []))
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
@@ -265,12 +383,13 @@ def ptxas_summary(text: str):
     return sorted(out)
 
 
-def _padded(host, shape):
-    """Host (A, B, C) on the card, padded to the tile as the entry points
-    pad them."""
-    from ft_sgemm_tpu_torch.ops.common import pad_to
+def _padded(host, shape, dtype=torch.float32):
+    """Host (A, B, C) on the card, A and B rounded to ``dtype``, padded to
+    the tile as the entry points pad them."""
+    from ft_sgemm_tpu_torch.ops.common import as_operand, pad_to
 
-    a, b, c = (torch.from_numpy(x).cuda() for x in host)
+    a, b = (as_operand(x, dtype, torch.device("cuda")) for x in host[:2])
+    c = torch.from_numpy(host[2]).cuda()
     return (pad_to(a, shape.bm, shape.bk), pad_to(b, shape.bn, shape.bk),
             pad_to(c, shape.bm, shape.bn))
 
@@ -352,6 +471,214 @@ def phase_kernels(kern: Kernels):
     log(f"phase kernels: {dict(kern.checked)} comparisons with the plain"
         f" versions pass, max |dC| {kern.max_err}"
         f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_bf16_kernels(kern: Kernels):
+    """The bf16 builds of B1-B5 against their plain versions (the FP32
+    tile algorithm on the same bf16-rounded operands) at every tile of the
+    port's table, at BF16_SIZES: clean, reference-like, col_stride=0, and
+    (at the mid-stage cadence) faults every ODD_EVERY bk steps, which at bk
+    = 8 fall between the halves of a 16-deep k step. B2 at its one final
+    check; B5 at the program's cadence or four checks a run, and every
+    MID_STAGE_EVERY bk steps (checks inside a 64-column bf16 stage and,
+    at bk = 8, inside a 16-deep k step); B3 with multifault off and on at
+    the program's cadence and on at the mid-stage one; B4 at both. B1 and
+    every clean FT launch are also held to BF16_ACCURACY against the f32
+    product of the rounded operands, and that product rounded to bf16
+    must fail it."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    ft = kern.ft
+    gen = np.random.default_rng(19)
+    before = dict(kern.checked)
+    worst, control = {}, 1.0
+    t0 = time.perf_counter()
+    for shape in SHAPES.values():
+        for size in BF16_SIZES:
+            a, b, c = _padded(_random(size, size, size, gen), shape,
+                              torch.bfloat16)
+            oracle = rounded_oracle(kern, a, b, c)
+            at = f"{shape.name} {size}"
+            control = min(control, bf16_control(oracle, f"B1 {at}"))
+            bf16_accuracy(kern.hold("sgemm", shape, a, b, c), oracle,
+                          f"sgemm_bf16 {at}", worst)
+            nk = a.shape[1] // shape.bk
+            quarter = max(1, nk // 4)
+            ref = InjectionSpec.reference_like(size, shape.bk)
+            for inj in (InjectionSpec.none(), ref,
+                        InjectionSpec(True, ref.every, col_stride=0),
+                        InjectionSpec(True, ODD_EVERY)):
+                sc = _scalars(inj)
+                odd = inj.every == ODD_EVERY and inj.enabled
+
+                def cadence(strategy):
+                    return ft._plan(strategy, None, None, inj, nk, shape.bn)[1]
+
+                # col_stride=0 puts two equal faults in a column of a
+                # mid-stage interval (a weighted-ratio tie): program
+                # cadences only there.
+                mid = {MID_STAGE_EVERY} if inj.col_stride else set()
+
+                def hold(kind, *args):
+                    out = kern.hold(kind, shape, a, b, c, sc, *args)
+                    if not inj.enabled:
+                        bf16_accuracy(out, oracle, f"{KIND_NAMES[kind]}_bf16"
+                                      f" {at} {args}", worst)
+
+                if not odd:
+                    hold("precomp")
+                    ce = cadence("weighted")
+                    for ce in sorted({ce if ce < nk else quarter} | mid):
+                        hold("running", ce)
+                    for mf in (False, True):
+                        hold("rowcol", cadence("rowcol"), mf)
+                    hold("global", cadence("global"))
+                for ce in sorted(mid):
+                    hold("running", ce)
+                    hold("rowcol", ce, True)
+                    hold("global", ce)
+    done = {k: n - before[k] for k, n in kern.checked.items()
+            if n - before[k]}
+    log(f"phase bf16 kernels: {done} comparisons with the plain versions"
+        f" pass (grids equal), max |dC|"
+        f" { {k: kern.max_err[k] for k in done} }; B1 and clean launches"
+        f" against the rounded operands' f32 product, max |dC| / max |C|"
+        f" {worst} (gate {BF16_ACCURACY}; C rounded to bf16 {control:.3g}"
+        f" at least) ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_bf16_path(kern: Kernels):
+    """The ``ft_sgemm`` program with ``--dtype=bfloat16`` at VERIFY_SIZE,
+    with the launch counters set to 0 just before and read just after:
+    (b) the verification under weighted and rowcol (ids 0-16) and global
+    (11-16) with the static threshold, and of ids 11-16 in each of those
+    pairs under auto, every id passing with every fault detected (global:
+    every event) and nothing uncorrectable where the strategy corrects;
+    the bf16 GFLOPS table at TIMING_SIZE (ids 0-16 weighted, 11-16 rowcol
+    and global); (c) clean runs of ids 11-16 in every pair and mode, which
+    flag nothing and keep C within BF16_ACCURACY of the f32 product of the
+    rounded operands. Every bf16 kernel must have launched."""
+    from ft_sgemm_tpu_torch import cli, runtime
+    from ft_sgemm_tpu_torch.configs import kernel_for_id
+    from ft_sgemm_tpu_torch.ops.common import as_f32
+    from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
+    from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
+
+    n = VERIFY_SIZE
+    kern.zero_counts()
+    t0 = time.perf_counter()
+    for mode in BF16_MODES:
+        for strategy, encode in BF16_PAIRS:
+            first = 0 if mode == "static" and strategy != "global" else 11
+            details = {}
+            ok = cli.run_verification(n, first, 16, strategy=strategy,
+                                      encode=encode, threshold=mode,
+                                      in_dtype="bfloat16", details=details)
+            for kid, d in details.items():
+                if d["detected"] != d["expected"] or d["uncorrectable"] != (
+                        d["detected"] if strategy == "global" else 0):
+                    ok = False
+            if not ok:
+                raise AssertionError(f"bf16 {strategy}/{encode} threshold"
+                                     f" {mode}: {details}")
+            log(f"phase verify bf16 {strategy}/{encode} threshold {mode}:"
+                f" ids {first}-16 pass at {n}; detected/expected faults "
+                + ", ".join(f"{k}:{d['detected']}/{d['expected']}"
+                            for k, d in sorted(details.items())))
+    tables = {}
+    for strategy, encode in BF16_PAIRS:
+        first = 0 if strategy == "weighted" else 11
+        tables[strategy] = cli.run_perf_table(
+            TIMING_SIZE, TIMING_SIZE, 1, first, 16,
+            min_device_time=PERF_MINTIME, strategy=strategy, encode=encode,
+            in_dtype="bfloat16")
+    a, b = runtime.generate_reference_driver_inputs(n)
+    a, b, c = (as_f32(x, "cuda") for x in (a, b, np.zeros_like(a)))
+    oracle = sgemm_reference(a, b, c, kern.alpha, kern.beta,
+                             in_dtype="bfloat16", device="cuda")
+    control = bf16_control(oracle, f"bf16 clean runs at {n}")
+    flagged, worst = {}, {}
+    for mode in BF16_MODES:
+        for strategy, encode in BF16_PAIRS:
+            for kid in range(11, 17):
+                _, shape, _ = kernel_for_id(kid)
+                res = make_ft_sgemm(shape.name, alpha=kern.alpha,
+                                    beta=kern.beta, strategy=strategy,
+                                    encode=encode, threshold=mode,
+                                    in_dtype="bfloat16", device="cuda")(a, b, c)
+                det, unc = int(res.num_detected), int(res.num_uncorrectable)
+                if det or unc:
+                    flagged[f"{strategy} {mode} id {kid}"] = (det, unc)
+                bf16_accuracy(res.c, oracle, f"{strategy} {mode} id {kid}",
+                              worst)
+    if flagged:
+        raise AssertionError(f"bf16 clean runs flagged faults: {flagged}")
+    counts = kern.counts()
+    log(f"phase bf16 clean: ids 11-16 under {BF16_PAIRS}, {BF16_MODES},"
+        f" flag nothing at {n}; max |dC| / max |C| against the rounded"
+        f" operands' f32 product {worst} (gate {BF16_ACCURACY}; C rounded"
+        f" to bf16 {control:.3g})")
+    log(f"phase bf16 path: {time.perf_counter() - t0:.1f} s, launches"
+        f" {counts}")
+    missing = [name for name, k in kern.table.items()
+               if k["counter"] == "bf16_launches" and counts[name] == 0]
+    if missing:
+        raise AssertionError(f"bf16 kernels never launched on the bf16"
+                             f" path: {missing}")
+    return counts, tables
+
+
+def phase_variant(kern: Kernels, so):
+    """B6 at the small tile from the regression variant's library (its
+    scalar argument read from device memory), at 4096 with the program's
+    reference-like faults and cadence: it must detect every fault (tiles
+    times faults a tile), nothing uncorrectable, and give the by-value
+    build's grids and C on the same launch."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.ops.common import NOISE_C_BIAS, NOISE_C_RAND, full_run_log2
+
+    ft = kern.ft
+    n, shape = TIMING_SIZE, SHAPES["small"]
+    fn = _build.bind(ctypes.CDLL(str(so)), "ftsg_ft_fused",
+                     ft._entries()["fused"].argtypes)
+    a, b, c = _padded(_random(n, n, n, np.random.default_rng(23)), shape)
+    inj = InjectionSpec.reference_like(n, shape.bk)
+    _, ce, _ = ft._plan("fused", None, None, inj, n // shape.bk, shape.bn,
+                        "mxu")
+    sc = _scalars(inj)
+    (ma,) = ft.kernel_inputs("fused", a, b, shape)
+    out = torch.empty_like(c)
+    grid = (n // shape.bm, n // shape.bn)
+    det = torch.empty(grid, dtype=torch.int32, device="cuda")
+    unc = torch.empty_like(det)
+    _build.check_launch(fn(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), ma.data_ptr(),
+        out.data_ptr(), det.data_ptr(), unc.data_ptr(), n, n, n, shape.bm,
+        shape.bn, shape.bk, ce, kern.alpha, kern.beta, sc.ctypes.data,
+        full_run_log2(n // shape.bk, shape.bk, shape.bm, shape.bn),
+        NOISE_C_RAND, NOISE_C_BIAS, torch.cuda.current_stream().cuda_stream),
+        VARIANT)
+    got = ft.run_kernel("fused", shape, a, b, c, (ma,), kern.alpha, kern.beta,
+                        sc, ce)
+    torch.cuda.synchronize()
+    expected = grid[0] * grid[1] * inj.expected_faults(n, shape.bk)
+    found = int(det.sum())
+    if (found != expected or int(unc.sum()) or not torch.equal(det, got[1])
+            or not torch.equal(unc, got[2])):
+        raise AssertionError(
+            f"{VARIANT} B6 small: detected {found} of {expected},"
+            f" {int(unc.sum())} uncorrectable; by value"
+            f" {int(got[1].sum())}, {int(got[2].sum())}")
+    dc = float((out - got[0]).abs().max())
+    if dc > 1e-2:
+        raise AssertionError(f"{VARIANT} B6 small: C off the by-value build's"
+                             f" by {dc}")
+    log(f"phase variant ({VARIANT}): B6 small at {n}, check every {ce},"
+        f" detects {found} of {expected} faults, none uncorrectable, grids"
+        f" equal to the by-value build's, max |dC| {dc}")
 
 
 def phase_adaptive_kernels(kern: Kernels):
@@ -563,9 +890,10 @@ def phase_path_shapes(kern: Kernels):
     multifault setting ``make_ft_sgemm`` picks (``ops/ft_sgemm._plan``)
     under the program's injection, on the verification's inputs at 4096
     under every (strategy, encode) pair, on the table's inputs at each of
-    its sizes (weighted, as the table runs) and at 4096 under the pairs of
-    TABLE_PAIRS. A launch that equals one already held (weighted with encode
-    mxu runs fused's kernel at fused's cadence) is held once."""
+    its sizes (weighted, as the table runs: K, and with it the fault period
+    and the cadence, differ by size) and at 4096 under the pairs of
+    TABLE_PAIRS. A launch that equals one already held (weighted with
+    encode mxu runs fused's kernel at fused's cadence) is held once."""
     from ft_sgemm_tpu_torch import cli, runtime
     from ft_sgemm_tpu_torch.configs import ENCODE_MODES, KERNEL_TABLE, STRATEGIES, kernel_for_id
 
@@ -575,9 +903,10 @@ def phase_path_shapes(kern: Kernels):
     a, b = runtime.generate_reference_driver_inputs(VERIFY_SIZE)
     verify = (a, b, np.zeros_like(a))
     runs = [(VERIFY_SIZE, s, e, verify) for s in STRATEGIES for e in ENCODE_MODES]
-    runs += [(size, "weighted", "vpu", cli._host_inputs(size))
-             for size in range(PERF_SIZES[0], PERF_SIZES[1] + 1, PERF_SIZES[2])]
     table = cli._host_inputs(TIMING_SIZE)
+    runs += [(size, "weighted", "vpu",
+              table if size == TIMING_SIZE else cli._host_inputs(size))
+             for size in range(PERF_SIZES[0], PERF_SIZES[1] + 1, PERF_SIZES[2])]
     runs += [(TIMING_SIZE, s, e, table) for s, e in TABLE_PAIRS]
     seen = set()
     for size, strategy, encode, host in runs:
@@ -820,10 +1149,11 @@ SAME_FUNCTION = {"fused": "running", "rowcol_mxu": "rowcol",
                  "global_mxu": "global"}
 
 
-def work(kind, shape, n, check_every=None, multifault=False, adaptive=False):
+def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
+         bf16=False):
     """(flops, bytes) that one launch's function needs at M = N = K = n.
     An FMA counts as two flops; each input is read once and each output
-    written once. Beyond the product and the alpha/beta epilogue: each
+    written once (A and B two bytes an element with ``bf16``). Beyond the product and the alpha/beta epilogue: each
     check's sums over the output (weighted: moments 1, w, w^2 by add, FMA,
     FMA; rowcol: row and column sums, plus the w-weighted column sums in
     multifault mode; global: one sum of the tile) and, for the kernels
@@ -837,7 +1167,7 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False):
     gm, gn = n // shape.bm, n // shape.bn
     tiles = gm * gn
     flops = 2.0 * n ** 3 + 3 * mn           # product; alpha*acc + beta*C
-    nbytes = 4.0 * 4 * mn                   # A, B, C read; out written
+    nbytes = (2.0 * (2 if bf16 else 4) + 4.0 * 2) * mn  # A, B, C; out
     if kind == "sgemm":
         return flops, nbytes
     nbytes += 4.0 * 2 * tiles               # det, unc
@@ -863,13 +1193,16 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False):
     return flops, nbytes
 
 
-def _bound(flops: float, nbytes: float, tc_products: float = 0.0):
+def _bound(flops: float, nbytes: float, tc_products: float = 0.0,
+           bf16: bool = False):
     """(ms, bound_by): the larger of the operations over their peak rate
     and the bytes over the memory rate. ``tc_products`` of the flops are
     products that run as three TF32 products each on the tensor cores (the
-    3xTF32 wgmma kernels); the rest run at the FP32 rate."""
-    t_ops = (3 * tc_products / PEAK_TF32_FLOPS
-             + (flops - tc_products) / PEAK_FP32_FLOPS)
+    3xTF32 wgmma kernels), or once at the bf16 rate with ``bf16``; the rest
+    run at the FP32 rate."""
+    tc = tc_products / PEAK_BF16_FLOPS if bf16 else (
+        3 * tc_products / PEAK_TF32_FLOPS)
+    t_ops = tc + (flops - tc_products) / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -919,6 +1252,67 @@ TIMED += tuple((kind, tile)
 # Timed though the program does not launch them: B2 at small.
 OFF_PATH = (("precomp", "small"),)
 TIMED += OFF_PATH
+# The bf16 builds at every tile the bf16 program launches each on (the
+# weighted strategy runs B5 at small, B2 elsewhere).
+BF16_TIMED = tuple(("sgemm", tile) for tile in PROGRAM_TILES)
+BF16_TIMED += (("precomp", "huge"), ("running", "small"))
+BF16_TIMED += tuple(("precomp", tile) for tile in PROGRAM_TILES[2:])
+BF16_TIMED += tuple((kind, tile) for kind in ("rowcol", "global")
+                    for tile in PROGRAM_TILES)
+
+
+def phase_bf16_timing(kern: Kernels, counts):
+    """Each bf16 build at 4096 on every tile, cadence and multifault
+    setting the bf16 program gives it (BF16_TIMED): the kernel, its plain
+    version, ``torch.matmul`` on the same bf16 operands (the library's
+    bf16 GEMM, bf16 output) and the bound (the product and the expected
+    sums the function needs, once each at the bf16 rate; the bytes with A
+    and B in bf16). Returns the ``kernels`` rows, one per kernel (its first
+    row); ``counts`` are the bf16 path's launches."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    ft = kern.ft
+    n = TIMING_SIZE
+    gen = np.random.default_rng(29)
+    host = _random(n, n, n, gen)
+    rows = {}
+    for kind, tile in BF16_TIMED:
+        shape = SHAPES[tile]
+        a, b, c = _padded(host, shape, torch.bfloat16)
+        name = KIND_NAMES[kind] + "_bf16"
+        inj = InjectionSpec.reference_like(n, shape.bk)
+        ce, mf = None, False
+        if kind != "sgemm":
+            strategy = {"precomp": "weighted", "running": "weighted"}.get(
+                kind, kind)
+            plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
+                                    shape.bn)
+            if plan != kind:
+                raise AssertionError(f"the bf16 program runs {plan} at"
+                                     f" {tile}, not {kind}")
+        run, plain = kern.calls(kind, shape, a, b, c, _scalars(inj), ce, mf)
+        ms = cuda_ms(run, reps=5)
+        plain_ms = cuda_ms(plain)
+        library_ms = cuda_ms(lambda: torch.matmul(a, b.T), reps=5)
+        flops, nbytes = work(kind, shape, n, ce, mf, bf16=True)
+        bound_ms, bound_by = _bound(flops, nbytes,
+                                    tc_products(kind, shape, n, mf), True)
+        rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": kern.table[name]["source"],
+            "replaces": kern.table[name]["replaces"],
+            "launches": counts[name], "max_abs_err": kern.max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
+            "mainloop": _build.mainloop(kind, shape, "bfloat16")})
+        log(f"phase timing {name} ({tile}, wgmma-bf16, {n}, check every {ce},"
+            f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
+            f" torch.matmul bf16 {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
+            f" ({bound_by})")
+    return list(rows.values())
 
 
 def phase_timing(kern: Kernels, counts, threshold_counts):
@@ -1152,7 +1546,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    smi = phase_device()
+    smi, variant = phase_device()
+    phase_variant(kern, variant)
+    phase_bf16_kernels(kern)
     phase_adaptive_kernels(kern)
     phase_adaptive_bracket(kern)
     phase_kernels(kern)
@@ -1160,7 +1556,9 @@ def main() -> int:
     phase_path_shapes(kern)
     counts, _ = phase_main_path(kern)
     threshold_counts = phase_threshold_path(kern)
+    bf16_counts, _ = phase_bf16_path(kern)
     rows = phase_timing(kern, counts, threshold_counts)
+    rows += phase_bf16_timing(kern, bf16_counts)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

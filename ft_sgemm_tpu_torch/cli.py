@@ -20,7 +20,7 @@ Two passes, like ``main()`` there and ``ft_sgemm_tpu/cli.py:494-621``:
 Usage:
     python -m ft_sgemm_tpu_torch.cli 1024 6144 512 0 16 \
         [--strategy=weighted|rowcol|global|fused] [--encode=vpu|mxu] \
-        [--threshold=static|auto|adaptive|FLOAT] \
+        [--threshold=static|auto|adaptive|FLOAT] [--dtype=float32|bfloat16] \
         [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
 
 ``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
@@ -31,7 +31,17 @@ runs the same kernel). ``--threshold`` picks the FT rows' detection
 threshold (``ft_sgemm_tpu/cli.py:2602-2610``): ``static`` (default: the
 reference's fixed 9500, or any float), ``auto`` (one threshold per call
 from the inputs' moments) or ``adaptive`` (per tile and check, inside the
-kernels, from the running moments of the operands). ``--device=cpu`` runs
+kernels, from the running moments of the operands). ``--dtype`` takes the
+JAX package's spellings and aliases (``ft_sgemm_tpu/cli.py:1141-1148``; an
+unknown one exits 2): ``bfloat16`` runs the whole table with A and B
+rounded to bf16 (the vendor row as ``torch.matmul`` on bf16 tensors, whose
+output is bf16; the hand kernels on bf16 wgmma; the two-pass baseline on
+the rounded operands), verified against the f32 product of the rounded
+operands. bf16 runs the weighted, rowcol and global strategies with
+``--encode=vpu`` under the static and auto thresholds; the other dtypes
+and combinations raise ``NotImplementedError``
+(``configs.check_kernel_legality``). Without ``--strategy`` the dtype's
+default strategy runs (``configs.DEFAULT_STRATEGY``). ``--device=cpu`` runs
 the kernels' plain PyTorch versions (for tests); the default is the GPU,
 and the program raises when there is none.
 """
@@ -46,16 +56,20 @@ import torch
 
 from ft_sgemm_tpu_torch import runtime
 from ft_sgemm_tpu_torch.configs import (
+    DEFAULT_STRATEGY,
     ENCODE_MODES,
+    IN_DTYPES,
     KERNEL_TABLE,
     PERF_ROW_IDS,
     STRATEGIES,
     THRESHOLD_MODES,
+    canonical_in_dtype,
+    check_kernel_legality,
     kernel_for_id,
 )
 from ft_sgemm_tpu_torch.injection import InjectionSpec
 from ft_sgemm_tpu_torch.ops.abft_baseline import abft_baseline_sgemm
-from ft_sgemm_tpu_torch.ops.common import as_f32, resolve_device
+from ft_sgemm_tpu_torch.ops.common import as_f32, as_operand, resolve_device, resolve_in_dtype
 from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
 from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
 from ft_sgemm_tpu_torch.ops.sgemm import make_sgemm
@@ -67,28 +81,48 @@ BETA = -1.5   # sgemm.cu:24,234
 
 
 def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device,
-              threshold="static"):
+              threshold="static", in_dtype="float32"):
     """The fused-ABFT kernel + reference-like injection for one kernel id,
     the injection cadence following the tile the kernel runs."""
     _, shape, _ = kernel_for_id(kernel_id)
     ft = make_ft_sgemm(shape.name, alpha=ALPHA, beta=BETA, strategy=strategy,
-                       encode=encode, threshold=threshold, device=device)
+                       encode=encode, threshold=threshold, in_dtype=in_dtype,
+                       device=device)
     return ft, InjectionSpec.reference_like(size, ft.shape_config.bk)
 
 
+def _vendor(device, in_dtype="float32"):
+    """Id 0, the vendor GEMM: in f32 the oracle itself (cuBLAS through
+    ``torch.matmul``, TF32 off); in bf16 ``torch.matmul`` on the rounded
+    bf16 operands, whose output is bf16 (the library's bf16 GEMM, the
+    yardstick of speed), then the f32 alpha / beta epilogue."""
+    if canonical_in_dtype(in_dtype) == "float32":
+        return lambda a, b, c: sgemm_reference(a, b, c, ALPHA, BETA,
+                                               device=device)
+    dtype = resolve_in_dtype(in_dtype)
+    dev = resolve_device(device)
+
+    def fn(a, b, c):
+        a, b = (as_operand(x, dtype, dev) for x in (a, b))
+        return ALPHA * torch.matmul(a, b.T).float() + BETA * as_f32(c, dev)
+    return fn
+
+
 def _build_callable(kernel_id: int, size: int, inject_ft: bool,
-                    strategy: str, encode: str, device, threshold="static"):
+                    strategy: str, encode: str, device, threshold="static",
+                    in_dtype="float32"):
     """Return fn(a, b, c) -> (M, N) tensor for one kernel id."""
     _, shape, is_abft = kernel_for_id(kernel_id)
     if kernel_id == 0:
-        return lambda a, b, c: sgemm_reference(a, b, c, ALPHA, BETA,
-                                               device=device)
+        return _vendor(device, in_dtype)
     if kernel_id == 10:
-        return lambda a, b, c: abft_baseline_sgemm(a, b, c, ALPHA, BETA,
-                                                   device=device).c
+        return lambda a, b, c: abft_baseline_sgemm(
+            a, b, c, ALPHA, BETA, in_dtype=in_dtype, device=device).c
     if not is_abft:
-        return make_sgemm(shape.name, alpha=ALPHA, beta=BETA, device=device)
-    ft, inj = _build_ft(kernel_id, size, strategy, encode, device, threshold)
+        return make_sgemm(shape.name, alpha=ALPHA, beta=BETA,
+                          in_dtype=in_dtype, device=device)
+    ft, inj = _build_ft(kernel_id, size, strategy, encode, device, threshold,
+                        in_dtype)
     if not inject_ft:
         inj = InjectionSpec.none()
     return lambda a, b, c: ft(a, b, c, inj).c
@@ -116,7 +150,8 @@ def _host_inputs(size: int):
 
 
 def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
-                            encode: str, device, threshold="static"):
+                            encode: str, device, threshold="static",
+                            in_dtype="float32"):
     """Verification gate of the detect-only ``global`` strategy (the JAX
     package's cli.py:462-491): the output keeps the injected corruption by
     design, so the row passes when (a) the injected run detects exactly
@@ -124,7 +159,7 @@ def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
     diff against the oracle. Returns (ok, status, injected result, expected
     events)."""
     ft, inj = _build_ft(kernel_id, end_size, "global", encode, device,
-                        threshold)
+                        threshold, in_dtype)
     shape = ft.shape_config
     res = ft(a, b, c, inj)
     tiles = -(-end_size // shape.bm) * -(-end_size // shape.bn)
@@ -145,12 +180,14 @@ def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
 def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                      out=None, strategy: str = "weighted", device=None,
                      details: dict | None = None,
-                     encode: str = "vpu", threshold="static") -> bool:
+                     encode: str = "vpu", threshold="static",
+                     in_dtype="float32") -> bool:
     """Pass 1: diff every selected kernel against the ``torch.matmul``
-    oracle. A and B are the reference binary's post-``srand(10)`` buffers
-    (``runtime.generate_reference_driver_inputs``); C starts zeroed. The FT
-    rows run under ``threshold`` (a float or a mode of
-    ``configs.THRESHOLD_MODES``).
+    oracle (in bf16: the f32 product of the bf16-rounded inputs, after a
+    header line naming the dtype). A and B are the reference binary's
+    post-``srand(10)`` buffers (``runtime.generate_reference_driver_inputs``);
+    C starts zeroed. The FT rows run under ``threshold`` (a float or a mode
+    of ``configs.THRESHOLD_MODES``).
 
     ``details``, when given, receives per FT id the detected, expected and
     uncorrectable fault counts of the injected run and whether the row
@@ -163,7 +200,12 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
     a, b = runtime.generate_reference_driver_inputs(end_size)
     c = np.zeros((end_size, end_size), np.float32)  # fill_vector(C,0)
     a, b, c = (as_f32(x, dev) for x in (a, b, c))
-    want = sgemm_reference(a, b, c, ALPHA, BETA, device=dev).cpu().numpy()
+    want = sgemm_reference(a, b, c, ALPHA, BETA, in_dtype=in_dtype,
+                           device=dev).cpu().numpy()
+    dtype = canonical_in_dtype(in_dtype)
+    if dtype != "float32":
+        print(f"Verification in {dtype}: A and B rounded to {dtype}, against"
+              f" the f32 product of the rounded inputs", file=out)
     all_ok = True
     for kernel_id in sorted(KERNEL_TABLE):
         if kernel_id < st_kernel or kernel_id > end_kernel:
@@ -171,7 +213,8 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         name, shape, is_abft = kernel_for_id(kernel_id)
         if is_abft and kernel_id != 10 and strategy == "global":
             ok, status, res, expected = _verify_global_strategy(
-                kernel_id, end_size, a, b, c, want, encode, dev, threshold)
+                kernel_id, end_size, a, b, c, want, encode, dev, threshold,
+                in_dtype)
             if details is not None:
                 details[kernel_id] = {
                     "detected": int(res.num_detected), "expected": expected,
@@ -180,7 +223,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
             # Correcting FT rows: diff gate PLUS the residual-after-correct
             # re-check.
             ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev,
-                                threshold)
+                                threshold, in_dtype)
             res = ft(a, b, c, inj)
             ok, nbad, first = verify_matrix(want, res.c.cpu().numpy(),
                                             verbose=False)
@@ -200,7 +243,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                     "uncorrectable": unc, "passed": ok}
         else:
             fn = _build_callable(kernel_id, end_size, True, strategy, encode,
-                                 dev)
+                                 dev, in_dtype=in_dtype)
             got = fn(a, b, c).cpu().numpy()
             ok, nbad, first = verify_matrix(want, got, verbose=False)
             status = "pass" if ok else f"FAIL ({nbad} bad, first at {first})"
@@ -214,9 +257,11 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
                    st_kernel: int, end_kernel: int,
                    min_device_time: float = 1.0, out=None,
                    strategy: str = "weighted", device=None,
-                   encode: str = "vpu", threshold="static") -> dict:
+                   encode: str = "vpu", threshold="static",
+                   in_dtype="float32") -> dict:
     """Pass 2: the GFLOPS table (format parity with sgemm.cu:240-439),
-    measured size-major, printed row-major; per-cell progress on stderr."""
+    measured size-major, printed row-major, its header naming a dtype other
+    than float32; per-cell progress on stderr."""
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
     sizes = list(range(start_size, end_size + 1, gap_size))
@@ -228,7 +273,7 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
         a, b, c = (as_f32(x, dev) for x in _host_inputs(size))
         for kernel_id in row_ids:
             fn = _build_callable(kernel_id, size, True, strategy, encode, dev,
-                                 threshold)
+                                 threshold, in_dtype)
             sec_per_rep = bench_seconds_per_call(
                 fn, a, b, c, min_device_time=min_device_time)
             gf = 2.0 * size**3 / 1e9 / sec_per_rep
@@ -237,7 +282,10 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
             print(f"ft_sgemm: {name} @ {size}: {gf:8.0f} GFLOPS",
                   file=sys.stderr, flush=True)
 
-    print("################## Performance (GFLOPS) ########################",
+    dtype = canonical_in_dtype(in_dtype)
+    print("################## Performance (GFLOPS) ########################"
+          if dtype == "float32" else
+          f"################## Performance (GFLOPS, {dtype}) ##############",
           file=out)
     print("Matrix Size         |" + "".join(f"{s:8d}|" for s in sizes),
           file=out)
@@ -265,9 +313,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     min_device_time = 1.0
-    strategy = "weighted"
+    strategy = None  # the dtype's default, after the flags
     encode = "vpu"
     threshold = "static"
+    in_dtype = "float32"
     device = None
     for f in flags:
         if f.startswith("--mintime="):
@@ -293,22 +342,37 @@ def main(argv=None) -> int:
                     print(f"--threshold must be one of {THRESHOLD_MODES} or"
                           f" a float, got {threshold!r}", file=sys.stderr)
                     return 2
+        elif f.startswith("--dtype="):
+            in_dtype = f.split("=", 1)[1]
+            try:
+                in_dtype = canonical_in_dtype(in_dtype)
+            except ValueError:
+                print(f"--dtype must be one of {IN_DTYPES} (or an fp8"
+                      f" alias), got {in_dtype!r}", file=sys.stderr)
+                return 2
         elif f.startswith("--device="):
             device = f.split("=", 1)[1]
         elif f not in ("--no-verify", "--no-perf"):
             print(f"ft_sgemm: unknown flag {f}", file=sys.stderr)
             return 2
+    if strategy is None:
+        strategy = DEFAULT_STRATEGY[in_dtype]
+    # What the port does not run yet raises here, before any work.
+    check_kernel_legality(
+        strategy=strategy, encode=encode, in_dtype=in_dtype,
+        threshold_mode=threshold if isinstance(threshold, str) else "static")
     dev = resolve_device(device)
     print_device_info(dev)
     ok = True
     if "--no-verify" not in flags:
         ok = run_verification(end_size, st_kernel, end_kernel,
                               strategy=strategy, device=dev, encode=encode,
-                              threshold=threshold)
+                              threshold=threshold, in_dtype=in_dtype)
     if "--no-perf" not in flags:
         run_perf_table(start_size, end_size, gap_size, st_kernel, end_kernel,
                        min_device_time=min_device_time, strategy=strategy,
-                       device=dev, encode=encode, threshold=threshold)
+                       device=dev, encode=encode, threshold=threshold,
+                       in_dtype=in_dtype)
     return 0 if ok else 1
 
 

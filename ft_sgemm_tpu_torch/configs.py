@@ -80,16 +80,86 @@ STRATEGIES = ("rowcol", "global", "weighted", "fused")
 # operand, so A and B are never copied.
 ENCODE_MODES = ("vpu", "mxu")
 THRESHOLD_MODES = ("static", "auto", "adaptive")
-IN_DTYPES = ("float32",)
+# Input dtypes of the kernel family (ft_sgemm_tpu/configs.py:141): A and B
+# are rounded to the dtype, while C, the accumulator, the checksums and the
+# detect / correct math stay f32 (int32 for int8, exact).
+IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
+# The dtypes the port runs so far, and the (strategy, encode) pairs and
+# threshold modes it runs them under (the vpu encodes of bf16 on kernels
+# B1-B5; the mxu encodes and "adaptive" in bf16, fp8 and int8 are still to
+# port, ROADMAP Queue B).
+PORTED = {
+    "float32": (STRATEGIES, ENCODE_MODES, THRESHOLD_MODES),
+    "bfloat16": (("rowcol", "global", "weighted"), ("vpu",),
+                 ("static", "auto")),
+}
+
+# Accepted spellings of the fp8 dtype (ft_sgemm_tpu/configs.py:431).
+_IN_DTYPE_ALIASES = {
+    "fp8": "float8_e4m3fn",
+    "fp8_e4m3": "float8_e4m3fn",
+    "float8_e4m3": "float8_e4m3fn",
+}
+
+# Per-dtype legality, the JAX package's static tables
+# (ft_sgemm_tpu/configs.py:446-469): 1-byte dtypes cannot carry checksum
+# rows (no encode="mxu", no "fused"), and int8 ships only the strategies
+# that localize nothing by the weighted ratio.
+STRATEGY_LEGALITY = {
+    "float32": ("rowcol", "global", "weighted", "fused"),
+    "bfloat16": ("rowcol", "global", "weighted", "fused"),
+    "float8_e4m3fn": ("rowcol", "global", "weighted"),
+    "int8": ("rowcol", "global"),
+}
+ENCODE_LEGALITY = {
+    "float32": ("vpu", "mxu"),
+    "bfloat16": ("vpu", "mxu"),
+    "float8_e4m3fn": ("vpu",),
+    "int8": ("vpu",),
+}
+# The strategy an entry point takes when the caller names only a dtype.
+DEFAULT_STRATEGY = {
+    "float32": "weighted",
+    "bfloat16": "weighted",
+    "float8_e4m3fn": "weighted",
+    "int8": "rowcol",
+}
+
+
+def canonical_in_dtype(in_dtype) -> str:
+    """The canonical :data:`IN_DTYPES` name of one dtype spelling: a name,
+    an fp8 alias, a numpy dtype or a torch dtype (``torch.bfloat16``).
+    Anything else raises a ``ValueError`` naming the family."""
+    if isinstance(in_dtype, str):
+        name = _IN_DTYPE_ALIASES.get(in_dtype, in_dtype)
+    else:
+        import numpy as np
+
+        try:
+            name = np.dtype(in_dtype).name
+        except TypeError:
+            name = str(in_dtype).removeprefix("torch.")
+    if name not in IN_DTYPES:
+        raise ValueError(
+            f"in_dtype must be one of {IN_DTYPES} (aliases:"
+            f" {tuple(sorted(_IN_DTYPE_ALIASES))}), got {in_dtype!r}")
+    return name
 
 
 def check_kernel_legality(*, strategy: str, encode: str,
-                          in_dtype: str = "float32",
-                          threshold_mode: str = "static") -> None:
-    """Validate one (strategy, encode, dtype, threshold-mode) combination:
-    unknown spellings raise ``ValueError``; every (strategy, encode) pair is
-    legal in f32 under every threshold mode, and what the port does not run
-    yet (every other dtype) raises ``NotImplementedError``."""
+                          in_dtype="float32", threshold_mode: str = "static",
+                          multifault: Optional[bool] = None) -> str:
+    """Validate one (strategy, encode, dtype, threshold-mode) combination
+    and return the canonical dtype name.
+
+    Unknown spellings raise ``ValueError``, and so do the combinations that
+    the JAX package refuses as unrepresentable
+    (ft_sgemm_tpu/configs.py:497-547): checksum rows in a 1-byte dtype
+    (``encode="mxu"`` or ``strategy="fused"`` with fp8 or int8), and the
+    weighted-ratio localization (``weighted``, ``fused``, multifault) on
+    int8's wrapping checksums. What is legal but not ported yet raises
+    ``NotImplementedError`` (:data:`PORTED`): fp8 and int8, and bf16 with
+    the mxu encodes (B6-B8) or ``threshold="adaptive"``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -98,9 +168,39 @@ def check_kernel_legality(*, strategy: str, encode: str,
     if threshold_mode not in THRESHOLD_MODES:
         raise ValueError(f"threshold must be a float or one of"
                          f" {THRESHOLD_MODES}, got {threshold_mode!r}")
-    if in_dtype not in IN_DTYPES:
+    dtype = canonical_in_dtype(in_dtype)
+    if "mxu" not in ENCODE_LEGALITY[dtype] and (
+            encode == "mxu" or strategy == "fused"):
+        raise ValueError(
+            f"encode='mxu' (and strategy='fused') is illegal for {dtype}:"
+            " checksum rows of magnitude ~bm * max|x| are not representable"
+            " in a 1-byte operand dtype; use encode='vpu'")
+    if strategy not in STRATEGY_LEGALITY[dtype]:
+        raise ValueError(
+            f"strategy {strategy!r} is illegal for {dtype}: weighted-ratio"
+            " fault localization needs non-wrapping moment checksums;"
+            f" {dtype} supports {STRATEGY_LEGALITY[dtype]}")
+    if dtype == "int8" and multifault:
+        raise ValueError(
+            "multifault=True is illegal for int8: the multifault extension"
+            " localizes by the weighted-residual ratio, which wrapping int32"
+            " checksums cannot guarantee")
+    if dtype not in PORTED:
         raise NotImplementedError(
-            f"in_dtype={in_dtype!r} is not ported yet ({IN_DTYPES})")
+            f"in_dtype={dtype!r} is not ported yet (ported:"
+            f" {tuple(PORTED)}; ROADMAP Queue B)")
+    strategies, encodes, modes = PORTED[dtype]
+    if strategy not in strategies or encode not in encodes:
+        raise NotImplementedError(
+            f"{dtype} with strategy={strategy!r}, encode={encode!r} is not"
+            f" ported yet: the mxu encodes (kernels B6-B8) in {dtype} are the"
+            " next slice; pick encode='vpu' and one of"
+            f" {strategies}")
+    if threshold_mode not in modes:
+        raise NotImplementedError(
+            f"{dtype} with threshold={threshold_mode!r} is not ported yet"
+            f" (the adaptive builds run float32 only); pick one of {modes}")
+    return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA
 # tiles (code_gen/main.py:8-16). "test" is the JAX package's 128x128x128

@@ -39,6 +39,10 @@
 // double-buffered by check parity so that a check needs one barrier; B8's
 // band rows ride the ring's stages and full barrier, their padding rows
 // zeroed once per ring slot.
+//
+// bf16 (ftsg_ft_global_bf16, B4 only, static and auto thresholds): A and B
+// bf16 on the bf16 mainloop; B's band sums (f32 sums of the bf16 values)
+// ride the product as three bf16 terms, 24 extra columns.
 
 #include "ft_sgemm_running.cuh"
 
@@ -58,6 +62,22 @@ extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);
 }
+
+#if !FTSG_ADAPTIVE
+// B4 with bf16 A and B; the rest as ftsg_ft_global.
+extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
+                                   const float* C, float* out, int* det,
+                                   int* unc, int M, int N, int K, int bm,
+                                   int bn, int bk, int check_every,
+                                   float alpha, float beta,
+                                   const float* scalars, float log2_t,
+                                   float c_rand, float c_bias, void* stream) {
+  return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kBF16>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
+}
+#endif
 
 // B8: `MB` (N / bn, 1, K) is B's plain moment rows; `MA` (M / bm, 1, K),
 // A's, is not read. Returns as B4.

@@ -37,6 +37,12 @@
 // in segments, so that the check's code is inlined once per call site
 // (gemm_wgmma.cuh, WgMainloop::mma_stage). A/B copies put the remaining
 // cost in the check and the splitter warps' sums (PERF.md).
+//
+// bf16 (ftsg_ft_rowcol_bf16, static and auto thresholds): A and B bf16 on
+// the bf16 mainloop; the splitter warps sum B's bands and A's row bands
+// from the landed bf16 stages in f32 and carry each sum row as three bf16
+// terms (24 extra product columns, three moment-row buffers), so both
+// expected sums keep f32 precision; the check is unchanged.
 
 #include "ft_sgemm_running.cuh"
 
@@ -63,3 +69,26 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, nm, s);
 }
+
+#if !FTSG_ADAPTIVE
+// B3 with bf16 A and B; the rest as ftsg_ft_rowcol.
+extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
+                                   const float* C, float* out, int* det,
+                                   int* unc, int M, int N, int K, int bm,
+                                   int bn, int bk, int check_every,
+                                   int multifault, float alpha, float beta,
+                                   const float* scalars, float log2_t,
+                                   float c_rand, float c_bias, void* stream) {
+  const auto s = (cudaStream_t)stream;
+  const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
+  if (multifault)
+    return ftsg::launch_running<ftsg::RowcolOf<
+        true, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
+        A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+        check_every, alpha, beta, scalars, nm, s);
+  return ftsg::launch_running<ftsg::RowcolOf<
+      false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, nm, s);
+}
+#endif

@@ -82,9 +82,28 @@ FTSG_NAMESPACE_BEGIN
 // branch-free selects over its fragment: a divergent branch around
 // per-register conditional adds made the whole K loop of the first FT
 // kernels ~3x slower on an H100 (PERF.md).
+//
+// The sub-tiles' hit test is unsigned, so that the modulos by the
+// power-of-two sub-tile are masks: with the signed test, B6 at the small
+// tile under register pressure (its scalar argument read from device
+// memory) was compiled by ptxas with a spill around the predicated signed
+// modulo (o * col_stride + 3) % SBN that read an accumulator register in
+// place of the product (SHF.R.S32.HI Rs, RZ, 0x1f, Rt; LEA.HI Rs, Rs,
+// Racc), so the hit failed and two accumulator elements per thread never
+// got their faults (ROADMAP, Queue C).
+//
+// In bf16 the fault restarts the stage sum `part` (the steps before it
+// promoted into `acc`) and the next wgmma accumulates onto it: ptxas then
+// issues the segmented bf16 stages' wgmmas in order, where with the fault
+// added into `acc` B3 spilled 2-4 KB and ran 2x slower. (In f32 the same
+// form made ptxas serialize B7 and B8, +11-19 %: PERF.md.)
 template <class T>
 struct FragInject {
-  static constexpr bool kSegmented = false;  // B2 checks once, after the loop
+  // B2 checks once, after the loop. Its f32 stages and its bf16 ones at the
+  // 64-row and 32-column tiles issue unrolled; at the 128-column CTA the
+  // bf16 stages issue in segments, which halved B2 there (the unrolled
+  // bf16 stage spilled 2.6-3.4 KB; PERF.md).
+  static constexpr bool kSegmented = T::BF16 && T::BN == 128;
   int next, period, nk8, ord, col_stride;
   float mag;
 
@@ -105,19 +124,35 @@ struct FragInject {
   __device__ __forceinline__ int fault_step() const {
     return next < nk8 ? next : INT_MAX;
   }
+  __device__ __forceinline__ int check_step() const { return INT_MAX; }
   __device__ __forceinline__ void apply(WgMainloop<T>& ml, int) {
-    if constexpr (T::NSUB == 1) {
+    if constexpr (T::BF16) {
+      const unsigned cs = col_stride;
+#pragma unroll
+      for (int i = 0; i < T::NACC_W; ++i) {
+        const unsigned r = ml.row(i), c = ml.col(i);
+        const unsigned o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
+        const bool hit = i < T::NACC && r % T::SBM == (o * 131 + 7) % T::SBM &&
+                         c % T::SBN == (o * cs + 3) % T::SBN;
+        ml.part[i] = hit ? mag : 0.f;
+      }
+      if constexpr (T::R > 0) {
+#pragma unroll
+        for (int i = 0; i < T::NACC_E; ++i) ml.part_e[i] = 0.f;
+      }
+    } else if constexpr (T::NSUB == 1) {
       const int r = (ord * 131 + 7) % T::BM, c = (ord * col_stride + 3) % T::BN;
 #pragma unroll
       for (int i = 0; i < T::NACC; ++i)
         ml.acc[i] += (ml.row(i) == r && ml.col(i) == c) ? mag : 0.f;
     } else {
+      const unsigned cs = col_stride;
 #pragma unroll
       for (int i = 0; i < T::NACC; ++i) {
-        const int r = ml.row(i), c = ml.col(i);
-        const int o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
+        const unsigned r = ml.row(i), c = ml.col(i);
+        const unsigned o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
         const bool hit = r % T::SBM == (o * 131 + 7) % T::SBM &&
-                         c % T::SBN == (o * col_stride + 3) % T::SBN;
+                         c % T::SBN == (o * cs + 3) % T::SBN;
         ml.acc[i] += hit ? mag : 0.f;
       }
     }
@@ -395,8 +430,9 @@ struct WeightedCheck {
   }
 };
 
-// B5 (ROWS = kSumRows) and B6 (kLoadRows): 3 moment rows per row band.
-template <int ROWS>
+// B5 (ROWS = kSumRows) and B6 (kLoadRows): 3 moment rows per row band; A
+// and B of type IN (InType).
+template <int ROWS, int IN = kF32>
 struct WeightedOf {
   template <int SBM, int SBN>
   struct At {
@@ -404,7 +440,7 @@ struct WeightedOf {
     using Smem = WeightedSmem<(3 * 128 / SBM + 7) / 8 * 8, 128, 8, 128 / SBM,
                               NSUB>;
     using type = WgTile<128, 128, SBM, SBN, 3, check_bytes<Smem, NSUB>(),
-                        kNoBands, ROWS>;
+                        kNoBands, ROWS, IN>;
     using Check =
         WeightedCheck<type, SubTileThresholds<type, kAdaptive, false>>;
   };
@@ -523,8 +559,8 @@ struct RowcolCheck {
           for (int c = 0; c < 2; ++c) rs += ml.acc[4 * (j * GPB + gg) + 2 * h + c];
         rs += __shfl_xor_sync(FULL, rs, 1);
         rs += __shfl_xor_sync(FULL, rs, 2);
-        const float r_exp = __shfl_sync(
-            FULL, ml.acc[T::NACC + 2 * h + (j & 1)], (l & ~3) | (j >> 1));
+        const float r_exp =
+            __shfl_sync(FULL, ml.xcol(2 * h + (j & 1)), (l & ~3) | (j >> 1));
         res_r[h][j] = r_exp - rs;
         if (fabsf(res_r[h][j]) > th.get(b * NBN + j, 0)) {
           det_r |= 1u << (2 * j + h);
@@ -701,15 +737,15 @@ struct RowcolCheck {
 
 // B3 (BANDS = kSumBands, ROWS = kSumRowGroups) and B7 (kLoadBands,
 // kLoadRows): 1 moment row (2 with multifault) per row band, and B's band
-// rows as the product's extra columns.
-template <bool MF, int BANDS, int ROWS>
+// rows as the product's extra columns; A and B of type IN.
+template <bool MF, int BANDS, int ROWS, int IN = kF32>
 struct RowcolOf {
   template <int SBM, int SBN>
   struct At {
     static constexpr int NBM = 128 / SBM, NSUB = NBM * (128 / SBN);
     using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF>;
     using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1,
-                        check_bytes<Smem, NSUB>(), BANDS, ROWS>;
+                        check_bytes<Smem, NSUB>(), BANDS, ROWS, IN>;
     using Check =
         RowcolCheck<type, MF, SubTileThresholds<type, kAdaptive, false>>;
   };
@@ -751,9 +787,7 @@ struct GlobalCheck {
     float v[NBN];
 #pragma unroll
     for (int j = 0; j < NBN; ++j) {
-      v[j] = (l & 3) == j >> 1 ? ml.acc[T::NACC + (j & 1)] +
-                                     ml.acc[T::NACC + 2 + (j & 1)]
-                               : 0.f;
+      v[j] = (l & 3) == j >> 1 ? ml.xcol(j & 1) + ml.xcol(2 + (j & 1)) : 0.f;
 #pragma unroll
       for (int gg = 0; gg < GPB; ++gg)
 #pragma unroll
@@ -783,14 +817,15 @@ struct GlobalCheck {
 };
 
 // B4 (BANDS = kSumBands) and B8 (kLoadBands): no moment rows; B's band
-// rows as the product's extra columns.
-template <int BANDS>
+// rows as the product's extra columns; A and B of type IN.
+template <int BANDS, int IN = kF32>
 struct GlobalOf {
   template <int SBM, int SBN>
   struct At {
     using Smem = GlobalSubSmem<8, 128 / SBN>;
     using type = WgTile<128, 128, SBM, SBN, 0,
-                        check_bytes<Smem, (128 / SBM) * (128 / SBN)>(), BANDS>;
+                        check_bytes<Smem, (128 / SBM) * (128 / SBN)>(), BANDS,
+                        kNoRows, IN>;
     using Check = GlobalCheck<type, SubTileThresholds<type, kAdaptive, true>>;
   };
 };
@@ -887,12 +922,13 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // check (WeightedOf<ROWS>::At, RowcolOf<MF, BANDS, ROWS>::At,
 // GlobalOf<BANDS>::At); `MA` the wrapper's (M / bm, n_rows, K) moment rows
 // (kLoadRows: B6, B7; the kernel loads the first MOM of each band's rows),
-// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8); `scalars` the
+// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8); A and B f32 or,
+// for a bf16 tile, bf16; `scalars` the
 // host array of the scalar argument, `nm` the noise model's constants (read
 // by the adaptive build). Returns 0 or the CUDA error, also when a tensor
 // map cannot be encoded or no sub-tile matches.
 template <template <int, int> class Of>
-int launch_running(const float* A, const float* B, const float* C,
+int launch_running(const void* A, const void* B, const float* C,
                    const float* MA, const float* MB, int n_rows, float* out,
                    int* det, int* unc, int M, int N, int K, int bm, int bn,
                    int bk, int check_every, float alpha, float beta,
@@ -907,8 +943,8 @@ int launch_running(const float* A, const float* B, const float* C,
     const auto kernel =                                                        \
         ft_running_wgmma_kernel<T, typename Of<SBM_, SBN_>::Check>;            \
     CUtensorMap ta, tb, tm = {}, tbb = {};                                     \
-    if (!tensor_map(&ta, A, M, K, T::BM, T::SK) ||                             \
-        !tensor_map(&tb, B, N, K, T::BN, T::SK) ||                             \
+    if (!tensor_map(&ta, A, M, K, T::BM, T::SK, T::ESIZE) ||                   \
+        !tensor_map(&tb, B, N, K, T::BN, T::SK, T::ESIZE) ||                   \
         (T::ROWS == kLoadRows &&                                               \
          (n_rows < T::MOM || !tensor_map3(&tm, MA, M / SBM_, n_rows, K,        \
                                           T::NBM, T::MOM, T::SK))) ||          \

@@ -35,6 +35,14 @@
 // at small, medium and wide the 128 x 128 CTA over (bm, bn) sub-tiles, each
 // with its own fault ordinal, weights, check (PrecompCheck: B5's
 // WeightedCheck against the wrapper's moments) and grid cells.
+//
+// bf16 (the _bf16 entry points; ops/ft_sgemm.py:1545-1549 of the JAX
+// package): A and B bf16 on the bf16 mainloop (gemm_wgmma.cuh), everything
+// else f32 and unchanged. B2 checks against the wrapper's expected moments
+// of the rounded operands (their hi / lo / lo2 term products summed); B5's
+// splitter warps sum the moment rows from A's bf16 stage in f32 and carry
+// each as three bf16 terms. Bound: 2 M N K at 989 TFLOP/s (0.139 ms at
+// 4096) and B5's expected moments beside it.
 
 #include "abft_common.cuh"
 #include "ft_sgemm_running.cuh"
@@ -191,7 +199,7 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
 }
 
 template <class T>
-int launch_wgmma(const float* A, const float* B, const float* C,
+int launch_wgmma(const void* A, const void* B, const float* C,
                  const float* expm, float* out, int* det, int* unc, int M,
                  int N, int K, int bk, float alpha, float beta,
                  const Scalars& sc, cudaStream_t stream) {
@@ -235,6 +243,45 @@ extern "C" int ftsg_ft_weighted_precomp(
   FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
+}
+
+// B2 with bf16 A and B; the rest as ftsg_ft_weighted_precomp.
+extern "C" int ftsg_ft_weighted_precomp_bf16(
+    const void* A, const void* B, const float* C, const float* expm,
+    float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
+    int bk, float alpha, float beta, const float* scalars, void* stream) {
+  ftsg::Scalars sc;
+  for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
+  const auto s = (cudaStream_t)stream;
+#define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>>(      \
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+  FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
+#undef FTSG_LAUNCH_WGMMA
+#define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_, 0, 0,       \
+                                           ftsg::kNoBands, ftsg::kNoRows,  \
+                                           ftsg::kBF16>>(                  \
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+  FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
+#undef FTSG_LAUNCH_SUB
+  return (int)cudaErrorInvalidValue;
+}
+
+// B5 with bf16 A and B; the rest as ftsg_ft_weighted_running (static and
+// auto thresholds: no adaptive build).
+extern "C" int ftsg_ft_weighted_running_bf16(
+    const void* A, const void* B, const float* C, float* out, int* det,
+    int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
+    float alpha, float beta, const float* scalars, float log2_t,
+    float c_rand, float c_bias, void* stream) {
+  return ftsg::launch_running<
+      ftsg::WeightedOf<ftsg::kSumRows, ftsg::kBF16>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }
 #endif
 

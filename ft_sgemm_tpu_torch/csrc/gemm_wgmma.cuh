@@ -61,11 +61,29 @@
 // E's fragment has the same map with B's row for the tile row and the
 // moment row for the column (ops/tf32x3.moment_fragment_map). The FT hooks
 // use those maps and keep their logic.
+//
+// bf16 operands (IN = kBF16; B1-B5, the vpu encodes): a stage holds SK = 64
+// K columns, still one 128-byte swizzle row, and each 16-deep k step is one
+// m64nNk16 bf16 wgmma on the operands as TMA landed them, A's fragment
+// from registers (no split, no lo buffer); the accumulator and every sum
+// stay f32. The hooks still count 8-column k steps: where a fault or a
+// check falls between the two halves of a 16-deep step, the step is issued
+// as two halves, each with the other half's A registers zero (and, for E,
+// B's fragment loaded into registers the same way), so the product stops
+// at exactly the bk step the hook names. The sums that ride the product
+// (B's band rows, the moment rows) are f32 sums of the bf16 values,
+// carried as three bf16 terms hi, lo and lo2 (XN = 24 band rows; three
+// moment-row buffers, their products summed into the same `part_e`), so
+// the expected sums keep f32 precision; the splitter warps form them and
+// split nothing else (B1 and B2 have no splitter work: the consumers wait
+// for TMA's full barrier directly).
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cuda_bf16.h>
 
 #include <climits>
 #include <cstdint>
@@ -121,23 +139,42 @@ enum BandRows {
   kLoadBands = 2
 };
 
+// The type of A and B (C, the accumulator and every checksum are f32):
+// f32 on 3xTF32, or bf16 on one bf16 wgmma per 16-deep k step.
+enum InType { kF32 = 0, kBF16 = 1 };
+
 // A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with MOM moment rows
 // per sub-tile row band in each stage (0: none, B1, B2, B4, B8; padded to
 // R, a multiple of 8) from ROWS, CHECK bytes of check scratch beside the
-// ring, and, with BANDS, XN = 8 extra product columns: B's column-band
-// sums, so that the product's columns BN .. BN + NBN - 1 are the expected
-// row sums of each band (B3, B4, B7, B8). The ring has four stages where
-// they fit in the 232448 bytes of shared memory a CTA may have, else three.
+// ring, and, with BANDS, XN = 8 extra product columns (24 in bf16: three
+// terms): B's column-band sums, so that the product's columns BN .. BN +
+// NBN - 1 are the expected row sums of each band (B3, B4, B7, B8); A and B
+// of type IN. The ring has four stages where they fit in the 232448 bytes
+// of shared memory a CTA may have, else three; a bf16 ring up to six where
+// they fit beside the CTAs an SM holds.
 template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int MOM_ = 0,
-          int CHECK_ = 0, int BANDS_ = kNoBands, int ROWS_ = kNoRows>
+          int CHECK_ = 0, int BANDS_ = kNoBands, int ROWS_ = kNoRows,
+          int IN_ = kF32>
 struct WgTile {
   static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_;
   static constexpr int NBM = BM / SBM, NBN = BN / SBN, NSUB = NBM * NBN;
   static constexpr int MOM = MOM_, R = (MOM * NBM + 7) / 8 * 8;
   static constexpr int BANDS = BANDS_, ROWS = ROWS_;
-  static constexpr int XN = BANDS == kNoBands ? 0 : 8;
-  static constexpr int SK = 32;       // K columns per stage: one swizzle row
-  static constexpr int KK = SK / 8;   // 8-deep wgmma steps per stage
+  static constexpr bool BF16 = IN_ == kBF16;
+  // Rows that carry one f32 sum row: 1 in f32 (split hi / lo like B), the
+  // bf16 terms hi, lo and lo2 in bf16.
+  static constexpr int NTERM = BF16 ? 3 : 1;
+  static constexpr int XN = BANDS == kNoBands ? 0 : 8 * NTERM;
+  static constexpr int ESIZE = BF16 ? 2 : 4;  // bytes of an A or B element
+  static constexpr int SK = 128 / ESIZE;  // K columns per stage: one swizzle row
+  static constexpr int KK = SK / 8;   // 8-deep k steps per stage (the hooks')
+  static constexpr int KS = BF16 ? 2 : 1;  // of them per wgmma k step
+  static constexpr int KW = KK / KS;       // wgmma k steps per stage
+  // Whether the producer's splitter warps work on a landed stage before the
+  // consumers take it (the ready barrier): always in f32 (B's split); in
+  // bf16 only where they form sum rows.
+  static constexpr bool SPLIT = !BF16 || BANDS == kSumBands ||
+                                ROWS == kSumRows || ROWS == kSumRowGroups;
   static constexpr int NWG = BM / 64;  // consumer warpgroups
   static constexpr int NCONS = 128 * NWG;
   static constexpr int NT = NCONS + 128;  // and the producer warpgroup
@@ -156,16 +193,20 @@ struct WgTile {
   static constexpr int NACC = BN / 2;  // product floats per thread
   static constexpr int NACC_W = (BN + XN) / 2;  // with the extra columns
   static constexpr int NACC_E = R / 2;  // expected-moment floats per thread
-  static constexpr int A_BYTES = BM * SK * 4;
-  static constexpr int B_BOX = BN * SK * 4;  // the TMA box of B
-  static constexpr int B_BYTES = (BN + XN) * SK * 4;
-  static constexpr int M_BYTES = R * SK * 4;  // one buffer of moment rows
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES + 2 * M_BYTES;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BOX = BN * 128;  // the TMA box of B
+  static constexpr int B_BYTES = (BN + XN) * 128;
+  static constexpr int M_BYTES = R * 128;  // one buffer of moment rows
+  // B's buffers and the moment rows' per stage: hi and lo in f32; B as
+  // landed and the moment rows' three terms in bf16.
+  static constexpr int NB_BUF = BF16 ? 1 : 2, NM_BUF = BF16 ? 3 : 2;
+  static constexpr int STAGE_BYTES =
+      A_BYTES + NB_BUF * B_BYTES + NM_BUF * M_BYTES;
   // The rows a stage's TMA boxes fill: where loaded, exactly the NBN band
   // rows and the MOM * NBM moment rows the checks read; the full barrier
   // expects these bytes, and the padding rows past them stay zero.
-  static constexpr int BAND_BOX = BANDS == kLoadBands ? NBN * SK * 4 : 0;
-  static constexpr int M_BOX = ROWS == kLoadRows ? MOM * NBM * SK * 4 : 0;
+  static constexpr int BAND_BOX = BANDS == kLoadBands ? NBN * 128 : 0;
+  static constexpr int M_BOX = ROWS == kLoadRows ? MOM * NBM * 128 : 0;
   static constexpr int CHECK_BYTES = CHECK_;
   // The splitters' 8-row sums (WgSmem::split_b) of B (kSumBands) and of A's
   // moments (kSumRowGroups), rows of SK floats per stage.
@@ -183,7 +224,16 @@ struct WgTile {
     return stages * STAGE_BYTES + bar_bytes(stages) +
            sets * PROD_ROWS * SK * 4 + CHECK_BYTES + 1024;
   }
-  static constexpr int STAGES = smem(4, 1) <= 232448 ? 4 : 3;
+  // The shared memory a CTA may use when MIN_CTAS share an SM's 233472
+  // bytes (1024 of them reserved per CTA).
+  static constexpr int SMEM_CAP =
+      MIN_CTAS == 1 ? 232448 : 233472 / MIN_CTAS - 1024;
+  static constexpr int STAGES =
+      !BF16 ? (smem(4, 1) <= 232448 ? 4 : 3)
+            : smem(6, 1) <= SMEM_CAP   ? 6
+              : smem(5, 1) <= SMEM_CAP ? 5
+              : smem(4, 1) <= SMEM_CAP ? 4
+                                       : 3;
   // The scratch for two stages (by stage parity) where it fits beside the
   // ring, else for one, and the splitters then meet once more per stage.
   static constexpr int PROD_SETS = smem(STAGES, 2) <= 232448 ? 2 : 1;
@@ -195,15 +245,22 @@ struct WgTile {
   static_assert(BM % SBM == 0 && BN % SBN == 0 && SBM % 16 == 0,
                 "sub-tiles of whole warp bands");
   static_assert(R <= 24, "m64nRk8 expected-moment product");
-  static_assert(XN == 0 || (XN == 8 && NBN <= 8 && SBN % 8 == 0),
-                "one extra column per column band");
+  static_assert(XN == 0 || (XN == 8 * NTERM && NBN <= 8 && SBN % 8 == 0),
+                "one extra column per column band and term");
+  static_assert(!BF16 || (BANDS != kLoadBands && ROWS != kLoadRows),
+                "bf16 forms its sum rows in the kernel (the vpu encodes)");
   static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
   static_assert(B_BYTES % 1024 == 0 && M_BYTES % 1024 == 0,
                 "buffers keep the swizzle alignment");
   static_assert(BANDS != kLoadBands || B_BOX % 1024 == 0,
                 "the band-row box starts on a swizzle atom");
-  static_assert(SMEM <= 232448, "the ring fits in shared memory");
+  static_assert(SMEM <= (BF16 ? SMEM_CAP : 232448),
+                "the ring fits in shared memory");
 };
+
+// The tile's own CTA (no sub-tiles, no sum rows) with A and B of type IN.
+template <int BM, int BN, int IN>
+using WgTileOf = WgTile<BM, BN, BM, BN, 0, 0, kNoBands, kNoRows, IN>;
 
 // ---------------------------------------------------------------- PTX ----
 
@@ -311,6 +368,35 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// An f32 pair (x, y) as three words of bf16 pairs, terms hi, lo and lo2:
+// x = hi + lo + lo2 to f32 precision (each remainder is exact in f32), the
+// split of ops/ft_sgemm._tile_moments; x in each word's low half.
+__device__ __forceinline__ void bf16x3(float x, float y, uint32_t (&w)[3]) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const __nv_bfloat16 hx = __float2bfloat16_rn(x), hy = __float2bfloat16_rn(y);
+    w[t] = (uint32_t)__bfloat16_as_ushort(hx) |
+           (uint32_t)__bfloat16_as_ushort(hy) << 16;
+    x -= __bfloat162float(hx);
+    y -= __bfloat162float(hy);
+  }
+}
+
+// The two bf16 of a word, exactly as f32 (the lower column in the low half).
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Word index of column pair p (columns 2 p, 2 p + 1) of row r of a bf16
+// buffer in the 128-byte swizzle: 32 words a row, the 16-byte chunk c of
+// row r stored at chunk c ^ (r & 7).
+__device__ __forceinline__ int swz_word(int r, int p) {
+  return r * 32 + (((p >> 2) ^ (r & 7)) << 2) + (p & 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -503,13 +589,238 @@ struct WgmmaSS<24> {
   }
 };
 
+// d (m64 x N, f32) = A (m64 x k16, bf16 fragment in registers: two bf16
+// a register, registers 0 and 1 the first 8 columns, 2 and 3 the last 8) @
+// B^T (+ d when scale_d is 1), B an (N x k16) bf16 tile in shared memory,
+// K-major (no transpose); asynchronous until wgmma_wait_all.
+template <int N>
+struct WgmmaBf;
+
+template <>
+struct WgmmaBf<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<24> {
+  static __device__ __forceinline__ void run(float (&d)[12], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf<152> {
+  static __device__ __forceinline__ void run(float (&d)[76], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %81, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75}, "
+        "{%76, %77, %78, %79}, %80, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// d (m64 x N, f32) = A (m64 x k16) @ B^T (+ d when scale_d is 1), both
+// bf16 tiles in shared memory, K-major: the expected-moment product in bf16.
+template <int N>
+struct WgmmaSSBf;
+
+template <>
+struct WgmmaSSBf<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSSBf<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSSBf<24> {
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+
 // ------------------------------------------------------------ mainloop ----
 
 extern __shared__ unsigned char ftsg_wg_smem[];
 
 // The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
 // A's box, B's box (hi after the split; with XN > 0 followed by B's band
-// rows), B's lo (likewise) and, with R > 0, the moment rows' hi and lo;
+// rows), B's lo (likewise; not in bf16) and, with R > 0, the moment rows'
+// hi and lo (in bf16 their three terms);
 // then the mbarriers: full(s) when TMA has landed the stage, ready(s) when
 // its B (and moment rows) are split, empty(s) when the consumers are done
 // with it; then the splitters' scratch (16-byte aligned) and the check
@@ -532,7 +843,7 @@ struct WgSmem {
   }
   __device__ __forceinline__ float* mhi(int s) const {
     return reinterpret_cast<float*>(base + s * T::STAGE_BYTES + T::A_BYTES +
-                                    2 * T::B_BYTES);
+                                    T::NB_BUF * T::B_BYTES);
   }
   __device__ __forceinline__ float* mlo(int s) const {
     return mhi(s) + T::R * T::SK;
@@ -552,6 +863,18 @@ struct WgSmem {
   }
   __device__ __forceinline__ void* check() const {
     return reinterpret_cast<unsigned char*>(prod()) + T::PROD_BYTES;
+  }
+  // bf16 buffers as words (swz_word): A's and B's of stage s, and term t
+  // of its moment rows.
+  __device__ __forceinline__ uint32_t* aw(int s) const {
+    return reinterpret_cast<uint32_t*>(a(s));
+  }
+  __device__ __forceinline__ uint32_t* bw(int s) const {
+    return reinterpret_cast<uint32_t*>(b(s));
+  }
+  __device__ __forceinline__ uint32_t* mw(int s, int t) const {
+    return reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(
+                                           mhi(s)) + t * T::M_BYTES);
   }
 
   // Thread 0 initialises the barriers; the whole CTA waits for it.
@@ -623,10 +946,163 @@ struct WgSmem {
   }
 
   // Whether a stage has padding rows that no box and no sum writes: B's
-  // band rows past NBN up to BN + XN, and the moment rows past MOM * NBM up
-  // to R (B5's sum_rows writes its own zeros).
-  static constexpr bool PADS =
-      T::XN > T::NBN || (T::R > T::MOM * T::NBM && T::ROWS != kSumRows);
+  // band rows past NBN (of each term) up to BN + XN, and the moment rows
+  // past MOM * NBM up to R (B5's sum_rows writes its own zeros).
+  static constexpr bool PADS = T::XN > T::NBN * T::NTERM ||
+                               (T::R > T::MOM * T::NBM && T::ROWS != kSumRows);
+
+  // bf16: those rows of ring slot s, of every term, zeroed once before the
+  // first stage.
+  __device__ __forceinline__ void zero_pads_bf16(int s, int e) const {
+    if constexpr (T::XN > 0) {
+      for (int z = e; z < T::XN * 32; z += T::SPLITTERS)
+        if (z / 32 % 8 >= T::NBN) bw(s)[T::BN * 32 + z] = 0u;
+    }
+    for (int z = T::MOM * T::NBM * 32 + e; z < T::R * 32; z += T::SPLITTERS)
+      mw(s, 0)[z] = mw(s, 1)[z] = mw(s, 2)[z] = 0u;
+  }
+
+  // bf16 B5's moment rows of stage s: for each sub-tile row band b and
+  // column pair, the f32 sums of A's bf16 rows with weights 1, w, w^2 (w =
+  // row in the band + 1) as rows 3 b .. 3 b + 2 of the three term buffers;
+  // the padding rows are zero.
+  __device__ __forceinline__ void sum_rows_bf16(int s, int e) const {
+    const uint32_t* a_ = aw(s);
+    for (int j = e; j < T::NBM * 32; j += T::SPLITTERS) {
+      const int band = j / 32, p = j % 32;
+      float sv[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 8
+      for (int rr = 0; rr < T::SBM; ++rr) {
+        const uint32_t x = a_[swz_word(band * T::SBM + rr, p)];
+        const float x0 = bf16_lo(x), x1 = bf16_hi(x);
+        const float w = (float)(rr + 1);
+        sv[0][0] += x0;
+        sv[0][1] += x1;
+        sv[1][0] += w * x0;
+        sv[1][1] += w * x1;
+        sv[2][0] += (w * w) * x0;
+        sv[2][1] += (w * w) * x1;
+      }
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        uint32_t w3[3];
+        bf16x3(sv[v][0], sv[v][1], w3);
+        const int o = swz_word(3 * band + v, p);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) mw(s, t)[o] = w3[t];
+      }
+    }
+    for (int z = 3 * T::NBM * 32 + e; z < T::R * 32; z += T::SPLITTERS)
+      mw(s, 0)[z] = mw(s, 1)[z] = mw(s, 2)[z] = 0u;
+  }
+
+  // bf16 B3's and B4's sum rows of stage st: B's column-band sums
+  // (kSumBands) as rows BN + 8 t + j (term t, band j) of B's stage, and
+  // A's row-band moment sums (kSumRowGroups) as row MOM b + v of the term
+  // buffers, all f32 sums of the bf16 values. A job sums 8 rows of one
+  // 16-byte chunk (8 columns) of B or of A into the producer scratch, a
+  // warp's jobs all of one operand; after a named barrier over the
+  // splitter warps, one job per output row and column pair adds its band's
+  // 8-row sums and writes their three terms.
+  __device__ __forceinline__ void sum_bands_bf16(int st, int e) const {
+    const int s = st % T::STAGES;
+    constexpr bool SB = T::BANDS == kSumBands, SA = T::ROWS == kSumRowGroups;
+    constexpr int G = T::BN / 8, GA = T::BM / 8;  // 8-row groups
+    const uint4* b4 = reinterpret_cast<const uint4*>(b(s));
+    const uint4* a4 = reinterpret_cast<const uint4*>(a(s));
+    float* pb = prod() + (T::PROD_SETS == 2 ? st & 1 : 0) * T::PROD_ROWS *
+                             T::SK;
+    float* pa = pb + (SB ? G : 0) * T::SK;
+    constexpr int NJB = SB ? 8 * G : 0, NJA = SA ? 8 * GA : 0;
+    static_assert(NJB % 32 == 0, "a warp's jobs of one operand");
+    for (int job = e; job < NJB + NJA; job += T::SPLITTERS) {
+      const bool is_a = job >= NJB;
+      const int idx = is_a ? job - NJB : job;
+      const int grp = idx / 8, c = idx % 8;  // rows 8 grp .., chunk c
+      if (!is_a) {
+        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          const uint4 v = b4[(8 * grp + rr) * 8 + (c ^ rr)];
+          const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            sum[2 * q] += bf16_lo(w4[q]);
+            sum[2 * q + 1] += bf16_hi(w4[q]);
+          }
+        }
+        float4* d = reinterpret_cast<float4*>(pb + grp * T::SK + 8 * c);
+        d[0] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+        d[1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+      } else if constexpr (SA) {
+        float sv[T::MOM][8];
+#pragma unroll
+        for (int v = 0; v < T::MOM; ++v)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) sv[v][q] = 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          const int n = 8 * grp + rr;
+          const uint4 x4 = a4[n * 8 + (c ^ rr)];
+          const uint32_t w4[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float w = (float)(n % T::SBM + 1);
+          float wv = 1.f;
+#pragma unroll
+          for (int v = 0; v < T::MOM; ++v) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              sv[v][2 * q] += wv * bf16_lo(w4[q]);
+              sv[v][2 * q + 1] += wv * bf16_hi(w4[q]);
+            }
+            wv *= w;
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < T::MOM; ++v) {
+          float4* d = reinterpret_cast<float4*>(pa + (v * GA + grp) * T::SK +
+                                                8 * c);
+          d[0] = make_float4(sv[v][0], sv[v][1], sv[v][2], sv[v][3]);
+          d[1] = make_float4(sv[v][4], sv[v][5], sv[v][6], sv[v][7]);
+        }
+      }
+    }
+    asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+    constexpr int NB = SB ? T::NBN * 32 : 0;
+    constexpr int NA = SA ? T::MOM * T::NBM * 32 : 0;
+    for (int job = e; job < NB + NA; job += T::SPLITTERS) {
+      float2 sum = make_float2(0.f, 0.f);
+      uint32_t w3[3];
+      if (job < NB) {  // B's band sum j: rows BN + 8 t + j
+        const int j = job / 32, p = job % 32;
+#pragma unroll
+        for (int g = 0; g < T::SBN / 8; ++g) {
+          const float2 x = reinterpret_cast<const float2*>(
+              pb + (j * (T::SBN / 8) + g) * T::SK)[p];
+          sum.x += x.x;
+          sum.y += x.y;
+        }
+        bf16x3(sum.x, sum.y, w3);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) bw(s)[swz_word(T::BN + 8 * t + j, p)] = w3[t];
+      } else {  // A's moment row n = MOM b + v
+        const int n = (job - NB) / 32, p = (job - NB) % 32;
+        const int band = n / T::MOM, v = n % T::MOM;
+#pragma unroll
+        for (int g = 0; g < T::SBM / 8; ++g) {
+          const float2 x = reinterpret_cast<const float2*>(
+              pa + (v * GA + band * (T::SBM / 8) + g) * T::SK)[p];
+          sum.x += x.x;
+          sum.y += x.y;
+        }
+        bf16x3(sum.x, sum.y, w3);
+        const int o = swz_word(n, p);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) mw(s, t)[o] = w3[t];
+      }
+    }
+    if constexpr (T::PROD_SETS == 1)  // the scratch is read before reuse
+      asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+  }
 
   // Those rows of ring slot s, zeroed once before the first stage. (Zeroed
   // in each slot's first stage instead, inside the splitters' stage loop,
@@ -791,18 +1267,35 @@ struct WgSmem {
           tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
       }
     } else if (p >= 32) {
-      if constexpr (PADS) {
-        for (int s = 0; s < T::STAGES; ++s) zero_pads(s, p - 32);
-      }
-      for (int st = 0; st < nst; ++st) {
-        const int s = st % T::STAGES;
-        mbar_wait(full(s), (st / T::STAGES) & 1);
-        split_b(st, p - 32);
-        if constexpr (T::ROWS == kLoadRows)
-          split4(mhi(s), mlo(s), T::M_BOX / 16, p - 32);
-        if constexpr (T::ROWS == kSumRows) sum_rows(s, p - 32);
-        fence_proxy_async();  // the split is visible to wgmma
-        mbar_arrive(ready(s));
+      if constexpr (!T::BF16) {
+        if constexpr (PADS) {
+          for (int s = 0; s < T::STAGES; ++s) zero_pads(s, p - 32);
+        }
+        for (int st = 0; st < nst; ++st) {
+          const int s = st % T::STAGES;
+          mbar_wait(full(s), (st / T::STAGES) & 1);
+          split_b(st, p - 32);
+          if constexpr (T::ROWS == kLoadRows)
+            split4(mhi(s), mlo(s), T::M_BOX / 16, p - 32);
+          if constexpr (T::ROWS == kSumRows) sum_rows(s, p - 32);
+          fence_proxy_async();  // the split is visible to wgmma
+          mbar_arrive(ready(s));
+        }
+      } else if constexpr (T::SPLIT) {
+        if constexpr (PADS) {
+          for (int s = 0; s < T::STAGES; ++s) zero_pads_bf16(s, p - 32);
+        }
+        for (int st = 0; st < nst; ++st) {
+          const int s = st % T::STAGES;
+          mbar_wait(full(s), (st / T::STAGES) & 1);
+          if constexpr (T::ROWS == kSumRows) {
+            sum_rows_bf16(s, p - 32);
+          } else {
+            sum_bands_bf16(st, p - 32);
+          }
+          fence_proxy_async();  // the sum rows are visible to wgmma
+          mbar_arrive(ready(s));
+        }
       }
     }
   }
@@ -840,7 +1333,7 @@ struct NoInject {
 // check after it (the adaptive checks' running moments of A and B).
 template <class T>
 struct WgMainloop {
-  static constexpr int NF = 4 * T::KK;  // A fragment registers per stage
+  static constexpr int NF = 4 * T::KW;  // A fragment registers per stage
   static constexpr int NE = T::R > 0 ? T::NACC_E : 1;
   float acc[T::NACC_W];   // the product, then (XN > 0) its extra columns
   float part[T::NACC_W];  // this stage's wgmma sum
@@ -867,6 +1360,14 @@ struct WgMainloop {
   }
   __device__ __forceinline__ int col(int i) const {
     return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+  }
+  // Extra element i (0 .. 3) of the band columns: band 2 (l & 3) + i % 2's
+  // expected sum of row row(i), the sum of its three terms in bf16.
+  __device__ __forceinline__ float xcol(int i) const {
+    if constexpr (T::BF16)
+      return acc[T::NACC + i] + acc[T::NACC + 4 + i] + acc[T::NACC + 8 + i];
+    else
+      return acc[T::NACC + i];
   }
 
   // After wgmma_wait_all: `part` holds its final sum (the empty asm keeps
@@ -899,20 +1400,32 @@ struct WgMainloop {
   // A fragments of its KK k steps and split them into hi / lo. A fragment
   // register j of k step kk holds row r0 + 8 * (j % 2), column 8 * kk + 4 *
   // (j / 2) + l % 4, read through the swizzle.
+  // bf16: no split; register j of k step q holds the column pair 16 q + 8 *
+  // (j / 2) + 2 * (l % 4) of row r0 + 8 * (j % 2), and `al` is not used.
   __device__ __forceinline__ void prepare(int st, uint32_t (&ah)[NF],
                                           uint32_t (&al)[NF]) const {
     const int s = st % T::STAGES;
-    mbar_wait(sm.ready(s), (st / T::STAGES) & 1);
-    const float* a = sm.a(s);
+    mbar_wait(T::SPLIT ? sm.ready(s) : sm.full(s), (st / T::STAGES) & 1);
     const int r0 = 64 * g + 16 * w + (l >> 2);
+    if constexpr (T::BF16) {
+      const uint32_t* a = sm.aw(s);
 #pragma unroll
-    for (int kk = 0; kk < T::KK; ++kk)
+      for (int q = 0; q < T::KW; ++q)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = r0 + 8 * (j & 1), chunk = 2 * kk + (j >> 1);
-        split_tf32(a[r * T::SK + ((chunk ^ (l >> 2)) << 2) + (l & 3)],
-                   ah[4 * kk + j], al[4 * kk + j]);
-      }
+        for (int j = 0; j < 4; ++j)
+          ah[4 * q + j] = a[swz_word(r0 + 8 * (j & 1), 8 * q + 4 * (j >> 1) +
+                                                           (l & 3))];
+    } else {
+      const float* a = sm.a(s);
+#pragma unroll
+      for (int kk = 0; kk < T::KK; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = r0 + 8 * (j & 1), chunk = 2 * kk + (j >> 1);
+          split_tf32(a[r * T::SK + ((chunk ^ (l >> 2)) << 2) + (l & 3)],
+                     ah[4 * kk + j], al[4 * kk + j]);
+        }
+    }
   }
 
   // One 8-deep k step into `part`: a_lo b_hi, a_hi b_lo, a_hi b_hi; the
@@ -937,44 +1450,89 @@ struct WgMainloop {
     }
   }
 
-  // Issue stage st's wgmmas (k steps t0 = KK * st ..) as one group; a
-  // ragged last stage multiplies TMA's zero fill. At a scheduled fault the
-  // steps so far land and go into `acc` before the fault does; at a check,
-  // the steps so far land and go into `acc` (and `acc_e`), then the check
-  // runs and the stage sums restart from zero. A hook that sets kSegmented
-  // (B3's and B4's checks, ~20 per run) has a stage with events issued in
-  // segments that each end at one, so that its large check is inlined once
-  // per call site of mma_stage and not once per k step (their kernels ran
-  // 0.5-0.8 ms faster); the other hooks keep the unrolled form, which
-  // segments made slower (B2 at the 64-row tiles 22-44 %; PERF.md).
+  // bf16: 16-deep k step q of ring slot s into `part` (restarting it when
+  // `fresh`), A from the fragment registers; with R > 0 B's stage (this
+  // warpgroup's 64 rows) times the three terms of the moment rows into
+  // `part_e`, the terms summed by the accumulator.
+  __device__ __forceinline__ void mma_bf(const uint32_t (&ah)[NF], int q,
+                                         int s, bool fresh) {
+    WgmmaBf<T::BN + T::XN>::run(part, &ah[4 * q],
+                                smem_desc(sm.b(s)) + 2 * q, fresh ? 0 : 1);
+    if constexpr (T::R > 0) {
+      const uint64_t bd = smem_desc(sm.bw(s) + 64 * g * 32) + 2 * q;
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        WgmmaSSBf<T::R>::run(part_e, bd, smem_desc(sm.mw(s, t)) + 2 * q,
+                             fresh && t == 0 ? 0 : 1);
+    }
+  }
+
+  // The first (half 1) or last (half 2) 8 columns of k step q: the other
+  // half's A registers zero and, with R > 0, E's A operand (B's stage) as
+  // register fragments masked the same way; the masked registers are
+  // written before the fence that orders them ahead of the wgmmas.
+  __device__ __forceinline__ void mma_bf_half(const uint32_t (&ah)[NF], int q,
+                                              int s, int half, bool fresh) {
+    uint32_t a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = (half >> (j >> 1)) & 1 ? ah[4 * q + j] : 0u;
+    uint32_t x[4];
+    if constexpr (T::R > 0) {
+      const uint32_t* b = sm.bw(s);
+      const int r0 = 64 * g + 16 * w + (l >> 2);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[j] = (half >> (j >> 1)) & 1
+                   ? b[swz_word(r0 + 8 * (j & 1), 8 * q + 4 * (j >> 1) + (l & 3))]
+                   : 0u;
+    }
+    wgmma_fence();
+    WgmmaBf<T::BN + T::XN>::run(part, a, smem_desc(sm.b(s)) + 2 * q,
+                                fresh ? 0 : 1);
+    if constexpr (T::R > 0) {
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        WgmmaBf<T::R>::run(part_e, x, smem_desc(sm.mw(s, t)) + 2 * q,
+                           fresh && t == 0 ? 0 : 1);
+    }
+  }
+
+  // mma_stage in bf16: the same events at the same 8-column k steps. A k
+  // step that an event splits is issued as its two halves around it; the
+  // unrolled form looks one 8-column step ahead for a fault (at(t + 1)) or
+  // a check (check_after(t)) inside each 16-deep step. A bf16 fault
+  // restarts the stage sum `part` with the fault in it (FragInject::apply),
+  // and the next wgmma accumulates onto it.
   template <class Hook>
-  __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
-                                            const uint32_t (&al)[NF],
-                                            Hook& hook) {
+  __device__ __forceinline__ void mma_stage_bf16(int st,
+                                                 const uint32_t (&ah)[NF],
+                                                 Hook& hook) {
+    static_assert(!kAdaptive || !T::BF16,
+                  "bf16 runs the static and auto thresholds only");
     const int s = st % T::STAGES, t0 = st * T::KK;
-    const uint64_t dh = smem_desc(sm.b(s)), dl = smem_desc(sm.blo(s));
     wgmma_fence();
     if (!hook.within(st)) {
 #pragma unroll
-      for (int kk = 0; kk < T::KK; ++kk) {
-        mma3(ah, al, kk, dh, dl, kk == 0, s);
-        hook.kstep(*this, ah, al, kk, s);
-      }
+      for (int q = 0; q < T::KW; ++q) mma_bf(ah, q, s, q == 0);
     } else if constexpr (Hook::kSegmented) {
-      int k0 = 0;          // the first k step not issued
-      bool fresh = false;  // k0 restarts the stage sum (after a fault)
+      int k0 = 0;         // the first 8-column k step not issued
+      bool fresh = true;  // the next wgmma restarts the stage sum
       for (;;) {
-        // The segment k0 .. k1: up to the step before the next fault or up
-        // to the next check, whichever comes first.
         const int kf = min(hook.fault_step() - t0, T::KK);
         const int kc = min(hook.check_step() - t0, T::KK);
         const int k1 = min(kf - 1, kc);
 #pragma unroll
-        for (int kk = 0; kk < T::KK; ++kk)
-          if (kk >= k0 && kk <= k1) {
-            mma3(ah, al, kk, dh, dl, kk == 0 || (kk == k0 && fresh), s);
-            hook.kstep(*this, ah, al, kk, s);
+        for (int q = 0; q < T::KW; ++q) {
+          const bool lo = 2 * q >= k0 && 2 * q <= k1;
+          const bool hi = 2 * q + 1 >= k0 && 2 * q + 1 <= k1;
+          if (lo && hi) {
+            mma_bf(ah, q, s, fresh);
+            fresh = false;
+          } else if (lo || hi) {
+            mma_bf_half(ah, q, s, lo ? 1 : 2, fresh);
+            fresh = false;
           }
+        }
         if (k1 == kc && kc < T::KK) {
           wgmma_commit();
           wgmma_wait_all();
@@ -992,28 +1550,49 @@ struct WgMainloop {
           hook.apply(*this, t0 + kf);
           wgmma_fence();
           k0 = kf;
-          fresh = true;
+          fresh = false;
         } else {
           break;
         }
         if (k0 >= T::KK) break;
       }
     } else {
+      bool fresh = true;
 #pragma unroll
-      for (int kk = 0; kk < T::KK; ++kk) {
-        const bool fault = hook.at(t0 + kk);
-        if (fault) {
-          if (kk > 0) {
+      for (int q = 0; q < T::KW; ++q) {
+        const int t = t0 + 2 * q;
+        if (hook.at(t)) {
+          if (q > 0) {
             wgmma_commit();
             wgmma_wait_all();
             promote();
           }
-          hook.apply(*this, t0 + kk);
+          hook.apply(*this, t);
           wgmma_fence();
+          fresh = false;
         }
-        mma3(ah, al, kk, dh, dl, kk == 0 || fault, s);
-        hook.kstep(*this, ah, al, kk, s);
-        if (hook.check_after(t0 + kk)) {
+        if (!hook.check_after(t) && !hook.at(t + 1)) {
+          mma_bf(ah, q, s, fresh);
+        } else {
+          mma_bf_half(ah, q, s, 1, fresh);
+          if (hook.check_after(t)) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote_clear();
+            hook.check(*this);
+            wgmma_fence();
+          }
+          if (hook.at(t + 1)) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote();
+            hook.apply(*this, t + 1);
+            wgmma_fence();
+          }
+          mma_bf_half(ah, q, s, 2, false);
+        }
+        fresh = false;
+        if (hook.check_after(t + 1)) {
           wgmma_commit();
           wgmma_wait_all();
           promote_clear();
@@ -1023,6 +1602,98 @@ struct WgMainloop {
       }
     }
     wgmma_commit();
+  }
+
+  // Issue stage st's wgmmas (k steps t0 = KK * st ..) as one group; a
+  // ragged last stage multiplies TMA's zero fill. At a scheduled fault the
+  // steps so far land and go into `acc` before the fault does; at a check,
+  // the steps so far land and go into `acc` (and `acc_e`), then the check
+  // runs and the stage sums restart from zero. A hook that sets kSegmented
+  // (B3's and B4's checks, ~20 per run) has a stage with events issued in
+  // segments that each end at one, so that its large check is inlined once
+  // per call site of mma_stage and not once per k step (their kernels ran
+  // 0.5-0.8 ms faster); the other hooks keep the unrolled form, which
+  // segments made slower (B2 at the 64-row tiles 22-44 %; PERF.md).
+  template <class Hook>
+  __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
+                                            const uint32_t (&al)[NF],
+                                            Hook& hook) {
+    if constexpr (T::BF16) {
+      mma_stage_bf16(st, ah, hook);
+    } else {
+      const int s = st % T::STAGES, t0 = st * T::KK;
+      const uint64_t dh = smem_desc(sm.b(s)), dl = smem_desc(sm.blo(s));
+      wgmma_fence();
+      if (!hook.within(st)) {
+  #pragma unroll
+        for (int kk = 0; kk < T::KK; ++kk) {
+          mma3(ah, al, kk, dh, dl, kk == 0, s);
+          hook.kstep(*this, ah, al, kk, s);
+        }
+      } else if constexpr (Hook::kSegmented) {
+        int k0 = 0;          // the first k step not issued
+        bool fresh = false;  // k0 restarts the stage sum (after a fault)
+        for (;;) {
+          // The segment k0 .. k1: up to the step before the next fault or up
+          // to the next check, whichever comes first.
+          const int kf = min(hook.fault_step() - t0, T::KK);
+          const int kc = min(hook.check_step() - t0, T::KK);
+          const int k1 = min(kf - 1, kc);
+  #pragma unroll
+          for (int kk = 0; kk < T::KK; ++kk)
+            if (kk >= k0 && kk <= k1) {
+              mma3(ah, al, kk, dh, dl, kk == 0 || (kk == k0 && fresh), s);
+              hook.kstep(*this, ah, al, kk, s);
+            }
+          if (k1 == kc && kc < T::KK) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote_clear();
+            hook.check(*this);
+            wgmma_fence();
+            k0 = kc + 1;
+            fresh = false;
+          } else if (kf < T::KK) {
+            if (kf > 0) {
+              wgmma_commit();
+              wgmma_wait_all();
+              promote();
+            }
+            hook.apply(*this, t0 + kf);
+            wgmma_fence();
+            k0 = kf;
+            fresh = true;
+          } else {
+            break;
+          }
+          if (k0 >= T::KK) break;
+        }
+      } else {
+  #pragma unroll
+        for (int kk = 0; kk < T::KK; ++kk) {
+          const bool fault = hook.at(t0 + kk);
+          if (fault) {
+            if (kk > 0) {
+              wgmma_commit();
+              wgmma_wait_all();
+              promote();
+            }
+            hook.apply(*this, t0 + kk);
+            wgmma_fence();
+          }
+          mma3(ah, al, kk, dh, dl, kk == 0 || fault, s);
+          hook.kstep(*this, ah, al, kk, s);
+          if (hook.check_after(t0 + kk)) {
+            wgmma_commit();
+            wgmma_wait_all();
+            promote_clear();
+            hook.check(*this);
+            wgmma_fence();
+          }
+        }
+      }
+      wgmma_commit();
+    }
   }
 
   // Stage st on registers (ch, cl) while stage st + 1 is prepared into
@@ -1097,17 +1768,21 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The (rows, K) row-major f32 operand at p, in (box_rows, SK) boxes with the
-// 128-byte swizzle; out-of-range columns read as zero.
-inline bool tensor_map(CUtensorMap* map, const float* p, int rows, int K,
-                       int box_rows, int sk) {
+// The (rows, K) row-major f32 (esize 4) or bf16 (esize 2) operand at p, in
+// (box_rows, sk) boxes with the 128-byte swizzle; out-of-range columns read
+// as zero.
+inline bool tensor_map(CUtensorMap* map, const void* p, int rows, int K,
+                       int box_rows, int sk, int esize = 4) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(float)};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
   const cuuint32_t box[2] = {(cuuint32_t)sk, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p),
+  return encode(map,
+                esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(p),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1140,9 +1815,9 @@ inline bool tensor_map3(CUtensorMap* map, const float* p, int groups,
 // point reports like a launch error.
 template <class T, class Kernel>
 inline int wgmma_setup(Kernel kernel, CUtensorMap* ta, CUtensorMap* tb,
-                       const float* A, const float* B, int M, int N, int K) {
-  if (K % 8 || !tensor_map(ta, A, M, K, T::BM, T::SK) ||
-      !tensor_map(tb, B, N, K, T::BN, T::SK))
+                       const void* A, const void* B, int M, int N, int K) {
+  if (K % 8 || !tensor_map(ta, A, M, K, T::BM, T::SK, T::ESIZE) ||
+      !tensor_map(tb, B, N, K, T::BN, T::SK, T::ESIZE))
     return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);

@@ -28,6 +28,14 @@
 // only the unit the wrapper pads M and N to. Their grid rounds up, TMA
 // zero-fills the rows past M and N, and the store masks them (RAGGED); one
 // instantiation serves the three tiles.
+//
+// bf16 (ftsg_sgemm_bf16; ops/sgemm.py:179-181 of the JAX package): A and B
+// bf16, C and the accumulator f32, one m64nNk16 bf16 wgmma per 16-deep k
+// step on the operands as TMA landed them (no split pass, no splitter
+// work), each stage's sum promoted into f32 as above, with the same two
+// CTAs. What bounds it: 2 M N K operations at 989 TFLOP/s (0.139 ms at
+// 4096) against ~201 MB (A and B in bf16, C read and written in f32) at
+// 3.35 TB/s (0.060 ms): operations.
 
 #include "gemm_wgmma.cuh"
 
@@ -55,7 +63,7 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
 }
 
 template <class T, bool RAGGED>
-int launch_wgmma(const float* A, const float* B, const float* C, float* out,
+int launch_wgmma(const void* A, const void* B, const float* C, float* out,
                  int M, int N, int K, float alpha, float beta,
                  cudaStream_t stream) {
   CUtensorMap ta, tb;
@@ -83,6 +91,25 @@ extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128>, true>(
+        A, B, C, out, M, N, K, alpha, beta, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B1 with bf16 A and B (C and out f32), at the same tiles and CTAs; returns
+// as ftsg_sgemm.
+extern "C" int ftsg_sgemm_bf16(const void* A, const void* B, const float* C,
+                               float* out, int M, int N, int K, int bm,
+                               int bn, int bk, float alpha, float beta,
+                               void* stream) {
+  const auto s = (cudaStream_t)stream;
+#define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>, false>( \
+        A, B, C, out, M, N, K, alpha, beta, s);
+  FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
+#undef FTSG_LAUNCH_WGMMA
+  if (ftsg::narrow_tile(bm, bn))
+    return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kBF16>, true>(
         A, B, C, out, M, N, K, alpha, beta, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 
 Every library of :data:`LIBRARIES` is compiled at first use, on the machine
 with the card, by ``nvcc`` from one ``csrc/*.cu`` into a shared library with
-a plain C interface, loaded with ``ctypes``. The FT sources build twice:
+a plain C interface, loaded with ``ctypes``; the static libraries of B1-B5
+also hold their bf16 builds (the ``*_bf16`` entry points). The FT sources build twice:
 as they are (static thresholds and ``threshold="auto"``) and with
 ``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
 sub-tile's threshold in the kernel), two libraries with the same entry
@@ -77,12 +78,15 @@ def ptxas_log(name: str) -> str:
     return so_path(name).with_suffix(".ptxas.txt").read_text()
 
 
-def build(names=KERNEL_LIBS) -> float:
+def build(names=KERNEL_LIBS) -> dict:
     """Compile the named libraries that are not built yet, all in parallel;
-    returns the wall seconds. Raises with the compiler's output on failure."""
+    returns {library: seconds from the start of the build to its
+    compiler's exit} (empty when all were built). Raises with the
+    compiler's output on failure."""
     todo = [n for n in names if not so_path(n).exists()]
+    seconds = {}
     if not todo:
-        return 0.0
+        return seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     t0 = time.perf_counter()
@@ -90,25 +94,34 @@ def build(names=KERNEL_LIBS) -> float:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        out = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
         source, defines = LIBRARIES[name]
         proc = subprocess.Popen(
             [exe, *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC / f"{source}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, tmp, proc))
+            stdout=out, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, tmp, proc, out))
     failures = []
-    for name, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failures.append(f"nvcc {name}.cu failed:\n{log}")
-            os.unlink(tmp)
-            continue
-        so_path(name).with_suffix(".ptxas.txt").write_text(log)
-        # Rename into place last: a concurrent loader never sees a
-        # half-written library.
-        os.replace(tmp, so_path(name))
+    pending = list(jobs)
+    while pending:
+        for job in [j for j in pending if j[2].poll() is not None]:
+            pending.remove(job)
+            name, tmp, proc, out = job
+            seconds[name] = time.perf_counter() - t0
+            out.seek(0)
+            log = out.read()
+            out.close()
+            if proc.returncode:
+                failures.append(f"nvcc {name}.cu failed:\n{log}")
+                os.unlink(tmp)
+                continue
+            so_path(name).with_suffix(".ptxas.txt").write_text(log)
+            # Rename into place last: a concurrent loader never sees a
+            # half-written library.
+            os.replace(tmp, so_path(name))
+        time.sleep(0.1)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return time.perf_counter() - t0
+    return seconds
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,10 +187,12 @@ def check_tile(shape) -> tuple:
     return tile
 
 
-def mainloop(kind: str, shape) -> str:
+def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"``, for
-    every kernel at every compiled tile; raises for another tile. The CTA
+    every kernel at every compiled tile, or ``"wgmma-bf16"`` for the bf16
+    builds (one bf16 wgmma per 16-deep k step, B1-B5); raises for another
+    tile. The CTA
     differs: B1 and B2 (``precomp``) run the tile's own CTA at the tiles of
     :func:`wgmma_tiles` and the 128 x 128 CTA at those of
     :func:`narrow_tiles` (B2 checking the tile as its sub-tile); B3
@@ -185,21 +200,26 @@ def mainloop(kind: str, shape) -> str:
     ``rowcol_mxu`` and B8 ``global_mxu`` run the 128 x 128 CTA over the
     tile as its sub-tile at every tile of :func:`subtiles`."""
     check_tile(shape)
-    return "wgmma-3xtf32"
+    return "wgmma-bf16" if in_dtype == "bfloat16" else "wgmma-3xtf32"
 
 
 def check_operands(shape, a, b, c, *more) -> tuple:
-    """Validate a kernel launch: f32, contiguous, 16-byte aligned operands
-    on one CUDA device, A (M, K), B (N, K) and C (M, N) padded to the tile
-    (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled tile.
-    Returns (M, N, K, bm, bn, bk)."""
+    """Validate a kernel launch: contiguous, 16-byte aligned operands on one
+    CUDA device, A (M, K) and B (N, K) both float32 or both bfloat16 (the
+    kernel's input dtype), C (M, N) and the wrapper-side inputs float32,
+    padded to the tile (M % bm == N % bn == K % bk == 0, K >= bk), and a
+    compiled tile. Returns (M, N, K, bm, bn, bk)."""
     dev = a.device
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
+        raise ValueError("kernels take A and B both float32 or both"
+                         f" bfloat16, got {a.dtype} and {b.dtype}")
     for t in (a, b, c, *more):
         if not t.is_cuda or t.device != dev:
             raise ValueError("kernel operands must lie on one CUDA device,"
                              f" got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"kernels take float32 operands, got {t.dtype}")
+        if t.dtype != torch.float32 and t is not a and t is not b:
+            raise ValueError(f"kernels take float32 C and checksum inputs,"
+                             f" got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernels take contiguous operands")
         if t.data_ptr() % 16:

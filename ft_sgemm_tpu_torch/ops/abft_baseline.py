@@ -6,7 +6,9 @@ the panel's partial product to C, then re-reads all of C to recompute its
 row/column sums and compares them with checksums derived from the panel
 inputs. Detection only. The JAX package builds it from plain XLA ops with
 no Pallas kernel; here each panel is one cuBLAS ``addmm_`` plus matrix-
-vector products and reductions, and there is no hand kernel either.
+vector products and reductions, and there is no hand kernel either. With
+``in_dtype="bfloat16"`` the panels are the bf16-rounded operands, their
+products and checksums taken in FP32 (``abft_baseline.py:87-88``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,14 @@ from typing import NamedTuple
 import torch
 
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
-from ft_sgemm_tpu_torch.ops.common import as_f32, pad_to, resolve_device, strict_fp32
+from ft_sgemm_tpu_torch.ops.common import (
+    as_f32,
+    as_operand,
+    pad_to,
+    resolve_device,
+    resolve_in_dtype,
+    strict_fp32,
+)
 
 PANEL_K = 256  # reference K-panel width, baseline_ft_sgemm.cuh:4
 
@@ -32,18 +41,24 @@ def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
                         inject: InjectionSpec | None = None,
                         panel_k: int = PANEL_K,
                         threshold: float = REFERENCE_THRESHOLD,
-                        device=None) -> AbftBaselineResult:
+                        in_dtype="float32", device=None) -> AbftBaselineResult:
     """Two-pass checksum-verified ``C = alpha*A@B.T + beta*C``.
 
     ``inject`` adds a fault to one rotating element of C between pass 1 and
     pass 2 of each scheduled panel (``panel % every == 0``). K is zero-padded
-    to a multiple of ``panel_k``. ``device=None`` runs on CUDA; the caller's
-    ``c`` is never written.
+    to a multiple of ``panel_k``. ``in_dtype="bfloat16"`` rounds A and B to
+    bf16 first; everything after is f32 (TF32 off). ``device=None`` runs
+    on CUDA; the caller's ``c`` is never written.
     """
     inject = inject or InjectionSpec.none()
+    dtype = resolve_in_dtype(in_dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"in_dtype={in_dtype!r} is not ported yet for the baseline")
     dev = resolve_device(device)
     strict_fp32()
-    a, b, c = (as_f32(x, dev) for x in (a, b, c))
+    a, b = (as_operand(x, dtype, dev).float() for x in (a, b))
+    c = as_f32(c, dev)
     m, n = c.shape
     a, b = pad_to(a, 1, panel_k), pad_to(b, 1, panel_k)
     c_acc = beta * c

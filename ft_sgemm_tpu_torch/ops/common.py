@@ -1,7 +1,7 @@
-"""Helpers shared by the port's ops: device resolution, padding, the FP32
-matmul setting, the correction-pad rule, the scalar argument, and the
-clean-residual noise model behind ``threshold="auto"`` and
-``threshold="adaptive"``.
+"""Helpers shared by the port's ops: device resolution, the input dtype and
+the operand casts, padding, the FP32 matmul setting, the correction-pad
+rule, the scalar argument, and the clean-residual noise model behind
+``threshold="auto"`` and ``threshold="adaptive"``.
 
 Only what the port's kernels use of ``ft_sgemm_tpu/ops/common.py`` and
 ``ft_sgemm_tpu/ops/ft_sgemm.py`` lives here.
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ft_sgemm_tpu_torch.configs import canonical_in_dtype
 from ft_sgemm_tpu_torch.contracts import N_SCALAR_SLOTS
 
 # _correction_pads (ops/ft_sgemm.py:342-357): a correction of magnitude
@@ -56,6 +57,39 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
     array or tensor (the kernels load operands as float4)."""
     t = torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+# Matmul precisions (the JAX package's lax.Precision names).
+PRECISIONS = ("default", "high", "highest")
+
+
+def resolve_in_dtype(in_dtype, *, allow_low_precision: bool = False):
+    """Validate an input dtype (ft_sgemm_tpu/ops/common.py:196-219) and
+    return its torch dtype.
+
+    int8 needs the FT kernels' exact int32 path (``allow_low_precision``),
+    as in the JAX package; which dtypes the kernels run yet is
+    ``configs.check_kernel_legality``'s call.
+    """
+    name = canonical_in_dtype(in_dtype)
+    if name == "int8" and not allow_low_precision:
+        raise ValueError(
+            f"in_dtype {name!r} needs the FT kernels' int32-exact"
+            " accumulation path (make_ft_sgemm); the plain kernels take"
+            " float32/bfloat16/float8_e4m3fn")
+    return getattr(torch, name)
+
+
+def as_operand(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An A or B operand in the kernels' input dtype on ``device``: f32 as
+    :func:`as_f32`, bf16 rounded to nearest even from f32 on ``device``
+    (the rounding the JAX package's ``astype`` does), contiguous and
+    16-byte aligned."""
+    t = as_f32(x, device)
+    if dtype == torch.float32:
+        return t
+    r = t.to(dtype).contiguous()
+    return r.clone() if r.data_ptr() % 16 else r
 
 
 def strict_fp32() -> None:

@@ -6,11 +6,15 @@ B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3-B8 run one
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
-modes: ``"static"`` (one threshold, the reference's 9500 by default),
-``"auto"`` (one threshold per call from the inputs' moments, reduced by
-torch ops on the inputs' device and read back into the same kernels'
-scalar argument) and ``"adaptive"`` (each tile's threshold at each check
-from its running moments, inside B3-B8 as built with ``FTSG_ADAPTIVE``).
+modes, and in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
+weighted, rowcol and global strategies under the static and auto
+thresholds (B2-B5 on bf16 wgmma; the mxu encodes and "adaptive" in bf16
+are not ported yet). The threshold modes are ``"static"`` (one
+threshold, the reference's 9500 by default), ``"auto"`` (one threshold per
+call from the inputs' moments, reduced by torch ops on the inputs' device
+and read back into the same kernels' scalar argument) and ``"adaptive"``
+(each tile's threshold at each check from its running moments, inside
+B3-B8 as built with ``FTSG_ADAPTIVE``).
 Each kernel encodes, accumulates, injects, detects and corrects inside one
 launch, as the Pallas kernels do (module docstring there):
 
@@ -43,6 +47,13 @@ the expected column sums, B's as the extra rows of B's stage that give the
 expected row sums), which removes the in-kernel sums of A and B. B8 reads
 only B's rows; its A rows are built for its plain version.
 
+In bf16, A and B are rounded to bf16 and everything else stays f32: the
+product of the rounded values, and checksums of the rounded values, as the
+tensor cores consume them (ops/ft_sgemm.py:575-582), so the input rounding
+cancels out of every residual and the thresholds stay those of f32. The
+wrapper's moment rows (B2's expected moments) split each f32 moment into
+bf16 hi, lo and lo2 terms (``_tile_moments``), as the JAX package does.
+
 Beside each kernel wrapper is its plain PyTorch version, which follows the
 tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,
 a Python loop over K steps only): the same inject positions, cadence,
@@ -69,11 +80,13 @@ from ft_sgemm_tpu_torch.ops.common import (
     NOISE_C_RAND,
     THRESHOLD_CAP,
     as_f32,
+    as_operand,
     correction_pads,
     estimate_noise_floor,
     full_run_log2,
     pad_to,
     resolve_device,
+    resolve_in_dtype,
     scalar_operand,
     strict_fp32,
     variance_bound_threshold,
@@ -121,30 +134,47 @@ def _weights(bm: int, device) -> torch.Tensor:
 
 
 def _tile_moments(ap: torch.Tensor, bm: int, n_moments: int = 3) -> torch.Tensor:
-    """(g, n_moments, K): the first ``n_moments`` of the plain, w and w^2
-    column moments of each (bm, K) row tile of a padded operand
-    (ops/ft_sgemm.py:1167-1200, f32 path). A gives 3 (B2's expectations,
-    B6), 2 (B7) or 1 (B8); B gives 1 (B7, B8)."""
+    """The first ``n_moments`` of the plain, w and w^2 column moments of
+    each (bm, K) row tile of a padded operand, in its dtype
+    (ops/ft_sgemm.py:1167-1200): f32, (g, n_moments, K); bf16, (g,
+    3 n_moments, K), each f32 moment split into bf16 hi, lo and lo2 terms
+    at row ``n_moments * t + moment`` (term t), whose sum keeps the f32
+    moment's precision (a single bf16 cast would leave ~1 of expectation
+    noise in a corrected element). A gives 3 (B2's expectations, B6), 2
+    (B7) or 1 (B8); B gives 1 (B7, B8)."""
     m, kdim = ap.shape
-    af = ap.reshape(m // bm, bm, kdim)
+    af = ap.reshape(m // bm, bm, kdim).float()
     w = _weights(bm, ap.device)[None, :, None]
     rows = [af.sum(1)]
     if n_moments >= 2:
         rows.append((af * w).sum(1))
     if n_moments >= 3:
         rows.append((af * (w * w)).sum(1))
-    return torch.stack(rows, 1)
+    moments = torch.stack(rows, 1)
+    if ap.dtype != torch.bfloat16:
+        return moments
+    hi = moments.to(torch.bfloat16)
+    rem = moments - hi.float()
+    lo = rem.to(torch.bfloat16)
+    lo2 = (rem - lo.float()).to(torch.bfloat16)
+    return torch.cat((hi, lo, lo2), 1)
 
 
 def _expected_col_checksums(ap: torch.Tensor, bp: torch.Tensor, bm: int
                             ) -> torch.Tensor:
-    """(gm, 3, N) expected plain / w / w^2 column checksums of every output
-    tile, ``moments(A_i) @ B.T`` (ops/ft_sgemm.py:1224-1256) — one FP32
-    ``torch.matmul`` over the stacked moment rows, as XLA's dot was."""
+    """(gm, 3, N) f32 expected plain / w / w^2 column checksums of every
+    output tile, ``moments(A_i) @ B.T`` (ops/ft_sgemm.py:1224-1256) — one
+    FP32 ``torch.matmul`` over the stacked moment rows, as XLA's dot was;
+    in bf16 over the hi / lo / lo2 term rows (exact products), the three
+    terms of each moment then summed."""
     strict_fp32()
     rows = _tile_moments(ap, bm)
     gm, r, kdim = rows.shape
-    return torch.matmul(rows.reshape(gm * r, kdim), bp.T).reshape(gm, r, -1)
+    exp = torch.matmul(rows.reshape(gm * r, kdim).float(),
+                       bp.float().T).reshape(gm, r, -1)
+    if r == 9:  # bf16: the three terms of each moment
+        exp = exp[:, 0:3] + exp[:, 3:6] + exp[:, 6:9]
+    return exp
 
 
 def kernel_inputs(kind: str, ap: torch.Tensor, bp: torch.Tensor,
@@ -322,9 +352,10 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     ``check_every`` steps and after the last) and B6 (``moments`` given:
     running moments from A's (gm, 3, K) moment rows); ``adaptive``: each
     tile's thresholds at each check from its running moments of A's and B's
-    own rows (B5, B6). Returns (out, det, unc)."""
+    own rows (B5, B6). bf16 operands are summed as their f32 values.
+    Returns (out, det, unc)."""
     strict_fp32()
-    a4, b4, c4, nk = _tiles(a, b, c, shape)
+    a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
     gm, gn, bm, bn = c4.shape
     acc = torch.zeros_like(c4)
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
@@ -365,9 +396,10 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
     B's (gn, 1, K) moment rows), of B7; ``adaptive``: each tile's
     thresholds at each check from its running moments of A's and B's own
-    rows. Returns (out, det, unc)."""
+    rows. bf16 operands are summed as their f32 values. Returns (out, det,
+    unc)."""
     strict_fp32()
-    a4, b4, c4, nk = _tiles(a, b, c, shape)
+    a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
     gm, gn, bm, bn = c4.shape
     acc = torch.zeros_like(c4)
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
@@ -416,10 +448,10 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     s_b``; per check the residual ``t_exp - sum(acc)``, one event when it
     moved by more than the threshold since the previous check; ``adaptive``:
     each tile's threshold at each check from its running moments of A's and
-    B's own rows, times sqrt(bn). Returns (out, det, unc) with unc equal to
-    det."""
+    B's own rows, times sqrt(bn). bf16 operands are summed as their f32
+    values. Returns (out, det, unc) with unc equal to det."""
     strict_fp32()
-    a4, b4, c4, nk = _tiles(a, b, c, shape)
+    a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
     gm, gn = c4.shape[:2]
     acc = torch.zeros_like(c4)
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
@@ -480,6 +512,14 @@ def _entries(adaptive: bool = False):
     if not adaptive:
         entries["precomp"] = bind(weighted, "ftsg_ft_weighted_precomp",
                                   [_P] * 7 + dims + [_F, _F, _P, _P])
+        # bf16 operands (the vpu encodes), same arguments: B2, B5, B3, B4.
+        for name, lib, fname in (
+                ("precomp", weighted, "ftsg_ft_weighted_precomp_bf16"),
+                ("running", weighted, "ftsg_ft_weighted_running_bf16"),
+                ("rowcol", rowcol, "ftsg_ft_rowcol_bf16"),
+                ("global", glob, "ftsg_ft_global_bf16")):
+            entries[name, torch.bfloat16] = bind(lib, fname,
+                                                 entries[name].argtypes)
     return entries
 
 
@@ -495,10 +535,18 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
-    validated operands and count it on ``wrapper`` (``launches``, or
-    ``adaptive_launches``); raises on a launch error. Returns (out, det,
+    validated operands, A and B f32 or (static build, vpu kernels) bf16,
+    and count it on ``wrapper`` (``launches``, ``adaptive_launches`` or
+    ``bf16_launches``); raises on a launch error. Returns (out, det,
     unc)."""
     dims = check_operands(shape, a, b, c, *extra_in)
+    bf16 = a.dtype == torch.bfloat16
+    entries = _entries(adaptive)
+    if bf16 and (name, a.dtype) not in entries:
+        raise NotImplementedError(
+            f"kernel {name!r} has no bf16 build"
+            + (" (adaptive)" if adaptive else "") + " yet: bf16 runs the vpu"
+            " encodes' B2-B5 under the static and auto thresholds")
     sc = np.ascontiguousarray(scalars, np.float32)  # taken by value
     if sc.shape != (8,):
         raise ValueError(f"the scalar argument has 8 slots, got {sc.shape}")
@@ -506,7 +554,7 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     grid = (c.shape[0] // shape.bm, c.shape[1] // shape.bn)
     det = torch.empty(grid, dtype=torch.int32, device=c.device)
     unc = torch.empty_like(det)
-    fn = _entries(adaptive)[name]
+    fn = entries[name, a.dtype] if bf16 else entries[name]
     noise = () if name == "precomp" else (
         full_run_log2(a.shape[1] // shape.bk, shape.bk, shape.bm, shape.bn),
         NOISE_C_RAND, NOISE_C_BIAS)
@@ -516,6 +564,8 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             *noise, torch.cuda.current_stream(a.device).cuda_stream)
     if adaptive:
         wrapper.adaptive_launches += 1
+    elif bf16:
+        wrapper.bf16_launches += 1
     else:
         wrapper.launches += 1
     check_launch(rc, fn.__name__ + (" (adaptive build)" if adaptive else ""))
@@ -621,6 +671,7 @@ for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
            ft_rowcol_mxu_kernel):
     _w.launches = 0
     _w.adaptive_launches = 0
+    _w.bf16_launches = 0
 
 
 def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
@@ -743,7 +794,7 @@ def make_ft_sgemm(
     threshold=REFERENCE_THRESHOLD,
     threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
     check_every: Optional[int] = None,
-    in_dtype: str = "float32",
+    in_dtype="float32",
     multifault: Optional[bool] = None,
     device=None,
 ):
@@ -775,15 +826,24 @@ def make_ft_sgemm(
     unless the injection schedule proves at most one fault per check
     interval (ops/ft_sgemm.py:1802-1812). ``device=None`` runs on CUDA.
 
-    Not ported yet, and raising ``NotImplementedError``: ``in_dtype`` other
-    than float32.
+    ``in_dtype="bfloat16"`` rounds A and B to bf16 on the device; C, the
+    accumulator, the checksums (of the rounded values), detection and
+    correction stay f32, and the thresholds are f32's ("auto" from the
+    rounded operands). The tile is the paper's in every dtype.
+
+    Not ported yet, and raising ``NotImplementedError``
+    (``configs.check_kernel_legality``): bf16 with ``encode="mxu"`` or
+    ``strategy="fused"`` (B6-B8) or ``threshold="adaptive"``, and
+    float8_e4m3fn and int8.
     """
     if isinstance(threshold, str):
         threshold_mode = threshold
     else:
         threshold_mode = "static"
-    check_kernel_legality(strategy=strategy, encode=encode, in_dtype=in_dtype,
-                          threshold_mode=threshold_mode)
+    in_dtype = check_kernel_legality(
+        strategy=strategy, encode=encode, in_dtype=in_dtype,
+        threshold_mode=threshold_mode, multifault=multifault)
+    dtype = resolve_in_dtype(in_dtype)
     if strategy == "fused":
         encode = "mxu"  # the fused strategy IS the weighted mxu encode
     adaptive = threshold_mode == "adaptive"
@@ -825,7 +885,8 @@ def make_ft_sgemm(
 
     def fn(a, b, c, inject: Optional[InjectionSpec] = None) -> FtSgemmResult:
         inject = inject or InjectionSpec.none()
-        a, b, c = (as_f32(x, dev) for x in (a, b, c))
+        a, b = (as_operand(x, dtype, dev) for x in (a, b))
+        c = as_f32(c, dev)
         m, n = c.shape
         ap, bp = pad_to(a, bm, bk), pad_to(b, bn, bk)
         cp = pad_to(c, bm, bn)
@@ -848,10 +909,12 @@ def make_ft_sgemm(
 
     fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"
                    + ("_mxu" if encode == "mxu" and strategy != "fused" else "")
-                   + ("_adaptive" if adaptive else ""))
+                   + ("_adaptive" if adaptive else "")
+                   + ("" if in_dtype == "float32" else f"_{in_dtype}"))
     fn.shape_config = shape
     fn.strategy = strategy
     fn.encode = encode
+    fn.in_dtype = in_dtype
     fn.threshold_mode = threshold_mode
     return fn
 
@@ -861,11 +924,13 @@ def ft_sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0,
              strategy: str = "weighted", encode: str = "vpu",
              threshold=REFERENCE_THRESHOLD,
              threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
-             check_every: Optional[int] = None,
-             multifault: Optional[bool] = None, device=None) -> FtSgemmResult:
+             check_every: Optional[int] = None, in_dtype="float32",
+             multifault: Optional[bool] = None,
+             device=None) -> FtSgemmResult:
     """One-shot fused-ABFT SGEMM (see :func:`make_ft_sgemm`)."""
     return make_ft_sgemm(
         shape, alpha=alpha, beta=beta, strategy=strategy, encode=encode,
         threshold=threshold, threshold_margin=threshold_margin,
-        check_every=check_every, multifault=multifault, device=device,
+        check_every=check_every, in_dtype=in_dtype,
+        multifault=multifault, device=device,
     )(a, b, c, inject)

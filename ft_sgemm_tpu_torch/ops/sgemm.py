@@ -8,6 +8,11 @@ CTA per tile at the large, tall, huge and test tiles, the 128 x 128 CTA
 at the others; on CPU tensors, in its plain PyTorch version (one FP32
 matmul: the function is the FP32 product, however the kernel computes
 it).
+
+``in_dtype="bfloat16"`` rounds A and B to bf16 (C and the accumulator stay
+f32, as in ``ft_sgemm_tpu/ops/sgemm.py:165-219``): on the card B1's bf16
+instantiation runs one bf16 wgmma per 16-deep k step on the operands as
+they land; the plain version multiplies the rounded values in FP32.
 """
 
 from __future__ import annotations
@@ -17,74 +22,115 @@ import functools
 
 import torch
 
-from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape
+from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, canonical_in_dtype
 from ft_sgemm_tpu_torch.ops._build import bind, check_launch, check_operands, library
-from ft_sgemm_tpu_torch.ops.common import as_f32, pad_to, resolve_device, strict_fp32
+from ft_sgemm_tpu_torch.ops.common import (
+    PRECISIONS,
+    as_f32,
+    as_operand,
+    pad_to,
+    resolve_device,
+    resolve_in_dtype,
+    strict_fp32,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    return bind(library("sgemm"), "ftsg_sgemm",
+def _entry(dtype: torch.dtype = torch.float32):
+    """B1's entry point for f32 or bf16 operands."""
+    name = {torch.float32: "ftsg_sgemm", torch.bfloat16: "ftsg_sgemm_bf16"}
+    return bind(library("sgemm"), name[dtype],
                 [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P])
 
 
 def sgemm_plain(a, b, c, alpha, beta) -> torch.Tensor:
-    """Plain PyTorch version of B1: one FP32 matmul and the alpha/beta
-    epilogue."""
+    """Plain PyTorch version of B1: one FP32 matmul of the (rounded)
+    operands and the alpha/beta epilogue."""
     strict_fp32()
-    return alpha * torch.matmul(a, b.T) + beta * c
+    return alpha * torch.matmul(a.float(), b.float().T) + beta * c
 
 
 def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
                  ) -> torch.Tensor:
     """B1 on operands already padded to ``shape``'s tile: a new (M, N)
-    tensor ``alpha * a @ b.T + beta * c``. A CUDA tensor launches the
-    kernel; a CPU tensor runs the plain version."""
+    tensor ``alpha * a @ b.T + beta * c``, A and B both f32 or both bf16.
+    A CUDA tensor launches the kernel (counted in ``launches``, or
+    ``bf16_launches``); a CPU tensor runs the plain version."""
     if a.device.type == "cpu":
         return sgemm_plain(a, b, c, alpha, beta)
     dims = check_operands(shape, a, b, c)
     out = torch.empty_like(c)
-    rc = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                  *dims, alpha, beta,
-                  torch.cuda.current_stream(a.device).cuda_stream)
-    sgemm_kernel.launches += 1
-    check_launch(rc, "ftsg_sgemm")
+    fn = _entry(a.dtype)
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), *dims,
+            alpha, beta, torch.cuda.current_stream(a.device).cuda_stream)
+    if a.dtype == torch.bfloat16:
+        sgemm_kernel.bf16_launches += 1
+    else:
+        sgemm_kernel.launches += 1
+    check_launch(rc, fn.__name__)
     return out
 
 
 sgemm_kernel.launches = 0
+sgemm_kernel.bf16_launches = 0
 
 
 def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
-               beta: float = -1.5, device=None):
+               beta: float = -1.5, precision: str = "highest",
+               in_dtype="float32", device=None):
     """Build the plain SGEMM for one named shape (or an explicit
     ``KernelShape``).
 
     Returns ``fn(a, b, c) -> C`` with ``C = alpha*A@B.T + beta*C`` for
     inputs of any (M, K)/(N, K)/(M, N) shapes (numpy arrays or tensors),
-    zero-padded to the tile and sliced back. ``device=None`` runs on CUDA.
-    The caller's ``c`` is never written.
+    zero-padded to the tile and sliced back. ``in_dtype="bfloat16"`` rounds
+    A and B to bf16 on the device (C and the accumulator stay f32).
+    ``precision`` (the JAX package's names) is there for parity with its
+    ``make_sgemm`` and changes nothing: the f32 kernels are 3xTF32,
+    FP32-accurate, and take ``"highest"`` only (any other raises
+    ``NotImplementedError``); a bf16 product is one pass whatever is asked.
+    float8_e4m3fn and int8 are not ported yet and raise
+    ``NotImplementedError``. ``device=None`` runs on CUDA.
+    The caller's ``c`` is never written. The tile is the paper's for every
+    dtype (the JAX package's bf16 tile overrides are TPU tuning).
     """
+    dtype = resolve_in_dtype(in_dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"in_dtype={canonical_in_dtype(in_dtype)!r} is not ported yet:"
+            " the plain kernels run float32 and bfloat16")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got"
+                         f" {precision!r}")
+    if dtype == torch.float32 and precision != "highest":
+        raise NotImplementedError(
+            f"precision={precision!r} with float32: the port's f32 kernels"
+            " run 3xTF32, FP32-accurate ('highest') only")
     if isinstance(shape, str):
         shape = SHAPES[shape]
     dev = resolve_device(device)
 
     def fn(a, b, c):
-        a, b, c = (as_f32(x, dev) for x in (a, b, c))
+        a, b = (as_operand(x, dtype, dev) for x in (a, b))
+        c = as_f32(c, dev)
         m, n = c.shape
         out = sgemm_kernel(pad_to(a, shape.bm, shape.bk),
                            pad_to(b, shape.bn, shape.bk),
                            pad_to(c, shape.bm, shape.bn), shape, alpha, beta)
         return out[:m, :n]
 
-    fn.__name__ = f"sgemm_{shape.name}"
+    name = canonical_in_dtype(in_dtype)
+    fn.__name__ = f"sgemm_{shape.name}" + (
+        "" if name == "float32" else f"_{name}")
     fn.shape_config = shape
+    fn.in_dtype = name
     return fn
 
 
 def sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0, beta=-1.5,
-          device=None):
+          in_dtype="float32", device=None):
     """One-shot plain SGEMM (see :func:`make_sgemm`)."""
-    return make_sgemm(shape, alpha=alpha, beta=beta, device=device)(a, b, c)
+    return make_sgemm(shape, alpha=alpha, beta=beta, in_dtype=in_dtype,
+                      device=device)(a, b, c)

@@ -12,10 +12,17 @@ loop body once), so they tell what a kernel carries beside its main loop,
 not how often it runs it. A kernel is labelled by its ``WgTile``'s
 parameters (CTA bm, bn, sub-tile bm, bn, moment rows per band, check
 scratch, band-row and moment-row sources) and its last template flag (B1's
-ragged store), and listed when the labels start with one of the named
-tiles (default: every kernel). Needs nvcc and cuobjdump:
+ragged store), "bf16" after it for a bf16 tile, and listed when the labels
+start with one of the named tiles (default: every kernel). Needs nvcc and cuobjdump:
 
     python3 scripts/torch_sass_census.py [TREE] [--tiles=128,128,16,16;64,64]
+
+``--diff`` takes two trees instead, builds both, and says for every
+kernel of the first tree's static libraries whether the second tree's
+kernel of the same label has the same instructions in the same order
+(operands included, addresses not):
+
+    python3 scripts/torch_sass_census.py --diff PARENT_TREE TREE
 """
 
 from __future__ import annotations
@@ -38,9 +45,8 @@ def cuobjdump() -> str:
     return path
 
 
-def census(sass: str) -> dict:
-    """{kernel label: Counter of instruction classes} for one library."""
-    out = {}
+def _kernels(sass: str):
+    """(label, SASS body) of each wgmma kernel in one library's dump."""
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
                                re.S):
         kind = re.search(r"ftsg\d+(?:adaptive\d+)?(\w+?_kernel)I", fn)
@@ -48,9 +54,19 @@ def census(sass: str) -> dict:
         if not (kind and wg):
             continue
         dims = re.findall(r"Li(\d+)E", wg.group(1))
+        # A ninth parameter is the operand type: f32 (0) keeps the labels of
+        # trees from before it, bf16 (1) is marked.
+        bf16 = len(dims) == 9 and dims.pop() == "1"
         flag = re.search(r"EELb([01])E", fn)
-        label = (f"{kind.group(1)}<{','.join(dims)}"
-                 + (f",{flag.group(1)}" if flag else "") + ">")
+        yield (f"{kind.group(1)}<{','.join(dims)}"
+               + (f",{flag.group(1)}" if flag else "") + ">"
+               + (" bf16" if bf16 else "")), body
+
+
+def census(sass: str) -> dict:
+    """{kernel label: Counter of instruction classes} for one library."""
+    out = {}
+    for label, body in _kernels(sass):
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
                          body)
         counts = collections.Counter(ops)
@@ -59,7 +75,50 @@ def census(sass: str) -> dict:
     return out
 
 
+def _dump(so: pathlib.Path) -> str:
+    return subprocess.run([cuobjdump(), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def instructions(sass: str) -> dict:
+    """{kernel label: its instructions in order, without addresses}."""
+    return {label: re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+            for label, body in _kernels(sass)}
+
+
+def diff(old_tree: str, new_tree: str) -> int:
+    """Print, per kernel of OLD_TREE's static libraries, whether NEW_TREE
+    compiles it to the same instruction sequence."""
+    roots = [pathlib.Path(t).resolve() for t in (old_tree, new_tree)]
+    # Each tree's static libraries, built in a process of its own (the
+    # packages share their module names), both at once.
+    builds = [subprocess.Popen([
+        sys.executable, "-c", f"import sys; sys.path.insert(0, {str(r)!r});"
+        " from ft_sgemm_tpu_torch.ops import _build; _build.build([n for n in"
+        " _build.KERNEL_LIBS if 'adaptive' not in n])"]) for r in roots]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("a tree did not build")
+    libs = {tree: {so.name.split("-")[0]: so for so in
+                   (r / "ft_sgemm_tpu_torch/csrc/_build").glob("lib*.so")}
+            for tree, r in zip((old_tree, new_tree), roots)}
+    for lib, so in sorted(libs[old_tree].items()):
+        if "adaptive" in lib or "hostutils" in lib or lib not in libs[new_tree]:
+            continue
+        new = instructions(_dump(libs[new_tree][lib]))
+        for label, old in instructions(_dump(so)).items():
+            if label not in new:
+                print(f"{lib} {label}: not in {new_tree}")
+            elif new[label] == old:
+                print(f"{lib} {label}: identical, {len(old)} instructions")
+            else:
+                print(f"{lib} {label}: differs, {len(old)} -> "
+                      f"{len(new[label])} instructions")
+    return 0
+
+
 def main(argv) -> int:
+    if "--diff" in argv:
+        return diff(*(a for a in argv[1:] if not a.startswith("--")))
     tree = next((a for a in argv[1:] if not a.startswith("--")), ".")
     tiles = ("",)
     for a in argv[1:]:
@@ -77,10 +136,9 @@ def main(argv) -> int:
     # A tree from before the adaptive libraries names its sources instead.
     for name in getattr(_build, "KERNEL_LIBS", None) or _build.KERNEL_SOURCES:
         print(name)
-        sass = subprocess.run([cuobjdump(), "-sass", str(_build.so_path(name))],
-                              capture_output=True, text=True, check=True).stdout
+        sass = _dump(_build.so_path(name))
         for label, counts in sorted(census(sass).items()):
-            dims = label[label.index("<") + 1:-1] + ","
+            dims = label[label.index("<") + 1:label.index(">")] + ","
             if any(dims.startswith(f"{tile},".lstrip(",")) for tile in tiles):
                 print(f"{label:44s}" + "".join(
                     f"{counts[c]:8d}" for c in CLASSES + ("total",)))

@@ -16,10 +16,12 @@ made once per tile outside the timed launches); each tree is measured in a
 fresh process per turn, the trees in order and then reversed
 (``torch_kernel_ab.turns``). Needs nvcc and a CUDA device:
 
-    python3 scripts/torch_variant_time.py [--kernels=B1,B2] [--tiles=large,tall] [--threshold=adaptive] TREE [TREE ...]
+    python3 scripts/torch_variant_time.py [--kernels=B1,B2] [--tiles=large,tall] [--threshold=adaptive] [--dtype=bfloat16] TREE [TREE ...]
 
 ``--kernels`` (default B3, B4, B6, B7, B8; B5 on request) and ``--tiles``
 (default the six program tiles) pick what is built and timed;
+``--dtype=bfloat16`` times the bf16 builds of B1-B5 (the ``*_bf16`` entry
+points, A and B rounded to bf16);
 ``--threshold=adaptive`` builds and times the adaptive builds of B3-B8 at
 the adaptive cadence (the default margin in slot 7); ``--magnitude=M``
 sets the reference-like faults' magnitude (default 1e4; 0: no faults).
@@ -34,7 +36,9 @@ DIR, a tree for the runs above. ``device-scalars`` hands B3-B8 their
 scalar argument through device memory instead of by value: no arithmetic
 changes, only where each consumer thread reads it from. On an H100 it made
 B6 at the small tile report fewer detections than the by-value build on
-the same launch (an open fault, ROADMAP Queue C):
+the same launch, until the fault injection stopped writing the accumulator
+and took unsigned hit tests (a ptxas fault; ROADMAP Queue C);
+``device-scalars-small`` builds it at the small tile only:
 
     python3 scripts/torch_variant_time.py --variant=device-scalars VAR
     python3 scripts/torch_variant_time.py --kernels=B6,B5 --tiles=small,huge . VAR
@@ -95,6 +99,20 @@ VARIANTS = {
          "bk, check_every, alpha, beta, scp, nm);"),
     ]},
 }
+# The same with the sub-tiled kernels built at the small tile only (a
+# quicker build of the kernel that the change moved: chip_smoke.py's
+# regression phase; its C++ symbols in a namespace of their own, so that it
+# loads beside the kernels' own library).
+VARIANTS["device-scalars-small"] = {
+    "csrc/ft_sgemm_running.cuh": VARIANTS["device-scalars"][
+        "csrc/ft_sgemm_running.cuh"] + [
+        ("  FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)\n#undef FTSG_LAUNCH_SUB",
+         "  FTSG_LAUNCH_SUB(16, 16)\n#undef FTSG_LAUNCH_SUB")],
+    "csrc/abft_common.cuh": [
+        ("#define FTSG_NAMESPACE_BEGIN namespace ftsg {\n"
+         "#define FTSG_NAMESPACE_END }\n",
+         "#define FTSG_NAMESPACE_BEGIN namespace ftsg { inline namespace v {\n"
+         "#define FTSG_NAMESPACE_END } }\n")]}
 
 
 def write_variant(name: str, dest: str) -> None:
@@ -128,7 +146,7 @@ def build(tree: str, kernels, adaptive: bool = False) -> None:
 
 
 def measure(tree: str, kernels, tiles, adaptive: bool = False,
-            magnitude: float = 1e4) -> dict:
+            magnitude: float = 1e4, bf16: bool = False) -> dict:
     """Milliseconds per launch of each kernel on each tile, and its counts."""
     _import_port(tree)
     import numpy as np
@@ -157,11 +175,13 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
             kind, [f, f, p, f, f, f, p])
         grids = 0 if kind == "sgemm" else 2
         entries[kern] = _build.bind(
-            _build.library(libs[kern]), entry,
+            _build.library(libs[kern]), entry + ("_bf16" if bf16 else ""),
             [p] * (n_in + 1 + grids) + [i] * (6 + n_int) + tail)
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
+    if bf16:
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     out = torch.empty_like(c)
     stream = torch.cuda.current_stream().cuda_stream
     row = {}
@@ -215,6 +235,7 @@ def main(argv) -> int:
     tiles = tuple(opts.get("--tiles", ",".join(TILES)).split(","))
     adaptive = opts.get("--threshold", "static") == "adaptive"
     magnitude = float(opts.get("--magnitude", 1e4))
+    bf16 = opts.get("--dtype", "float32") == "bfloat16"
     args = [a for a in argv[1:] if not (a.startswith("--") and "=" in a)]
     if "--variant" in opts and len(args) == 1 and opts["--variant"] in VARIANTS:
         write_variant(opts["--variant"], args[0])
@@ -224,18 +245,21 @@ def main(argv) -> int:
             build(args[1], kernels, adaptive)
         else:
             print(json.dumps(measure(args[1], kernels, tiles, adaptive,
-                                     magnitude)))
+                                     magnitude, bf16)))
         return 0
     trees = args
     if (not trees or any(t.startswith("--") for t in trees)
             or not set(kernels) <= set(KERNELS)
-            or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}):
+            or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}
+            or bf16 and (adaptive or not set(kernels) <= {
+                "B1", "B2", "B3", "B4", "B5"})):
         print(__doc__)
         return 2
     print(card(), flush=True)
     picks = (f"--kernels={','.join(kernels)}",
              f"--threshold={'adaptive' if adaptive else 'static'}",
-             f"--tiles={','.join(tiles)}", f"--magnitude={magnitude}")
+             f"--tiles={','.join(tiles)}", f"--magnitude={magnitude}",
+             f"--dtype={'bfloat16' if bf16 else 'float32'}")
     for name, row in turns(__file__, trees, *picks, build_args=picks[:2]):
         print(f"{name:19s} " + " ".join(
             f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"

@@ -110,8 +110,8 @@ def test_legality_raises_for_what_is_not_ported():
         make_ft_sgemm("huge", encode="tensor", device="cpu")
     with pytest.raises(ValueError, match="strategy"):
         make_ft_sgemm("huge", strategy="bogus", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_ft_sgemm("huge", in_dtype="bfloat16", device="cpu")
+    with pytest.raises(NotImplementedError):  # the mxu encodes run f32 only
+        make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu", device="cpu")
 
 
 @pytest.mark.cuda
@@ -134,3 +134,27 @@ def test_mxu_kernels_match_plain_on_card(cuda_device, name, kind, multifault):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert verify_matrix(want[0].cpu().numpy(), got[0].cpu().numpy(),
                          verbose=False)[0]
+
+
+@pytest.mark.parametrize("name", ["device-scalars", "device-scalars-small"])
+def test_device_scalars_variants_apply(name, tmp_path):
+    # B6's regression variants (scripts/torch_variant_time.py, the smoke's
+    # phase variant): each edit still finds its text in the kernels.
+    import pathlib
+    import sys
+
+    scripts = pathlib.Path(__file__).resolve().parents[1] / "scripts"
+    sys.path.insert(0, str(scripts))
+    try:
+        import torch_variant_time
+    finally:
+        sys.path.remove(str(scripts))
+    torch_variant_time.write_variant(name, str(tmp_path / "v"))
+    csrc = tmp_path / "v" / "ft_sgemm_tpu_torch" / "csrc"
+    running = (csrc / "ft_sgemm_running.cuh").read_text()
+    assert "const Scalars* __restrict__ scp" in running
+    assert ("FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)" in running) == (
+        name == "device-scalars")
+    assert ("inline namespace v" in (csrc / "abft_common.cuh").read_text()) \
+        == (name == "device-scalars-small")
+    assert not (csrc / "_build").exists()

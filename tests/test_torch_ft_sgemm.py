@@ -143,7 +143,7 @@ def test_unported_threshold_modes_raise(threshold):
     assert make_ft_sgemm("huge", threshold=threshold,
                          device="cpu").threshold_mode == threshold
     with pytest.raises(NotImplementedError):
-        make_ft_sgemm("huge", threshold=threshold, in_dtype="bfloat16",
+        make_ft_sgemm("huge", threshold=threshold, in_dtype="float8_e4m3fn",
                       device="cpu")
     with pytest.raises(ValueError, match="threshold"):
         make_ft_sgemm("huge", threshold=threshold + "x", device="cpu")

@@ -248,7 +248,8 @@ def test_legality_of_threshold_modes(mode):
                                           threshold_mode=mode)
     with pytest.raises(NotImplementedError):
         configs.check_kernel_legality(strategy="rowcol", encode="vpu",
-                                      in_dtype="bfloat16", threshold_mode=mode)
+                                      in_dtype="float8_e4m3fn",
+                                      threshold_mode=mode)
     with pytest.raises(ValueError):
         configs.check_kernel_legality(strategy="rowcol", encode="vpu",
                                       threshold_mode=mode + "-ish")
