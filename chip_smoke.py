@@ -25,8 +25,16 @@ inside a 16-deep k step too) and, clean, to within BF16_ACCURACY of max
 |C| of the f32 product of the rounded operands (C must stay f32), then
 the program in bf16 at 4096 under the weighted, rowcol and global
 strategies with the static and auto thresholds (verification, the table,
-clean runs that flag nothing and keep that accuracy), counted apart. And, as a regression, B6 at the small tile built with its
-scalar argument read from device memory
+clean runs that flag nothing and keep that accuracy), counted apart. The
+int8 input mode (``--dtype=int8``, the exact mode): B3's and B4's int8
+builds against their plain versions at every tile (checks inside a 32-deep
+s8 k step, faults every 1, 3 and 5 bk steps, data on ±9 and ±127, and
+checksums that wrap at K = 4096), grids and C equal bit for bit; then the
+program in int8 at 4096 under rowcol and global with the static, auto and
+adaptive thresholds (verification of ids 0 and 11-16, the table, clean
+runs that flag nothing, unit faults caught under adaptive and missed under
+static), counted apart. And, as a regression, B6 at the small tile built
+with its scalar argument read from device memory
 (``scripts/torch_variant_time.py --variant=device-scalars-small``) must
 count every fault, as its by-value build does.
 Prints one line per phase, a ``kernels`` JSON line with each kernel's
@@ -65,6 +73,7 @@ TIMING_SIZE = 4096
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # The tiles on which B1's accuracy is held: every program tile, since every
 # kernel runs the 3xTF32 wgmma mainloop at every tile (B1 on the tile's own
@@ -120,6 +129,17 @@ ODD_EVERY = 5
 # operands (the kernels measured ~1e-6 of it; C or a stage sum rounded to
 # bf16 costs ~2e-3, and the smoke checks that such a rounding fails it).
 BF16_ACCURACY = 1e-4
+# The int8 slice (the exact mode): its kernels (B3, B4), threshold modes,
+# extra fault periods in bk steps (every 1 and 3: several faults or one a
+# check interval; ODD_EVERY besides), and the data: the program's lattice
+# ±9, the full ±127 at INT8_WIDE_SIZE, and [INT8_WRAP_LOW, 127] at K =
+# TIMING_SIZE, where the band checksums of the 64- and 128-wide tiles and
+# every global tile total pass 2^31 and wrap.
+INT8_KINDS = ("rowcol", "global")
+INT8_MODES = ("static", "auto", "adaptive")
+INT8_EVERY = (1, 3, ODD_EVERY)
+INT8_WIDE_SIZE = 1000
+INT8_WRAP_LOW = 100
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
 VARIANT = "device-scalars-small"
@@ -194,6 +214,10 @@ class Kernels:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_bf16"] = dict(
                 static, counter="bf16_launches")
+        for kind in INT8_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            self.table[KIND_NAMES[kind] + "_int8"] = dict(
+                static, counter="int8_launches")
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
 
@@ -230,12 +254,15 @@ class Kernels:
         schedule) may be miscorrected differently by the two — the weighted
         ratio can fall on a rounding tie — so its C is not compared. The
         detect-only global kernels correct nothing: both sides keep the
-        same faults, and C is compared everywhere."""
+        same faults, and C is compared everywhere. The int8 builds are
+        exact: C must equal the plain version's bit for bit everywhere
+        (both round alpha * f32(acc) and beta * C on their own)."""
         name = kernel_name(kind, a, adaptive)
         run, plain = self.calls(kind, shape, a, b, c, scalars, check_every,
                                 multifault, adaptive)
         got, want = run(), plain()
         torch.cuda.synchronize()
+        self.last = got  # the kernel's result, for a caller's own checks
         out, ref = (got, want) if kind == "sgemm" else (got[0], want[0])
         mask = torch.ones_like(out, dtype=torch.bool)
         if kind != "sgemm":
@@ -248,6 +275,11 @@ class Kernels:
             if kind not in DETECT_ONLY:
                 mask = (unc == 0).repeat_interleave(
                     shape.bm, 0).repeat_interleave(shape.bn, 1)
+        if a.dtype == torch.int8 and not torch.equal(out, ref):
+            nbad = int((out != ref).sum())
+            raise AssertionError(
+                f"{name} {shape.name} {tuple(a.shape)}: C differs from the"
+                f" plain version at {nbad} elements (int8: bit for bit)")
         diff = (out.double() - ref.double()).abs()
         bad = mask & (((diff > 0.01) & (diff > 0.01 * ref.double().abs()))
                       | ~torch.isfinite(out))
@@ -302,7 +334,7 @@ def bf16_control(oracle, what):
 def kernel_name(kind, a, adaptive=False):
     """The ``Kernels`` table's name of kernel ``kind`` on A ``a``."""
     return (KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
-            + ("_bf16" if a.dtype == torch.bfloat16 else ""))
+            + {torch.bfloat16: "_bf16", torch.int8: "_int8"}.get(a.dtype, ""))
 
 
 def start_variant_build():
@@ -361,8 +393,8 @@ def ptxas_summary(text: str):
     source's ``-Xptxas -v`` log (names demangled just enough to tell the
     kernels apart: a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per
     band and the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows``
-    and ``MomentRows``, then B1's ragged-store flag, and ``bf16`` for a bf16
-    tile)."""
+    and ``MomentRows``, then B1's ragged-store flag, and ``bf16`` or ``s8``
+    for a bf16 or int8 tile)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
@@ -372,10 +404,11 @@ def ptxas_summary(text: str):
         ragged = re.search(r"EELb(\d)E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        bf16 = re.search(r"WgTileI(?:Li\d+E){8}Li1E", fn)
+        in_type = re.search(r"WgTileI(?:Li\d+E){8}Li(\d)E", fn)
+        in_tag = {"1": ["bf16"], "2": ["s8"]}.get(
+            in_type.group(1) if in_type else "0", [])
         tag = ",".join(re.findall(r"\d+", dims.group(1)) + list(rows.groups())
-                       + ([ragged.group(1)] if ragged else [])
-                       + (["bf16"] if bf16 else []))
+                       + ([ragged.group(1)] if ragged else []) + in_tag)
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
@@ -384,14 +417,17 @@ def ptxas_summary(text: str):
 
 
 def _padded(host, shape, dtype=torch.float32):
-    """Host (A, B, C) on the card, A and B rounded to ``dtype``, padded to
-    the tile as the entry points pad them."""
-    from ft_sgemm_tpu_torch.ops.common import as_operand, pad_to
+    """Host (A, B, C) on the card, A and B rounded (int8: truncated) to
+    ``dtype``, padded to the tile as the entry points pad them (an int8
+    operand's rows 16 bytes apart)."""
+    from ft_sgemm_tpu_torch.ops.common import align_rows16, as_operand, pad_to
 
     a, b = (as_operand(x, dtype, torch.device("cuda")) for x in host[:2])
     c = torch.from_numpy(host[2]).cuda()
-    return (pad_to(a, shape.bm, shape.bk), pad_to(b, shape.bn, shape.bk),
-            pad_to(c, shape.bm, shape.bn))
+    a, b = pad_to(a, shape.bm, shape.bk), pad_to(b, shape.bn, shape.bk)
+    if dtype == torch.int8:
+        a, b = align_rows16(a), align_rows16(b)
+    return a, b, pad_to(c, shape.bm, shape.bn)
 
 
 def _random(m, n, k, gen):
@@ -625,6 +661,196 @@ def phase_bf16_path(kern: Kernels):
                if k["counter"] == "bf16_launches" and counts[name] == 0]
     if missing:
         raise AssertionError(f"bf16 kernels never launched on the bf16"
+                             f" path: {missing}")
+    return counts, tables
+
+
+def _int8_host(m, n, k, gen, low, high):
+    """Host (A, B, C): A and B integer-valued in [low, high], C standard
+    normal."""
+    return (gen.integers(low, high + 1, (m, k)).astype(np.float32),
+            gen.integers(low, high + 1, (n, k)).astype(np.float32),
+            gen.standard_normal((m, n)).astype(np.float32))
+
+
+def phase_int8_kernels(kern: Kernels):
+    """The int8 builds of B3 and B4 against their plain versions (the exact
+    tile algorithm on the same int8 operands) at every tile of the port's
+    table: at SIZES on the program's lattice ±9 and at INT8_WIDE_SIZE on
+    ±127, clean, reference-like, col_stride=0 and with faults every bk step
+    of INT8_EVERY, each at the program's cadence and every MID_STAGE_EVERY
+    bk steps (at bk = 8 and 16 a check inside a 32-deep s8 k step); then at
+    K = TIMING_SIZE on data in [INT8_WRAP_LOW, 127], whose checksums wrap,
+    clean and reference-like at the program's cadence. Grids and C equal
+    bit for bit; where a check interval holds at most one fault, every
+    fault detected (rowcol: each corrected, none uncorrectable; global:
+    one event each, uncorrected)."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    ft = kern.ft
+    gen = np.random.default_rng(37)
+    before = dict(kern.checked)
+    counted, wraps = 0, {}
+    t0 = time.perf_counter()
+
+    def hold(kind, shape, a, b, c, inj, ce):
+        nonlocal counted
+        kern.hold(kind, shape, a, b, c, _scalars(inj), ce)
+        _, det, unc = kern.last
+        nk = a.shape[1] // shape.bk
+        if inj.enabled and inj.every >= ce:
+            tiles = det.numel()
+            want = tiles * len(range(0, nk, inj.every))
+            ok = int(det.sum()) == want and int(unc.sum()) == (
+                want if kind == "global" else 0)
+            if not ok:
+                raise AssertionError(
+                    f"{KIND_NAMES[kind]}_int8 {shape.name} {tuple(a.shape)}"
+                    f" every {inj.every}, check every {ce}: detected"
+                    f" {int(det.sum())} of {want}, {int(unc.sum())}"
+                    f" uncorrectable")
+            counted += 1
+
+    for shape in SHAPES.values():
+        runs = [(size, -9, 9) for size in SIZES]
+        runs += [(INT8_WIDE_SIZE, -127, 127)]
+        for size, low, high in runs:
+            a, b, c = _padded(_int8_host(size, size, size, gen, low, high),
+                              shape, torch.int8)
+            nk = a.shape[1] // shape.bk
+            ref = InjectionSpec.reference_like(size, shape.bk)
+            scheds = [InjectionSpec.none(), ref,
+                      InjectionSpec(True, ref.every, col_stride=0)]
+            scheds += [InjectionSpec(True, e) for e in INT8_EVERY]
+            for inj in scheds:
+                for kind in INT8_KINDS:
+                    ce = ft._plan(kind, None, False, inj, nk, shape.bn)[1]
+                    for every in sorted({ce, MID_STAGE_EVERY}):
+                        hold(kind, shape, a, b, c, inj, every)
+        host = _int8_host(512, 512, TIMING_SIZE, gen, INT8_WRAP_LOW, 127)
+        a, b, c = _padded(host, shape, torch.int8)
+        prod = (torch.from_numpy(host[0]).cuda().double()
+                @ torch.from_numpy(host[1]).cuda().double().T)
+        wraps[shape.name] = (
+            float(prod.reshape(512, -1, shape.bn).sum(-1).max()) > 2 ** 31,
+            float(prod.reshape(-1, shape.bm, 512).sum(1).max()) > 2 ** 31,
+            float(prod.reshape(512 // shape.bm, shape.bm, -1, shape.bn)
+                  .sum((1, 3)).min()) > 2 ** 31)
+        for inj in (InjectionSpec.none(),
+                    InjectionSpec.reference_like(TIMING_SIZE, shape.bk)):
+            for kind in INT8_KINDS:
+                ce = ft._plan(kind, None, False, inj, a.shape[1] // shape.bk,
+                              shape.bn)[1]
+                hold(kind, shape, a, b, c, inj, ce)
+    done = {k: n - before[k] for k, n in kern.checked.items()
+            if n - before[k]}
+    log(f"phase int8 kernels: {done} comparisons with the plain versions"
+        f" pass (grids and C equal bit for bit), {counted} of them with at"
+        f" most one fault a check interval detecting every fault; at K ="
+        f" {TIMING_SIZE} on [{INT8_WRAP_LOW}, 127] the checksums that pass"
+        f" 2^31 (row band, column band, every tile total) at each tile:"
+        f" {wraps} ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_int8_path(kern: Kernels):
+    """The ``ft_sgemm`` program with ``--dtype=int8`` at VERIFY_SIZE, with
+    the launch counters set to 0 just before and read just after: (b) the
+    verification (ids 0 and 11-16; 1-6 and 10 print their skip line) under
+    rowcol and global with the static, auto and adaptive thresholds, every
+    fault detected (global: every event, each uncorrectable; rowcol: none
+    uncorrectable); the int8 GFLOPS table at TIMING_SIZE (ids 0 and 11-16)
+    under both strategies; (c) clean runs of ids 11-16 in every strategy
+    and mode flag nothing and give the exact oracle's C bit for bit; (d)
+    reference-like faults of magnitude 1, which the static 9500 misses
+    (nothing detected, C keeps them) and adaptive's 0.5 catches (rowcol:
+    each corrected, C the oracle's; global: every event), auto's verdict
+    logged. Every int8 kernel must have launched."""
+    from ft_sgemm_tpu_torch import cli, runtime
+    from ft_sgemm_tpu_torch.configs import kernel_for_id
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops.common import as_f32
+    from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
+    from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
+
+    n = VERIFY_SIZE
+    kern.zero_counts()
+    t0 = time.perf_counter()
+    for strategy in INT8_KINDS:
+        for mode in INT8_MODES:
+            details = {}
+            ok = cli.run_verification(n, 0, 16, strategy=strategy,
+                                      threshold=mode, in_dtype="int8",
+                                      details=details)
+            for kid, d in details.items():
+                if d["detected"] != d["expected"] or d["uncorrectable"] != (
+                        d["detected"] if strategy == "global" else 0):
+                    ok = False
+            if not ok or sorted(details) != list(range(11, 17)):
+                raise AssertionError(f"int8 {strategy} threshold {mode}:"
+                                     f" {details}")
+            log(f"phase verify int8 {strategy} threshold {mode}: ids 0, 11-16"
+                f" pass at {n}; detected/expected faults "
+                + ", ".join(f"{k}:{d['detected']}/{d['expected']}"
+                            for k, d in sorted(details.items())))
+    tables = {}
+    for strategy in INT8_KINDS:
+        tables[strategy] = cli.run_perf_table(
+            TIMING_SIZE, TIMING_SIZE, 1, 0, 16, min_device_time=PERF_MINTIME,
+            strategy=strategy, in_dtype="int8")
+    a, b = (cli.quantize_for_dtype(x, "int8")
+            for x in runtime.generate_reference_driver_inputs(n))
+    a, b, c = (as_f32(x, "cuda") for x in (a, b, np.zeros_like(a)))
+    want = sgemm_reference(a, b, c, kern.alpha, kern.beta, in_dtype="int8",
+                           device="cuda")
+    unit = {}
+    for strategy in INT8_KINDS:
+        for kid in range(11, 17):
+            _, shape, _ = kernel_for_id(kid)
+            inj = InjectionSpec.reference_like(n, shape.bk, magnitude=1.0)
+            tiles = -(-n // shape.bm) * -(-n // shape.bn)
+            expected = tiles * inj.expected_faults(n, shape.bk)
+            for mode in INT8_MODES:
+                ft = make_ft_sgemm(shape.name, alpha=kern.alpha,
+                                   beta=kern.beta, strategy=strategy,
+                                   threshold=mode, in_dtype="int8",
+                                   device="cuda")
+                what = f"int8 {strategy} id {kid} threshold {mode}"
+                clean = ft(a, b, c)
+                if (int(clean.num_detected) or int(clean.num_uncorrectable)
+                        or not torch.equal(clean.c, want)):
+                    raise AssertionError(
+                        f"{what}: a clean run flagged"
+                        f" {int(clean.num_detected)}, C off the oracle at"
+                        f" {int((clean.c != want).sum())} elements")
+                res = ft(a, b, c, inj)
+                det, unc = int(res.num_detected), int(res.num_uncorrectable)
+                nbad = int((res.c != want).sum())
+                unit[what] = (det, unc, nbad)
+                if mode == "static":
+                    ok = det == 0 and nbad > 0
+                elif mode == "auto":
+                    ok = True   # logged: auto's floor is data's, not 0.5
+                elif strategy == "global":
+                    ok = det == expected and unc == det
+                else:
+                    ok = det == expected and unc == 0 and nbad == 0
+                if not ok:
+                    raise AssertionError(
+                        f"{what}, faults of magnitude 1: detected {det} of"
+                        f" {expected}, uncorrectable {unc}, {nbad} elements"
+                        f" off the oracle")
+    counts = kern.counts()
+    log(f"phase int8 clean: ids 11-16 under {INT8_KINDS}, {INT8_MODES}, flag"
+        f" nothing at {n}, C equal to the exact oracle's bit for bit")
+    log(f"phase int8 unit faults (magnitude 1, (detected, uncorrectable,"
+        f" elements off)): {unit}")
+    log(f"phase int8 path: {time.perf_counter() - t0:.1f} s, launches"
+        f" {counts}")
+    missing = [name for name, k in kern.table.items()
+               if k["counter"] == "int8_launches" and counts[name] == 0]
+    if missing:
+        raise AssertionError(f"int8 kernels never launched on the int8"
                              f" path: {missing}")
     return counts, tables
 
@@ -1150,10 +1376,11 @@ SAME_FUNCTION = {"fused": "running", "rowcol_mxu": "rowcol",
 
 
 def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
-         bf16=False):
+         bf16=False, int8=False):
     """(flops, bytes) that one launch's function needs at M = N = K = n.
     An FMA counts as two flops; each input is read once and each output
-    written once (A and B two bytes an element with ``bf16``). Beyond the product and the alpha/beta epilogue: each
+    written once (A and B two bytes an element with ``bf16``, one with
+    ``int8``). Beyond the product and the alpha/beta epilogue: each
     check's sums over the output (weighted: moments 1, w, w^2 by add, FMA,
     FMA; rowcol: row and column sums, plus the w-weighted column sums in
     multifault mode; global: one sum of the tile) and, for the kernels
@@ -1167,7 +1394,8 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
     gm, gn = n // shape.bm, n // shape.bn
     tiles = gm * gn
     flops = 2.0 * n ** 3 + 3 * mn           # product; alpha*acc + beta*C
-    nbytes = (2.0 * (2 if bf16 else 4) + 4.0 * 2) * mn  # A, B, C; out
+    esize = 1 if int8 else 2 if bf16 else 4
+    nbytes = (2.0 * esize + 4.0 * 2) * mn  # A, B, C; out
     if kind == "sgemm":
         return flops, nbytes
     nbytes += 4.0 * 2 * tiles               # det, unc
@@ -1194,14 +1422,15 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
 
 
 def _bound(flops: float, nbytes: float, tc_products: float = 0.0,
-           bf16: bool = False):
+           bf16: bool = False, int8: bool = False):
     """(ms, bound_by): the larger of the operations over their peak rate
     and the bytes over the memory rate. ``tc_products`` of the flops are
     products that run as three TF32 products each on the tensor cores (the
-    3xTF32 wgmma kernels), or once at the bf16 rate with ``bf16``; the rest
-    run at the FP32 rate."""
-    tc = tc_products / PEAK_BF16_FLOPS if bf16 else (
-        3 * tc_products / PEAK_TF32_FLOPS)
+    3xTF32 wgmma kernels), or once at the bf16 rate with ``bf16``, at the
+    int8 rate with ``int8``; the rest run at the FP32 rate."""
+    tc = (tc_products / PEAK_INT8_OPS if int8 else
+          tc_products / PEAK_BF16_FLOPS if bf16 else
+          3 * tc_products / PEAK_TF32_FLOPS)
     t_ops = tc + (flops - tc_products) / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -1312,6 +1541,58 @@ def phase_bf16_timing(kern: Kernels, counts):
             f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
             f" torch.matmul bf16 {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
             f" ({bound_by})")
+    return list(rows.values())
+
+
+def phase_int8_timing(kern: Kernels, counts):
+    """Each int8 build at 4096 on every tile the int8 program launches it
+    on, at its cadence (the program's lattice inputs): the kernel, its plain
+    version, ``torch._int_mm`` on the same int8 operands (cuBLASLt, int32
+    out) and the bound (the product and the expected sums the function
+    needs at the int8 rate; the bytes with A and B one byte an element).
+    Returns the ``kernels`` rows, one per kernel (its first row); ``counts``
+    are the int8 path's launches."""
+    from ft_sgemm_tpu_torch import cli
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    ft = kern.ft
+    n = TIMING_SIZE
+    host = cli._host_inputs(n, "int8")
+    rows = {}
+    for kind in INT8_KINDS:
+        for tile in PROGRAM_TILES:
+            shape = SHAPES[tile]
+            a, b, c = _padded(host, shape, torch.int8)
+            name = KIND_NAMES[kind] + "_int8"
+            inj = InjectionSpec.reference_like(n, shape.bk)
+            plan, ce, mf = ft._plan(kind, None, False, inj, n // shape.bk,
+                                    shape.bn)
+            if plan != kind or mf:
+                raise AssertionError(f"the int8 program runs {plan} (mf {mf})"
+                                     f" at {tile}, not {kind}")
+            run, plain = kern.calls(kind, shape, a, b, c, _scalars(inj), ce)
+            ms = cuda_ms(run, reps=5)
+            plain_ms = cuda_ms(plain)
+            library_ms = cuda_ms(lambda: torch._int_mm(a, b.T), reps=5)
+            flops, nbytes = work(kind, shape, n, ce, int8=True)
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        tc_products(kind, shape, n),
+                                        int8=True)
+            rows.setdefault(name, {
+                "name": name, "route": "cuda",
+                "source": kern.table[name]["source"],
+                "replaces": kern.table[name]["replaces"],
+                "launches": counts[name], "max_abs_err": kern.max_err[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
+                "mainloop": _build.mainloop(kind, shape, "int8")})
+            log(f"phase timing {name} ({tile}, wgmma-s8, {n}, check every"
+                f" {ce}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
+                f" torch._int_mm {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
+                f" ({bound_by})")
     return list(rows.values())
 
 
@@ -1549,6 +1830,7 @@ def main() -> int:
     smi, variant = phase_device()
     phase_variant(kern, variant)
     phase_bf16_kernels(kern)
+    phase_int8_kernels(kern)
     phase_adaptive_kernels(kern)
     phase_adaptive_bracket(kern)
     phase_kernels(kern)
@@ -1557,8 +1839,10 @@ def main() -> int:
     counts, _ = phase_main_path(kern)
     threshold_counts = phase_threshold_path(kern)
     bf16_counts, _ = phase_bf16_path(kern)
+    int8_counts, _ = phase_int8_path(kern)
     rows = phase_timing(kern, counts, threshold_counts)
     rows += phase_bf16_timing(kern, bf16_counts)
+    rows += phase_int8_timing(kern, int8_counts)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -20,7 +20,8 @@ Two passes, like ``main()`` there and ``ft_sgemm_tpu/cli.py:494-621``:
 Usage:
     python -m ft_sgemm_tpu_torch.cli 1024 6144 512 0 16 \
         [--strategy=weighted|rowcol|global|fused] [--encode=vpu|mxu] \
-        [--threshold=static|auto|adaptive|FLOAT] [--dtype=float32|bfloat16] \
+        [--threshold=static|auto|adaptive|FLOAT] \
+        [--dtype=float32|bfloat16|int8] \
         [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
 
 ``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
@@ -38,12 +39,19 @@ rounded to bf16 (the vendor row as ``torch.matmul`` on bf16 tensors, whose
 output is bf16; the hand kernels on bf16 wgmma; the two-pass baseline on
 the rounded operands), verified against the f32 product of the rounded
 operands. bf16 runs the weighted, rowcol and global strategies with
-``--encode=vpu`` under the static and auto thresholds; the other dtypes
-and combinations raise ``NotImplementedError``
-(``configs.check_kernel_legality``). Without ``--strategy`` the dtype's
-default strategy runs (``configs.DEFAULT_STRATEGY``). ``--device=cpu`` runs
-the kernels' plain PyTorch versions (for tests); the default is the GPU,
-and the program raises when there is none.
+``--encode=vpu`` under the static and auto thresholds. ``int8`` runs the
+exact mode (``ft_sgemm_tpu/cli.py:167-172``): A and B are scaled to the
+integer lattice ±{0..9} (``np.round(x * 10)``, C as generated), the FT
+rows (ids 11-16) run rowcol (the default) or global with int32
+accumulators and checksums that wrap, under every threshold mode, against
+the exact int32 oracle (id 0: ``torch._int_mm`` and the f32 epilogue), and
+the rows that accumulate in f32 (ids 1-6 and the baseline, 10) print a
+skip line. The other dtypes and combinations raise
+``NotImplementedError`` (``configs.check_kernel_legality``). Without
+``--strategy`` the dtype's default strategy runs
+(``configs.DEFAULT_STRATEGY``). ``--device=cpu`` runs the kernels' plain
+PyTorch versions (for tests); the default is the GPU, and the program
+raises when there is none.
 """
 
 from __future__ import annotations
@@ -92,12 +100,14 @@ def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device,
 
 
 def _vendor(device, in_dtype="float32"):
-    """Id 0, the vendor GEMM: in f32 the oracle itself (cuBLAS through
-    ``torch.matmul``, TF32 off); in bf16 ``torch.matmul`` on the rounded
-    bf16 operands, whose output is bf16 (the library's bf16 GEMM, the
-    yardstick of speed), then the f32 alpha / beta epilogue."""
-    if canonical_in_dtype(in_dtype) == "float32":
+    """Id 0, the vendor GEMM: in f32 and int8 the oracle itself (cuBLAS
+    through ``torch.matmul``, TF32 off; in int8 ``torch._int_mm`` exact in
+    int32); in bf16 ``torch.matmul`` on the rounded bf16 operands, whose
+    output is bf16 (the library's bf16 GEMM, the yardstick of speed), then
+    the f32 alpha / beta epilogue."""
+    if canonical_in_dtype(in_dtype) in ("float32", "int8"):
         return lambda a, b, c: sgemm_reference(a, b, c, ALPHA, BETA,
+                                               in_dtype=in_dtype,
                                                device=device)
     dtype = resolve_in_dtype(in_dtype)
     dev = resolve_device(device)
@@ -128,6 +138,25 @@ def _build_callable(kernel_id: int, size: int, inject_ft: bool,
     return lambda a, b, c: ft(a, b, c, inj).c
 
 
+def _int8_capable(kernel_id: int) -> bool:
+    """Whether a kernel id runs in the int8 mode (ft_sgemm_tpu/cli.py:
+    386-391): the oracle row and the FT rows, whose kernels carry the exact
+    int32 path; the plain rows and the two-pass baseline accumulate in f32
+    and are skipped."""
+    _, _, is_abft = kernel_for_id(kernel_id)
+    return kernel_id == 0 or (is_abft and kernel_id != 10)
+
+
+def quantize_for_dtype(x: np.ndarray, in_dtype) -> np.ndarray:
+    """The int8 mode's inputs (ft_sgemm_tpu/cli.py:435-443): the generator's
+    ±{0, .1, .., .9} scaled to the integer lattice ±{0..9} (the int8 cast
+    truncates fractions, so the unscaled values would all be 0); other
+    dtypes pass through."""
+    if canonical_in_dtype(in_dtype) == "int8":
+        return np.round(x * 10.0).astype(np.float32)
+    return x
+
+
 def print_device_info(device, out=None) -> None:
     """Hardware line before any results (the reference's ``getDetails``,
     ``utils/utils.cu:8-13``)."""
@@ -142,11 +171,12 @@ def print_device_info(device, out=None) -> None:
 
 
 @functools.lru_cache(maxsize=1)
-def _host_inputs(size: int):
+def _host_inputs(size: int, in_dtype: str = "float32"):
     """Host A/B/C for one sweep size, generated once per size (the sweep is
-    size-major)."""
+    size-major); A and B on the int8 lattice in the int8 mode."""
     rng = np.random.default_rng(10)
-    return tuple(generate_random_matrix(size, size, rng=rng) for _ in range(3))
+    a, b, c = (generate_random_matrix(size, size, rng=rng) for _ in range(3))
+    return quantize_for_dtype(a, in_dtype), quantize_for_dtype(b, in_dtype), c
 
 
 def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
@@ -183,8 +213,10 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                      encode: str = "vpu", threshold="static",
                      in_dtype="float32") -> bool:
     """Pass 1: diff every selected kernel against the ``torch.matmul``
-    oracle (in bf16: the f32 product of the bf16-rounded inputs, after a
-    header line naming the dtype). A and B are the reference binary's
+    oracle (in bf16: the f32 product of the bf16-rounded inputs; in int8:
+    the exact int32 product of the inputs scaled to the integer lattice;
+    after a header line naming the dtype; in int8 the ids that accumulate
+    in f32 print a skip line). A and B are the reference binary's
     post-``srand(10)`` buffers (``runtime.generate_reference_driver_inputs``);
     C starts zeroed. The FT rows run under ``threshold`` (a float or a mode
     of ``configs.THRESHOLD_MODES``).
@@ -197,13 +229,17 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
     """
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
-    a, b = runtime.generate_reference_driver_inputs(end_size)
+    a, b = (quantize_for_dtype(x, in_dtype)
+            for x in runtime.generate_reference_driver_inputs(end_size))
     c = np.zeros((end_size, end_size), np.float32)  # fill_vector(C,0)
     a, b, c = (as_f32(x, dev) for x in (a, b, c))
     want = sgemm_reference(a, b, c, ALPHA, BETA, in_dtype=in_dtype,
                            device=dev).cpu().numpy()
     dtype = canonical_in_dtype(in_dtype)
-    if dtype != "float32":
+    if dtype == "int8":
+        print("Verification in int8: A and B on the integer lattice"
+              " ±{0..9}, against their exact int32 product", file=out)
+    elif dtype != "float32":
         print(f"Verification in {dtype}: A and B rounded to {dtype}, against"
               f" the f32 product of the rounded inputs", file=out)
     all_ok = True
@@ -211,6 +247,11 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         if kernel_id < st_kernel or kernel_id > end_kernel:
             continue
         name, shape, is_abft = kernel_for_id(kernel_id)
+        if dtype == "int8" and not _int8_capable(kernel_id):
+            print(f"Verification of kernel {kernel_id:2d} ({name:20s}): "
+                  "skipped (int8 runs the FT rows' int32-exact kernels"
+                  " only)", file=out)
+            continue
         if is_abft and kernel_id != 10 and strategy == "global":
             ok, status, res, expected = _verify_global_strategy(
                 kernel_id, end_size, a, b, c, want, encode, dev, threshold,
@@ -261,16 +302,25 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
                    in_dtype="float32") -> dict:
     """Pass 2: the GFLOPS table (format parity with sgemm.cu:240-439),
     measured size-major, printed row-major, its header naming a dtype other
-    than float32; per-cell progress on stderr."""
+    than float32; per-cell progress on stderr (in int8 also the rows it
+    skips)."""
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
     sizes = list(range(start_size, end_size + 1, gap_size))
     row_ids = [kid for kid in PERF_ROW_IDS if st_kernel <= kid <= end_kernel]
+    dtype = canonical_in_dtype(in_dtype)
+    if dtype == "int8":
+        skipped = [kid for kid in row_ids if not _int8_capable(kid)]
+        if skipped:
+            print(f"ft_sgemm: int8 mode skips rows {skipped} (plain/"
+                  "baseline kernels accumulate f32; the FT rows carry the"
+                  " int32-exact path)", file=sys.stderr, flush=True)
+        row_ids = [kid for kid in row_ids if _int8_capable(kid)]
     cells = {}
     for size in sizes:
         print(f"ft_sgemm: measuring size {size} "
               f"({len(row_ids)} kernel rows)...", file=sys.stderr, flush=True)
-        a, b, c = (as_f32(x, dev) for x in _host_inputs(size))
+        a, b, c = (as_f32(x, dev) for x in _host_inputs(size, dtype))
         for kernel_id in row_ids:
             fn = _build_callable(kernel_id, size, True, strategy, encode, dev,
                                  threshold, in_dtype)
@@ -282,7 +332,6 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
             print(f"ft_sgemm: {name} @ {size}: {gf:8.0f} GFLOPS",
                   file=sys.stderr, flush=True)
 
-    dtype = canonical_in_dtype(in_dtype)
     print("################## Performance (GFLOPS) ########################"
           if dtype == "float32" else
           f"################## Performance (GFLOPS, {dtype}) ##############",
@@ -357,6 +406,10 @@ def main(argv=None) -> int:
             return 2
     if strategy is None:
         strategy = DEFAULT_STRATEGY[in_dtype]
+        if in_dtype == "int8":
+            print(f"--dtype=int8: defaulting --strategy={strategy}"
+                  " (weighted-ratio localization is illegal for int8)",
+                  file=sys.stderr)
     # What the port does not run yet raises here, before any work.
     check_kernel_legality(
         strategy=strategy, encode=encode, in_dtype=in_dtype,

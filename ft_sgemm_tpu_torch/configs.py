@@ -86,12 +86,14 @@ THRESHOLD_MODES = ("static", "auto", "adaptive")
 IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
 # The dtypes the port runs so far, and the (strategy, encode) pairs and
 # threshold modes it runs them under (the vpu encodes of bf16 on kernels
-# B1-B5; the mxu encodes and "adaptive" in bf16, fp8 and int8 are still to
+# B1-B5; int8's exact mode on B3 and B4, where "adaptive" is the constant
+# half-ulp; the mxu encodes and "adaptive" in bf16, and fp8, are still to
 # port, ROADMAP Queue B).
 PORTED = {
     "float32": (STRATEGIES, ENCODE_MODES, THRESHOLD_MODES),
     "bfloat16": (("rowcol", "global", "weighted"), ("vpu",),
                  ("static", "auto")),
+    "int8": (("rowcol", "global"), ("vpu",), THRESHOLD_MODES),
 }
 
 # Accepted spellings of the fp8 dtype (ft_sgemm_tpu/configs.py:431).
@@ -158,8 +160,8 @@ def check_kernel_legality(*, strategy: str, encode: str,
     (``encode="mxu"`` or ``strategy="fused"`` with fp8 or int8), and the
     weighted-ratio localization (``weighted``, ``fused``, multifault) on
     int8's wrapping checksums. What is legal but not ported yet raises
-    ``NotImplementedError`` (:data:`PORTED`): fp8 and int8, and bf16 with
-    the mxu encodes (B6-B8) or ``threshold="adaptive"``."""
+    ``NotImplementedError`` (:data:`PORTED`): fp8, and bf16 with the mxu
+    encodes (B6-B8) or ``threshold="adaptive"``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -199,7 +201,8 @@ def check_kernel_legality(*, strategy: str, encode: str,
     if threshold_mode not in modes:
         raise NotImplementedError(
             f"{dtype} with threshold={threshold_mode!r} is not ported yet"
-            f" (the adaptive builds run float32 only); pick one of {modes}")
+            f" (the adaptive builds run float32, and int8's exact mode its"
+            f" constant half-ulp); pick one of {modes}")
     return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

@@ -43,6 +43,12 @@
 // bf16 (ftsg_ft_global_bf16, B4 only, static and auto thresholds): A and B
 // bf16 on the bf16 mainloop; B's band sums (f32 sums of the bf16 values)
 // ride the product as three bf16 terms, 24 extra columns.
+//
+// int8 (ftsg_ft_global_int8, B4 only, the exact mode: _ft_kernel_global with
+// exact=True, :842-907): A and B int8 on the s8 wgmma mainloop; B's band
+// sums ride the product as two s8 digits (16 extra columns), so t_exp,
+// the tile's total and the residual are s32 and wrap as the JAX package's
+// int32 t_exp does; threshold "adaptive" is 0.5 in slot 4 of this build.
 
 #include "ft_sgemm_running.cuh"
 
@@ -73,6 +79,21 @@ extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
                                    const float* scalars, float log2_t,
                                    float c_rand, float c_bias, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kBF16>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
+}
+
+// B4 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
+// as ftsg_ft_global.
+extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
+                                   const float* C, float* out, int* det,
+                                   int* unc, int M, int N, int K, int bm,
+                                   int bn, int bk, int check_every,
+                                   float alpha, float beta,
+                                   const float* scalars, float log2_t,
+                                   float c_rand, float c_bias, void* stream) {
+  return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kS8>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);

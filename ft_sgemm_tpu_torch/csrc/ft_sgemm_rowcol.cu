@@ -43,6 +43,17 @@
 // from the landed bf16 stages in f32 and carry each sum row as three bf16
 // terms (24 extra product columns, three moment-row buffers), so both
 // expected sums keep f32 precision; the check is unchanged.
+//
+// int8 (ftsg_ft_rowcol_int8, the exact mode: _ft_kernel_rowcol with
+// exact=True, :532-534, 567-581, 606-611, 636-640): A and B int8 on the s8
+// wgmma mainloop, the accumulator, both expected sums and the check in s32,
+// wrapping mod 2^32 as the JAX package's int32 arithmetic does; the
+// splitter warps' band sums ride as two s8 digits each (16 extra product
+// columns, 16 moment rows); a fault is the rounded magnitude; clean
+// residuals are exactly 0, the correction is an exact integer add and the
+// re-check has no pads; out = alpha * f32(acc) + beta * C. Multifault is
+// illegal for int8 (the weighted ratio of wrapping sums); threshold
+// "adaptive" is the half-ulp 0.5 in slots 4-6 of this static build.
 
 #include "ft_sgemm_running.cuh"
 
@@ -90,5 +101,22 @@ extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
       false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, nm, s);
+}
+
+// B3 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
+// as ftsg_ft_rowcol, `multifault` 0 (else cudaErrorInvalidValue).
+extern "C" int ftsg_ft_rowcol_int8(const void* A, const void* B,
+                                   const float* C, float* out, int* det,
+                                   int* unc, int M, int N, int K, int bm,
+                                   int bn, int bk, int check_every,
+                                   int multifault, float alpha, float beta,
+                                   const float* scalars, float log2_t,
+                                   float c_rand, float c_bias, void* stream) {
+  if (multifault) return (int)cudaErrorInvalidValue;
+  return ftsg::launch_running<ftsg::RowcolOf<
+      false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kS8>::At>(
+      A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
 }
 #endif

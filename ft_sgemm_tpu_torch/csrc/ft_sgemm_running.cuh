@@ -97,6 +97,10 @@ FTSG_NAMESPACE_BEGIN
 // issues the segmented bf16 stages' wgmmas in order, where with the fault
 // added into `acc` B3 spilled 2-4 KB and ran 2x slower. (In f32 the same
 // form made ptxas serialize B7 and B8, +11-19 %: PERF.md.)
+//
+// In int8 the fault is the rounded magnitude (round half to even, as
+// jnp.round), added into the s32 accumulator, wrapping (_inject with
+// exact=True, ops/ft_sgemm.py:277-280).
 template <class T>
 struct FragInject {
   // B2 checks once, after the loop. Its f32 stages and its bf16 ones at the
@@ -139,6 +143,17 @@ struct FragInject {
       if constexpr (T::R > 0) {
 #pragma unroll
         for (int i = 0; i < T::NACC_E; ++i) ml.part_e[i] = 0.f;
+      }
+    } else if constexpr (T::S8) {
+      const uint32_t im = (uint32_t)__float2int_rn(mag);
+      const unsigned cs = col_stride;
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) {
+        const unsigned r = ml.row(i), c = ml.col(i);
+        const unsigned o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
+        const bool hit = r % T::SBM == (o * 131 + 7) % T::SBM &&
+                         c % T::SBN == (o * cs + 3) % T::SBN;
+        ml.acc[i] += hit ? im : 0u;
       }
     } else if constexpr (T::NSUB == 1) {
       const int r = (ord * 131 + 7) % T::BM, c = (ord * col_stride + 3) % T::BN;
@@ -320,6 +335,15 @@ __device__ __forceinline__ void* bound_scratch(void* scratch) {
   return static_cast<unsigned char*>(scratch) + (sizeof(Smem) + 15) / 16 * 16;
 }
 
+// A residual's magnitude in the threshold's f32 domain (mag() of
+// _rowcol_detect_correct, ops/ft_sgemm.py:425-429): |x| of an f32 residual;
+// of an int8 check's s32 residual, |x| wrapping (|INT_MIN| = INT_MIN, as
+// jnp.abs on int32) and converted to f32 (rounded to nearest).
+__device__ __forceinline__ float mag(float x) { return fabsf(x); }
+__device__ __forceinline__ float mag(uint32_t x) {
+  return (float)(int)((int)x < 0 ? 0u - x : x);
+}
+
 // ------------------------------------------------ the weighted check ----
 
 // The weighted check's scratch, beside the ring (the ring is in flight at
@@ -457,18 +481,20 @@ template <int BN>
 struct RowsOf<0, BN> {};
 
 // B3's check scratch, small enough for a four-stage ring with multifault
-// off at the 64- and 128-row tiles.
-template <int NWARPS, int BN, int NBM, int NSUB, int MROWS, bool MF>
+// off at the 64- and 128-row tiles; sums and residuals of type V (f32, or
+// the s32 bits of the int8 check).
+template <int NWARPS, int BN, int NBM, int NSUB, int MROWS, bool MF,
+          class V = float>
 struct RowcolSubSmem {
   union {
     struct {
-      float e[MROWS][BN];  // expected column sums c_exp, cw_exp: row MOM b + v
-      float sums[MF ? 2 : 1][NWARPS][BN];  // per warp: column sums 1 (, w)
+      V e[MROWS][BN];  // expected column sums c_exp, cw_exp: row MOM b + v
+      V sums[MF ? 2 : 1][NWARPS][BN];  // per warp: column sums 1 (, w)
     } in;  // until the column decisions
     // then per warp: the correction's column sums d, |d| (, w d, w |d|)
-    float corr[MF ? 4 : 2][NWARPS][BN];
+    V corr[MF ? 4 : 2][NWARPS][BN];
   };
-  float res_c[NBM][BN];         // per band and column: the residuals
+  V res_c[NBM][BN];         // per band and column: the residuals
   RowsOf<MF ? NBM : 0, BN> res_cw;
   // a flagged column's weighted fault row in the band (MF; else 0), -1
   // when it lies outside; kUnflagged: the column did not flag
@@ -481,8 +507,8 @@ struct RowcolSubSmem {
 // One round of a reduce-scatter over lanes OFF apart: the lane with bit OFF
 // set keeps the upper N of its 2 N column groups, the other the lower N,
 // each adding its partner's copy.
-template <int OFF, int N, int NV, int NQ>
-__device__ __forceinline__ void scatter_round(float (&p)[NV][NQ][2], int l) {
+template <int OFF, int N, int NV, int NQ, class V>
+__device__ __forceinline__ void scatter_round(V (&p)[NV][NQ][2], int l) {
   const bool up = l & OFF;
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -490,8 +516,8 @@ __device__ __forceinline__ void scatter_round(float (&p)[NV][NQ][2], int l) {
     for (int c = 0; c < 2; ++c)
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        const float send = up ? p[v][i][c] : p[v][i + N][c];
-        const float keep = up ? p[v][i + N][c] : p[v][i][c];
+        const V send = up ? p[v][i][c] : p[v][i + N][c];
+        const V keep = up ? p[v][i + N][c] : p[v][i][c];
         p[v][i][c] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
       }
 }
@@ -513,13 +539,24 @@ __device__ __forceinline__ void scatter_round(float (&p)[NV][NQ][2], int l) {
 // them) from the residuals, with the EPS8 pads: five barriers. (A cheaper
 // re-check for sub-tiles with one flagged row and column, behind one more
 // popcount barrier, was slower: PERF.md.)
+//
+// int8 (T::S8, the exact check of _rowcol_detect_correct(exact=True),
+// ops/ft_sgemm.py:458, 469-472): every sum, residual and correction is s32
+// and wraps; a residual flags when mag(res) exceeds the threshold; the
+// correction is an integer add and the re-check compares the residuals
+// after it with no pads. Multifault is not built for int8.
 template <class T, bool MF, class TH = SubTileThresholds<T, false, false>>
 struct RowcolCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
   static constexpr int MOM = MF ? 2 : 1, NV = MF ? 2 : 1;
+  // The correction's column sums a warp shares: d and |d| (the pads; and w
+  // d, w |d| with multifault), d alone in int8.
+  static constexpr int NP = T::S8 ? 1 : 2 * NV;
   static constexpr int kUnflagged = -2;  // code of a column that did not flag
+  static_assert(!T::S8 || !MF, "int8 localizes nothing by the weighted ratio");
+  using V = typename T::Acc;
   using Smem = RowcolSubSmem<T::NCONS / 32, T::BN, T::NBM, T::NSUB,
-                             MOM * T::NBM, MF>;
+                             MOM * T::NBM, MF, V>;
   Smem& cm;
   TH th;
   int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
@@ -543,26 +580,26 @@ struct RowcolCheck {
     const float w1 = (float)(ml.row(2) % T::SBM + 1);
     consumer_sync<T::NCONS>();  // the last check's readers are done
 #pragma unroll
-    for (int i = 0; i < T::NACC_E; ++i)
-      if (ml.col(i) < MOM * T::NBM) cm.in.e[ml.col(i)][ml.row(i)] = ml.acc_e[i];
+    for (int i = 0; i < WgMainloop<T>::NEC; ++i)
+      if (ml.col(i) < MOM * T::NBM) cm.in.e[ml.col(i)][ml.row(i)] = ml.ecol(i);
     // Row residuals per column band (bit 2 j + h of det_r: row h flagged).
-    float res_r[2][NBN];
+    V res_r[2][NBN];
     unsigned det_r = 0u;
 #pragma unroll
     for (int j = 0; j < NBN; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float rs = 0.f;
+        V rs = 0;
 #pragma unroll
         for (int gg = 0; gg < GPB; ++gg)
 #pragma unroll
           for (int c = 0; c < 2; ++c) rs += ml.acc[4 * (j * GPB + gg) + 2 * h + c];
         rs += __shfl_xor_sync(FULL, rs, 1);
         rs += __shfl_xor_sync(FULL, rs, 2);
-        const float r_exp =
+        const V r_exp =
             __shfl_sync(FULL, ml.xcol(2 * h + (j & 1)), (l & ~3) | (j >> 1));
         res_r[h][j] = r_exp - rs;
-        if (fabsf(res_r[h][j]) > th.get(b * NBN + j, 0)) {
+        if (mag(res_r[h][j]) > th.get(b * NBN + j, 0)) {
           det_r |= 1u << (2 * j + h);
           if (q == j >> 1) atomicAdd(&cm.cnt[0][b * NBN + j], 1);
         }
@@ -570,12 +607,12 @@ struct RowcolCheck {
     }
     // Column sums (and w-weighted) of this warp's 16 rows.
     {
-      float p[NV][NQ][2];
+      V p[NV][NQ][2];
 #pragma unroll
       for (int g8 = 0; g8 < NQ; ++g8)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float x0 = ml.acc[4 * g8 + c], x1 = ml.acc[4 * g8 + 2 + c];
+          const V x0 = ml.acc[4 * g8 + c], x1 = ml.acc[4 * g8 + 2 + c];
           p[0][g8][c] = x0 + x1;
           if constexpr (MF) p[1][g8][c] = w0 * x0 + w1 * x1;
         }
@@ -597,14 +634,14 @@ struct RowcolCheck {
     bool flag = det_r != 0u;
     for (int jb = t; jb < T::NBM * T::BN; jb += T::NCONS) {
       const int bb = jb / T::BN, c = jb % T::BN, sub = bb * NBN + c / T::SBN;
-      float cs = 0.f, csw = 0.f;
+      V cs = 0, csw = 0;
 #pragma unroll
       for (int wp = 0; wp < WPB; ++wp) {
         cs += cm.in.sums[0][bb * WPB + wp][c];
         if constexpr (MF) csw += cm.in.sums[1][bb * WPB + wp][c];
       }
-      const float res = cm.in.e[MOM * bb][c] - cs;
-      const bool det = fabsf(res) > th.get(sub, 0);
+      const V res = cm.in.e[MOM * bb][c] - cs;
+      const bool det = mag(res) > th.get(sub, 0);
       int code = det ? 0 : kUnflagged;
       if constexpr (MF) {
         const float res_w = cm.in.e[MOM * bb + 1][c] - csw;
@@ -634,41 +671,44 @@ struct RowcolCheck {
       const int nr = cm.cnt[0][sub], nc = cm.cnt[1][sub];
       const bool use_col = nr == 1 && nc > 1;
       const bool amb = MF && nr > 1 && nc > 1;
-      float ds[2] = {0.f, 0.f}, ads[2] = {0.f, 0.f};
+      V ds[2] = {0, 0};
+      float ads[2] = {0.f, 0.f};
       bool any_r = false;
 #pragma unroll
       for (int gg = 0; gg < GPB; ++gg) {
         const int g8 = j * GPB + gg;
-        float d[2][2];
+        V d[2][2];
         bool any = false;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = ml.col(4 * g8 + c), code = cm.code[b][col];
-          const float rc = code != kUnflagged ? cm.res_c[b][col] : 0.f;
+          const V rc = code != kUnflagged ? cm.res_c[b][col] : V(0);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = ml.row(2 * h) % T::SBM;
             const bool dr = (det_r >> (2 * j + h)) & 1u;
-            const float dd =
-                amb ? (code == r ? rc : 0.f)
+            const V dd =
+                amb ? (code == r ? rc : V(0))
                     : (dr && code != kUnflagged ? (use_col ? rc : res_r[h][j])
-                                                : 0.f);
+                                                : V(0));
             d[h][c] = dd;
             ml.acc[4 * g8 + 2 * h + c] += dd;
             ds[h] += dd;
-            ads[h] += fabsf(dd);
-            any |= dd != 0.f;
+            if constexpr (!T::S8) ads[h] += fabsf(dd);
+            any |= dd != V(0);
           }
         }
         any_r |= any;
-        float p[2 * NV][2];
+        V p[NP][2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           p[0][c] = d[0][c] + d[1][c];
-          p[1][c] = fabsf(d[0][c]) + fabsf(d[1][c]);
-          if constexpr (MF) {
-            p[2][c] = w0 * d[0][c] + w1 * d[1][c];
-            p[3][c] = w0 * fabsf(d[0][c]) + w1 * fabsf(d[1][c]);
+          if constexpr (!T::S8) {
+            p[1][c] = fabsf(d[0][c]) + fabsf(d[1][c]);
+            if constexpr (MF) {
+              p[2][c] = w0 * d[0][c] + w1 * d[1][c];
+              p[3][c] = w0 * fabsf(d[0][c]) + w1 * fabsf(d[1][c]);
+            }
           }
         }
         if (__any_sync(FULL, any)) {
@@ -677,14 +717,14 @@ struct RowcolCheck {
 #pragma unroll
             for (int c = 0; c < 2; ++c)
 #pragma unroll
-              for (int v = 0; v < 2 * NV; ++v)
+              for (int v = 0; v < NP; ++v)
                 p[v][c] += __shfl_xor_sync(FULL, p[v][c], off);
         }
         if (l < 4) {
 #pragma unroll
           for (int c = 0; c < 2; ++c)
 #pragma unroll
-            for (int v = 0; v < 2 * NV; ++v)
+            for (int v = 0; v < NP; ++v)
               cm.corr[v][warp][ml.col(4 * g8 + c)] = p[v][c];
         }
       }
@@ -694,29 +734,40 @@ struct RowcolCheck {
 #pragma unroll
           for (int off = 1; off < 4; off <<= 1) {
             ds[h] += __shfl_xor_sync(FULL, ds[h], off);
-            ads[h] += __shfl_xor_sync(FULL, ads[h], off);
+            if constexpr (!T::S8)
+              ads[h] += __shfl_xor_sync(FULL, ads[h], off);
           }
       }
       if (q == j >> 1) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (fabsf(res_r[h][j] - ds[h]) > th.get(sub, 0) + EPS8 * ads[h])
-            atomicAdd(&cm.cnt[2][sub], 1);
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (T::S8) {
+            if (mag(res_r[h][j] - ds[h]) > th.get(sub, 0))
+              atomicAdd(&cm.cnt[2][sub], 1);
+          } else {
+            if (fabsf(res_r[h][j] - ds[h]) > th.get(sub, 0) + EPS8 * ads[h])
+              atomicAdd(&cm.cnt[2][sub], 1);
+          }
+        }
       }
     }
     consumer_sync<T::NCONS>();
     // The column re-check: the residuals after the correction.
     for (int jb = t; jb < T::NBM * T::BN; jb += T::NCONS) {
       const int bb = jb / T::BN, c = jb % T::BN, sub = bb * NBN + c / T::SBN;
-      float s[2 * NV];
+      V s[NP];
 #pragma unroll
-      for (int v = 0; v < 2 * NV; ++v) s[v] = 0.f;
+      for (int v = 0; v < NP; ++v) s[v] = 0;
 #pragma unroll
       for (int wp = 0; wp < WPB; ++wp)
 #pragma unroll
-        for (int v = 0; v < 2 * NV; ++v) s[v] += cm.corr[v][bb * WPB + wp][c];
-      const bool bad_c =
-          fabsf(cm.res_c[bb][c] - s[0]) > th.get(sub, 0) + EPS8 * s[1];
+        for (int v = 0; v < NP; ++v) s[v] += cm.corr[v][bb * WPB + wp][c];
+      bool bad_c;
+      if constexpr (T::S8) {
+        bad_c = mag(cm.res_c[bb][c] - s[0]) > th.get(sub, 0);
+      } else {
+        bad_c = fabsf(cm.res_c[bb][c] - s[0]) > th.get(sub, 0) + EPS8 * s[1];
+      }
       if (bad_c) atomicAdd(&cm.cnt[2][sub], 1);
       if constexpr (MF) {
         if (!bad_c &&
@@ -743,7 +794,8 @@ struct RowcolOf {
   template <int SBM, int SBN>
   struct At {
     static constexpr int NBM = 128 / SBM, NSUB = NBM * (128 / SBN);
-    using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF>;
+    using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF,
+                               AccOf<IN>>;
     using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1,
                         check_bytes<Smem, NSUB>(), BANDS, ROWS, IN>;
     using Check =
@@ -753,9 +805,9 @@ struct RowcolOf {
 
 // -------------------------------------------------- the global check ----
 
-template <int NWARPS, int NBN>
+template <int NWARPS, int NBN, class V = float>
 struct GlobalSubSmem {
-  float part[2][NWARPS][NBN];  // by check parity: each warp's band sums
+  V part[2][NWARPS][NBN];  // by check parity: each warp's band sums
 };
 
 // B4's and B8's check (_ft_kernel_global) of every sub-tile: res = t_exp - the
@@ -765,14 +817,17 @@ struct GlobalSubSmem {
 // pass over the band's warps (double-buffered by check parity, so one
 // barrier per check). An EVENT when |res - prev| exceeds the threshold,
 // prev = res, kept per sub-tile by thread threadIdx.x < NSUB; nothing is
-// corrected, so unc = det.
+// corrected, so unc = det. In int8 (exact=True, ops/ft_sgemm.py:842-907)
+// t_exp, res and prev are s32 and wrap, and an event is mag(res - prev)
+// over the threshold.
 template <class T, class TH = SubTileThresholds<T, false, true>>
 struct GlobalCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
-  using Smem = GlobalSubSmem<T::NCONS / 32, T::NBN>;
+  using V = typename T::Acc;
+  using Smem = GlobalSubSmem<T::NCONS / 32, T::NBN, V>;
   Smem& cm;
   TH th;
-  float prev = 0.f;
+  V prev = 0;
   int n_det = 0, parity = 0;
 
   __device__ __forceinline__ GlobalCheck(const Scalars& sc,
@@ -784,10 +839,10 @@ struct GlobalCheck {
   __device__ void check(WgMainloop<T>& ml) {
     constexpr int NBN = T::NBN, GPB = T::SBN / 8, WPB = T::SBM / 16;
     const int t = threadIdx.x, l = ml.l;
-    float v[NBN];
+    V v[NBN];
 #pragma unroll
     for (int j = 0; j < NBN; ++j) {
-      v[j] = (l & 3) == j >> 1 ? ml.xcol(j & 1) + ml.xcol(2 + (j & 1)) : 0.f;
+      v[j] = (l & 3) == j >> 1 ? ml.xcol(j & 1) + ml.xcol(2 + (j & 1)) : V(0);
 #pragma unroll
       for (int gg = 0; gg < GPB; ++gg)
 #pragma unroll
@@ -804,12 +859,12 @@ struct GlobalCheck {
     consumer_sync<T::NCONS>();
     if (t < T::NSUB) {
       const int bb = t / NBN, j = t % NBN;
-      float res = 0.f;
+      V res = 0;
 #pragma unroll
       for (int wp = 0; wp < WPB; ++wp) res += cm.part[parity][bb * WPB + wp][j];
       // Fault EVENTS: an uncorrected fault keeps the residual high, so
       // only a move of the residual counts.
-      n_det += fabsf(res - prev) > th.get(t, 0) ? 1 : 0;
+      n_det += mag(res - prev) > th.get(t, 0) ? 1 : 0;
       prev = res;
     }
     parity ^= 1;
@@ -822,7 +877,7 @@ template <int BANDS, int IN = kF32>
 struct GlobalOf {
   template <int SBM, int SBN>
   struct At {
-    using Smem = GlobalSubSmem<8, 128 / SBN>;
+    using Smem = GlobalSubSmem<8, 128 / SBN, AccOf<IN>>;
     using type = WgTile<128, 128, SBM, SBN, 0,
                         check_bytes<Smem, (128 / SBM) * (128 / SBN)>(), BANDS,
                         kNoRows, IN>;
@@ -923,7 +978,8 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // GlobalOf<BANDS>::At); `MA` the wrapper's (M / bm, n_rows, K) moment rows
 // (kLoadRows: B6, B7; the kernel loads the first MOM of each band's rows),
 // `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8); A and B f32 or,
-// for a bf16 tile, bf16; `scalars` the
+// for a bf16 or int8 tile, bf16 or int8 (an int8 operand's rows 16-byte
+// aligned, tensor_map); `scalars` the
 // host array of the scalar argument, `nm` the noise model's constants (read
 // by the adaptive build). Returns 0 or the CUDA error, also when a tensor
 // map cannot be encoded or no sub-tile matches.

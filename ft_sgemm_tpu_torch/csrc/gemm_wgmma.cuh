@@ -77,6 +77,25 @@
 // the expected sums keep f32 precision; the splitter warps form them and
 // split nothing else (B1 and B2 have no splitter work: the consumers wait
 // for TMA's full barrier directly).
+//
+// int8 operands (IN = kS8; B3 and B4, the exact mode): a stage holds SK =
+// 128 K columns (one 128-byte swizzle row), each 32-deep k step is one
+// m64nNk32 s8 wgmma, both operands K-major, into an s32 accumulator with no
+// saturation, so that every sum wraps mod 2^32 as the JAX package's int32
+// does. The stage sums `part` are not used: exact integer adds need no
+// per-stage promotion, and the wgmmas accumulate into `acc` directly (the
+// accumulator's s32 bits held as uint32_t, whose wrapping C++ defines). A
+// band sum s of B's (or A's) rows, |s| <= 128 * 128, rides the product as
+// two s8 digits lo = s & 127 and hi = s >> 7 (s = 128 hi + lo): B's band
+// rows BN + j (lo) and BN + 8 + j (hi), XN = 16, so the product runs as
+// m64n144k32 and a row's expected sum over band j is P_lo + 128 P_hi, equal
+// mod 2^32 to the JAX package's wrapping sum; A's moment rows likewise at
+// rows v (lo) and 8 + v (hi) of one 16-row buffer. The hooks still count
+// 8-column k steps: a check inside a 32-deep step issues the step in parts,
+// each with A's registers of the other 8-column steps zero (and E's A
+// operand, B's stage, loaded into registers the same way). A fault is added
+// at the start of the part it falls in (after the wgmmas before it land):
+// integer adds commute, so the accumulator at every check is the same.
 
 #pragma once
 
@@ -87,6 +106,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "abft_common.cuh"
 
@@ -140,40 +160,52 @@ enum BandRows {
 };
 
 // The type of A and B (C, the accumulator and every checksum are f32):
-// f32 on 3xTF32, or bf16 on one bf16 wgmma per 16-deep k step.
-enum InType { kF32 = 0, kBF16 = 1 };
+// f32 on 3xTF32, bf16 on one bf16 wgmma per 16-deep k step, or int8 on one
+// s8 wgmma per 32-deep k step (the accumulator and checksums then s32).
+enum InType { kF32 = 0, kBF16 = 1, kS8 = 2 };
+
+// The accumulator's element type for A and B of type IN: f32, or the s32
+// bits of the int8 mode as uint32_t (wrapping arithmetic, defined in C++).
+template <int IN>
+using AccOf = std::conditional_t<IN == kS8, uint32_t, float>;
 
 // A CTA of (BM, BN) checked in (SBM, SBN) sub-tiles, with MOM moment rows
 // per sub-tile row band in each stage (0: none, B1, B2, B4, B8; padded to
 // R, a multiple of 8) from ROWS, CHECK bytes of check scratch beside the
 // ring, and, with BANDS, XN = 8 extra product columns (24 in bf16: three
-// terms): B's column-band sums, so that the product's columns BN .. BN +
-// NBN - 1 are the expected row sums of each band (B3, B4, B7, B8); A and B
-// of type IN. The ring has four stages where they fit in the 232448 bytes
-// of shared memory a CTA may have, else three; a bf16 ring up to six where
-// they fit beside the CTAs an SM holds.
+// terms; 16 in int8: two digits): B's column-band sums, so that the
+// product's columns BN .. BN + NBN - 1 are the expected row sums of each
+// band (B3, B4, B7, B8); A and B of type IN. The ring has four stages where
+// they fit in the 232448 bytes of shared memory a CTA may have, else three;
+// a bf16 or int8 ring up to six where they fit beside the CTAs an SM holds.
 template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int MOM_ = 0,
           int CHECK_ = 0, int BANDS_ = kNoBands, int ROWS_ = kNoRows,
           int IN_ = kF32>
 struct WgTile {
   static constexpr int BM = BM_, BN = BN_, SBM = SBM_, SBN = SBN_;
   static constexpr int NBM = BM / SBM, NBN = BN / SBN, NSUB = NBM * NBN;
-  static constexpr int MOM = MOM_, R = (MOM * NBM + 7) / 8 * 8;
   static constexpr int BANDS = BANDS_, ROWS = ROWS_;
   static constexpr bool BF16 = IN_ == kBF16;
-  // Rows that carry one f32 sum row: 1 in f32 (split hi / lo like B), the
-  // bf16 terms hi, lo and lo2 in bf16.
-  static constexpr int NTERM = BF16 ? 3 : 1;
+  static constexpr bool S8 = IN_ == kS8;
+  using Acc = AccOf<IN_>;
+  // Rows that carry one sum row: 1 in f32 (split hi / lo like B), the bf16
+  // terms hi, lo and lo2 in bf16, the s8 digits lo and hi in int8.
+  static constexpr int NTERM = BF16 ? 3 : S8 ? 2 : 1;
+  // Moment rows: MOM per row band, padded to a multiple of 8 (in int8 two
+  // such groups, the digits lo and hi).
+  static constexpr int MOM = MOM_,
+                       R = (MOM * NBM + 7) / 8 * 8 * (S8 ? NTERM : 1);
   static constexpr int XN = BANDS == kNoBands ? 0 : 8 * NTERM;
-  static constexpr int ESIZE = BF16 ? 2 : 4;  // bytes of an A or B element
+  // Bytes of an A or B element.
+  static constexpr int ESIZE = BF16 ? 2 : S8 ? 1 : 4;
   static constexpr int SK = 128 / ESIZE;  // K columns per stage: one swizzle row
   static constexpr int KK = SK / 8;   // 8-deep k steps per stage (the hooks')
-  static constexpr int KS = BF16 ? 2 : 1;  // of them per wgmma k step
+  static constexpr int KS = BF16 ? 2 : S8 ? 4 : 1;  // of them per wgmma k step
   static constexpr int KW = KK / KS;       // wgmma k steps per stage
   // Whether the producer's splitter warps work on a landed stage before the
   // consumers take it (the ready barrier): always in f32 (B's split); in
-  // bf16 only where they form sum rows.
-  static constexpr bool SPLIT = !BF16 || BANDS == kSumBands ||
+  // bf16 and int8 only where they form sum rows.
+  static constexpr bool SPLIT = (!BF16 && !S8) || BANDS == kSumBands ||
                                 ROWS == kSumRows || ROWS == kSumRowGroups;
   static constexpr int NWG = BM / 64;  // consumer warpgroups
   static constexpr int NCONS = 128 * NWG;
@@ -198,8 +230,10 @@ struct WgTile {
   static constexpr int B_BYTES = (BN + XN) * 128;
   static constexpr int M_BYTES = R * 128;  // one buffer of moment rows
   // B's buffers and the moment rows' per stage: hi and lo in f32; B as
-  // landed and the moment rows' three terms in bf16.
-  static constexpr int NB_BUF = BF16 ? 1 : 2, NM_BUF = BF16 ? 3 : 2;
+  // landed and the moment rows' three terms in bf16; B as landed and one
+  // buffer of both digits' rows in int8.
+  static constexpr int NB_BUF = BF16 || S8 ? 1 : 2,
+                       NM_BUF = BF16 ? 3 : S8 ? 1 : 2;
   static constexpr int STAGE_BYTES =
       A_BYTES + NB_BUF * B_BYTES + NM_BUF * M_BYTES;
   // The rows a stage's TMA boxes fill: where loaded, exactly the NBN band
@@ -229,7 +263,7 @@ struct WgTile {
   static constexpr int SMEM_CAP =
       MIN_CTAS == 1 ? 232448 : 233472 / MIN_CTAS - 1024;
   static constexpr int STAGES =
-      !BF16 ? (smem(4, 1) <= 232448 ? 4 : 3)
+      !BF16 && !S8 ? (smem(4, 1) <= 232448 ? 4 : 3)
             : smem(6, 1) <= SMEM_CAP   ? 6
               : smem(5, 1) <= SMEM_CAP ? 5
               : smem(4, 1) <= SMEM_CAP ? 4
@@ -249,12 +283,15 @@ struct WgTile {
                 "one extra column per column band and term");
   static_assert(!BF16 || (BANDS != kLoadBands && ROWS != kLoadRows),
                 "bf16 forms its sum rows in the kernel (the vpu encodes)");
+  static_assert(!S8 || (BANDS == kSumBands && MOM * NBM <= 8 &&
+                        (ROWS == kNoRows || ROWS == kSumRowGroups)),
+                "int8: B3 and B4, one 8-row group of moment rows per digit");
   static_assert(REGS_CONSUMER <= 256, "setmaxnreg takes at most 256");
   static_assert(B_BYTES % 1024 == 0 && M_BYTES % 1024 == 0,
                 "buffers keep the swizzle alignment");
   static_assert(BANDS != kLoadBands || B_BOX % 1024 == 0,
                 "the band-row box starts on a swizzle atom");
-  static_assert(SMEM <= (BF16 ? SMEM_CAP : 232448),
+  static_assert(SMEM <= (BF16 || S8 ? SMEM_CAP : 232448),
                 "the ring fits in shared memory");
 };
 
@@ -812,6 +849,91 @@ struct WgmmaSSBf<24> {
   }
 };
 
+// d (m64 x N, s32) = A (m64 x k32, s8 fragment in registers: four s8 a
+// register, registers 0 and 1 the first 16 columns, 2 and 3 the last 16) @
+// B^T (+ d when scale_d is 1), B an (N x k32) s8 tile in shared memory,
+// K-major; no .satfinite, so the s32 sums wrap mod 2^32. Asynchronous until
+// wgmma_wait_all. N = 144: the product widened by B's 16 digit rows; N = 16:
+// E's masked parts (B's stage in registers times the moment rows).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void run(uint32_t (&d)[8],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<144> {
+  static __device__ __forceinline__ void run(uint32_t (&d)[72],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71}, "
+        "{%72, %73, %74, %75}, %76, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+          "+r"(d[70]), "+r"(d[71])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// d (m64 x N, s32) = A (m64 x k32) @ B^T (+ d when scale_d is 1), both s8
+// tiles in shared memory, K-major: the expected column sums in int8.
+template <int N>
+struct WgmmaSSS8;
+
+template <>
+struct WgmmaSSS8<16> {
+  static __device__ __forceinline__ void run(uint32_t (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 
 // ------------------------------------------------------------ mainloop ----
 
@@ -819,8 +941,9 @@ extern __shared__ unsigned char ftsg_wg_smem[];
 
 // The ring in dynamic shared memory, aligned to 1024 bytes: stage s holds
 // A's box, B's box (hi after the split; with XN > 0 followed by B's band
-// rows), B's lo (likewise; not in bf16) and, with R > 0, the moment rows'
-// hi and lo (in bf16 their three terms);
+// rows), B's lo (likewise; not in bf16 or int8) and, with R > 0, the moment
+// rows' hi and lo (in bf16 their three terms, in int8 one buffer of both
+// digits' rows);
 // then the mbarriers: full(s) when TMA has landed the stage, ready(s) when
 // its B (and moment rows) are split, empty(s) when the consumers are done
 // with it; then the splitters' scratch (16-byte aligned) and the check
@@ -1104,6 +1227,118 @@ struct WgSmem {
       asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
   }
 
+  // int8: the padding rows of ring slot s, of both digits, zeroed once
+  // before the first stage: B's band rows BN + 8 t + j with j >= NBN, and the
+  // moment rows 8 t + v with v >= MOM * NBM.
+  __device__ __forceinline__ void zero_pads_s8(int s, int e) const {
+    for (int z = e; z < T::XN * 32; z += T::SPLITTERS)
+      if (z / 32 % 8 >= T::NBN) bw(s)[T::BN * 32 + z] = 0u;
+    for (int z = e; z < T::R * 32; z += T::SPLITTERS)
+      if (z / 32 % 8 >= T::MOM * T::NBM) mw(s, 0)[z] = 0u;
+  }
+
+  // The digits lo = s & 127 and hi = s >> 7 (s = 128 hi + lo, both in s8 for
+  // |s| <= 128 * 128) of the four column sums of a 4-byte word, as two words
+  // of four s8.
+  static __device__ __forceinline__ void digits(const int4& s, uint32_t& lo,
+                                                uint32_t& hi) {
+    const int v[4] = {s.x, s.y, s.z, s.w};
+    lo = hi = 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      lo |= (uint32_t)(v[q] & 127) << (8 * q);
+      hi |= (uint32_t)((v[q] >> 7) & 255) << (8 * q);
+    }
+  }
+
+  // int8 B3's and B4's sum rows of stage st: B's column-band sums
+  // (kSumBands) as the digit rows BN + j (lo) and BN + 8 + j (hi) of B's
+  // stage, and A's row-band sums (kSumRowGroups, MOM = 1) as rows b (lo) and
+  // 8 + b (hi) of the moment buffer; exact integer sums. A job sums 8 rows of
+  // one 16-byte chunk (16 columns) of B or of A into the producer scratch
+  // (int32 per column), a warp's jobs all of one operand: each byte biased
+  // to x + 128, two columns a word in 16-bit lanes (8 * 255 < 2^16, so no
+  // lane carries into the next). After a named barrier over the splitter
+  // warps, one job per output row and 4-column word adds its band's 8-row
+  // sums and writes both digits.
+  __device__ __forceinline__ void sum_bands_s8(int st, int e) const {
+    const int s = st % T::STAGES;
+    constexpr bool SB = T::BANDS == kSumBands, SA = T::ROWS == kSumRowGroups;
+    constexpr int G = T::BN / 8, GA = T::BM / 8;  // 8-row groups
+    const uint4* b4 = reinterpret_cast<const uint4*>(b(s));
+    const uint4* a4 = reinterpret_cast<const uint4*>(a(s));
+    int* pb = reinterpret_cast<int*>(prod()) +
+              (T::PROD_SETS == 2 ? st & 1 : 0) * T::PROD_ROWS * T::SK;
+    int* pa = pb + (SB ? G : 0) * T::SK;
+    constexpr int NJB = SB ? 8 * G : 0, NJA = SA ? 8 * GA : 0;
+    static_assert(NJB % 32 == 0, "a warp's jobs of one operand");
+    for (int job = e; job < NJB + NJA; job += T::SPLITTERS) {
+      const bool is_a = job >= NJB;
+      const int idx = is_a ? job - NJB : job;
+      const int grp = idx / 8, c = idx % 8;  // rows 8 grp .., chunk c
+      const uint4* src = is_a ? a4 : b4;
+      // ev[q]: columns 4 q and 4 q + 2 of word q; od[q]: 4 q + 1, 4 q + 3.
+      uint32_t ev[4] = {0u, 0u, 0u, 0u}, od[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const uint4 v = src[(8 * grp + rr) * 8 + (c ^ rr)];
+        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t u = w4[q] ^ 0x80808080u;  // x + 128 per byte
+          ev[q] += u & 0x00ff00ffu;
+          od[q] += (u >> 8) & 0x00ff00ffu;
+        }
+      }
+      int4* d = reinterpret_cast<int4*>((is_a ? pa : pb) + grp * T::SK +
+                                        16 * c);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        d[q] = make_int4((int)(ev[q] & 0xffffu) - 1024,
+                         (int)(od[q] & 0xffffu) - 1024,
+                         (int)(ev[q] >> 16) - 1024, (int)(od[q] >> 16) - 1024);
+    }
+    asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+    constexpr int NB = SB ? T::NBN * 32 : 0;
+    constexpr int NA = SA ? T::MOM * T::NBM * 32 : 0;
+    for (int job = e; job < NB + NA; job += T::SPLITTERS) {
+      int4 sum = make_int4(0, 0, 0, 0);
+      uint32_t lo, hi;
+      const int p = job % 32;  // the 4-column word
+      if (job < NB) {  // B's band sum j: rows BN + j, BN + 8 + j
+        const int j = job / 32;
+#pragma unroll
+        for (int g = 0; g < T::SBN / 8; ++g) {
+          const int4 x = reinterpret_cast<const int4*>(
+              pb + (j * (T::SBN / 8) + g) * T::SK)[p];
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+        digits(sum, lo, hi);
+        bw(s)[swz_word(T::BN + j, p)] = lo;
+        bw(s)[swz_word(T::BN + 8 + j, p)] = hi;
+      } else {  // A's row band n: moment rows n, 8 + n
+        const int n = (job - NB) / 32;
+#pragma unroll
+        for (int g = 0; g < T::SBM / 8; ++g) {
+          const int4 x = reinterpret_cast<const int4*>(
+              pa + (n * (T::SBM / 8) + g) * T::SK)[p];
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+        digits(sum, lo, hi);
+        mw(s, 0)[swz_word(n, p)] = lo;
+        mw(s, 0)[swz_word(8 + n, p)] = hi;
+      }
+    }
+    if constexpr (T::PROD_SETS == 1)  // the scratch is read before reuse
+      asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
+  }
+
   // Those rows of ring slot s, zeroed once before the first stage. (Zeroed
   // in each slot's first stage instead, inside the splitters' stage loop,
   // they made B6 5-10 % slower; PERF.md.)
@@ -1267,7 +1502,15 @@ struct WgSmem {
           tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
       }
     } else if (p >= 32) {
-      if constexpr (!T::BF16) {
+      if constexpr (T::S8) {
+        for (int s = 0; s < T::STAGES; ++s) zero_pads_s8(s, p - 32);
+        for (int st = 0; st < nst; ++st) {
+          mbar_wait(full(st % T::STAGES), (st / T::STAGES) & 1);
+          sum_bands_s8(st, p - 32);
+          fence_proxy_async();  // the digit rows are visible to wgmma
+          mbar_arrive(ready(st % T::STAGES));
+        }
+      } else if constexpr (!T::BF16) {
         if constexpr (PADS) {
           for (int s = 0; s < T::STAGES; ++s) zero_pads(s, p - 32);
         }
@@ -1330,15 +1573,18 @@ struct NoInject {
 // check(ml) checks `acc` against `acc_e`, each after every earlier product
 // has landed and been added there; kstep(ml, ah, al, kk, s) sees each k
 // step kk of stage slot s as its wgmmas are issued, in order, before any
-// check after it (the adaptive checks' running moments of A and B).
+// check after it (the adaptive checks' running moments of A and B). In
+// int8 the wgmmas accumulate into `acc` and `acc_e` directly (s32, exact:
+// no per-stage promotion), and `part`, `part_e` stay unused.
 template <class T>
 struct WgMainloop {
+  using Acc = typename T::Acc;
   static constexpr int NF = 4 * T::KW;  // A fragment registers per stage
   static constexpr int NE = T::R > 0 ? T::NACC_E : 1;
-  float acc[T::NACC_W];   // the product, then (XN > 0) its extra columns
-  float part[T::NACC_W];  // this stage's wgmma sum
-  float acc_e[NE];      // expected moments E[row(i)][col(i)] (R > 0)
-  float part_e[NE];
+  Acc acc[T::NACC_W];   // the product, then (XN > 0) its extra columns
+  Acc part[T::NACC_W];  // this stage's wgmma sum
+  Acc acc_e[NE];      // expected moments E[row(i)][col(i)] (R > 0)
+  Acc part_e[NE];
   WgSmem<T> sm;
   int g, w, l;
 
@@ -1346,10 +1592,10 @@ struct WgMainloop {
       : sm(sm_), g(threadIdx.x / 128),
         w((threadIdx.x / 32) % 4), l(threadIdx.x % 32) {
 #pragma unroll
-    for (int i = 0; i < T::NACC_W; ++i) acc[i] = part[i] = 0.f;
+    for (int i = 0; i < T::NACC_W; ++i) acc[i] = part[i] = Acc(0);
     if constexpr (T::R > 0) {
 #pragma unroll
-      for (int i = 0; i < NE; ++i) acc_e[i] = part_e[i] = 0.f;
+      for (int i = 0; i < NE; ++i) acc_e[i] = part_e[i] = Acc(0);
     }
   }
 
@@ -1362,27 +1608,52 @@ struct WgMainloop {
     return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
   }
   // Extra element i (0 .. 3) of the band columns: band 2 (l & 3) + i % 2's
-  // expected sum of row row(i), the sum of its three terms in bf16.
-  __device__ __forceinline__ float xcol(int i) const {
+  // expected sum of row row(i), the sum of its three terms in bf16, lo +
+  // 128 hi of its digits in int8 (wrapping).
+  __device__ __forceinline__ Acc xcol(int i) const {
     if constexpr (T::BF16)
       return acc[T::NACC + i] + acc[T::NACC + 4 + i] + acc[T::NACC + 8 + i];
+    else if constexpr (T::S8)
+      return acc[T::NACC + i] + 128u * acc[T::NACC + 4 + i];
     else
       return acc[T::NACC + i];
   }
+  // Expected moment element i (i < NEC) at moment row col(i): in int8 lo +
+  // 128 hi of its digits (rows col(i) and 8 + col(i), element i + 4).
+  static constexpr int NEC = T::S8 ? NE / 2 : NE;
+  __device__ __forceinline__ Acc ecol(int i) const {
+    if constexpr (T::S8)
+      return acc_e[i] + 128u * acc_e[i + 4];
+    else
+      return acc_e[i];
+  }
 
   // After wgmma_wait_all: `part` holds its final sum (the empty asm keeps
-  // the compiler from reading it earlier); add it into `acc`.
+  // the compiler from reading it earlier); add it into `acc`. In int8 the
+  // same empty asm pins `acc` and `acc_e` themselves, which the wgmmas
+  // wrote.
   __device__ __forceinline__ void promote() {
+    if constexpr (T::S8) {
 #pragma unroll
-    for (int i = 0; i < T::NACC_W; ++i) {
-      asm volatile("" : "+f"(part[i])::"memory");
-      acc[i] += part[i];
-    }
-    if constexpr (T::R > 0) {
+      for (int i = 0; i < T::NACC_W; ++i)
+        asm volatile("" : "+r"(acc[i])::"memory");
+      if constexpr (T::R > 0) {
 #pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        asm volatile("" : "+f"(part_e[i])::"memory");
-        acc_e[i] += part_e[i];
+        for (int i = 0; i < NE; ++i)
+          asm volatile("" : "+r"(acc_e[i])::"memory");
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < T::NACC_W; ++i) {
+        asm volatile("" : "+f"(part[i])::"memory");
+        acc[i] += part[i];
+      }
+      if constexpr (T::R > 0) {
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          asm volatile("" : "+f"(part_e[i])::"memory");
+          acc_e[i] += part_e[i];
+        }
       }
     }
   }
@@ -1390,10 +1661,12 @@ struct WgMainloop {
   // promote() and restart both stage sums at zero.
   __device__ __forceinline__ void promote_clear() {
     promote();
+    if constexpr (!T::S8) {
 #pragma unroll
-    for (int i = 0; i < T::NACC_W; ++i) part[i] = 0.f;
+      for (int i = 0; i < T::NACC_W; ++i) part[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < NE; ++i) part_e[i] = 0.f;
+      for (int i = 0; i < NE; ++i) part_e[i] = 0.f;
+    }
   }
 
   // Wait until stage st has landed and its B is split; load this thread's
@@ -1402,12 +1675,14 @@ struct WgMainloop {
   // (j / 2) + l % 4, read through the swizzle.
   // bf16: no split; register j of k step q holds the column pair 16 q + 8 *
   // (j / 2) + 2 * (l % 4) of row r0 + 8 * (j % 2), and `al` is not used.
+  // int8: the same bytes, four columns 32 q + 16 (j / 2) + 4 (l % 4) .. + 3
+  // a register.
   __device__ __forceinline__ void prepare(int st, uint32_t (&ah)[NF],
                                           uint32_t (&al)[NF]) const {
     const int s = st % T::STAGES;
     mbar_wait(T::SPLIT ? sm.ready(s) : sm.full(s), (st / T::STAGES) & 1);
     const int r0 = 64 * g + 16 * w + (l >> 2);
-    if constexpr (T::BF16) {
+    if constexpr (T::BF16 || T::S8) {
       const uint32_t* a = sm.aw(s);
 #pragma unroll
       for (int q = 0; q < T::KW; ++q)
@@ -1495,6 +1770,101 @@ struct WgMainloop {
         WgmmaBf<T::R>::run(part_e, x, smem_desc(sm.mw(s, t)) + 2 * q,
                            fresh && t == 0 ? 0 : 1);
     }
+  }
+
+  // int8: 32-deep k step q of ring slot s into `acc`, A from the fragment
+  // registers; with R > 0 B's stage (this warpgroup's 64 rows) times the
+  // moment rows' digits into `acc_e`.
+  __device__ __forceinline__ void mma_s8(const uint32_t (&ah)[NF], int q,
+                                         int s) {
+    WgmmaS8<T::BN + T::XN>::run(acc, &ah[4 * q], smem_desc(sm.b(s)) + 2 * q,
+                                1);
+    if constexpr (T::R > 0)
+      WgmmaSSS8<T::R>::run(acc_e, smem_desc(sm.bw(s) + 64 * g * 32) + 2 * q,
+                           smem_desc(sm.mw(s, 0)) + 2 * q, 1);
+  }
+
+  // int8: the 8-column steps of k step q whose bits are set in `mask` (bit u:
+  // step 4 q + u): A's registers of the other steps zero (register j of
+  // lane l holds step 2 (j / 2) + (l % 4) / 2) and, with R > 0, E's A
+  // operand (B's stage) as register fragments masked the same way; the
+  // masked registers are written before the fence that orders them ahead of
+  // the wgmmas.
+  __device__ __forceinline__ void mma_s8_part(const uint32_t (&ah)[NF], int q,
+                                              int s, unsigned mask) {
+    const int r0 = 64 * g + 16 * w + (l >> 2);
+    uint32_t a[4], x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool keep = (mask >> (2 * (j >> 1) + ((l & 3) >> 1))) & 1u;
+      a[j] = keep ? ah[4 * q + j] : 0u;
+      if constexpr (T::R > 0)
+        x[j] = keep ? sm.bw(s)[swz_word(r0 + 8 * (j & 1),
+                                        8 * q + 4 * (j >> 1) + (l & 3))]
+                    : 0u;
+    }
+    wgmma_fence();
+    WgmmaS8<T::BN + T::XN>::run(acc, a, smem_desc(sm.b(s)) + 2 * q, 1);
+    if constexpr (T::R > 0)
+      WgmmaS8<T::R>::run(acc_e, x, smem_desc(sm.mw(s, 0)) + 2 * q, 1);
+  }
+
+  // mma_stage in int8 (the checks' hooks, kSegmented): the same events at
+  // the same 8-column k steps. A stage with an event is issued in segments
+  // that each end at a check; a 32-deep k step that a check splits is
+  // issued in parts (mma_s8_part). A fault goes into `acc` before the part
+  // of a k step it falls in, once the wgmmas before it have landed: a part
+  // never spans a check, and integer adds commute, so every check sees
+  // exactly the faults scheduled up to its k step, as the JAX kernel does.
+  template <class Hook>
+  __device__ __forceinline__ void mma_stage_s8(int st,
+                                               const uint32_t (&ah)[NF],
+                                               Hook& hook) {
+    static_assert(Hook::kSegmented && !kAdaptive,
+                  "int8 runs B3 and B4 under the static thresholds");
+    const int s = st % T::STAGES, t0 = st * T::KK;
+    wgmma_fence();
+    if (!hook.within(st)) {
+#pragma unroll
+      for (int q = 0; q < T::KW; ++q) mma_s8(ah, q, s);
+    } else {
+      int k0 = 0;  // the first 8-column k step not issued
+      for (;;) {
+        // The segment k0 .. k1: up to the next check or the stage's end.
+        const int kc = min(hook.check_step() - t0, T::KK);
+        const int k1 = min(kc, T::KK - 1);
+#pragma unroll
+        for (int q = 0; q < T::KW; ++q) {
+          const int lo = max(T::KS * q, k0), hi = min(T::KS * q + 3, k1);
+          if (lo <= hi) {
+            if (hook.fault_step() - t0 <= hi) {
+              wgmma_commit();
+              wgmma_wait_all();
+              promote();
+              do {
+                hook.apply(*this, hook.fault_step());
+              } while (hook.fault_step() - t0 <= hi);
+              wgmma_fence();
+            }
+            if (hi - lo == T::KS - 1) {
+              mma_s8(ah, q, s);
+            } else {  // steps lo .. hi of the four
+              const unsigned n = hi - lo + 1;
+              mma_s8_part(ah, q, s, (0xfu >> (4 - n)) << (lo - T::KS * q));
+            }
+          }
+        }
+        if (kc >= T::KK) break;
+        wgmma_commit();
+        wgmma_wait_all();
+        promote();
+        hook.check(*this);
+        wgmma_fence();
+        k0 = kc + 1;
+        if (k0 >= T::KK) break;
+      }
+    }
+    wgmma_commit();
   }
 
   // mma_stage in bf16: the same events at the same 8-column k steps. A k
@@ -1618,7 +1988,9 @@ struct WgMainloop {
   __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
                                             const uint32_t (&al)[NF],
                                             Hook& hook) {
-    if constexpr (T::BF16) {
+    if constexpr (T::S8) {
+      mma_stage_s8(st, ah, hook);
+    } else if constexpr (T::BF16) {
       mma_stage_bf16(st, ah, hook);
     } else {
       const int s = st % T::STAGES, t0 = st * T::KK;
@@ -1723,7 +2095,9 @@ struct WgMainloop {
 
   // out = alpha * acc + beta * C for this CTA's tile, a float2 per
   // column pair (out never aliases C); with MASK only the rows below M and
-  // columns below N (a CTA larger than the padded operands).
+  // columns below N (a CTA larger than the padded operands). int8: alpha *
+  // f32(acc) + beta * C with each product and the sum rounded on its own
+  // (no FMA contraction), as the plain version's torch ops round them.
   template <bool MASK = false>
   __device__ __forceinline__ void store(float* out, const float* C, int N,
                                         int m0, int n0, float alpha,
@@ -1733,8 +2107,16 @@ struct WgMainloop {
       if (MASK && (m0 + row(i) >= M || n0 + col(i) >= N)) continue;
       const size_t o = (size_t)(m0 + row(i)) * N + n0 + col(i);
       const float2 c = *reinterpret_cast<const float2*>(C + o);
-      *reinterpret_cast<float2*>(out + o) = make_float2(
-          alpha * acc[i] + beta * c.x, alpha * acc[i + 1] + beta * c.y);
+      if constexpr (T::S8) {
+        *reinterpret_cast<float2*>(out + o) = make_float2(
+            __fadd_rn(__fmul_rn(alpha, (float)(int)acc[i]),
+                      __fmul_rn(beta, c.x)),
+            __fadd_rn(__fmul_rn(alpha, (float)(int)acc[i + 1]),
+                      __fmul_rn(beta, c.y)));
+      } else {
+        *reinterpret_cast<float2*>(out + o) = make_float2(
+            alpha * acc[i] + beta * c.x, alpha * acc[i + 1] + beta * c.y);
+      }
     }
   }
 };
@@ -1768,20 +2150,24 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The (rows, K) row-major f32 (esize 4) or bf16 (esize 2) operand at p, in
-// (box_rows, sk) boxes with the 128-byte swizzle; out-of-range columns read
-// as zero.
+// The (rows, K) row-major f32 (esize 4), bf16 (esize 2) or int8 (esize 1)
+// operand at p, in (box_rows, sk) boxes with the 128-byte swizzle;
+// out-of-range columns read as zero. Rows lie K * esize bytes apart rounded
+// up to 16, as TMA needs: the same for f32 and bf16 (K is a multiple of 8),
+// and for int8 the wrapper's storage (ops/common.align_rows16) when K is
+// not a multiple of 16.
 inline bool tensor_map(CUtensorMap* map, const void* p, int rows, int K,
                        int box_rows, int sk, int esize = 4) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
+  const cuuint64_t strides[1] = {((cuuint64_t)K * esize + 15) / 16 * 16};
   const cuuint32_t box[2] = {(cuuint32_t)sk, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map,
-                esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                esize == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                : esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 2, const_cast<void*>(p),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -3,7 +3,8 @@
 Every library of :data:`LIBRARIES` is compiled at first use, on the machine
 with the card, by ``nvcc`` from one ``csrc/*.cu`` into a shared library with
 a plain C interface, loaded with ``ctypes``; the static libraries of B1-B5
-also hold their bf16 builds (the ``*_bf16`` entry points). The FT sources build twice:
+also hold their bf16 builds (the ``*_bf16`` entry points), and those of B3
+and B4 their int8 builds (``*_int8``). The FT sources build twice:
 as they are (static thresholds and ``threshold="auto"``) and with
 ``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
 sub-tile's threshold in the kernel), two libraries with the same entry
@@ -190,9 +191,10 @@ def check_tile(shape) -> tuple:
 def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"``, for
-    every kernel at every compiled tile, or ``"wgmma-bf16"`` for the bf16
-    builds (one bf16 wgmma per 16-deep k step, B1-B5); raises for another
-    tile. The CTA
+    every kernel at every compiled tile, ``"wgmma-bf16"`` for the bf16
+    builds (one bf16 wgmma per 16-deep k step, B1-B5) or ``"wgmma-s8"`` for
+    the int8 builds (one s8 wgmma per 32-deep k step, s32 accumulator, B3
+    and B4); raises for another tile. The CTA
     differs: B1 and B2 (``precomp``) run the tile's own CTA at the tiles of
     :func:`wgmma_tiles` and the 128 x 128 CTA at those of
     :func:`narrow_tiles` (B2 checking the tile as its sub-tile); B3
@@ -200,19 +202,22 @@ def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     ``rowcol_mxu`` and B8 ``global_mxu`` run the 128 x 128 CTA over the
     tile as its sub-tile at every tile of :func:`subtiles`."""
     check_tile(shape)
-    return "wgmma-bf16" if in_dtype == "bfloat16" else "wgmma-3xtf32"
+    return {"bfloat16": "wgmma-bf16", "int8": "wgmma-s8"}.get(in_dtype,
+                                                           "wgmma-3xtf32")
 
 
 def check_operands(shape, a, b, c, *more) -> tuple:
     """Validate a kernel launch: contiguous, 16-byte aligned operands on one
-    CUDA device, A (M, K) and B (N, K) both float32 or both bfloat16 (the
-    kernel's input dtype), C (M, N) and the wrapper-side inputs float32,
-    padded to the tile (M % bm == N % bn == K % bk == 0, K >= bk), and a
-    compiled tile. Returns (M, N, K, bm, bn, bk)."""
+    CUDA device, A (M, K) and B (N, K) both float32, both bfloat16 or both
+    int8 (the kernel's input dtype; an int8 operand's rows K rounded up to
+    16 bytes apart, ``common.align_rows16``), C (M, N) and the wrapper-side
+    inputs float32, padded to the tile (M % bm == N % bn == K % bk == 0, K
+    >= bk), and a compiled tile. Returns (M, N, K, bm, bn, bk)."""
     dev = a.device
-    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
-        raise ValueError("kernels take A and B both float32 or both"
-                         f" bfloat16, got {a.dtype} and {b.dtype}")
+    if (a.dtype not in (torch.float32, torch.bfloat16, torch.int8)
+            or b.dtype != a.dtype):
+        raise ValueError("kernels take A and B both float32, both bfloat16"
+                         f" or both int8, got {a.dtype} and {b.dtype}")
     for t in (a, b, c, *more):
         if not t.is_cuda or t.device != dev:
             raise ValueError("kernel operands must lie on one CUDA device,"
@@ -220,7 +225,11 @@ def check_operands(shape, a, b, c, *more) -> tuple:
         if t.dtype != torch.float32 and t is not a and t is not b:
             raise ValueError(f"kernels take float32 C and checksum inputs,"
                              f" got {t.dtype}")
-        if not t.is_contiguous():
+        if t.dtype == torch.int8:
+            if t.stride() != (t.shape[1] + (-t.shape[1]) % 16, 1):
+                raise ValueError("kernels take int8 rows 16 bytes apart"
+                                 " (common.align_rows16)")
+        elif not t.is_contiguous():
             raise ValueError("kernels take contiguous operands")
         if t.data_ptr() % 16:
             raise ValueError("kernels take 16-byte aligned operands")

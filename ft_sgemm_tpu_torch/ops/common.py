@@ -83,13 +83,34 @@ def resolve_in_dtype(in_dtype, *, allow_low_precision: bool = False):
 def as_operand(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """An A or B operand in the kernels' input dtype on ``device``: f32 as
     :func:`as_f32`, bf16 rounded to nearest even from f32 on ``device``
-    (the rounding the JAX package's ``astype`` does), contiguous and
-    16-byte aligned."""
+    (the rounding the JAX package's ``astype`` does), int8 truncated toward
+    zero from f32 (numpy's ``astype``; the int8 mode's data are
+    integer-valued), contiguous and 16-byte aligned. An int8 tensor is taken
+    as it is."""
+    if dtype == torch.int8 and isinstance(x, torch.Tensor) and (
+            x.dtype == torch.int8):
+        t = x.to(device).contiguous()
+        return t.clone() if t.data_ptr() % 16 else t
     t = as_f32(x, device)
     if dtype == torch.float32:
         return t
     r = t.to(dtype).contiguous()
     return r.clone() if r.data_ptr() % 16 else r
+
+
+def align_rows16(x: torch.Tensor) -> torch.Tensor:
+    """A 1-byte (M, K) operand whose rows lie a multiple of 16 bytes apart,
+    the row stride TMA takes (``csrc/gemm_wgmma.cuh::tensor_map``): ``x``
+    when K is a multiple of 16, else the first K columns of a zero-padded
+    (M, K rounded up to 16) copy. K itself, and so the schedule of K
+    steps, stays that of the tile's padding (the JAX package pads K to bk
+    only); the extra zero columns are storage, never read as data."""
+    m, k = x.shape
+    if x.element_size() != 1 or k % 16 == 0:
+        return x
+    buf = torch.zeros((m, k + (-k) % 16), dtype=x.dtype, device=x.device)
+    buf[:, :k] = x
+    return buf[:, :k]
 
 
 def strict_fp32() -> None:
@@ -140,8 +161,9 @@ def scalar_operand(inject, thresholds, margin: float = 0.0) -> np.ndarray:
 def estimate_noise_floor(a: torch.Tensor, b: torch.Tensor, c, alpha: float,
                          beta: float) -> torch.Tensor:
     """Closed-form bound on a clean run's checksum residual, from the
-    inputs' moments, as a 0-d f32 tensor on the inputs' device (no host
-    sync): the torch twin of ``estimate_noise_floor_jnp``
+    inputs' moments (bf16 and int8 operands as their f32 values), as a 0-d
+    f32 tensor on the inputs' device (no host sync): the torch twin of
+    ``estimate_noise_floor_jnp``
     (ops/common.py:100-145 of the JAX package), what ``threshold="auto"``
     evaluates per call.
 

@@ -6,10 +6,12 @@ B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3-B8 run one
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
-modes, and in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
+modes, in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
 weighted, rowcol and global strategies under the static and auto
 thresholds (B2-B5 on bf16 wgmma; the mxu encodes and "adaptive" in bf16
-are not ported yet). The threshold modes are ``"static"`` (one
+are not ported yet), and in int8 (``in_dtype="int8"``, the exact mode) for
+rowcol and global (B3, B4 on s8 wgmma) under every threshold mode. The
+threshold modes are ``"static"`` (one
 threshold, the reference's 9500 by default), ``"auto"`` (one threshold per
 call from the inputs' moments, reduced by torch ops on the inputs' device
 and read back into the same kernels' scalar argument) and ``"adaptive"``
@@ -54,6 +56,16 @@ cancels out of every residual and the thresholds stay those of f32. The
 wrapper's moment rows (B2's expected moments) split each f32 moment into
 bf16 hi, lo and lo2 terms (``_tile_moments``), as the JAX package does.
 
+In int8 (``in_dtype="int8"``, the exact mode: ``exact=True`` of the JAX
+kernels), A and B are truncated to int8 and the rowcol (B3) and global (B4)
+strategies run with an int32 accumulator and int32 checksums that wrap mod
+2^32, so clean residuals are exactly 0 and every nonzero residual is a
+fault: a fault is the rounded magnitude, the correction an exact integer
+add, the re-check has no pads, and ``threshold="adaptive"`` is the
+constant half-ulp 0.5 (ops/ft_sgemm.py:606-611, 890-893), which the static
+kernels take in slots 4-6. Multifault is off. The output is ``alpha *
+f32(acc) + beta * C``.
+
 Beside each kernel wrapper is its plain PyTorch version, which follows the
 tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,
 a Python loop over K steps only): the same inject positions, cadence,
@@ -79,6 +91,7 @@ from ft_sgemm_tpu_torch.ops.common import (
     NOISE_C_BIAS,
     NOISE_C_RAND,
     THRESHOLD_CAP,
+    align_rows16,
     as_f32,
     as_operand,
     correction_pads,
@@ -91,6 +104,7 @@ from ft_sgemm_tpu_torch.ops.common import (
     strict_fp32,
     variance_bound_threshold,
 )
+from ft_sgemm_tpu_torch.ops.reference import wrap_int32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -226,7 +240,8 @@ def _untile(t4: torch.Tensor) -> torch.Tensor:
 def _inject_plain(acc, scalars, k: int) -> None:
     """``_inject`` for every tile at step ``k``: the ordinal
     k//every + 3i + 5j picks row (131*ord + 7) % bm and column
-    (col_stride*ord + 3) % bn of tile (i, j)."""
+    (col_stride*ord + 3) % bn of tile (i, j). An integer accumulator (the
+    exact mode) takes the magnitude rounded half to even, as jnp.round."""
     every = max(int(scalars[1]), 1)
     if not scalars[0] > 0.0 or k % every:
         return
@@ -236,7 +251,23 @@ def _inject_plain(acc, scalars, k: int) -> None:
     ordinal = k // every + 3 * ii + 5 * jj
     rows = (ordinal * 131 + 7) % bm
     cols = (ordinal * int(scalars[3]) + 3) % bn
-    acc[ii, jj, rows, cols] += float(scalars[2])
+    mag = float(scalars[2])
+    acc[ii, jj, rows, cols] += mag if acc.is_floating_point() else round(mag)
+
+
+def _mag32(x: torch.Tensor) -> torch.Tensor:
+    """``mag`` of the exact checks (ops/ft_sgemm.py:425-429): |x| of wrapped
+    int32 values (held as int64) in f32, |INT_MIN| staying INT_MIN as
+    jnp.abs wraps it."""
+    return torch.where(x == -2 ** 31, x, x.abs()).to(torch.float32)
+
+
+def _exact_dot(eq: str, *ops) -> torch.Tensor:
+    """One K step's einsum of the exact mode as int64, of int8 values held
+    in float64: every step's products and checksum updates are exact there
+    (|a b| <= 2^14 over bk <= 128 terms, |a s_b| <= 2^28, |s_a s_b| <=
+    2^35), on the CPU and on the card alike."""
+    return torch.einsum(eq, *ops).to(torch.int64)
 
 
 def _accumulate_moments(mom, a_k, b_k) -> list:
@@ -308,13 +339,16 @@ def _moment_detect_correct(acc, exp_c, exp_cw, exp_cw2, thresholds):
 
 
 def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
-                           multifault: bool):
+                           multifault: bool, exact: bool = False):
     """``_rowcol_detect_correct`` over tiles: returns (corrected acc,
-    per-tile hits, per-tile uncorrectable level)."""
+    per-tile hits, per-tile uncorrectable level). ``exact``: wrapped int32
+    residuals (int64), ``mag`` against the f32 threshold, an integer
+    correction and a re-check without pads."""
     thr, thr_m1 = thresholds[:2]
     bm = acc.shape[-2]
-    det_r = res_r.abs() > thr                        # (gm, gn, bm)
-    det_c = res_c.abs() > thr                        # (gm, gn, bn)
+    mag = _mag32 if exact else torch.abs
+    det_r = mag(res_r) > thr                         # (gm, gn, bm)
+    det_c = mag(res_c) > thr                         # (gm, gn, bn)
     hit = det_r[..., :, None] & det_c[..., None, :]
     nr, nc = det_r.sum(-1), det_c.sum(-1)
     # One flagged row and several flagged columns: the column residuals
@@ -333,10 +367,14 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
     delta = torch.where(hit, corr, torch.zeros_like(acc))
     res_r2 = res_r - delta.sum(-1)
     res_c2 = res_c - delta.sum(-2)
-    (pad_r,) = correction_pads(delta, -1)
-    (pad_c,) = correction_pads(delta, -2)
-    bad_c = res_c2.abs() > thr + pad_c
-    bad = (res_r2.abs() > thr + pad_r).sum(-1) + bad_c.sum(-1)
+    if exact:
+        res_r2, res_c2 = wrap_int32(res_r2), wrap_int32(res_c2)
+        pad_r = pad_c = 0.0
+    else:
+        (pad_r,) = correction_pads(delta, -1)
+        (pad_c,) = correction_pads(delta, -2)
+    bad_c = mag(res_c2) > thr + pad_c
+    bad = (mag(res_r2) > thr + pad_r).sum(-1) + bad_c.sum(-1)
     if multifault:
         res_cw2 = res_cw - (delta * w).sum(-2)
         _, pad_w = correction_pads(delta, -2, w)
@@ -390,38 +428,56 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     return _untile(alpha * acc + beta * c4), det, unc
 
 
+def _check_exact(a, multifault=False, moments=None, adaptive=False) -> bool:
+    """Whether the operands run the exact mode (int8), which takes no
+    multifault, no moment rows and no adaptive build."""
+    exact = a.dtype == torch.int8
+    if exact and (multifault or moments is not None or adaptive):
+        raise ValueError("int8 runs the vpu encodes of rowcol and global with"
+                         " multifault off and the static thresholds (its"
+                         " adaptive threshold is the constant 0.5)")
+    return exact
+
+
 def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, multifault: bool, moments=None,
                     adaptive: bool = False):
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
     B's (gn, 1, K) moment rows), of B7; ``adaptive``: each tile's
     thresholds at each check from its running moments of A's and B's own
-    rows. bf16 operands are summed as their f32 values. Returns (out, det,
+    rows. bf16 operands are summed as their f32 values. int8 operands run
+    the exact mode step by step (``_ft_kernel_rowcol`` with exact=True): the
+    accumulator, checksums, residuals and correction are integers reduced
+    mod 2^32 where the JAX kernel's int32 would wrap. Returns (out, det,
     unc)."""
+    exact = _check_exact(a, multifault, moments, adaptive)
     strict_fp32()
-    a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
+    a4, b4, c4, nk = _tiles(*(x.double() if exact else x.float()
+                              for x in (a, b)), c, shape)
     gm, gn, bm, bn = c4.shape
-    acc = torch.zeros_like(c4)
+    acc_t = torch.int64 if exact else c4.dtype
+    acc = torch.zeros_like(c4, dtype=acc_t)
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
     unc = torch.zeros_like(det)
     w = _weights(bm, a.device)
-    r_exp = torch.zeros((gm, gn, bm), device=a.device)
-    c_exp = torch.zeros((gm, gn, bn), device=a.device)
+    r_exp = torch.zeros((gm, gn, bm), dtype=acc_t, device=a.device)
+    c_exp = torch.zeros((gm, gn, bn), dtype=acc_t, device=a.device)
     cw_exp = torch.zeros_like(c_exp)
     if moments is not None:
         ma, mb = (_step_rows(m, nk) for m in moments)
     thresholds = [float(t) for t in scalars[4:6]]
+    dot = _exact_dot if exact else torch.einsum
     mom = None
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
-        acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
+        acc += dot("imk,jnk->ijmn", a_k, b_k)
         if moments is None:
             s_a, s_b = a_k.sum(1), b_k.sum(1)
         else:
             s_a, s_b = ma[:, 0, k], mb[:, 0, k]
-        r_exp += torch.einsum("imk,jk->ijm", a_k, s_b)
-        c_exp += torch.einsum("jnk,ik->ijn", b_k, s_a)
+        r_exp += dot("imk,jk->ijm", a_k, s_b)
+        c_exp += dot("jnk,ik->ijn", b_k, s_a)
         if multifault:
             s_aw = ((a_k * w[None, :, None]).sum(1) if moments is None
                     else ma[:, 1, k])
@@ -433,12 +489,23 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                 thresholds = _recheck_thresholds(_adaptive_threshold(
                     mom, k, shape, nk, float(scalars[7])), bm)[:2]
             res_cw = cw_exp - (acc * w[:, None]).sum(-2) if multifault else None
+            res_r, res_c = r_exp - acc.sum(-1), c_exp - acc.sum(-2)
+            if exact:
+                res_r, res_c = wrap_int32(res_r), wrap_int32(res_c)
             acc, hits, bad = _rowcol_detect_correct(
-                acc, r_exp - acc.sum(-1), c_exp - acc.sum(-2), res_cw,
-                thresholds, multifault)
+                acc, res_r, res_c, res_cw, thresholds, multifault, exact)
             det += hits.to(torch.int32)
             unc = bad.to(torch.int32)
-    return _untile(alpha * acc + beta * c4), det, unc
+    return _epilogue(acc, c4, alpha, beta), det, unc
+
+
+def _epilogue(acc, c4, alpha, beta) -> torch.Tensor:
+    """``alpha * acc + beta * C`` of the tiles, untiled; an integer (exact)
+    accumulator wrapped to int32 and widened to f32 first (each product and
+    the sum rounded on its own, as the int8 kernels store them)."""
+    if not acc.is_floating_point():
+        acc = wrap_int32(acc).to(torch.float32)
+    return _untile(alpha * acc + beta * c4)
 
 
 def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
@@ -449,27 +516,33 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     moved by more than the threshold since the previous check; ``adaptive``:
     each tile's threshold at each check from its running moments of A's and
     B's own rows, times sqrt(bn). bf16 operands are summed as their f32
-    values. Returns (out, det, unc) with unc equal to det."""
+    values; int8 operands run the exact mode (``_ft_kernel_global`` with
+    exact=True: t_exp, the residual and its move are wrapping int32).
+    Returns (out, det, unc) with unc equal to det."""
+    exact = _check_exact(a, moments=moments, adaptive=adaptive)
     strict_fp32()
-    a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
+    a4, b4, c4, nk = _tiles(*(x.double() if exact else x.float()
+                              for x in (a, b)), c, shape)
     gm, gn = c4.shape[:2]
-    acc = torch.zeros_like(c4)
+    acc_t = torch.int64 if exact else c4.dtype
+    acc = torch.zeros_like(c4, dtype=acc_t)
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
-    t_exp = torch.zeros((gm, gn), device=a.device)
+    t_exp = torch.zeros((gm, gn), dtype=acc_t, device=a.device)
     prev = torch.zeros_like(t_exp)
     if moments is not None:
         ma, mb = (_step_rows(m, nk) for m in moments)
     thr = float(scalars[4])
+    dot = _exact_dot if exact else torch.einsum
     mom = None
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
-        acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
+        acc += dot("imk,jnk->ijmn", a_k, b_k)
         if moments is None:
             s_a, s_b = a_k.sum(1), b_k.sum(1)
         else:
             s_a, s_b = ma[:, 0, k], mb[:, 0, k]
-        t_exp += s_a @ s_b.T
+        t_exp += dot("ik,jk->ij", s_a, s_b) if exact else s_a @ s_b.T
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
@@ -477,9 +550,13 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                 thr = _adaptive_threshold(mom, k, shape, nk,
                                           float(scalars[7]), global_tile=True)
             res = t_exp - acc.sum((-2, -1))
-            det += ((res - prev).abs() > thr).to(torch.int32)
+            if exact:
+                res = wrap_int32(res)
+                det += (_mag32(wrap_int32(res - prev)) > thr).to(torch.int32)
+            else:
+                det += ((res - prev).abs() > thr).to(torch.int32)
             prev = res
-    return _untile(alpha * acc + beta * c4), det, det.clone()
+    return _epilogue(acc, c4, alpha, beta), det, det.clone()
 
 
 # --------------------------------------------------------------------------
@@ -512,14 +589,18 @@ def _entries(adaptive: bool = False):
     if not adaptive:
         entries["precomp"] = bind(weighted, "ftsg_ft_weighted_precomp",
                                   [_P] * 7 + dims + [_F, _F, _P, _P])
-        # bf16 operands (the vpu encodes), same arguments: B2, B5, B3, B4.
-        for name, lib, fname in (
-                ("precomp", weighted, "ftsg_ft_weighted_precomp_bf16"),
-                ("running", weighted, "ftsg_ft_weighted_running_bf16"),
-                ("rowcol", rowcol, "ftsg_ft_rowcol_bf16"),
-                ("global", glob, "ftsg_ft_global_bf16")):
-            entries[name, torch.bfloat16] = bind(lib, fname,
-                                                 entries[name].argtypes)
+        # bf16 operands (the vpu encodes), same arguments: B2, B5, B3, B4;
+        # int8 operands (the exact mode), same arguments: B3, B4.
+        for name, lib, fname, dtype in (
+                ("precomp", weighted, "ftsg_ft_weighted_precomp_bf16",
+                 torch.bfloat16),
+                ("running", weighted, "ftsg_ft_weighted_running_bf16",
+                 torch.bfloat16),
+                ("rowcol", rowcol, "ftsg_ft_rowcol_bf16", torch.bfloat16),
+                ("global", glob, "ftsg_ft_global_bf16", torch.bfloat16),
+                ("rowcol", rowcol, "ftsg_ft_rowcol_int8", torch.int8),
+                ("global", glob, "ftsg_ft_global_int8", torch.int8)):
+            entries[name, dtype] = bind(lib, fname, entries[name].argtypes)
     return entries
 
 
@@ -535,18 +616,21 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
-    validated operands, A and B f32 or (static build, vpu kernels) bf16,
-    and count it on ``wrapper`` (``launches``, ``adaptive_launches`` or
-    ``bf16_launches``); raises on a launch error. Returns (out, det,
+    validated operands, A and B f32 or (static build, vpu kernels) bf16 or
+    (static build, B3 and B4) int8, and count it on ``wrapper``
+    (``launches``, ``adaptive_launches``, ``bf16_launches`` or
+    ``int8_launches``); raises on a launch error. Returns (out, det,
     unc)."""
     dims = check_operands(shape, a, b, c, *extra_in)
     bf16 = a.dtype == torch.bfloat16
+    int8 = a.dtype == torch.int8
     entries = _entries(adaptive)
-    if bf16 and (name, a.dtype) not in entries:
+    if (bf16 or int8) and (name, a.dtype) not in entries:
         raise NotImplementedError(
-            f"kernel {name!r} has no bf16 build"
-            + (" (adaptive)" if adaptive else "") + " yet: bf16 runs the vpu"
-            " encodes' B2-B5 under the static and auto thresholds")
+            f"kernel {name!r} has no {'bf16' if bf16 else 'int8'} build"
+            + (" (adaptive)" if adaptive else "") + ": bf16 runs the vpu"
+            " encodes' B2-B5 under the static and auto thresholds, int8 B3"
+            " and B4 under the static build")
     sc = np.ascontiguousarray(scalars, np.float32)  # taken by value
     if sc.shape != (8,):
         raise ValueError(f"the scalar argument has 8 slots, got {sc.shape}")
@@ -554,7 +638,7 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     grid = (c.shape[0] // shape.bm, c.shape[1] // shape.bn)
     det = torch.empty(grid, dtype=torch.int32, device=c.device)
     unc = torch.empty_like(det)
-    fn = entries[name, a.dtype] if bf16 else entries[name]
+    fn = entries[name, a.dtype] if bf16 or int8 else entries[name]
     noise = () if name == "precomp" else (
         full_run_log2(a.shape[1] // shape.bk, shape.bk, shape.bm, shape.bn),
         NOISE_C_RAND, NOISE_C_BIAS)
@@ -566,6 +650,8 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
         wrapper.adaptive_launches += 1
     elif bf16:
         wrapper.bf16_launches += 1
+    elif int8:
+        wrapper.int8_launches += 1
     else:
         wrapper.launches += 1
     check_launch(rc, fn.__name__ + (" (adaptive build)" if adaptive else ""))
@@ -672,6 +758,7 @@ for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
     _w.launches = 0
     _w.adaptive_launches = 0
     _w.bf16_launches = 0
+    _w.int8_launches = 0
 
 
 def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
@@ -831,10 +918,18 @@ def make_ft_sgemm(
     correction stay f32, and the thresholds are f32's ("auto" from the
     rounded operands). The tile is the paper's in every dtype.
 
+    ``in_dtype="int8"`` truncates A and B to int8 (pass integer-valued
+    data) and runs the exact mode of the rowcol or global strategy (B3,
+    B4): int32 accumulator and checksums wrapping mod 2^32, multifault off
+    (ops/ft_sgemm.py:1802-1805), ``"auto"`` from the int8 values, and
+    ``"adaptive"`` the constant 0.5 of the exact kernels, on the static
+    build. A 1-byte operand's rows are stored 16 bytes aligned
+    (``common.align_rows16``).
+
     Not ported yet, and raising ``NotImplementedError``
     (``configs.check_kernel_legality``): bf16 with ``encode="mxu"`` or
     ``strategy="fused"`` (B6-B8) or ``threshold="adaptive"``, and
-    float8_e4m3fn and int8.
+    float8_e4m3fn.
     """
     if isinstance(threshold, str):
         threshold_mode = threshold
@@ -843,11 +938,19 @@ def make_ft_sgemm(
     in_dtype = check_kernel_legality(
         strategy=strategy, encode=encode, in_dtype=in_dtype,
         threshold_mode=threshold_mode, multifault=multifault)
-    dtype = resolve_in_dtype(in_dtype)
+    dtype = resolve_in_dtype(in_dtype, allow_low_precision=True)
     if strategy == "fused":
         encode = "mxu"  # the fused strategy IS the weighted mxu encode
     adaptive = threshold_mode == "adaptive"
+    exact = dtype == torch.int8
     thresholds = (0.0,) * 3
+    if exact:
+        # Exact integer residuals: clean ones are 0, so "adaptive" is the
+        # half-ulp (ops/ft_sgemm.py:606-611, 890-893) in the static build's
+        # slots, and no moment rides the weighted checksum.
+        multifault = False
+        if adaptive:
+            thresholds = (0.5,) * 3
     if threshold_mode == "static":
         if threshold == "static":
             threshold = REFERENCE_THRESHOLD
@@ -862,7 +965,8 @@ def make_ft_sgemm(
     def scalars_for(inject, a, b, c):
         if threshold_mode != "auto":
             return scalar_operand(inject, thresholds,
-                                  threshold_margin if adaptive else 0.0)
+                                  threshold_margin if adaptive and not exact
+                                  else 0.0)
         # From the pre-pad inputs (padding zeros would dilute the moments),
         # on their device (ops/ft_sgemm.py:1820-1834).
         floor = estimate_noise_floor(a, b, c if beta != 0.0 else None,
@@ -889,6 +993,8 @@ def make_ft_sgemm(
         c = as_f32(c, dev)
         m, n = c.shape
         ap, bp = pad_to(a, bm, bk), pad_to(b, bn, bk)
+        if exact:
+            ap, bp = align_rows16(ap), align_rows16(bp)
         cp = pad_to(c, bm, bn)
         kind, ce, mf = _plan(strategy, check_every, multifault, inject,
                              ap.shape[1] // bk, bn, encode, adaptive)
@@ -904,7 +1010,8 @@ def make_ft_sgemm(
             ready.synchronize()
             scalars = readback["host"].numpy().copy()
         out, det, unc = run_kernel(kind, shape, ap, bp, cp, extra, alpha,
-                                   beta, scalars, ce, mf, adaptive=adaptive)
+                                   beta, scalars, ce, mf,
+                                   adaptive=adaptive and not exact)
         return FtSgemmResult(out[:m, :n], det, unc)
 
     fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"

@@ -11,6 +11,14 @@ bf16-rounded operands (ft_sgemm_tpu/ops/reference.py:21-60): a bf16 x bf16
 product is exact in f32, so rounding the inputs once is the whole
 precision difference, and C stays f32. It is not ``torch.matmul`` on bf16
 tensors, which rounds its output to bf16.
+
+With ``in_dtype="int8"`` it is the exact oracle of the int8 mode
+(ft_sgemm_tpu/ops/reference.py:24-31): A and B truncated to int8, the
+product accumulated exactly in int32 (wrapping, as XLA's int32 dot does),
+widened to f32 only for ``alpha * out + beta * C``. On the card the
+product is ``torch._int_mm`` (cuBLASLt, int8 in, int32 out), the one
+library call that stands in here, as XLA's dot did; on the CPU an int64
+matmul reduced mod 2^32.
 """
 
 from __future__ import annotations
@@ -27,23 +35,48 @@ from ft_sgemm_tpu_torch.ops.common import (
 )
 
 
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """Integers reduced to int32's range mod 2^32, as int64: the value that
+    wrapping int32 arithmetic holds."""
+    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B.T`` of int8 A (M, K) and B (N, K), accumulated exactly in
+    wrapping int32, as an int32 tensor on their device: ``torch._int_mm``
+    on the card (its shapes, M > 16 and K and N multiples of 8, reached by
+    zero padding, which the product ignores), an int64 matmul reduced mod
+    2^32 on the CPU (``torch.matmul`` takes no integer tensors on CUDA)."""
+    (m, k), n = a.shape, b.shape[0]
+    if a.device.type == "cpu":
+        return wrap_int32(a.long() @ b.long().T).to(torch.int32)
+    mp, kp, np_ = max(m, 17), k + (-k) % 8, n + (-n) % 8
+    ap = torch.zeros((mp, kp), dtype=torch.int8, device=a.device)
+    bp = torch.zeros((np_, kp), dtype=torch.int8, device=a.device)
+    ap[:m, :k] = a
+    bp[:n, :k] = b
+    return torch._int_mm(ap, bp.T)[:m, :n]
+
+
 def sgemm_reference(a, b, c, alpha=1.0, beta=-1.5, *, in_dtype="float32",
                     device=None) -> torch.Tensor:
     """``C = alpha * A @ B.T + beta * C`` via ``torch.matmul`` in FP32, on
-    A and B rounded to ``in_dtype`` (float32, bfloat16 or float8_e4m3fn;
-    the exact int8 oracle comes with the int8 kernels); the product of the
-    rounded operands always runs in full FP32, TF32 off.
+    A and B rounded to ``in_dtype`` (float32, bfloat16 or float8_e4m3fn);
+    the product of the rounded operands always runs in full FP32, TF32 off.
+    ``in_dtype="int8"``: A and B truncated to int8, their product exact in
+    wrapping int32 (:func:`int8_matmul`), then ``alpha * f32(out) + beta *
+    C`` in f32.
 
     A new tensor; ``c`` is not modified. ``device=None`` runs on CUDA.
     """
     dt = resolve_in_dtype(in_dtype, allow_low_precision=True)
-    if dt == torch.int8:
-        raise NotImplementedError(
-            "the exact int32 oracle of in_dtype='int8' is not ported yet")
     dev = resolve_device(device)
+    c = as_f32(c, dev)
+    if dt == torch.int8:
+        a, b = (as_operand(x, dt, dev) for x in (a, b))
+        return alpha * int8_matmul(a, b).float() + beta * c
     strict_fp32()
     a, b = (as_operand(x, dt, dev).float() for x in (a, b))
-    c = as_f32(c, dev)
     return alpha * torch.matmul(a, b.T) + beta * c
 
 

@@ -6,21 +6,23 @@ Builds the sources of the ``ft_sgemm_tpu_torch`` package found under TREE
 many instructions of each class its code holds: FFMA, shared loads and
 stores, global loads, cp.async (LDGSTS), local loads and stores (register
 spills), barriers, shuffles, the tensor-core products of the wgmma kernels
-(HGMMA), their TMA loads (UTMALDG) and warpgroup fences and waits
+(HGMMA; IGMMA for the int8 builds' s8 products), their TMA loads (UTMALDG)
+and warpgroup fences and waits
 (WARPGROUP), and the total. Counts are static (the code as compiled, each
 loop body once), so they tell what a kernel carries beside its main loop,
 not how often it runs it. A kernel is labelled by its ``WgTile``'s
 parameters (CTA bm, bn, sub-tile bm, bn, moment rows per band, check
 scratch, band-row and moment-row sources) and its last template flag (B1's
-ragged store), "bf16" after it for a bf16 tile, and listed when the labels
-start with one of the named tiles (default: every kernel). Needs nvcc and cuobjdump:
+ragged store), "bf16" or "s8" after it for a bf16 or int8 tile, and listed
+when the labels start with one of the named tiles (default: every kernel).
+Needs nvcc and cuobjdump:
 
     python3 scripts/torch_sass_census.py [TREE] [--tiles=128,128,16,16;64,64]
 
 ``--diff`` takes two trees instead, builds both, and says for every
-kernel of the first tree's static libraries whether the second tree's
-kernel of the same label has the same instructions in the same order
-(operands included, addresses not):
+kernel of the first tree's libraries, static and adaptive, whether the
+second tree's kernel of the same label in the same library has the same
+instructions in the same order (operands included, addresses not):
 
     python3 scripts/torch_sass_census.py --diff PARENT_TREE TREE
 """
@@ -35,7 +37,7 @@ import subprocess
 import sys
 
 CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL",
-           "HGMMA", "UTMALDG", "WARPGROUP")
+           "HGMMA", "IGMMA", "UTMALDG", "WARPGROUP")
 
 
 def cuobjdump() -> str:
@@ -55,12 +57,12 @@ def _kernels(sass: str):
             continue
         dims = re.findall(r"Li(\d+)E", wg.group(1))
         # A ninth parameter is the operand type: f32 (0) keeps the labels of
-        # trees from before it, bf16 (1) is marked.
-        bf16 = len(dims) == 9 and dims.pop() == "1"
+        # trees from before it, bf16 (1) and int8 (2) are marked.
+        in_type = dims.pop() if len(dims) == 9 else "0"
         flag = re.search(r"EELb([01])E", fn)
         yield (f"{kind.group(1)}<{','.join(dims)}"
                + (f",{flag.group(1)}" if flag else "") + ">"
-               + (" bf16" if bf16 else "")), body
+               + {"1": " bf16", "2": " s8"}.get(in_type, "")), body
 
 
 def census(sass: str) -> dict:
@@ -87,22 +89,22 @@ def instructions(sass: str) -> dict:
 
 
 def diff(old_tree: str, new_tree: str) -> int:
-    """Print, per kernel of OLD_TREE's static libraries, whether NEW_TREE
-    compiles it to the same instruction sequence."""
+    """Print, per kernel of OLD_TREE's libraries, whether NEW_TREE compiles
+    it to the same instruction sequence."""
     roots = [pathlib.Path(t).resolve() for t in (old_tree, new_tree)]
-    # Each tree's static libraries, built in a process of its own (the
-    # packages share their module names), both at once.
+    # Each tree's libraries, built in a process of its own (the packages
+    # share their module names), both at once.
     builds = [subprocess.Popen([
         sys.executable, "-c", f"import sys; sys.path.insert(0, {str(r)!r});"
-        " from ft_sgemm_tpu_torch.ops import _build; _build.build([n for n in"
-        " _build.KERNEL_LIBS if 'adaptive' not in n])"]) for r in roots]
+        " from ft_sgemm_tpu_torch.ops import _build; _build.build()"])
+        for r in roots]
     if any(b.wait() for b in builds):
         raise RuntimeError("a tree did not build")
     libs = {tree: {so.name.split("-")[0]: so for so in
                    (r / "ft_sgemm_tpu_torch/csrc/_build").glob("lib*.so")}
             for tree, r in zip((old_tree, new_tree), roots)}
     for lib, so in sorted(libs[old_tree].items()):
-        if "adaptive" in lib or "hostutils" in lib or lib not in libs[new_tree]:
+        if "hostutils" in lib or lib not in libs[new_tree]:
             continue
         new = instructions(_dump(libs[new_tree][lib]))
         for label, old in instructions(_dump(so)).items():

@@ -203,8 +203,15 @@ def test_bf16_oracle_matches_jax():
                           device="cpu").numpy()
     # exact products of the rounded operands, f32 accumulation-order noise.
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        sgemm_reference(a, b, c, in_dtype="int8", device="cpu")
+    # int8 (ported since the int8 slice, tests/test_torch_int8.py): A and B
+    # truncated to int8, the product exact in int32, widened for the
+    # epilogue; the same numbers as the JAX oracle.
+    a8, b8 = np.round(a * 10), np.round(b * 10)
+    np.testing.assert_array_equal(
+        sgemm_reference(a8, b8, c, ALPHA, BETA, in_dtype="int8",
+                        device="cpu").numpy(),
+        np.asarray(jft.sgemm_reference(a8, b8, c, ALPHA, BETA,
+                                       in_dtype="int8")))
 
 
 @pytest.mark.parametrize("dims", [(256, 256, 512), (200, 136, 300)])

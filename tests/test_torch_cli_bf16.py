@@ -84,9 +84,18 @@ def test_unknown_dtype_exits_2(flag, capsys):
     ["--dtype=bfloat16", "--strategy=fused"],
     ["--dtype=bfloat16", "--threshold=adaptive"]])
 def test_unported_dtype_modes_raise(flags, capsys):
-    # int8 defaults to the rowcol strategy (configs.DEFAULT_STRATEGY), as
-    # the JAX program does; nothing runs before the refusal.
+    # Nothing runs before the refusal. int8 is ported since the int8 slice
+    # (tests/test_torch_cli_int8.py): it defaults to the rowcol strategy
+    # (configs.DEFAULT_STRATEGY), as the JAX program does, and its
+    # verification passes.
+    argv = ["ft_sgemm", "64", "64", "64", "0", "16", "--device=cpu",
+            "--no-perf", *flags]
+    if flags == ["--dtype=int8"]:
+        assert cli.main(argv) == 0
+        out, err = capsys.readouterr()
+        assert "defaulting --strategy=rowcol" in err
+        assert "Verification in int8" in out
+        return
     with pytest.raises(NotImplementedError):
-        cli.main(["ft_sgemm", "64", "64", "64", "0", "16", "--device=cpu",
-                  *flags])
+        cli.main(argv)
     assert "Verification" not in capsys.readouterr().out

@@ -12,7 +12,8 @@ on every tile reported correctable, and against the oracle (the f32
 product of the rounded operands) there too, except where the detect-only
 global strategy keeps its faults. The cases of ``tests/test_mixed_precision.py`` for the FT
 kernels follow, one paper tile with ragged M and N, and what stays out
-(the mxu encodes, "adaptive", fp8, int8), which raises. The card tests
+(the mxu encodes, "adaptive", fp8), which raises (int8 runs: the exact
+mode, tests/test_torch_ft_int8.py). The card tests
 (marker ``cuda``) hold the bf16 builds against their plain versions.
 """
 
@@ -225,12 +226,24 @@ def test_bf16_unported_combinations_raise(kw):
 @pytest.mark.parametrize("in_dtype,kw,err", [
     ("float8_e4m3fn", {}, NotImplementedError),
     ("fp8", dict(strategy="rowcol"), NotImplementedError),
-    ("int8", dict(strategy="rowcol"), NotImplementedError),
+    ("int8", dict(strategy="rowcol"), None),         # ported: runs
     ("int8", {}, ValueError),                        # weighted: illegal
     ("int8", dict(strategy="rowcol", multifault=True), ValueError),
     ("float8_e4m3fn", dict(encode="mxu"), ValueError),  # 1-byte rows
     ("float16", {}, ValueError), ("bf16", {}, ValueError)])
 def test_other_dtypes_raise(in_dtype, kw, err):
+    if err is None:
+        # int8 rowcol is ported (the exact mode, tests/test_torch_ft_int8.py):
+        # it builds and corrects an injected fault exactly.
+        fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA, in_dtype=in_dtype,
+                           device="cpu", **kw)
+        a, b, c = (np.round(x * 10) for x in _inputs(128, 128, 256, seed=2))
+        res = fn(a, b, c, InjectionSpec(enabled=True, every=1))
+        assert fn.in_dtype == "int8" and int(res.num_detected) == 2
+        assert int(res.num_uncorrectable) == 0
+        np.testing.assert_array_equal(res.c.numpy(), sgemm_reference(
+            a, b, c, ALPHA, BETA, in_dtype="int8", device="cpu").numpy())
+        return
     with pytest.raises(err):
         make_ft_sgemm("test", in_dtype=in_dtype, device="cpu", **kw)
 
