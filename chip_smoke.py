@@ -33,7 +33,19 @@ checksums that wrap at K = 4096), grids and C equal bit for bit; then the
 program in int8 at 4096 under rowcol and global with the static, auto and
 adaptive thresholds (verification of ids 0 and 11-16, the table, clean
 runs that flag nothing, unit faults caught under adaptive and missed under
-static), counted apart. And, as a regression, B6 at the small tile built
+static), counted apart. The fp8 input mode (``--dtype=fp8``, the vpu
+encodes; B1 on e4m3 wgmma, B2-B5 on their bf16 builds, whose wrappers
+widen the e4m3 operands exactly): B1-B5 in fp8 against their plain
+versions at every tile
+(checks and faults inside a 32-deep k step, faults every 1, 3 and 5 bk
+steps, the program's data and data spread over e4m3's ±448) and, clean,
+to within BF16_ACCURACY of max |C| of the f32 product of the rounded
+operands; the program in fp8 at 4096 under the weighted, rowcol and
+global strategies with the static and auto thresholds (verification of
+ids 0-16, the table, clean runs that flag nothing and keep that
+accuracy), counted apart; every FT kernel's clean fp8 residuals
+FP8_RESIDUAL_MARGIN times under the auto threshold; and each fp8 kernel
+timed beside ``torch._scaled_mm``. And, as a regression, B6 at the small tile built
 with its scalar argument read from device memory
 (``scripts/torch_variant_time.py --variant=device-scalars-small``) must
 count every fault, as its by-value build does.
@@ -74,6 +86,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_FP8_FLOPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # The tiles on which B1's accuracy is held: every program tile, since every
 # kernel runs the 3xTF32 wgmma mainloop at every tile (B1 on the tile's own
@@ -140,6 +153,23 @@ INT8_MODES = ("static", "auto", "adaptive")
 INT8_EVERY = (1, 3, ODD_EVERY)
 INT8_WIDE_SIZE = 1000
 INT8_WRAP_LOW = 100
+# The fp8 slice (the serving mode, the vpu encodes): its kernels (B1-B5;
+# B2-B5 are the bf16 builds on the widened operands), pairs, threshold
+# modes and timed tiles are bf16's (BF16_KINDS, BF16_PAIRS, BF16_MODES,
+# BF16_TIMED); extra fault periods in bk steps,
+# each held at a cadence that checks once per fault (INT8_EVERY, as int8),
+# and the data: the program's ±0.9 at BF16_SIZES, and at FP8_WIDE_SIZE
+# data spread over e4m3's range (uniform in ±FP8_WIDE, rounded), whose band
+# sums reach 128 * 448, under thresholds and faults scaled to it (the
+# reference's 9500 and 1e4 are noise there): FP8_WIDE_THRESHOLD for the
+# detection (the w and w^2 re-checks at bm / sqrt 3 and bm^2 / sqrt 5 times
+# it, as "auto" scales them) and faults of FP8_WIDE_MAGNITUDE.
+FP8_WIDE = 448.0
+FP8_WIDE_SIZE = 1000
+FP8_WIDE_THRESHOLD = 1e5
+FP8_WIDE_MAGNITUDE = 1e7
+# Clean in-kernel residuals must stay this far under the "auto" threshold.
+FP8_RESIDUAL_MARGIN = 10.0
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
 VARIANT = "device-scalars-small"
@@ -218,6 +248,10 @@ class Kernels:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_int8"] = dict(
                 static, counter="int8_launches")
+        for kind in BF16_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            self.table[KIND_NAMES[kind] + "_fp8"] = dict(
+                static, counter="fp8_launches")
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
 
@@ -246,7 +280,7 @@ class Kernels:
                 lambda: ft.run_kernel(*args, plain=True, adaptive=adaptive))
 
     def hold(self, kind, shape, a, b, c, scalars=None, check_every=None,
-             multifault=False, adaptive=False):
+             multifault=False, adaptive=False, scale_tol=None):
         """One launch against its plain version on the same operands: (det,
         unc) grids equal, C within verify_matrix on every tile the kernel
         reports correctable (its rule, in float64 on the card, and every
@@ -256,7 +290,10 @@ class Kernels:
         detect-only global kernels correct nothing: both sides keep the
         same faults, and C is compared everywhere. The int8 builds are
         exact: C must equal the plain version's bit for bit everywhere
-        (both round alpha * f32(acc) and beta * C on their own)."""
+        (both round alpha * f32(acc) and beta * C on their own). With
+        ``scale_tol`` (data far from the program's ±0.9, where 0.01 is no
+        measure), C must be within scale_tol * max |C| of the plain
+        version's instead."""
         name = kernel_name(kind, a, adaptive)
         run, plain = self.calls(kind, shape, a, b, c, scalars, check_every,
                                 multifault, adaptive)
@@ -281,8 +318,10 @@ class Kernels:
                 f"{name} {shape.name} {tuple(a.shape)}: C differs from the"
                 f" plain version at {nbad} elements (int8: bit for bit)")
         diff = (out.double() - ref.double()).abs()
-        bad = mask & (((diff > 0.01) & (diff > 0.01 * ref.double().abs()))
-                      | ~torch.isfinite(out))
+        off = ((diff > 0.01) & (diff > 0.01 * ref.double().abs())
+               if scale_tol is None else
+               diff > scale_tol * float(ref.double().abs().max()))
+        bad = mask & (off | ~torch.isfinite(out))
         nbad = int(bad.sum())
         if nbad:
             raise AssertionError(
@@ -334,7 +373,8 @@ def bf16_control(oracle, what):
 def kernel_name(kind, a, adaptive=False):
     """The ``Kernels`` table's name of kernel ``kind`` on A ``a``."""
     return (KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
-            + {torch.bfloat16: "_bf16", torch.int8: "_int8"}.get(a.dtype, ""))
+            + {torch.bfloat16: "_bf16", torch.int8: "_int8",
+               torch.float8_e4m3fn: "_fp8"}.get(a.dtype, ""))
 
 
 def start_variant_build():
@@ -393,8 +433,8 @@ def ptxas_summary(text: str):
     source's ``-Xptxas -v`` log (names demangled just enough to tell the
     kernels apart: a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per
     band and the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows``
-    and ``MomentRows``, then B1's ragged-store flag, and ``bf16`` or ``s8``
-    for a bf16 or int8 tile)."""
+    and ``MomentRows``, then B1's ragged-store flag, and ``bf16``, ``s8`` or
+    ``e4m3`` for a bf16, int8 or fp8 tile)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
@@ -405,7 +445,7 @@ def ptxas_summary(text: str):
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body)
         in_type = re.search(r"WgTileI(?:Li\d+E){8}Li(\d)E", fn)
-        in_tag = {"1": ["bf16"], "2": ["s8"]}.get(
+        in_tag = {"1": ["bf16"], "2": ["s8"], "3": ["e4m3"]}.get(
             in_type.group(1) if in_type else "0", [])
         tag = ",".join(re.findall(r"\d+", dims.group(1)) + list(rows.groups())
                        + ([ragged.group(1)] if ragged else []) + in_tag)
@@ -418,16 +458,14 @@ def ptxas_summary(text: str):
 
 def _padded(host, shape, dtype=torch.float32):
     """Host (A, B, C) on the card, A and B rounded (int8: truncated) to
-    ``dtype``, padded to the tile as the entry points pad them (an int8
+    ``dtype``, padded to the tile as the entry points pad them (a 1-byte
     operand's rows 16 bytes apart)."""
     from ft_sgemm_tpu_torch.ops.common import align_rows16, as_operand, pad_to
 
     a, b = (as_operand(x, dtype, torch.device("cuda")) for x in host[:2])
     c = torch.from_numpy(host[2]).cuda()
     a, b = pad_to(a, shape.bm, shape.bk), pad_to(b, shape.bn, shape.bk)
-    if dtype == torch.int8:
-        a, b = align_rows16(a), align_rows16(b)
-    return a, b, pad_to(c, shape.bm, shape.bn)
+    return align_rows16(a), align_rows16(b), pad_to(c, shape.bm, shape.bn)
 
 
 def _random(m, n, k, gen):
@@ -584,41 +622,46 @@ def phase_bf16_kernels(kern: Kernels):
         f" at least) ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_bf16_path(kern: Kernels):
-    """The ``ft_sgemm`` program with ``--dtype=bfloat16`` at VERIFY_SIZE,
-    with the launch counters set to 0 just before and read just after:
-    (b) the verification under weighted and rowcol (ids 0-16) and global
-    (11-16) with the static threshold, and of ids 11-16 in each of those
-    pairs under auto, every id passing with every fault detected (global:
-    every event) and nothing uncorrectable where the strategy corrects;
-    the bf16 GFLOPS table at TIMING_SIZE (ids 0-16 weighted, 11-16 rowcol
-    and global); (c) clean runs of ids 11-16 in every pair and mode, which
-    flag nothing and keep C within BF16_ACCURACY of the f32 product of the
-    rounded operands. Every bf16 kernel must have launched."""
+def phase_float_path(kern: Kernels, in_dtype: str):
+    """The ``ft_sgemm`` program with ``--dtype=bfloat16`` or ``--dtype=fp8``
+    (``in_dtype``; both on BF16_PAIRS and BF16_MODES) at VERIFY_SIZE, with
+    the launch counters set to 0 just before and read just after: (b) the
+    verification, every id passing with every fault detected (global: every
+    event) and nothing uncorrectable where the strategy corrects: in bf16
+    of ids 0-16 under weighted and rowcol and 11-16 under global with the
+    static threshold and of ids 11-16 in each pair under auto, in fp8 of ids
+    0-16 in every pair and mode; the GFLOPS table at TIMING_SIZE (ids 0-16
+    weighted, 11-16 rowcol and global); (c) clean runs of ids 11-16 in
+    every pair and mode, which flag nothing and keep C within BF16_ACCURACY
+    of the f32 product of the rounded operands. Every kernel of the mode
+    (its counter: ``bf16_launches`` or ``fp8_launches``) must have
+    launched."""
     from ft_sgemm_tpu_torch import cli, runtime
     from ft_sgemm_tpu_torch.configs import kernel_for_id
     from ft_sgemm_tpu_torch.ops.common import as_f32
     from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
     from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
 
+    label = "fp8" if in_dtype == "fp8" else "bf16"
     n = VERIFY_SIZE
     kern.zero_counts()
     t0 = time.perf_counter()
     for mode in BF16_MODES:
         for strategy, encode in BF16_PAIRS:
-            first = 0 if mode == "static" and strategy != "global" else 11
+            first = 0 if label == "fp8" or (
+                mode == "static" and strategy != "global") else 11
             details = {}
             ok = cli.run_verification(n, first, 16, strategy=strategy,
                                       encode=encode, threshold=mode,
-                                      in_dtype="bfloat16", details=details)
+                                      in_dtype=in_dtype, details=details)
             for kid, d in details.items():
                 if d["detected"] != d["expected"] or d["uncorrectable"] != (
                         d["detected"] if strategy == "global" else 0):
                     ok = False
             if not ok:
-                raise AssertionError(f"bf16 {strategy}/{encode} threshold"
+                raise AssertionError(f"{label} {strategy}/{encode} threshold"
                                      f" {mode}: {details}")
-            log(f"phase verify bf16 {strategy}/{encode} threshold {mode}:"
+            log(f"phase verify {label} {strategy}/{encode} threshold {mode}:"
                 f" ids {first}-16 pass at {n}; detected/expected faults "
                 + ", ".join(f"{k}:{d['detected']}/{d['expected']}"
                             for k, d in sorted(details.items())))
@@ -628,12 +671,12 @@ def phase_bf16_path(kern: Kernels):
         tables[strategy] = cli.run_perf_table(
             TIMING_SIZE, TIMING_SIZE, 1, first, 16,
             min_device_time=PERF_MINTIME, strategy=strategy, encode=encode,
-            in_dtype="bfloat16")
+            in_dtype=in_dtype)
     a, b = runtime.generate_reference_driver_inputs(n)
     a, b, c = (as_f32(x, "cuda") for x in (a, b, np.zeros_like(a)))
     oracle = sgemm_reference(a, b, c, kern.alpha, kern.beta,
-                             in_dtype="bfloat16", device="cuda")
-    control = bf16_control(oracle, f"bf16 clean runs at {n}")
+                             in_dtype=in_dtype, device="cuda")
+    control = bf16_control(oracle, f"{label} clean runs at {n}")
     flagged, worst = {}, {}
     for mode in BF16_MODES:
         for strategy, encode in BF16_PAIRS:
@@ -642,25 +685,25 @@ def phase_bf16_path(kern: Kernels):
                 res = make_ft_sgemm(shape.name, alpha=kern.alpha,
                                     beta=kern.beta, strategy=strategy,
                                     encode=encode, threshold=mode,
-                                    in_dtype="bfloat16", device="cuda")(a, b, c)
+                                    in_dtype=in_dtype, device="cuda")(a, b, c)
                 det, unc = int(res.num_detected), int(res.num_uncorrectable)
                 if det or unc:
                     flagged[f"{strategy} {mode} id {kid}"] = (det, unc)
                 bf16_accuracy(res.c, oracle, f"{strategy} {mode} id {kid}",
                               worst)
     if flagged:
-        raise AssertionError(f"bf16 clean runs flagged faults: {flagged}")
+        raise AssertionError(f"{label} clean runs flagged faults: {flagged}")
     counts = kern.counts()
-    log(f"phase bf16 clean: ids 11-16 under {BF16_PAIRS}, {BF16_MODES},"
+    log(f"phase {label} clean: ids 11-16 under {BF16_PAIRS}, {BF16_MODES},"
         f" flag nothing at {n}; max |dC| / max |C| against the rounded"
         f" operands' f32 product {worst} (gate {BF16_ACCURACY}; C rounded"
         f" to bf16 {control:.3g})")
-    log(f"phase bf16 path: {time.perf_counter() - t0:.1f} s, launches"
+    log(f"phase {label} path: {time.perf_counter() - t0:.1f} s, launches"
         f" {counts}")
     missing = [name for name, k in kern.table.items()
-               if k["counter"] == "bf16_launches" and counts[name] == 0]
+               if k["counter"] == f"{label}_launches" and counts[name] == 0]
     if missing:
-        raise AssertionError(f"bf16 kernels never launched on the bf16"
+        raise AssertionError(f"{label} kernels never launched on the {label}"
                              f" path: {missing}")
     return counts, tables
 
@@ -853,6 +896,229 @@ def phase_int8_path(kern: Kernels):
         raise AssertionError(f"int8 kernels never launched on the int8"
                              f" path: {missing}")
     return counts, tables
+
+
+def _fp8_wide_host(m, n, k, gen):
+    """Host (A, B, C): A and B uniform in ±FP8_WIDE (e4m3's range, rounded
+    by the entry points), C standard normal."""
+    return (gen.uniform(-FP8_WIDE, FP8_WIDE, (m, k)).astype(np.float32),
+            gen.uniform(-FP8_WIDE, FP8_WIDE, (n, k)).astype(np.float32),
+            gen.standard_normal((m, n)).astype(np.float32))
+
+
+def _wide_scalars(inj, kind, shape):
+    """The scalar argument for the wide fp8 data: FP8_WIDE_THRESHOLD and the
+    re-checks scaled as "auto" scales them (global: times sqrt(bn))."""
+    from ft_sgemm_tpu_torch.ops.common import scalar_operand
+
+    t = FP8_WIDE_THRESHOLD * (np.sqrt(shape.bn) if kind == "global" else 1.0)
+    return scalar_operand(inj, (t, t * shape.bm / np.sqrt(3.0),
+                                t * shape.bm ** 2 / np.sqrt(5.0)))
+
+
+def phase_fp8_kernels(kern: Kernels):
+    """B1-B5 in fp8 against their plain versions (the FP32 tile
+    algorithm on the same e4m3-rounded operands) at every tile of the
+    port's table: at BF16_SIZES on the program's ±0.9 data, clean,
+    reference-like, col_stride=0 (B2, and B5, B3, B4 at the program's
+    cadence) and with faults every 1, 3 and ODD_EVERY bk steps (INT8_EVERY)
+    at a cadence that checks once per fault (every 1 and 3: as often as
+    the faults; ODD_EVERY: every MID_STAGE_EVERY), which puts faults and
+    checks inside a 32-deep k step; B5, B3 (multifault on) and B4 also at
+    the mid-stage cadence; then at FP8_WIDE_SIZE on data spread over
+    ±FP8_WIDE, clean and with faults of FP8_WIDE_MAGNITUDE every 1 and 3 bk
+    steps, under FP8_WIDE_THRESHOLD. Grids equal, C within verify_matrix's
+    rule on the correctable tiles; where a check interval holds one fault,
+    every fault detected (B5 and B3: each corrected, none uncorrectable;
+    B4: one event each). B1 and every clean FT launch are held to
+    BF16_ACCURACY against the f32 product of the rounded operands, and
+    that product rounded to bf16 must fail it."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    ft = kern.ft
+    gen = np.random.default_rng(43)
+    before = dict(kern.checked)
+    worst, control, counted = {}, 1.0, 0
+    t0 = time.perf_counter()
+    f8 = torch.float8_e4m3fn
+
+    def hold(kind, shape, a, b, c, sc, inj, oracle, at, wide, *args):
+        nonlocal counted
+        out = kern.hold(kind, shape, a, b, c, sc, *args,
+                        scale_tol=BF16_ACCURACY if wide else None)
+        if not inj.enabled:
+            bf16_accuracy(out, oracle, f"{KIND_NAMES[kind]}_fp8 {at} {args}",
+                          worst)
+            return
+        ce = args[0] if args else a.shape[1] // shape.bk
+        if inj.every >= ce and kind != "precomp":
+            _, det, unc = kern.last
+            want = det.numel() * len(range(0, a.shape[1] // shape.bk,
+                                           inj.every))
+            if int(det.sum()) != want or int(unc.sum()) != (
+                    want if kind == "global" else 0):
+                raise AssertionError(
+                    f"{KIND_NAMES[kind]}_fp8 {at} every {inj.every}, check"
+                    f" every {ce}: detected {int(det.sum())} of {want},"
+                    f" {int(unc.sum())} uncorrectable")
+            counted += 1
+
+    for shape in SHAPES.values():
+        runs = [(size, False) for size in BF16_SIZES] + [(FP8_WIDE_SIZE, True)]
+        for size, wide in runs:
+            host = (_fp8_wide_host if wide else _random)(size, size, size, gen)
+            a, b, c = _padded(host, shape, f8)
+            oracle = rounded_oracle(kern, a, b, c)
+            at = f"{shape.name} {size}" + (" ±448" if wide else "")
+            control = min(control, bf16_control(oracle, f"B1 {at}"))
+            bf16_accuracy(kern.hold("sgemm", shape, a, b, c,
+                                    scale_tol=BF16_ACCURACY if wide else None),
+                          oracle, f"sgemm_fp8 {at}", worst)
+            nk = a.shape[1] // shape.bk
+            quarter = max(1, nk // 4)
+            mag = FP8_WIDE_MAGNITUDE if wide else None
+            # (schedule, whether it is one of the periods of INT8_EVERY)
+            if wide:
+                scheds = [(InjectionSpec.none(), False)] + [
+                    (InjectionSpec(True, e, magnitude=mag), True)
+                    for e in INT8_EVERY[:2]]
+            else:
+                ref = InjectionSpec.reference_like(size, shape.bk)
+                scheds = [(InjectionSpec.none(), False), (ref, False),
+                          (InjectionSpec(True, ref.every, col_stride=0),
+                           False)]
+                scheds += [(InjectionSpec(True, e), True) for e in INT8_EVERY]
+            for inj, dense in scheds:
+                def sc(kind):
+                    return (_wide_scalars(inj, kind, shape) if wide
+                            else _scalars(inj))
+
+                def cadence(strategy):
+                    return ft._plan(strategy, None, None, inj, nk, shape.bn)[1]
+
+                args = (shape, a, b, c)
+                tail = (inj, oracle, at, wide)
+                if dense:
+                    # One fault a check interval: checks every `every` bk
+                    # steps (ODD_EVERY: every MID_STAGE_EVERY).
+                    ce = min(inj.every, MID_STAGE_EVERY)
+                    hold("running", *args, sc("running"), *tail, ce)
+                    hold("rowcol", *args, sc("rowcol"), *tail, ce, True)
+                    hold("global", *args, sc("global"), *tail, ce)
+                    continue
+                hold("precomp", *args, sc("precomp"), *tail)
+                ce = cadence("weighted")
+                mid = {MID_STAGE_EVERY} if inj.col_stride else set()
+                for ce in sorted({ce if ce < nk else quarter} | mid):
+                    hold("running", *args, sc("running"), *tail, ce)
+                for mf in (False, True):
+                    hold("rowcol", *args, sc("rowcol"), *tail,
+                         cadence("rowcol"), mf)
+                hold("global", *args, sc("global"), *tail, cadence("global"))
+                for ce in sorted(mid):
+                    hold("rowcol", *args, sc("rowcol"), *tail, ce, True)
+                    hold("global", *args, sc("global"), *tail, ce)
+    done = {k: n - before[k] for k, n in kern.checked.items()
+            if n - before[k]}
+    log(f"phase fp8 kernels: {done} comparisons with the plain versions"
+        f" pass (grids equal), {counted} of them with one fault a check"
+        f" interval detecting every fault, max |dC|"
+        f" { {k: kern.max_err[k] for k in done} }; B1 and clean launches"
+        f" against the rounded operands' f32 product, max |dC| / max |C|"
+        f" {worst} (gate {BF16_ACCURACY}; C rounded to bf16 {control:.3g}"
+        f" at least) ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def phase_fp8_residual(kern: Kernels):
+    """The FT kernels' clean fp8 residuals at VERIFY_SIZE on A and B spread
+    over e4m3's range (``_fp8_wide_host``: products of e4m3 values below 1 are
+    multiples of 2^-18 and their sums at these sizes exact in f32, so the
+    program's data leave residuals of 0) under threshold="auto" (the
+    wrapper's thresholds, from the rounded operands; where short
+    tensor-core sums would show): each
+    FT kernel at every tile the fp8 program launches it on (B2 at its one
+    check, B5 at small, B3 and B4 at the program's cadence) runs clean with
+    the auto thresholds cut FP8_RESIDUAL_MARGIN times and must flag
+    nothing; and, with C = 0 and alpha = 1 (the output is the
+    accumulator), the largest residual of the accumulator's checksums
+    against float64 expectations of the rounded operands (weighted:
+    moments 1, w, w^2; rowcol: row and column sums; global: tile totals)
+    over its auto threshold is logged for every build and must stay under
+    1 / FP8_RESIDUAL_MARGIN. Returns {kernel: largest share}."""
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops.common import (
+        DEFAULT_THRESHOLD_MARGIN, estimate_noise_floor, scalar_operand)
+
+    ft = kern.ft
+    n = VERIFY_SIZE
+    host = _fp8_wide_host(n, n, n, np.random.default_rng(47))
+    host = (*host[:2], np.zeros_like(host[2]))
+    none = InjectionSpec.none()
+    shares, flagged = {}, {}
+    for kind, tiles in (("precomp", PROGRAM_TILES[2:] + ("huge",)),
+                        ("running", ("small",)),
+                        ("rowcol", PROGRAM_TILES), ("global", PROGRAM_TILES)):
+        for tile in tiles:
+            shape = SHAPES[tile]
+            a, b, c = _padded(host, shape, torch.float8_e4m3fn)
+            strategy = "weighted" if kind in ("precomp", "running") else kind
+            plan, ce, mf = ft._plan(strategy, None, None, none,
+                                    n // shape.bk, shape.bn)
+            if kind == "running":
+                ce = max(1, (n // shape.bk) // 4)   # B5's intermediate checks
+            elif plan != kind:
+                raise AssertionError(f"fp8 {strategy} runs {plan} at {tile}")
+            thr = float(DEFAULT_THRESHOLD_MARGIN * estimate_noise_floor(
+                a[:n, :n], b[:n, :n], None, 1.0, 0.0))
+            if kind == "global":
+                thr *= float(np.sqrt(shape.bn))
+            thr3 = (thr, thr * shape.bm / np.sqrt(3.0),
+                    thr * shape.bm ** 2 / np.sqrt(5.0))
+            extra = ft.kernel_inputs(kind, a, b, shape)
+            cut = scalar_operand(none, tuple(t / FP8_RESIDUAL_MARGIN
+                                             for t in thr3))
+            acc, det, unc = ft.run_kernel(kind, shape, a, b, c, extra, 1.0,
+                                          0.0, cut, ce, mf)
+            name = f"{KIND_NAMES[kind]}_fp8 {tile}"
+            if int(det.sum()) or int(unc.sum()):
+                flagged[name] = int(det.sum())
+            ad, bd, accd = a.double(), b.double(), acc.double()
+            if kind in ("precomp", "running"):
+                t = accd.reshape(n // shape.bm, shape.bm, -1)
+                am = ad.reshape(n // shape.bm, shape.bm, -1)
+                w = torch.arange(1, shape.bm + 1, device="cuda",
+                                 dtype=torch.float64)[None, :, None]
+                share = max(
+                    float(((w ** v * am).sum(1) @ bd.T
+                           - (w ** v * t).sum(1)).abs().max()) / thr3[v]
+                    for v in range(3))
+            elif kind == "rowcol":
+                r_exp = ad @ bd.reshape(-1, shape.bn, n).sum(1).T
+                c_exp = ad.reshape(-1, shape.bm, n).sum(1) @ bd.T
+                share = max(
+                    float((r_exp - accd.reshape(n, -1, shape.bn).sum(-1))
+                          .abs().max()),
+                    float((c_exp - accd.reshape(-1, shape.bm, n).sum(1))
+                          .abs().max())) / thr
+            else:
+                t_exp = (ad.reshape(-1, shape.bm, n).sum(1)
+                         @ bd.reshape(-1, shape.bn, n).sum(1).T)
+                totals = accd.reshape(n // shape.bm, shape.bm, n // shape.bn,
+                                      shape.bn).sum((1, 3))
+                share = float((t_exp - totals).abs().max()) / thr
+            shares[name] = float(share)
+    log(f"phase fp8 residual: at {n} under threshold auto, clean launches"
+        f" at the threshold / {FP8_RESIDUAL_MARGIN:g} flagged {flagged};"
+        f" largest clean residual over its threshold {shares}")
+    bad = {k: v for k, v in shares.items() if v > 1.0 / FP8_RESIDUAL_MARGIN}
+    if bad or flagged:
+        raise AssertionError(f"fp8 clean residuals {bad} are not"
+                             f" {FP8_RESIDUAL_MARGIN:g}x under the auto"
+                             f" threshold")
+    return shares
 
 
 def phase_variant(kern: Kernels, so):
@@ -1376,11 +1642,11 @@ SAME_FUNCTION = {"fused": "running", "rowcol_mxu": "rowcol",
 
 
 def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
-         bf16=False, int8=False):
+         bf16=False, int8=False, fp8=False):
     """(flops, bytes) that one launch's function needs at M = N = K = n.
     An FMA counts as two flops; each input is read once and each output
     written once (A and B two bytes an element with ``bf16``, one with
-    ``int8``). Beyond the product and the alpha/beta epilogue: each
+    ``int8`` or ``fp8``). Beyond the product and the alpha/beta epilogue: each
     check's sums over the output (weighted: moments 1, w, w^2 by add, FMA,
     FMA; rowcol: row and column sums, plus the w-weighted column sums in
     multifault mode; global: one sum of the tile) and, for the kernels
@@ -1394,7 +1660,7 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
     gm, gn = n // shape.bm, n // shape.bn
     tiles = gm * gn
     flops = 2.0 * n ** 3 + 3 * mn           # product; alpha*acc + beta*C
-    esize = 1 if int8 else 2 if bf16 else 4
+    esize = 1 if int8 or fp8 else 2 if bf16 else 4
     nbytes = (2.0 * esize + 4.0 * 2) * mn  # A, B, C; out
     if kind == "sgemm":
         return flops, nbytes
@@ -1422,13 +1688,15 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
 
 
 def _bound(flops: float, nbytes: float, tc_products: float = 0.0,
-           bf16: bool = False, int8: bool = False):
+           bf16: bool = False, int8: bool = False, fp8: bool = False):
     """(ms, bound_by): the larger of the operations over their peak rate
     and the bytes over the memory rate. ``tc_products`` of the flops are
     products that run as three TF32 products each on the tensor cores (the
     3xTF32 wgmma kernels), or once at the bf16 rate with ``bf16``, at the
-    int8 rate with ``int8``; the rest run at the FP32 rate."""
-    tc = (tc_products / PEAK_INT8_OPS if int8 else
+    int8 rate with ``int8``, at the fp8 rate with ``fp8``; the rest run at
+    the FP32 rate."""
+    tc = (tc_products / PEAK_FP8_FLOPS if fp8 else
+          tc_products / PEAK_INT8_OPS if int8 else
           tc_products / PEAK_BF16_FLOPS if bf16 else
           3 * tc_products / PEAK_TF32_FLOPS)
     t_ops = tc + (flops - tc_products) / PEAK_FP32_FLOPS
@@ -1490,28 +1758,69 @@ BF16_TIMED += tuple((kind, tile) for kind in ("rowcol", "global")
                     for tile in PROGRAM_TILES)
 
 
-def phase_bf16_timing(kern: Kernels, counts):
-    """Each bf16 build at 4096 on every tile, cadence and multifault
-    setting the bf16 program gives it (BF16_TIMED): the kernel, its plain
-    version, ``torch.matmul`` on the same bf16 operands (the library's
-    bf16 GEMM, bf16 output) and the bound (the product and the expected
-    sums the function needs, once each at the bf16 rate; the bytes with A
-    and B in bf16). Returns the ``kernels`` rows, one per kernel (its first
-    row); ``counts`` are the bf16 path's launches."""
+def float_ptxas(kind, shape, in_dtype, multifault=False):
+    """``-Xptxas -v``'s line (registers, spills) for the kernel that ``kind``
+    launches on ``shape`` in ``in_dtype`` ("bfloat16" or "fp8"; B2-B5 in fp8
+    run the bf16 kernels): B1 and B2 on the tile's own CTA at the 64-row
+    tiles, else the 128 x 128 CTA (B1: the ragged one; B2-B5 over the tile
+    as sub-tiles; B3 with one moment row, two with multifault)."""
+    from ft_sgemm_tpu_torch.ops import _build
+
+    lib, kernel = FLOAT_LIBS[kind]
+    e4m3 = in_dtype == "fp8" and kind == "sgemm"
+    own = (shape.bm, shape.bn) in _build.wgmma_tiles()
+    if kind == "sgemm":  # with MOM, the sum-row sources and the ragged flag
+        dims = [shape.bm, shape.bn] * 2 if own else [128] * 4
+        dims += [0, 0, 0, int(not own)]
+    elif kind == "precomp" and own:
+        dims = [shape.bm, shape.bn, shape.bm, shape.bn]
+    else:
+        dims = [128, 128, shape.bm, shape.bn]
+    if kind == "rowcol":
+        dims.append(2 if multifault else 1)
+    tag = kernel + "<" + ",".join(map(str, dims)) + ","
+    in_tag = ",e4m3>:" if e4m3 else ",bf16>:"
+    lines = [x for x in ptxas_summary(_build.ptxas_log(
+                 lib + "_fp8" if e4m3 else lib))
+             if x.startswith(tag) and in_tag in x]
+    if len(lines) != 1:
+        raise AssertionError(f"ptxas lines for {tag}...{in_tag}: {lines}")
+    return lines[0]
+
+
+def phase_float_timing(kern: Kernels, counts, in_dtype: str):
+    """Each bf16 or fp8 (``in_dtype``) kernel at 4096 on every tile,
+    cadence and multifault setting the program gives it in that mode
+    (BF16_TIMED), on the program's table inputs: the kernel (in fp8 B2-B5
+    with their wrapper's widening of A and B to bf16), its plain version,
+    the library's GEMM on the same operands (bf16: ``torch.matmul``, bf16
+    out; fp8: ``torch._scaled_mm``, cuBLASLt, unit scales, f32 out), the
+    bound (the product and the expected sums the function needs, once each
+    at the mode's rate; the bytes with A and B two bytes an element in
+    bf16, one in fp8), and each kernel's registers and spills. Returns the
+    ``kernels`` rows, one per kernel (its first row); ``counts`` are the
+    mode's path's launches."""
+    from ft_sgemm_tpu_torch import cli
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.configs import canonical_in_dtype
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
 
     ft = kern.ft
     n = TIMING_SIZE
-    gen = np.random.default_rng(29)
-    host = _random(n, n, n, gen)
+    fp8 = in_dtype == "fp8"
+    label, library = (("fp8", "torch._scaled_mm") if fp8 else
+                      ("bf16", "torch.matmul bf16"))
+    name_dtype = canonical_in_dtype(in_dtype)
+    dtype = getattr(torch, name_dtype)
+    host = cli._host_inputs(n, name_dtype)
+    one = torch.ones((), device="cuda")
     rows = {}
     for kind, tile in BF16_TIMED:
         shape = SHAPES[tile]
-        a, b, c = _padded(host, shape, torch.bfloat16)
-        name = KIND_NAMES[kind] + "_bf16"
+        a, b, c = _padded(host, shape, dtype)
+        name = KIND_NAMES[kind] + "_" + label
         inj = InjectionSpec.reference_like(n, shape.bk)
         ce, mf = None, False
         if kind != "sgemm":
@@ -1520,15 +1829,20 @@ def phase_bf16_timing(kern: Kernels, counts):
             plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
                                     shape.bn)
             if plan != kind:
-                raise AssertionError(f"the bf16 program runs {plan} at"
+                raise AssertionError(f"the {label} program runs {plan} at"
                                      f" {tile}, not {kind}")
         run, plain = kern.calls(kind, shape, a, b, c, _scalars(inj), ce, mf)
         ms = cuda_ms(run, reps=5)
         plain_ms = cuda_ms(plain)
-        library_ms = cuda_ms(lambda: torch.matmul(a, b.T), reps=5)
-        flops, nbytes = work(kind, shape, n, ce, mf, bf16=True)
+        library_ms = cuda_ms((lambda: torch._scaled_mm(
+            a, b.T, one, one, out_dtype=torch.float32)) if fp8 else
+            (lambda: torch.matmul(a, b.T)), reps=5)
+        flops, nbytes = work(kind, shape, n, ce, mf, bf16=not fp8, fp8=fp8)
         bound_ms, bound_by = _bound(flops, nbytes,
-                                    tc_products(kind, shape, n, mf), True)
+                                    tc_products(kind, shape, n, mf),
+                                    bf16=not fp8, fp8=fp8)
+        regs = float_ptxas(kind, shape, label, mf)
+        mainloop = _build.mainloop(kind, shape, name_dtype)
         rows.setdefault(name, {
             "name": name, "route": "cuda",
             "source": kern.table[name]["source"],
@@ -1536,11 +1850,11 @@ def phase_bf16_timing(kern: Kernels, counts):
             "launches": counts[name], "max_abs_err": kern.max_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
-            "mainloop": _build.mainloop(kind, shape, "bfloat16")})
-        log(f"phase timing {name} ({tile}, wgmma-bf16, {n}, check every {ce},"
+            "mainloop": mainloop, "ptxas": regs})
+        log(f"phase timing {name} ({tile}, {mainloop}, {n}, check every {ce},"
             f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
-            f" torch.matmul bf16 {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
-            f" ({bound_by})")
+            f" {library} {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
+            f" ({bound_by}); {regs}")
     return list(rows.values())
 
 
@@ -1594,6 +1908,15 @@ def phase_int8_timing(kern: Kernels, counts):
                 f" torch._int_mm {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
                 f" ({bound_by})")
     return list(rows.values())
+
+
+# Each kind's static library and kernel (ptxas_summary's names); B1's fp8
+# build is the library's "_fp8" twin.
+FLOAT_LIBS = {"sgemm": ("sgemm", "sgemm_wgmma_kernel"),
+              "precomp": ("ft_sgemm_weighted", "ft_weighted_wgmma_kernel"),
+              "running": ("ft_sgemm_weighted", "ft_running_wgmma_kernel"),
+              "rowcol": ("ft_sgemm_rowcol", "ft_running_wgmma_kernel"),
+              "global": ("ft_sgemm_global", "ft_running_wgmma_kernel")}
 
 
 def phase_timing(kern: Kernels, counts, threshold_counts):
@@ -1831,6 +2154,7 @@ def main() -> int:
     phase_variant(kern, variant)
     phase_bf16_kernels(kern)
     phase_int8_kernels(kern)
+    phase_fp8_kernels(kern)
     phase_adaptive_kernels(kern)
     phase_adaptive_bracket(kern)
     phase_kernels(kern)
@@ -1838,11 +2162,14 @@ def main() -> int:
     phase_path_shapes(kern)
     counts, _ = phase_main_path(kern)
     threshold_counts = phase_threshold_path(kern)
-    bf16_counts, _ = phase_bf16_path(kern)
+    bf16_counts, _ = phase_float_path(kern, "bfloat16")
     int8_counts, _ = phase_int8_path(kern)
+    fp8_counts, _ = phase_float_path(kern, "fp8")
+    phase_fp8_residual(kern)
     rows = phase_timing(kern, counts, threshold_counts)
-    rows += phase_bf16_timing(kern, bf16_counts)
+    rows += phase_float_timing(kern, bf16_counts, "bfloat16")
     rows += phase_int8_timing(kern, int8_counts)
+    rows += phase_float_timing(kern, fp8_counts, "fp8")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

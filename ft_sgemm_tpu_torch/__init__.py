@@ -4,9 +4,9 @@ Hopper (sm_90a).
 Fault-tolerant SGEMM with fused online ABFT (arXiv:2305.01024): the plain
 SGEMM family and the weighted, rowcol, global and fused checksum kernels
 (each strategy with its in-kernel and its moment-row encode, under the
-static, auto and adaptive thresholds; bf16 inputs on the in-kernel encodes
-of weighted, rowcol and global, and the exact int8 mode on rowcol and
-global), each a CUDA C++ kernel written by
+static, auto and adaptive thresholds; bf16 and fp8-e4m3 inputs on the
+in-kernel encodes of weighted, rowcol and global, and the exact int8 mode
+on rowcol and global), each a CUDA C++ kernel written by
 hand for Hopper and built at first use
 (``ops/_build.py``), with a plain PyTorch version beside it. Entry points
 run on the GPU unless given ``device="cpu"``. The JAX package

@@ -21,7 +21,7 @@ Usage:
     python -m ft_sgemm_tpu_torch.cli 1024 6144 512 0 16 \
         [--strategy=weighted|rowcol|global|fused] [--encode=vpu|mxu] \
         [--threshold=static|auto|adaptive|FLOAT] \
-        [--dtype=float32|bfloat16|int8] \
+        [--dtype=float32|bfloat16|float8_e4m3|int8] \
         [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
 
 ``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
@@ -39,7 +39,13 @@ rounded to bf16 (the vendor row as ``torch.matmul`` on bf16 tensors, whose
 output is bf16; the hand kernels on bf16 wgmma; the two-pass baseline on
 the rounded operands), verified against the f32 product of the rounded
 operands. bf16 runs the weighted, rowcol and global strategies with
-``--encode=vpu`` under the static and auto thresholds. ``int8`` runs the
+``--encode=vpu`` under the static and auto thresholds. ``float8_e4m3``
+(aliases ``fp8``, ``fp8_e4m3``, ``float8_e4m3fn``) runs the fp8 serving
+mode (``ft_sgemm_tpu/cli.py:167-169``) the same way: A and B rounded to
+e4m3 as the JAX package rounds them (NaN past 464), the whole table on the
+fp8 builds (id 0: the library's fp8 GEMM, ``torch._scaled_mm`` with unit
+scales and f32 output, then the f32 alpha / beta epilogue), verified
+against the f32 product of the rounded operands. ``int8`` runs the
 exact mode (``ft_sgemm_tpu/cli.py:167-172``): A and B are scaled to the
 integer lattice ±{0..9} (``np.round(x * 10)``, C as generated), the FT
 rows (ids 11-16) run rowcol (the default) or global with int32
@@ -99,22 +105,41 @@ def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device,
     return ft, InjectionSpec.reference_like(size, ft.shape_config.bk)
 
 
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B.T`` of fp8 A (M, K) and B (N, K) in f32 by the library's fp8
+    GEMM, ``torch._scaled_mm`` (cuBLASLt) with unit scales and B passed
+    column-major; its shapes (multiples of 16) reached by zero padding,
+    which the product ignores."""
+    (m, k), n = a.shape, b.shape[0]
+    pad = [(-x) % 16 for x in (m, n, k)]
+    ap = torch.nn.functional.pad(a.view(torch.uint8), (0, pad[2], 0, pad[0]))
+    bp = torch.nn.functional.pad(b.view(torch.uint8), (0, pad[2], 0, pad[1]))
+    one = torch.ones((), device=a.device)
+    return torch._scaled_mm(ap.view(a.dtype), bp.view(b.dtype).T, one, one,
+                            out_dtype=torch.float32)[:m, :n]
+
+
 def _vendor(device, in_dtype="float32"):
     """Id 0, the vendor GEMM: in f32 and int8 the oracle itself (cuBLAS
     through ``torch.matmul``, TF32 off; in int8 ``torch._int_mm`` exact in
     int32); in bf16 ``torch.matmul`` on the rounded bf16 operands, whose
-    output is bf16 (the library's bf16 GEMM, the yardstick of speed), then
-    the f32 alpha / beta epilogue."""
-    if canonical_in_dtype(in_dtype) in ("float32", "int8"):
+    output is bf16 (the library's bf16 GEMM, the yardstick of speed), in
+    fp8 ``torch._scaled_mm`` on the rounded e4m3 operands with f32 output
+    (:func:`fp8_matmul`; on the CPU the oracle), then the f32 alpha / beta
+    epilogue."""
+    dtype = resolve_in_dtype(in_dtype, allow_low_precision=True)
+    dev = resolve_device(device)
+    if dtype in (torch.float32, torch.int8) or (
+            dtype == torch.float8_e4m3fn and dev.type == "cpu"):
         return lambda a, b, c: sgemm_reference(a, b, c, ALPHA, BETA,
                                                in_dtype=in_dtype,
                                                device=device)
-    dtype = resolve_in_dtype(in_dtype)
-    dev = resolve_device(device)
+    matmul = fp8_matmul if dtype == torch.float8_e4m3fn else (
+        lambda a, b: torch.matmul(a, b.T).float())
 
     def fn(a, b, c):
         a, b = (as_operand(x, dtype, dev) for x in (a, b))
-        return ALPHA * torch.matmul(a, b.T).float() + BETA * as_f32(c, dev)
+        return ALPHA * matmul(a, b) + BETA * as_f32(c, dev)
     return fn
 
 

@@ -84,15 +84,17 @@ THRESHOLD_MODES = ("static", "auto", "adaptive")
 # are rounded to the dtype, while C, the accumulator, the checksums and the
 # detect / correct math stay f32 (int32 for int8, exact).
 IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
-# The dtypes the port runs so far, and the (strategy, encode) pairs and
-# threshold modes it runs them under (the vpu encodes of bf16 on kernels
-# B1-B5; int8's exact mode on B3 and B4, where "adaptive" is the constant
-# half-ulp; the mxu encodes and "adaptive" in bf16, and fp8, are still to
-# port, ROADMAP Queue B).
+# The dtypes the port runs, and the (strategy, encode) pairs and threshold
+# modes it runs them under (the vpu encodes of bf16 and of fp8 on kernels
+# B1-B5; int8's exact mode on B3 and B4, where
+# "adaptive" is the constant half-ulp; the mxu encodes in bf16 and
+# "adaptive" in bf16 and fp8 are still to port, ROADMAP Queue B).
 PORTED = {
     "float32": (STRATEGIES, ENCODE_MODES, THRESHOLD_MODES),
     "bfloat16": (("rowcol", "global", "weighted"), ("vpu",),
                  ("static", "auto")),
+    "float8_e4m3fn": (("rowcol", "global", "weighted"), ("vpu",),
+                      ("static", "auto")),
     "int8": (("rowcol", "global"), ("vpu",), THRESHOLD_MODES),
 }
 
@@ -160,8 +162,8 @@ def check_kernel_legality(*, strategy: str, encode: str,
     (``encode="mxu"`` or ``strategy="fused"`` with fp8 or int8), and the
     weighted-ratio localization (``weighted``, ``fused``, multifault) on
     int8's wrapping checksums. What is legal but not ported yet raises
-    ``NotImplementedError`` (:data:`PORTED`): fp8, and bf16 with the mxu
-    encodes (B6-B8) or ``threshold="adaptive"``."""
+    ``NotImplementedError`` (:data:`PORTED`): bf16 with the mxu encodes
+    (B6-B8), and ``threshold="adaptive"`` in bf16 and fp8."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -187,10 +189,6 @@ def check_kernel_legality(*, strategy: str, encode: str,
             "multifault=True is illegal for int8: the multifault extension"
             " localizes by the weighted-residual ratio, which wrapping int32"
             " checksums cannot guarantee")
-    if dtype not in PORTED:
-        raise NotImplementedError(
-            f"in_dtype={dtype!r} is not ported yet (ported:"
-            f" {tuple(PORTED)}; ROADMAP Queue B)")
     strategies, encodes, modes = PORTED[dtype]
     if strategy not in strategies or encode not in encodes:
         raise NotImplementedError(
@@ -202,7 +200,7 @@ def check_kernel_legality(*, strategy: str, encode: str,
         raise NotImplementedError(
             f"{dtype} with threshold={threshold_mode!r} is not ported yet"
             f" (the adaptive builds run float32, and int8's exact mode its"
-            f" constant half-ulp); pick one of {modes}")
+            f" constant half-ulp; ROADMAP Queue B); pick one of {modes}")
     return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

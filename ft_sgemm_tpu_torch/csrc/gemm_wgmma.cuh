@@ -96,6 +96,15 @@
 // operand, B's stage, loaded into registers the same way). A fault is added
 // at the start of the part it falls in (after the wgmmas before it land):
 // integer adds commute, so the accumulator at every check is the same.
+//
+// fp8 operands (B1 only; the FT kernels multiply fp8 on their bf16 builds,
+// the wrapper widening the e4m3 operands exactly): int8's 1-byte stage (SK
+// = 128 K columns, one 128-byte swizzle row, rows 16 bytes apart), one
+// m64nNk32 e4m3 wgmma per 32-deep k step (IN = kE4M3) into the f32 stage
+// sum `part`, promoted into `acc` after every k step: Hopper's fp8 wgmma
+// keeps ~13 bits below the largest product of a k step, so its sum drifts
+// even over one stage (promoted once a stage, B1 had 2.9x the error;
+// PERF.md).
 
 #pragma once
 
@@ -160,9 +169,10 @@ enum BandRows {
 };
 
 // The type of A and B (C, the accumulator and every checksum are f32):
-// f32 on 3xTF32, bf16 on one bf16 wgmma per 16-deep k step, or int8 on one
-// s8 wgmma per 32-deep k step (the accumulator and checksums then s32).
-enum InType { kF32 = 0, kBF16 = 1, kS8 = 2 };
+// f32 on 3xTF32, bf16 on one bf16 wgmma per 16-deep k step, int8 on one
+// s8 wgmma per 32-deep k step (the accumulator and checksums then s32), or
+// fp8 (e4m3, B1 only) on one e4m3 wgmma per 32-deep k step.
+enum InType { kF32 = 0, kBF16 = 1, kS8 = 2, kE4M3 = 3 };
 
 // The accumulator's element type for A and B of type IN: f32, or the s32
 // bits of the int8 mode as uint32_t (wrapping arithmetic, defined in C++).
@@ -177,7 +187,8 @@ using AccOf = std::conditional_t<IN == kS8, uint32_t, float>;
 // product's columns BN .. BN + NBN - 1 are the expected row sums of each
 // band (B3, B4, B7, B8); A and B of type IN. The ring has four stages where
 // they fit in the 232448 bytes of shared memory a CTA may have, else three;
-// a bf16 or int8 ring up to six where they fit beside the CTAs an SM holds.
+// a bf16, int8 or fp8 ring up to six where they fit beside the CTAs an SM
+// holds.
 template <int BM_, int BN_, int SBM_ = BM_, int SBN_ = BN_, int MOM_ = 0,
           int CHECK_ = 0, int BANDS_ = kNoBands, int ROWS_ = kNoRows,
           int IN_ = kF32>
@@ -187,6 +198,7 @@ struct WgTile {
   static constexpr int BANDS = BANDS_, ROWS = ROWS_;
   static constexpr bool BF16 = IN_ == kBF16;
   static constexpr bool S8 = IN_ == kS8;
+  static constexpr bool F8 = IN_ == kE4M3;
   using Acc = AccOf<IN_>;
   // Rows that carry one sum row: 1 in f32 (split hi / lo like B), the bf16
   // terms hi, lo and lo2 in bf16, the s8 digits lo and hi in int8.
@@ -197,15 +209,15 @@ struct WgTile {
                        R = (MOM * NBM + 7) / 8 * 8 * (S8 ? NTERM : 1);
   static constexpr int XN = BANDS == kNoBands ? 0 : 8 * NTERM;
   // Bytes of an A or B element.
-  static constexpr int ESIZE = BF16 ? 2 : S8 ? 1 : 4;
+  static constexpr int ESIZE = BF16 ? 2 : S8 || F8 ? 1 : 4;
   static constexpr int SK = 128 / ESIZE;  // K columns per stage: one swizzle row
   static constexpr int KK = SK / 8;   // 8-deep k steps per stage (the hooks')
-  static constexpr int KS = BF16 ? 2 : S8 ? 4 : 1;  // of them per wgmma k step
+  static constexpr int KS = BF16 ? 2 : S8 || F8 ? 4 : 1;  // of them per wgmma k step
   static constexpr int KW = KK / KS;       // wgmma k steps per stage
   // Whether the producer's splitter warps work on a landed stage before the
   // consumers take it (the ready barrier): always in f32 (B's split); in
-  // bf16 and int8 only where they form sum rows.
-  static constexpr bool SPLIT = (!BF16 && !S8) || BANDS == kSumBands ||
+  // bf16, int8 and fp8 only where they form sum rows.
+  static constexpr bool SPLIT = (!BF16 && !S8 && !F8) || BANDS == kSumBands ||
                                 ROWS == kSumRows || ROWS == kSumRowGroups;
   static constexpr int NWG = BM / 64;  // consumer warpgroups
   static constexpr int NCONS = 128 * NWG;
@@ -231,8 +243,8 @@ struct WgTile {
   static constexpr int M_BYTES = R * 128;  // one buffer of moment rows
   // B's buffers and the moment rows' per stage: hi and lo in f32; B as
   // landed and the moment rows' three terms in bf16; B as landed and one
-  // buffer of both digits' rows in int8.
-  static constexpr int NB_BUF = BF16 || S8 ? 1 : 2,
+  // buffer of both digits' rows in int8; B as landed in fp8.
+  static constexpr int NB_BUF = BF16 || S8 || F8 ? 1 : 2,
                        NM_BUF = BF16 ? 3 : S8 ? 1 : 2;
   static constexpr int STAGE_BYTES =
       A_BYTES + NB_BUF * B_BYTES + NM_BUF * M_BYTES;
@@ -263,7 +275,7 @@ struct WgTile {
   static constexpr int SMEM_CAP =
       MIN_CTAS == 1 ? 232448 : 233472 / MIN_CTAS - 1024;
   static constexpr int STAGES =
-      !BF16 && !S8 ? (smem(4, 1) <= 232448 ? 4 : 3)
+      !BF16 && !S8 && !F8 ? (smem(4, 1) <= 232448 ? 4 : 3)
             : smem(6, 1) <= SMEM_CAP   ? 6
               : smem(5, 1) <= SMEM_CAP ? 5
               : smem(4, 1) <= SMEM_CAP ? 4
@@ -283,6 +295,7 @@ struct WgTile {
                 "one extra column per column band and term");
   static_assert(!BF16 || (BANDS != kLoadBands && ROWS != kLoadRows),
                 "bf16 forms its sum rows in the kernel (the vpu encodes)");
+  static_assert(!F8 || (XN == 0 && R == 0), "e4m3 wgmma: B1, no sum rows");
   static_assert(!S8 || (BANDS == kSumBands && MOM * NBM <= 8 &&
                         (ROWS == kNoRows || ROWS == kSumRowGroups)),
                 "int8: B3 and B4, one 8-row group of moment rows per digit");
@@ -291,7 +304,7 @@ struct WgTile {
                 "buffers keep the swizzle alignment");
   static_assert(BANDS != kLoadBands || B_BOX % 1024 == 0,
                 "the band-row box starts on a swizzle atom");
-  static_assert(SMEM <= (BF16 || S8 ? SMEM_CAP : 232448),
+  static_assert(SMEM <= (BF16 || S8 || F8 ? SMEM_CAP : 232448),
                 "the ring fits in shared memory");
 };
 
@@ -913,6 +926,92 @@ struct WgmmaS8<144> {
   }
 };
 
+// d (m64 x N, f32) = A (m64 x k32, e4m3 fragment in registers: four e4m3 a
+// register, registers 0 and 1 the first 16 columns, 2 and 3 the last 16, as
+// in int8) @ B^T (+ d when scale_d is 1), B an (N x k32) e4m3 tile in
+// shared memory, K-major; asynchronous until wgmma_wait_all. The tensor
+// cores keep ~13 bits below the k step's largest product (B1 promotes the
+// sum after every k step).
+template <int N>
+struct WgmmaE4;
+
+template <>
+struct WgmmaE4<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e4m3 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaE4<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaE4<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // d (m64 x N, s32) = A (m64 x k32) @ B^T (+ d when scale_d is 1), both s8
 // tiles in shared memory, K-major: the expected column sums in int8.
 template <int N>
@@ -1502,7 +1601,9 @@ struct WgSmem {
           tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
       }
     } else if (p >= 32) {
-      if constexpr (T::S8) {
+      if constexpr (T::F8) {
+        // B1 in fp8: the consumers take B's stage as landed.
+      } else if constexpr (T::S8) {
         for (int s = 0; s < T::STAGES; ++s) zero_pads_s8(s, p - 32);
         for (int st = 0; st < nst; ++st) {
           mbar_wait(full(st % T::STAGES), (st / T::STAGES) & 1);
@@ -1675,14 +1776,14 @@ struct WgMainloop {
   // (j / 2) + l % 4, read through the swizzle.
   // bf16: no split; register j of k step q holds the column pair 16 q + 8 *
   // (j / 2) + 2 * (l % 4) of row r0 + 8 * (j % 2), and `al` is not used.
-  // int8: the same bytes, four columns 32 q + 16 (j / 2) + 4 (l % 4) .. + 3
-  // a register.
+  // int8 and fp8: the same bytes, four columns 32 q + 16 (j / 2) + 4 (l % 4)
+  // .. + 3 a register.
   __device__ __forceinline__ void prepare(int st, uint32_t (&ah)[NF],
                                           uint32_t (&al)[NF]) const {
     const int s = st % T::STAGES;
     mbar_wait(T::SPLIT ? sm.ready(s) : sm.full(s), (st / T::STAGES) & 1);
     const int r0 = 64 * g + 16 * w + (l >> 2);
-    if constexpr (T::BF16 || T::S8) {
+    if constexpr (T::BF16 || T::S8 || T::F8) {
       const uint32_t* a = sm.aw(s);
 #pragma unroll
       for (int q = 0; q < T::KW; ++q)
@@ -1807,6 +1908,29 @@ struct WgMainloop {
     WgmmaS8<T::BN + T::XN>::run(acc, a, smem_desc(sm.b(s)) + 2 * q, 1);
     if constexpr (T::R > 0)
       WgmmaS8<T::R>::run(acc_e, x, smem_desc(sm.mw(s, 0)) + 2 * q, 1);
+  }
+
+  // mma_stage in fp8 (B1: no checks and no faults): each 32-deep k step's
+  // e4m3 product into `part`, restarted at every k step and promoted into
+  // `acc` after each but the stage's last (run() promotes that one).
+  template <class Hook>
+  __device__ __forceinline__ void mma_stage_f8(int st,
+                                               const uint32_t (&ah)[NF],
+                                               Hook&) {
+    static_assert(std::is_same_v<Hook, NoInject>, "e4m3 wgmma: B1 alone");
+    const int s = st % T::STAGES;
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < T::KW; ++q) {
+      WgmmaE4<T::BN>::run(part, &ah[4 * q], smem_desc(sm.b(s)) + 2 * q, 0);
+      if (q + 1 < T::KW) {
+        wgmma_commit();
+        wgmma_wait_all();
+        promote();
+        wgmma_fence();
+      }
+    }
+    wgmma_commit();
   }
 
   // mma_stage in int8 (the checks' hooks, kSegmented): the same events at
@@ -1988,7 +2112,9 @@ struct WgMainloop {
   __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
                                             const uint32_t (&al)[NF],
                                             Hook& hook) {
-    if constexpr (T::S8) {
+    if constexpr (T::F8) {
+      mma_stage_f8(st, ah, hook);
+    } else if constexpr (T::S8) {
       mma_stage_s8(st, ah, hook);
     } else if constexpr (T::BF16) {
       mma_stage_bf16(st, ah, hook);

@@ -36,8 +36,25 @@
 // CTAs. What bounds it: 2 M N K operations at 989 TFLOP/s (0.139 ms at
 // 4096) against ~201 MB (A and B in bf16, C read and written in f32) at
 // 3.35 TB/s (0.060 ms): operations.
+//
+// fp8 (ftsg_sgemm_fp8, the fp8 serving mode; built alone, with FTSG_FP8,
+// into a library of its own): A and B e4m3, C and the accumulator f32, one
+// m64nNk32 e4m3 wgmma per 32-deep k step on the operands as TMA landed them
+// (rows 16 bytes apart), each k step's sum promoted into f32 (the tensor
+// cores keep ~13 bits below the largest product of an e4m3 k step; promoted
+// once per 128-column stage, B1 had 2.9x the error, PERF.md), with the same
+// two CTAs. What bounds it: 2 M N K operations at 1979 TFLOP/s (0.069 ms at
+// 4096) against ~168 MB (A and B one byte an element, C read and written
+// in f32) at 3.35 TB/s (0.050 ms): operations.
 
 #include "gemm_wgmma.cuh"
+
+// FTSG_FP8=1 compiles ftsg_sgemm_fp8 alone, into a library of its own
+// (ops/_build.LIBRARIES), which builds beside the others and leaves every
+// other build as it was.
+#ifndef FTSG_FP8
+#define FTSG_FP8 0
+#endif
 
 FTSG_NAMESPACE_BEGIN
 
@@ -77,6 +94,25 @@ int launch_wgmma(const void* A, const void* B, const float* C, float* out,
 
 FTSG_NAMESPACE_END  // ftsg
 
+#if FTSG_FP8
+// B1 with e4m3 A and B (C and out f32; rows 16 bytes apart: tensor_map), at
+// the same tiles and CTAs; returns as ftsg_sgemm.
+extern "C" int ftsg_sgemm_fp8(const void* A, const void* B, const float* C,
+                              float* out, int M, int N, int K, int bm, int bn,
+                              int bk, float alpha, float beta, void* stream) {
+  const auto s = (cudaStream_t)stream;
+#define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_)                                              \
+    return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kE4M3>, false>( \
+        A, B, C, out, M, N, K, alpha, beta, s);
+  FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
+#undef FTSG_LAUNCH_WGMMA
+  if (ftsg::narrow_tile(bm, bn))
+    return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kE4M3>, true>(
+        A, B, C, out, M, N, K, alpha, beta, s);
+  return (int)cudaErrorInvalidValue;
+}
+#else
 // Launch on `stream` for one compiled tile (bk is not read); returns
 // cudaGetLastError() (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
@@ -113,3 +149,4 @@ extern "C" int ftsg_sgemm_bf16(const void* A, const void* B, const float* C,
         A, B, C, out, M, N, K, alpha, beta, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif

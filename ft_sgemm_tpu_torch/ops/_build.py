@@ -8,7 +8,11 @@ and B4 their int8 builds (``*_int8``). The FT sources build twice:
 as they are (static thresholds and ``threshold="auto"``) and with
 ``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
 sub-tile's threshold in the kernel), two libraries with the same entry
-points. Libraries build in parallel, one ``nvcc`` each, into
+points. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
+with ``FTSG_FP8=1``, which compiles that entry point alone: a library of its
+own, so that it builds beside the others and leaves every other build as it
+was (B2-B5 in fp8 run their bf16 builds on the exactly widened operands).
+Libraries build in parallel, one ``nvcc`` each, into
 ``csrc/_build/`` (ignored by git); a library's file name carries a digest
 of all sources and flags, so an edit rebuilds. ``-Xptxas -v`` output (the
 registers, shared memory and spills of every kernel) is kept beside each
@@ -36,6 +40,7 @@ BUILD_DIR = CSRC / "_build"
 # Each library: its source and the macros it is compiled with. The
 # adaptive libraries hold B3-B8 only (ft_sgemm_weighted.cu leaves B2 out).
 ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
+FP8 = ("-DFTSG_FP8=1",)
 LIBRARIES = {
     "sgemm": ("sgemm", ()),
     "ft_sgemm_weighted": ("ft_sgemm_weighted", ()),
@@ -46,6 +51,7 @@ LIBRARIES = {
     "ft_sgemm_rowcol_adaptive": ("ft_sgemm_rowcol", ADAPTIVE),
     "ft_sgemm_global_adaptive": ("ft_sgemm_global", ADAPTIVE),
     "ft_sgemm_aug_adaptive": ("ft_sgemm_aug", ADAPTIVE),
+    "sgemm_fp8": ("sgemm", FP8),
 }
 KERNEL_LIBS = tuple(LIBRARIES)
 
@@ -192,9 +198,11 @@ def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"``, for
     every kernel at every compiled tile, ``"wgmma-bf16"`` for the bf16
-    builds (one bf16 wgmma per 16-deep k step, B1-B5) or ``"wgmma-s8"`` for
-    the int8 builds (one s8 wgmma per 32-deep k step, s32 accumulator, B3
-    and B4); raises for another tile. The CTA
+    builds (one bf16 wgmma per 16-deep k step, B1-B5, and B2-B5 in fp8 on
+    the widened operands), ``"wgmma-e4m3"`` for B1's fp8 build (one e4m3
+    wgmma per 32-deep k step, promoted into f32 after each), or
+    ``"wgmma-s8"`` for the int8 builds (one s8 wgmma per 32-deep k step,
+    s32 accumulator, B3 and B4); raises for another tile. The CTA
     differs: B1 and B2 (``precomp``) run the tile's own CTA at the tiles of
     :func:`wgmma_tiles` and the 128 x 128 CTA at those of
     :func:`narrow_tiles` (B2 checking the tile as its sub-tile); B3
@@ -202,22 +210,26 @@ def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     ``rowcol_mxu`` and B8 ``global_mxu`` run the 128 x 128 CTA over the
     tile as its sub-tile at every tile of :func:`subtiles`."""
     check_tile(shape)
+    if in_dtype == "float8_e4m3fn":
+        return "wgmma-e4m3" if kind == "sgemm" else "wgmma-bf16"
     return {"bfloat16": "wgmma-bf16", "int8": "wgmma-s8"}.get(in_dtype,
                                                            "wgmma-3xtf32")
 
 
 def check_operands(shape, a, b, c, *more) -> tuple:
     """Validate a kernel launch: contiguous, 16-byte aligned operands on one
-    CUDA device, A (M, K) and B (N, K) both float32, both bfloat16 or both
-    int8 (the kernel's input dtype; an int8 operand's rows K rounded up to
-    16 bytes apart, ``common.align_rows16``), C (M, N) and the wrapper-side
+    CUDA device, A (M, K) and B (N, K) both float32, both bfloat16, both
+    float8_e4m3fn or both int8 (the kernel's input dtype; a 1-byte
+    operand's rows K rounded up to 16 bytes apart,
+    ``common.align_rows16``), C (M, N) and the wrapper-side
     inputs float32, padded to the tile (M % bm == N % bn == K % bk == 0, K
     >= bk), and a compiled tile. Returns (M, N, K, bm, bn, bk)."""
     dev = a.device
-    if (a.dtype not in (torch.float32, torch.bfloat16, torch.int8)
-            or b.dtype != a.dtype):
-        raise ValueError("kernels take A and B both float32, both bfloat16"
-                         f" or both int8, got {a.dtype} and {b.dtype}")
+    if (a.dtype not in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+                        torch.int8) or b.dtype != a.dtype):
+        raise ValueError("kernels take A and B both float32, both bfloat16,"
+                         " both float8_e4m3fn or both int8, got"
+                         f" {a.dtype} and {b.dtype}")
     for t in (a, b, c, *more):
         if not t.is_cuda or t.device != dev:
             raise ValueError("kernel operands must lie on one CUDA device,"
@@ -225,9 +237,9 @@ def check_operands(shape, a, b, c, *more) -> tuple:
         if t.dtype != torch.float32 and t is not a and t is not b:
             raise ValueError(f"kernels take float32 C and checksum inputs,"
                              f" got {t.dtype}")
-        if t.dtype == torch.int8:
+        if t.element_size() == 1:
             if t.stride() != (t.shape[1] + (-t.shape[1]) % 16, 1):
-                raise ValueError("kernels take int8 rows 16 bytes apart"
+                raise ValueError("kernels take 1-byte rows 16 bytes apart"
                                  " (common.align_rows16)")
         elif not t.is_contiguous():
             raise ValueError("kernels take contiguous operands")

@@ -8,7 +8,9 @@ inputs. Detection only. The JAX package builds it from plain XLA ops with
 no Pallas kernel; here each panel is one cuBLAS ``addmm_`` plus matrix-
 vector products and reductions, and there is no hand kernel either. With
 ``in_dtype="bfloat16"`` the panels are the bf16-rounded operands, their
-products and checksums taken in FP32 (``abft_baseline.py:87-88``).
+products and checksums taken in FP32 (``abft_baseline.py:87-88``), and
+likewise with ``in_dtype="float8_e4m3fn"`` on the e4m3-rounded operands
+(``common.to_e4m3``).
 """
 
 from __future__ import annotations
@@ -46,15 +48,14 @@ def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
 
     ``inject`` adds a fault to one rotating element of C between pass 1 and
     pass 2 of each scheduled panel (``panel % every == 0``). K is zero-padded
-    to a multiple of ``panel_k``. ``in_dtype="bfloat16"`` rounds A and B to
-    bf16 first; everything after is f32 (TF32 off). ``device=None`` runs
+    to a multiple of ``panel_k``. ``in_dtype="bfloat16"`` (or
+    ``"float8_e4m3fn"``) rounds A and B to bf16 (e4m3) first; everything
+    after is f32 (TF32 off). int8 raises ``ValueError``, as in the JAX
+    package. ``device=None`` runs
     on CUDA; the caller's ``c`` is never written.
     """
     inject = inject or InjectionSpec.none()
     dtype = resolve_in_dtype(in_dtype)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"in_dtype={in_dtype!r} is not ported yet for the baseline")
     dev = resolve_device(device)
     strict_fp32()
     a, b = (as_operand(x, dtype, dev).float() for x in (a, b))

@@ -80,21 +80,36 @@ def resolve_in_dtype(in_dtype, *, allow_low_precision: bool = False):
     return getattr(torch, name)
 
 
+# float8_e4m3fn's largest finite value is 448; halfway to the next step of
+# its grid (480, which e4m3fn spends on NaN) lies 464.
+E4M3_OVERFLOW = 464.0
+
+
+def to_e4m3(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to float8_e4m3fn as the JAX package's ``astype``
+    (ml_dtypes) rounds it: to nearest even, and NaN where ``|t| > 464``
+    (±inf too), where torch's own cast saturates to ±448 (448 is also what
+    JAX gives up to 464). Torch ops on ``t``'s device."""
+    return torch.where(t.abs() > E4M3_OVERFLOW, torch.nan, t).to(
+        torch.float8_e4m3fn)
+
+
 def as_operand(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """An A or B operand in the kernels' input dtype on ``device``: f32 as
     :func:`as_f32`, bf16 rounded to nearest even from f32 on ``device``
-    (the rounding the JAX package's ``astype`` does), int8 truncated toward
-    zero from f32 (numpy's ``astype``; the int8 mode's data are
-    integer-valued), contiguous and 16-byte aligned. An int8 tensor is taken
-    as it is."""
-    if dtype == torch.int8 and isinstance(x, torch.Tensor) and (
-            x.dtype == torch.int8):
+    (the rounding the JAX package's ``astype`` does), fp8 likewise with
+    JAX's overflow to NaN (:func:`to_e4m3`), int8 truncated toward zero
+    from f32 (numpy's ``astype``; the int8 mode's data are integer-valued),
+    contiguous and 16-byte aligned. An int8 or fp8 tensor of that dtype is
+    taken as it is."""
+    if dtype in (torch.int8, torch.float8_e4m3fn) and isinstance(
+            x, torch.Tensor) and x.dtype == dtype:
         t = x.to(device).contiguous()
         return t.clone() if t.data_ptr() % 16 else t
     t = as_f32(x, device)
     if dtype == torch.float32:
         return t
-    r = t.to(dtype).contiguous()
+    r = (to_e4m3(t) if dtype == torch.float8_e4m3fn else t.to(dtype)).contiguous()
     return r.clone() if r.data_ptr() % 16 else r
 
 
@@ -161,7 +176,8 @@ def scalar_operand(inject, thresholds, margin: float = 0.0) -> np.ndarray:
 def estimate_noise_floor(a: torch.Tensor, b: torch.Tensor, c, alpha: float,
                          beta: float) -> torch.Tensor:
     """Closed-form bound on a clean run's checksum residual, from the
-    inputs' moments (bf16 and int8 operands as their f32 values), as a 0-d
+    inputs' moments (bf16, fp8 and int8 operands as their f32 values, as
+    the JAX package reads the rounded inputs), as a 0-d
     f32 tensor on the inputs' device (no host sync): the torch twin of
     ``estimate_noise_floor_jnp``
     (ops/common.py:100-145 of the JAX package), what ``threshold="auto"``

@@ -9,8 +9,11 @@ Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
 modes, in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
 weighted, rowcol and global strategies under the static and auto
 thresholds (B2-B5 on bf16 wgmma; the mxu encodes and "adaptive" in bf16
-are not ported yet), and in int8 (``in_dtype="int8"``, the exact mode) for
-rowcol and global (B3, B4 on s8 wgmma) under every threshold mode. The
+are not ported yet), in fp8 (``in_dtype="float8_e4m3fn"``) for the same
+strategies and modes as bf16 (B2-B5 on bf16 wgmma of the exactly widened
+e4m3 operands; B1 on e4m3 wgmma), and in int8
+(``in_dtype="int8"``, the exact mode) for rowcol and global (B3, B4 on s8
+wgmma) under every threshold mode. The
 threshold modes are ``"static"`` (one
 threshold, the reference's 9500 by default), ``"auto"`` (one threshold per
 call from the inputs' moments, reduced by torch ops on the inputs' device
@@ -55,6 +58,17 @@ tensor cores consume them (ops/ft_sgemm.py:575-582), so the input rounding
 cancels out of every residual and the thresholds stay those of f32. The
 wrapper's moment rows (B2's expected moments) split each f32 moment into
 bf16 hi, lo and lo2 terms (``_tile_moments``), as the JAX package does.
+
+In fp8 (the serving mode), A and B are rounded to e4m3 as the JAX package
+rounds them (``common.to_e4m3``) and everything else is f32, as in bf16:
+the checksums are f32 sums of the rounded values, the wrapper's moment rows
+stay f32 (magnitudes ~bm * 448 do not fit e4m3) and B2's expected moments
+are their FP32 product with B widened to f32 (ops/ft_sgemm.py:1237-1245).
+B2-B5 run their bf16 builds on the e4m3 operands, which ``_launch`` widens
+exactly to bf16 (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
+correction writes a column's worth of that error into the element), so the
+in-kernel sum rows ride as three bf16 terms, as in bf16. The thresholds are
+f32's ("auto" from the rounded operands).
 
 In int8 (``in_dtype="int8"``, the exact mode: ``exact=True`` of the JAX
 kernels), A and B are truncated to int8 and the rowcol (B3) and global (B4)
@@ -617,20 +631,27 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
     validated operands, A and B f32 or (static build, vpu kernels) bf16 or
-    (static build, B3 and B4) int8, and count it on ``wrapper``
-    (``launches``, ``adaptive_launches``, ``bf16_launches`` or
-    ``int8_launches``); raises on a launch error. Returns (out, det,
-    unc)."""
+    fp8 or (static build, B3 and B4) int8, and count it on ``wrapper``
+    (``launches``, ``adaptive_launches``, ``bf16_launches``,
+    ``fp8_launches`` or ``int8_launches``); raises on a launch error.
+    fp8 A and B are widened to bf16, which holds every e4m3 value exactly,
+    and run the bf16 build: the same products and checksums as the e4m3
+    operands' (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
+    correction writes a column's worth of that error into the element).
+    Returns (out, det, unc)."""
     dims = check_operands(shape, a, b, c, *extra_in)
-    bf16 = a.dtype == torch.bfloat16
-    int8 = a.dtype == torch.int8
+    fp8 = a.dtype == torch.float8_e4m3fn
+    dtype = torch.bfloat16 if fp8 else a.dtype
     entries = _entries(adaptive)
-    if (bf16 or int8) and (name, a.dtype) not in entries:
+    if dtype != torch.float32 and (name, dtype) not in entries:
         raise NotImplementedError(
-            f"kernel {name!r} has no {'bf16' if bf16 else 'int8'} build"
-            + (" (adaptive)" if adaptive else "") + ": bf16 runs the vpu"
-            " encodes' B2-B5 under the static and auto thresholds, int8 B3"
-            " and B4 under the static build")
+            f"kernel {name!r} has no {str(a.dtype).removeprefix('torch.')}"
+            " build" + (" (adaptive)" if adaptive else "") + ": bf16 and"
+            " fp8 run the vpu encodes' B2-B5 under the static and auto"
+            " thresholds, int8 B3 and B4 under the static build")
+    if fp8:
+        a, b = (x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+                for x in (a, b))
     sc = np.ascontiguousarray(scalars, np.float32)  # taken by value
     if sc.shape != (8,):
         raise ValueError(f"the scalar argument has 8 slots, got {sc.shape}")
@@ -638,7 +659,7 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     grid = (c.shape[0] // shape.bm, c.shape[1] // shape.bn)
     det = torch.empty(grid, dtype=torch.int32, device=c.device)
     unc = torch.empty_like(det)
-    fn = entries[name, a.dtype] if bf16 or int8 else entries[name]
+    fn = entries[name] if dtype == torch.float32 else entries[name, dtype]
     noise = () if name == "precomp" else (
         full_run_log2(a.shape[1] // shape.bk, shape.bk, shape.bm, shape.bn),
         NOISE_C_RAND, NOISE_C_BIAS)
@@ -648,9 +669,11 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             *noise, torch.cuda.current_stream(a.device).cuda_stream)
     if adaptive:
         wrapper.adaptive_launches += 1
-    elif bf16:
+    elif fp8:
+        wrapper.fp8_launches += 1
+    elif dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
-    elif int8:
+    elif dtype == torch.int8:
         wrapper.int8_launches += 1
     else:
         wrapper.launches += 1
@@ -758,6 +781,7 @@ for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
     _w.launches = 0
     _w.adaptive_launches = 0
     _w.bf16_launches = 0
+    _w.fp8_launches = 0
     _w.int8_launches = 0
 
 
@@ -913,10 +937,13 @@ def make_ft_sgemm(
     unless the injection schedule proves at most one fault per check
     interval (ops/ft_sgemm.py:1802-1812). ``device=None`` runs on CUDA.
 
-    ``in_dtype="bfloat16"`` rounds A and B to bf16 on the device; C, the
-    accumulator, the checksums (of the rounded values), detection and
-    correction stay f32, and the thresholds are f32's ("auto" from the
-    rounded operands). The tile is the paper's in every dtype.
+    ``in_dtype="bfloat16"`` rounds A and B to bf16 on the device, and
+    ``"float8_e4m3fn"`` (aliases ``fp8``, ``fp8_e4m3``, ``float8_e4m3``)
+    to e4m3 as the JAX package does (NaN past 464); C, the accumulator, the
+    checksums (of the rounded values), detection and correction stay f32,
+    and the thresholds are f32's ("auto" from the rounded operands). The
+    tile is the paper's in every dtype; a 1-byte operand's rows are stored
+    16 bytes apart (``common.align_rows16``).
 
     ``in_dtype="int8"`` truncates A and B to int8 (pass integer-valued
     data) and runs the exact mode of the rowcol or global strategy (B3,
@@ -928,8 +955,8 @@ def make_ft_sgemm(
 
     Not ported yet, and raising ``NotImplementedError``
     (``configs.check_kernel_legality``): bf16 with ``encode="mxu"`` or
-    ``strategy="fused"`` (B6-B8) or ``threshold="adaptive"``, and
-    float8_e4m3fn.
+    ``strategy="fused"`` (B6-B8), and ``threshold="adaptive"`` in bf16 and
+    fp8 (fp8 with the mxu encodes is illegal: ``ValueError``).
     """
     if isinstance(threshold, str):
         threshold_mode = threshold
@@ -992,9 +1019,8 @@ def make_ft_sgemm(
         a, b = (as_operand(x, dtype, dev) for x in (a, b))
         c = as_f32(c, dev)
         m, n = c.shape
-        ap, bp = pad_to(a, bm, bk), pad_to(b, bn, bk)
-        if exact:
-            ap, bp = align_rows16(ap), align_rows16(bp)
+        ap, bp = (align_rows16(pad_to(x, t, bk))
+                  for x, t in ((a, bm), (b, bn)))
         cp = pad_to(c, bm, bn)
         kind, ce, mf = _plan(strategy, check_every, multifault, inject,
                              ap.shape[1] // bk, bn, encode, adaptive)

@@ -10,7 +10,10 @@ With ``in_dtype="bfloat16"`` the oracle is the f32 product of the
 bf16-rounded operands (ft_sgemm_tpu/ops/reference.py:21-60): a bf16 x bf16
 product is exact in f32, so rounding the inputs once is the whole
 precision difference, and C stays f32. It is not ``torch.matmul`` on bf16
-tensors, which rounds its output to bf16.
+tensors, which rounds its output to bf16. ``in_dtype="float8_e4m3fn"``
+likewise (ft_sgemm_tpu/ops/reference.py:52): the f32 product of the
+operands rounded to e4m3 as the JAX package rounds them
+(``common.to_e4m3``: NaN past 464, where torch's cast saturates).
 
 With ``in_dtype="int8"`` it is the exact oracle of the int8 mode
 (ft_sgemm_tpu/ops/reference.py:24-31): A and B truncated to int8, the

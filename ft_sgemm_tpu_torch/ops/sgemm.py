@@ -13,6 +13,10 @@ it).
 f32, as in ``ft_sgemm_tpu/ops/sgemm.py:165-219``): on the card B1's bf16
 instantiation runs one bf16 wgmma per 16-deep k step on the operands as
 they land; the plain version multiplies the rounded values in FP32.
+``in_dtype="float8_e4m3fn"`` (the fp8 serving mode) rounds them to e4m3
+(``common.to_e4m3``) and runs B1's fp8 build, one e4m3 wgmma per 32-deep k
+step, each k step's sum promoted into the f32 accumulator; its rows lie 16
+bytes apart (``common.align_rows16``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, canonical_in_dtype
 from ft_sgemm_tpu_torch.ops._build import bind, check_launch, check_operands, library
 from ft_sgemm_tpu_torch.ops.common import (
     PRECISIONS,
+    align_rows16,
     as_f32,
     as_operand,
     pad_to,
@@ -39,10 +44,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype = torch.float32):
-    """B1's entry point for f32 or bf16 operands."""
-    name = {torch.float32: "ftsg_sgemm", torch.bfloat16: "ftsg_sgemm_bf16"}
-    return bind(library("sgemm"), name[dtype],
-                [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P])
+    """B1's entry point for f32, bf16 or fp8 operands (fp8 in a library of
+    its own, ``_build.LIBRARIES``)."""
+    lib, name = {torch.float32: ("sgemm", "ftsg_sgemm"),
+                 torch.bfloat16: ("sgemm", "ftsg_sgemm_bf16"),
+                 torch.float8_e4m3fn: ("sgemm_fp8", "ftsg_sgemm_fp8")}[dtype]
+    return bind(library(lib), name, [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P])
 
 
 def sgemm_plain(a, b, c, alpha, beta) -> torch.Tensor:
@@ -55,9 +62,10 @@ def sgemm_plain(a, b, c, alpha, beta) -> torch.Tensor:
 def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
                  ) -> torch.Tensor:
     """B1 on operands already padded to ``shape``'s tile: a new (M, N)
-    tensor ``alpha * a @ b.T + beta * c``, A and B both f32 or both bf16.
-    A CUDA tensor launches the kernel (counted in ``launches``, or
-    ``bf16_launches``); a CPU tensor runs the plain version."""
+    tensor ``alpha * a @ b.T + beta * c``, A and B both f32, both bf16 or
+    both fp8. A CUDA tensor launches the kernel (counted in ``launches``,
+    ``bf16_launches`` or ``fp8_launches``); a CPU tensor runs the plain
+    version."""
     if a.device.type == "cpu":
         return sgemm_plain(a, b, c, alpha, beta)
     dims = check_operands(shape, a, b, c)
@@ -67,6 +75,8 @@ def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
             alpha, beta, torch.cuda.current_stream(a.device).cuda_stream)
     if a.dtype == torch.bfloat16:
         sgemm_kernel.bf16_launches += 1
+    elif a.dtype == torch.float8_e4m3fn:
+        sgemm_kernel.fp8_launches += 1
     else:
         sgemm_kernel.launches += 1
     check_launch(rc, fn.__name__)
@@ -75,6 +85,7 @@ def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
 
 sgemm_kernel.launches = 0
 sgemm_kernel.bf16_launches = 0
+sgemm_kernel.fp8_launches = 0
 
 
 def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
@@ -86,21 +97,19 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
     Returns ``fn(a, b, c) -> C`` with ``C = alpha*A@B.T + beta*C`` for
     inputs of any (M, K)/(N, K)/(M, N) shapes (numpy arrays or tensors),
     zero-padded to the tile and sliced back. ``in_dtype="bfloat16"`` rounds
-    A and B to bf16 on the device (C and the accumulator stay f32).
+    A and B to bf16 on the device, ``"float8_e4m3fn"`` (aliases ``fp8``,
+    ``fp8_e4m3``, ``float8_e4m3``) to e4m3 as the JAX package does (NaN
+    past 464); C and the accumulator stay f32.
     ``precision`` (the JAX package's names) is there for parity with its
     ``make_sgemm`` and changes nothing: the f32 kernels are 3xTF32,
     FP32-accurate, and take ``"highest"`` only (any other raises
-    ``NotImplementedError``); a bf16 product is one pass whatever is asked.
-    float8_e4m3fn and int8 are not ported yet and raise
-    ``NotImplementedError``. ``device=None`` runs on CUDA.
+    ``NotImplementedError``); a bf16 or fp8 product is one pass whatever is
+    asked. int8 raises ``ValueError``, as in the JAX package (it needs the
+    FT kernels' exact path). ``device=None`` runs on CUDA.
     The caller's ``c`` is never written. The tile is the paper's for every
     dtype (the JAX package's bf16 tile overrides are TPU tuning).
     """
     dtype = resolve_in_dtype(in_dtype)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"in_dtype={canonical_in_dtype(in_dtype)!r} is not ported yet:"
-            " the plain kernels run float32 and bfloat16")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got"
                          f" {precision!r}")
@@ -116,8 +125,8 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
         a, b = (as_operand(x, dtype, dev) for x in (a, b))
         c = as_f32(c, dev)
         m, n = c.shape
-        out = sgemm_kernel(pad_to(a, shape.bm, shape.bk),
-                           pad_to(b, shape.bn, shape.bk),
+        out = sgemm_kernel(align_rows16(pad_to(a, shape.bm, shape.bk)),
+                           align_rows16(pad_to(b, shape.bn, shape.bk)),
                            pad_to(c, shape.bm, shape.bn), shape, alpha, beta)
         return out[:m, :n]
 

@@ -6,14 +6,15 @@ Builds the sources of the ``ft_sgemm_tpu_torch`` package found under TREE
 many instructions of each class its code holds: FFMA, shared loads and
 stores, global loads, cp.async (LDGSTS), local loads and stores (register
 spills), barriers, shuffles, the tensor-core products of the wgmma kernels
-(HGMMA; IGMMA for the int8 builds' s8 products), their TMA loads (UTMALDG)
-and warpgroup fences and waits
+(HGMMA; IGMMA for the int8 builds' s8 products, QGMMA for B1's fp8 build's
+e4m3 ones), their TMA loads (UTMALDG) and warpgroup fences and waits
 (WARPGROUP), and the total. Counts are static (the code as compiled, each
 loop body once), so they tell what a kernel carries beside its main loop,
 not how often it runs it. A kernel is labelled by its ``WgTile``'s
 parameters (CTA bm, bn, sub-tile bm, bn, moment rows per band, check
 scratch, band-row and moment-row sources) and its last template flag (B1's
-ragged store), "bf16" or "s8" after it for a bf16 or int8 tile, and listed
+ragged store), "bf16", "s8" or "e4m3" after it for a bf16, int8 or fp8
+tile, and listed
 when the labels start with one of the named tiles (default: every kernel).
 Needs nvcc and cuobjdump:
 
@@ -37,7 +38,7 @@ import subprocess
 import sys
 
 CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL",
-           "HGMMA", "IGMMA", "UTMALDG", "WARPGROUP")
+           "HGMMA", "IGMMA", "QGMMA", "UTMALDG", "WARPGROUP")
 
 
 def cuobjdump() -> str:
@@ -57,12 +58,13 @@ def _kernels(sass: str):
             continue
         dims = re.findall(r"Li(\d+)E", wg.group(1))
         # A ninth parameter is the operand type: f32 (0) keeps the labels of
-        # trees from before it, bf16 (1) and int8 (2) are marked.
+        # trees from before it, bf16 (1), int8 (2) and fp8 (3) are marked.
         in_type = dims.pop() if len(dims) == 9 else "0"
         flag = re.search(r"EELb([01])E", fn)
         yield (f"{kind.group(1)}<{','.join(dims)}"
                + (f",{flag.group(1)}" if flag else "") + ">"
-               + {"1": " bf16", "2": " s8"}.get(in_type, "")), body
+               + {"1": " bf16", "2": " s8", "3": " e4m3"}.get(in_type,
+                                                              "")), body
 
 
 def census(sass: str) -> dict:
@@ -134,7 +136,7 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"{'kernel':44s}" + "".join(f"{c:>8s}" for c in CLASSES + ("total",)))
+    print(f"{'kernel':48s}" + "".join(f"{c:>8s}" for c in CLASSES + ("total",)))
     # A tree from before the adaptive libraries names its sources instead.
     for name in getattr(_build, "KERNEL_LIBS", None) or _build.KERNEL_SOURCES:
         print(name)
@@ -142,7 +144,7 @@ def main(argv) -> int:
         for label, counts in sorted(census(sass).items()):
             dims = label[label.index("<") + 1:label.index(">")] + ","
             if any(dims.startswith(f"{tile},".lstrip(",")) for tile in tiles):
-                print(f"{label:44s}" + "".join(
+                print(f"{label:48s}" + "".join(
                     f"{counts[c]:8d}" for c in CLASSES + ("total",)))
     return 0
 

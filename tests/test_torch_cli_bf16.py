@@ -87,14 +87,20 @@ def test_unported_dtype_modes_raise(flags, capsys):
     # Nothing runs before the refusal. int8 is ported since the int8 slice
     # (tests/test_torch_cli_int8.py): it defaults to the rowcol strategy
     # (configs.DEFAULT_STRATEGY), as the JAX program does, and its
-    # verification passes.
+    # verification passes. fp8 is ported since the fp8 slice
+    # (tests/test_torch_cli_fp8.py): it runs (the weighted strategy by
+    # default, or rowcol) and its verification passes.
     argv = ["ft_sgemm", "64", "64", "64", "0", "16", "--device=cpu",
             "--no-perf", *flags]
-    if flags == ["--dtype=int8"]:
+    if flags[0] in ("--dtype=int8", "--dtype=fp8", "--dtype=float8_e4m3fn"):
         assert cli.main(argv) == 0
         out, err = capsys.readouterr()
-        assert "defaulting --strategy=rowcol" in err
-        assert "Verification in int8" in out
+        if flags == ["--dtype=int8"]:
+            assert "defaulting --strategy=rowcol" in err
+            assert "Verification in int8" in out
+        else:
+            assert "Verification in float8_e4m3fn" in out
+            assert "FAIL" not in out
         return
     with pytest.raises(NotImplementedError):
         cli.main(argv)

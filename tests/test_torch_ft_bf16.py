@@ -12,8 +12,8 @@ on every tile reported correctable, and against the oracle (the f32
 product of the rounded operands) there too, except where the detect-only
 global strategy keeps its faults. The cases of ``tests/test_mixed_precision.py`` for the FT
 kernels follow, one paper tile with ragged M and N, and what stays out
-(the mxu encodes, "adaptive", fp8), which raises (int8 runs: the exact
-mode, tests/test_torch_ft_int8.py). The card tests
+(the mxu encodes, "adaptive"), which raises (int8 runs: the exact mode,
+tests/test_torch_ft_int8.py; fp8 runs: tests/test_torch_ft_fp8.py). The card tests
 (marker ``cuda``) hold the bf16 builds against their plain versions.
 """
 
@@ -224,14 +224,28 @@ def test_bf16_unported_combinations_raise(kw):
 
 
 @pytest.mark.parametrize("in_dtype,kw,err", [
-    ("float8_e4m3fn", {}, NotImplementedError),
-    ("fp8", dict(strategy="rowcol"), NotImplementedError),
+    ("float8_e4m3fn", {}, None),                     # ported: runs
+    ("fp8", dict(strategy="rowcol"), None),          # ported: runs
     ("int8", dict(strategy="rowcol"), None),         # ported: runs
     ("int8", {}, ValueError),                        # weighted: illegal
     ("int8", dict(strategy="rowcol", multifault=True), ValueError),
     ("float8_e4m3fn", dict(encode="mxu"), ValueError),  # 1-byte rows
     ("float16", {}, ValueError), ("bf16", {}, ValueError)])
 def test_other_dtypes_raise(in_dtype, kw, err):
+    if err is None and in_dtype != "int8":
+        # fp8 is ported (the fp8 slice, tests/test_torch_ft_fp8.py): it
+        # builds and corrects injected faults to the rounded oracle.
+        fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA, in_dtype=in_dtype,
+                           device="cpu", **kw)
+        a, b, c = _inputs(128, 128, 256, seed=2)
+        res = fn(a, b, c, InjectionSpec(enabled=True, every=1))
+        assert fn.in_dtype == "float8_e4m3fn" and int(res.num_detected) == 2
+        assert int(res.num_uncorrectable) == 0
+        ok, nbad, _ = verify_matrix(sgemm_reference(
+            a, b, c, ALPHA, BETA, in_dtype="fp8", device="cpu").numpy(),
+            res.c.numpy(), verbose=False)
+        assert ok, f"{nbad} elements off"
+        return
     if err is None:
         # int8 rowcol is ported (the exact mode, tests/test_torch_ft_int8.py):
         # it builds and corrects an injected fault exactly.
