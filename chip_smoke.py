@@ -19,6 +19,15 @@ then the program under ``--threshold=auto`` and ``--threshold=adaptive``
 at 4096 in every pair (verification, clean runs that flag nothing, and
 magnitude-5 faults that the static threshold misses and both modes catch),
 counted apart, and each adaptive kernel's time beside its static build's.
+The same for threshold="adaptive" in bf16 and fp8: the adaptive bf16
+builds of B5, B3 and B4 against their plain versions at every tile (bf16
+data and fp8 data over ±448, faults every 1, 3 and 5 bk steps, checks
+between the halves of a 16-deep k step), the bracket against the host
+twin on the rounded operands, the program with ``--dtype=bfloat16`` and
+``--dtype=fp8`` under ``--threshold=adaptive`` at 4096 (each verdict the
+plain versions', clean runs, magnitude-5 faults, the table beside the
+static rows, every launch counted as adaptive and as the dtype's), and
+each build timed beside its static bf16 build and the library call.
 The bf16 input mode (``--dtype=bfloat16``, the vpu encodes): B1-B5's bf16
 builds against their plain versions at every tile (checks and faults
 inside a 16-deep k step too) and, clean, to within BF16_ACCURACY of max
@@ -103,6 +112,15 @@ ADAPTIVE_SIZES = (1000,)
 # BRACKET_B[j % 2] times the fault (0.5, 0.125, 2 and 0.5).
 BRACKET_A = (0.5, 2.0)
 BRACKET_B = (1.0, 0.25)
+# The adaptive bf16 builds' bracket (phase_lowp_bracket): the scale of each
+# 4-column chunk of a 16-deep k step, in A and B (4 of the 7 parts of the
+# step's sum of squares in its last chunk, so that the two 8-column halves
+# and the two chunks of the second half differ); the faults, as multiples of the
+# threshold of the tiles at 0.5 of the band scales; the depth K (M = N =
+# VERIFY_SIZE).
+LOWP_BRACKET_K = (1.0, 1.0, 1.0, 2.0)
+LOWP_BRACKET_FAULT = (0.9, 1.1)
+LOWP_BRACKET_DEPTH = 512
 # The fault magnitude that the reference's 9500 misses and the auto and
 # adaptive thresholds catch (tests/test_ft_sgemm.py:640-682).
 TINY_MAGNITUDE = 5.0
@@ -170,6 +188,12 @@ FP8_WIDE_THRESHOLD = 1e5
 FP8_WIDE_MAGNITUDE = 1e7
 # Clean in-kernel residuals must stay this far under the "auto" threshold.
 FP8_RESIDUAL_MARGIN = 10.0
+# threshold="adaptive" in bf16, and in fp8 on the operands the wrappers
+# widen to bf16: the adaptive bf16 builds of B5 (the weighted strategy runs
+# it at every tile), B3 and B4, each launch counted in adaptive_launches and
+# in its dtype's counter (bf16_launches, fp8_launches); the dtypes.
+LOWP_ADAPTIVE_KINDS = ("running", "rowcol", "global")
+LOWP_DTYPES = ("bfloat16", "fp8")
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
 VARIANT = "device-scalars-small"
@@ -252,6 +276,13 @@ class Kernels:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_fp8"] = dict(
                 static, counter="fp8_launches")
+        # The adaptive bf16 builds, read by their dtype's counter in a run
+        # that launches no static build (phase_threshold_path).
+        for kind in LOWP_ADAPTIVE_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            for label in ("bf16", "fp8"):
+                self.table[f"{KIND_NAMES[kind]}_adaptive_{label}"] = dict(
+                    static, counter=f"{label}_launches")
         self.max_err = {name: 0.0 for name in self.table}
         self.checked = {name: 0 for name in self.table}
 
@@ -627,10 +658,10 @@ def phase_float_path(kern: Kernels, in_dtype: str):
     (``in_dtype``; both on BF16_PAIRS and BF16_MODES) at VERIFY_SIZE, with
     the launch counters set to 0 just before and read just after: (b) the
     verification, every id passing with every fault detected (global: every
-    event) and nothing uncorrectable where the strategy corrects: in bf16
-    of ids 0-16 under weighted and rowcol and 11-16 under global with the
-    static threshold and of ids 11-16 in each pair under auto, in fp8 of ids
-    0-16 in every pair and mode; the GFLOPS table at TIMING_SIZE (ids 0-16
+    event) and nothing uncorrectable where the strategy corrects: of ids
+    0-16 under weighted with the static threshold and of ids 11-16 in every
+    other pair and mode (ids 0-10 are B1's rows, which no strategy or
+    threshold changes); the GFLOPS table at TIMING_SIZE (ids 0-16
     weighted, 11-16 rowcol and global); (c) clean runs of ids 11-16 in
     every pair and mode, which flag nothing and keep C within BF16_ACCURACY
     of the f32 product of the rounded operands. Every kernel of the mode
@@ -648,8 +679,7 @@ def phase_float_path(kern: Kernels, in_dtype: str):
     t0 = time.perf_counter()
     for mode in BF16_MODES:
         for strategy, encode in BF16_PAIRS:
-            first = 0 if label == "fp8" or (
-                mode == "static" and strategy != "global") else 11
+            first = 0 if (mode, strategy) == ("static", "weighted") else 11
             details = {}
             ok = cli.run_verification(n, first, 16, strategy=strategy,
                                       encode=encode, threshold=mode,
@@ -916,6 +946,24 @@ def _wide_scalars(inj, kind, shape):
                                 t * shape.bm ** 2 / np.sqrt(5.0)))
 
 
+def _every_fault_detected(kern: Kernels, kind, nk, inj, ce, what) -> bool:
+    """Where a check every ``ce`` of the ``nk`` bk steps meets at most one
+    fault of ``inj`` (enabled, its period at least ``ce``), the last held launch
+    (``kern.last``) must have detected every fault: B3, B5 each corrected
+    and none left uncorrectable, B4 one event each. Returns whether the
+    schedule was such."""
+    if not inj.enabled or inj.every < ce or kind == "precomp":
+        return False
+    _, det, unc = kern.last
+    want = det.numel() * len(range(0, nk, inj.every))
+    if int(det.sum()) != want or int(unc.sum()) != (
+            want if kind == "global" else 0):
+        raise AssertionError(
+            f"{what} every {inj.every}, check every {ce}: detected"
+            f" {int(det.sum())} of {want}, {int(unc.sum())} uncorrectable")
+    return True
+
+
 def phase_fp8_kernels(kern: Kernels):
     """B1-B5 in fp8 against their plain versions (the FP32 tile
     algorithm on the same e4m3-rounded operands) at every tile of the
@@ -952,17 +1000,9 @@ def phase_fp8_kernels(kern: Kernels):
                           worst)
             return
         ce = args[0] if args else a.shape[1] // shape.bk
-        if inj.every >= ce and kind != "precomp":
-            _, det, unc = kern.last
-            want = det.numel() * len(range(0, a.shape[1] // shape.bk,
-                                           inj.every))
-            if int(det.sum()) != want or int(unc.sum()) != (
-                    want if kind == "global" else 0):
-                raise AssertionError(
-                    f"{KIND_NAMES[kind]}_fp8 {at} every {inj.every}, check"
-                    f" every {ce}: detected {int(det.sum())} of {want},"
-                    f" {int(unc.sum())} uncorrectable")
-            counted += 1
+        counted += _every_fault_detected(
+            kern, kind, a.shape[1] // shape.bk, inj, ce,
+            f"{KIND_NAMES[kind]}_fp8 {at}")
 
     for shape in SHAPES.values():
         runs = [(size, False) for size in BF16_SIZES] + [(FP8_WIDE_SIZE, True)]
@@ -1173,55 +1213,93 @@ def phase_variant(kern: Kernels, so):
         f" equal to the by-value build's, max |dC| {dc}")
 
 
-def phase_adaptive_kernels(kern: Kernels):
-    """The adaptive builds of B3-B8 against their plain versions at every
-    tile of the port's table, at ADAPTIVE_SIZES, clean, with the
-    reference-like schedule and with col_stride=0, each at the cadence the
-    program gives it under threshold="adaptive" and (clean and
-    reference-like) every MID_STAGE_EVERY bk steps, checks inside a
-    32-column stage; both rowcol kernels with multifault off and on at the
-    program's cadence, on at the mid-stage one (several faults an
-    interval). The faults have magnitude TINY_MAGNITUDE, the faults these
+def phase_adaptive_kernels(kern: Kernels, lowp=False):
+    """The adaptive builds against their plain versions at every tile of the
+    port's table: those of B3-B8 in f32, or (``lowp``) the adaptive bf16
+    builds of B5, B3 and B4 in bf16 and in fp8 (the wrappers widen the e4m3
+    operands to bf16). The data: the program's at ADAPTIVE_SIZES, clean,
+    with reference-like faults of magnitude TINY_MAGNITUDE, and (f32) the
+    same with col_stride=0 or (bf16) TINY_MAGNITUDE faults every 1, 3 and
+    ODD_EVERY bk steps (INT8_EVERY); in fp8 also data spread over ±FP8_WIDE
+    at FP8_WIDE_SIZE, clean and with FP8_WIDE_MAGNITUDE faults every 1 and
+    3 bk steps. The faults have magnitude TINY_MAGNITUDE, the faults these
     thresholds exist to catch: a corrected fault of 1e4 leaves a rounding
     residue of the order of the adaptive thresholds at later checks, where
-    any two summation orders decide differently (phase threshold path)."""
+    any two summation orders decide differently (phase threshold path).
+    Each kernel runs at the cadence the program gives it under
+    threshold="adaptive" (both rowcol kernels with multifault off and on)
+    and, but for col_stride=0, every MID_STAGE_EVERY bk steps (the rowcol
+    kernels with multifault on: several faults an interval), checks inside
+    a 32-column stage; the dense schedules check once per fault (every 1 or
+    MID_STAGE_EVERY bk steps). At bk = 8 those checks fall between the
+    halves of a 16-deep bf16 k step, where a check must see the running
+    moments through its own 8-column step. Grids equal, C within
+    verify_matrix's rule (the wide data: BF16_ACCURACY of max |C|) on the
+    correctable tiles; in bf16 and fp8, where a check interval holds one
+    fault, every fault detected."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
     ft = kern.ft
-    gen = np.random.default_rng(13)
+    gen = np.random.default_rng(29 if lowp else 13)
+    kinds = LOWP_ADAPTIVE_KINDS if lowp else ADAPTIVE_KINDS
     before = dict(kern.checked)
+    counted = 0
     t0 = time.perf_counter()
     for shape in SHAPES.values():
-        for size in ADAPTIVE_SIZES:
-            a, b, c = _padded(_random(size, size, size, gen), shape)
+        data = [(size, torch.bfloat16 if lowp else torch.float32)
+                for size in ADAPTIVE_SIZES]
+        if lowp:
+            data.append((FP8_WIDE_SIZE, torch.float8_e4m3fn))
+        for size, dtype in data:
+            wide = dtype == torch.float8_e4m3fn
+            host = (_fp8_wide_host if wide else _random)(size, size, size, gen)
+            a, b, c = _padded(host, shape, dtype)
             nk = a.shape[1] // shape.bk
-            ref = InjectionSpec.reference_like(size, shape.bk,
-                                               magnitude=TINY_MAGNITUDE)
-            for inj in (InjectionSpec.none(), ref,
-                        InjectionSpec(True, ref.every, TINY_MAGNITUDE, 0)):
+            scheds = [(InjectionSpec.none(), False)]
+            if wide:
+                scheds += [(InjectionSpec(True, e, FP8_WIDE_MAGNITUDE), True)
+                           for e in INT8_EVERY[:2]]
+            else:
+                ref = InjectionSpec.reference_like(size, shape.bk,
+                                                   magnitude=TINY_MAGNITUDE)
+                scheds.append((ref, False))
+                scheds += ([(InjectionSpec(True, e, TINY_MAGNITUDE), True)
+                            for e in INT8_EVERY] if lowp else
+                           [(InjectionSpec(True, ref.every, TINY_MAGNITUDE,
+                                           0), False)])
+            for inj, dense in scheds:
                 sc = _adaptive_scalars(inj)
-                mid = {MID_STAGE_EVERY} if inj.col_stride else set()
-                for kind in ADAPTIVE_KINDS:
+                for kind in kinds:
                     strategy, encode = KIND_PAIR[kind]
                     plan, ce, _ = ft._plan(strategy, None, None, inj, nk,
                                            shape.bn, encode, adaptive=True)
                     if plan != kind:
                         raise AssertionError(f"adaptive {strategy}/{encode}"
                                              f" runs {plan}, not {kind}")
-                    runs = [(ce, False)]
-                    if kind in ("rowcol", "rowcol_mxu"):
-                        runs = [(ce, False), (ce, True)]
-                    runs += [(m, kind in ("rowcol", "rowcol_mxu"))
-                             for m in sorted(mid - {ce})]
-                    for every, mf in runs:
+                    multi = kind in ("rowcol", "rowcol_mxu")
+                    if dense:
+                        runs = {(min(inj.every, MID_STAGE_EVERY), multi)}
+                    else:
+                        runs = {(ce, False), (ce, multi)}
+                        if inj.col_stride:
+                            runs.add((MID_STAGE_EVERY, multi))
+                    for every, mf in sorted(runs):
                         kern.hold(kind, shape, a, b, c, sc, every, mf,
-                                  adaptive=True)
+                                  adaptive=True,
+                                  scale_tol=BF16_ACCURACY if wide else None)
+                        if lowp:
+                            counted += _every_fault_detected(
+                                kern, kind, nk, inj, every,
+                                f"{kernel_name(kind, a, True)} {shape.name}"
+                                f" {size}")
     done = {k: n - before[k] for k, n in kern.checked.items()
             if n - before[k]}
-    errs = {k: kern.max_err[k] for k in done}
-    log(f"phase adaptive kernels: {done} comparisons with the plain versions"
-        f" pass (grids equal), max |dC| {errs}"
+    log(f"phase adaptive kernels{' bf16/fp8' if lowp else ''}: {done}"
+        f" comparisons with the plain versions pass (grids equal)"
+        + (f", {counted} of them with one fault a check interval detecting"
+           f" every fault" if lowp else "")
+        + f", max |dC| { {k: kern.max_err[k] for k in done} }"
         f" ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1340,6 +1418,130 @@ def phase_adaptive_bracket(kern: Kernels):
         f" {BRACKET_A} x {BRACKET_B} of the fault) and no other, as the plain"
         f" versions do; weighted (kernel, plain) tiles whose detection is not"
         f" placed, and tiles uncorrectable: {weighted}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def _exact_bracket_operands(signs, shape):
+    """Host A (M, K) and B (N, K) of the bf16 bracket from ``signs``, A's
+    (M, K / 2) and B's (N, K / 2) ±1: A's column pair (2p, 2p + 1) is (x,
+    -x) and B's (y, y), so that every pair of products cancels; A's row
+    bands scaled by BRACKET_A and B's by BRACKET_B, in turn, at the tile;
+    the four 4-column chunks of every 16 columns scaled by LOWP_BRACKET_K in
+    both. Every value is ±1 times a power of 2: exact in bf16 and e4m3."""
+    sa, sb = signs
+    k = 2 * sa.shape[1]
+    cols = np.resize(np.repeat(np.float32(LOWP_BRACKET_K), 4), k)
+
+    def banded(x, scales, rows, pair):
+        band = np.repeat(np.resize(np.float32(scales), x.shape[0] // rows),
+                         rows)
+        x = np.repeat(x, 2, axis=1) * np.resize(np.float32(pair), k)
+        return (x * band[:, None] * cols).astype(np.float32)
+
+    return (banded(sa, BRACKET_A, shape.bm, (1, -1)),
+            banded(sb, BRACKET_B, shape.bn, (1, 1)))
+
+
+def phase_lowp_bracket(kern: Kernels, in_dtype: str):
+    """The adaptive bf16 builds of B5, B3 and B4 in ``in_dtype`` (bf16, or
+    fp8 widened by the wrappers) at every tile, M = N = VERIFY_SIZE and K =
+    LOWP_BRACKET_DEPTH, against the host twin's thresholds to about 10 %.
+    On ``_exact_bracket_operands`` the product is zero, every checksum
+    cancels to zero and every moment sum is exact in f32, so that a tile's
+    residual at a check is its one fault (at bk step 0), and the fault is
+    caught exactly when it passes the tile's threshold, whose value the
+    twin gives from the same sums. The tiles' thresholds at the check
+    after column tk fall in the classes 0.125, 0.5 and 2 of tile (0, 0)'s
+    T; faults of LOWP_BRACKET_FAULT times T, 0.9 T and 1.1 T, must be
+    missed and caught in the 0.5 class, caught in the 0.125 class and
+    missed in the 2 class. Each kernel runs at the cadence the program
+    gives it at this depth (B3 with multifault off and on) and, at the
+    tiles whose bk is 8, every MID_STAGE_EVERY bk steps: a check between
+    the halves of a 16-deep k step, whose sums must end at its own 8
+    columns. The columns' scales (LOWP_BRACKET_K) put 4 of the 7 parts of
+    the step's sum of squares in its last 4 columns: a kernel that counts
+    the whole step at such a check, reads the first 4 columns of B's half
+    step for the last, or drops one of A's two fragment registers moves its
+    thresholds by a fifth or more. Kernel and plain version each: the tiles that detect are
+    the twin's; the detected tiles are corrected, none uncorrectable (B4:
+    each an event, uncorrectable); B3 with multifault off flags no tile
+    uncorrectable (the re-checks of B5 and of B3 with multifault on may
+    flag a missed fault by its row weight); C equal to the plain
+    version's to 2 % of the fault."""
+    from ft_sgemm_tpu_torch import analysis
+    from ft_sgemm_tpu_torch.configs import SHAPES, canonical_in_dtype
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+
+    ft = kern.ft
+    n, k = VERIFY_SIZE, LOWP_BRACKET_DEPTH
+    gen = np.random.default_rng(19)
+    signs = tuple(gen.choice(np.float32([-1, 1]), (n, k // 2))
+                  for _ in range(2))
+    zero = np.zeros((n, n), np.float32)
+    dtype = getattr(torch, canonical_in_dtype(in_dtype))
+    launches, caught = {}, {}
+    t0 = time.perf_counter()
+    for tile in PROGRAM_TILES:
+        shape = SHAPES[tile]
+        nk = k // shape.bk
+        a, b = _exact_bracket_operands(signs, shape)
+        ops = _padded((a, b, zero), shape, dtype)
+        for kind in LOWP_ADAPTIVE_KINDS:
+            glob = kind in DETECT_ONLY
+            _, ce, mf = ft._plan(KIND_PAIR[kind][0], None, None,
+                                 InjectionSpec.reference_like(k, shape.bk),
+                                 nk, shape.bn, adaptive=True)
+            cadences = {ce, MID_STAGE_EVERY} if shape.bk == 8 else {ce}
+            for every in sorted(cadences):
+                thr = analysis.adaptive_threshold_grid(
+                    a, b, bm=shape.bm, bn=shape.bn,
+                    k_cols=min(every, nk) * shape.bk, global_tile=glob,
+                    in_dtype=in_dtype)
+                for ratio in LOWP_BRACKET_FAULT:
+                    mag = float(np.float32(ratio * thr[0, 0]))
+                    if np.abs(thr / mag - 1.0).min() < 0.05:
+                        raise AssertionError(
+                            f"bracket at {tile}, every {every}: thresholds"
+                            f" {thr.min()}..{thr.max()}, fault {mag}")
+                    want = torch.from_numpy(thr < mag).cuda()
+                    sc = _adaptive_scalars(InjectionSpec(True, nk, mag))
+                    for multi in ((False, True) if kind == "rowcol"
+                                  else (mf,)):
+                        name = kernel_name(kind, ops[0], True)
+                        what = (f"{name} {tile} (check every {every},"
+                                f" multifault {multi}, fault {ratio} T)")
+                        run, plain = kern.calls(kind, shape, *ops, sc, every,
+                                                multi, True)
+                        got, ref = run(), plain()
+                        torch.cuda.synchronize()
+                        for side, (_, det, unc) in (("kernel", got),
+                                                    ("plain", ref)):
+                            det, unc = det > 0, unc > 0
+                            ok = torch.equal(det, want) and (
+                                torch.equal(unc, det) if glob
+                                else not (unc & det).any())
+                            if kind == "rowcol" and not multi:
+                                ok = ok and not unc.any()
+                            if not ok:
+                                raise AssertionError(
+                                    f"{what}, {side}: {int(det.sum())} tiles"
+                                    f" detect, {int(unc.sum())}"
+                                    f" uncorrectable, where the host twin"
+                                    f" puts {int(want.sum())} of"
+                                    f" {want.numel()} faults over the"
+                                    f" threshold")
+                        dc = float((got[0] - ref[0]).abs().max())
+                        if dc > 0.02 * abs(kern.alpha) * mag:
+                            raise AssertionError(
+                                f"{what}: C differs from the plain version"
+                                f" by {dc}, the fault {mag}")
+                        kern.max_err[name] = max(kern.max_err[name], dc)
+                        launches[name] = launches.get(name, 0) + 1
+                        caught[ratio] = caught.get(ratio, 0) + int(want.sum())
+    log(f"phase bracket {in_dtype}: {launches} launches at {n} x {n} x {k}"
+        f" detect in exactly the tiles whose host-twin threshold the fault"
+        f" passes, as the plain versions do, at {LOWP_BRACKET_FAULT} of the"
+        f" 0.5 class's threshold (tiles caught, all launches: {caught})"
         f" ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1481,27 +1683,31 @@ def _device_verify(want, got):
     return int(((diff > 0.01) & (diff > 0.01 * want.abs())).sum())
 
 
-def _plain_verdicts(kern: Kernels, host, want):
+def _plain_verdicts(kern: Kernels, host, want, pairs=ALL_PAIRS,
+                    in_dtype="float32"):
     """What the plain versions give each FT id of the program under
-    threshold="adaptive" on the verification inputs ``host``, at the launch
-    the program makes (``_plan``, reference-like faults), on the card:
-    {(strategy, encode, id): (passes the gate, detected, uncorrectable,
-    elements off the oracle)}. The gate is the program's: a correcting
-    strategy passes with C within the oracle's tolerance and nothing left
-    uncorrectable, global with every fault event detected."""
-    from ft_sgemm_tpu_torch.configs import kernel_for_id
+    threshold="adaptive" on the verification inputs ``host`` (A and B
+    rounded to ``in_dtype``), at the launch the program makes (``_plan``,
+    reference-like faults), on the card, under each (strategy, encode) of
+    ``pairs``: {(strategy, encode, id): (passes the gate, detected,
+    uncorrectable, elements off the oracle ``want``)}. The gate is the
+    program's: a correcting strategy passes with C within the oracle's
+    tolerance and nothing left uncorrectable, global with every fault
+    event detected."""
+    from ft_sgemm_tpu_torch.configs import canonical_in_dtype, kernel_for_id
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
     n = host[0].shape[0]
+    dtype = getattr(torch, canonical_in_dtype(in_dtype))
     out = {}
-    for strategy, encode in ALL_PAIRS:
+    for strategy, encode in pairs:
         for kid in range(11, 17):
             _, shape, _ = kernel_for_id(kid)
             inj = InjectionSpec.reference_like(n, shape.bk)
             kind, ce, mf = kern.ft._plan(strategy, None, None, inj,
                                          -(-n // shape.bk), shape.bn, encode,
                                          adaptive=True)
-            _, plain = kern.calls(kind, shape, *_padded(host, shape),
+            _, plain = kern.calls(kind, shape, *_padded(host, shape, dtype),
                                   _adaptive_scalars(inj), ce, mf, True)
             c, det, unc = plain()
             det, unc = int(det.sum()), int(unc.sum())
@@ -1514,10 +1720,14 @@ def _plain_verdicts(kern: Kernels, host, want):
     return out
 
 
-def phase_threshold_path(kern: Kernels):
-    """The program under ``--threshold=auto`` and ``--threshold=adaptive``
-    at VERIFY_SIZE, every (strategy, encode) pair of ALL_PAIRS, with the
-    launch counters read around it all:
+def phase_threshold_path(kern: Kernels, in_dtype="float32",
+                         static_tables=None):
+    """The program at VERIFY_SIZE under ``--threshold=auto`` and
+    ``--threshold=adaptive`` in f32 (every (strategy, encode) pair of
+    ALL_PAIRS), or under ``--threshold=adaptive`` with ``--dtype=bfloat16``
+    or ``--dtype=fp8`` (``in_dtype``; the pairs of BF16_PAIRS, the adaptive
+    bf16 builds of B5, B3 and B4), with the launch counters set to 0 just
+    before and read just after:
 
     (b) the verification of ids 11-16 (``cli.run_verification``, its
     reference-like faults of magnitude 1e4). Under auto every row passes
@@ -1531,14 +1741,18 @@ def phase_threshold_path(kern: Kernels):
     of a corrected 1e4 fault at later checks, which flags the residue as a
     new fault and cascades; any two summation orders cascade differently
     (ROADMAP, Queue C).
-    (c) Clean runs of ids 11-16 under both modes flag nothing.
+    (c) Clean runs of ids 11-16 under each mode flag nothing.
     (d) Reference-like faults of magnitude TINY_MAGNITUDE, which the static
-    threshold misses (nothing detected or corrected, C off the oracle) and
-    both modes catch:
-    the correcting pairs detect and correct every one (C within the
-    oracle's tolerance, none uncorrectable), global counts every event.
+    threshold misses (nothing detected or corrected, C off the oracle: run
+    before the counters are set to 0) and each mode catches: the correcting
+    pairs detect and correct every one (C within the oracle's tolerance,
+    none uncorrectable), global counts every event.
+    In bf16 and fp8, the table of ids 11-16 at TIMING_SIZE, printed beside
+    the static rows of ``static_tables`` (phase_float_path's).
 
-    Every adaptive build must have launched."""
+    Every adaptive build of the dtype must have launched; in bf16 and fp8
+    every launch is an adaptive bf16 build's, counted in adaptive_launches
+    and in the dtype's counter alike. Returns the launch counts."""
     from ft_sgemm_tpu_torch import cli, runtime
     from ft_sgemm_tpu_torch.configs import kernel_for_id
     from ft_sgemm_tpu_torch.injection import InjectionSpec
@@ -1546,23 +1760,62 @@ def phase_threshold_path(kern: Kernels):
     from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
     from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
 
+    f32 = in_dtype == "float32"
+    label = "" if f32 else ("fp8 " if in_dtype == "fp8" else "bf16 ")
+    pairs = ALL_PAIRS if f32 else BF16_PAIRS
+    modes = ("auto", "adaptive") if f32 else ("adaptive",)
     n = VERIFY_SIZE
     a, b = runtime.generate_reference_driver_inputs(n)
     host = (a, b, np.zeros_like(a))
     a, b, c = (as_f32(x, "cuda") for x in host)
-    want = sgemm_reference(a, b, c, kern.alpha, kern.beta, device="cuda")
+    want = sgemm_reference(a, b, c, kern.alpha, kern.beta, in_dtype=in_dtype,
+                           device="cuda")
     t0 = time.perf_counter()
-    plain = _plain_verdicts(kern, host, want)
-    log(f"phase threshold plain verdicts (adaptive, {n}; passes, detected,"
-        f" uncorrectable, elements off): {plain}"
+    plain = _plain_verdicts(kern, host, want, pairs, in_dtype)
+    log(f"phase {label}threshold plain verdicts (adaptive, {n}; passes,"
+        f" detected, uncorrectable, elements off): {plain}"
         f" ({time.perf_counter() - t0:.1f} s)")
+
+    def program(kid, strategy, encode, mode):
+        shape = kernel_for_id(kid)[1]
+        inj = InjectionSpec.reference_like(n, shape.bk,
+                                           magnitude=TINY_MAGNITUDE)
+        tiles = -(-n // shape.bm) * -(-n // shape.bn)
+        return (make_ft_sgemm(shape.name, alpha=kern.alpha, beta=kern.beta,
+                              strategy=strategy, encode=encode,
+                              threshold=mode, in_dtype=in_dtype,
+                              device="cuda"),
+                inj, tiles * inj.expected_faults(n, shape.bk))
+
+    tiny = {}
+
+    def tiny_faults(what, ft, inj):
+        res = ft(a, b, c, inj)
+        tiny[what] = (int(res.num_detected), int(res.num_uncorrectable),
+                      _device_verify(want, res.c))
+        return tiny[what]
+
+    for strategy, encode in pairs:
+        for kid in range(11, 17):
+            # The static control: missed, and C keeps the faults. (The
+            # weighted check's w^2 re-check may still report a tile
+            # uncorrectable: w^2 times the fault can pass 9500.)
+            what = f"{label}{strategy}/{encode} id {kid} threshold static"
+            det, unc, nbad = tiny_faults(
+                what, *program(kid, strategy, encode, "static")[:2])
+            if det or not nbad:
+                raise AssertionError(
+                    f"{what}, faults of magnitude {TINY_MAGNITUDE}: detected"
+                    f" {det}, uncorrectable {unc}, {nbad} elements off the"
+                    f" oracle")
     kern.zero_counts()
     t0 = time.perf_counter()
-    for mode in ("auto", "adaptive"):
-        for strategy, encode in ALL_PAIRS:
+    for mode in modes:
+        for strategy, encode in pairs:
             details = {}
             cli.run_verification(n, 11, 16, strategy=strategy, encode=encode,
-                                 threshold=mode, details=details)
+                                 threshold=mode, in_dtype=in_dtype,
+                                 details=details)
             for kid, d in details.items():
                 p_ok, p_det, p_unc, _ = plain[strategy, encode, kid]
                 want_ok = mode == "auto" or p_ok
@@ -1575,64 +1828,72 @@ def phase_threshold_path(kern: Kernels):
                         or d["uncorrectable"] != (
                             d["detected"] if strategy == "global" else 0))):
                     raise AssertionError(
-                        f"{strategy}/{encode} threshold {mode} id {kid}: {d},"
-                        f" the plain versions' (verdict, detected,"
-                        f" uncorrectable) {(p_ok, p_det, p_unc)}")
-            log(f"phase verify {strategy}/{encode} threshold {mode} at {n}:"
-                f" ids 11-16 (passed, detected/expected, uncorrectable) "
+                        f"{label}{strategy}/{encode} threshold {mode} id"
+                        f" {kid}: {d}, the plain versions' (verdict,"
+                        f" detected, uncorrectable) {(p_ok, p_det, p_unc)}")
+            log(f"phase verify {label}{strategy}/{encode} threshold {mode} at"
+                f" {n}: ids 11-16 (passed, detected/expected, uncorrectable) "
                 + ", ".join(f"{k}:({d['passed']}, {d['detected']}/"
                             f"{d['expected']}, {d['uncorrectable']})"
                             for k, d in sorted(details.items())))
-    tiny = {}
-    for strategy, encode in ALL_PAIRS:
+    for strategy, encode in pairs:
         for kid in range(11, 17):
-            _, shape, _ = kernel_for_id(kid)
-            inj = InjectionSpec.reference_like(n, shape.bk,
-                                               magnitude=TINY_MAGNITUDE)
-            tiles = -(-n // shape.bm) * -(-n // shape.bn)
-            expected = tiles * inj.expected_faults(n, shape.bk)
-            for mode in ("static", "auto", "adaptive"):
-                ft = make_ft_sgemm(shape.name, alpha=kern.alpha,
-                                   beta=kern.beta, strategy=strategy,
-                                   encode=encode, threshold=mode,
-                                   device="cuda")
-                what = f"{strategy}/{encode} id {kid} threshold {mode}"
-                if mode != "static":
-                    clean = ft(a, b, c)
-                    if int(clean.num_detected) or int(clean.num_uncorrectable):
-                        raise AssertionError(
-                            f"{what}: a clean run flagged"
-                            f" {int(clean.num_detected)}")
-                res = ft(a, b, c, inj)
-                det, unc = int(res.num_detected), int(res.num_uncorrectable)
-                nbad = _device_verify(want, res.c)
-                tiny[what] = (det, unc, nbad)
-                if mode == "static":
-                    # Missed, and C keeps the faults. (The weighted check's
-                    # w^2 re-check may still report a tile uncorrectable:
-                    # w^2 times the fault can pass 9500.)
-                    ok = det == 0 and nbad > 0
-                elif strategy == "global":
-                    ok = det == expected and unc == det
-                else:
-                    ok = det == expected and unc == 0 and nbad == 0
-                if not ok:
+            for mode in modes:
+                ft, inj, expected = program(kid, strategy, encode, mode)
+                what = f"{label}{strategy}/{encode} id {kid} threshold {mode}"
+                clean = ft(a, b, c)
+                if int(clean.num_detected) or int(clean.num_uncorrectable):
+                    raise AssertionError(
+                        f"{what}: a clean run flagged"
+                        f" {int(clean.num_detected)}")
+                det, unc, nbad = tiny_faults(what, ft, inj)
+                if not (det == expected and (
+                        unc == det if strategy == "global"
+                        else unc == 0 and nbad == 0)):
                     raise AssertionError(
                         f"{what}, faults of magnitude {TINY_MAGNITUDE}:"
                         f" detected {det} of {expected}, uncorrectable {unc},"
                         f" {nbad} elements off the oracle")
+    rows = {}
+    for strategy, encode in (() if f32 else pairs):
+        table = cli.run_perf_table(
+            TIMING_SIZE, TIMING_SIZE, 1, 11, 16, min_device_time=PERF_MINTIME,
+            strategy=strategy, encode=encode, threshold="adaptive",
+            in_dtype=in_dtype)
+        for name, cells in table.items():
+            rows[f"{strategy} {name}"] = (
+                round(static_tables[strategy][name][TIMING_SIZE]),
+                round(cells[TIMING_SIZE]))
     counts = kern.counts()
-    log(f"phase threshold clean: ids 11-16 under {ALL_PAIRS}, auto and"
-        f" adaptive, flag nothing at {n}")
-    log(f"phase threshold tiny faults (magnitude {TINY_MAGNITUDE}, (detected,"
-        f" uncorrectable, elements off)): {tiny}")
-    log(f"phase threshold path: {time.perf_counter() - t0:.1f} s, launches"
-        f" {counts}")
-    missing = [name for name, k in kern.table.items()
-               if k["counter"] == "adaptive_launches" and counts[name] == 0]
+    log(f"phase {label}threshold clean: ids 11-16 under {pairs}, {modes},"
+        f" flag nothing at {n}")
+    log(f"phase {label}threshold tiny faults (magnitude {TINY_MAGNITUDE},"
+        f" (detected, uncorrectable, elements off)): {tiny}")
+    if rows:
+        log(f"phase {label}adaptive table at {TIMING_SIZE} (GFLOPS static,"
+            f" adaptive): {rows}")
+    log(f"phase {label}threshold path: {time.perf_counter() - t0:.1f} s,"
+        f" launches {counts}")
+    suffix = "_adaptive" + ("" if f32 else "_" + label.strip())
+    missing = [name for name in kern.table
+               if name.endswith(suffix) and counts[name] == 0]
     if missing:
         raise AssertionError(f"adaptive kernels never launched on the"
-                             f" threshold path: {missing}")
+                             f" {label}threshold path: {missing}")
+    if not f32:
+        wrappers = {kern.table[KIND_NAMES[k]]["wrapper"]
+                    for k in LOWP_ADAPTIVE_KINDS}
+        counter = f"{label.strip()}_launches"
+        for k in kern.table.values():
+            w = k["wrapper"]
+            seen = {c: getattr(w, c, 0) for c in (
+                "launches", "adaptive_launches", "bf16_launches",
+                "fp8_launches", "int8_launches")}
+            want_n = seen["adaptive_launches"] if w in wrappers else 0
+            if seen != {c: want_n if c in ("adaptive_launches", counter)
+                        else 0 for c in seen}:
+                raise AssertionError(f"{label}adaptive path: {w.__name__}"
+                                     f" counted {seen}")
     return counts
 
 
@@ -1758,15 +2019,17 @@ BF16_TIMED += tuple((kind, tile) for kind in ("rowcol", "global")
                     for tile in PROGRAM_TILES)
 
 
-def float_ptxas(kind, shape, in_dtype, multifault=False):
+def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
     """``-Xptxas -v``'s line (registers, spills) for the kernel that ``kind``
     launches on ``shape`` in ``in_dtype`` ("bfloat16" or "fp8"; B2-B5 in fp8
-    run the bf16 kernels): B1 and B2 on the tile's own CTA at the 64-row
-    tiles, else the 128 x 128 CTA (B1: the ragged one; B2-B5 over the tile
-    as sub-tiles; B3 with one moment row, two with multifault)."""
+    run the bf16 kernels; ``adaptive``: B3-B5's adaptive bf16 builds): B1
+    and B2 on the tile's own CTA at the 64-row tiles, else the 128 x 128 CTA
+    (B1: the ragged one; B2-B5 over the tile as sub-tiles; B3 with one
+    moment row, two with multifault)."""
     from ft_sgemm_tpu_torch.ops import _build
 
     lib, kernel = FLOAT_LIBS[kind]
+    lib += "_adaptive_bf16" if adaptive else ""
     e4m3 = in_dtype == "fp8" and kind == "sgemm"
     own = (shape.bm, shape.bn) in _build.wgmma_tiles()
     if kind == "sgemm":  # with MOM, the sum-row sources and the ragged flag
@@ -1855,6 +2118,76 @@ def phase_float_timing(kern: Kernels, counts, in_dtype: str):
             f" multifault {mf}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
             f" {library} {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
             f" ({bound_by}); {regs}")
+    return list(rows.values())
+
+
+def phase_lowp_adaptive_timing(kern: Kernels, counts, in_dtype: str):
+    """Each adaptive bf16 build at 4096 on every tile, at the cadence and
+    multifault setting the program gives it under threshold="adaptive", in
+    ``in_dtype`` (bf16, or fp8 on the operands its wrapper widens), on the
+    program's table inputs: the kernel beside its static bf16 build on the
+    same launch (``static_ms``) and the library's GEMM (bf16:
+    ``torch.matmul``; fp8: ``torch._scaled_mm``), its plain version at its
+    first tile, the bound (``work`` with the sums of A and B, at the mode's
+    rate) and its registers and spills. Returns the ``kernels`` rows, one
+    per kernel (its first tile); ``counts`` are the dtype's adaptive path's
+    launches."""
+    from ft_sgemm_tpu_torch import cli
+    from ft_sgemm_tpu_torch.configs import SHAPES, canonical_in_dtype
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    ft = kern.ft
+    n = TIMING_SIZE
+    fp8 = in_dtype == "fp8"
+    label, library = (("fp8", "torch._scaled_mm") if fp8 else
+                      ("bf16", "torch.matmul bf16"))
+    name_dtype = canonical_in_dtype(in_dtype)
+    host = cli._host_inputs(n, name_dtype)
+    one = torch.ones((), device="cuda")
+    rows = {}
+    for kind in LOWP_ADAPTIVE_KINDS:
+        for tile in PROGRAM_TILES:
+            shape = SHAPES[tile]
+            a, b, c = _padded(host, shape, getattr(torch, name_dtype))
+            inj = InjectionSpec.reference_like(n, shape.bk)
+            plan, ce, mf = ft._plan(KIND_PAIR[kind][0], None, None, inj,
+                                    n // shape.bk, shape.bn, adaptive=True)
+            if plan != kind:
+                raise AssertionError(f"the {label} adaptive program runs"
+                                     f" {plan} at {tile}, not {kind}")
+            name = kernel_name(kind, a, True)
+            static, _ = kern.calls(kind, shape, a, b, c, _scalars(inj), ce, mf)
+            run, plain = kern.calls(kind, shape, a, b, c,
+                                    _adaptive_scalars(inj), ce, mf, True)
+            static_ms = cuda_ms(static, reps=5)
+            ms = cuda_ms(run, reps=5)
+            library_ms = cuda_ms((lambda: torch._scaled_mm(
+                a, b.T, one, one, out_dtype=torch.float32)) if fp8 else
+                (lambda: torch.matmul(a, b.T)), reps=5)
+            flops, nbytes = work(kind, shape, n, ce, mf, adaptive=True,
+                                 bf16=not fp8, fp8=fp8)
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        tc_products(kind, shape, n, mf),
+                                        bf16=not fp8, fp8=fp8)
+            regs = float_ptxas(kind, shape, label, mf, adaptive=True)
+            log(f"phase timing {name} ({tile}, {n}, check every {ce},"
+                f" multifault {mf}): kernel {ms:.3f} ms, static build"
+                f" {static_ms:.3f} ms ({(ms / static_ms - 1) * 100:+.1f} %),"
+                f" {library} {library_ms:.3f} ms, bound {bound_ms:.3f} ms"
+                f" ({bound_by}); {regs}")
+            if name in rows:
+                continue
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": kern.table[name]["source"],
+                "replaces": kern.table[name]["replaces"],
+                "launches": counts[name], "max_abs_err": kern.max_err[name],
+                "ms": ms, "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
+                "mainloop": _build.mainloop(kind, shape, name_dtype),
+                "static_ms": static_ms, "ptxas": regs}
     return list(rows.values())
 
 
@@ -2157,19 +2490,28 @@ def main() -> int:
     phase_fp8_kernels(kern)
     phase_adaptive_kernels(kern)
     phase_adaptive_bracket(kern)
+    phase_adaptive_kernels(kern, lowp=True)
+    for in_dtype in LOWP_DTYPES:
+        phase_lowp_bracket(kern, in_dtype)
     phase_kernels(kern)
     phase_accuracy(kern)
     phase_path_shapes(kern)
     counts, _ = phase_main_path(kern)
     threshold_counts = phase_threshold_path(kern)
-    bf16_counts, _ = phase_float_path(kern, "bfloat16")
+    bf16_counts, bf16_tables = phase_float_path(kern, "bfloat16")
     int8_counts, _ = phase_int8_path(kern)
-    fp8_counts, _ = phase_float_path(kern, "fp8")
+    fp8_counts, fp8_tables = phase_float_path(kern, "fp8")
+    lowp_counts = {
+        in_dtype: phase_threshold_path(kern, in_dtype, tables)
+        for in_dtype, tables in zip(LOWP_DTYPES, (bf16_tables, fp8_tables))}
     phase_fp8_residual(kern)
     rows = phase_timing(kern, counts, threshold_counts)
     rows += phase_float_timing(kern, bf16_counts, "bfloat16")
     rows += phase_int8_timing(kern, int8_counts)
     rows += phase_float_timing(kern, fp8_counts, "fp8")
+    for in_dtype in LOWP_DTYPES:
+        rows += phase_lowp_adaptive_timing(kern, lowp_counts[in_dtype],
+                                           in_dtype)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -3,6 +3,8 @@
 ``threshold="auto"`` and the per-tile variance bound behind
 ``threshold="adaptive"``, evaluated on numpy arrays with no GEMM run and
 no device. The tests hold the kernels' per-tile thresholds against them.
+The adaptive twins take ``in_dtype``: bf16 and fp8 operands count as their
+rounded values, as the kernels sum them.
 """
 
 from __future__ import annotations
@@ -10,14 +12,28 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ft_sgemm_tpu_torch.ops.common import (
     F32_EPS,
     NOISE_C_BIAS,
     NOISE_C_RAND,
     THRESHOLD_CAP,
+    as_operand,
+    resolve_in_dtype,
     variance_bound_threshold,
 )
+
+
+def _rounded(x, in_dtype) -> np.ndarray:
+    """An A or B operand as the kernels see its values, f32: rounded to
+    ``in_dtype`` as the entry points round it (``ops.common.as_operand``)
+    and widened back exactly."""
+    x = np.asarray(x, np.float32)
+    dtype = resolve_in_dtype(in_dtype, allow_low_precision=True)
+    if dtype == torch.float32:
+        return x
+    return as_operand(x, dtype, torch.device("cpu")).float().numpy()
 
 
 def estimate_noise_floor(a, b, c=None, *, alpha: float = 1.0,
@@ -57,14 +73,15 @@ def estimate_noise_floor(a, b, c=None, *, alpha: float = 1.0,
 
 def adaptive_threshold_estimate(a, b, *, bm: int, bn: int,
                                 margin: float = 8.0,
-                                tile: Optional[tuple] = None):
+                                tile: Optional[tuple] = None,
+                                in_dtype="float32"):
     """The adaptive kernels' threshold at the final check
     (``ft_sgemm_tpu/analysis.py:155``): the variance bound on the moments
     of one (bm, K) row tile of A and one (bn, K) row tile of B (``tile=(i,
-    j)``; default the whole operands), in float64. Returns ``(threshold,
-    variance)``, ``variance`` the mean-square product ``E[a^2] E[b^2]``."""
-    a = np.asarray(a, np.float32)
-    b = np.asarray(b, np.float32)
+    j)``; default the whole operands), in float64, of the operands rounded
+    to ``in_dtype`` (``_rounded``). Returns ``(threshold, variance)``,
+    ``variance`` the mean-square product ``E[a^2] E[b^2]``."""
+    a, b = _rounded(a, in_dtype), _rounded(b, in_dtype)
     if tile is not None:
         i, j = tile
         a = a[i * bm:(i + 1) * bm]
@@ -85,7 +102,8 @@ def adaptive_threshold_estimate(a, b, *, bm: int, bn: int,
 
 def adaptive_threshold_grid(a, b, *, bm: int, bn: int,
                             k_cols: Optional[int] = None,
-                            margin: float = 8.0, global_tile: bool = False):
+                            margin: float = 8.0, global_tile: bool = False,
+                            in_dtype="float32"):
     """Every tile's adaptive threshold at the check that closes column
     ``k_cols`` (default all of K), as the kernels derive it
     (``ft_sgemm_tpu/ops/ft_sgemm.py:360-388``): tile (i, j) takes the sum
@@ -97,10 +115,10 @@ def adaptive_threshold_grid(a, b, *, bm: int, bn: int,
     detect-only global check does. ``a`` (M, K) and ``b`` (N, K) as the
     kernels see them (K padded to the tile's bk); sums in float64. At
     ``k_cols = K`` tile (i, j) is :func:`adaptive_threshold_estimate` with
-    ``tile=(i, j)`` on operands padded to whole bands. Returns the
-    (ceil(M / bm), ceil(N / bn)) float64 grid."""
-    a = np.asarray(a, np.float32)
-    b = np.asarray(b, np.float32)
+    ``tile=(i, j)`` on operands padded to whole bands. bf16 and fp8
+    (``in_dtype``) operands count as their rounded values (``_rounded``).
+    Returns the (ceil(M / bm), ceil(N / bn)) float64 grid."""
+    a, b = _rounded(a, in_dtype), _rounded(b, in_dtype)
     k = a.shape[1]
     tk = k if k_cols is None else int(k_cols)
 

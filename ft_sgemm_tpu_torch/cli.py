@@ -39,7 +39,9 @@ rounded to bf16 (the vendor row as ``torch.matmul`` on bf16 tensors, whose
 output is bf16; the hand kernels on bf16 wgmma; the two-pass baseline on
 the rounded operands), verified against the f32 product of the rounded
 operands. bf16 runs the weighted, rowcol and global strategies with
-``--encode=vpu`` under the static and auto thresholds. ``float8_e4m3``
+``--encode=vpu`` under every threshold mode (``adaptive`` on the adaptive
+bf16 builds of B5, B3 and B4, from the rounded operands' moments; the
+verification header then names the mode). ``float8_e4m3``
 (aliases ``fp8``, ``fp8_e4m3``, ``float8_e4m3fn``) runs the fp8 serving
 mode (``ft_sgemm_tpu/cli.py:167-169``) the same way: A and B rounded to
 e4m3 as the JAX package rounds them (NaN past 464), the whole table on the
@@ -265,8 +267,9 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         print("Verification in int8: A and B on the integer lattice"
               " ±{0..9}, against their exact int32 product", file=out)
     elif dtype != "float32":
-        print(f"Verification in {dtype}: A and B rounded to {dtype}, against"
-              f" the f32 product of the rounded inputs", file=out)
+        mode = " (threshold adaptive)" if threshold == "adaptive" else ""
+        print(f"Verification in {dtype}{mode}: A and B rounded to {dtype},"
+              f" against the f32 product of the rounded inputs", file=out)
     all_ok = True
     for kernel_id in sorted(KERNEL_TABLE):
         if kernel_id < st_kernel or kernel_id > end_kernel:

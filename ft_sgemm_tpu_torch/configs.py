@@ -86,15 +86,15 @@ THRESHOLD_MODES = ("static", "auto", "adaptive")
 IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
 # The dtypes the port runs, and the (strategy, encode) pairs and threshold
 # modes it runs them under (the vpu encodes of bf16 and of fp8 on kernels
-# B1-B5; int8's exact mode on B3 and B4, where
-# "adaptive" is the constant half-ulp; the mxu encodes in bf16 and
-# "adaptive" in bf16 and fp8 are still to port, ROADMAP Queue B).
+# B1-B5 under every mode, "adaptive" on the adaptive bf16 builds of B3-B5;
+# int8's exact mode on B3 and B4, where "adaptive" is the constant
+# half-ulp; the mxu encodes in bf16 are still to port, ROADMAP Queue B).
 PORTED = {
     "float32": (STRATEGIES, ENCODE_MODES, THRESHOLD_MODES),
     "bfloat16": (("rowcol", "global", "weighted"), ("vpu",),
-                 ("static", "auto")),
+                 THRESHOLD_MODES),
     "float8_e4m3fn": (("rowcol", "global", "weighted"), ("vpu",),
-                      ("static", "auto")),
+                      THRESHOLD_MODES),
     "int8": (("rowcol", "global"), ("vpu",), THRESHOLD_MODES),
 }
 
@@ -163,7 +163,7 @@ def check_kernel_legality(*, strategy: str, encode: str,
     weighted-ratio localization (``weighted``, ``fused``, multifault) on
     int8's wrapping checksums. What is legal but not ported yet raises
     ``NotImplementedError`` (:data:`PORTED`): bf16 with the mxu encodes
-    (B6-B8), and ``threshold="adaptive"`` in bf16 and fp8."""
+    (B6-B8). Every threshold mode runs in every dtype."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -199,8 +199,7 @@ def check_kernel_legality(*, strategy: str, encode: str,
     if threshold_mode not in modes:
         raise NotImplementedError(
             f"{dtype} with threshold={threshold_mode!r} is not ported yet"
-            f" (the adaptive builds run float32, and int8's exact mode its"
-            f" constant half-ulp; ROADMAP Queue B); pick one of {modes}")
+            f" (ROADMAP Queue B); pick one of {modes}")
     return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

@@ -26,6 +26,16 @@
 #define FTSG_ADAPTIVE 0
 #endif
 
+// FTSG_BF16=1 compiles a source's bf16 entry points alone. With
+// FTSG_ADAPTIVE=1 these are the adaptive bf16 builds of B3, B4 and B5
+// (threshold="adaptive" in bf16 and fp8), libraries of their own
+// (ops/_build.LIBRARIES) that build beside the others and leave every other
+// build as it was: the static libraries hold the static bf16 builds, the
+// adaptive ones without the macro the f32 builds alone.
+#ifndef FTSG_BF16
+#define FTSG_BF16 0
+#endif
+
 // The two builds are loaded into one process and share their sources, so
 // the adaptive build's C++ symbols live in an inline namespace of their own:
 // no mangled name has two bodies (the C entry points are looked up per

@@ -40,9 +40,11 @@
 // band rows ride the ring's stages and full barrier, their padding rows
 // zeroed once per ring slot.
 //
-// bf16 (ftsg_ft_global_bf16, B4 only, static and auto thresholds): A and B
-// bf16 on the bf16 mainloop; B's band sums (f32 sums of the bf16 values)
-// ride the product as three bf16 terms, 24 extra columns.
+// bf16 (ftsg_ft_global_bf16, B4 only): A and B bf16 on the bf16 mainloop;
+// B's band sums (f32 sums of the bf16 values) ride the product as three
+// bf16 terms, 24 extra columns. Its adaptive build (FTSG_ADAPTIVE with
+// FTSG_BF16, a library of its own) sums the rounded operands' moments per
+// 8-column half step (SubTileThresholds::kstep_bf16).
 //
 // int8 (ftsg_ft_global_int8, B4 only, the exact mode: _ft_kernel_global with
 // exact=True, :842-907): A and B int8 on the s8 wgmma mainloop; B's band
@@ -57,6 +59,7 @@
 // constants (NoiseModel), read by the adaptive build. Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
+#if !FTSG_BF16
 extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
                               float* out, int* det, int* unc, int M, int N,
                               int K, int bm, int bn, int bk, int check_every,
@@ -68,8 +71,9 @@ extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);
 }
+#endif
 
-#if !FTSG_ADAPTIVE
+#if FTSG_BF16 || !FTSG_ADAPTIVE
 // B4 with bf16 A and B; the rest as ftsg_ft_global.
 extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
                                    const float* C, float* out, int* det,
@@ -83,7 +87,9 @@ extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);
 }
+#endif
 
+#if !FTSG_ADAPTIVE && !FTSG_BF16
 // B4 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
 // as ftsg_ft_global.
 extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
@@ -100,6 +106,7 @@ extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
 }
 #endif
 
+#if !FTSG_BF16
 // B8: `MB` (N / bn, 1, K) is B's plain moment rows; `MA` (M / bm, 1, K),
 // A's, is not read. Returns as B4.
 extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
@@ -115,3 +122,4 @@ extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);
 }
+#endif

@@ -38,11 +38,13 @@
 // (gemm_wgmma.cuh, WgMainloop::mma_stage). A/B copies put the remaining
 // cost in the check and the splitter warps' sums (PERF.md).
 //
-// bf16 (ftsg_ft_rowcol_bf16, static and auto thresholds): A and B bf16 on
-// the bf16 mainloop; the splitter warps sum B's bands and A's row bands
-// from the landed bf16 stages in f32 and carry each sum row as three bf16
-// terms (24 extra product columns, three moment-row buffers), so both
-// expected sums keep f32 precision; the check is unchanged.
+// bf16 (ftsg_ft_rowcol_bf16): A and B bf16 on the bf16 mainloop; the
+// splitter warps sum B's bands and A's row bands from the landed bf16
+// stages in f32 and carry each sum row as three bf16 terms (24 extra
+// product columns, three moment-row buffers), so both expected sums keep
+// f32 precision; the check is unchanged. Its adaptive build (FTSG_ADAPTIVE
+// with FTSG_BF16, a library of its own) sums the rounded operands' moments
+// per 8-column half step (SubTileThresholds::kstep_bf16).
 //
 // int8 (ftsg_ft_rowcol_int8, the exact mode: _ft_kernel_rowcol with
 // exact=True, :532-534, 567-581, 606-611, 636-640): A and B int8 on the s8
@@ -62,6 +64,7 @@
 // constants (NoiseModel), read by the adaptive build. Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
+#if !FTSG_BF16
 extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
                               float* out, int* det, int* unc, int M, int N,
                               int K, int bm, int bn, int bk, int check_every,
@@ -80,8 +83,9 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, nm, s);
 }
+#endif
 
-#if !FTSG_ADAPTIVE
+#if FTSG_BF16 || !FTSG_ADAPTIVE
 // B3 with bf16 A and B; the rest as ftsg_ft_rowcol.
 extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
                                    const float* C, float* out, int* det,
@@ -102,7 +106,9 @@ extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, nm, s);
 }
+#endif
 
+#if !FTSG_ADAPTIVE && !FTSG_BF16
 // B3 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
 // as ftsg_ft_rowcol, `multifault` 0 (else cudaErrorInvalidValue).
 extern "C" int ftsg_ft_rowcol_int8(const void* A, const void* B,

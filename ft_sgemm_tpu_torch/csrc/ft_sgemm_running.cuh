@@ -240,10 +240,18 @@ struct SubTileThresholds {
 // (row threadIdx.x / 2, the k step's 4-column chunk threadIdx.x % 2, hi + lo
 // from B's split stage), so that the CTA's 256 threads cover A's and B's 128
 // x 8 values of the k step once; a warp's threads hold 16 rows of A and 16
-// rows of B, inside one sub-tile band. At a check (update) a warp's
-// butterfly and one shared-memory pass give each sub-tile its band sums;
-// thread `sub` < NSUB evaluates the bound; two consumer barriers. The sums
-// live in four registers a thread, the bands' in the check scratch.
+// rows of B, inside one sub-tile band. In bf16 (and in fp8, which the
+// wrapper widens exactly to bf16) a k step is one 8-column half of a
+// 16-deep wgmma step, and the values are the rounded operands as the
+// product multiplies them, widened exactly to f32 (_accumulate_moments of
+// a_blk.astype(f32), ops/ft_sgemm.py:580-581, 596): A's two fragment
+// registers of the half (four bf16: ah[2 kk], ah[2 kk + 1], the registers
+// mma_bf_half keeps) and four bf16 of B's landed stage (row threadIdx.x /
+// 2, columns 8 kk + 4 (threadIdx.x % 2) .. + 3, through the 128-byte
+// swizzle). At a check (update) a warp's butterfly and one shared-memory
+// pass give each sub-tile its band sums; thread `sub` < NSUB evaluates the
+// bound; two consumer barriers. The sums live in four registers a thread,
+// the bands' in the check scratch.
 template <class T, bool GLOBAL>
 struct SubTileThresholds<T, true, GLOBAL> {
   using Smem = BoundSmem<T::NCONS / 32, T::NSUB>;
@@ -265,18 +273,47 @@ struct SubTileThresholds<T, true, GLOBAL> {
   template <class M, class F>
   __device__ __forceinline__ void kstep(const M& ml, const F& ah, const F& al,
                                         int kk, int s) {
+    if constexpr (T::BF16) {
+      kstep_bf16(ml, ah, kk, s);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x =
-          __uint_as_float(ah[4 * kk + j]) + __uint_as_float(al[4 * kk + j]);
-      st[0] += x;
-      st[1] = fmaf(x, x, st[1]);
+      for (int j = 0; j < 4; ++j) {
+        const float x =
+            __uint_as_float(ah[4 * kk + j]) + __uint_as_float(al[4 * kk + j]);
+        st[0] += x;
+        st[1] = fmaf(x, x, st[1]);
+      }
+      const int n = threadIdx.x >> 1, chunk = 2 * kk + (threadIdx.x & 1);
+      const int o = n * T::SK + ((chunk ^ (n & 7)) << 2);
+      const float4 h = *reinterpret_cast<const float4*>(ml.sm.b(s) + o);
+      const float4 l = *reinterpret_cast<const float4*>(ml.sm.blo(s) + o);
+      const float xb[4] = {h.x + l.x, h.y + l.y, h.z + l.z, h.w + l.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        st[2] += xb[j];
+        st[3] = fmaf(xb[j], xb[j], st[3]);
+      }
     }
-    const int n = threadIdx.x >> 1, chunk = 2 * kk + (threadIdx.x & 1);
-    const int o = n * T::SK + ((chunk ^ (n & 7)) << 2);
-    const float4 h = *reinterpret_cast<const float4*>(ml.sm.b(s) + o);
-    const float4 l = *reinterpret_cast<const float4*>(ml.sm.blo(s) + o);
-    const float xb[4] = {h.x + l.x, h.y + l.y, h.z + l.z, h.w + l.w};
+  }
+
+  // kstep in bf16: 8-column half step kk of ring slot s.
+  template <class M, class F>
+  __device__ __forceinline__ void kstep_bf16(const M& ml, const F& ah, int kk,
+                                             int s) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float x[2] = {bf16_lo(ah[2 * kk + j]), bf16_hi(ah[2 * kk + j])};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        st[0] += x[i];
+        st[1] = fmaf(x[i], x[i], st[1]);
+      }
+    }
+    const int n = threadIdx.x >> 1, p = 4 * kk + 2 * (threadIdx.x & 1);
+    const uint2 w = *reinterpret_cast<const uint2*>(ml.sm.bw(s) +
+                                                    swz_word(n, p));
+    const float xb[4] = {bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
+                         bf16_hi(w.y)};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       st[2] += xb[j];

@@ -42,7 +42,10 @@
 // of the rounded operands (their hi / lo / lo2 term products summed); B5's
 // splitter warps sum the moment rows from A's bf16 stage in f32 and carry
 // each as three bf16 terms. Bound: 2 M N K at 989 TFLOP/s (0.139 ms at
-// 4096) and B5's expected moments beside it.
+// 4096) and B5's expected moments beside it. B5's adaptive bf16 build
+// (FTSG_ADAPTIVE with FTSG_BF16, a library of its own) sums the rounded
+// operands' moments per 8-column half step (SubTileThresholds::kstep_bf16);
+// B2 has none.
 
 #include "abft_common.cuh"
 #include "ft_sgemm_running.cuh"
@@ -217,7 +220,7 @@ int launch_wgmma(const void* A, const void* B, const float* C,
 
 FTSG_NAMESPACE_END  // ftsg
 
-#if !FTSG_ADAPTIVE
+#if !FTSG_ADAPTIVE && !FTSG_BF16
 // B2 (no adaptive form: its expected moments are the wrapper's, and the
 // adaptive weighted strategy runs B5). `scalars` is a host array of 8
 // floats (contracts.SCALAR_SLOTS); `expm` the (M / bm, 3, N) expected
@@ -244,7 +247,9 @@ extern "C" int ftsg_ft_weighted_precomp(
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
+#if !FTSG_ADAPTIVE
 // B2 with bf16 A and B; the rest as ftsg_ft_weighted_precomp.
 extern "C" int ftsg_ft_weighted_precomp_bf16(
     const void* A, const void* B, const float* C, const float* expm,
@@ -269,9 +274,10 @@ extern "C" int ftsg_ft_weighted_precomp_bf16(
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
-// B5 with bf16 A and B; the rest as ftsg_ft_weighted_running (static and
-// auto thresholds: no adaptive build).
+#if FTSG_BF16 || !FTSG_ADAPTIVE
+// B5 with bf16 A and B; the rest as ftsg_ft_weighted_running.
 extern "C" int ftsg_ft_weighted_running_bf16(
     const void* A, const void* B, const float* C, float* out, int* det,
     int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
@@ -285,6 +291,7 @@ extern "C" int ftsg_ft_weighted_running_bf16(
 }
 #endif
 
+#if !FTSG_BF16
 // B5: checks after every `check_every` K steps and after the last, on the
 // 128 x 128 wgmma CTA over (bm, bn) sub-tiles; log2_t, c_rand and c_bias
 // are the noise model's constants (NoiseModel), read by the adaptive build.
@@ -298,3 +305,4 @@ extern "C" int ftsg_ft_weighted_running(
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);
 }
+#endif

@@ -1996,18 +1996,23 @@ struct WgMainloop {
   // unrolled form looks one 8-column step ahead for a fault (at(t + 1)) or
   // a check (check_after(t)) inside each 16-deep step. A bf16 fault
   // restarts the stage sum `part` with the fault in it (FragInject::apply),
-  // and the next wgmma accumulates onto it.
+  // and the next wgmma accumulates onto it. kstep sees each 8-column half
+  // step kk = 2 q + h of k step q once its wgmma is issued (the whole step
+  // or the half), before a check after it: a check between the halves
+  // sees the sums through half 1 only (`ah` stands in for the unused `al`).
   template <class Hook>
   __device__ __forceinline__ void mma_stage_bf16(int st,
                                                  const uint32_t (&ah)[NF],
                                                  Hook& hook) {
-    static_assert(!kAdaptive || !T::BF16,
-                  "bf16 runs the static and auto thresholds only");
     const int s = st % T::STAGES, t0 = st * T::KK;
     wgmma_fence();
     if (!hook.within(st)) {
 #pragma unroll
-      for (int q = 0; q < T::KW; ++q) mma_bf(ah, q, s, q == 0);
+      for (int q = 0; q < T::KW; ++q) {
+        mma_bf(ah, q, s, q == 0);
+        hook.kstep(*this, ah, ah, 2 * q, s);
+        hook.kstep(*this, ah, ah, 2 * q + 1, s);
+      }
     } else if constexpr (Hook::kSegmented) {
       int k0 = 0;         // the first 8-column k step not issued
       bool fresh = true;  // the next wgmma restarts the stage sum
@@ -2026,6 +2031,8 @@ struct WgMainloop {
             mma_bf_half(ah, q, s, lo ? 1 : 2, fresh);
             fresh = false;
           }
+          if (lo) hook.kstep(*this, ah, ah, 2 * q, s);
+          if (hi) hook.kstep(*this, ah, ah, 2 * q + 1, s);
         }
         if (k1 == kc && kc < T::KK) {
           wgmma_commit();
@@ -2067,8 +2074,11 @@ struct WgMainloop {
         }
         if (!hook.check_after(t) && !hook.at(t + 1)) {
           mma_bf(ah, q, s, fresh);
+          hook.kstep(*this, ah, ah, 2 * q, s);
+          hook.kstep(*this, ah, ah, 2 * q + 1, s);
         } else {
           mma_bf_half(ah, q, s, 1, fresh);
+          hook.kstep(*this, ah, ah, 2 * q, s);
           if (hook.check_after(t)) {
             wgmma_commit();
             wgmma_wait_all();
@@ -2084,6 +2094,7 @@ struct WgMainloop {
             wgmma_fence();
           }
           mma_bf_half(ah, q, s, 2, false);
+          hook.kstep(*this, ah, ah, 2 * q + 1, s);
         }
         fresh = false;
         if (hook.check_after(t + 1)) {

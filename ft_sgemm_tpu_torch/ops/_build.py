@@ -8,7 +8,12 @@ and B4 their int8 builds (``*_int8``). The FT sources build twice:
 as they are (static thresholds and ``threshold="auto"``) and with
 ``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
 sub-tile's threshold in the kernel), two libraries with the same entry
-points. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
+points. The adaptive bf16 builds of B3-B5 (``threshold="adaptive"`` in
+bf16, and in fp8 on the widened operands) are the sources of B3, B4 and B5
+once more, with ``FTSG_ADAPTIVE=1`` and ``FTSG_BF16=1``, which compiles
+their bf16 entry points alone: libraries of their own (``*_adaptive_bf16``),
+so that they build beside the others and leave every other build as it
+was. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
 with ``FTSG_FP8=1``, which compiles that entry point alone: a library of its
 own, so that it builds beside the others and leaves every other build as it
 was (B2-B5 in fp8 run their bf16 builds on the exactly widened operands).
@@ -38,8 +43,10 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 
 # Each library: its source and the macros it is compiled with. The
-# adaptive libraries hold B3-B8 only (ft_sgemm_weighted.cu leaves B2 out).
+# adaptive libraries hold B3-B8 only (ft_sgemm_weighted.cu leaves B2 out),
+# in f32, and the adaptive bf16 ones B3-B5 in bf16.
 ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
+ADAPTIVE_BF16 = ADAPTIVE + ("-DFTSG_BF16=1",)
 FP8 = ("-DFTSG_FP8=1",)
 LIBRARIES = {
     "sgemm": ("sgemm", ()),
@@ -51,6 +58,9 @@ LIBRARIES = {
     "ft_sgemm_rowcol_adaptive": ("ft_sgemm_rowcol", ADAPTIVE),
     "ft_sgemm_global_adaptive": ("ft_sgemm_global", ADAPTIVE),
     "ft_sgemm_aug_adaptive": ("ft_sgemm_aug", ADAPTIVE),
+    "ft_sgemm_weighted_adaptive_bf16": ("ft_sgemm_weighted", ADAPTIVE_BF16),
+    "ft_sgemm_rowcol_adaptive_bf16": ("ft_sgemm_rowcol", ADAPTIVE_BF16),
+    "ft_sgemm_global_adaptive_bf16": ("ft_sgemm_global", ADAPTIVE_BF16),
     "sgemm_fp8": ("sgemm", FP8),
 }
 KERNEL_LIBS = tuple(LIBRARIES)

@@ -7,11 +7,12 @@ stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
 modes, in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
-weighted, rowcol and global strategies under the static and auto
-thresholds (B2-B5 on bf16 wgmma; the mxu encodes and "adaptive" in bf16
-are not ported yet), in fp8 (``in_dtype="float8_e4m3fn"``) for the same
-strategies and modes as bf16 (B2-B5 on bf16 wgmma of the exactly widened
-e4m3 operands; B1 on e4m3 wgmma), and in int8
+weighted, rowcol and global strategies under the three threshold modes
+(B2-B5 on bf16 wgmma, "adaptive" on the adaptive bf16 builds of B3-B5; the
+mxu encodes in bf16 are not ported yet), in fp8
+(``in_dtype="float8_e4m3fn"``) for the same strategies and modes as bf16
+(B2-B5 on bf16 wgmma of the exactly widened e4m3 operands; B1 on e4m3
+wgmma), and in int8
 (``in_dtype="int8"``, the exact mode) for rowcol and global (B3, B4 on s8
 wgmma) under every threshold mode. The
 threshold modes are ``"static"`` (one
@@ -19,7 +20,11 @@ threshold, the reference's 9500 by default), ``"auto"`` (one threshold per
 call from the inputs' moments, reduced by torch ops on the inputs' device
 and read back into the same kernels' scalar argument) and ``"adaptive"``
 (each tile's threshold at each check from its running moments, inside
-B3-B8 as built with ``FTSG_ADAPTIVE``).
+B3-B8 as built with ``FTSG_ADAPTIVE``; in bf16 and fp8 inside B3-B5 as
+built with ``FTSG_ADAPTIVE`` and ``FTSG_BF16``, the moments those of the
+rounded operands, summed per 8-column half of each 16-deep k step).
+The JAX noise model is dtype-free: the adaptive thresholds of bf16 and
+fp8 are f32's formula on the rounded operands' moments.
 Each kernel encodes, accumulates, injects, detects and corrects inside one
 launch, as the Pallas kernels do (module docstring there):
 
@@ -124,6 +129,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 FT_LIBS = ("ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
            "ft_sgemm_aug")
+# The adaptive bf16 builds of B5, B3 and B4 (bf16 and fp8 under
+# threshold="adaptive"), libraries of their own (ops/_build.LIBRARIES).
+ADAPTIVE_BF16_LIBS = ("ft_sgemm_weighted_adaptive_bf16",
+                      "ft_sgemm_rowcol_adaptive_bf16",
+                      "ft_sgemm_global_adaptive_bf16")
 
 
 class FtSgemmResult(NamedTuple):
@@ -288,7 +298,10 @@ def _accumulate_moments(mom, a_k, b_k) -> list:
     """``_accumulate_moments`` (ops/ft_sgemm.py:394-403) of one K step for
     every tile: the running [sum a, sum a^2] of each (bm, bk) A block, (gm,),
     and [sum b, sum b^2] of each (bn, bk) B block, (gn,), added to ``mom``
-    (None before the first step)."""
+    (None before the first step). bf16 and fp8 blocks are summed as their
+    rounded values widened to f32, as the JAX kernel sums
+    ``a_blk.astype(f32)`` (ops/ft_sgemm.py:580-581, 596)."""
+    a_k, b_k = a_k.float(), b_k.float()
     step = (a_k.sum((1, 2)), (a_k * a_k).sum((1, 2)), b_k.sum((1, 2)),
             (b_k * b_k).sum((1, 2)))
     return list(step) if mom is None else [m + x for m, x in zip(mom, step)]
@@ -404,7 +417,8 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     ``check_every`` steps and after the last) and B6 (``moments`` given:
     running moments from A's (gm, 3, K) moment rows); ``adaptive``: each
     tile's thresholds at each check from its running moments of A's and B's
-    own rows (B5, B6). bf16 operands are summed as their f32 values.
+    own rows (B5, B6). bf16 and fp8 operands are summed as their f32
+    values.
     Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
@@ -459,11 +473,11 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
     B's (gn, 1, K) moment rows), of B7; ``adaptive``: each tile's
     thresholds at each check from its running moments of A's and B's own
-    rows. bf16 operands are summed as their f32 values. int8 operands run
-    the exact mode step by step (``_ft_kernel_rowcol`` with exact=True): the
-    accumulator, checksums, residuals and correction are integers reduced
-    mod 2^32 where the JAX kernel's int32 would wrap. Returns (out, det,
-    unc)."""
+    rows. bf16 and fp8 operands are summed as their f32 values. int8
+    operands run the exact mode step by step (``_ft_kernel_rowcol`` with
+    exact=True): the accumulator, checksums, residuals and correction are
+    integers reduced mod 2^32 where the JAX kernel's int32 would wrap.
+    Returns (out, det, unc)."""
     exact = _check_exact(a, multifault, moments, adaptive)
     strict_fp32()
     a4, b4, c4, nk = _tiles(*(x.double() if exact else x.float()
@@ -529,8 +543,8 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     s_b``; per check the residual ``t_exp - sum(acc)``, one event when it
     moved by more than the threshold since the previous check; ``adaptive``:
     each tile's threshold at each check from its running moments of A's and
-    B's own rows, times sqrt(bn). bf16 operands are summed as their f32
-    values; int8 operands run the exact mode (``_ft_kernel_global`` with
+    B's own rows, times sqrt(bn). bf16 and fp8 operands are summed as their
+    f32 values; int8 operands run the exact mode (``_ft_kernel_global`` with
     exact=True: t_exp, the residual and its move are wrapping int32).
     Returns (out, det, unc) with unc equal to det."""
     exact = _check_exact(a, moments=moments, adaptive=adaptive)
@@ -578,31 +592,38 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 # --------------------------------------------------------------------------
 
 
+# The argument types of B5, B3 and B4, in every dtype: the operands and
+# outputs, M, N, K, bm, bn, bk, the cadence (B3: and multifault), then
+# alpha, beta, the scalar argument, the noise model and the stream.
+_DIMS = [_I] * 6
+_TAIL = [_F, _F, _P, _F, _F, _F, _P]
+_VPU_ARGS = {"running": [_P] * 6 + _DIMS + [_I] + _TAIL,
+             "rowcol": [_P] * 6 + _DIMS + [_I, _I] + _TAIL,
+             "global": [_P] * 6 + _DIMS + [_I] + _TAIL}
+
+
 @functools.lru_cache(maxsize=None)
 def _entries(adaptive: bool = False):
     """The C entry points of the static build (``adaptive=False``: B2-B8) or
-    of the adaptive build (``FTSG_ADAPTIVE``: B3-B8), by kernel kind."""
+    of the adaptive build (``FTSG_ADAPTIVE``: B3-B8), by kernel kind; those
+    of another dtype by (kind, torch dtype)."""
     libs = tuple(n + ("_adaptive" if adaptive else "") for n in FT_LIBS)
     build(libs)  # all in parallel, before the first load
     weighted, rowcol, glob, aug = (library(n) for n in libs)
-    dims = [_I] * 6  # M, N, K, bm, bn, bk
-    # alpha, beta, the scalar argument, the noise model, the stream
-    tail = [_F, _F, _P, _F, _F, _F, _P]
     entries = {
         "running": bind(weighted, "ftsg_ft_weighted_running",
-                        [_P] * 6 + dims + [_I] + tail),
-        "rowcol": bind(rowcol, "ftsg_ft_rowcol",
-                       [_P] * 6 + dims + [_I, _I] + tail),
-        "global": bind(glob, "ftsg_ft_global", [_P] * 6 + dims + [_I] + tail),
+                        _VPU_ARGS["running"]),
+        "rowcol": bind(rowcol, "ftsg_ft_rowcol", _VPU_ARGS["rowcol"]),
+        "global": bind(glob, "ftsg_ft_global", _VPU_ARGS["global"]),
         "global_mxu": bind(glob, "ftsg_ft_global_mxu",
-                           [_P] * 8 + dims + [_I] + tail),
-        "fused": bind(aug, "ftsg_ft_fused", [_P] * 7 + dims + [_I] + tail),
+                           [_P] * 8 + _DIMS + [_I] + _TAIL),
+        "fused": bind(aug, "ftsg_ft_fused", [_P] * 7 + _DIMS + [_I] + _TAIL),
         "rowcol_mxu": bind(aug, "ftsg_ft_rowcol_mxu",
-                           [_P] * 8 + dims + [_I, _I] + tail),
+                           [_P] * 8 + _DIMS + [_I, _I] + _TAIL),
     }
     if not adaptive:
         entries["precomp"] = bind(weighted, "ftsg_ft_weighted_precomp",
-                                  [_P] * 7 + dims + [_F, _F, _P, _P])
+                                  [_P] * 7 + _DIMS + [_F, _F, _P, _P])
         # bf16 operands (the vpu encodes), same arguments: B2, B5, B3, B4;
         # int8 operands (the exact mode), same arguments: B3, B4.
         for name, lib, fname, dtype in (
@@ -618,6 +639,21 @@ def _entries(adaptive: bool = False):
     return entries
 
 
+@functools.lru_cache(maxsize=None)
+def _adaptive_bf16_entries():
+    """The C entry points of the adaptive bf16 builds of B5, B3 and B4
+    (``FTSG_ADAPTIVE`` with ``FTSG_BF16``; bf16 operands, and fp8 widened),
+    by (kind, torch.bfloat16). Built and loaded on the first adaptive bf16
+    or fp8 launch, apart from :func:`_entries`: an f32 adaptive call
+    neither waits on these builds nor needs them."""
+    build(ADAPTIVE_BF16_LIBS)  # all in parallel, before the first load
+    return {(name, torch.bfloat16): bind(library(lib), fname, _VPU_ARGS[name])
+            for name, lib, fname in zip(
+                ("running", "rowcol", "global"), ADAPTIVE_BF16_LIBS,
+                ("ftsg_ft_weighted_running_bf16", "ftsg_ft_rowcol_bf16",
+                 "ftsg_ft_global_bf16"))}
+
+
 def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
     """The moment-row operands of an mxu kernel: A's (M/bm, n_a, K) and
     B's (N/bn, 1, K)."""
@@ -630,10 +666,12 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
-    validated operands, A and B f32 or (static build, vpu kernels) bf16 or
-    fp8 or (static build, B3 and B4) int8, and count it on ``wrapper``
-    (``launches``, ``adaptive_launches``, ``bf16_launches``,
-    ``fp8_launches`` or ``int8_launches``); raises on a launch error.
+    validated operands, A and B f32 or (the vpu kernels B2-B5 of the static
+    build, B3-B5 of the adaptive one) bf16 or fp8 or (static build, B3 and
+    B4) int8, and count it on ``wrapper``: ``launches`` (f32, static),
+    ``adaptive_launches`` (the adaptive build), and ``bf16_launches``,
+    ``fp8_launches`` or ``int8_launches`` by dtype; an adaptive bf16 or fp8
+    launch counts in both of its counters. Raises on a launch error.
     fp8 A and B are widened to bf16, which holds every e4m3 value exactly,
     and run the bf16 build: the same products and checksums as the e4m3
     operands' (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
@@ -642,13 +680,14 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     dims = check_operands(shape, a, b, c, *extra_in)
     fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.bfloat16 if fp8 else a.dtype
-    entries = _entries(adaptive)
+    entries = (_adaptive_bf16_entries()
+               if adaptive and dtype == torch.bfloat16 else _entries(adaptive))
     if dtype != torch.float32 and (name, dtype) not in entries:
         raise NotImplementedError(
             f"kernel {name!r} has no {str(a.dtype).removeprefix('torch.')}"
             " build" + (" (adaptive)" if adaptive else "") + ": bf16 and"
-            " fp8 run the vpu encodes' B2-B5 under the static and auto"
-            " thresholds, int8 B3 and B4 under the static build")
+            " fp8 run the vpu encodes' B2-B5 (B3-B5 under threshold="
+            "'adaptive'), int8 B3 and B4 under the static build")
     if fp8:
         a, b = (x.to(torch.bfloat16, memory_format=torch.contiguous_format)
                 for x in (a, b))
@@ -669,13 +708,13 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             *noise, torch.cuda.current_stream(a.device).cuda_stream)
     if adaptive:
         wrapper.adaptive_launches += 1
-    elif fp8:
+    if fp8:
         wrapper.fp8_launches += 1
     elif dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
     elif dtype == torch.int8:
         wrapper.int8_launches += 1
-    else:
+    elif not adaptive:
         wrapper.launches += 1
     check_launch(rc, fn.__name__ + (" (adaptive build)" if adaptive else ""))
     return out, det, unc
@@ -953,10 +992,14 @@ def make_ft_sgemm(
     build. A 1-byte operand's rows are stored 16 bytes aligned
     (``common.align_rows16``).
 
+    ``threshold="adaptive"`` in bf16 and fp8 runs the adaptive bf16 builds
+    of B5 (weighted, at every cadence), B3 (rowcol) and B4 (global), the
+    thresholds f32's formula on the moments of the rounded operands.
+
     Not ported yet, and raising ``NotImplementedError``
     (``configs.check_kernel_legality``): bf16 with ``encode="mxu"`` or
-    ``strategy="fused"`` (B6-B8), and ``threshold="adaptive"`` in bf16 and
-    fp8 (fp8 with the mxu encodes is illegal: ``ValueError``).
+    ``strategy="fused"`` (B6-B8) (fp8 with the mxu encodes is illegal:
+    ``ValueError``).
     """
     if isinstance(threshold, str):
         threshold_mode = threshold

@@ -3,9 +3,9 @@ after ``ft_sgemm_tpu/cli.py:167-169``) on the CPU (``--device=cpu``, the
 kernels' plain versions): every id verified under the weighted, rowcol and
 global strategies with the static and auto thresholds at 512, the
 verdicts equal to the JAX program's on the same inputs, the dtype named in
-the verification and table headers, every fp8 spelling taken, and what
-stays out (``--threshold=adaptive``, the mxu encodes) refused before any
-work.
+the verification and table headers, every fp8 spelling taken, what is
+illegal (the mxu encodes) refused before any work, and
+``--threshold=adaptive`` run, its header naming the mode.
 """
 
 import io
@@ -92,13 +92,25 @@ def test_main_takes_every_fp8_spelling(spelling, capsys):
 
 
 @pytest.mark.parametrize("flags,err", [
-    (["--threshold=adaptive"], NotImplementedError),
-    (["--strategy=rowcol", "--threshold=adaptive"], NotImplementedError),
+    (["--threshold=adaptive"], None),
+    (["--strategy=rowcol", "--threshold=adaptive"], None),
     (["--encode=mxu"], ValueError), (["--strategy=fused"], ValueError)])
 def test_fp8_refusals_come_before_any_work(flags, err, capsys):
+    # The checksum rows are illegal in fp8 and refused before any work;
+    # "adaptive" runs (since the adaptive bf16 builds), its header naming
+    # the mode.
+    argv = ["ft_sgemm", "64", "64", "64", "11", "16", "--device=cpu",
+            "--dtype=fp8", *flags]
+    if err is None:
+        rc = cli.main(argv + ["--no-perf"])
+        out = capsys.readouterr().out
+        assert "Verification in float8_e4m3fn (threshold adaptive)" in out
+        verdicts = _verdicts(out)
+        assert sorted(verdicts) == list(range(11, 17))
+        assert rc == (0 if set(verdicts.values()) == {"pass"} else 1)
+        return
     with pytest.raises(err):
-        cli.main(["ft_sgemm", "64", "64", "64", "0", "16", "--device=cpu",
-                  "--dtype=fp8", *flags])
+        cli.main(argv)
     assert "Verification" not in capsys.readouterr().out
 
 

@@ -161,15 +161,12 @@ def test_fp8_oracle_overflow_is_nan_as_in_jax():
 @pytest.mark.parametrize("mode", configs.THRESHOLD_MODES)
 def test_fp8_legality(strategy, encode, mode):
     # ValueError where the JAX tables refuse (checksum rows in a 1-byte
-    # dtype: encode="mxu", strategy="fused"), NotImplementedError for
-    # "adaptive" (ROADMAP Queue B), the canonical name otherwise.
+    # dtype: encode="mxu", strategy="fused"), the canonical name otherwise,
+    # in every threshold mode ("adaptive" since the adaptive bf16 builds).
     kw = dict(strategy=strategy, encode=encode, in_dtype="fp8",
               threshold_mode=mode)
     if encode == "mxu" or strategy == "fused":
         with pytest.raises(ValueError):
-            configs.check_kernel_legality(**kw)
-    elif mode == "adaptive":
-        with pytest.raises(NotImplementedError):
             configs.check_kernel_legality(**kw)
     else:
         assert configs.check_kernel_legality(**kw) == "float8_e4m3fn"

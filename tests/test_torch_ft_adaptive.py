@@ -148,33 +148,41 @@ def test_adaptive_clean_across_scales_like_jax(strategy, encode, scale):
 
 PROGRAM_PAIRS = [("weighted", "vpu"), ("rowcol", "vpu"), ("global", "vpu"),
                  ("fused", "mxu"), ("rowcol", "mxu"), ("global", "mxu")]
+# f32 in every pair (the cases keep their ids), bf16 and fp8 on the vpu
+# encodes (the adaptive bf16 builds of B5, B3 and B4).
+PROGRAM_CASES = ([(s, e, "float32") for s, e in PROGRAM_PAIRS]
+                 + [(s, "vpu", d) for d in ("bfloat16", "float8_e4m3fn")
+                    for s in ("weighted", "rowcol", "global")])
 
 
-@pytest.mark.parametrize("strategy,encode", PROGRAM_PAIRS,
-                         ids=[f"{s}-{e}" for s, e in PROGRAM_PAIRS])
-def test_adaptive_program_verdicts_like_jax(strategy, encode):
+@pytest.mark.parametrize("strategy,encode,in_dtype", PROGRAM_CASES,
+                         ids=[f"{s}-{e}" + ("" if d == "float32" else f"-{d}")
+                              for s, e, d in PROGRAM_CASES])
+def test_adaptive_program_verdicts_like_jax(strategy, encode, in_dtype):
     """The program's own verification under "adaptive" (the reference
     driver's inputs at 1024, reference-like faults of 1e4 at every step)
-    at the JAX package's 128x128x128 tile: both packages pass weighted,
-    fused and global, with equal grids, and both fail rowcol under either
-    encode, reporting uncorrectable tiles. There the rounding left by each
-    correction is flagged as a new fault and cascades, differently for any
-    two summation orders, so only the verdicts are compared."""
+    at the JAX package's 128x128x128 tile, in f32, bf16 and fp8: both
+    packages pass weighted, fused and global, with equal grids (512
+    detected), and both fail rowcol under either encode, reporting
+    uncorrectable tiles. There the rounding left by each correction is
+    flagged as a new fault and cascades, differently for any two summation
+    orders, so only the verdicts are compared."""
     from ft_sgemm_tpu_torch import runtime
 
     n = 1024
     a, b = runtime.generate_reference_driver_inputs(n)
     c = np.zeros((n, n), np.float32)
-    want = np.asarray(jft.sgemm_reference(a, b, c, ALPHA, BETA))
+    want = np.asarray(jft.sgemm_reference(a, b, c, ALPHA, BETA,
+                                          in_dtype=in_dtype))
     inj = InjectionSpec.reference_like(n, SHAPES["test"].bk)
     kw = dict(enabled=True, every=inj.every, magnitude=inj.magnitude)
     jres = jft.make_ft_sgemm(JTILE, alpha=ALPHA, beta=BETA, strategy=strategy,
-                             encode=encode, threshold="adaptive")(
-        a, b, c, JInjectionSpec(**kw))
+                             encode=encode, threshold="adaptive",
+                             in_dtype=in_dtype)(a, b, c, JInjectionSpec(**kw))
     res = make_ft_sgemm(SHAPES["test"], alpha=ALPHA, beta=BETA,
                         strategy=strategy, encode=encode,
-                        threshold="adaptive", device="cpu")(
-        a, b, c, InjectionSpec(**kw))
+                        threshold="adaptive", in_dtype=in_dtype,
+                        device="cpu")(a, b, c, InjectionSpec(**kw))
     expected = (n // 128) ** 2 * inj.expected_faults(n, 128)
     verdicts = []
     for c_out, det, unc in ((np.asarray(jres.c), np.asarray(jres.detections),
@@ -188,6 +196,7 @@ def test_adaptive_program_verdicts_like_jax(strategy, encode):
                 want, c_out, verbose=False)[0])
     assert verdicts == [strategy != "rowcol"] * 2
     if strategy != "rowcol":
+        assert int(res.num_detected) == expected
         np.testing.assert_array_equal(res.detections.numpy(),
                                       np.asarray(jres.detections))
         np.testing.assert_array_equal(res.uncorrectable.numpy(),

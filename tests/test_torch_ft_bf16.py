@@ -12,7 +12,8 @@ on every tile reported correctable, and against the oracle (the f32
 product of the rounded operands) there too, except where the detect-only
 global strategy keeps its faults. The cases of ``tests/test_mixed_precision.py`` for the FT
 kernels follow, one paper tile with ragged M and N, and what stays out
-(the mxu encodes, "adaptive"), which raises (int8 runs: the exact mode,
+(the mxu encodes), which raises ("adaptive" runs:
+tests/test_torch_ft_adaptive_lowp.py; int8 runs: the exact mode,
 tests/test_torch_ft_int8.py; fp8 runs: tests/test_torch_ft_fp8.py). The card tests
 (marker ``cuda``) hold the bf16 builds against their plain versions.
 """
@@ -219,8 +220,24 @@ def test_bf16_paper_tile_ragged(strategy):
                                                 encode="mxu"),
     dict(threshold="adaptive"), dict(strategy="rowcol", threshold="adaptive")])
 def test_bf16_unported_combinations_raise(kw):
-    with pytest.raises(NotImplementedError):
-        make_ft_sgemm("test", in_dtype="bfloat16", device="cpu", **kw)
+    # The mxu encodes (B6-B8) in bf16 raise. "adaptive" runs (the adaptive
+    # bf16 builds of B5 and B3; tests/test_torch_ft_adaptive_lowp.py holds
+    # it against the JAX package): faults of magnitude 5 at every step,
+    # which 9500 misses, are each caught and corrected to the oracle.
+    if kw.get("threshold") != "adaptive":
+        with pytest.raises(NotImplementedError):
+            make_ft_sgemm("test", in_dtype="bfloat16", device="cpu", **kw)
+        return
+    a, b, c = _inputs(128, 128, 256, seed=2)
+    fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA, in_dtype="bfloat16",
+                       device="cpu", **kw)
+    assert fn.threshold_mode == "adaptive"
+    assert int(fn(a, b, c).num_detected) == 0
+    res = fn(a, b, c, InjectionSpec(enabled=True, every=1, magnitude=5.0))
+    assert int(res.num_detected) == 2 and int(res.num_uncorrectable) == 0
+    ok, nbad, _ = verify_matrix(_oracle(a, b, c), res.c.numpy(),
+                                verbose=False)
+    assert ok, f"{nbad} elements off"
 
 
 @pytest.mark.parametrize("in_dtype,kw,err", [

@@ -212,8 +212,25 @@ def test_fp8_plain_versions_are_the_f32_algorithm_on_rounded_values(
                                 dict(strategy="rowcol", threshold="adaptive"),
                                 dict(strategy="global", threshold="adaptive")])
 def test_fp8_adaptive_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
-        make_ft_sgemm("test", in_dtype="fp8", device="cpu", **kw)
+    # Ported since the adaptive bf16 builds (B5, B3, B4 on the widened
+    # operands; tests/test_torch_ft_adaptive_lowp.py holds it against the
+    # JAX package): faults of magnitude 5 at every step, which 9500
+    # misses, are each caught, and corrected to the oracle where the
+    # strategy corrects (global counts one event a check).
+    a, b, c = _inputs(128, 128, 256, seed=2)
+    fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA, in_dtype="fp8",
+                       device="cpu", **kw)
+    assert fn.threshold_mode == "adaptive"
+    assert int(fn(a, b, c).num_detected) == 0
+    res = fn(a, b, c, InjectionSpec(enabled=True, every=1, magnitude=5.0))
+    assert int(res.num_detected) == 2
+    if kw.get("strategy") == "global":
+        assert int(res.num_uncorrectable) == 2
+        return
+    assert int(res.num_uncorrectable) == 0
+    ok, nbad, _ = verify_matrix(_oracle(a, b, c), res.c.numpy(),
+                                verbose=False)
+    assert ok, f"{nbad} elements off"
 
 
 @pytest.mark.parametrize("kw", [dict(encode="mxu"), dict(strategy="fused"),

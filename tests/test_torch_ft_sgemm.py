@@ -137,18 +137,17 @@ def test_plan_names_the_launch_of_the_entry_point():
 
 @pytest.mark.parametrize("threshold", ["auto", "adaptive"])
 def test_unported_threshold_modes_raise(threshold):
-    # Both modes run in f32 (tests/test_torch_ft_adaptive.py); in fp8
-    # "auto" runs (the fp8 slice) and "adaptive" is not ported yet and
-    # raises, and a misspelled mode is refused.
+    # Both modes run in f32 (tests/test_torch_ft_adaptive.py) and in fp8
+    # (the fp8 slice; "adaptive" on the adaptive bf16 builds,
+    # tests/test_torch_ft_adaptive_lowp.py), and a misspelled mode is
+    # refused.
     assert make_ft_sgemm("huge", threshold=threshold,
                          device="cpu").threshold_mode == threshold
-    if threshold == "auto":
-        assert make_ft_sgemm("huge", threshold=threshold, in_dtype="fp8",
-                             device="cpu").threshold_mode == "auto"
-    else:
-        with pytest.raises(NotImplementedError):
-            make_ft_sgemm("huge", threshold=threshold,
-                          in_dtype="float8_e4m3fn", device="cpu")
+    fn = make_ft_sgemm("huge", threshold=threshold, in_dtype="float8_e4m3fn",
+                       device="cpu")
+    assert fn.threshold_mode == threshold
+    assert fn.__name__ == "ft_sgemm_huge_weighted" + (
+        "_adaptive" if threshold == "adaptive" else "") + "_float8_e4m3fn"
     with pytest.raises(ValueError, match="threshold"):
         make_ft_sgemm("huge", threshold=threshold + "x", device="cpu")
 

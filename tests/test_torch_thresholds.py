@@ -246,17 +246,12 @@ def test_legality_of_threshold_modes(mode):
         for encode in configs.ENCODE_MODES:
             configs.check_kernel_legality(strategy=strategy, encode=encode,
                                           threshold_mode=mode)
-    # fp8 runs the static and auto modes (the fp8 slice); its adaptive
-    # mode is not ported yet.
-    if mode == "adaptive":
-        with pytest.raises(NotImplementedError):
-            configs.check_kernel_legality(strategy="rowcol", encode="vpu",
-                                          in_dtype="float8_e4m3fn",
-                                          threshold_mode=mode)
-    else:
+    # bf16 and fp8 run every mode on the vpu encodes ("adaptive" on the
+    # adaptive bf16 builds of B3-B5).
+    for dtype in ("bfloat16", "float8_e4m3fn"):
         assert configs.check_kernel_legality(
-            strategy="rowcol", encode="vpu", in_dtype="float8_e4m3fn",
-            threshold_mode=mode) == "float8_e4m3fn"
+            strategy="rowcol", encode="vpu", in_dtype=dtype,
+            threshold_mode=mode) == dtype
     with pytest.raises(ValueError):
         configs.check_kernel_legality(strategy="rowcol", encode="vpu",
                                       threshold_mode=mode + "-ish")
