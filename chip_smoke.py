@@ -28,13 +28,15 @@ twin on the rounded operands, the program with ``--dtype=bfloat16`` and
 plain versions', clean runs, magnitude-5 faults, the table beside the
 static rows, every launch counted as adaptive and as the dtype's), and
 each build timed beside its static bf16 build and the library call.
-The bf16 input mode (``--dtype=bfloat16``, the vpu encodes): B1-B5's bf16
-builds against their plain versions at every tile (checks and faults
-inside a 16-deep k step too) and, clean, to within BF16_ACCURACY of max
-|C| of the f32 product of the rounded operands (C must stay f32), then
-the program in bf16 at 4096 under the weighted, rowcol and global
-strategies with the static and auto thresholds (verification, the table,
-clean runs that flag nothing and keep that accuracy), counted apart. The
+The bf16 input mode (``--dtype=bfloat16``): B1-B8's bf16 builds (B6-B8,
+the mxu encodes, on the wrapper's hi / lo / lo2 moment rows) against
+their plain versions at every tile (checks and faults inside a 16-deep k
+step too) and, clean, to within BF16_ACCURACY of max |C| of the f32
+product of the rounded operands (C must stay f32), then the program in
+bf16 at 4096 under the weighted, rowcol and global strategies and under
+fused, weighted, rowcol and global with encode mxu, with the static and
+auto thresholds (verification, the table, clean runs that flag nothing
+and keep that accuracy), counted apart. The
 int8 input mode (``--dtype=int8``, the exact mode): B3's and B4's int8
 builds against their plain versions at every tile (checks inside a 32-deep
 s8 k step, faults every 1, 3 and 5 bk steps, data on ±9 and ±127, and
@@ -149,9 +151,15 @@ PROGRAM_TILES = ("huge", "small", "medium", "large", "tall", "wide")
 # The bf16 slice: its (strategy, encode) pairs, the kernels their program
 # runs, threshold modes, and kernel-vs-plain sizes (aligned, and not a
 # multiple of the CTA). A fault schedule with an odd period puts faults
-# between the halves of a 16-deep k step at every tile whose bk is 8.
-BF16_PAIRS = (("weighted", "vpu"), ("rowcol", "vpu"), ("global", "vpu"))
+# between the halves of a 16-deep k step at every tile whose bk is 8. The
+# vpu pairs (B1-B5) run in fp8 too and under threshold="adaptive"
+# (LOWP_PAIRS); the mxu pairs (B6-B8) in bf16 alone, under the static and
+# auto thresholds (BF16_MXU_KINDS).
+LOWP_PAIRS = (("weighted", "vpu"), ("rowcol", "vpu"), ("global", "vpu"))
+BF16_PAIRS = LOWP_PAIRS + (("fused", "mxu"), ("weighted", "mxu"),
+                           ("rowcol", "mxu"), ("global", "mxu"))
 BF16_KINDS = ("sgemm", "precomp", "running", "rowcol", "global")
+BF16_MXU_KINDS = ("fused", "rowcol_mxu", "global_mxu")
 BF16_MODES = ("static", "auto")
 BF16_SIZES = (1024, 1000)
 ODD_EVERY = 5
@@ -173,8 +181,8 @@ INT8_WIDE_SIZE = 1000
 INT8_WRAP_LOW = 100
 # The fp8 slice (the serving mode, the vpu encodes): its kernels (B1-B5;
 # B2-B5 are the bf16 builds on the widened operands), pairs, threshold
-# modes and timed tiles are bf16's (BF16_KINDS, BF16_PAIRS, BF16_MODES,
-# BF16_TIMED); extra fault periods in bk steps,
+# modes and timed tiles are bf16's vpu ones (BF16_KINDS, LOWP_PAIRS,
+# BF16_MODES, LOWP_TIMED); extra fault periods in bk steps,
 # each held at a cadence that checks once per fault (INT8_EVERY, as int8),
 # and the data: the program's ±0.9 at BF16_SIZES, and at FP8_WIDE_SIZE
 # data spread over e4m3's range (uniform in ±FP8_WIDE, rounded), whose band
@@ -264,7 +272,7 @@ class Kernels:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_adaptive"] = dict(
                 static, counter="adaptive_launches")
-        for kind in BF16_KINDS:
+        for kind in BF16_KINDS + BF16_MXU_KINDS:
             static = self.table[KIND_NAMES[kind]]
             self.table[KIND_NAMES[kind] + "_bf16"] = dict(
                 static, counter="bf16_launches")
@@ -579,18 +587,19 @@ def phase_kernels(kern: Kernels):
 
 
 def phase_bf16_kernels(kern: Kernels):
-    """The bf16 builds of B1-B5 against their plain versions (the FP32
-    tile algorithm on the same bf16-rounded operands) at every tile of the
-    port's table, at BF16_SIZES: clean, reference-like, col_stride=0, and
-    (at the mid-stage cadence) faults every ODD_EVERY bk steps, which at bk
-    = 8 fall between the halves of a 16-deep k step. B2 at its one final
-    check; B5 at the program's cadence or four checks a run, and every
-    MID_STAGE_EVERY bk steps (checks inside a 64-column bf16 stage and,
-    at bk = 8, inside a 16-deep k step); B3 with multifault off and on at
-    the program's cadence and on at the mid-stage one; B4 at both. B1 and
-    every clean FT launch are also held to BF16_ACCURACY against the f32
-    product of the rounded operands, and that product rounded to bf16
-    must fail it."""
+    """The bf16 builds of B1-B8 against their plain versions (the FP32
+    tile algorithm on the same bf16-rounded operands; B6-B8's on the
+    wrapper's bf16 term rows) at every tile of the port's table, at
+    BF16_SIZES: clean, reference-like, col_stride=0, and (at the mid-stage
+    cadence) faults every ODD_EVERY bk steps, which at bk = 8 fall between
+    the halves of a 16-deep k step. B2 at its one final check; B5 at the
+    program's cadence or four checks a run, and every MID_STAGE_EVERY bk
+    steps (checks inside a 64-column bf16 stage and, at bk = 8, inside a
+    16-deep k step); B6 at the program's cadence and the mid-stage one; B3
+    and B7 with multifault off and on at the program's cadence and on at
+    the mid-stage one; B4 and B8 at both. B1 and every clean FT launch are
+    also held to BF16_ACCURACY against the f32 product of the rounded
+    operands, and that product rounded to bf16 must fail it."""
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
 
@@ -636,13 +645,19 @@ def phase_bf16_kernels(kern: Kernels):
                     ce = cadence("weighted")
                     for ce in sorted({ce if ce < nk else quarter} | mid):
                         hold("running", ce)
+                    hold("fused", cadence("fused"))
                     for mf in (False, True):
                         hold("rowcol", cadence("rowcol"), mf)
+                        hold("rowcol_mxu", cadence("rowcol"), mf)
                     hold("global", cadence("global"))
+                    hold("global_mxu", cadence("global"))
                 for ce in sorted(mid):
                     hold("running", ce)
+                    hold("fused", ce)
                     hold("rowcol", ce, True)
+                    hold("rowcol_mxu", ce, True)
                     hold("global", ce)
+                    hold("global_mxu", ce)
     done = {k: n - before[k] for k, n in kern.checked.items()
             if n - before[k]}
     log(f"phase bf16 kernels: {done} comparisons with the plain versions"
@@ -654,19 +669,21 @@ def phase_bf16_kernels(kern: Kernels):
 
 
 def phase_float_path(kern: Kernels, in_dtype: str):
-    """The ``ft_sgemm`` program with ``--dtype=bfloat16`` or ``--dtype=fp8``
-    (``in_dtype``; both on BF16_PAIRS and BF16_MODES) at VERIFY_SIZE, with
-    the launch counters set to 0 just before and read just after: (b) the
-    verification, every id passing with every fault detected (global: every
-    event) and nothing uncorrectable where the strategy corrects: of ids
-    0-16 under weighted with the static threshold and of ids 11-16 in every
-    other pair and mode (ids 0-10 are B1's rows, which no strategy or
-    threshold changes); the GFLOPS table at TIMING_SIZE (ids 0-16
-    weighted, 11-16 rowcol and global); (c) clean runs of ids 11-16 in
-    every pair and mode, which flag nothing and keep C within BF16_ACCURACY
-    of the f32 product of the rounded operands. Every kernel of the mode
-    (its counter: ``bf16_launches`` or ``fp8_launches``) must have
-    launched."""
+    """The ``ft_sgemm`` program with ``--dtype=bfloat16`` (the pairs of
+    BF16_PAIRS: the vpu encodes, B1-B5, and the mxu encodes, B6-B8) or
+    ``--dtype=fp8`` (LOWP_PAIRS, the vpu encodes; ``in_dtype``), under
+    BF16_MODES, at VERIFY_SIZE, with the launch counters set to 0 just
+    before and read just after: (b) the verification, every id passing
+    with every fault detected (global: every event) and nothing
+    uncorrectable where the strategy corrects: of ids 0-16 under weighted
+    (vpu) with the static threshold and of ids 11-16 in every other pair
+    and mode (ids 0-10 are B1's rows, which no strategy or threshold
+    changes); the GFLOPS table at TIMING_SIZE (ids 0-16 weighted, 11-16 in
+    every other pair); (c) clean runs of ids 11-16 in every pair and mode,
+    which flag nothing and keep C within BF16_ACCURACY of the f32 product
+    of the rounded operands. Every kernel of the mode (its counter:
+    ``bf16_launches`` or ``fp8_launches``) must have launched. Returns the
+    counts and the tables by (strategy, encode)."""
     from ft_sgemm_tpu_torch import cli, runtime
     from ft_sgemm_tpu_torch.configs import kernel_for_id
     from ft_sgemm_tpu_torch.ops.common import as_f32
@@ -674,12 +691,14 @@ def phase_float_path(kern: Kernels, in_dtype: str):
     from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
 
     label = "fp8" if in_dtype == "fp8" else "bf16"
+    pairs = LOWP_PAIRS if in_dtype == "fp8" else BF16_PAIRS
     n = VERIFY_SIZE
     kern.zero_counts()
     t0 = time.perf_counter()
     for mode in BF16_MODES:
-        for strategy, encode in BF16_PAIRS:
-            first = 0 if (mode, strategy) == ("static", "weighted") else 11
+        for strategy, encode in pairs:
+            first = 0 if (mode, strategy, encode) == (
+                "static", "weighted", "vpu") else 11
             details = {}
             ok = cli.run_verification(n, first, 16, strategy=strategy,
                                       encode=encode, threshold=mode,
@@ -696,9 +715,9 @@ def phase_float_path(kern: Kernels, in_dtype: str):
                 + ", ".join(f"{k}:{d['detected']}/{d['expected']}"
                             for k, d in sorted(details.items())))
     tables = {}
-    for strategy, encode in BF16_PAIRS:
-        first = 0 if strategy == "weighted" else 11
-        tables[strategy] = cli.run_perf_table(
+    for strategy, encode in pairs:
+        first = 0 if (strategy, encode) == ("weighted", "vpu") else 11
+        tables[strategy, encode] = cli.run_perf_table(
             TIMING_SIZE, TIMING_SIZE, 1, first, 16,
             min_device_time=PERF_MINTIME, strategy=strategy, encode=encode,
             in_dtype=in_dtype)
@@ -709,7 +728,7 @@ def phase_float_path(kern: Kernels, in_dtype: str):
     control = bf16_control(oracle, f"{label} clean runs at {n}")
     flagged, worst = {}, {}
     for mode in BF16_MODES:
-        for strategy, encode in BF16_PAIRS:
+        for strategy, encode in pairs:
             for kid in range(11, 17):
                 _, shape, _ = kernel_for_id(kid)
                 res = make_ft_sgemm(shape.name, alpha=kern.alpha,
@@ -717,14 +736,14 @@ def phase_float_path(kern: Kernels, in_dtype: str):
                                     encode=encode, threshold=mode,
                                     in_dtype=in_dtype, device="cuda")(a, b, c)
                 det, unc = int(res.num_detected), int(res.num_uncorrectable)
+                what = f"{strategy}/{encode} {mode} id {kid}"
                 if det or unc:
-                    flagged[f"{strategy} {mode} id {kid}"] = (det, unc)
-                bf16_accuracy(res.c, oracle, f"{strategy} {mode} id {kid}",
-                              worst)
+                    flagged[what] = (det, unc)
+                bf16_accuracy(res.c, oracle, what, worst)
     if flagged:
         raise AssertionError(f"{label} clean runs flagged faults: {flagged}")
     counts = kern.counts()
-    log(f"phase {label} clean: ids 11-16 under {BF16_PAIRS}, {BF16_MODES},"
+    log(f"phase {label} clean: ids 11-16 under {pairs}, {BF16_MODES},"
         f" flag nothing at {n}; max |dC| / max |C| against the rounded"
         f" operands' f32 product {worst} (gate {BF16_ACCURACY}; C rounded"
         f" to bf16 {control:.3g})")
@@ -1725,7 +1744,7 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
     """The program at VERIFY_SIZE under ``--threshold=auto`` and
     ``--threshold=adaptive`` in f32 (every (strategy, encode) pair of
     ALL_PAIRS), or under ``--threshold=adaptive`` with ``--dtype=bfloat16``
-    or ``--dtype=fp8`` (``in_dtype``; the pairs of BF16_PAIRS, the adaptive
+    or ``--dtype=fp8`` (``in_dtype``; the pairs of LOWP_PAIRS, the adaptive
     bf16 builds of B5, B3 and B4), with the launch counters set to 0 just
     before and read just after:
 
@@ -1762,7 +1781,7 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
 
     f32 = in_dtype == "float32"
     label = "" if f32 else ("fp8 " if in_dtype == "fp8" else "bf16 ")
-    pairs = ALL_PAIRS if f32 else BF16_PAIRS
+    pairs = ALL_PAIRS if f32 else LOWP_PAIRS
     modes = ("auto", "adaptive") if f32 else ("adaptive",)
     n = VERIFY_SIZE
     a, b = runtime.generate_reference_driver_inputs(n)
@@ -1862,7 +1881,7 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
             in_dtype=in_dtype)
         for name, cells in table.items():
             rows[f"{strategy} {name}"] = (
-                round(static_tables[strategy][name][TIMING_SIZE]),
+                round(static_tables[strategy, encode][name][TIMING_SIZE]),
                 round(cells[TIMING_SIZE]))
     counts = kern.counts()
     log(f"phase {label}threshold clean: ids 11-16 under {pairs}, {modes},"
@@ -2010,27 +2029,41 @@ TIMED += tuple((kind, tile)
 # Timed though the program does not launch them: B2 at small.
 OFF_PATH = (("precomp", "small"),)
 TIMED += OFF_PATH
-# The bf16 builds at every tile the bf16 program launches each on (the
-# weighted strategy runs B5 at small, B2 elsewhere).
-BF16_TIMED = tuple(("sgemm", tile) for tile in PROGRAM_TILES)
-BF16_TIMED += (("precomp", "huge"), ("running", "small"))
-BF16_TIMED += tuple(("precomp", tile) for tile in PROGRAM_TILES[2:])
-BF16_TIMED += tuple((kind, tile) for kind in ("rowcol", "global")
+# The bf16 and fp8 builds of B1-B5 at every tile the program launches each
+# on (the weighted strategy runs B5 at small, B2 elsewhere), and in bf16
+# B6-B8 at every tile.
+LOWP_TIMED = tuple(("sgemm", tile) for tile in PROGRAM_TILES)
+LOWP_TIMED += (("precomp", "huge"), ("running", "small"))
+LOWP_TIMED += tuple(("precomp", tile) for tile in PROGRAM_TILES[2:])
+LOWP_TIMED += tuple((kind, tile) for kind in ("rowcol", "global")
                     for tile in PROGRAM_TILES)
+BF16_TIMED = LOWP_TIMED + tuple((kind, tile) for kind in BF16_MXU_KINDS
+                                for tile in PROGRAM_TILES)
+# The WgTile parameters (MOM, BANDS, ROWS) after the sub-tile that tell the
+# 128 x 128 CTA's kernels apart in a library (ptxas_summary's tags); rowcol
+# with one moment row (two with multifault).
+SUM_ROWS = {"running": (3, 0, 2), "fused": (3, 0, 1), "rowcol": (1, 1, 3),
+            "rowcol_mxu": (1, 2, 1), "global": (0, 1, 0),
+            "global_mxu": (0, 2, 0)}
 
 
 def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
     """``-Xptxas -v``'s line (registers, spills) for the kernel that ``kind``
     launches on ``shape`` in ``in_dtype`` ("bfloat16" or "fp8"; B2-B5 in fp8
-    run the bf16 kernels; ``adaptive``: B3-B5's adaptive bf16 builds): B1
-    and B2 on the tile's own CTA at the 64-row tiles, else the 128 x 128 CTA
-    (B1: the ragged one; B2-B5 over the tile as sub-tiles; B3 with one
-    moment row, two with multifault)."""
+    run the bf16 kernels; each from the library ``ft.kernel_entry`` names;
+    ``adaptive``: B3-B5's adaptive bf16 builds): B1 and B2 on the tile's
+    own CTA at the 64-row tiles, else the 128 x 128 CTA (B1: the ragged
+    one; B2-B8 over the tile as sub-tiles; B3 and B7 with one moment row,
+    two with multifault)."""
     from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
 
-    lib, kernel = FLOAT_LIBS[kind]
-    lib += "_adaptive_bf16" if adaptive else ""
+    kernel = FLOAT_KERNELS.get(kind, "ft_running_wgmma_kernel")
     e4m3 = in_dtype == "fp8" and kind == "sgemm"
+    if kind == "sgemm":
+        lib = "sgemm_fp8" if e4m3 else "sgemm"
+    else:
+        lib = ft.kernel_entry(kind, torch.bfloat16, adaptive)[0]
     own = (shape.bm, shape.bn) in _build.wgmma_tiles()
     if kind == "sgemm":  # with MOM, the sum-row sources and the ragged flag
         dims = [shape.bm, shape.bn] * 2 if own else [128] * 4
@@ -2039,12 +2072,12 @@ def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
         dims = [shape.bm, shape.bn, shape.bm, shape.bn]
     else:
         dims = [128, 128, shape.bm, shape.bn]
-    if kind == "rowcol":
-        dims.append(2 if multifault else 1)
+    if kind in SUM_ROWS:
+        mom, bands, rows = SUM_ROWS[kind]
+        dims += [2 if multifault else mom, bands, rows]
     tag = kernel + "<" + ",".join(map(str, dims)) + ","
     in_tag = ",e4m3>:" if e4m3 else ",bf16>:"
-    lines = [x for x in ptxas_summary(_build.ptxas_log(
-                 lib + "_fp8" if e4m3 else lib))
+    lines = [x for x in ptxas_summary(_build.ptxas_log(lib))
              if x.startswith(tag) and in_tag in x]
     if len(lines) != 1:
         raise AssertionError(f"ptxas lines for {tag}...{in_tag}: {lines}")
@@ -2054,7 +2087,7 @@ def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
 def phase_float_timing(kern: Kernels, counts, in_dtype: str):
     """Each bf16 or fp8 (``in_dtype``) kernel at 4096 on every tile,
     cadence and multifault setting the program gives it in that mode
-    (BF16_TIMED), on the program's table inputs: the kernel (in fp8 B2-B5
+    (BF16_TIMED; fp8: LOWP_TIMED), on the program's table inputs: the kernel (in fp8 B2-B5
     with their wrapper's widening of A and B to bf16), its plain version,
     the library's GEMM on the same operands (bf16: ``torch.matmul``, bf16
     out; fp8: ``torch._scaled_mm``, cuBLASLt, unit scales, f32 out), the
@@ -2080,17 +2113,16 @@ def phase_float_timing(kern: Kernels, counts, in_dtype: str):
     host = cli._host_inputs(n, name_dtype)
     one = torch.ones((), device="cuda")
     rows = {}
-    for kind, tile in BF16_TIMED:
+    for kind, tile in LOWP_TIMED if fp8 else BF16_TIMED:
         shape = SHAPES[tile]
         a, b, c = _padded(host, shape, dtype)
         name = KIND_NAMES[kind] + "_" + label
         inj = InjectionSpec.reference_like(n, shape.bk)
         ce, mf = None, False
         if kind != "sgemm":
-            strategy = {"precomp": "weighted", "running": "weighted"}.get(
-                kind, kind)
+            strategy, encode = KIND_PAIR[kind]
             plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
-                                    shape.bn)
+                                    shape.bn, encode)
             if plan != kind:
                 raise AssertionError(f"the {label} program runs {plan} at"
                                      f" {tile}, not {kind}")
@@ -2243,13 +2275,10 @@ def phase_int8_timing(kern: Kernels, counts):
     return list(rows.values())
 
 
-# Each kind's static library and kernel (ptxas_summary's names); B1's fp8
-# build is the library's "_fp8" twin.
-FLOAT_LIBS = {"sgemm": ("sgemm", "sgemm_wgmma_kernel"),
-              "precomp": ("ft_sgemm_weighted", "ft_weighted_wgmma_kernel"),
-              "running": ("ft_sgemm_weighted", "ft_running_wgmma_kernel"),
-              "rowcol": ("ft_sgemm_rowcol", "ft_running_wgmma_kernel"),
-              "global": ("ft_sgemm_global", "ft_running_wgmma_kernel")}
+# The kernel of B1 and B2 in ptxas_summary's names; B3-B8 run
+# ft_running_wgmma_kernel.
+FLOAT_KERNELS = {"sgemm": "sgemm_wgmma_kernel",
+                 "precomp": "ft_weighted_wgmma_kernel"}
 
 
 def phase_timing(kern: Kernels, counts, threshold_counts):

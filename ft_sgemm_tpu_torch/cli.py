@@ -38,10 +38,13 @@ unknown one exits 2): ``bfloat16`` runs the whole table with A and B
 rounded to bf16 (the vendor row as ``torch.matmul`` on bf16 tensors, whose
 output is bf16; the hand kernels on bf16 wgmma; the two-pass baseline on
 the rounded operands), verified against the f32 product of the rounded
-operands. bf16 runs the weighted, rowcol and global strategies with
-``--encode=vpu`` under every threshold mode (``adaptive`` on the adaptive
-bf16 builds of B5, B3 and B4, from the rounded operands' moments; the
-verification header then names the mode). ``float8_e4m3``
+operands. bf16 runs every strategy and encode: weighted, rowcol and
+global with ``--encode=vpu`` under every threshold mode (``adaptive`` on
+the adaptive bf16 builds of B5, B3 and B4, from the rounded operands'
+moments; the verification header then names the mode), and fused,
+weighted, rowcol and global with ``--encode=mxu`` (the bf16 builds of
+B6-B8, on the wrapper's hi / lo / lo2 moment rows) under the static and
+auto thresholds. ``float8_e4m3``
 (aliases ``fp8``, ``fp8_e4m3``, ``float8_e4m3fn``) runs the fp8 serving
 mode (``ft_sgemm_tpu/cli.py:167-169``) the same way: A and B rounded to
 e4m3 as the JAX package rounds them (NaN past 464), the whole table on the

@@ -84,19 +84,15 @@ THRESHOLD_MODES = ("static", "auto", "adaptive")
 # are rounded to the dtype, while C, the accumulator, the checksums and the
 # detect / correct math stay f32 (int32 for int8, exact).
 IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
-# The dtypes the port runs, and the (strategy, encode) pairs and threshold
-# modes it runs them under (the vpu encodes of bf16 and of fp8 on kernels
-# B1-B5 under every mode, "adaptive" on the adaptive bf16 builds of B3-B5;
-# int8's exact mode on B3 and B4, where "adaptive" is the constant
-# half-ulp; the mxu encodes in bf16 are still to port, ROADMAP Queue B).
-PORTED = {
-    "float32": (STRATEGIES, ENCODE_MODES, THRESHOLD_MODES),
-    "bfloat16": (("rowcol", "global", "weighted"), ("vpu",),
-                 THRESHOLD_MODES),
-    "float8_e4m3fn": (("rowcol", "global", "weighted"), ("vpu",),
-                      THRESHOLD_MODES),
-    "int8": (("rowcol", "global"), ("vpu",), THRESHOLD_MODES),
-}
+# What the legality tables below allow and the port does not run yet, by
+# dtype and encode ("mxu" also for the fused strategy): the threshold modes
+# still to port. bf16's mxu kernels (B6-B8) run under static, auto and a
+# float threshold; under "adaptive" they need adaptive bf16 builds
+# (ROADMAP Queue B). Everything else runs: every strategy and encode in
+# f32, the vpu encodes of bf16 and fp8 on B1-B5 under every mode (adaptive
+# on the adaptive bf16 builds of B3-B5), int8's exact mode on B3 and B4
+# (adaptive: the constant half-ulp).
+NOT_PORTED = {("bfloat16", "mxu"): ("adaptive",)}
 
 # Accepted spellings of the fp8 dtype (ft_sgemm_tpu/configs.py:431).
 _IN_DTYPE_ALIASES = {
@@ -162,8 +158,11 @@ def check_kernel_legality(*, strategy: str, encode: str,
     (``encode="mxu"`` or ``strategy="fused"`` with fp8 or int8), and the
     weighted-ratio localization (``weighted``, ``fused``, multifault) on
     int8's wrapping checksums. What is legal but not ported yet raises
-    ``NotImplementedError`` (:data:`PORTED`): bf16 with the mxu encodes
-    (B6-B8). Every threshold mode runs in every dtype."""
+    ``NotImplementedError`` (:data:`NOT_PORTED`):
+    bf16 with the mxu encodes (B6-B8) under ``threshold="adaptive"``. bf16
+    runs every strategy and encode under static, auto and a float
+    threshold, and its vpu encodes under every mode; every threshold mode
+    runs in every dtype's vpu encodes."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -189,17 +188,14 @@ def check_kernel_legality(*, strategy: str, encode: str,
             "multifault=True is illegal for int8: the multifault extension"
             " localizes by the weighted-residual ratio, which wrapping int32"
             " checksums cannot guarantee")
-    strategies, encodes, modes = PORTED[dtype]
-    if strategy not in strategies or encode not in encodes:
+    kind = "mxu" if strategy == "fused" else encode
+    if threshold_mode in NOT_PORTED.get((dtype, kind), ()):
         raise NotImplementedError(
-            f"{dtype} with strategy={strategy!r}, encode={encode!r} is not"
-            f" ported yet: the mxu encodes (kernels B6-B8) in {dtype} are the"
-            " next slice; pick encode='vpu' and one of"
-            f" {strategies}")
-    if threshold_mode not in modes:
-        raise NotImplementedError(
-            f"{dtype} with threshold={threshold_mode!r} is not ported yet"
-            f" (ROADMAP Queue B); pick one of {modes}")
+            f"{dtype} with strategy={strategy!r}, encode={encode!r} (kernels"
+            f" B6-B8) under threshold={threshold_mode!r} is not ported yet:"
+            f" their adaptive {dtype} builds are the next slice (ROADMAP"
+            " Queue B); pick encode='vpu', or threshold 'static', 'auto' or a"
+            " float")
     return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

@@ -26,15 +26,24 @@
 #define FTSG_ADAPTIVE 0
 #endif
 
-// FTSG_BF16=1 compiles a source's bf16 entry points alone. With
-// FTSG_ADAPTIVE=1 these are the adaptive bf16 builds of B3, B4 and B5
-// (threshold="adaptive" in bf16 and fp8), libraries of their own
+// FTSG_BF16=1 compiles a source's bf16 entry points alone: the static bf16
+// builds of B2-B8, or with FTSG_ADAPTIVE=1 the adaptive bf16 builds of B3,
+// B4 and B5 (threshold="adaptive" in bf16 and fp8), libraries of their own
 // (ops/_build.LIBRARIES) that build beside the others and leave every other
-// build as it was: the static libraries hold the static bf16 builds, the
-// adaptive ones without the macro the f32 builds alone.
+// build as it was: without the macro a source compiles its f32 builds (and
+// the static ones B3's and B4's int8 builds).
 #ifndef FTSG_BF16
 #define FTSG_BF16 0
 #endif
+
+// FTSG_KERNEL=n (2 .. 8) compiles kernel Bn's entry points alone (of those
+// the other macros select), so that the heaviest bf16 builds, B2 and B5 of
+// one source, B6 and B7 of another, build as libraries of their own, side
+// by side; 0, the default, compiles them all.
+#ifndef FTSG_KERNEL
+#define FTSG_KERNEL 0
+#endif
+#define FTSG_HAS(n) (FTSG_KERNEL == 0 || FTSG_KERNEL == (n))
 
 // The two builds are loaded into one process and share their sources, so
 // the adaptive build's C++ symbols live in an inline namespace of their own:

@@ -41,8 +41,28 @@
 // per ring slot), so the producer's only extra work is their hi / lo split;
 // both expected sums come out of the tensor cores beside the product, with
 // its precision, and the check is B3's (ft_sgemm_rowcol.cu).
+//
+// bf16 (ftsg_ft_fused_bf16, ftsg_ft_rowcol_mxu_bf16; FTSG_BF16 with
+// FTSG_KERNEL 6 and 7, a library each): A and B bf16 on the bf16 mainloop (one m64nNk16 wgmma a
+// 16-deep k step). The wrapper's moment rows are bf16 too: each f32 moment
+// of the rounded values as three bf16 terms hi, lo and lo2, term-major
+// (ops/ft_sgemm._tile_moments; A's (M / bm, 3 n, K), B's (N / bn, 3, K)),
+// as the JAX package augments its bf16 blocks (_augment_tiles, n_terms =
+// 3). Each stage loads one box per term: A's MOM rows per band of term t
+// (a 4-D map, (K, n, 3, M / bm), which takes the first MOM of the n rows)
+// into term buffer t as rows MOM b + v, and B's band rows of term t into
+// B's rows 128 + 8 t + j, where B5's and B3's splitter warps write their
+// own sums; E sums the three terms' products in one accumulator and the
+// extra columns BN + 8 t + j add up at the check (WgMainloop::xcol), so
+// the checks are B5's and B3's as they are. Nothing is left to split, so
+// the consumers wait for TMA's full barrier alone, and the CTA zeroes the
+// padding rows once before the ring starts. Bound: 2 M N K at 989 TFLOP/s
+// (0.139 ms at 4096) and the expected sums beside it. No adaptive bf16
+// build yet (ROADMAP Queue B).
 
 #include "ft_sgemm_running.cuh"
+
+#if !FTSG_BF16
 
 // B6. `MA` is A's (M / bm, 3, K) moment rows; `scalars` a host array of 8
 // floats (contracts.SCALAR_SLOTS); log2_t, c_rand and
@@ -83,3 +103,49 @@ extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
       A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
       alpha, beta, scalars, nm, s);
 }
+#endif
+
+#if FTSG_BF16 && !FTSG_ADAPTIVE && FTSG_HAS(6)
+// B6 with bf16 A and B: `MA` is the three bf16 terms of A's moment rows,
+// (M / bm, 9, K) (term t of moment v at row 3 t + v). Returns as B6.
+extern "C" int ftsg_ft_fused_bf16(const void* A, const void* B,
+                                  const float* C, const void* MA, float* out,
+                                  int* det, int* unc, int M, int N, int K,
+                                  int bm, int bn, int bk, int check_every,
+                                  float alpha, float beta,
+                                  const float* scalars, float log2_t,
+                                  float c_rand, float c_bias, void* stream) {
+  return ftsg::launch_running<
+      ftsg::WeightedOf<ftsg::kLoadRows, ftsg::kBF16>::At>(
+      A, B, C, MA, nullptr, 9, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
+}
+#endif
+
+#if FTSG_BF16 && !FTSG_ADAPTIVE && FTSG_HAS(7)
+// B7 with bf16 A and B: `MA` (M / bm, 6, K) the three bf16 terms of A's
+// plain and w rows (term t of moment v at row 2 t + v), `MB` (N / bn, 3, K)
+// those of B's plain rows. Returns as B6.
+extern "C" int ftsg_ft_rowcol_mxu_bf16(const void* A, const void* B,
+                                       const float* C, const void* MA,
+                                       const void* MB, float* out, int* det,
+                                       int* unc, int M, int N, int K, int bm,
+                                       int bn, int bk, int check_every,
+                                       int multifault, float alpha,
+                                       float beta, const float* scalars,
+                                       float log2_t, float c_rand,
+                                       float c_bias, void* stream) {
+  const auto s = (cudaStream_t)stream;
+  const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
+  if (multifault)
+    return ftsg::launch_running<ftsg::RowcolOf<
+        true, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
+        A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
+        alpha, beta, scalars, nm, s);
+  return ftsg::launch_running<ftsg::RowcolOf<
+      false, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
+      A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
+      alpha, beta, scalars, nm, s);
+}
+#endif

@@ -40,11 +40,15 @@
 // band rows ride the ring's stages and full barrier, their padding rows
 // zeroed once per ring slot.
 //
-// bf16 (ftsg_ft_global_bf16, B4 only): A and B bf16 on the bf16 mainloop;
-// B's band sums (f32 sums of the bf16 values) ride the product as three
-// bf16 terms, 24 extra columns. Its adaptive build (FTSG_ADAPTIVE with
-// FTSG_BF16, a library of its own) sums the rounded operands' moments per
-// 8-column half step (SubTileThresholds::kstep_bf16).
+// bf16 (ftsg_ft_global_bf16, ftsg_ft_global_mxu_bf16; FTSG_BF16, a library
+// of their own): A and B bf16 on the bf16 mainloop; B's band sums (f32
+// sums of the bf16 values) ride the product as three bf16 terms, 24 extra
+// columns: B4's splitter warps form them, B8 loads the wrapper's three
+// term rows per band (ops/ft_sgemm._tile_moments) by TMA, one box a term,
+// as B's rows 128 + 8 t .., and its consumers wait for TMA alone. B4's
+// adaptive build (FTSG_ADAPTIVE with FTSG_BF16, a library of its own) sums
+// the rounded operands' moments per 8-column half step
+// (SubTileThresholds::kstep_bf16); B8 in bf16 has none yet.
 //
 // int8 (ftsg_ft_global_int8, B4 only, the exact mode: _ft_kernel_global with
 // exact=True, :842-907): A and B int8 on the s8 wgmma mainloop; B's band
@@ -73,7 +77,7 @@ extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
 }
 #endif
 
-#if FTSG_BF16 || !FTSG_ADAPTIVE
+#if FTSG_BF16
 // B4 with bf16 A and B; the rest as ftsg_ft_global.
 extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
                                    const float* C, float* out, int* det,
@@ -118,6 +122,26 @@ extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
                                   const float* scalars, float log2_t,
                                   float c_rand, float c_bias, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kLoadBands>::At>(
+      A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
+      check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
+      (cudaStream_t)stream);
+}
+#endif
+
+#if FTSG_BF16 && !FTSG_ADAPTIVE
+// B8 with bf16 A and B: `MB` (N / bn, 3, K) is the three bf16 terms of B's
+// plain moment rows; `MA` (M / bm, 3, K), A's, is not read. Returns as B4.
+extern "C" int ftsg_ft_global_mxu_bf16(const void* A, const void* B,
+                                       const float* C, const void* MA,
+                                       const void* MB, float* out, int* det,
+                                       int* unc, int M, int N, int K, int bm,
+                                       int bn, int bk, int check_every,
+                                       float alpha, float beta,
+                                       const float* scalars, float log2_t,
+                                       float c_rand, float c_bias,
+                                       void* stream) {
+  return ftsg::launch_running<
+      ftsg::GlobalOf<ftsg::kLoadBands, ftsg::kBF16>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
       (cudaStream_t)stream);

@@ -42,9 +42,10 @@
 // splitter warps sum B's bands and A's row bands from the landed bf16
 // stages in f32 and carry each sum row as three bf16 terms (24 extra
 // product columns, three moment-row buffers), so both expected sums keep
-// f32 precision; the check is unchanged. Its adaptive build (FTSG_ADAPTIVE
-// with FTSG_BF16, a library of its own) sums the rounded operands' moments
-// per 8-column half step (SubTileThresholds::kstep_bf16).
+// f32 precision; the check is unchanged. It is a library of its own
+// (FTSG_BF16), and so is its adaptive build (FTSG_ADAPTIVE with FTSG_BF16),
+// which sums the rounded operands' moments per 8-column half step
+// (SubTileThresholds::kstep_bf16).
 //
 // int8 (ftsg_ft_rowcol_int8, the exact mode: _ft_kernel_rowcol with
 // exact=True, :532-534, 567-581, 606-611, 636-640): A and B int8 on the s8
@@ -85,7 +86,7 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
 }
 #endif
 
-#if FTSG_BF16 || !FTSG_ADAPTIVE
+#if FTSG_BF16
 // B3 with bf16 A and B; the rest as ftsg_ft_rowcol.
 extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
                                    const float* C, float* out, int* det,

@@ -1014,7 +1014,9 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // check (WeightedOf<ROWS>::At, RowcolOf<MF, BANDS, ROWS>::At,
 // GlobalOf<BANDS>::At); `MA` the wrapper's (M / bm, n_rows, K) moment rows
 // (kLoadRows: B6, B7; the kernel loads the first MOM of each band's rows),
-// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8); A and B f32 or,
+// `MB` its (N / bn, 1, K) band rows (kLoadBands: B7, B8), both f32, or for
+// a bf16 tile bf16 in three terms (ops/ft_sgemm._tile_moments: n_rows = 3 n
+// rows, term t's n at rows n t ..; B's (N / bn, 3, K)); A and B f32 or,
 // for a bf16 or int8 tile, bf16 or int8 (an int8 operand's rows 16-byte
 // aligned, tensor_map); `scalars` the
 // host array of the scalar argument, `nm` the noise model's constants (read
@@ -1022,7 +1024,7 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // map cannot be encoded or no sub-tile matches.
 template <template <int, int> class Of>
 int launch_running(const void* A, const void* B, const float* C,
-                   const float* MA, const float* MB, int n_rows, float* out,
+                   const void* MA, const void* MB, int n_rows, float* out,
                    int* det, int* unc, int M, int N, int K, int bm, int bn,
                    int bk, int check_every, float alpha, float beta,
                    const float* scalars, const NoiseModel& nm,
@@ -1036,13 +1038,17 @@ int launch_running(const void* A, const void* B, const float* C,
     const auto kernel =                                                        \
         ft_running_wgmma_kernel<T, typename Of<SBM_, SBN_>::Check>;            \
     CUtensorMap ta, tb, tm = {}, tbb = {};                                     \
+    constexpr int NT_ = T::BF16 ? 3 : 1; /* terms of a moment row */           \
     if (!tensor_map(&ta, A, M, K, T::BM, T::SK, T::ESIZE) ||                   \
         !tensor_map(&tb, B, N, K, T::BN, T::SK, T::ESIZE) ||                   \
         (T::ROWS == kLoadRows &&                                               \
-         (n_rows < T::MOM || !tensor_map3(&tm, MA, M / SBM_, n_rows, K,        \
-                                          T::NBM, T::MOM, T::SK))) ||          \
+         (n_rows % NT_ || n_rows / NT_ < T::MOM ||                             \
+          !tensor_map_rows(&tm, MA, M / SBM_, NT_, n_rows / NT_, K, T::NBM,    \
+                           T::MOM, T::SK, T::ESIZE))) ||                       \
         (T::BANDS == kLoadBands &&                                             \
-         !tensor_map(&tbb, MB, N / SBN_, K, T::NBN, T::SK)))                   \
+         !(T::BF16 ? tensor_map_rows(&tbb, MB, N / SBN_, 1, 3, K, T::NBN, 1,   \
+                                     T::SK, T::ESIZE)                          \
+                   : tensor_map(&tbb, MB, N / SBN_, K, T::NBN, T::SK))))       \
       return (int)cudaErrorInvalidValue;                                       \
     if (const cudaError_t e = cudaFuncSetAttribute(                            \
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM))     \

@@ -42,10 +42,10 @@
 // of the rounded operands (their hi / lo / lo2 term products summed); B5's
 // splitter warps sum the moment rows from A's bf16 stage in f32 and carry
 // each as three bf16 terms. Bound: 2 M N K at 989 TFLOP/s (0.139 ms at
-// 4096) and B5's expected moments beside it. B5's adaptive bf16 build
-// (FTSG_ADAPTIVE with FTSG_BF16, a library of its own) sums the rounded
-// operands' moments per 8-column half step (SubTileThresholds::kstep_bf16);
-// B2 has none.
+// 4096) and B5's expected moments beside it. The bf16 builds are libraries
+// of their own (FTSG_BF16 with FTSG_KERNEL 2 and 5, one each); B5's
+// adaptive bf16 build (with FTSG_ADAPTIVE too) sums the rounded operands' moments per 8-column half
+// step (SubTileThresholds::kstep_bf16); B2 has none.
 
 #include "abft_common.cuh"
 #include "ft_sgemm_running.cuh"
@@ -249,7 +249,7 @@ extern "C" int ftsg_ft_weighted_precomp(
 }
 #endif
 
-#if !FTSG_ADAPTIVE
+#if !FTSG_ADAPTIVE && FTSG_BF16 && FTSG_HAS(2)
 // B2 with bf16 A and B; the rest as ftsg_ft_weighted_precomp.
 extern "C" int ftsg_ft_weighted_precomp_bf16(
     const void* A, const void* B, const float* C, const float* expm,
@@ -276,7 +276,7 @@ extern "C" int ftsg_ft_weighted_precomp_bf16(
 }
 #endif
 
-#if FTSG_BF16 || !FTSG_ADAPTIVE
+#if FTSG_BF16 && FTSG_HAS(5)
 // B5 with bf16 A and B; the rest as ftsg_ft_weighted_running.
 extern "C" int ftsg_ft_weighted_running_bf16(
     const void* A, const void* B, const float* C, float* out, int* det,

@@ -62,7 +62,7 @@
 // moment row for the column (ops/tf32x3.moment_fragment_map). The FT hooks
 // use those maps and keep their logic.
 //
-// bf16 operands (IN = kBF16; B1-B5, the vpu encodes): a stage holds SK = 64
+// bf16 operands (IN = kBF16; B1-B8): a stage holds SK = 64
 // K columns, still one 128-byte swizzle row, and each 16-deep k step is one
 // m64nNk16 bf16 wgmma on the operands as TMA landed them, A's fragment
 // from registers (no split, no lo buffer); the accumulator and every sum
@@ -74,9 +74,13 @@
 // (B's band rows, the moment rows) are f32 sums of the bf16 values,
 // carried as three bf16 terms hi, lo and lo2 (XN = 24 band rows; three
 // moment-row buffers, their products summed into the same `part_e`), so
-// the expected sums keep f32 precision; the splitter warps form them and
-// split nothing else (B1 and B2 have no splitter work: the consumers wait
-// for TMA's full barrier directly).
+// the expected sums keep f32 precision; the splitter warps form them (B3,
+// B4, B5) and split nothing else. B6, B7 and B8 load the wrapper's rows,
+// which come as the same three terms (ops/ft_sgemm._tile_moments), by TMA:
+// one box per term into term t's moment buffer and into B's rows BN + 8 t
+// .., their padding rows zeroed by the whole CTA before the ring starts
+// (WgSmem::init). Those kernels, B1 and B2 have no splitter work: the
+// consumers wait for TMA's full barrier directly.
 //
 // int8 operands (IN = kS8; B3 and B4, the exact mode): a stage holds SK =
 // 128 K columns (one 128-byte swizzle row), each 32-deep k step is one
@@ -146,7 +150,7 @@ inline bool narrow_tile(int bm, int bn) {
 // Where a stage's moment rows come from: none (B1, B2, B4, B8), a TMA box
 // of the MOM rows per row band that the check reads out of the wrapper's
 // (gm, rows, K) moment rows (B6: 3 of 3; B7: 1, or 2 with multifault, of
-// 2), or sums over A's landed stage by the splitter warps, one job per
+// 2; in bf16 one box per term of the wrapper's (gm, 3 rows, K)), or sums over A's landed stage by the splitter warps, one job per
 // sub-tile row band and column after B's split (B5: WgSmem::sum_rows) or
 // in 8-row groups beside B's split (B3: WgSmem::split_b). B5 on the 8-row
 // groups ran 13-30 % slower at the 16- to 64-row sub-tiles (PERF.md).
@@ -161,7 +165,8 @@ enum MomentRows {
 // the expected row sums) come from: none (B1, B2, B5, B6), sums over B's
 // landed stage by the splitter warps in 8-row groups (B3, B4:
 // WgSmem::split_b), or a TMA box of the wrapper's (N / SBN, K) band rows
-// (B7, B8), which the splitter warps only split.
+// (B7, B8), which the splitter warps only split (in bf16 one box per term
+// of the wrapper's (N / SBN, 3, K), not split).
 enum BandRows {
   kNoBands = 0,
   kSumBands = 1,
@@ -249,10 +254,12 @@ struct WgTile {
   static constexpr int STAGE_BYTES =
       A_BYTES + NB_BUF * B_BYTES + NM_BUF * M_BYTES;
   // The rows a stage's TMA boxes fill: where loaded, exactly the NBN band
-  // rows and the MOM * NBM moment rows the checks read; the full barrier
-  // expects these bytes, and the padding rows past them stay zero.
+  // rows and the MOM * NBM moment rows the checks read, one box of each
+  // per term; the full barrier expects these bytes, and the padding rows
+  // past them stay zero.
   static constexpr int BAND_BOX = BANDS == kLoadBands ? NBN * 128 : 0;
   static constexpr int M_BOX = ROWS == kLoadRows ? MOM * NBM * 128 : 0;
+  static constexpr int TX_BYTES = A_BYTES + B_BOX + NTERM * (BAND_BOX + M_BOX);
   static constexpr int CHECK_BYTES = CHECK_;
   // The splitters' 8-row sums (WgSmem::split_b) of B (kSumBands) and of A's
   // moments (kSumRowGroups), rows of SK floats per stage.
@@ -293,8 +300,6 @@ struct WgTile {
   static_assert(R <= 24, "m64nRk8 expected-moment product");
   static_assert(XN == 0 || (XN == 8 * NTERM && NBN <= 8 && SBN % 8 == 0),
                 "one extra column per column band and term");
-  static_assert(!BF16 || (BANDS != kLoadBands && ROWS != kLoadRows),
-                "bf16 forms its sum rows in the kernel (the vpu encodes)");
   static_assert(!F8 || (XN == 0 && R == 0), "e4m3 wgmma: B1, no sum rows");
   static_assert(!S8 || (BANDS == kSumBands && MOM * NBM <= 8 &&
                         (ROWS == kNoRows || ROWS == kSumRowGroups)),
@@ -372,6 +377,19 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
       "r"(plane0), "r"(group0)
+      : "memory");
+}
+
+// TMA of a 4-D map: the (groups, 1, planes, SK) box at (k0, plane0, term,
+// group0).
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int k0, int plane0,
+                                          int term, int group0) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
+      "r"(plane0), "r"(term), "r"(group0)
       : "memory");
 }
 
@@ -1099,7 +1117,10 @@ struct WgSmem {
                                            mhi(s)) + t * T::M_BYTES);
   }
 
-  // Thread 0 initialises the barriers; the whole CTA waits for it.
+  // Thread 0 initialises the barriers; the whole CTA waits for it. In
+  // bf16 with loaded rows (B6-B8), whose consumers wait on the full barrier
+  // alone, the whole CTA first zeroes every ring slot's padding rows, which
+  // no box writes.
   __device__ __forceinline__ void init() const {
     if (threadIdx.x == 0) {
       for (int s = 0; s < T::STAGES; ++s) {
@@ -1108,6 +1129,11 @@ struct WgSmem {
         mbar_init(empty(s), T::NCONS);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (T::BF16 && !T::SPLIT && PADS) {
+      for (int s = 0; s < T::STAGES; ++s)
+        zero_pads_bf16<T::NT>(s, threadIdx.x);
+      fence_proxy_async();  // the zeros are visible to wgmma
     }
     __syncthreads();
   }
@@ -1174,13 +1200,15 @@ struct WgSmem {
                                (T::R > T::MOM * T::NBM && T::ROWS != kSumRows);
 
   // bf16: those rows of ring slot s, of every term, zeroed once before the
-  // first stage.
+  // first stage by the STEP threads e = 0 .. STEP - 1 (the splitter warps,
+  // or the whole CTA).
+  template <int STEP = T::SPLITTERS>
   __device__ __forceinline__ void zero_pads_bf16(int s, int e) const {
     if constexpr (T::XN > 0) {
-      for (int z = e; z < T::XN * 32; z += T::SPLITTERS)
+      for (int z = e; z < T::XN * 32; z += STEP)
         if (z / 32 % 8 >= T::NBN) bw(s)[T::BN * 32 + z] = 0u;
     }
-    for (int z = T::MOM * T::NBM * 32 + e; z < T::R * 32; z += T::SPLITTERS)
+    for (int z = T::MOM * T::NBM * 32 + e; z < T::R * 32; z += STEP)
       mw(s, 0)[z] = mw(s, 1)[z] = mw(s, 2)[z] = 0u;
   }
 
@@ -1573,8 +1601,9 @@ struct WgSmem {
 
   // The producer warpgroup, for nst stages of A's rows m0.., B's rows n0..,
   // (kLoadRows) the moment rows of row bands ti0.. of tm, MOM of each band's
-  // rows, landing as row MOM * b + v, and (kLoadBands) the band rows tj0..
-  // of tbb as B's rows BN..: its first thread streams the TMA loads through
+  // rows, landing as row MOM * b + v (in bf16 term t's into term buffer t),
+  // and (kLoadBands) the band rows tj0.. of tbb as B's rows BN.. (in bf16
+  // term t's as rows BN + 8 t ..): its first thread streams the TMA loads through
   // the ring, each slot refilled once the consumers released it; warps 1-3
   // split each landed stage's B (and moment rows, or form them: kSumRows,
   // kSumRowGroups), hi in place and lo into the second buffer, so the
@@ -1591,14 +1620,24 @@ struct WgSmem {
       for (int st = 0; st < nst; ++st) {
         const int s = st % T::STAGES;
         if (st >= T::STAGES) mbar_wait(empty(s), (st / T::STAGES - 1) & 1);
-        mbar_expect_tx(full(s),
-                       T::A_BYTES + T::B_BOX + T::BAND_BOX + T::M_BOX);
+        mbar_expect_tx(full(s), T::TX_BYTES);
         tma_load(a(s), ta, full(s), st * T::SK, m0);
         tma_load(b(s), tb, full(s), st * T::SK, n0);
-        if constexpr (T::BANDS == kLoadBands)
+        if constexpr (T::BANDS == kLoadBands && T::BF16) {
+#pragma unroll
+          for (int t = 0; t < 3; ++t)  // (groups, 3, K): term t of the bands
+            tma_load3(bw(s) + (T::BN + 8 * t) * 32, tbb, full(s), st * T::SK,
+                      t, tj0);
+        } else if constexpr (T::BANDS == kLoadBands) {
           tma_load(b(s) + T::BN * T::SK, tbb, full(s), st * T::SK, tj0);
-        if constexpr (T::ROWS == kLoadRows)
+        }
+        if constexpr (T::ROWS == kLoadRows && T::BF16) {
+#pragma unroll
+          for (int t = 0; t < 3; ++t)  // (groups, 3, planes, K): term t
+            tma_load4(mw(s, t), tm, full(s), st * T::SK, 0, t, ti0);
+        } else if constexpr (T::ROWS == kLoadRows) {
           tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
+        }
       }
     } else if (p >= 32) {
       if constexpr (T::F8) {
@@ -2311,25 +2350,33 @@ inline bool tensor_map(CUtensorMap* map, const void* p, int rows, int K,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The (groups, planes, K) row-major f32 operand at p (the wrapper's moment
-// rows), in boxes of box_planes rows of each of box_groups groups, SK
-// columns, with the 128-byte swizzle: a box's row box_planes * g + v holds
-// plane v of group g; out-of-range columns and groups read as zero.
-inline bool tensor_map3(CUtensorMap* map, const float* p, int groups,
-                        int planes, int K, int box_groups, int box_planes,
-                        int sk) {
+// The (groups, terms, planes, K) row-major operand at p (the wrapper's
+// moment rows; f32 with esize 4, one term, or bf16 with esize 2), in boxes
+// of box_planes rows of one term of each of box_groups groups, SK columns,
+// with the 128-byte swizzle: a box's row box_planes * g + v holds plane v of
+// group g; out-of-range columns and groups read as zero. The f32 maps have
+// rank 3 (tma_load3), the bf16 ones rank 4 (tma_load4, one box per term).
+inline bool tensor_map_rows(CUtensorMap* map, const void* p, int groups,
+                            int terms, int planes, int K, int box_groups,
+                            int box_planes, int sk, int esize = 4) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)planes,
+  const int rank = terms == 1 ? 3 : 4;
+  const cuuint64_t row = (cuuint64_t)K * esize;
+  const cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)planes,
+                              (cuuint64_t)(rank == 3 ? groups : terms),
                               (cuuint64_t)groups};
-  const cuuint64_t strides[2] = {(cuuint64_t)K * sizeof(float),
-                                 (cuuint64_t)planes * K * sizeof(float)};
-  const cuuint32_t box[3] = {(cuuint32_t)sk, (cuuint32_t)box_planes,
+  const cuuint64_t strides[3] = {row, planes * row, terms * planes * row};
+  const cuuint32_t box[4] = {(cuuint32_t)sk, (cuuint32_t)box_planes,
+                             (cuuint32_t)(rank == 3 ? box_groups : 1),
                              (cuuint32_t)box_groups};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map,
+                esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                rank, const_cast<void*>(p), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

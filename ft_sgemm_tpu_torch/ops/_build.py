@@ -2,18 +2,20 @@
 
 Every library of :data:`LIBRARIES` is compiled at first use, on the machine
 with the card, by ``nvcc`` from one ``csrc/*.cu`` into a shared library with
-a plain C interface, loaded with ``ctypes``; the static libraries of B1-B5
-also hold their bf16 builds (the ``*_bf16`` entry points), and those of B3
-and B4 their int8 builds (``*_int8``). The FT sources build twice:
-as they are (static thresholds and ``threshold="auto"``) and with
+a plain C interface, loaded with ``ctypes``; B1's library also holds its
+bf16 build (``ftsg_sgemm_bf16``), and the static libraries of B3 and B4
+their int8 builds (``*_int8``). The FT sources build twice in f32: as they
+are (static thresholds and ``threshold="auto"``) and with
 ``FTSG_ADAPTIVE=1`` (``threshold="adaptive"``: B3-B8 derive each
 sub-tile's threshold in the kernel), two libraries with the same entry
-points. The adaptive bf16 builds of B3-B5 (``threshold="adaptive"`` in
-bf16, and in fp8 on the widened operands) are the sources of B3, B4 and B5
-once more, with ``FTSG_ADAPTIVE=1`` and ``FTSG_BF16=1``, which compiles
-their bf16 entry points alone: libraries of their own (``*_adaptive_bf16``),
-so that they build beside the others and leave every other build as it
-was. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
+points. Their bf16 builds are the same sources once more with
+``FTSG_BF16=1``, which compiles a source's bf16 entry points alone:
+libraries of their own, the static ``*_bf16`` (B2-B8, the heaviest, B2,
+B5, B6 and B7, one each by ``FTSG_KERNEL``; bf16 and fp8 on the vpu
+encodes, bf16 on the mxu encodes) and, with ``FTSG_ADAPTIVE=1`` too,
+the adaptive ``*_adaptive_bf16`` (B3-B5: ``threshold="adaptive"`` in bf16,
+and in fp8 on the widened operands), so that the builds run side by side,
+none of them the long pole of them all. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
 with ``FTSG_FP8=1``, which compiles that entry point alone: a library of its
 own, so that it builds beside the others and leaves every other build as it
 was (B2-B5 in fp8 run their bf16 builds on the exactly widened operands).
@@ -42,11 +44,15 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 
-# Each library: its source and the macros it is compiled with. The
-# adaptive libraries hold B3-B8 only (ft_sgemm_weighted.cu leaves B2 out),
-# in f32, and the adaptive bf16 ones B3-B5 in bf16.
+# Each library: its source and the macros it is compiled with. The static
+# FT libraries hold the f32 builds (and B3's and B4's int8 ones), the
+# static bf16 ones B2-B8 in bf16 (B2, B5, B6 and B7 each alone:
+# FTSG_KERNEL, so that no library is the long pole of the parallel build),
+# the adaptive libraries B3-B8 in f32 (ft_sgemm_weighted.cu leaves B2 out),
+# and the adaptive bf16 ones B3-B5 in bf16.
+BF16 = ("-DFTSG_BF16=1",)
 ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
-ADAPTIVE_BF16 = ADAPTIVE + ("-DFTSG_BF16=1",)
+ADAPTIVE_BF16 = ADAPTIVE + BF16
 FP8 = ("-DFTSG_FP8=1",)
 LIBRARIES = {
     "sgemm": ("sgemm", ()),
@@ -54,6 +60,12 @@ LIBRARIES = {
     "ft_sgemm_rowcol": ("ft_sgemm_rowcol", ()),
     "ft_sgemm_global": ("ft_sgemm_global", ()),
     "ft_sgemm_aug": ("ft_sgemm_aug", ()),
+    "ft_sgemm_precomp_bf16": ("ft_sgemm_weighted", BF16 + ("-DFTSG_KERNEL=2",)),
+    "ft_sgemm_weighted_bf16": ("ft_sgemm_weighted", BF16 + ("-DFTSG_KERNEL=5",)),
+    "ft_sgemm_rowcol_bf16": ("ft_sgemm_rowcol", BF16),
+    "ft_sgemm_global_bf16": ("ft_sgemm_global", BF16),
+    "ft_sgemm_fused_bf16": ("ft_sgemm_aug", BF16 + ("-DFTSG_KERNEL=6",)),
+    "ft_sgemm_rowcol_mxu_bf16": ("ft_sgemm_aug", BF16 + ("-DFTSG_KERNEL=7",)),
     "ft_sgemm_weighted_adaptive": ("ft_sgemm_weighted", ADAPTIVE),
     "ft_sgemm_rowcol_adaptive": ("ft_sgemm_rowcol", ADAPTIVE),
     "ft_sgemm_global_adaptive": ("ft_sgemm_global", ADAPTIVE),
@@ -208,7 +220,7 @@ def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
     """The mainloop that kernel ``kind`` (``"sgemm"`` for B1, else an
     ``ops/ft_sgemm._plan`` kind) runs on ``shape``: ``"wgmma-3xtf32"``, for
     every kernel at every compiled tile, ``"wgmma-bf16"`` for the bf16
-    builds (one bf16 wgmma per 16-deep k step, B1-B5, and B2-B5 in fp8 on
+    builds (one bf16 wgmma per 16-deep k step: B1-B8, and B2-B5 in fp8 on
     the widened operands), ``"wgmma-e4m3"`` for B1's fp8 build (one e4m3
     wgmma per 32-deep k step, promoted into f32 after each), or
     ``"wgmma-s8"`` for the int8 builds (one s8 wgmma per 32-deep k step,
@@ -226,27 +238,31 @@ def mainloop(kind: str, shape, in_dtype: str = "float32") -> str:
                                                            "wgmma-3xtf32")
 
 
-def check_operands(shape, a, b, c, *more) -> tuple:
+def check_operands(shape, a, b, c, *more, rows=()) -> tuple:
     """Validate a kernel launch: contiguous, 16-byte aligned operands on one
     CUDA device, A (M, K) and B (N, K) both float32, both bfloat16, both
     float8_e4m3fn or both int8 (the kernel's input dtype; a 1-byte
     operand's rows K rounded up to 16 bytes apart,
-    ``common.align_rows16``), C (M, N) and the wrapper-side
-    inputs float32, padded to the tile (M % bm == N % bn == K % bk == 0, K
-    >= bk), and a compiled tile. Returns (M, N, K, bm, bn, bk)."""
+    ``common.align_rows16``), C (M, N) and the wrapper-side inputs
+    ``more`` float32, the mxu kernels' moment ``rows`` in A's dtype (their
+    shapes and dtype are ``ft_sgemm._check_rows``' rule), padded to the
+    tile (M % bm == N % bn == K % bk == 0, K >= bk), and a compiled tile.
+    Returns (M, N, K, bm, bn, bk)."""
     dev = a.device
     if (a.dtype not in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
                         torch.int8) or b.dtype != a.dtype):
         raise ValueError("kernels take A and B both float32, both bfloat16,"
                          " both float8_e4m3fn or both int8, got"
                          f" {a.dtype} and {b.dtype}")
-    for t in (a, b, c, *more):
+    for t in (a, b, c, *more, *rows):
         if not t.is_cuda or t.device != dev:
             raise ValueError("kernel operands must lie on one CUDA device,"
                              f" got {t.device} and {dev}")
-        if t.dtype != torch.float32 and t is not a and t is not b:
-            raise ValueError(f"kernels take float32 C and checksum inputs,"
-                             f" got {t.dtype}")
+        if t.dtype != (a.dtype if any(t is r for r in (a, b, *rows))
+                       else torch.float32):
+            raise ValueError(f"kernels take float32 C and checksum inputs"
+                             f" and moment rows in the operands' dtype, got"
+                             f" {t.dtype}")
         if t.element_size() == 1:
             if t.stride() != (t.shape[1] + (-t.shape[1]) % 16, 1):
                 raise ValueError("kernels take 1-byte rows 16 bytes apart"

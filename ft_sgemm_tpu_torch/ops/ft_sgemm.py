@@ -6,10 +6,10 @@ B6, B7 (``csrc/ft_sgemm_aug.cu``), behind kernel ids 11-16. B3-B8 run one
 stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
-modes, in bf16 (``in_dtype="bfloat16"``) for the vpu encodes of the
-weighted, rowcol and global strategies under the three threshold modes
-(B2-B5 on bf16 wgmma, "adaptive" on the adaptive bf16 builds of B3-B5; the
-mxu encodes in bf16 are not ported yet), in fp8
+modes, in bf16 (``in_dtype="bfloat16"``) for every strategy and encode
+(B2-B8 on bf16 wgmma) under the static and auto thresholds and, for the
+vpu encodes, under "adaptive" (the adaptive bf16 builds of B3-B5; the mxu
+encodes under "adaptive" are not ported yet), in fp8
 (``in_dtype="float8_e4m3fn"``) for the same strategies and modes as bf16
 (B2-B5 on bf16 wgmma of the exactly widened e4m3 operands; B1 on e4m3
 wgmma), and in int8
@@ -61,8 +61,11 @@ In bf16, A and B are rounded to bf16 and everything else stays f32: the
 product of the rounded values, and checksums of the rounded values, as the
 tensor cores consume them (ops/ft_sgemm.py:575-582), so the input rounding
 cancels out of every residual and the thresholds stay those of f32. The
-wrapper's moment rows (B2's expected moments) split each f32 moment into
-bf16 hi, lo and lo2 terms (``_tile_moments``), as the JAX package does.
+wrapper's moment rows (B2's expected moments, and the rows B6-B8 load)
+split each f32 moment into bf16 hi, lo and lo2 terms (``_tile_moments``),
+as the JAX package does: B6-B8 multiply the three terms on the tensor cores
+and add their products, as the JAX kernels add their per-term scratch
+rows.
 
 In fp8 (the serving mode), A and B are rounded to e4m3 as the JAX package
 rounds them (``common.to_e4m3``) and everything else is f32, as in bf16:
@@ -127,13 +130,32 @@ from ft_sgemm_tpu_torch.ops.reference import wrap_int32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-FT_LIBS = ("ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
-           "ft_sgemm_aug")
-# The adaptive bf16 builds of B5, B3 and B4 (bf16 and fp8 under
-# threshold="adaptive"), libraries of their own (ops/_build.LIBRARIES).
-ADAPTIVE_BF16_LIBS = ("ft_sgemm_weighted_adaptive_bf16",
-                      "ft_sgemm_rowcol_adaptive_bf16",
-                      "ft_sgemm_global_adaptive_bf16")
+# Each FT kernel kind's C entry point (a bf16 build's adds "_bf16", B3's
+# and B4's int8 builds' "_int8") and the libraries that hold it
+# (ops/_build.LIBRARIES; :func:`kernel_entry`): the static f32 one (with
+# the int8 builds; "_adaptive" after its name, the adaptive f32 build),
+# and the bf16 builds' own (bf16, and fp8 on the widened operands): the
+# static ones of B2-B8 and the adaptive ones of B5, B3 and B4.
+ENTRY_POINTS = {"precomp": "ftsg_ft_weighted_precomp",
+                "running": "ftsg_ft_weighted_running",
+                "rowcol": "ftsg_ft_rowcol", "global": "ftsg_ft_global",
+                "global_mxu": "ftsg_ft_global_mxu", "fused": "ftsg_ft_fused",
+                "rowcol_mxu": "ftsg_ft_rowcol_mxu"}
+F32_LIBS = {"precomp": "ft_sgemm_weighted", "running": "ft_sgemm_weighted",
+            "rowcol": "ft_sgemm_rowcol", "global": "ft_sgemm_global",
+            "global_mxu": "ft_sgemm_global", "fused": "ft_sgemm_aug",
+            "rowcol_mxu": "ft_sgemm_aug"}
+FT_LIBS = tuple(dict.fromkeys(F32_LIBS.values()))
+BF16_LIBS = {"precomp": "ft_sgemm_precomp_bf16",
+             "running": "ft_sgemm_weighted_bf16",
+             "rowcol": "ft_sgemm_rowcol_bf16",
+             "global": "ft_sgemm_global_bf16",
+             "global_mxu": "ft_sgemm_global_bf16",
+             "fused": "ft_sgemm_fused_bf16",
+             "rowcol_mxu": "ft_sgemm_rowcol_mxu_bf16"}
+ADAPTIVE_BF16_KINDS = ("running", "rowcol", "global")
+ADAPTIVE_BF16_LIBS = tuple(F32_LIBS[k] + "_adaptive_bf16"
+                           for k in ADAPTIVE_BF16_KINDS)
 
 
 class FtSgemmResult(NamedTuple):
@@ -219,8 +241,8 @@ def kernel_inputs(kind: str, ap: torch.Tensor, bp: torch.Tensor,
                   shape: KernelShape) -> tuple:
     """The wrapper-side inputs of one launch of ``kind`` (see :func:`_plan`)
     on the padded operands: B2's expected moments, the mxu kernels' moment
-    rows (A's 3 for B6, A's 2 and B's 1 for B7, A's 1 and B's 1 for B8);
-    none for the others."""
+    rows (A's 3 for B6, A's 2 and B's 1 for B7, A's 1 and B's 1 for B8;
+    in bf16 three bf16 terms of each); none for the others."""
     if kind == "precomp":
         return (_expected_col_checksums(ap, bp, shape.bm),)
     n_a = {"fused": 3, "rowcol_mxu": 2, "global_mxu": 1}.get(kind)
@@ -249,11 +271,24 @@ def _tiles(ap, bp, cp, shape):
     return a4, b4, c4, nk
 
 
-def _step_rows(rows, nk: int):
-    """Moment rows (g, R, K) as (g, R, nk, bk): step k's rows are
-    ``[:, :, k]``."""
+def _step_rows(rows, nk: int, n_moments: int):
+    """Moment rows (g, T n_moments, K) of ``_tile_moments`` as T terms of
+    (g, n_moments, nk, bk) f32, step k's rows at ``[:, :, k]``: one term in
+    f32, the bf16 terms hi, lo and lo2 (rows ``n_moments t + v``) in
+    bf16."""
     g, r, kdim = rows.shape
-    return rows.reshape(g, r, nk, kdim // nk)
+    return rows.float().reshape(g, r // n_moments, n_moments, nk,
+                                kdim // nk).unbind(1)
+
+
+def _term_sum(terms):
+    """The terms' expected sums added in order, as the JAX kernels add
+    their per-term scratch rows at a check (ops/ft_sgemm.py:722-730,
+    1138-1143)."""
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total
 
 
 def _untile(t4: torch.Tensor) -> torch.Tensor:
@@ -415,7 +450,9 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     """Plain PyTorch version of B2 (``expm`` given: precomputed moments, one
     final check), B5 (running moments from the operand, a check every
     ``check_every`` steps and after the last) and B6 (``moments`` given:
-    running moments from A's (gm, 3, K) moment rows); ``adaptive``: each
+    running moments from A's moment rows, (gm, 3, K) in f32, (gm, 9, K) of
+    bf16 terms in bf16, each term's expected moments kept apart and added
+    at the check as ``_ft_kernel_fused`` adds them); ``adaptive``: each
     tile's thresholds at each check from its running moments of A's and B's
     own rows (B5, B6). bf16 and fp8 operands are summed as their f32
     values.
@@ -427,12 +464,12 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
     unc = torch.zeros_like(det)
     w = _weights(bm, a.device)[None, :, None]
-    exps = [torch.zeros((gm, gn, bn), device=a.device) for _ in range(3)]
+    terms = _step_rows(moments, nk, 3) if moments is not None else (None,)
+    texps = [[torch.zeros((gm, gn, bn), device=a.device) for _ in range(3)]
+             for _ in terms]
     if expm is not None:
-        exps = list(expm.reshape(gm, 3, gn, bn).unbind(1))
+        texps = [list(expm.reshape(gm, 3, gn, bn).unbind(1))]
         check_every = nk
-    if moments is not None:
-        moments = _step_rows(moments, nk)
     thresholds = [float(t) for t in scalars[4:7]]
     mom = None
     for k in range(nk):
@@ -440,16 +477,18 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
         a_k, b_k = a4[:, :, k], b4[:, :, k]
         acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
         if expm is None:
-            s_a = (moments[:, :, k].unbind(1) if moments is not None else
-                   (a_k.sum(1), (a_k * w).sum(1), (a_k * (w * w)).sum(1)))
-            for e, s in zip(exps, s_a):
-                e += torch.einsum("jnk,ik->ijn", b_k, s)
+            for exps, rows in zip(texps, terms):
+                s_a = (rows[:, :, k].unbind(1) if rows is not None else
+                       (a_k.sum(1), (a_k * w).sum(1), (a_k * (w * w)).sum(1)))
+                for e, s in zip(exps, s_a):
+                    e += torch.einsum("jnk,ik->ijn", b_k, s)
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
             if adaptive:
                 thresholds = _recheck_thresholds(_adaptive_threshold(
                     mom, k, shape, nk, float(scalars[7])), bm)
+            exps = [_term_sum(e) for e in zip(*texps)]
             acc, hits, bad = _moment_detect_correct(acc, *exps, thresholds)
             det += hits.to(torch.int32)
             unc = bad.to(torch.int32)
@@ -471,7 +510,9 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, multifault: bool, moments=None,
                     adaptive: bool = False):
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
-    B's (gn, 1, K) moment rows), of B7; ``adaptive``: each tile's
+    B's (gn, 1, K) moment rows; in bf16 (gm, 6, K) and (gn, 3, K) of bf16
+    terms, each term's expected sums kept apart and added at the check as
+    ``_ft_kernel_rowcol_mxu`` adds them), of B7; ``adaptive``: each tile's
     thresholds at each check from its running moments of A's and B's own
     rows. bf16 and fp8 operands are summed as their f32 values. int8
     operands run the exact mode step by step (``_ft_kernel_rowcol`` with
@@ -488,11 +529,13 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     det = torch.zeros((gm, gn), dtype=torch.int32, device=a.device)
     unc = torch.zeros_like(det)
     w = _weights(bm, a.device)
-    r_exp = torch.zeros((gm, gn, bm), dtype=acc_t, device=a.device)
-    c_exp = torch.zeros((gm, gn, bn), dtype=acc_t, device=a.device)
-    cw_exp = torch.zeros_like(c_exp)
-    if moments is not None:
-        ma, mb = (_step_rows(m, nk) for m in moments)
+    ma, mb = ((_step_rows(moments[0], nk, 2), _step_rows(moments[1], nk, 1))
+              if moments is not None else ((None,), (None,)))
+    r_exp = [torch.zeros((gm, gn, bm), dtype=acc_t, device=a.device)
+             for _ in mb]
+    c_exp = [torch.zeros((gm, gn, bn), dtype=acc_t, device=a.device)
+             for _ in ma]
+    cw_exp = [torch.zeros_like(c) for c in c_exp]
     thresholds = [float(t) for t in scalars[4:6]]
     dot = _exact_dot if exact else torch.einsum
     mom = None
@@ -500,24 +543,26 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
         acc += dot("imk,jnk->ijmn", a_k, b_k)
-        if moments is None:
-            s_a, s_b = a_k.sum(1), b_k.sum(1)
-        else:
-            s_a, s_b = ma[:, 0, k], mb[:, 0, k]
-        r_exp += dot("imk,jk->ijm", a_k, s_b)
-        c_exp += dot("jnk,ik->ijn", b_k, s_a)
-        if multifault:
-            s_aw = ((a_k * w[None, :, None]).sum(1) if moments is None
-                    else ma[:, 1, k])
-            cw_exp += torch.einsum("jnk,ik->ijn", b_k, s_aw)
+        for r, rows in zip(r_exp, mb):
+            r += dot("imk,jk->ijm", a_k,
+                     b_k.sum(1) if rows is None else rows[:, 0, k])
+        for c_t, cw_t, rows in zip(c_exp, cw_exp, ma):
+            c_t += dot("jnk,ik->ijn", b_k,
+                       a_k.sum(1) if rows is None else rows[:, 0, k])
+            if multifault:
+                s_aw = ((a_k * w[None, :, None]).sum(1) if rows is None
+                        else rows[:, 1, k])
+                cw_t += torch.einsum("jnk,ik->ijn", b_k, s_aw)
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
             if adaptive:
                 thresholds = _recheck_thresholds(_adaptive_threshold(
                     mom, k, shape, nk, float(scalars[7])), bm)[:2]
-            res_cw = cw_exp - (acc * w[:, None]).sum(-2) if multifault else None
-            res_r, res_c = r_exp - acc.sum(-1), c_exp - acc.sum(-2)
+            res_cw = (_term_sum(cw_exp) - (acc * w[:, None]).sum(-2)
+                      if multifault else None)
+            res_r = _term_sum(r_exp) - acc.sum(-1)
+            res_c = _term_sum(c_exp) - acc.sum(-2)
             if exact:
                 res_r, res_c = wrap_int32(res_r), wrap_int32(res_c)
             acc, hits, bad = _rowcol_detect_correct(
@@ -539,8 +584,10 @@ def _epilogue(acc, c4, alpha, beta) -> torch.Tensor:
 def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, moments=None, adaptive: bool = False):
     """Plain PyTorch version of B4 and, with ``moments`` = (A's (gm, 1, K),
-    B's (gn, 1, K) plain moment rows), of B8: per step ``t_exp += s_a .
-    s_b``; per check the residual ``t_exp - sum(acc)``, one event when it
+    B's (gn, 1, K) plain moment rows; in bf16 (g, 3, K) of bf16 terms, every
+    (A term) . (B term) product added, as ``_ft_kernel_global_mxu`` sums
+    its corner), of B8: per step ``t_exp += s_a . s_b``; per check the
+    residual ``t_exp - sum(acc)``, one event when it
     moved by more than the threshold since the previous check; ``adaptive``:
     each tile's threshold at each check from its running moments of A's and
     B's own rows, times sqrt(bn). bf16 and fp8 operands are summed as their
@@ -558,7 +605,7 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     t_exp = torch.zeros((gm, gn), dtype=acc_t, device=a.device)
     prev = torch.zeros_like(t_exp)
     if moments is not None:
-        ma, mb = (_step_rows(m, nk) for m in moments)
+        ma, mb = (_step_rows(m, nk, 1) for m in moments)
     thr = float(scalars[4])
     dot = _exact_dot if exact else torch.einsum
     mom = None
@@ -568,9 +615,10 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
         acc += dot("imk,jnk->ijmn", a_k, b_k)
         if moments is None:
             s_a, s_b = a_k.sum(1), b_k.sum(1)
+            t_exp += dot("ik,jk->ij", s_a, s_b) if exact else s_a @ s_b.T
         else:
-            s_a, s_b = ma[:, 0, k], mb[:, 0, k]
-        t_exp += dot("ik,jk->ij", s_a, s_b) if exact else s_a @ s_b.T
+            t_exp += _term_sum([ta[:, 0, k] @ tb[:, 0, k].T
+                                for ta in ma for tb in mb])
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
@@ -600,65 +648,78 @@ _TAIL = [_F, _F, _P, _F, _F, _F, _P]
 _VPU_ARGS = {"running": [_P] * 6 + _DIMS + [_I] + _TAIL,
              "rowcol": [_P] * 6 + _DIMS + [_I, _I] + _TAIL,
              "global": [_P] * 6 + _DIMS + [_I] + _TAIL}
+# Those of B6-B8: the moment rows after C (B6: A's; B7, B8: A's and B's).
+_MXU_ARGS = {"fused": [_P] * 7 + _DIMS + [_I] + _TAIL,
+             "rowcol_mxu": [_P] * 8 + _DIMS + [_I, _I] + _TAIL,
+             "global_mxu": [_P] * 8 + _DIMS + [_I] + _TAIL}
+# Every kind's; B2's with the expected moments after C, no cadence and no
+# noise model.
+_ARGS = dict(_VPU_ARGS, **_MXU_ARGS,
+             precomp=[_P] * 7 + _DIMS + [_F, _F, _P, _P])
+
+
+def kernel_entry(kind: str, dtype=torch.float32, adaptive: bool = False):
+    """The library and C entry point of FT kernel kind ``kind``'s build
+    for ``dtype`` operands (torch.float32, torch.bfloat16 (fp8 runs it on
+    the widened operands) or torch.int8 (B3, B4, static)), static or
+    ``adaptive``."""
+    if dtype == torch.bfloat16:
+        libs = (dict(zip(ADAPTIVE_BF16_KINDS, ADAPTIVE_BF16_LIBS)) if adaptive
+                else BF16_LIBS)
+        return libs[kind], ENTRY_POINTS[kind] + "_bf16"
+    return (F32_LIBS[kind] + ("_adaptive" if adaptive else ""),
+            ENTRY_POINTS[kind] + ("_int8" if dtype == torch.int8 else ""))
+
+
+def _bind_kind(kind, dtype=torch.float32, adaptive=False):
+    lib, entry = kernel_entry(kind, dtype, adaptive)
+    return bind(library(lib), entry, _ARGS[kind])
 
 
 @functools.lru_cache(maxsize=None)
 def _entries(adaptive: bool = False):
-    """The C entry points of the static build (``adaptive=False``: B2-B8) or
-    of the adaptive build (``FTSG_ADAPTIVE``: B3-B8), by kernel kind; those
-    of another dtype by (kind, torch dtype)."""
-    libs = tuple(n + ("_adaptive" if adaptive else "") for n in FT_LIBS)
-    build(libs)  # all in parallel, before the first load
-    weighted, rowcol, glob, aug = (library(n) for n in libs)
-    entries = {
-        "running": bind(weighted, "ftsg_ft_weighted_running",
-                        _VPU_ARGS["running"]),
-        "rowcol": bind(rowcol, "ftsg_ft_rowcol", _VPU_ARGS["rowcol"]),
-        "global": bind(glob, "ftsg_ft_global", _VPU_ARGS["global"]),
-        "global_mxu": bind(glob, "ftsg_ft_global_mxu",
-                           [_P] * 8 + _DIMS + [_I] + _TAIL),
-        "fused": bind(aug, "ftsg_ft_fused", [_P] * 7 + _DIMS + [_I] + _TAIL),
-        "rowcol_mxu": bind(aug, "ftsg_ft_rowcol_mxu",
-                           [_P] * 8 + _DIMS + [_I, _I] + _TAIL),
-    }
-    if not adaptive:
-        entries["precomp"] = bind(weighted, "ftsg_ft_weighted_precomp",
-                                  [_P] * 7 + _DIMS + [_F, _F, _P, _P])
-        # bf16 operands (the vpu encodes), same arguments: B2, B5, B3, B4;
-        # int8 operands (the exact mode), same arguments: B3, B4.
-        for name, lib, fname, dtype in (
-                ("precomp", weighted, "ftsg_ft_weighted_precomp_bf16",
-                 torch.bfloat16),
-                ("running", weighted, "ftsg_ft_weighted_running_bf16",
-                 torch.bfloat16),
-                ("rowcol", rowcol, "ftsg_ft_rowcol_bf16", torch.bfloat16),
-                ("global", glob, "ftsg_ft_global_bf16", torch.bfloat16),
-                ("rowcol", rowcol, "ftsg_ft_rowcol_int8", torch.int8),
-                ("global", glob, "ftsg_ft_global_int8", torch.int8)):
-            entries[name, dtype] = bind(lib, fname, entries[name].argtypes)
+    """The C entry points of the static f32 build (``adaptive=False``: B2-B8,
+    and B3's and B4's int8 builds by (kind, torch.int8)) or of the adaptive
+    one (``FTSG_ADAPTIVE``: B3-B8), by kernel kind."""
+    build(tuple(n + ("_adaptive" if adaptive else "") for n in FT_LIBS))
+    entries = {kind: _bind_kind(kind, adaptive=adaptive)
+               for kind in ENTRY_POINTS if not adaptive or kind != "precomp"}
+    if not adaptive:  # int8 operands (the exact mode): B3, B4
+        for kind in ("rowcol", "global"):
+            entries[kind, torch.int8] = _bind_kind(kind, torch.int8)
     return entries
 
 
 @functools.lru_cache(maxsize=None)
-def _adaptive_bf16_entries():
-    """The C entry points of the adaptive bf16 builds of B5, B3 and B4
-    (``FTSG_ADAPTIVE`` with ``FTSG_BF16``; bf16 operands, and fp8 widened),
-    by (kind, torch.bfloat16). Built and loaded on the first adaptive bf16
-    or fp8 launch, apart from :func:`_entries`: an f32 adaptive call
-    neither waits on these builds nor needs them."""
-    build(ADAPTIVE_BF16_LIBS)  # all in parallel, before the first load
-    return {(name, torch.bfloat16): bind(library(lib), fname, _VPU_ARGS[name])
-            for name, lib, fname in zip(
-                ("running", "rowcol", "global"), ADAPTIVE_BF16_LIBS,
-                ("ftsg_ft_weighted_running_bf16", "ftsg_ft_rowcol_bf16",
-                 "ftsg_ft_global_bf16"))}
+def _bf16_entries(adaptive: bool = False):
+    """The C entry points of the bf16 builds (bf16 operands, and fp8
+    widened), by (kind, torch.bfloat16): the static ones of B2-B8
+    (``FTSG_BF16``) or the adaptive ones of B5, B3 and B4 (``FTSG_ADAPTIVE``
+    with ``FTSG_BF16``), each built and loaded on the first launch of its
+    build, apart from :func:`_entries`: an f32 call neither waits on these
+    builds nor needs them."""
+    kinds = ADAPTIVE_BF16_KINDS if adaptive else tuple(BF16_LIBS)
+    build(tuple(dict.fromkeys(kernel_entry(k, torch.bfloat16, adaptive)[0]
+                              for k in kinds)))  # in parallel, then load
+    return {(k, torch.bfloat16): _bind_kind(k, torch.bfloat16, adaptive)
+            for k in kinds}
 
 
 def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
-    """The moment-row operands of an mxu kernel: A's (M/bm, n_a, K) and
-    B's (N/bn, 1, K)."""
+    """The moment-row operands of an mxu kernel (``_tile_moments``): with
+    f32 A and B, A's (M/bm, n_a, K) and B's (N/bn, 1, K) in f32; with bf16
+    A and B, three bf16 terms of each, (M/bm, 3 n_a, K) and (N/bn, 3, K).
+    Operands of any other dtype carry no moment rows."""
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{a.dtype} operands carry no moment rows: the mxu"
+                         " kernels B6-B8 take float32 or bfloat16 operands")
     (m, k), n = a.shape, b.shape[0]
-    for rows, want in ((ma, (m // shape.bm, n_a, k)), (mb, (n // shape.bn, 1, k))):
+    t = 3 if a.dtype == torch.bfloat16 else 1
+    for rows, want in ((ma, (m // shape.bm, t * n_a, k)),
+                       (mb, (n // shape.bn, t, k))):
+        if rows is not None and rows.dtype != a.dtype:
+            raise ValueError(f"{rows.dtype} moment rows with {a.dtype}"
+                             " operands: the rows take the operands' dtype")
         if rows is not None and tuple(rows.shape) != want:
             raise ValueError(f"moment rows {tuple(rows.shape)}, expected {want}")
 
@@ -666,8 +727,8 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
-    validated operands, A and B f32 or (the vpu kernels B2-B5 of the static
-    build, B3-B5 of the adaptive one) bf16 or fp8 or (static build, B3 and
+    validated operands, A and B f32 or bf16 or fp8 (B2-B8 of the static
+    build, B3-B5 of the adaptive one; fp8 B2-B5) or (static build, B3 and
     B4) int8, and count it on ``wrapper``: ``launches`` (f32, static),
     ``adaptive_launches`` (the adaptive build), and ``bf16_launches``,
     ``fp8_launches`` or ``int8_launches`` by dtype; an adaptive bf16 or fp8
@@ -677,17 +738,18 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     operands' (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
     correction writes a column's worth of that error into the element).
     Returns (out, det, unc)."""
-    dims = check_operands(shape, a, b, c, *extra_in)
+    more, rows = ((), extra_in) if name in _MXU_ARGS else (extra_in, ())
+    dims = check_operands(shape, a, b, c, *more, rows=rows)
     fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.bfloat16 if fp8 else a.dtype
-    entries = (_adaptive_bf16_entries()
-               if adaptive and dtype == torch.bfloat16 else _entries(adaptive))
+    entries = (_bf16_entries(adaptive) if dtype == torch.bfloat16
+               else _entries(adaptive))
     if dtype != torch.float32 and (name, dtype) not in entries:
         raise NotImplementedError(
             f"kernel {name!r} has no {str(a.dtype).removeprefix('torch.')}"
-            " build" + (" (adaptive)" if adaptive else "") + ": bf16 and"
-            " fp8 run the vpu encodes' B2-B5 (B3-B5 under threshold="
-            "'adaptive'), int8 B3 and B4 under the static build")
+            " build" + (" (adaptive)" if adaptive else "") + ": bf16 runs"
+            " B2-B8 (B3-B5 under threshold='adaptive'), fp8 the vpu"
+            " encodes' B2-B5, int8 B3 and B4 under the static build")
     if fp8:
         a, b = (x.to(torch.bfloat16, memory_format=torch.contiguous_format)
                 for x in (a, b))
@@ -996,9 +1058,11 @@ def make_ft_sgemm(
     of B5 (weighted, at every cadence), B3 (rowcol) and B4 (global), the
     thresholds f32's formula on the moments of the rounded operands.
 
-    Not ported yet, and raising ``NotImplementedError``
-    (``configs.check_kernel_legality``): bf16 with ``encode="mxu"`` or
-    ``strategy="fused"`` (B6-B8) (fp8 with the mxu encodes is illegal:
+    bf16 runs the mxu encodes too (``encode="mxu"``, ``strategy="fused"``:
+    the bf16 builds of B6-B8, which load the wrapper's hi / lo / lo2 moment
+    rows) under the static and auto thresholds. Not ported yet, and raising
+    ``NotImplementedError`` (``configs.check_kernel_legality``): those under
+    ``threshold="adaptive"`` (fp8 with the mxu encodes is illegal:
     ``ValueError``).
     """
     if isinstance(threshold, str):

@@ -29,6 +29,7 @@ from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32
 
 KK = 8       # K depth of one tf32 wgmma
 STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
+BF16_STAGE = 64  # the same in bf16: one 128-byte swizzle row of bf16
 CTA = 128    # rows and columns of the sub-tiled kernels' CTA
 
 
@@ -296,21 +297,40 @@ def moment_rows(sbm: int, mom: int = 3) -> int:
 
 
 def loaded_rows(rows: torch.Tensor, g0: int, n_groups: int, per_group: int,
-                pad: int, k0: int = 0) -> torch.Tensor:
-    """(pad, STAGE): the rows that one stage's TMA box of the wrapper's
+                pad: int, k0: int = 0, stage: int = STAGE) -> torch.Tensor:
+    """(pad, stage): the rows that one stage's TMA box of the wrapper's
     (g, P, K) checksum rows lands in shared memory (``WgSmem::produce``),
     with the padding rows the splitter warps zero (``WgSmem::zero_pads``):
     row ``per_group * b + v`` holds row v of group g0 + b at K columns k0
-    .. k0 + STAGE, zero past the last group and past K (TMA's fill), and
+    .. k0 + stage, zero past the last group and past K (TMA's fill), and
     the rows from ``n_groups * per_group`` on are zero. B7 and B8 take B's
     band rows (per_group 1, n_groups NBN) as B's stage rows 128 .. 135;
     B6 and B7 A's moment rows (per_group MOM, padded to R)."""
-    out = torch.zeros((pad, STAGE), dtype=rows.dtype)
+    out = torch.zeros((pad, stage), dtype=rows.dtype)
     for b in range(min(n_groups, rows.shape[0] - g0)):
         for v in range(per_group):
-            cols = rows[g0 + b, v, k0:k0 + STAGE]
+            cols = rows[g0 + b, v, k0:k0 + stage]
             out[per_group * b + v, :cols.shape[0]] = cols
     return out
+
+
+def loaded_term_rows(rows: torch.Tensor, n_moments: int, g0: int,
+                     n_groups: int, per_group: int, pad: int,
+                     k0: int = 0) -> torch.Tensor:
+    """(3, pad, BF16_STAGE): the three TMA boxes, one per term, that a bf16
+    stage of B6-B8 loads from the wrapper's (g, 3 n_moments, K) bf16 rows
+    (``_tile_moments``: term t of moment v at row ``n_moments t + v``), with
+    the padding rows the CTA zeroes (``WgSmem::init``): box t is
+    :func:`loaded_rows` of term t's rows, the first ``per_group`` of its
+    ``n_moments`` per group. A's boxes land in term buffer t (``mw(s,
+    t)``) as rows ``per_group b + v``, which B5's splitter warps fill in
+    B5; B's (``n_moments`` 1, ``per_group`` 1, ``pad`` 8) as B's stage rows
+    BN + 8 t .. BN + 8 t + 7, where B3's and B4's splitter warps write
+    their band sums."""
+    g, r, kdim = rows.shape
+    terms = rows.reshape(g, r // n_moments, n_moments, kdim)
+    return torch.stack([loaded_rows(terms[:, t], g0, n_groups, per_group,
+                                    pad, k0, BF16_STAGE) for t in range(3)])
 
 
 def moment_fragment_map(r: int) -> torch.Tensor:

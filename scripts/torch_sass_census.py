@@ -22,8 +22,10 @@ Needs nvcc and cuobjdump:
 
 ``--diff`` takes two trees instead, builds both, and says for every
 kernel of the first tree's libraries, static and adaptive, whether the
-second tree's kernel of the same label in the same library has the same
-instructions in the same order (operands included, addresses not):
+second tree's kernel of the same label in the same library (or, for a
+kernel that a split moved, in a library the first tree lacks, static or
+adaptive alike) has the same instructions in the same order (operands
+included, addresses not):
 
     python3 scripts/torch_sass_census.py --diff PARENT_TREE TREE
 """
@@ -109,6 +111,12 @@ def diff(old_tree: str, new_tree: str) -> int:
         if "hostutils" in lib or lib not in libs[new_tree]:
             continue
         new = instructions(_dump(libs[new_tree][lib]))
+        for name, moved in libs[new_tree].items():
+            # The builds that moved into libraries of their own: those the
+            # first tree lacks, static or adaptive as `lib` is.
+            if (name not in libs[old_tree] and "hostutils" not in name
+                    and ("adaptive" in name) == ("adaptive" in lib)):
+                new = {**instructions(_dump(moved)), **new}
         for label, old in instructions(_dump(so)).items():
             if label not in new:
                 print(f"{lib} {label}: not in {new_tree}")

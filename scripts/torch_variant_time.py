@@ -20,8 +20,9 @@ fresh process per turn, the trees in order and then reversed
 
 ``--kernels`` (default B3, B4, B6, B7, B8; B5 on request) and ``--tiles``
 (default the six program tiles) pick what is built and timed;
-``--dtype=bfloat16`` times the bf16 builds of B1-B5 (the ``*_bf16`` entry
-points, A and B rounded to bf16);
+``--dtype=bfloat16`` times the bf16 builds of B1-B8 (the ``*_bf16`` entry
+points, from the libraries that the tree's ``ops/ft_sgemm.kernel_entry``
+names, so a tree must have that table; A and B rounded to bf16);
 ``--threshold=adaptive`` builds and times the adaptive builds of B3-B8 at
 the adaptive cadence (the default margin in slot 7); ``--magnitude=M``
 sets the reference-like faults' magnitude (default 1e4; 0: no faults).
@@ -56,25 +57,19 @@ from torch_kernel_ab import _import_port, card, turns
 
 SIZE = 4096
 TILES = ("small", "medium", "large", "tall", "wide", "huge")
-# kernel -> (library, entry point, pointer arguments before out, ints
-# after the 6 dimensions, the kernel kind, the (strategy, encode) whose
-# plan gives its cadence); B1 takes no grids and no scalars, B2 no noise
-# model.
+# kernel -> (ints after the 6 dimensions, the kernel kind, the (strategy,
+# encode) whose plan gives its cadence); each kind's library, entry point
+# and argument types are the tree's own (``ops/ft_sgemm.kernel_entry``,
+# ``_ARGS``); B1 takes no grids and no scalars.
 KERNELS = {
-    "B1": ("sgemm", "ftsg_sgemm", 3, 0, "sgemm", None),
-    "B2": ("ft_sgemm_weighted", "ftsg_ft_weighted_precomp", 4, 0, "precomp",
-           ("weighted", "vpu")),
-    "B3": ("ft_sgemm_rowcol", "ftsg_ft_rowcol", 3, 2, "rowcol",
-           ("rowcol", "vpu")),
-    "B5": ("ft_sgemm_weighted", "ftsg_ft_weighted_running", 3, 1, "running",
-           ("weighted", "vpu")),
-    "B4": ("ft_sgemm_global", "ftsg_ft_global", 3, 1, "global",
-           ("global", "vpu")),
-    "B6": ("ft_sgemm_aug", "ftsg_ft_fused", 4, 1, "fused", ("fused", "mxu")),
-    "B7": ("ft_sgemm_aug", "ftsg_ft_rowcol_mxu", 5, 2, "rowcol_mxu",
-           ("rowcol", "mxu")),
-    "B8": ("ft_sgemm_global", "ftsg_ft_global_mxu", 5, 1, "global_mxu",
-           ("global", "mxu")),
+    "B1": (0, "sgemm", None),
+    "B2": (0, "precomp", ("weighted", "vpu")),
+    "B3": (2, "rowcol", ("rowcol", "vpu")),
+    "B5": (1, "running", ("weighted", "vpu")),
+    "B4": (1, "global", ("global", "vpu")),
+    "B6": (1, "fused", ("fused", "mxu")),
+    "B7": (2, "rowcol_mxu", ("rowcol", "mxu")),
+    "B8": (1, "global_mxu", ("global", "mxu")),
 }
 DEFAULT_KERNELS = ("B3", "B4", "B6", "B7", "B8")
 
@@ -133,16 +128,26 @@ def write_variant(name: str, dest: str) -> None:
         path.write_text(text)
 
 
-def _libs(kernels, adaptive: bool) -> dict:
-    return {k: KERNELS[k][0] + ("_adaptive" if adaptive else "")
+def _libs(kernels, adaptive: bool, bf16: bool = False) -> dict:
+    """Each kernel's (library, entry point) in the imported tree."""
+    import torch
+
+    from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return {k: (("sgemm", "ftsg_sgemm" + ("_bf16" if bf16 else ""))
+                if KERNELS[k][1] == "sgemm"
+                else ft.kernel_entry(KERNELS[k][1], dtype, adaptive))
             for k in kernels}
 
 
-def build(tree: str, kernels, adaptive: bool = False) -> None:
+def build(tree: str, kernels, adaptive: bool = False,
+          bf16: bool = False) -> None:
     _import_port(tree)
     from ft_sgemm_tpu_torch.ops import _build
 
-    _build.build(tuple(dict.fromkeys(_libs(kernels, adaptive).values())))
+    _build.build(tuple(dict.fromkeys(
+        lib for lib, _ in _libs(kernels, adaptive, bf16).values())))
 
 
 def measure(tree: str, kernels, tiles, adaptive: bool = False,
@@ -168,15 +173,11 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entries = {}
-    libs = _libs(kernels, adaptive)
-    for kern in kernels:
-        _, entry, n_in, n_int, kind, _ = KERNELS[kern]
-        tail = {"sgemm": [f, f, p], "precomp": [f, f, p, p]}.get(
-            kind, [f, f, p, f, f, f, p])
-        grids = 0 if kind == "sgemm" else 2
+    for kern, (lib, entry) in _libs(kernels, adaptive, bf16).items():
+        kind = KERNELS[kern][1]
         entries[kern] = _build.bind(
-            _build.library(libs[kern]), entry + ("_bf16" if bf16 else ""),
-            [p] * (n_in + 1 + grids) + [i] * (6 + n_int) + tail)
+            _build.library(lib), entry, [p] * 4 + [i] * 6 + [f, f, p]
+            if kind == "sgemm" else ft._ARGS[kind])
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
@@ -197,7 +198,7 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
         unc = torch.empty_like(det)
         dims = (SIZE, SIZE, SIZE, sh.bm, sh.bn, sh.bk)
         for kern, fn in entries.items():
-            _, _, _, n_int, kind, pair = KERNELS[kern]
+            n_int, kind, pair = KERNELS[kern]
             if kind == "sgemm":
                 def launch(fn=fn, kern=kern):
                     _build.check_launch(
@@ -242,7 +243,7 @@ def main(argv) -> int:
         return 0
     if len(args) == 2 and args[0] in ("--build", "--measure"):
         if args[0] == "--build":
-            build(args[1], kernels, adaptive)
+            build(args[1], kernels, adaptive, bf16)
         else:
             print(json.dumps(measure(args[1], kernels, tiles, adaptive,
                                      magnitude, bf16)))
@@ -251,8 +252,7 @@ def main(argv) -> int:
     if (not trees or any(t.startswith("--") for t in trees)
             or not set(kernels) <= set(KERNELS)
             or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}
-            or bf16 and (adaptive or not set(kernels) <= {
-                "B1", "B2", "B3", "B4", "B5"})):
+            or bf16 and adaptive):
         print(__doc__)
         return 2
     print(card(), flush=True)
@@ -260,7 +260,8 @@ def main(argv) -> int:
              f"--threshold={'adaptive' if adaptive else 'static'}",
              f"--tiles={','.join(tiles)}", f"--magnitude={magnitude}",
              f"--dtype={'bfloat16' if bf16 else 'float32'}")
-    for name, row in turns(__file__, trees, *picks, build_args=picks[:2]):
+    for name, row in turns(__file__, trees, *picks,
+                           build_args=picks[:2] + picks[4:]):
         print(f"{name:19s} " + " ".join(
             f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in row.items()), flush=True)

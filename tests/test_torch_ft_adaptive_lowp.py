@@ -281,7 +281,7 @@ def test_adaptive_bf16_builds_apart_from_f32(monkeypatch):
     assert {fn.library for fn in f32.values()}.isdisjoint(
         ft.ADAPTIVE_BF16_LIBS)
     built.clear()
-    lowp = ft._adaptive_bf16_entries.__wrapped__()
+    lowp = ft._bf16_entries.__wrapped__(True)
     assert built == [ft.ADAPTIVE_BF16_LIBS]
     assert sorted(lowp) == [(k, torch.bfloat16)
                             for k in ("global", "rowcol", "running")]
@@ -307,10 +307,11 @@ def test_adaptive_launch_routes_and_counts_by_dtype(monkeypatch, in_dtype):
 
     monkeypatch.setattr(ft, "_entries", lambda adaptive=False: (
         {"rowcol": entry("f32")} if adaptive else pytest.fail("static")))
-    monkeypatch.setattr(ft, "_adaptive_bf16_entries", lambda: {
-        ("rowcol", torch.bfloat16): entry("bf16")})
+    monkeypatch.setattr(ft, "_bf16_entries", lambda adaptive=False: (
+        {("rowcol", torch.bfloat16): entry("bf16")} if adaptive
+        else pytest.fail("static")))
     monkeypatch.setattr(ft, "check_operands",
-                        lambda shape, *t: (16, 16, 16, 16, 16, 16))
+                        lambda shape, *t, **kw: (16, 16, 16, 16, 16, 16))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     dtype = getattr(torch, "float32" if in_dtype == "float32"

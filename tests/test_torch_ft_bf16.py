@@ -165,22 +165,20 @@ def test_kernel_names_carry_dtype():
 def test_auto_threshold_bf16_catches_small_faults():
     # tests/test_mixed_precision.py:169-190: the noise bound is taken on the
     # rounded values, and faults of magnitude 5 (invisible at 9500) are
-    # detected and corrected within the tolerance. The JAX test's second
-    # strategy, fused, is the mxu encode, not ported in bf16 yet.
+    # detected and corrected within the tolerance, under both of the JAX
+    # test's strategies: weighted (B2) and fused (the mxu encode, B6).
     tile = KernelShape("t128", 128, 128, 128, (0,) * 7)
     a, b, c = _inputs(128, 128, 512, seed=23)
     inj = InjectionSpec(enabled=True, every=1, magnitude=5.0)
-    res = make_ft_sgemm(tile, alpha=ALPHA, beta=BETA, strategy="weighted",
-                        in_dtype="bfloat16", threshold="auto",
-                        device="cpu")(a, b, c, inj)
-    ok, nbad, _ = verify_matrix(_oracle(a, b, c), res.c.numpy(),
-                                verbose=False)
-    assert ok, f"bf16/weighted: {nbad} small faults survived"
-    assert int(res.num_detected) == 4
-    assert int(res.num_uncorrectable) == 0
-    with pytest.raises(NotImplementedError):
-        make_ft_sgemm(tile, strategy="fused", in_dtype="bfloat16",
-                      threshold="auto", device="cpu")
+    for strategy in ("weighted", "fused"):
+        res = make_ft_sgemm(tile, alpha=ALPHA, beta=BETA, strategy=strategy,
+                            in_dtype="bfloat16", threshold="auto",
+                            device="cpu")(a, b, c, inj)
+        ok, nbad, _ = verify_matrix(_oracle(a, b, c), res.c.numpy(),
+                                    verbose=False)
+        assert ok, f"bf16/{strategy}: {nbad} small faults survived"
+        assert int(res.num_detected) == 4
+        assert int(res.num_uncorrectable) == 0
 
 
 @pytest.mark.parametrize("strategy", VPU)
@@ -220,15 +218,29 @@ def test_bf16_paper_tile_ragged(strategy):
                                                 encode="mxu"),
     dict(threshold="adaptive"), dict(strategy="rowcol", threshold="adaptive")])
 def test_bf16_unported_combinations_raise(kw):
-    # The mxu encodes (B6-B8) in bf16 raise. "adaptive" runs (the adaptive
-    # bf16 builds of B5 and B3; tests/test_torch_ft_adaptive_lowp.py holds
-    # it against the JAX package): faults of magnitude 5 at every step,
-    # which 9500 misses, are each caught and corrected to the oracle.
-    if kw.get("threshold") != "adaptive":
-        with pytest.raises(NotImplementedError):
-            make_ft_sgemm("test", in_dtype="bfloat16", device="cpu", **kw)
-        return
+    # Every slot runs now. The mxu encodes (the bf16 builds of B6-B8,
+    # tests/test_torch_ft_bf16_mxu.py holds them against the JAX package):
+    # a fault at each of the two bk steps is caught, corrected to the
+    # oracle where the strategy corrects, and counted as an event by the
+    # detect-only global. "adaptive" (the adaptive bf16 builds of B5 and
+    # B3; tests/test_torch_ft_adaptive_lowp.py): faults of magnitude 5 at
+    # every step, which 9500 misses, are each caught and corrected to the
+    # oracle.
     a, b, c = _inputs(128, 128, 256, seed=2)
+    if kw.get("threshold") != "adaptive":
+        fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA,
+                           in_dtype="bfloat16", device="cpu", **kw)
+        assert fn.encode == "mxu" and fn.in_dtype == "bfloat16"
+        res = fn(a, b, c, InjectionSpec(enabled=True, every=1))
+        assert int(res.num_detected) == 2
+        if kw["strategy"] == "global":
+            assert torch.equal(res.detections, res.uncorrectable)
+            return
+        assert int(res.num_uncorrectable) == 0
+        ok, nbad, _ = verify_matrix(_oracle(a, b, c), res.c.numpy(),
+                                    verbose=False)
+        assert ok, f"{nbad} elements off"
+        return
     fn = make_ft_sgemm("test", alpha=ALPHA, beta=BETA, in_dtype="bfloat16",
                        device="cpu", **kw)
     assert fn.threshold_mode == "adaptive"

@@ -110,8 +110,20 @@ def test_legality_raises_for_what_is_not_ported():
         make_ft_sgemm("huge", encode="tensor", device="cpu")
     with pytest.raises(ValueError, match="strategy"):
         make_ft_sgemm("huge", strategy="bogus", device="cpu")
-    with pytest.raises(NotImplementedError):  # the mxu encodes run f32 only
-        make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu", device="cpu")
+    # The mxu encodes run in bf16 too (B6-B8's bf16 builds): B6 corrects
+    # every fault to the oracle of the rounded operands. Under
+    # threshold="adaptive" they are still to port.
+    fn = make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu",
+                       device="cpu")
+    assert fn.encode == "mxu" and fn.in_dtype == "bfloat16"
+    a, b, c = _inputs(128, 128, 256, seed=3)
+    res = fn(a, b, c, InjectionSpec(enabled=True, every=8))
+    assert int(res.num_detected) == 4 and int(res.num_uncorrectable) == 0
+    want = jft.sgemm_reference(a, b, c, in_dtype="bfloat16")
+    assert verify_matrix(np.asarray(want), res.c.numpy(), verbose=False)[0]
+    with pytest.raises(NotImplementedError):
+        make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu",
+                      threshold="adaptive", device="cpu")
 
 
 @pytest.mark.cuda

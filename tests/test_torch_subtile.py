@@ -263,7 +263,7 @@ def test_a_launch_error_raises(monkeypatch):
     monkeypatch.setattr(ft, "_entries",
                         lambda adaptive=False: {"running": entry})
     monkeypatch.setattr(ft, "check_operands",
-                        lambda shape, *t: (16, 16, 16, 16, 16, 16))
+                        lambda shape, *t, **kw: (16, 16, 16, 16, 16, 16))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(ft, "ft_weighted_plain",
