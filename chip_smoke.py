@@ -20,14 +20,21 @@ at 4096 in every pair (verification, clean runs that flag nothing, and
 magnitude-5 faults that the static threshold misses and both modes catch),
 counted apart, and each adaptive kernel's time beside its static build's.
 The same for threshold="adaptive" in bf16 and fp8: the adaptive bf16
-builds of B5, B3 and B4 against their plain versions at every tile (bf16
-data and fp8 data over ±448, faults every 1, 3 and 5 bk steps, checks
-between the halves of a 16-deep k step), the bracket against the host
-twin on the rounded operands, the program with ``--dtype=bfloat16`` and
-``--dtype=fp8`` under ``--threshold=adaptive`` at 4096 (each verdict the
-plain versions', clean runs, magnitude-5 faults, the table beside the
-static rows, every launch counted as adaptive and as the dtype's), and
-each build timed beside its static bf16 build and the library call.
+builds of B3-B8 in bf16 (B6-B8 on the mxu encodes) and of B5, B3 and B4
+in fp8 against their plain versions at every tile (bf16 data and fp8 data
+over ±448, faults every 1, 3 and 5 bk steps, checks between the halves of
+a 16-deep k step), the bracket against the host twin on the rounded
+operands, the program with ``--dtype=bfloat16`` (every (strategy, encode)
+pair) and ``--dtype=fp8`` (the vpu pairs) under ``--threshold=adaptive``
+at 4096 (each verdict the plain versions', clean runs, magnitude-5
+faults, the table beside the static rows, every launch counted as
+adaptive and as the dtype's), and each build timed beside its static bf16
+build and the library call. The threshold-calibration path: ``ft_sgemm
+roc`` over every legal (dtype, strategy, encode) combo (adaptive
+dominates the calibrated static threshold in each, no adaptive false
+positive), its bf16 points equal to the plain versions' on the host, and
+``calibrate_threshold`` with ``detection_rate_sweep`` at 4096 (f32
+rowcol, bf16 fused under adaptive).
 The bf16 input mode (``--dtype=bfloat16``): B1-B8's bf16 builds (B6-B8,
 the mxu encodes, on the wrapper's hi / lo / lo2 moment rows) against
 their plain versions at every tile (checks and faults inside a 16-deep k
@@ -198,10 +205,18 @@ FP8_WIDE_MAGNITUDE = 1e7
 FP8_RESIDUAL_MARGIN = 10.0
 # threshold="adaptive" in bf16, and in fp8 on the operands the wrappers
 # widen to bf16: the adaptive bf16 builds of B5 (the weighted strategy runs
-# it at every tile), B3 and B4, each launch counted in adaptive_launches and
-# in its dtype's counter (bf16_launches, fp8_launches); the dtypes.
+# it at every tile), B3 and B4, and in bf16 alone those of B6, B7 and B8
+# (the mxu encodes, BF16_ADAPTIVE_KINDS), each launch counted in
+# adaptive_launches and in its dtype's counter (bf16_launches,
+# fp8_launches); the dtypes.
 LOWP_ADAPTIVE_KINDS = ("running", "rowcol", "global")
+BF16_ADAPTIVE_KINDS = LOWP_ADAPTIVE_KINDS + BF16_MXU_KINDS
 LOWP_DTYPES = ("bfloat16", "fp8")
+# The roc phase: the fault magnitudes of the detection sweep, in units of
+# the calibrated threshold (below it a designed miss), and the faults per
+# tile of its reference-like schedule.
+DETECTION_FACTORS = (0.5, 2.0, 4.0, 64.0)
+DETECTION_FAULTS = 4
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
 VARIANT = "device-scalars-small"
@@ -285,10 +300,11 @@ class Kernels:
             self.table[KIND_NAMES[kind] + "_fp8"] = dict(
                 static, counter="fp8_launches")
         # The adaptive bf16 builds, read by their dtype's counter in a run
-        # that launches no static build (phase_threshold_path).
-        for kind in LOWP_ADAPTIVE_KINDS:
+        # that launches no static build (phase_threshold_path); B6-B8 in
+        # bf16 alone.
+        for kind in BF16_ADAPTIVE_KINDS:
             static = self.table[KIND_NAMES[kind]]
-            for label in ("bf16", "fp8"):
+            for label in ("bf16", "fp8")[:1 if kind in BF16_MXU_KINDS else 2]:
                 self.table[f"{KIND_NAMES[kind]}_adaptive_{label}"] = dict(
                     static, counter=f"{label}_launches")
         self.max_err = {name: 0.0 for name in self.table}
@@ -473,8 +489,14 @@ def ptxas_summary(text: str):
     kernels apart: a wgmma tile's bm, bn, sub-tile bm, bn, moment rows per
     band and the band-row and moment-row sources, ``gemm_wgmma.cuh::BandRows``
     and ``MomentRows``, then B1's ragged-store flag, and ``bf16``, ``s8`` or
-    ``e4m3`` for a bf16, int8 or fp8 tile)."""
+    ``e4m3`` for a bf16, int8 or fp8 tile), and ``wgmma serialized`` with
+    ptxas's warning codes where a warning names the kernel (it comes before
+    the kernel's own lines)."""
     out = []
+    serialized = {}
+    for code, fn in re.findall(r"\((C\d+)\)[^\n']*serialized[^\n']*'(\w+)'",
+                               text):
+        serialized.setdefault(fn, set()).add(code)
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
         kind = re.search(r"ftsg\d+(?:adaptive\d+)?(\w+?_kernel)I", fn).group(1)
@@ -491,7 +513,8 @@ def ptxas_summary(text: str):
         out.append(f"{kind}<{tag}>: {regs} regs"
                    + (f", {spill.group(1)} B spilled"
                       if spill and spill.group(1) != "0" else "")
-                   + (", wgmma serialized" if "serialized" in body else ""))
+                   + (f", wgmma serialized ({'/'.join(sorted(serialized[fn]))})"
+                      if fn in serialized else ""))
     return sorted(out)
 
 
@@ -968,15 +991,15 @@ def _wide_scalars(inj, kind, shape):
 def _every_fault_detected(kern: Kernels, kind, nk, inj, ce, what) -> bool:
     """Where a check every ``ce`` of the ``nk`` bk steps meets at most one
     fault of ``inj`` (enabled, its period at least ``ce``), the last held launch
-    (``kern.last``) must have detected every fault: B3, B5 each corrected
-    and none left uncorrectable, B4 one event each. Returns whether the
-    schedule was such."""
+    (``kern.last``) must have detected every fault: B3, B5, B6 and B7 each
+    corrected and none left uncorrectable, B4 and B8 one event each.
+    Returns whether the schedule was such."""
     if not inj.enabled or inj.every < ce or kind == "precomp":
         return False
     _, det, unc = kern.last
     want = det.numel() * len(range(0, nk, inj.every))
     if int(det.sum()) != want or int(unc.sum()) != (
-            want if kind == "global" else 0):
+            want if kind in DETECT_ONLY else 0):
         raise AssertionError(
             f"{what} every {inj.every}, check every {ce}: detected"
             f" {int(det.sum())} of {want}, {int(unc.sum())} uncorrectable")
@@ -1235,8 +1258,9 @@ def phase_variant(kern: Kernels, so):
 def phase_adaptive_kernels(kern: Kernels, lowp=False):
     """The adaptive builds against their plain versions at every tile of the
     port's table: those of B3-B8 in f32, or (``lowp``) the adaptive bf16
-    builds of B5, B3 and B4 in bf16 and in fp8 (the wrappers widen the e4m3
-    operands to bf16). The data: the program's at ADAPTIVE_SIZES, clean,
+    builds of B3-B8 in bf16 (BF16_ADAPTIVE_KINDS) and of B5, B3 and B4 in
+    fp8 (the wrappers widen the e4m3 operands to bf16; fp8 carries no
+    moment rows). The data: the program's at ADAPTIVE_SIZES, clean,
     with reference-like faults of magnitude TINY_MAGNITUDE, and (f32) the
     same with col_stride=0 or (bf16) TINY_MAGNITUDE faults every 1, 3 and
     ODD_EVERY bk steps (INT8_EVERY); in fp8 also data spread over ±FP8_WIDE
@@ -1261,7 +1285,6 @@ def phase_adaptive_kernels(kern: Kernels, lowp=False):
 
     ft = kern.ft
     gen = np.random.default_rng(29 if lowp else 13)
-    kinds = LOWP_ADAPTIVE_KINDS if lowp else ADAPTIVE_KINDS
     before = dict(kern.checked)
     counted = 0
     t0 = time.perf_counter()
@@ -1287,6 +1310,8 @@ def phase_adaptive_kernels(kern: Kernels, lowp=False):
                             for e in INT8_EVERY] if lowp else
                            [(InjectionSpec(True, ref.every, TINY_MAGNITUDE,
                                            0), False)])
+            kinds = (ADAPTIVE_KINDS if not lowp else LOWP_ADAPTIVE_KINDS
+                     if wide else BF16_ADAPTIVE_KINDS)
             for inj, dense in scheds:
                 sc = _adaptive_scalars(inj)
                 for kind in kinds:
@@ -1462,8 +1487,10 @@ def _exact_bracket_operands(signs, shape):
 
 
 def phase_lowp_bracket(kern: Kernels, in_dtype: str):
-    """The adaptive bf16 builds of B5, B3 and B4 in ``in_dtype`` (bf16, or
-    fp8 widened by the wrappers) at every tile, M = N = VERIFY_SIZE and K =
+    """The adaptive bf16 builds in ``in_dtype``: of B3-B8 in bf16
+    (BF16_ADAPTIVE_KINDS; B6-B8 on the wrapper's moment rows of the same
+    exact operands), of B5, B3 and B4 in fp8 (widened by the wrappers), at
+    every tile, M = N = VERIFY_SIZE and K =
     LOWP_BRACKET_DEPTH, against the host twin's thresholds to about 10 %.
     On ``_exact_bracket_operands`` the product is zero, every checksum
     cancels to zero and every moment sum is exact in f32, so that a tile's
@@ -1474,19 +1501,19 @@ def phase_lowp_bracket(kern: Kernels, in_dtype: str):
     T; faults of LOWP_BRACKET_FAULT times T, 0.9 T and 1.1 T, must be
     missed and caught in the 0.5 class, caught in the 0.125 class and
     missed in the 2 class. Each kernel runs at the cadence the program
-    gives it at this depth (B3 with multifault off and on) and, at the
-    tiles whose bk is 8, every MID_STAGE_EVERY bk steps: a check between
+    gives it at this depth (B3 and B7 with multifault off and on) and, at
+    the tiles whose bk is 8, every MID_STAGE_EVERY bk steps: a check between
     the halves of a 16-deep k step, whose sums must end at its own 8
     columns. The columns' scales (LOWP_BRACKET_K) put 4 of the 7 parts of
     the step's sum of squares in its last 4 columns: a kernel that counts
     the whole step at such a check, reads the first 4 columns of B's half
     step for the last, or drops one of A's two fragment registers moves its
     thresholds by a fifth or more. Kernel and plain version each: the tiles that detect are
-    the twin's; the detected tiles are corrected, none uncorrectable (B4:
-    each an event, uncorrectable); B3 with multifault off flags no tile
-    uncorrectable (the re-checks of B5 and of B3 with multifault on may
-    flag a missed fault by its row weight); C equal to the plain
-    version's to 2 % of the fault."""
+    the twin's; the detected tiles are corrected, none uncorrectable (B4,
+    B8: each an event, uncorrectable); B3 and B7 with multifault off flag
+    no tile uncorrectable (the re-checks of B5, B6 and of B3, B7 with
+    multifault on may flag a missed fault by its row weight); C equal to
+    the plain version's to 2 % of the fault."""
     from ft_sgemm_tpu_torch import analysis
     from ft_sgemm_tpu_torch.configs import SHAPES, canonical_in_dtype
     from ft_sgemm_tpu_torch.injection import InjectionSpec
@@ -1505,11 +1532,14 @@ def phase_lowp_bracket(kern: Kernels, in_dtype: str):
         nk = k // shape.bk
         a, b = _exact_bracket_operands(signs, shape)
         ops = _padded((a, b, zero), shape, dtype)
-        for kind in LOWP_ADAPTIVE_KINDS:
+        for kind in (BF16_ADAPTIVE_KINDS if dtype == torch.bfloat16
+                     else LOWP_ADAPTIVE_KINDS):
             glob = kind in DETECT_ONLY
-            _, ce, mf = ft._plan(KIND_PAIR[kind][0], None, None,
+            rowcol = kind in ("rowcol", "rowcol_mxu")
+            strategy, encode = KIND_PAIR[kind]
+            _, ce, mf = ft._plan(strategy, None, None,
                                  InjectionSpec.reference_like(k, shape.bk),
-                                 nk, shape.bn, adaptive=True)
+                                 nk, shape.bn, encode, adaptive=True)
             cadences = {ce, MID_STAGE_EVERY} if shape.bk == 8 else {ce}
             for every in sorted(cadences):
                 thr = analysis.adaptive_threshold_grid(
@@ -1524,8 +1554,7 @@ def phase_lowp_bracket(kern: Kernels, in_dtype: str):
                             f" {thr.min()}..{thr.max()}, fault {mag}")
                     want = torch.from_numpy(thr < mag).cuda()
                     sc = _adaptive_scalars(InjectionSpec(True, nk, mag))
-                    for multi in ((False, True) if kind == "rowcol"
-                                  else (mf,)):
+                    for multi in (False, True) if rowcol else (mf,):
                         name = kernel_name(kind, ops[0], True)
                         what = (f"{name} {tile} (check every {every},"
                                 f" multifault {multi}, fault {ratio} T)")
@@ -1539,7 +1568,7 @@ def phase_lowp_bracket(kern: Kernels, in_dtype: str):
                             ok = torch.equal(det, want) and (
                                 torch.equal(unc, det) if glob
                                 else not (unc & det).any())
-                            if kind == "rowcol" and not multi:
+                            if rowcol and not multi:
                                 ok = ok and not unc.any()
                             if not ok:
                                 raise AssertionError(
@@ -1744,9 +1773,9 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
     """The program at VERIFY_SIZE under ``--threshold=auto`` and
     ``--threshold=adaptive`` in f32 (every (strategy, encode) pair of
     ALL_PAIRS), or under ``--threshold=adaptive`` with ``--dtype=bfloat16``
-    or ``--dtype=fp8`` (``in_dtype``; the pairs of LOWP_PAIRS, the adaptive
-    bf16 builds of B5, B3 and B4), with the launch counters set to 0 just
-    before and read just after:
+    (the pairs of BF16_PAIRS, the adaptive bf16 builds of B3-B8) or
+    ``--dtype=fp8`` (LOWP_PAIRS, those of B5, B3 and B4; ``in_dtype``), with
+    the launch counters set to 0 just before and read just after:
 
     (b) the verification of ids 11-16 (``cli.run_verification``, its
     reference-like faults of magnitude 1e4). Under auto every row passes
@@ -1754,9 +1783,10 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
     uncorrectable. Under adaptive every row must give the verdict that the
     kernels' plain versions give the same launch on the card, and, where
     that passes, every fault detected and the plain versions' detected and
-    uncorrectable counts exactly. Where it fails (rowcol, and weighted and
-    fused at id 11), the counts are printed beside the plain versions' and
-    not compared: the reference's adaptive thresholds sit near the rounding
+    uncorrectable counts exactly. Where it fails (rowcol under either
+    encode, and weighted, fused and weighted/mxu at id 11), the counts are
+    printed beside the plain versions' and not compared: the reference's
+    adaptive thresholds sit near the rounding
     of a corrected 1e4 fault at later checks, which flags the residue as a
     new fault and cascades; any two summation orders cascade differently
     (ROADMAP, Queue C).
@@ -1781,7 +1811,8 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
 
     f32 = in_dtype == "float32"
     label = "" if f32 else ("fp8 " if in_dtype == "fp8" else "bf16 ")
-    pairs = ALL_PAIRS if f32 else LOWP_PAIRS
+    pairs = (ALL_PAIRS if f32 else LOWP_PAIRS if in_dtype == "fp8"
+             else BF16_PAIRS)
     modes = ("auto", "adaptive") if f32 else ("adaptive",)
     n = VERIFY_SIZE
     a, b = runtime.generate_reference_driver_inputs(n)
@@ -1880,7 +1911,7 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
             strategy=strategy, encode=encode, threshold="adaptive",
             in_dtype=in_dtype)
         for name, cells in table.items():
-            rows[f"{strategy} {name}"] = (
+            rows[f"{strategy}/{encode} {name}"] = (
                 round(static_tables[strategy, encode][name][TIMING_SIZE]),
                 round(cells[TIMING_SIZE]))
     counts = kern.counts()
@@ -1901,7 +1932,8 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
                              f" {label}threshold path: {missing}")
     if not f32:
         wrappers = {kern.table[KIND_NAMES[k]]["wrapper"]
-                    for k in LOWP_ADAPTIVE_KINDS}
+                    for k in (LOWP_ADAPTIVE_KINDS if in_dtype == "fp8"
+                              else BF16_ADAPTIVE_KINDS)}
         counter = f"{label.strip()}_launches"
         for k in kern.table.values():
             w = k["wrapper"]
@@ -1914,6 +1946,135 @@ def phase_threshold_path(kern: Kernels, in_dtype="float32",
                 raise AssertionError(f"{label}adaptive path: {w.__name__}"
                                      f" counted {seen}")
     return counts
+
+
+def phase_roc(kern: Kernels):
+    """The threshold-calibration path on the card.
+
+    (a) ``ft_sgemm roc`` (``cli.main``, the whole grid: every legal (dtype,
+    strategy, encode), 17 combos, 128 x 128 x 256 at input scales 0.1, 1
+    and 16) exits 0: adaptive Pareto-dominates the calibrated static
+    threshold in every combo with no adaptive false positive, and detects
+    every fault in each. (b) Its bf16 points (the adaptive bf16 builds of
+    B3-B8 among them) against the same sweep with ``device="cpu"`` (the
+    plain versions on the host): every adaptive point equal field by
+    field; the static points' thresholds, magnitudes, checks and expected
+    faults equal, their clean and injected detections printed side by side
+    (at scale 16 the calibrated threshold lies inside the clean noise,
+    where the count depends on the order of the sums). (c)
+    ``calibrate_threshold`` on the program's VERIFY_SIZE inputs (the
+    two-pass baseline's clean residuals on the card), then
+    ``detection_rate_sweep`` at DETECTION_FACTORS times that threshold
+    (DETECTION_FAULTS faults a tile) at id 16's tile: f32 rowcol under the
+    calibrated threshold and bf16 fused under "adaptive", each also with
+    the plain versions on the card (``run_kernel(plain=True)``). Below the
+    threshold (the adaptive one: the host twin's) nothing is detected, the
+    designed miss; f32 rowcol catches and corrects every fault above it;
+    at 64 times every fault is caught with C correct in both; the kernels'
+    points are the plain versions' (detections within 1 % of the faults:
+    the weighted ratio of a fault near the w-moment's noise localizes it
+    or not by the order of the sums)."""
+    import contextlib
+    import functools
+    import io
+    import json as _json
+
+    from ft_sgemm_tpu_torch import analysis, cli, runtime
+    from ft_sgemm_tpu_torch.configs import SHAPES
+    from ft_sgemm_tpu_torch.injection import roc_sweep
+
+    t0 = time.perf_counter()
+    path = VARIANT_DIR.parent / "roc.json"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["ft_sgemm", "roc", f"--out={path}"])
+    text = printed.getvalue()
+    log("phase roc, ft_sgemm roc's summary:\n"
+        + text[text.index("ROC summary"):].rstrip())
+    art = _json.loads(path.read_text())
+    s = art["summary"]
+    combos = s["combos"]
+    weak = {k: v["adaptive"] for k, v in combos.items()
+            if v["adaptive"]["detection_rate"] != 1.0}
+    if rc or len(combos) != 17 or not s["all_dominate"] or weak or s[
+            "adaptive_false_positives"]:
+        raise AssertionError(f"roc: exit {rc}, {len(combos)} combos, all"
+                             f" dominate {s['all_dominate']}, adaptive false"
+                             f" positives {s['adaptive_false_positives']},"
+                             f" adaptive detection under 1: {weak}")
+    log(f"phase roc: ft_sgemm roc exits 0 on {len(combos)} combos, adaptive"
+        f" false positives 0, adaptive detection 1.0 in each; static (fp"
+        f" rate, detection rate): "
+        + ", ".join(f"{k} ({v['static']['fp_rate']:.3f},"
+                    f" {v['static']['detection_rate']:.3f})"
+                    for k, v in combos.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    card = [p for p in art["points"] if p["dtype"] == "bfloat16"]
+    host = roc_sweep(dtypes=("bfloat16",), device="cpu")["points"]
+    if len(card) != len(host) or len(card) != 36:
+        raise AssertionError(f"roc bf16: {len(card)} points on the card,"
+                             f" {len(host)} on the host")
+    same = ("threshold", "magnitude", "checks", "expected_faults")
+    sides = {}
+    for pc, ph in zip(card, host):
+        key = (pc["strategy"], pc["encode"], pc["scale"])
+        if pc["mode"] == "adaptive" and pc != ph or any(
+                pc[f] != ph[f] for f in same):
+            raise AssertionError(f"roc bf16 {key} {pc['mode']}: card {pc},"
+                                 f" host {ph}")
+        if pc["mode"] == "static":
+            sides[key] = ((pc["clean_detections"], ph["clean_detections"]),
+                          (pc["detected"], ph["detected"]))
+    log(f"phase roc bf16: the card's 36 points equal the plain versions' on"
+        f" the host (adaptive field by field); static (clean, injected)"
+        f" detections (card, host): {sides}")
+    n = VERIFY_SIZE
+    a, b = runtime.generate_reference_driver_inputs(n)
+    c = np.zeros_like(a)
+    shape = SHAPES["huge"]
+    ft_mod = kern.ft
+    run_kernel = ft_mod.run_kernel
+    report = {}
+    for in_dtype, strategy, mode in (("float32", "rowcol", None),
+                                     ("bfloat16", "fused", "adaptive")):
+        cal = analysis.calibrate_threshold(a, b, c, alpha=kern.alpha,
+                                           beta=kern.beta, in_dtype=in_dtype,
+                                           device="cuda")
+        mags = [f * cal.threshold for f in DETECTION_FACTORS]
+        kw = dict(strategy=strategy, threshold=mode or cal.threshold,
+                  alpha=kern.alpha, beta=kern.beta,
+                  num_faults=DETECTION_FAULTS, in_dtype=in_dtype,
+                  device="cuda")
+        got = analysis.detection_rate_sweep(a, b, c, mags, shape, **kw)
+        try:
+            ft_mod.run_kernel = functools.partial(run_kernel, plain=True)
+            want = analysis.detection_rate_sweep(a, b, c, mags, shape, **kw)
+        finally:
+            ft_mod.run_kernel = run_kernel
+        thr = (analysis.adaptive_threshold_grid(
+            a, b, bm=shape.bm, bn=shape.bn, in_dtype=in_dtype)
+            if mode else np.float64([cal.threshold]))
+        what = f"detection sweep {in_dtype} {strategy} {mode or 'static'}"
+        for f, pk, pp in zip(DETECTION_FACTORS, got, want):
+            below, above = pk.magnitude < thr.min(), pk.magnitude > thr.max()
+            ok = (abs(pk.detected - pp.detected) <= 0.01 * pk.expected_faults
+                  and pk.output_correct == pp.output_correct
+                  and (below or above)
+                  and (not below or pk.detected == 0)
+                  and (not above or f < 64 and mode
+                       or pk.detected == pk.expected_faults
+                       and pk.output_correct))
+            if not ok:
+                raise AssertionError(
+                    f"{what} at {f} x {cal.threshold}: kernels {pk}, plain"
+                    f" versions {pp}; threshold {thr.min()}..{thr.max()}")
+        report[what] = (cal.noise_floor, cal.threshold,
+                        [(f, p.detected, p.expected_faults, p.output_correct,
+                          q.detected, q.output_correct)
+                         for f, p, q in zip(DETECTION_FACTORS, got, want)])
+    log(f"phase roc detection (noise floor, calibrated threshold, [(factor,"
+        f" detected, expected, C correct; plain: detected, C correct)]):"
+        f" {report} ({time.perf_counter() - t0:.1f} s)")
 
 
 # An mxu kernel computes its vpu kernel's function: the same bound.
@@ -2051,7 +2212,7 @@ def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
     """``-Xptxas -v``'s line (registers, spills) for the kernel that ``kind``
     launches on ``shape`` in ``in_dtype`` ("bfloat16" or "fp8"; B2-B5 in fp8
     run the bf16 kernels; each from the library ``ft.kernel_entry`` names;
-    ``adaptive``: B3-B5's adaptive bf16 builds): B1 and B2 on the tile's
+    ``adaptive``: B3-B8's adaptive bf16 builds): B1 and B2 on the tile's
     own CTA at the 64-row tiles, else the 128 x 128 CTA (B1: the ragged
     one; B2-B8 over the tile as sub-tiles; B3 and B7 with one moment row,
     two with multifault)."""
@@ -2156,7 +2317,8 @@ def phase_float_timing(kern: Kernels, counts, in_dtype: str):
 def phase_lowp_adaptive_timing(kern: Kernels, counts, in_dtype: str):
     """Each adaptive bf16 build at 4096 on every tile, at the cadence and
     multifault setting the program gives it under threshold="adaptive", in
-    ``in_dtype`` (bf16, or fp8 on the operands its wrapper widens), on the
+    ``in_dtype`` (bf16: B3-B8; or fp8, B3-B5, on the operands the wrapper
+    widens), on the
     program's table inputs: the kernel beside its static bf16 build on the
     same launch (``static_ms``) and the library's GEMM (bf16:
     ``torch.matmul``; fp8: ``torch._scaled_mm``), its plain version at its
@@ -2179,13 +2341,14 @@ def phase_lowp_adaptive_timing(kern: Kernels, counts, in_dtype: str):
     host = cli._host_inputs(n, name_dtype)
     one = torch.ones((), device="cuda")
     rows = {}
-    for kind in LOWP_ADAPTIVE_KINDS:
+    for kind in LOWP_ADAPTIVE_KINDS if fp8 else BF16_ADAPTIVE_KINDS:
         for tile in PROGRAM_TILES:
             shape = SHAPES[tile]
             a, b, c = _padded(host, shape, getattr(torch, name_dtype))
             inj = InjectionSpec.reference_like(n, shape.bk)
-            plan, ce, mf = ft._plan(KIND_PAIR[kind][0], None, None, inj,
-                                    n // shape.bk, shape.bn, adaptive=True)
+            strategy, encode = KIND_PAIR[kind]
+            plan, ce, mf = ft._plan(strategy, None, None, inj, n // shape.bk,
+                                    shape.bn, encode, adaptive=True)
             if plan != kind:
                 raise AssertionError(f"the {label} adaptive program runs"
                                      f" {plan} at {tile}, not {kind}")
@@ -2534,6 +2697,7 @@ def main() -> int:
         in_dtype: phase_threshold_path(kern, in_dtype, tables)
         for in_dtype, tables in zip(LOWP_DTYPES, (bf16_tables, fp8_tables))}
     phase_fp8_residual(kern)
+    phase_roc(kern)
     rows = phase_timing(kern, counts, threshold_counts)
     rows += phase_float_timing(kern, bf16_counts, "bfloat16")
     rows += phase_int8_timing(kern, int8_counts)

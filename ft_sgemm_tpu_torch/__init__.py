@@ -4,11 +4,13 @@ Hopper (sm_90a).
 Fault-tolerant SGEMM with fused online ABFT (arXiv:2305.01024): the plain
 SGEMM family and the weighted, rowcol, global and fused checksum kernels
 (each strategy with its in-kernel and its moment-row encode, under the
-static, auto and adaptive thresholds; bf16 and fp8-e4m3 inputs on the
-in-kernel encodes of weighted, rowcol and global, and the exact int8 mode
-on rowcol and global), each a CUDA C++ kernel written by
-hand for Hopper and built at first use
-(``ops/_build.py``), with a plain PyTorch version beside it. Entry points
+static, auto and adaptive thresholds, in f32 and bf16; fp8-e4m3 inputs on
+the in-kernel encodes of weighted, rowcol and global, and the exact int8
+mode on rowcol and global), each a CUDA C++ kernel written by hand for
+Hopper and built at first use (``ops/_build.py``), with a plain PyTorch
+version beside it, and the threshold tooling around them (``analysis``:
+noise floors, calibration, detection sweeps; ``injection.roc_sweep``, the
+``ft_sgemm roc`` subcommand). Entry points
 run on the GPU unless given ``device="cpu"``. The JAX package
 ``ft_sgemm_tpu`` is the reference this port is held against; this package
 imports nothing from it.

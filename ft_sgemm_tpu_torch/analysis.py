@@ -1,28 +1,46 @@
-"""Host-side threshold estimates (the port's copy of the two numpy twins in
-``ft_sgemm_tpu/analysis.py``): the closed-form noise floor behind
-``threshold="auto"`` and the per-tile variance bound behind
-``threshold="adaptive"``, evaluated on numpy arrays with no GEMM run and
-no device. The tests hold the kernels' per-tile thresholds against them.
-The adaptive twins take ``in_dtype``: bf16 and fp8 operands count as their
-rounded values, as the kernels sum them.
+"""Detection-rate and threshold-calibration analysis (the port's copy of
+``ft_sgemm_tpu/analysis.py``).
+
+Host-side estimates, on numpy arrays with no GEMM run and no device: the
+closed-form noise floor behind ``threshold="auto"``
+(:func:`estimate_noise_floor`) and the per-tile variance bound behind
+``threshold="adaptive"`` (:func:`adaptive_threshold_estimate`,
+:func:`adaptive_threshold_grid`); the tests hold the kernels' per-tile
+thresholds against them. The adaptive twins take ``in_dtype``: bf16 and
+fp8 operands count as their rounded values, as the kernels sum them.
+
+Measurements that run the port (on the card by default, ``device="cpu"``
+for the plain versions): :func:`measure_noise_floor`, the largest clean
+checksum residual of the two-pass baseline (id 10);
+:func:`calibrate_threshold`, that floor times a margin; and
+:func:`detection_rate_sweep`, the FT kernels' detections and the output's
+correctness as the fault magnitude sweeps across a threshold.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ft_sgemm_tpu_torch.configs import KernelShape
+from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
+from ft_sgemm_tpu_torch.ops.abft_baseline import abft_baseline_sgemm
 from ft_sgemm_tpu_torch.ops.common import (
     F32_EPS,
     NOISE_C_BIAS,
     NOISE_C_RAND,
     THRESHOLD_CAP,
     as_operand,
+    check_precision,
     resolve_in_dtype,
     variance_bound_threshold,
 )
+from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
+from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
+from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 
 
 def _rounded(x, in_dtype) -> np.ndarray:
@@ -134,3 +152,110 @@ def adaptive_threshold_grid(a, b, *, bm: int, bn: int,
         n_a=float(tk * bm), n_b=float(tk * bn), t_ab=float(tk) * tmax,
         log2_t=float(np.log2(max(float(k) * tmax, 2.0))), margin=margin)
     return thr * np.sqrt(float(bn)) if global_tile else thr
+
+
+def measure_noise_floor(a, b, c, *, alpha: float = 1.0, beta: float = -1.5,
+                        panel_k: int = 256, precision: str = "highest",
+                        in_dtype="float32", device=None) -> float:
+    """Max |checksum residual| of a clean run on the given inputs
+    (``ft_sgemm_tpu/analysis.py:41``), from the two-pass baseline (id 10),
+    whose residuals are outputs: full-matrix row and column sums in f32,
+    the worst case of the fused kernels' per-tile residuals. ``precision``
+    as :func:`ops.common.check_precision`."""
+    check_precision(precision, resolve_in_dtype(in_dtype))
+    res = abft_baseline_sgemm(a, b, c, alpha, beta, panel_k=panel_k,
+                              in_dtype=in_dtype, threshold=float("inf"),
+                              device=device)
+    return float(max(res.max_row_residual, res.max_col_residual))
+
+
+@dataclasses.dataclass(frozen=True)
+class ThresholdCalibration:
+    noise_floor: float        # max clean residual observed
+    threshold: float          # noise_floor * margin
+    min_detectable: float     # smallest reliably detectable |fault|:
+                              # |fault| - noise > threshold => 2x threshold
+    margin: float
+
+    def spec_like(self, K: int, bk: int, magnitude: Optional[float] = None,
+                  **kw) -> InjectionSpec:
+        """The reference-like schedule at (by default) the minimum
+        detectable magnitude: the hardest faults this calibration still
+        catches."""
+        return InjectionSpec.reference_like(
+            K, bk, magnitude=self.min_detectable if magnitude is None
+            else magnitude, **kw)
+
+
+def calibrate_threshold(a, b, c, *, alpha: float = 1.0, beta: float = -1.5,
+                        margin: float = 8.0, precision: str = "highest",
+                        in_dtype="float32", device=None
+                        ) -> ThresholdCalibration:
+    """The smallest safe threshold for the given inputs
+    (``ft_sgemm_tpu/analysis.py:219``): ``margin`` times the measured
+    noise floor (:func:`measure_noise_floor`); a fault is reliably
+    detectable at twice that."""
+    floor = measure_noise_floor(a, b, c, alpha=alpha, beta=beta,
+                                precision=precision, in_dtype=in_dtype,
+                                device=device)
+    thr = float(max(floor, np.finfo(np.float32).tiny) * margin)
+    return ThresholdCalibration(noise_floor=floor, threshold=thr,
+                                min_detectable=2.0 * thr, margin=margin)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionPoint:
+    magnitude: float
+    expected_faults: int      # faults injected over the whole run
+    detected: int             # faults the kernel reported
+    detection_rate: float     # detected / expected
+    output_correct: bool      # the corrected C passes verify_matrix
+                              # (global: C keeps the faults, so False once
+                              # the magnitude breaks the tolerance)
+
+
+def detection_rate_sweep(
+    a, b, c,
+    magnitudes: Sequence[float],
+    shape: KernelShape | str = "huge",
+    *,
+    strategy: str = "rowcol",
+    threshold: float | str = REFERENCE_THRESHOLD,
+    alpha: float = 1.0,
+    beta: float = -1.5,
+    num_faults: int = 4,
+    precision: str = "highest",
+    in_dtype="float32",
+    device=None,
+) -> list:
+    """Detections and output correctness as the fault magnitude sweeps the
+    threshold (``ft_sgemm_tpu/analysis.py:253``). Per magnitude: a
+    reference-like schedule of ``num_faults`` faults per C tile, the
+    kernels' detections, and C against the oracle of the same input mode
+    (``verify_matrix``). Magnitudes below the threshold are designed
+    misses; above it every fault must be caught. A named shape is the
+    port's tile (the JAX package's bf16 tile overrides are TPU tuning)."""
+    check_precision(precision, resolve_in_dtype(in_dtype,
+                                                allow_low_precision=True))
+    a, b, c = (np.asarray(x, np.float32) for x in (a, b, c))
+    k = a.shape[1]
+    want = sgemm_reference(a, b, c, alpha, beta, in_dtype=in_dtype,
+                           device=device).cpu().numpy()
+    ft = make_ft_sgemm(shape, alpha=alpha, beta=beta, strategy=strategy,
+                       threshold=threshold, in_dtype=in_dtype, device=device)
+    tile = ft.shape_config
+    tiles = -(-a.shape[0] // tile.bm) * -(-b.shape[0] // tile.bn)
+    points = []
+    for mag in magnitudes:
+        inj = InjectionSpec.reference_like(k, tile.bk, num_faults=num_faults,
+                                           magnitude=float(mag))
+        expected = inj.expected_faults(k, tile.bk) * tiles
+        res = ft(a, b, c, inj)
+        detected = int(res.num_detected)
+        ok, _, _ = verify_matrix(want, res.c.cpu().numpy(), verbose=False)
+        points.append(DetectionPoint(
+            magnitude=float(mag), expected_faults=expected,
+            detected=detected,
+            detection_rate=detected / expected if expected else 0.0,
+            output_correct=bool(ok)))
+    return points

@@ -23,6 +23,8 @@ Usage:
         [--threshold=static|auto|adaptive|FLOAT] \
         [--dtype=float32|bfloat16|float8_e4m3|int8] \
         [--mintime=SECONDS] [--no-verify] [--no-perf] [--device=cuda|cpu]
+    python -m ft_sgemm_tpu_torch.cli roc [--smoke] [--out=ROC.json] \
+        [--margin=M] [--device=cuda|cpu]
 
 ``--strategy`` picks the checksum design of the FT rows (ids 11-16) and
 ``--encode`` how their expected checksums are formed: ``vpu`` sums the
@@ -43,8 +45,8 @@ global with ``--encode=vpu`` under every threshold mode (``adaptive`` on
 the adaptive bf16 builds of B5, B3 and B4, from the rounded operands'
 moments; the verification header then names the mode), and fused,
 weighted, rowcol and global with ``--encode=mxu`` (the bf16 builds of
-B6-B8, on the wrapper's hi / lo / lo2 moment rows) under the static and
-auto thresholds. ``float8_e4m3``
+B6-B8, on the wrapper's hi / lo / lo2 moment rows) under every threshold
+mode (``adaptive`` on their adaptive bf16 builds). ``float8_e4m3``
 (aliases ``fp8``, ``fp8_e4m3``, ``float8_e4m3fn``) runs the fp8 serving
 mode (``ft_sgemm_tpu/cli.py:167-169``) the same way: A and B rounded to
 e4m3 as the JAX package rounds them (NaN past 464), the whole table on the
@@ -63,6 +65,16 @@ skip line. The other dtypes and combinations raise
 (``configs.DEFAULT_STRATEGY``). ``--device=cpu`` runs the kernels' plain
 PyTorch versions (for tests); the default is the GPU, and the program
 raises when there is none.
+
+``roc`` (``ft_sgemm_tpu/cli.py:1328-1389``) runs the static-vs-adaptive
+threshold sweep (``injection.roc_sweep``) over every legal (dtype,
+strategy, encode) combo: clean false positives and detections of a fault
+at every K step at input scales 0.1, 1 and 16, under a threshold
+calibrated at scale 1 and under ``threshold="adaptive"``; it prints a
+progress line per point and a verdict per combo, ``--out`` writes the JSON
+artifact, ``--smoke`` cuts the grid to bf16 and int8 under rowcol and
+global, and the exit code is 0 if and only if adaptive Pareto-dominates
+static in every combo with no adaptive false positive.
 """
 
 from __future__ import annotations
@@ -379,10 +391,71 @@ def run_perf_table(start_size: int, end_size: int, gap_size: int,
     return results
 
 
+def run_roc(flags, out=None) -> int:
+    """The ``roc`` subcommand (``ft_sgemm_tpu/cli.py:1328``): the ROC sweep
+    with a progress line per point, the verdict table and, with
+    ``--out=PATH``, the JSON artifact. Exit 0 if and only if adaptive
+    Pareto-dominates static in every combo and made no false positive; 2
+    for an unknown flag."""
+    import json
+
+    from ft_sgemm_tpu_torch.injection import roc_sweep
+
+    out = sys.stdout if out is None else out
+    kwargs = {}
+    out_path = None
+    device = None
+    for f in flags:
+        if f.startswith("--out="):
+            out_path = f.split("=", 1)[1]
+        elif f.startswith("--margin="):
+            kwargs["margin"] = float(f.split("=", 1)[1])
+        elif f.startswith("--device="):
+            device = f.split("=", 1)[1]
+        elif f == "--smoke":
+            kwargs.update(dtypes=("bfloat16", "int8"),
+                          strategies=("rowcol", "global"))
+        else:
+            print(f"ft_sgemm roc: unknown flag {f}", file=sys.stderr)
+            return 2
+    dev = resolve_device(device)
+    print_device_info(dev, out)
+
+    def progress(p):
+        print(f"  {p.dtype:>14s}/{p.strategy}/{p.encode} {p.mode:>8s} "
+              f"scale={p.scale:<6g} clean_det={p.clean_detections:<4d} "
+              f"det={p.detected}/{p.expected_faults}", file=out, flush=True)
+
+    artifact = roc_sweep(progress=progress, device=dev, **kwargs)
+    s = artifact["summary"]
+    print("\nROC summary (aggregate over scales "
+          f"{artifact['config']['scales']}):", file=out)
+    for key, v in s["combos"].items():
+        a, st = v["adaptive"], v["static"]
+        verdict = ("STRICT" if v["strict"]
+                   else "dominates" if v["dominates"] else "DOMINATED")
+        print(f"  {key:<34s} static fp={st['fp_rate']:.3f}"
+              f" det={st['detection_rate']:.3f} | adaptive"
+              f" fp={a['fp_rate']:.3f} det={a['detection_rate']:.3f}"
+              f"  [{verdict}]", file=out)
+    print(f"adaptive false positives: {s['adaptive_false_positives']}",
+          file=out)
+    print(f"all combos dominated by adaptive: {s['all_dominate']}", file=out)
+    if out_path:
+        with open(out_path, "w", encoding="utf-8") as fh:
+            json.dump(artifact, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"roc artifact written to {out_path}", file=out)
+    ok = s["all_dominate"] and s["adaptive_false_positives"] == 0
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv if argv is None else argv)
     args = [a for a in argv[1:] if not a.startswith("--")]
     flags = [a for a in argv[1:] if a.startswith("--")]
+    if args and args[0] == "roc":
+        return run_roc(flags)
     if len(args) < 5:
         print(__doc__)
         return 2

@@ -86,13 +86,12 @@ THRESHOLD_MODES = ("static", "auto", "adaptive")
 IN_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "int8")
 # What the legality tables below allow and the port does not run yet, by
 # dtype and encode ("mxu" also for the fused strategy): the threshold modes
-# still to port. bf16's mxu kernels (B6-B8) run under static, auto and a
-# float threshold; under "adaptive" they need adaptive bf16 builds
-# (ROADMAP Queue B). Everything else runs: every strategy and encode in
-# f32, the vpu encodes of bf16 and fp8 on B1-B5 under every mode (adaptive
-# on the adaptive bf16 builds of B3-B5), int8's exact mode on B3 and B4
-# (adaptive: the constant half-ulp).
-NOT_PORTED = {("bfloat16", "mxu"): ("adaptive",)}
+# still to port. Empty: every strategy and encode runs in f32 and bf16
+# under every mode (adaptive on the adaptive builds of B3-B8, in bf16 on
+# their adaptive bf16 builds), the vpu encodes of fp8 on B1-B5 under every
+# mode, and int8's exact mode on B3 and B4 (adaptive: the constant
+# half-ulp).
+NOT_PORTED: dict = {}
 
 # Accepted spellings of the fp8 dtype (ft_sgemm_tpu/configs.py:431).
 _IN_DTYPE_ALIASES = {
@@ -157,12 +156,9 @@ def check_kernel_legality(*, strategy: str, encode: str,
     (ft_sgemm_tpu/configs.py:497-547): checksum rows in a 1-byte dtype
     (``encode="mxu"`` or ``strategy="fused"`` with fp8 or int8), and the
     weighted-ratio localization (``weighted``, ``fused``, multifault) on
-    int8's wrapping checksums. What is legal but not ported yet raises
-    ``NotImplementedError`` (:data:`NOT_PORTED`):
-    bf16 with the mxu encodes (B6-B8) under ``threshold="adaptive"``. bf16
-    runs every strategy and encode under static, auto and a float
-    threshold, and its vpu encodes under every mode; every threshold mode
-    runs in every dtype's vpu encodes."""
+    int8's wrapping checksums. What is legal but not ported yet would raise
+    ``NotImplementedError`` (:data:`NOT_PORTED`, empty now): every legal
+    combination runs, under every threshold mode."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; pick from {STRATEGIES}")
     if encode not in ENCODE_MODES:
@@ -191,11 +187,8 @@ def check_kernel_legality(*, strategy: str, encode: str,
     kind = "mxu" if strategy == "fused" else encode
     if threshold_mode in NOT_PORTED.get((dtype, kind), ()):
         raise NotImplementedError(
-            f"{dtype} with strategy={strategy!r}, encode={encode!r} (kernels"
-            f" B6-B8) under threshold={threshold_mode!r} is not ported yet:"
-            f" their adaptive {dtype} builds are the next slice (ROADMAP"
-            " Queue B); pick encode='vpu', or threshold 'static', 'auto' or a"
-            " float")
+            f"{dtype} with strategy={strategy!r}, encode={encode!r} under"
+            f" threshold={threshold_mode!r} is not ported yet")
     return dtype
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

@@ -27,11 +27,11 @@
 #endif
 
 // FTSG_BF16=1 compiles a source's bf16 entry points alone: the static bf16
-// builds of B2-B8, or with FTSG_ADAPTIVE=1 the adaptive bf16 builds of B3,
-// B4 and B5 (threshold="adaptive" in bf16 and fp8), libraries of their own
-// (ops/_build.LIBRARIES) that build beside the others and leave every other
-// build as it was: without the macro a source compiles its f32 builds (and
-// the static ones B3's and B4's int8 builds).
+// builds of B2-B8, or with FTSG_ADAPTIVE=1 the adaptive bf16 builds of
+// B3-B8 (threshold="adaptive" in bf16, and in fp8 on B3-B5), libraries of
+// their own (ops/_build.LIBRARIES) that build beside the others and leave
+// every other build as it was: without the macro a source compiles its f32
+// builds (and the static ones B3's and B4's int8 builds).
 #ifndef FTSG_BF16
 #define FTSG_BF16 0
 #endif

@@ -57,8 +57,15 @@
 // the checks are B5's and B3's as they are. Nothing is left to split, so
 // the consumers wait for TMA's full barrier alone, and the CTA zeroes the
 // padding rows once before the ring starts. Bound: 2 M N K at 989 TFLOP/s
-// (0.139 ms at 4096) and the expected sums beside it. No adaptive bf16
-// build yet (ROADMAP Queue B).
+// (0.139 ms at 4096) and the expected sums beside it. Their adaptive bf16
+// builds (FTSG_ADAPTIVE with FTSG_BF16 and FTSG_KERNEL 6 and 7, a library
+// each) are the same kernels with SubTileThresholds<T, true, ..>: each
+// consumer thread sums the rounded A and B values of every 8-column half
+// step as it issues it (kstep_bf16: A's fragment registers and four bf16
+// of B's landed stage, the product rows only, never the term rows at
+// 128 + 8 t + j), and each check derives its sub-tiles' thresholds from
+// those sums (_accumulate_moments of a_blk[:bm] and the B block,
+// ops/ft_sgemm.py:711-712, 1130-1131).
 
 #include "ft_sgemm_running.cuh"
 
@@ -105,7 +112,7 @@ extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
 }
 #endif
 
-#if FTSG_BF16 && !FTSG_ADAPTIVE && FTSG_HAS(6)
+#if FTSG_BF16 && FTSG_HAS(6)
 // B6 with bf16 A and B: `MA` is the three bf16 terms of A's moment rows,
 // (M / bm, 9, K) (term t of moment v at row 3 t + v). Returns as B6.
 extern "C" int ftsg_ft_fused_bf16(const void* A, const void* B,
@@ -123,7 +130,7 @@ extern "C" int ftsg_ft_fused_bf16(const void* A, const void* B,
 }
 #endif
 
-#if FTSG_BF16 && !FTSG_ADAPTIVE && FTSG_HAS(7)
+#if FTSG_BF16 && FTSG_HAS(7)
 // B7 with bf16 A and B: `MA` (M / bm, 6, K) the three bf16 terms of A's
 // plain and w rows (term t of moment v at row 2 t + v), `MB` (N / bn, 3, K)
 // those of B's plain rows. Returns as B6.

@@ -48,7 +48,9 @@
 // as B's rows 128 + 8 t .., and its consumers wait for TMA alone. B4's
 // adaptive build (FTSG_ADAPTIVE with FTSG_BF16, a library of its own) sums
 // the rounded operands' moments per 8-column half step
-// (SubTileThresholds::kstep_bf16); B8 in bf16 has none yet.
+// (SubTileThresholds::kstep_bf16), and so does B8's, in the same library
+// (_accumulate_moments of a_blk[:bm] and the B block,
+// ops/ft_sgemm.py:801-802; the term rows are not summed).
 //
 // int8 (ftsg_ft_global_int8, B4 only, the exact mode: _ft_kernel_global with
 // exact=True, :842-907): A and B int8 on the s8 wgmma mainloop; B's band
@@ -128,7 +130,7 @@ extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
 }
 #endif
 
-#if FTSG_BF16 && !FTSG_ADAPTIVE
+#if FTSG_BF16
 // B8 with bf16 A and B: `MB` (N / bn, 3, K) is the three bf16 terms of B's
 // plain moment rows; `MA` (M / bm, 3, K), A's, is not read. Returns as B4.
 extern "C" int ftsg_ft_global_mxu_bf16(const void* A, const void* B,

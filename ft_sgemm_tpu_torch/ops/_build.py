@@ -13,9 +13,10 @@ points. Their bf16 builds are the same sources once more with
 libraries of their own, the static ``*_bf16`` (B2-B8, the heaviest, B2,
 B5, B6 and B7, one each by ``FTSG_KERNEL``; bf16 and fp8 on the vpu
 encodes, bf16 on the mxu encodes) and, with ``FTSG_ADAPTIVE=1`` too,
-the adaptive ``*_adaptive_bf16`` (B3-B5: ``threshold="adaptive"`` in bf16,
-and in fp8 on the widened operands), so that the builds run side by side,
-none of them the long pole of them all. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
+the adaptive ``*_adaptive_bf16`` (B3-B8: ``threshold="adaptive"`` in bf16,
+and B3-B5 in fp8 on the widened operands; B6 and B7 each alone, by
+``FTSG_KERNEL``), so that the builds run side by side, none of them the
+long pole of them all. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once more,
 with ``FTSG_FP8=1``, which compiles that entry point alone: a library of its
 own, so that it builds beside the others and leaves every other build as it
 was (B2-B5 in fp8 run their bf16 builds on the exactly widened operands).
@@ -49,7 +50,8 @@ BUILD_DIR = CSRC / "_build"
 # static bf16 ones B2-B8 in bf16 (B2, B5, B6 and B7 each alone:
 # FTSG_KERNEL, so that no library is the long pole of the parallel build),
 # the adaptive libraries B3-B8 in f32 (ft_sgemm_weighted.cu leaves B2 out),
-# and the adaptive bf16 ones B3-B5 in bf16.
+# and the adaptive bf16 ones B3-B8 in bf16 (B4 and B8 in one, B6 and B7 each
+# alone).
 BF16 = ("-DFTSG_BF16=1",)
 ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
 ADAPTIVE_BF16 = ADAPTIVE + BF16
@@ -73,6 +75,10 @@ LIBRARIES = {
     "ft_sgemm_weighted_adaptive_bf16": ("ft_sgemm_weighted", ADAPTIVE_BF16),
     "ft_sgemm_rowcol_adaptive_bf16": ("ft_sgemm_rowcol", ADAPTIVE_BF16),
     "ft_sgemm_global_adaptive_bf16": ("ft_sgemm_global", ADAPTIVE_BF16),
+    "ft_sgemm_fused_adaptive_bf16": ("ft_sgemm_aug",
+                                     ADAPTIVE_BF16 + ("-DFTSG_KERNEL=6",)),
+    "ft_sgemm_rowcol_mxu_adaptive_bf16": ("ft_sgemm_aug",
+                                          ADAPTIVE_BF16 + ("-DFTSG_KERNEL=7",)),
     "sgemm_fp8": ("sgemm", FP8),
 }
 KERNEL_LIBS = tuple(LIBRARIES)

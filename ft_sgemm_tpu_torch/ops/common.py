@@ -63,6 +63,21 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
 PRECISIONS = ("default", "high", "highest")
 
 
+def check_precision(precision: str, dtype: torch.dtype) -> None:
+    """Validate a ``precision`` (the JAX package's names, kept for parity):
+    an unknown name raises ``ValueError``; with float32 operands anything
+    but ``"highest"`` raises ``NotImplementedError`` (the f32 kernels run
+    3xTF32, FP32-accurate, only); a bf16 or fp8 product is one pass
+    whatever is asked."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got"
+                         f" {precision!r}")
+    if dtype == torch.float32 and precision != "highest":
+        raise NotImplementedError(
+            f"precision={precision!r} with float32: the port's f32 kernels"
+            " run 3xTF32, FP32-accurate ('highest') only")
+
+
 def resolve_in_dtype(in_dtype, *, allow_low_precision: bool = False):
     """Validate an input dtype (ft_sgemm_tpu/ops/common.py:196-219) and
     return its torch dtype.

@@ -7,9 +7,8 @@ stay per (bm, bn) tile, as the JAX grid is; padding stays at (bm, bn).
 
 Port of ``ft_sgemm_tpu/ops/ft_sgemm.py`` in f32, under the three threshold
 modes, in bf16 (``in_dtype="bfloat16"``) for every strategy and encode
-(B2-B8 on bf16 wgmma) under the static and auto thresholds and, for the
-vpu encodes, under "adaptive" (the adaptive bf16 builds of B3-B5; the mxu
-encodes under "adaptive" are not ported yet), in fp8
+(B2-B8 on bf16 wgmma) under the three threshold modes ("adaptive" on
+the adaptive bf16 builds of B3-B8), in fp8
 (``in_dtype="float8_e4m3fn"``) for the same strategies and modes as bf16
 (B2-B5 on bf16 wgmma of the exactly widened e4m3 operands; B1 on e4m3
 wgmma), and in int8
@@ -20,9 +19,10 @@ threshold, the reference's 9500 by default), ``"auto"`` (one threshold per
 call from the inputs' moments, reduced by torch ops on the inputs' device
 and read back into the same kernels' scalar argument) and ``"adaptive"``
 (each tile's threshold at each check from its running moments, inside
-B3-B8 as built with ``FTSG_ADAPTIVE``; in bf16 and fp8 inside B3-B5 as
-built with ``FTSG_ADAPTIVE`` and ``FTSG_BF16``, the moments those of the
-rounded operands, summed per 8-column half of each 16-deep k step).
+B3-B8 as built with ``FTSG_ADAPTIVE``; in bf16 inside B3-B8 and in fp8
+inside B3-B5 as built with ``FTSG_ADAPTIVE`` and ``FTSG_BF16``, the
+moments those of the rounded operands, summed per 8-column half of each
+16-deep k step).
 The JAX noise model is dtype-free: the adaptive thresholds of bf16 and
 fp8 are f32's formula on the rounded operands' moments.
 Each kernel encodes, accumulates, injects, detects and corrects inside one
@@ -135,7 +135,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (ops/_build.LIBRARIES; :func:`kernel_entry`): the static f32 one (with
 # the int8 builds; "_adaptive" after its name, the adaptive f32 build),
 # and the bf16 builds' own (bf16, and fp8 on the widened operands): the
-# static ones of B2-B8 and the adaptive ones of B5, B3 and B4.
+# static ones of B2-B8 and the adaptive ones of B3-B8 (B2 has none).
 ENTRY_POINTS = {"precomp": "ftsg_ft_weighted_precomp",
                 "running": "ftsg_ft_weighted_running",
                 "rowcol": "ftsg_ft_rowcol", "global": "ftsg_ft_global",
@@ -153,9 +153,12 @@ BF16_LIBS = {"precomp": "ft_sgemm_precomp_bf16",
              "global_mxu": "ft_sgemm_global_bf16",
              "fused": "ft_sgemm_fused_bf16",
              "rowcol_mxu": "ft_sgemm_rowcol_mxu_bf16"}
-ADAPTIVE_BF16_KINDS = ("running", "rowcol", "global")
-ADAPTIVE_BF16_LIBS = tuple(F32_LIBS[k] + "_adaptive_bf16"
-                           for k in ADAPTIVE_BF16_KINDS)
+ADAPTIVE_BF16_LIBS = {"running": "ft_sgemm_weighted_adaptive_bf16",
+                      "rowcol": "ft_sgemm_rowcol_adaptive_bf16",
+                      "global": "ft_sgemm_global_adaptive_bf16",
+                      "global_mxu": "ft_sgemm_global_adaptive_bf16",
+                      "fused": "ft_sgemm_fused_adaptive_bf16",
+                      "rowcol_mxu": "ft_sgemm_rowcol_mxu_adaptive_bf16"}
 
 
 class FtSgemmResult(NamedTuple):
@@ -664,8 +667,7 @@ def kernel_entry(kind: str, dtype=torch.float32, adaptive: bool = False):
     the widened operands) or torch.int8 (B3, B4, static)), static or
     ``adaptive``."""
     if dtype == torch.bfloat16:
-        libs = (dict(zip(ADAPTIVE_BF16_KINDS, ADAPTIVE_BF16_LIBS)) if adaptive
-                else BF16_LIBS)
+        libs = ADAPTIVE_BF16_LIBS if adaptive else BF16_LIBS
         return libs[kind], ENTRY_POINTS[kind] + "_bf16"
     return (F32_LIBS[kind] + ("_adaptive" if adaptive else ""),
             ENTRY_POINTS[kind] + ("_int8" if dtype == torch.int8 else ""))
@@ -694,15 +696,14 @@ def _entries(adaptive: bool = False):
 def _bf16_entries(adaptive: bool = False):
     """The C entry points of the bf16 builds (bf16 operands, and fp8
     widened), by (kind, torch.bfloat16): the static ones of B2-B8
-    (``FTSG_BF16``) or the adaptive ones of B5, B3 and B4 (``FTSG_ADAPTIVE``
-    with ``FTSG_BF16``), each built and loaded on the first launch of its
+    (``FTSG_BF16``) or the adaptive ones of B3-B8 (``FTSG_ADAPTIVE`` with
+    ``FTSG_BF16``), each built and loaded on the first launch of its
     build, apart from :func:`_entries`: an f32 call neither waits on these
     builds nor needs them."""
-    kinds = ADAPTIVE_BF16_KINDS if adaptive else tuple(BF16_LIBS)
-    build(tuple(dict.fromkeys(kernel_entry(k, torch.bfloat16, adaptive)[0]
-                              for k in kinds)))  # in parallel, then load
+    libs = ADAPTIVE_BF16_LIBS if adaptive else BF16_LIBS
+    build(tuple(dict.fromkeys(libs.values())))  # in parallel, then load
     return {(k, torch.bfloat16): _bind_kind(k, torch.bfloat16, adaptive)
-            for k in kinds}
+            for k in libs}
 
 
 def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
@@ -727,9 +728,9 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
             scalars, adaptive=False):
     """Launch entry point ``name`` of the static or the adaptive build on
-    validated operands, A and B f32 or bf16 or fp8 (B2-B8 of the static
-    build, B3-B5 of the adaptive one; fp8 B2-B5) or (static build, B3 and
-    B4) int8, and count it on ``wrapper``: ``launches`` (f32, static),
+    validated operands, A and B f32 or bf16 (B2-B8 of the static build,
+    B3-B8 of the adaptive one) or fp8 (B2-B5) or (static build, B3 and B4)
+    int8, and count it on ``wrapper``: ``launches`` (f32, static),
     ``adaptive_launches`` (the adaptive build), and ``bf16_launches``,
     ``fp8_launches`` or ``int8_launches`` by dtype; an adaptive bf16 or fp8
     launch counts in both of its counters. Raises on a launch error.
@@ -748,7 +749,7 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
         raise NotImplementedError(
             f"kernel {name!r} has no {str(a.dtype).removeprefix('torch.')}"
             " build" + (" (adaptive)" if adaptive else "") + ": bf16 runs"
-            " B2-B8 (B3-B5 under threshold='adaptive'), fp8 the vpu"
+            " B2-B8 (B3-B8 under threshold='adaptive'), fp8 the vpu"
             " encodes' B2-B5, int8 B3 and B4 under the static build")
     if fp8:
         a, b = (x.to(torch.bfloat16, memory_format=torch.contiguous_format)
@@ -1060,10 +1061,9 @@ def make_ft_sgemm(
 
     bf16 runs the mxu encodes too (``encode="mxu"``, ``strategy="fused"``:
     the bf16 builds of B6-B8, which load the wrapper's hi / lo / lo2 moment
-    rows) under the static and auto thresholds. Not ported yet, and raising
-    ``NotImplementedError`` (``configs.check_kernel_legality``): those under
-    ``threshold="adaptive"`` (fp8 with the mxu encodes is illegal:
-    ``ValueError``).
+    rows) under every threshold mode, ``"adaptive"`` on their adaptive bf16
+    builds, which sum the moments of the rounded operands' own rows (not
+    the term rows). fp8 with the mxu encodes is illegal (``ValueError``).
     """
     if isinstance(threshold, str):
         threshold_mode = threshold

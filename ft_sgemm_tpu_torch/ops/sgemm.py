@@ -29,10 +29,10 @@ import torch
 from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, canonical_in_dtype
 from ft_sgemm_tpu_torch.ops._build import bind, check_launch, check_operands, library
 from ft_sgemm_tpu_torch.ops.common import (
-    PRECISIONS,
     align_rows16,
     as_f32,
     as_operand,
+    check_precision,
     pad_to,
     resolve_device,
     resolve_in_dtype,
@@ -110,13 +110,7 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
     dtype (the JAX package's bf16 tile overrides are TPU tuning).
     """
     dtype = resolve_in_dtype(in_dtype)
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got"
-                         f" {precision!r}")
-    if dtype == torch.float32 and precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r} with float32: the port's f32 kernels"
-            " run 3xTF32, FP32-accurate ('highest') only")
+    check_precision(precision, dtype)
     if isinstance(shape, str):
         shape = SHAPES[shape]
     dev = resolve_device(device)

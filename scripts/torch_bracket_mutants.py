@@ -59,7 +59,7 @@ MUTANTS = {
 }
 BUILD = ("import sys; sys.path.insert(0, '.');"
          " from ft_sgemm_tpu_torch.ops import _build, ft_sgemm;"
-         " _build.build(ft_sgemm.ADAPTIVE_BF16_LIBS)")
+         " _build.build(tuple(dict.fromkeys(ft_sgemm.ADAPTIVE_BF16_LIBS.values())))")
 BRACKET = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs;"
            " cs.LOWP_ADAPTIVE_KINDS = (sys.argv[1],);"
            " cs.phase_lowp_bracket(cs.Kernels(), 'bfloat16')")

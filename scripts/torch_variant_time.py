@@ -24,7 +24,8 @@ fresh process per turn, the trees in order and then reversed
 points, from the libraries that the tree's ``ops/ft_sgemm.kernel_entry``
 names, so a tree must have that table; A and B rounded to bf16);
 ``--threshold=adaptive`` builds and times the adaptive builds of B3-B8 at
-the adaptive cadence (the default margin in slot 7); ``--magnitude=M``
+the adaptive cadence (the default margin in slot 7), with
+``--dtype=bfloat16`` their adaptive bf16 builds; ``--magnitude=M``
 sets the reference-like faults' magnitude (default 1e4; 0: no faults).
 Prints the card's name and power limit, then one line per tree and turn:
 milliseconds per launch, and the detections and uncorrectable counts each
@@ -251,8 +252,7 @@ def main(argv) -> int:
     trees = args
     if (not trees or any(t.startswith("--") for t in trees)
             or not set(kernels) <= set(KERNELS)
-            or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}
-            or bf16 and adaptive):
+            or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}):
         print(__doc__)
         return 2
     print(card(), flush=True)

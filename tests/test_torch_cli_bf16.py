@@ -1,9 +1,10 @@
 """``--dtype=`` of the port's ``ft_sgemm`` program
 (``ft_sgemm_tpu_torch/cli.py``, after ``ft_sgemm_tpu/cli.py:1141-1148``) on
 the CPU (``--device=cpu``, the kernels' plain versions) at small sizes: the
-JAX spellings and aliases, an unknown one refused with exit code 2, what
-the port does not run yet raising ``NotImplementedError``, and the bf16
-verification passing every id under the weighted, rowcol and global
+JAX spellings and aliases, an unknown one refused with exit code 2, the
+combinations once pinned as unported running (the mxu encodes and fused
+under ``--threshold=adaptive`` with the JAX driver's verdicts), and the
+bf16 verification passing every id under the weighted, rowcol and global
 strategies, its lines in the JAX program's format, with the dtype named in
 the verification and table headers.
 """
@@ -78,11 +79,18 @@ def test_unknown_dtype_exits_2(flag, capsys):
     assert "--dtype must be one of" in capsys.readouterr().err
 
 
+def _verdicts(text):
+    return {int(m["id"]): m["status"].split()[0]
+            for m in map(LINE.match, text.splitlines()) if m}
+
+
 @pytest.mark.parametrize("flags", [
     ["--dtype=fp8"], ["--dtype=float8_e4m3fn", "--strategy=rowcol"],
     ["--dtype=int8"], ["--dtype=bfloat16", "--encode=mxu"],
     ["--dtype=bfloat16", "--strategy=fused"],
-    ["--dtype=bfloat16", "--threshold=adaptive"]])
+    ["--dtype=bfloat16", "--threshold=adaptive"],
+    ["--dtype=bfloat16", "--encode=mxu", "--threshold=adaptive"],
+    ["--dtype=bfloat16", "--strategy=fused", "--threshold=adaptive"]])
 def test_unported_dtype_modes_raise(flags, capsys):
     # Nothing runs before the refusal. int8 is ported since the int8 slice
     # (tests/test_torch_cli_int8.py): it defaults to the rowcol strategy
@@ -103,11 +111,24 @@ def test_unported_dtype_modes_raise(flags, capsys):
             assert "FAIL" not in out
         return
     if "--threshold=adaptive" in flags:
-        # Ported since the adaptive bf16 builds: it runs, and the header
-        # names the mode (tests/test_torch_ft_adaptive_lowp.py).
-        assert cli.main(argv) in (0, 1)
-        assert ("Verification in bfloat16 (threshold adaptive)"
-                in capsys.readouterr().out)
+        # Ported since the adaptive bf16 builds (B3-B5 on the vpu encodes,
+        # tests/test_torch_ft_adaptive_lowp.py; B6-B8 on the mxu encodes and
+        # fused, tests/test_torch_ft_adaptive_bf16_mxu.py): it runs, the
+        # header names the mode, and on the mxu encodes every id gives the
+        # JAX driver's verdict (both pass ids 0-16 at this size).
+        rc = cli.main(argv)
+        out = capsys.readouterr().out
+        assert rc in (0, 1)
+        assert "Verification in bfloat16 (threshold adaptive)" in out
+        if "--threshold=adaptive" == flags[-1] and len(flags) == 3:
+            jout = io.StringIO()
+            strategy = "fused" if "--strategy=fused" in flags else "weighted"
+            jcli.run_verification(64, 0, 16, out=jout, in_dtype="bfloat16",
+                                  strategy=strategy, encode="mxu",
+                                  threshold="adaptive")
+            assert _verdicts(out) == _verdicts(jout.getvalue())
+            assert sorted(_verdicts(out)) == sorted(KERNEL_TABLE)
+            assert rc == 0
         return
     if flags[0] == "--dtype=bfloat16":
         # The mxu encodes are ported since the bf16 builds of B6-B8

@@ -18,6 +18,8 @@ in two orders) to 1e-5 relative, and the host twins
 with ``in_dtype``) equal the JAX twin on the rounded operands.
 (c) The driver: ``--threshold=adaptive`` with ``--dtype=bfloat16`` and with
 ``--dtype=fp8`` runs on the CPU, its header naming the dtype and the mode.
+The mxu encodes in bf16 under "adaptive" (B6-B8) are
+tests/test_torch_ft_adaptive_bf16_mxu.py.
 The program's verdicts at 1024 are
 ``tests/test_torch_ft_adaptive.py::test_adaptive_program_verdicts_like_jax``.
 """
@@ -222,7 +224,9 @@ def test_adaptive_lowp_driver_runs_on_the_cpu(spelling, name, capsys):
 
 def test_adaptive_lowp_plans_like_f32():
     # Weighted runs B5 at every cadence under adaptive (B2 has no adaptive
-    # build), in every dtype; the legality tables take every mode.
+    # build), in every dtype; the legality tables take every mode. The
+    # fused strategy under adaptive runs in bf16 (B6's adaptive bf16 build)
+    # and is illegal in fp8 (no moment rows in a 1-byte dtype).
     inj = InjectionSpec.reference_like(4096, SHAPES["huge"].bk)
     assert ft._plan("weighted", None, None, inj, 512, 128,
                     adaptive=True)[:2] == ("running", 512)
@@ -233,10 +237,19 @@ def test_adaptive_lowp_plans_like_f32():
             jfn = jft.make_ft_sgemm("huge", strategy=strategy,
                                     threshold="adaptive", in_dtype=in_dtype)
             assert fn.threshold_mode == jfn.threshold_mode == "adaptive"
-        with pytest.raises(NotImplementedError if in_dtype == "bfloat16"
-                           else ValueError):
-            make_ft_sgemm("huge", strategy="fused", threshold="adaptive",
-                          in_dtype=in_dtype, device="cpu")
+        if in_dtype == "bfloat16":
+            fn = make_ft_sgemm("huge", strategy="fused", threshold="adaptive",
+                               in_dtype=in_dtype, device="cpu")
+            jfn = jft.make_ft_sgemm("huge", strategy="fused",
+                                    threshold="adaptive", in_dtype=in_dtype)
+            assert fn.__name__ == jfn.__name__
+            assert fn.threshold_mode == jfn.threshold_mode == "adaptive"
+            assert ft._plan("fused", None, None, inj, 512, 128, "mxu",
+                            adaptive=True)[0] == "fused"
+        else:
+            with pytest.raises(ValueError):
+                make_ft_sgemm("huge", strategy="fused", threshold="adaptive",
+                              in_dtype=in_dtype, device="cpu")
 
 
 def test_adaptive_lowp_grid_twin_matches_the_plain_versions():
@@ -271,8 +284,9 @@ class _FakeLibrary:
 
 def test_adaptive_bf16_builds_apart_from_f32(monkeypatch):
     # The adaptive f32 entry points build and bind the four f32 adaptive
-    # libraries alone; the adaptive bf16 ones the three *_adaptive_bf16
-    # libraries alone, with B5's, B3's and B4's f32 argument types.
+    # libraries alone; the adaptive bf16 ones the five *_adaptive_bf16
+    # libraries alone (B3, B4 with B8, B5, B6, B7), with B3-B8's f32
+    # argument types.
     built = []
     monkeypatch.setattr(ft, "build", lambda names: built.append(tuple(names)))
     monkeypatch.setattr(ft, "library", _FakeLibrary)
@@ -282,11 +296,12 @@ def test_adaptive_bf16_builds_apart_from_f32(monkeypatch):
         ft.ADAPTIVE_BF16_LIBS)
     built.clear()
     lowp = ft._bf16_entries.__wrapped__(True)
-    assert built == [ft.ADAPTIVE_BF16_LIBS]
-    assert sorted(lowp) == [(k, torch.bfloat16)
-                            for k in ("global", "rowcol", "running")]
+    libs = tuple(dict.fromkeys(ft.ADAPTIVE_BF16_LIBS.values()))
+    assert built == [libs] and len(libs) == 5
+    assert sorted(lowp) == [(k, torch.bfloat16) for k in (
+        "fused", "global", "global_mxu", "rowcol", "rowcol_mxu", "running")]
     for (kind, _), fn in lowp.items():
-        assert fn.library in ft.ADAPTIVE_BF16_LIBS
+        assert fn.library == ft.ADAPTIVE_BF16_LIBS[kind]
         assert fn.fname.endswith("_bf16") and fn.restype is ctypes.c_int
         assert fn.argtypes == f32[kind].argtypes
 

@@ -111,8 +111,8 @@ def test_legality_raises_for_what_is_not_ported():
     with pytest.raises(ValueError, match="strategy"):
         make_ft_sgemm("huge", strategy="bogus", device="cpu")
     # The mxu encodes run in bf16 too (B6-B8's bf16 builds): B6 corrects
-    # every fault to the oracle of the rounded operands. Under
-    # threshold="adaptive" they are still to port.
+    # every fault to the oracle of the rounded operands, under the static
+    # threshold and under threshold="adaptive" (its adaptive bf16 build).
     fn = make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu",
                        device="cpu")
     assert fn.encode == "mxu" and fn.in_dtype == "bfloat16"
@@ -121,9 +121,12 @@ def test_legality_raises_for_what_is_not_ported():
     assert int(res.num_detected) == 4 and int(res.num_uncorrectable) == 0
     want = jft.sgemm_reference(a, b, c, in_dtype="bfloat16")
     assert verify_matrix(np.asarray(want), res.c.numpy(), verbose=False)[0]
-    with pytest.raises(NotImplementedError):
-        make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu",
-                      threshold="adaptive", device="cpu")
+    fn = make_ft_sgemm("huge", in_dtype="bfloat16", encode="mxu",
+                       threshold="adaptive", device="cpu")
+    assert fn.threshold_mode == "adaptive" and fn.encode == "mxu"
+    res = fn(a, b, c, InjectionSpec(enabled=True, every=8, magnitude=5.0))
+    assert int(res.num_detected) == 4 and int(res.num_uncorrectable) == 0
+    assert verify_matrix(np.asarray(want), res.c.numpy(), verbose=False)[0]
 
 
 @pytest.mark.cuda

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import ft_sgemm_tpu_torch
-from ft_sgemm_tpu_torch import cli
+from ft_sgemm_tpu_torch import analysis, cli, injection
 from ft_sgemm_tpu_torch.configs import SHAPES
 from ft_sgemm_tpu_torch.injection import InjectionSpec
 from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
@@ -62,6 +62,10 @@ def no_gpu(monkeypatch):
     lambda: ft_sgemm_tpu_torch.abft_baseline_sgemm([[1.0]], [[1.0]], [[0.0]]),
     lambda: cli.run_verification(64, 0, 16),
     lambda: cli.main(["ft_sgemm", "64", "64", "64", "0", "1"]),
+    lambda: cli.main(["ft_sgemm", "roc", "--smoke"]),
+    lambda: injection.roc_sweep(dtypes=("int8",)),
+    lambda: analysis.measure_noise_floor([[1.0]], [[1.0]], [[0.0]]),
+    lambda: analysis.detection_rate_sweep([[1.0]], [[1.0]], [[0.0]], [1.0]),
 ])
 def test_entry_points_default_to_gpu_and_raise_without_one(no_gpu, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
