@@ -63,7 +63,18 @@ global strategies with the static and auto thresholds (verification of
 ids 0-16, the table, clean runs that flag nothing and keep that
 accuracy), counted apart; every FT kernel's clean fp8 residuals
 FP8_RESIDUAL_MARGIN times under the auto threshold; and each fp8 kernel
-timed beside ``torch._scaled_mm``. And, as a regression, B6 at the small tile built
+timed beside ``torch._scaled_mm``. The fused epilogue (bias, relu or gelu,
+qint8 or qfp8 after detect and correct, in every kernel's store): every
+build of every library with ``bias+gelu+qint8x0.25``, ``bias+relu+qfp8``
+and ``bias`` equal to its own identity launch through ``apply_epilogue``
+(the GELU within a stated ulp bound), grids unchanged; a bracket whose
+output is C (alpha 0, beta 1, A = B = 0) carrying the quantizers' edge
+values, which must come out as ``to_e4m3`` / the int8 clamp of C element
+by element; ``make_ft_sgemm(epilogue=...)`` for every legal (dtype,
+strategy, encode) and ``make_sgemm`` at 4096 against
+``epilogue_reference(sgemm_reference(...))``, counted in
+``epilogue_launches``; and each (body, dtype) timed with the epilogue
+beside its identity. And, as a regression, B6 at the small tile built
 with its scalar argument read from device memory
 (``scripts/torch_variant_time.py --variant=device-scalars-small``) must
 count every fault, as its by-value build does.
@@ -78,11 +89,14 @@ CUDA device or a directory without the port.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import json
+import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -92,10 +106,14 @@ import torch
 
 # Kernel-vs-plain sizes: aligned, odd, and one that leaves B5's and B6's
 # 128 x 128 CTA partly past the operands at every tile narrower than 128.
-SIZES = (1024, 1000, 300)
+# The aligned size is 512, no larger, so that the whole script stays well
+# inside its 1200 s on a slow host: a multiple of every tile and of the
+# CTA, with 4 x 4 CTAs and 64 bk steps of 8 (the program runs the aligned
+# 4096 at every tile).
+SIZES = (512, 1000, 300)
 VERIFY_SIZE = 4096
 PERF_SIZES = (2048, 6144, 2048)  # start, end, gap
-PERF_MINTIME = 0.1            # seconds per timed loop (the CLI default is 1)
+PERF_MINTIME = 0.05           # seconds per timed loop (the CLI default is 1)
 TIMING_SIZE = 4096
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): FP32 outside the
@@ -115,7 +133,7 @@ MID_STAGE_EVERY = 3
 # The clean weighted residuals must stay this far under the threshold.
 RESIDUAL_MARGIN = 100.0
 # Adaptive kernel-vs-plain size: not a multiple of the CTA (the aligned
-# 1024 went with the bf16 phases, for time).
+# size went with the bf16 phases, for time).
 ADAPTIVE_SIZES = (1000,)
 # The adaptive bracket: tile (i, j)'s threshold at BRACKET_A[i % 2] *
 # BRACKET_B[j % 2] times the fault (0.5, 0.125, 2 and 0.5).
@@ -168,7 +186,7 @@ BF16_PAIRS = LOWP_PAIRS + (("fused", "mxu"), ("weighted", "mxu"),
 BF16_KINDS = ("sgemm", "precomp", "running", "rowcol", "global")
 BF16_MXU_KINDS = ("fused", "rowcol_mxu", "global_mxu")
 BF16_MODES = ("static", "auto")
-BF16_SIZES = (1024, 1000)
+BF16_SIZES = (512, 1000)
 ODD_EVERY = 5
 # bf16 keeps C and the accumulator in f32: B1 and every clean FT launch
 # must stay within this share of max |C| of the f32 product of the rounded
@@ -217,6 +235,71 @@ LOWP_DTYPES = ("bfloat16", "fp8")
 # tile of its reference-like schedule.
 DETECTION_FACTORS = (0.5, 2.0, 4.0, 64.0)
 DETECTION_FAULTS = 4
+# The fused epilogue (bias, relu or gelu, qint8 or qfp8 quantize-rescale
+# after detect and correct, in every kernel's store): the spellings each
+# build launches beside its identity, the one the timing rows time, the
+# kernel-vs-identity size (not a multiple of the 128 x 128 CTA, so the
+# masked store reads the bias row only where it stores), and the FP32
+# operations an element of the timed spelling adds beyond the identity's
+# (bias 1, GELU 9 with tanh as one, the quantize's scale and rounding 2,
+# its clamp 2).
+EPI_SPELLINGS = ("bias+gelu+qint8x0.25", "bias+relu+qfp8", "bias")
+EPI_TIMED = "bias+gelu+qint8x0.25"
+EPI_SIZE = 1000
+EPI_FLOPS = 14.0
+# The JAX kernels' epilogue calls that the store replaces, by kernel kind.
+EPI_REPLACES = {
+    "sgemm": "ft_sgemm_tpu/ops/sgemm.py:98",
+    "precomp": "ft_sgemm_tpu/ops/ft_sgemm.py:1063",
+    "running": "ft_sgemm_tpu/ops/ft_sgemm.py:1004",
+    "rowcol": "ft_sgemm_tpu/ops/ft_sgemm.py:632",
+    "global": "ft_sgemm_tpu/ops/ft_sgemm.py:902",
+    "fused": "ft_sgemm_tpu/ops/ft_sgemm.py:1159",
+    "rowcol_mxu": "ft_sgemm_tpu/ops/ft_sgemm.py:750",
+    "global_mxu": "ft_sgemm_tpu/ops/ft_sgemm.py:822"}
+FT_KINDS = ("precomp", "running", "rowcol", "global", "fused", "rowcol_mxu",
+            "global_mxu")
+# Every (kind, dtype, adaptive) build, which together hold every library of
+# ops/_build.LIBRARIES: B1 in f32, bf16 and fp8; B2-B8 static in f32 and
+# bf16; B2-B5 in fp8 (their bf16 builds on the widened operands); B3 and
+# B4 in int8; the adaptive builds of B3-B8 in f32 and bf16, of B3-B5 in fp8.
+EPI_BUILDS = tuple(
+    [("sgemm", d, False) for d in ("float32", "bfloat16", "fp8")]
+    + [(k, d, False) for d in ("float32", "bfloat16") for k in FT_KINDS]
+    + [(k, "fp8", False) for k in ("precomp",) + LOWP_ADAPTIVE_KINDS]
+    + [(k, "int8", False) for k in INT8_KINDS]
+    + [(k, "float32", True) for k in ADAPTIVE_KINDS]
+    + [(k, "bfloat16", True) for k in BF16_ADAPTIVE_KINDS]
+    + [(k, "fp8", True) for k in LOWP_ADAPTIVE_KINDS])
+# The grid bracket: B1 and one FT build of each source (and B3's int8
+# build, whose store rounds on its own), with alpha = 0, beta = 1 and A = B
+# = 0, so the output is C, which carries the quantizers' edge values.
+EPI_BRACKET = (("sgemm", "float32", "small"), ("sgemm", "bfloat16", "huge"),
+               ("sgemm", "fp8", "huge"), ("precomp", "float32", "medium"),
+               ("rowcol", "float32", "huge"), ("rowcol", "int8", "small"),
+               ("global", "float32", "wide"), ("fused", "float32", "tall"))
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "fp8": torch.float8_e4m3fn, "int8": torch.int8}
+
+# The build runs beside the phases, which go in the order of what they load:
+# the f32 static libraries, then the f32 adaptive ones, then the bf16 and
+# fp8 ones. The card's machine has 8 cores, and nice levels there left the
+# libraries' finishing order as it was, so BUILD_SLOTS compilers run at a
+# time, in that order, each tier's longest compile first (the compile times
+# in PERF.md section 6): the f32 static libraries are done in about half
+# the build, while the others still compile.
+BUILD_SLOTS = 8
+BUILD_ORDER = (
+    "ft_sgemm_aug", "ft_sgemm_rowcol", "ft_sgemm_weighted", "ft_sgemm_global",
+    "sgemm", "ft_sgemm_aug_adaptive", "ft_sgemm_rowcol_adaptive",
+    "ft_sgemm_weighted_adaptive", "ft_sgemm_global_adaptive",
+    "ft_sgemm_fused_adaptive_bf16", "ft_sgemm_fused_bf16",
+    "ft_sgemm_weighted_adaptive_bf16", "ft_sgemm_weighted_bf16",
+    "ft_sgemm_rowcol_adaptive_bf16", "ft_sgemm_rowcol_mxu_adaptive_bf16",
+    "ft_sgemm_rowcol_bf16", "ft_sgemm_rowcol_mxu_bf16",
+    "ft_sgemm_global_adaptive_bf16", "ft_sgemm_global_bf16",
+    "ft_sgemm_precomp_bf16", "sgemm_fp8")
+
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
 VARIANT = "device-scalars-small"
@@ -319,20 +402,22 @@ class Kernels:
                 for name, k in self.table.items()}
 
     def calls(self, kind, shape, a, b, c, scalars=None, check_every=None,
-              multifault=False, adaptive=False):
+              multifault=False, adaptive=False, epi=None, bias=None):
         """(kernel thunk, plain thunk) for one launch of ``kind`` (its
         adaptive build with ``adaptive``) on padded operands, with the
-        program's alpha and beta. The wrapper-side inputs (B2's expected
-        moments, the mxu kernels' moment rows) are made here, outside both
-        thunks, as inputs of the kernel."""
+        program's alpha and beta and the fused epilogue ``epi`` (its padded
+        bias row ``bias``; None: the identity). The wrapper-side inputs (B2's
+        expected moments, the mxu kernels' moment rows) are made here,
+        outside both thunks, as inputs of the kernel."""
         ft, sg, al, be = self.ft, self.sg, self.alpha, self.beta
         if kind == "sgemm":
-            return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be),
-                    lambda: sg.sgemm_plain(a, b, c, al, be))
+            return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be, epi, bias),
+                    lambda: sg.sgemm_plain(a, b, c, al, be, epi, bias))
         args = (kind, shape, a, b, c, ft.kernel_inputs(kind, a, b, shape), al,
                 be, scalars, check_every, multifault)
-        return (lambda: ft.run_kernel(*args, adaptive=adaptive),
-                lambda: ft.run_kernel(*args, plain=True, adaptive=adaptive))
+        ep = dict(adaptive=adaptive, epi=epi, bias=bias)
+        return (lambda: ft.run_kernel(*args, **ep),
+                lambda: ft.run_kernel(*args, plain=True, **ep))
 
     def hold(self, kind, shape, a, b, c, scalars=None, check_every=None,
              multifault=False, adaptive=False, scale_tol=None):
@@ -435,7 +520,8 @@ def kernel_name(kind, a, adaptive=False):
 def start_variant_build():
     """Write the B6 regression variant into VARIANT_DIR and start its nvcc
     (only its aug library), beside the kernels' own build; returns the
-    process and the library's path."""
+    process and the library's path. The process is killed if the script
+    exits before it is done."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
     import torch_variant_time
 
@@ -447,11 +533,16 @@ def start_variant_build():
     src = VARIANT_DIR / "ft_sgemm_tpu_torch/csrc/ft_sgemm_aug.cu"
     proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                              str(src)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    atexit.register(lambda: proc.poll() is None and os.killpg(
+        proc.pid, signal.SIGKILL))
     return proc, so
 
 
 def phase_device():
+    """The card, the toolkit, and the start of every library's build (in
+    the background: each phase waits only for the libraries it loads)."""
     from ft_sgemm_tpu_torch import runtime
     from ft_sgemm_tpu_torch.ops import _build
 
@@ -462,25 +553,37 @@ def phase_device():
         f"{torch.cuda.device_count()} | {smi} | torch {torch.__version__}"
         f" cuda {torch.version.cuda} | nvcc"
         f" {nvcc_version.strip().splitlines()[-1]}")
-    t0 = time.perf_counter()
+    if sorted(BUILD_ORDER) != sorted(_build.KERNEL_LIBS):
+        raise AssertionError("BUILD_ORDER must name every library once")
+    _build.start(BUILD_ORDER, slots=BUILD_SLOTS)
     variant = start_variant_build()
-    secs = _build.build()
-    log(f"phase build: {len(_build.KERNEL_LIBS)} libraries in parallel,"
-        f" {max(secs.values(), default=0.0):.1f} s (each: "
-        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
-        + f"), and the {VARIANT} variant's aug library beside them")
-    for name in _build.KERNEL_LIBS:
-        log(f"  ptxas {name}: " + ", ".join(ptxas_summary(_build.ptxas_log(name))))
     # Without a host compiler the verification would silently draw numpy
     # inputs instead of the reference binary's libc-rand stream.
     if runtime.load() is None:
         raise AssertionError("hostutils.cpp did not build: no libc-rand inputs")
+    return smi, variant
+
+
+def phase_build(variant, t0):
+    """Wait for every library and the variant; their compile times (each
+    from its compiler's start) and ptxas lines."""
+    from ft_sgemm_tpu_torch.ops import _build
+
+    secs = _build.build()
+    log(f"phase build: {len(_build.KERNEL_LIBS)} libraries, {BUILD_SLOTS}"
+        f" at a time, longest {max(secs.values(), default=0.0):.1f} s (each: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            secs.items(), key=lambda kv: kv[1]))
+        + f"), and the {VARIANT} variant's aug library beside them")
+    for name in _build.KERNEL_LIBS:
+        log(f"  ptxas {name}: " + ", ".join(ptxas_summary(_build.ptxas_log(name))))
     proc, so = variant
     out, _ = proc.communicate()
     if proc.returncode:
         raise AssertionError(f"the {VARIANT} variant did not build:\n{out}")
-    log(f"phase build: all done in {time.perf_counter() - t0:.1f} s")
-    return smi, so
+    log(f"phase build: all done {time.perf_counter() - t0:.1f} s after its"
+        f" start")
+    return so
 
 
 def ptxas_summary(text: str):
@@ -504,7 +607,11 @@ def ptxas_summary(text: str):
         rows = re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
         ragged = re.search(r"EELb(\d)E", fn)
         regs = re.search(r"Used (\d+) registers", body).group(1)
-        spill = re.search(r"(\d+) bytes spill stores", body)
+        # The kernel's own properties: a called function's (the epilogue's
+        # pass, gemm_wgmma.cuh) may come between its lines.
+        spill = (re.search(rf"Function properties for {fn}\s+\d+ bytes stack"
+                           r" frame, (\d+) bytes spill stores", body)
+                 or re.search(r"(\d+) bytes spill stores", body))
         in_type = re.search(r"WgTileI(?:Li\d+E){8}Li(\d)E", fn)
         in_tag = {"1": ["bf16"], "2": ["s8"], "3": ["e4m3"]}.get(
             in_type.group(1) if in_type else "0", [])
@@ -1212,7 +1319,12 @@ def phase_variant(kern: Kernels, so):
     from ft_sgemm_tpu_torch.configs import SHAPES
     from ft_sgemm_tpu_torch.injection import InjectionSpec
     from ft_sgemm_tpu_torch.ops import _build
-    from ft_sgemm_tpu_torch.ops.common import NOISE_C_BIAS, NOISE_C_RAND, full_run_log2
+    from ft_sgemm_tpu_torch.ops.common import (
+        NOISE_C_BIAS,
+        NOISE_C_RAND,
+        epilogue_args,
+        full_run_log2,
+    )
 
     ft = kern.ft
     n, shape = TIMING_SIZE, SHAPES["small"]
@@ -1233,8 +1345,8 @@ def phase_variant(kern: Kernels, so):
         out.data_ptr(), det.data_ptr(), unc.data_ptr(), n, n, n, shape.bm,
         shape.bn, shape.bk, ce, kern.alpha, kern.beta, sc.ctypes.data,
         full_run_log2(n // shape.bk, shape.bk, shape.bm, shape.bn),
-        NOISE_C_RAND, NOISE_C_BIAS, torch.cuda.current_stream().cuda_stream),
-        VARIANT)
+        NOISE_C_RAND, NOISE_C_BIAS, *epilogue_args(None),
+        torch.cuda.current_stream().cuda_stream), VARIANT)
     got = ft.run_kernel("fused", shape, a, b, c, (ma,), kern.alpha, kern.beta,
                         sc, ce)
     torch.cuda.synchronize()
@@ -1447,9 +1559,8 @@ def phase_adaptive_bracket(kern: Kernels):
                             f" host twin puts {int(want.sum())} of"
                             f" {want.numel()} faults over the threshold")
                 if kind not in WEIGHTED_KINDS:
-                    ok, nbad, first = verify_matrix(
-                        ref[0].cpu().numpy(), got[0].cpu().numpy(),
-                        verbose=False)
+                    ok, nbad, first = verify_matrix(ref[0], got[0],
+                                                    verbose=False)
                     if not ok:
                         raise AssertionError(
                             f"{what}: C differs from the plain version at"
@@ -2664,6 +2775,324 @@ def phase_residual(kern: Kernels, operands):
                              f" {RESIDUAL_MARGIN:g}x under the threshold")
 
 
+def _epi_label(dtype: str) -> str:
+    return {"float32": "", "bfloat16": "_bf16", "fp8": "_fp8",
+            "int8": "_int8"}[dtype]
+
+
+def _epi_host(n, dtype, gen):
+    """Host (A, B, C) for the epilogue's kernel-vs-identity launches: the
+    int8 lattice ±9 for int8, else the program's ±0.9 data."""
+    if dtype == "int8":
+        return _int8_host(n, n, n, gen, -9, 9)
+    return _random(n, n, n, gen)
+
+
+def _epi_cadence(ft, kind, shape, inj, nk, adaptive, dtype):
+    """The cadence and multifault setting the program gives ``kind`` on
+    ``shape``; one check at the end where the program runs another kernel
+    there (B2 at small, B5 where weighted runs B2); int8 without
+    multifault."""
+    if kind == "sgemm":
+        return None, False
+    strategy, encode = KIND_PAIR[kind]
+    plan, ce, mf = ft._plan(strategy, None, None, inj, nk, shape.bn, encode,
+                            adaptive)
+    if plan != kind:
+        ce, mf = nk, False
+    return ce, mf and dtype != "int8"
+
+
+def _epi_same(got, want):
+    """Equal element by element, NaN where NaN."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _epi_bracket_c(quant: str, m: int, n: int) -> torch.Tensor:
+    """An (m, n) C of the quantizer's edge values, tiled: for fp8 every
+    finite e4m3 value, the midpoints between neighbours, 448-1e4 and their
+    negatives, ±inf and NaN; for int8 the .5 ties at scales 1 and 0.25,
+    ±127.5, ±128.5, ±inf and NaN."""
+    special = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0,
+                            -0.0])
+    if quant == "fp8":
+        codes = torch.arange(256, dtype=torch.uint8).view(
+            torch.float8_e4m3fn).float()
+        grid = torch.unique(codes[torch.isfinite(codes)])
+        big = torch.cat([torch.linspace(448.0, 1e4, 401),
+                         torch.tensor([463.99, 464.0, 464.01, 479.9, 480.0])])
+        vals = torch.cat([grid, (grid[1:] + grid[:-1]) / 2, big, -big,
+                          special])
+    else:
+        ties = torch.arange(-130.5, 131.0, 1.0)
+        vals = torch.cat([ties, ties * 4, torch.tensor(
+            [127.5, -127.5, 128.5, -128.5, 127.49, -128.51]), special])
+    reps = -(-m * n // vals.numel())
+    return vals.repeat(reps)[: m * n].reshape(m, n).contiguous()
+
+
+def phase_epilogue(kern: Kernels):
+    """The fused epilogue (bias, relu or gelu, qint8 or qfp8 after detect
+    and correct, in every kernel's store), in four parts. (1) Every build
+    of EPI_BUILDS (which together hold all the libraries of
+    ``ops/_build.LIBRARIES``) at EPI_SIZE on a paper tile with
+    reference-like faults: each spelling of EPI_SPELLINGS against the same
+    kernel's identity launch pushed through ``apply_epilogue`` on the card
+    (``epilogue_violations``: element by element without gelu, the GELU
+    within GELU_TOLERANCE_ULPS of its input's magnitude), the grids equal
+    to the identity's, one epilogue launch counted a spelling. (2) The grid
+    bracket (EPI_BRACKET): alpha = 0, beta = 1, A = B = 0, so the output is
+    C; with qfp8 and qint8 (scales 1 and 0.25) it must equal ``to_e4m3`` /
+    the int8 clamp of C element by element, on the card and as the CPU
+    computes it. (3) The entry points at VERIFY_SIZE: ``make_ft_sgemm(...,
+    epilogue=...)(a, b, c, inject, bias=v)`` for every legal (dtype,
+    strategy, encode) under the static threshold (the huge tile, and B5 at
+    small), and ``make_sgemm`` for B1, against
+    ``epilogue_reference(sgemm_reference(...))``: ``bias+gelu`` within
+    verify_matrix's rule, ``bias+relu+qfp8`` more than 98 % exact and every
+    value within one e4m3 step (the JAX package's tests/test_variants.py
+    bounds), int8's ``bias+qint8x0.25`` exactly; every fault detected and
+    corrected (global: each event, a clean run for C); the epilogue launch
+    counters show each kernel ran it. (4) Each (body, dtype) at huge at
+    TIMING_SIZE with EPI_TIMED beside its identity. Returns the
+    ``kernels`` rows of (4)."""
+    from ft_sgemm_tpu_torch import cli, make_ft_sgemm, make_sgemm
+    from ft_sgemm_tpu_torch.configs import SHAPES, EpilogueSpec
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops.common import apply_epilogue, pad_bias
+    from ft_sgemm_tpu_torch.ops.reference import (
+        epilogue_reference,
+        epilogue_violations,
+        sgemm_reference,
+    )
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    ft, sg = kern.ft, kern.sg
+    dev = torch.device("cuda")
+    wrappers = [("sgemm", sg.sgemm_kernel)] + [
+        (k, kern.table[KIND_NAMES[k]]["wrapper"]) for k in FT_KINDS]
+    big = {}  # the program's inputs at 4096, once per dtype
+
+    def program_inputs(dtype):
+        if dtype not in big:
+            big[dtype] = cli._host_inputs(
+                VERIFY_SIZE, "float8_e4m3fn" if dtype == "fp8" else dtype)
+        return big[dtype]
+
+    t0 = time.perf_counter()
+    # (1) every build, each spelling against its identity launch; together
+    # the builds launch every library.
+    from ft_sgemm_tpu_torch.ops import _build
+
+    libs = {("sgemm_fp8" if d == "fp8" else "sgemm") if k == "sgemm" else
+            ft.kernel_entry(k, torch.bfloat16 if d == "fp8" else
+                            TORCH_DTYPES[d], ad)[0]
+            for k, d, ad in EPI_BUILDS}
+    if set(_build.KERNEL_LIBS) - libs:
+        raise AssertionError("libraries no epilogue build launches:"
+                             f" {sorted(set(_build.KERNEL_LIBS) - libs)}")
+    gen = np.random.default_rng(31)
+    n = EPI_SIZE
+    hosts = {d: _epi_host(n, d, gen) for d in TORCH_DTYPES}
+    bias_host = (gen.standard_normal(n) * 2.0).astype(np.float32)
+    errs = {}
+    for i, (kind, dtype, adaptive) in enumerate(EPI_BUILDS):
+        shape = SHAPES[PROGRAM_TILES[i % len(PROGRAM_TILES)]]
+        a, b, c = _padded(hosts[dtype], shape, TORCH_DTYPES[dtype])
+        inj = InjectionSpec.reference_like(n, shape.bk)
+        ce, mf = _epi_cadence(ft, kind, shape, inj, a.shape[1] // shape.bk,
+                              adaptive, dtype)
+        sc = _adaptive_scalars(inj) if adaptive else _scalars(inj)
+        row = pad_bias(bias_host, n, shape.bn, dev)
+        wrapper = kern.table[KIND_NAMES[kind]]["wrapper"]
+        ident = kern.calls(kind, shape, a, b, c, sc, ce, mf, adaptive)[0]()
+        before = wrapper.epilogue_launches
+        for spelling in EPI_SPELLINGS:
+            epi = EpilogueSpec.parse(spelling)
+            got = kern.calls(kind, shape, a, b, c, sc, ce, mf, adaptive, epi,
+                             row)[0]()
+            torch.cuda.synchronize()
+            what = (f"epilogue {spelling} {kind} {dtype}"
+                    f"{' adaptive' if adaptive else ''} {shape.name}")
+            if kind != "sgemm":
+                if not (torch.equal(got[1], ident[1])
+                        and torch.equal(got[2], ident[2])):
+                    raise AssertionError(f"{what}: the epilogue moved the"
+                                         " grids")
+                out, x = got[0], ident[0]
+            else:
+                out, x = got, ident
+            bad = int(epilogue_violations(out, x, epi, row).sum())
+            if bad:
+                raise AssertionError(f"{what}: {bad} elements are not the"
+                                     " identity's through apply_epilogue")
+            want = apply_epilogue(x, epi, row[None, :])
+            diff = (out - want)[torch.isfinite(out) & torch.isfinite(want)]
+            key = (kind, dtype)
+            errs[key] = max(errs.get(key, 0.0), float(diff.abs().max())
+                            if diff.numel() else 0.0)
+        counted = wrapper.epilogue_launches - before
+        if counted != len(EPI_SPELLINGS):
+            raise AssertionError(f"{kind} {dtype}: {counted} epilogue"
+                                 f" launches counted, not"
+                                 f" {len(EPI_SPELLINGS)}")
+    log(f"phase epilogue kernels: {len(EPI_BUILDS)} builds x"
+        f" {len(EPI_SPELLINGS)} spellings at {n} equal to their identity"
+        f" launches through apply_epilogue (gelu within the stated ulps),"
+        f" grids unchanged; max |dC| {max(errs.values()):.3g};"
+        f" {time.perf_counter() - t0:.1f} s")
+    # (2) the grid bracket.
+    t1 = time.perf_counter()
+    nchecked = 0
+    m, kdim = 256, 64
+    sc = _scalars(InjectionSpec.none())
+    for kind, dtype, tile in EPI_BRACKET:
+        shape = SHAPES[tile]
+        z = torch.zeros((m, kdim), device=dev).to(TORCH_DTYPES[dtype])
+        extra = () if kind == "sgemm" else ft.kernel_inputs(kind, z, z, shape)
+        for quant, spellings in (("fp8", ("qfp8",)),
+                                 ("int8", ("qint8", "qint8x0.25"))):
+            c = _epi_bracket_c(quant, m, m)
+            cd = c.to(dev)
+            for spelling in ("none",) + spellings:
+                epi = EpilogueSpec.parse(spelling)
+                if kind == "sgemm":
+                    out = sg.sgemm_kernel(z, z, cd, shape, 0.0, 1.0, epi)
+                else:
+                    out = ft.run_kernel(kind, shape, z, z, cd, extra, 0.0,
+                                        1.0, sc, 1, epi=epi)[0]
+                torch.cuda.synchronize()
+                want = apply_epilogue(cd, epi)
+                if not (_epi_same(out, want) and _epi_same(
+                        out.cpu(), apply_epilogue(c, epi))):
+                    nbad = int((~((out == want) | (torch.isnan(out)
+                                                    & torch.isnan(want))))
+                               .sum())
+                    raise AssertionError(
+                        f"bracket {kind} {dtype} {tile} {spelling}: {nbad}"
+                        " elements differ from the quantize of C")
+                nchecked += 1
+    log(f"phase epilogue bracket: {nchecked} launches of B1 and B2-B4, B6"
+        " (and B3 int8) with alpha 0, beta 1, A = B = 0 give C, to_e4m3(C)"
+        " and the int8 clamp of C (scales 1, 0.25) element by element, NaN"
+        f" and ±inf included; {time.perf_counter() - t1:.1f} s")
+    # (3) the entry points at VERIFY_SIZE.
+    t2 = time.perf_counter()
+    nv = VERIFY_SIZE
+    counts = {}
+    for dtype, pairs in (("float32", BF16_PAIRS), ("bfloat16", BF16_PAIRS),
+                         ("fp8", LOWP_PAIRS),
+                         ("int8", (("rowcol", "vpu"), ("global", "vpu")))):
+        a, b, c = (torch.from_numpy(x).to(dev) for x in program_inputs(dtype))
+        bias = torch.from_numpy((np.random.default_rng(37).standard_normal(nv)
+                                 * 2.0).astype(np.float32)).to(dev)
+        if dtype == "int8":
+            bias = torch.round(bias * 4.0)
+        ref = sgemm_reference(a, b, c, kern.alpha, kern.beta,
+                              in_dtype=TORCH_DTYPES[dtype])
+        for _, w in wrappers:
+            w.epilogue_launches = 0
+        runs = [(s, e, "huge") for s, e in pairs]
+        if dtype != "int8":  # B1 (int8 has no plain GEMM), and B5 at small
+            runs += [("sgemm", None, "huge"), ("weighted", "vpu", "small")]
+        spellings = (("bias+qint8x0.25",) if dtype == "int8" else
+                     ("bias+gelu", "bias+relu+qfp8"))
+        for strategy, encode, tile in runs:
+            for spelling in spellings:
+                want = epilogue_reference(ref, spelling, bias)
+                what = f"entry point {strategy}/{encode} {dtype} {tile} {spelling}"
+                if strategy == "sgemm":
+                    got = make_sgemm(tile, alpha=kern.alpha, beta=kern.beta,
+                                     in_dtype=dtype, epilogue=spelling)(
+                        a, b, c, bias=bias)
+                else:
+                    fn = make_ft_sgemm(tile, alpha=kern.alpha, beta=kern.beta,
+                                       strategy=strategy, encode=encode,
+                                       in_dtype=dtype, threshold="static",
+                                       epilogue=spelling)
+                    shape = fn.shape_config
+                    inj = InjectionSpec.reference_like(nv, shape.bk)
+                    res = fn(a, b, c, inj, bias=bias)
+                    tiles = (nv // shape.bm) * (nv // shape.bn)
+                    expected = tiles * inj.expected_faults(nv, shape.bk)
+                    unc = int(res.num_uncorrectable)
+                    if (int(res.num_detected) != expected or unc !=
+                            (expected if strategy == "global" else 0)):
+                        raise AssertionError(
+                            f"{what}: detected {int(res.num_detected)} of"
+                            f" {expected}, {unc} uncorrectable")
+                    got = (fn(a, b, c, None, bias=bias) if strategy == "global"
+                           else res).c
+                torch.cuda.synchronize()
+                if dtype == "int8":
+                    ok = torch.equal(got, want)
+                elif spelling == "bias+gelu":
+                    ok = _device_verify(want, got) == 0
+                else:
+                    exact = float((got == want).float().mean())
+                    ok = exact > 0.98 and bool(
+                        ((got - want).abs() <= 0.02 + 0.15 * want.abs()).all())
+                if not ok:
+                    raise AssertionError(f"{what}: C is off the oracle through"
+                                         " the epilogue")
+        for kind, w in wrappers:
+            counts[KIND_NAMES[kind] + _epi_label(dtype)] = w.epilogue_launches
+    ran = {k: v for k, v in counts.items() if v}
+    want_names = ({KIND_NAMES[k] + _epi_label(d) for k, d, ad in EPI_BUILDS
+                   if not ad})
+    missing = sorted(want_names - set(ran))
+    if missing:
+        raise AssertionError(f"kernels whose epilogue never launched on the"
+                             f" entry points: {missing}")
+    log(f"phase epilogue entry points at {nv}: every legal (dtype, strategy,"
+        f" encode) and B1 pass against epilogue_reference(sgemm_reference);"
+        f" epilogue launches {ran}; {time.perf_counter() - t2:.1f} s")
+    # (4) timing: each (body, dtype) at huge, the timed spelling beside the
+    # identity on the same launch, its plain version, and the bound.
+    t3 = time.perf_counter()
+    rows = []
+    shape = SHAPES["huge"]
+    nt = TIMING_SIZE
+    epi = EpilogueSpec.parse(EPI_TIMED)
+    row = pad_bias(np.random.default_rng(41).standard_normal(nt).astype(
+        np.float32), nt, shape.bn, dev)
+    for kind, dtype, adaptive in EPI_BUILDS:
+        if adaptive:
+            continue
+        a, b, c = _padded(program_inputs(dtype), shape, TORCH_DTYPES[dtype])
+        inj = InjectionSpec.reference_like(nt, shape.bk)
+        ce, mf = _epi_cadence(ft, kind, shape, inj, nt // shape.bk, False,
+                              dtype)
+        sc = _scalars(inj)
+        ident = kern.calls(kind, shape, a, b, c, sc, ce, mf)[0]
+        run, plain = kern.calls(kind, shape, a, b, c, sc, ce, mf, False, epi,
+                                row)
+        ident_ms = cuda_ms(ident, reps=5)
+        ms = cuda_ms(run, reps=5)
+        plain_ms = cuda_ms(plain)
+        flops, nbytes = work(kind, shape, nt, ce, mf, bf16=dtype == "bfloat16",
+                             int8=dtype == "int8", fp8=dtype == "fp8")
+        bound_ms, bound_by = _bound(
+            flops + EPI_FLOPS * nt * nt, nbytes + 4.0 * nt,
+            tc_products(kind, shape, nt, mf), bf16=dtype == "bfloat16",
+            int8=dtype == "int8", fp8=dtype == "fp8")
+        name = KIND_NAMES[kind] + _epi_label(dtype)
+        rows.append({
+            "name": name + "_epilogue", "route": "cuda",
+            "source": kern.table[KIND_NAMES[kind]]["source"],
+            "replaces": EPI_REPLACES[kind], "launches": counts[name],
+            "max_abs_err": errs[kind, dtype], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tile": "huge", "epilogue": EPI_TIMED, "identity_ms": ident_ms})
+        log(f"phase epilogue timing {name} (huge, {nt}, check every {ce}):"
+            f" {EPI_TIMED} {ms:.3f} ms, identity {ident_ms:.3f} ms"
+            f" ({ms - ident_ms:+.3f}), plain {plain_ms:.3f} ms, bound"
+            f" {bound_ms:.3f} ms ({bound_by})")
+    log(f"phase epilogue: {time.perf_counter() - t0:.1f} s (timing"
+        f" {time.perf_counter() - t3:.1f} s)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2675,37 +3104,56 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    smi, variant = phase_device()
-    phase_variant(kern, variant)
-    phase_bf16_kernels(kern)
-    phase_int8_kernels(kern)
-    phase_fp8_kernels(kern)
-    phase_adaptive_kernels(kern)
-    phase_adaptive_bracket(kern)
-    phase_adaptive_kernels(kern, lowp=True)
+    spent = {}
+
+    def run(phase, *args):
+        """One phase, its seconds logged and kept for the summary."""
+        t = time.perf_counter()
+        out = phase(*args)
+        name = phase.__name__ + "".join(f" {a}" for a in args
+                                        if isinstance(a, (str, bool)))
+        spent[name] = time.perf_counter() - t
+        log(f"phase time {name}: {spent[name]:.1f} s, at"
+            f" {time.perf_counter() - t0:.1f} s")
+        return out
+
+    smi, variant = run(phase_device)
+    # The f32 static libraries' phases, while the rest builds.
+    run(phase_kernels, kern)
+    run(phase_accuracy, kern)
+    run(phase_path_shapes, kern)
+    run(phase_int8_kernels, kern)
+    counts, _ = run(phase_main_path, kern)
+    # The f32 adaptive libraries'.
+    run(phase_adaptive_kernels, kern)
+    run(phase_adaptive_bracket, kern)
+    threshold_counts = run(phase_threshold_path, kern)
+    so = run(phase_build, variant, t0)
+    run(phase_variant, kern, so)
+    run(phase_bf16_kernels, kern)
+    run(phase_fp8_kernels, kern)
+    run(phase_adaptive_kernels, kern, True)
     for in_dtype in LOWP_DTYPES:
-        phase_lowp_bracket(kern, in_dtype)
-    phase_kernels(kern)
-    phase_accuracy(kern)
-    phase_path_shapes(kern)
-    counts, _ = phase_main_path(kern)
-    threshold_counts = phase_threshold_path(kern)
-    bf16_counts, bf16_tables = phase_float_path(kern, "bfloat16")
-    int8_counts, _ = phase_int8_path(kern)
-    fp8_counts, fp8_tables = phase_float_path(kern, "fp8")
+        run(phase_lowp_bracket, kern, in_dtype)
+    bf16_counts, bf16_tables = run(phase_float_path, kern, "bfloat16")
+    int8_counts, _ = run(phase_int8_path, kern)
+    fp8_counts, fp8_tables = run(phase_float_path, kern, "fp8")
     lowp_counts = {
-        in_dtype: phase_threshold_path(kern, in_dtype, tables)
+        in_dtype: run(phase_threshold_path, kern, in_dtype, tables)
         for in_dtype, tables in zip(LOWP_DTYPES, (bf16_tables, fp8_tables))}
-    phase_fp8_residual(kern)
-    phase_roc(kern)
-    rows = phase_timing(kern, counts, threshold_counts)
-    rows += phase_float_timing(kern, bf16_counts, "bfloat16")
-    rows += phase_int8_timing(kern, int8_counts)
-    rows += phase_float_timing(kern, fp8_counts, "fp8")
+    run(phase_fp8_residual, kern)
+    run(phase_roc, kern)
+    epilogue_rows = run(phase_epilogue, kern)
+    rows = run(phase_timing, kern, counts, threshold_counts)
+    rows += run(phase_float_timing, kern, bf16_counts, "bfloat16")
+    rows += run(phase_int8_timing, kern, int8_counts)
+    rows += run(phase_float_timing, kern, fp8_counts, "fp8")
     for in_dtype in LOWP_DTYPES:
-        rows += phase_lowp_adaptive_timing(kern, lowp_counts[in_dtype],
-                                           in_dtype)
-    log(f"total {time.perf_counter() - t0:.1f} s")
+        rows += run(phase_lowp_adaptive_timing, kern, lowp_counts[in_dtype],
+                    in_dtype)
+    rows += epilogue_rows
+    log(f"total {time.perf_counter() - t0:.1f} s; by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

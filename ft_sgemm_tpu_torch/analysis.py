@@ -240,7 +240,7 @@ def detection_rate_sweep(
     a, b, c = (np.asarray(x, np.float32) for x in (a, b, c))
     k = a.shape[1]
     want = sgemm_reference(a, b, c, alpha, beta, in_dtype=in_dtype,
-                           device=device).cpu().numpy()
+                           device=device)
     ft = make_ft_sgemm(shape, alpha=alpha, beta=beta, strategy=strategy,
                        threshold=threshold, in_dtype=in_dtype, device=device)
     tile = ft.shape_config
@@ -252,7 +252,7 @@ def detection_rate_sweep(
         expected = inj.expected_faults(k, tile.bk) * tiles
         res = ft(a, b, c, inj)
         detected = int(res.num_detected)
-        ok, _, _ = verify_matrix(want, res.c.cpu().numpy(), verbose=False)
+        ok, _, _ = verify_matrix(want, res.c, verbose=False)
         points.append(DetectionPoint(
             magnitude=float(mag), expected_faults=expected,
             detected=detected,

@@ -237,8 +237,7 @@ def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
     tiles = -(-end_size // shape.bm) * -(-end_size // shape.bn)
     expected = tiles * inj.expected_faults(end_size, shape.bk)
     events = int(res.num_detected)
-    ok_clean, nbad, first = verify_matrix(want, ft(a, b, c).c.cpu().numpy(),
-                                          verbose=False)
+    ok_clean, nbad, first = verify_matrix(want, ft(a, b, c).c, verbose=False)
     parts = []
     if events != expected:
         parts.append(f"detected {events}, expected {expected}")
@@ -276,7 +275,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
     c = np.zeros((end_size, end_size), np.float32)  # fill_vector(C,0)
     a, b, c = (as_f32(x, dev) for x in (a, b, c))
     want = sgemm_reference(a, b, c, ALPHA, BETA, in_dtype=in_dtype,
-                           device=dev).cpu().numpy()
+                           device=dev)
     dtype = canonical_in_dtype(in_dtype)
     if dtype == "int8":
         print("Verification in int8: A and B on the integer lattice"
@@ -309,8 +308,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
             ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev,
                                 threshold, in_dtype)
             res = ft(a, b, c, inj)
-            ok, nbad, first = verify_matrix(want, res.c.cpu().numpy(),
-                                            verbose=False)
+            ok, nbad, first = verify_matrix(want, res.c, verbose=False)
             unc = int(res.num_uncorrectable)
             parts = []
             if not ok:
@@ -328,8 +326,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         else:
             fn = _build_callable(kernel_id, end_size, True, strategy, encode,
                                  dev, in_dtype=in_dtype)
-            got = fn(a, b, c).cpu().numpy()
-            ok, nbad, first = verify_matrix(want, got, verbose=False)
+            ok, nbad, first = verify_matrix(want, fn(a, b, c), verbose=False)
             status = "pass" if ok else f"FAIL ({nbad} bad, first at {first})"
         all_ok &= ok
         print(f"Verification of kernel {kernel_id:2d} ({name:20s}): {status}",

@@ -191,6 +191,261 @@ def check_kernel_legality(*, strategy: str, encode: str,
             f" threshold={threshold_mode!r} is not ported yet")
     return dtype
 
+# The kernel-variant axes (ft_sgemm_tpu/configs.py:162-204), kept so the
+# port takes and reports the same descriptor. ``PIPELINE_DEPTHS``: K panels
+# the pipeline holds per operand stream (2: the historical double buffer;
+# 3: a two-panel K window). ``GRID_ORDERS``: the walk of the two output
+# grid dims, "mn" (M-major) or "nm"; K stays innermost. ``DIM_SEMANTICS``:
+# the Mosaic semantics of the output dims. ``RING_OVERLAP_MODES``: the hop
+# schedule of the ring collectives (ignored by the single-device factories).
+# The port runs the defaults of the first three only (ROADMAP Queue B item
+# 5); the factories refuse the others.
+PIPELINE_DEPTHS = (2, 3)
+GRID_ORDERS = ("mn", "nm")
+DIM_SEMANTICS = ("parallel", "arbitrary")
+RING_OVERLAP_MODES = ("serial", "overlap")
+
+# Fused-epilogue axes (ft_sgemm_tpu/configs.py:180-204): the detect-correct
+# epilogue of every kernel can fuse a bias add, an activation, and an int8
+# or fp8 quantize-rescale, applied strictly AFTER correction, so the ABFT
+# checksums verify the pre-epilogue accumulator. Quantized outputs stay in
+# f32 storage carrying exactly representable target-grid values (round and
+# clamp for int8, the e4m3 rounding of ``ops/common.to_e4m3`` for fp8).
+EPILOGUE_ACTIVATIONS = ("none", "relu", "gelu")
+EPILOGUE_QUANTIZE = ("none", "int8", "float8_e4m3fn")
+
+# Spelling tokens for the quantize modes in the compact epilogue spelling
+# (EpilogueSpec.spelling / .parse): "qint8" / "qfp8".
+_EPI_QUANT_TOKENS = {"int8": "qint8", "float8_e4m3fn": "qfp8"}
+
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueSpec:
+    """A fused-epilogue request: what the kernel applies to the corrected
+    ``alpha*acc + beta*C`` tile before writing it back
+    (ft_sgemm_tpu/configs.py:212).
+
+    ``bias`` adds a per-output-column bias row; ``activation`` is one of
+    :data:`EPILOGUE_ACTIVATIONS`; ``quantize`` one of
+    :data:`EPILOGUE_QUANTIZE` with ``scale`` the quantize-rescale
+    multiplier (output = round/clamp of ``x * scale`` onto the target
+    grid, in f32 storage). Order of application: bias -> activation ->
+    quantize.
+
+    The canonical compact spelling (:meth:`spelling` / :meth:`parse`):
+    ``"none"`` for the identity, else ``+``-joined tokens, e.g.
+    ``"bias+relu"``, ``"bias+gelu+qint8"``, ``"qfp8x0.5"`` (a non-unit
+    scale is appended as ``x<scale>``).
+    """
+
+    bias: bool = False
+    activation: str = "none"
+    quantize: str = "none"
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if self.activation not in EPILOGUE_ACTIVATIONS:
+            raise ValueError(
+                f"EpilogueSpec.activation={self.activation!r} must be one"
+                f" of {EPILOGUE_ACTIVATIONS}")
+        if self.quantize not in EPILOGUE_QUANTIZE:
+            raise ValueError(
+                f"EpilogueSpec.quantize={self.quantize!r} must be one of"
+                f" {EPILOGUE_QUANTIZE}")
+        if self.scale != 1.0 and self.quantize == "none":
+            raise ValueError(
+                "EpilogueSpec.scale is the quantize-rescale multiplier;"
+                " set quantize to use it")
+        if not self.scale > 0.0:
+            raise ValueError(
+                f"EpilogueSpec.scale={self.scale!r} must be positive")
+
+    @property
+    def is_identity(self) -> bool:
+        return (not self.bias and self.activation == "none"
+                and self.quantize == "none")
+
+    @property
+    def spelling(self) -> str:
+        if self.is_identity:
+            return "none"
+        parts = []
+        if self.bias:
+            parts.append("bias")
+        if self.activation != "none":
+            parts.append(self.activation)
+        if self.quantize != "none":
+            tok = _EPI_QUANT_TOKENS[self.quantize]
+            if self.scale != 1.0:
+                tok += f"x{self.scale:g}"
+            parts.append(tok)
+        return "+".join(parts)
+
+    @classmethod
+    def parse(cls, spec) -> "EpilogueSpec":
+        """An :class:`EpilogueSpec` from a spelling (or pass one through).
+
+        Accepts ``None`` / ``"none"`` (identity) and ``+``-joined tokens
+        (see :meth:`spelling`); raises a ValueError naming the legal
+        tokens for anything else.
+        """
+        if spec is None:
+            return cls()
+        if isinstance(spec, cls):
+            return spec
+        if not isinstance(spec, str):
+            raise ValueError(
+                f"epilogue must be an EpilogueSpec or a spelling string,"
+                f" got {spec!r}")
+        s = spec.strip().lower()
+        if s in ("", "none"):
+            return cls()
+        bias = False
+        activation = "none"
+        quantize = "none"
+        scale = 1.0
+        quant_by_token = {v: k for k, v in _EPI_QUANT_TOKENS.items()}
+        for tok in s.split("+"):
+            if tok == "bias":
+                bias = True
+            elif tok in EPILOGUE_ACTIVATIONS and tok != "none":
+                activation = tok
+            else:
+                base, _, sc = tok.partition("x")
+                if base in quant_by_token:
+                    quantize = quant_by_token[base]
+                    if sc:
+                        try:
+                            scale = float(sc)
+                        except ValueError:
+                            raise ValueError(
+                                f"epilogue quantize scale {sc!r} in"
+                                f" {spec!r} is not a number") from None
+                else:
+                    raise ValueError(
+                        f"unknown epilogue token {tok!r} in {spec!r};"
+                        " legal tokens: bias, "
+                        + ", ".join(a for a in EPILOGUE_ACTIVATIONS
+                                    if a != "none")
+                        + ", " + ", ".join(sorted(quant_by_token))
+                        + " (optionally qint8x<scale>)")
+        return cls(bias=bias, activation=activation, quantize=quantize,
+                   scale=scale)
+
+
+DEFAULT_EPILOGUE = EpilogueSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVariant:
+    """The kernel-variant descriptor (ft_sgemm_tpu/configs.py:330): the
+    pipeline depth (:data:`PIPELINE_DEPTHS`), the output grid's walk
+    (:data:`GRID_ORDERS`), the output dims' semantics
+    (:data:`DIM_SEMANTICS`), the detect/correct cadence (``check_every``
+    in K steps; ``None`` = the strategy's default), the fused epilogue (an
+    :class:`EpilogueSpec` SPELLING, kept as a string so the descriptor
+    stays hashable) and the ring hop schedule
+    (:data:`RING_OVERLAP_MODES`, ignored by the single-device factories).
+    ``KernelVariant()`` is the historical behavior. The port's factories
+    run the cadence and the epilogue axes; a non-default pipeline depth,
+    grid order or dimension semantics raises ``NotImplementedError`` there
+    (ROADMAP Queue B item 5).
+    """
+
+    pipeline_depth: int = 2
+    grid_order: str = "mn"
+    dim_semantics: str = "parallel"
+    check_every: Optional[int] = None
+    epilogue: str = "none"
+    ring_overlap: str = "serial"
+
+    def __post_init__(self):
+        if self.pipeline_depth not in PIPELINE_DEPTHS:
+            raise ValueError(
+                f"KernelVariant.pipeline_depth={self.pipeline_depth!r}"
+                f" must be one of {PIPELINE_DEPTHS}")
+        if self.grid_order not in GRID_ORDERS:
+            raise ValueError(
+                f"KernelVariant.grid_order={self.grid_order!r} must be"
+                f" one of {GRID_ORDERS}")
+        if self.dim_semantics not in DIM_SEMANTICS:
+            raise ValueError(
+                f"KernelVariant.dim_semantics={self.dim_semantics!r}"
+                f" must be one of {DIM_SEMANTICS}")
+        if self.check_every is not None and (
+                not isinstance(self.check_every, int)
+                or self.check_every < 1):
+            raise ValueError(
+                f"KernelVariant.check_every={self.check_every!r} must be"
+                " a positive int (K-grid steps) or None for the"
+                " strategy default")
+        if self.ring_overlap not in RING_OVERLAP_MODES:
+            raise ValueError(
+                f"KernelVariant.ring_overlap={self.ring_overlap!r} must"
+                f" be one of {RING_OVERLAP_MODES}")
+        # Canonicalize the epilogue spelling through the one parser so
+        # "Bias+ReLU" and "bias+relu" key identically everywhere.
+        object.__setattr__(
+            self, "epilogue", EpilogueSpec.parse(self.epilogue).spelling)
+
+    @property
+    def is_default(self) -> bool:
+        return self == KernelVariant()
+
+    @property
+    def epilogue_spec(self) -> EpilogueSpec:
+        return EpilogueSpec.parse(self.epilogue)
+
+    @property
+    def grid_spelling(self) -> str:
+        """``<order>.<semantics>`` (e.g. ``mn.parallel``)."""
+        return f"{self.grid_order}.{self.dim_semantics}"
+
+    @property
+    def cadence_spelling(self) -> str:
+        """``auto`` (strategy default) or the explicit cadence."""
+        return "auto" if self.check_every is None else str(self.check_every)
+
+
+DEFAULT_VARIANT = KernelVariant()
+
+
+def canonical_variant(variant) -> KernelVariant:
+    """A :class:`KernelVariant` from None (the default), a variant, or a
+    dict of its fields (the tuner-cache record form)."""
+    if variant is None:
+        return DEFAULT_VARIANT
+    if isinstance(variant, KernelVariant):
+        return variant
+    if isinstance(variant, dict):
+        fields = {f.name for f in dataclasses.fields(KernelVariant)}
+        extra = set(variant) - fields
+        if extra:
+            raise ValueError(
+                f"unknown KernelVariant fields {sorted(extra)};"
+                f" legal: {sorted(fields)}")
+        return KernelVariant(**variant)
+    raise ValueError(
+        f"variant must be a KernelVariant, a field dict, or None,"
+        f" got {variant!r}")
+
+
+def check_variant(variant: KernelVariant) -> None:
+    """Raise ``NotImplementedError`` for the variant axes the port does not
+    run yet: a pipeline depth, grid order or dimension semantics other
+    than the default (ROADMAP Queue B item 5). The cadence and the
+    epilogue run; ``ring_overlap`` is accepted and ignored, as the JAX
+    package's single-device factories ignore it."""
+    for axis in ("pipeline_depth", "grid_order", "dim_semantics"):
+        value = getattr(variant, axis)
+        if value != getattr(DEFAULT_VARIANT, axis):
+            raise NotImplementedError(
+                f"KernelVariant.{axis}={value!r} is not ported yet: the"
+                " port runs the default pipeline depth, grid order and"
+                " dimension semantics only (ROADMAP Queue B item 5, the"
+                " variant axes)")
+
+
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA
 # tiles (code_gen/main.py:8-16). "test" is the JAX package's 128x128x128
 # tile.

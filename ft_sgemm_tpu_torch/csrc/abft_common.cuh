@@ -8,6 +8,10 @@
 //   variance_bound_threshold <- ops/common.py::variance_bound_threshold
 //                               (:148-185), as _adaptive_threshold (:360)
 //                               evaluates it per tile and check
+//   Epilogue                 <- ops/common.py::apply_epilogue (:461-500),
+//                               which every kernel body applies after its
+//                               detect / correct (B1 ops/sgemm.py:98-101,
+//                               B2-B8 ops/ft_sgemm.py:632-1162)
 //
 // The kernels reduce the accumulator's column moments over their own
 // fragment maps (gemm_wgmma.cuh) and call weighted_column once per column.
@@ -17,6 +21,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cstdint>
 
 // FTSG_ADAPTIVE=1 builds B3-B8 for threshold="adaptive": each check derives
 // every sub-tile's threshold from that sub-tile's running moments
@@ -83,6 +88,70 @@ enum Slot {
 // Passed by value; only the adaptive build reads them.
 struct NoiseModel {
   float log2_t, c_rand, c_bias;
+};
+
+// The fused epilogue, passed by value to every kernel and applied by its one
+// store (gemm_wgmma.cuh: WgMainloop::store) to each output element after
+// alpha * acc + beta * C, strictly after the kernel's checks, so the
+// checksums verify the pre-epilogue accumulator. The order and arithmetic
+// are ops/common.apply_epilogue's, op for op (no contraction: every product
+// and sum is rounded on its own, as the torch ops round them): + bias[col],
+// then relu (negatives to 0, NaN and -0 kept) or the tanh GELU with the
+// accurate tanhf, then the quantize: int8 round half to even (rintf) and a
+// clamp to [-128, 127] that keeps NaN, or the e4m3 grid of
+// ops/common.to_e4m3 (round to nearest even, 464 to 448, NaN past 464 and
+// for +-inf), the result in f32. `bias` is the wrapper's padded bias row
+// (ops/common.pad_bias), null without one; act and quant are
+// ops/common.EPILOGUE_ACT_CODES and EPILOGUE_QUANT_CODES. The identity (all
+// zero, scale 1) stores what the kernels stored before the epilogue was
+// ported: the store branches on it once, uniformly, after its own loop.
+struct Epilogue {
+  const float* bias;
+  int act, quant;
+  float scale;
+
+  __host__ __device__ bool identity() const {
+    return bias == nullptr && act == 0 && quant == 0;
+  }
+  __host__ bool valid() const {
+    return act >= 0 && act <= 2 && quant >= 0 && quant <= 2 && scale > 0.f;
+  }
+
+  // 0.5 x (1 + tanh(0.7978845608028654 (x + 0.044715 x x x))), left to
+  // right as written.
+  static __device__ __forceinline__ float gelu(float x) {
+    const float x3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
+    const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(x, x3)));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, t));
+  }
+
+  // v on float8_e4m3fn's grid, in f32: NaN where |v| > 464 (and for NaN),
+  // else rounded to nearest even at the grid step of v's binade, 2^(e - 3)
+  // with e = max(floor(log2 |v|), -6) (the subnormals' step below 2^-6).
+  // Scaling by powers of two is exact, so the one rounding is rintf's.
+  static __device__ __forceinline__ float e4m3(float v) {
+    if (!(fabsf(v) <= 464.f)) return __int_as_float(0x7fc00000);
+    const int e = max((int)((__float_as_uint(v) >> 23) & 0xff) - 127, -6);
+    const float step = __uint_as_float((uint32_t)(e - 3 + 127) << 23);
+    const float inv = __uint_as_float((uint32_t)(127 - (e - 3)) << 23);
+    return __fmul_rn(rintf(__fmul_rn(v, inv)), step);
+  }
+
+  __device__ __forceinline__ float apply(float x, float b) const {
+    if (bias) x = __fadd_rn(x, b);
+    if (act == 1) {
+      x = x < 0.f ? 0.f : x;
+    } else if (act == 2) {
+      x = gelu(x);
+    }
+    if (quant == 1) {
+      const float r = rintf(__fmul_rn(x, scale));
+      x = r < -128.f ? -128.f : (r > 127.f ? 127.f : r);
+    } else if (quant == 2) {
+      x = e4m3(__fmul_rn(x, scale));
+    }
+    return x;
+  }
 };
 
 // Thresholds saturate at a finite huge value (ops/common.THRESHOLD_CAP): an

@@ -74,18 +74,23 @@
 // B6. `MA` is A's (M / bm, 3, K) moment rows; `scalars` a host array of 8
 // floats (contracts.SCALAR_SLOTS); log2_t, c_rand and
 // c_bias the noise model's constants (NoiseModel), read by the adaptive
-// build. Returns cudaGetLastError() (cudaErrorInvalidValue when no sub-tile
+// build; bias, act, quant and scale the fused epilogue (abft_common.cuh,
+// Epilogue: ops/ft_sgemm.py:1159-1162 for B6, :750-753 for B7, of the JAX
+// package), applied in the store after the last check. Returns
+// cudaGetLastError() (cudaErrorInvalidValue when no sub-tile
 // matches or a tensor map cannot be encoded).
 extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
                              const float* MA, float* out, int* det, int* unc,
                              int M, int N, int K, int bm, int bn, int bk,
                              int check_every, float alpha, float beta,
                              const float* scalars, float log2_t, float c_rand,
-                             float c_bias, void* stream) {
+                             float c_bias,
+                             const float* bias, int act, int quant,
+                             float scale, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kLoadRows>::At>(
       A, B, C, MA, nullptr, 3, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 
 // B7. `MA` is A's (M / bm, 2, K) plain and w rows, `MB` B's (N / bn, 1, K)
@@ -97,18 +102,20 @@ extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
                                   int bn, int bk, int check_every,
                                   int multifault, float alpha, float beta,
                                   const float* scalars, float log2_t,
-                                  float c_rand, float c_bias, void* stream) {
+                                  float c_rand, float c_bias,
+                                  const float* bias, int act, int quant,
+                                  float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
         A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, nm, s);
+        alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
       A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, nm, s);
+      alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
 }
 #endif
 
@@ -121,12 +128,14 @@ extern "C" int ftsg_ft_fused_bf16(const void* A, const void* B,
                                   int bm, int bn, int bk, int check_every,
                                   float alpha, float beta,
                                   const float* scalars, float log2_t,
-                                  float c_rand, float c_bias, void* stream) {
+                                  float c_rand, float c_bias,
+                                  const float* bias, int act, int quant,
+                                  float scale, void* stream) {
   return ftsg::launch_running<
       ftsg::WeightedOf<ftsg::kLoadRows, ftsg::kBF16>::At>(
       A, B, C, MA, nullptr, 9, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -142,17 +151,19 @@ extern "C" int ftsg_ft_rowcol_mxu_bf16(const void* A, const void* B,
                                        int multifault, float alpha,
                                        float beta, const float* scalars,
                                        float log2_t, float c_rand,
-                                       float c_bias, void* stream) {
+                                       float c_bias,
+                                       const float* bias, int act, int quant,
+                                       float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<ftsg::RowcolOf<
         true, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
         A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, nm, s);
+        alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
       A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, nm, s);
+      alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
 }
 #endif

@@ -62,7 +62,11 @@
 
 // B4. `scalars` is a host array of 8 floats
 // (contracts.SCALAR_SLOTS); log2_t, c_rand and c_bias the noise model's
-// constants (NoiseModel), read by the adaptive build. Returns
+// constants (NoiseModel), read by the adaptive build; bias, act, quant and
+// scale the fused epilogue (abft_common.cuh, Epilogue: ops/ft_sgemm.py:902-910
+// for B4, :822-825 for B8, of the JAX package), applied in the store after
+// the last check, which it does not change (B4 and B8 correct nothing, so
+// their faults stay in the output and go through the epilogue). Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
 #if !FTSG_BF16
@@ -71,11 +75,12 @@ extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
                               int K, int bm, int bn, int bk, int check_every,
                               float alpha, float beta, const float* scalars,
                               float log2_t, float c_rand, float c_bias,
-                              void* stream) {
+                              const float* bias, int act, int quant,
+                              float scale, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -87,11 +92,13 @@ extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
                                    int bn, int bk, int check_every,
                                    float alpha, float beta,
                                    const float* scalars, float log2_t,
-                                   float c_rand, float c_bias, void* stream) {
+                                   float c_rand, float c_bias,
+                                   const float* bias, int act, int quant,
+                                   float scale, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -104,11 +111,13 @@ extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
                                    int bn, int bk, int check_every,
                                    float alpha, float beta,
                                    const float* scalars, float log2_t,
-                                   float c_rand, float c_bias, void* stream) {
+                                   float c_rand, float c_bias,
+                                   const float* bias, int act, int quant,
+                                   float scale, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kS8>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -122,11 +131,13 @@ extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
                                   int bn, int bk, int check_every,
                                   float alpha, float beta,
                                   const float* scalars, float log2_t,
-                                  float c_rand, float c_bias, void* stream) {
+                                  float c_rand, float c_bias,
+                                  const float* bias, int act, int quant,
+                                  float scale, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kLoadBands>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -141,11 +152,12 @@ extern "C" int ftsg_ft_global_mxu_bf16(const void* A, const void* B,
                                        float alpha, float beta,
                                        const float* scalars, float log2_t,
                                        float c_rand, float c_bias,
-                                       void* stream) {
+                                       const float* bias, int act, int quant,
+                                       float scale, void* stream) {
   return ftsg::launch_running<
       ftsg::GlobalOf<ftsg::kLoadBands, ftsg::kBF16>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif

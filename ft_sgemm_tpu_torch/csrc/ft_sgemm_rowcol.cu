@@ -62,7 +62,9 @@
 
 // `scalars` is a host array of 8 floats
 // (contracts.SCALAR_SLOTS); log2_t, c_rand and c_bias the noise model's
-// constants (NoiseModel), read by the adaptive build. Returns
+// constants (NoiseModel), read by the adaptive build; bias, act, quant and
+// scale the fused epilogue (abft_common.cuh, Epilogue: ops/ft_sgemm.py:632-643
+// of the JAX package), applied in the store after the last check. Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
 #if !FTSG_BF16
@@ -71,18 +73,20 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
                               int K, int bm, int bn, int bk, int check_every,
                               int multifault, float alpha, float beta,
                               const float* scalars, float log2_t,
-                              float c_rand, float c_bias, void* stream) {
+                              float c_rand, float c_bias,
+                              const float* bias, int act, int quant,
+                              float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
         A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-        check_every, alpha, beta, scalars, nm, s);
+        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, nm, s);
+      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
 }
 #endif
 
@@ -94,18 +98,20 @@ extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
                                    int bn, int bk, int check_every,
                                    int multifault, float alpha, float beta,
                                    const float* scalars, float log2_t,
-                                   float c_rand, float c_bias, void* stream) {
+                                   float c_rand, float c_bias,
+                                   const float* bias, int act, int quant,
+                                   float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<ftsg::RowcolOf<
         true, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
         A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-        check_every, alpha, beta, scalars, nm, s);
+        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, nm, s);
+      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
 }
 #endif
 
@@ -118,12 +124,14 @@ extern "C" int ftsg_ft_rowcol_int8(const void* A, const void* B,
                                    int bn, int bk, int check_every,
                                    int multifault, float alpha, float beta,
                                    const float* scalars, float log2_t,
-                                   float c_rand, float c_bias, void* stream) {
+                                   float c_rand, float c_bias,
+                                   const float* bias, int act, int quant,
+                                   float scale, void* stream) {
   if (multifault) return (int)cudaErrorInvalidValue;
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kS8>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif

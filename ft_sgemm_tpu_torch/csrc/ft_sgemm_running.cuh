@@ -55,6 +55,16 @@
 // the counts per sub-tile are shared-memory atomics; B3 skips its
 // correction pass when nothing in the CTA flagged.
 //
+// The fused epilogue (bias, relu or gelu, int8 or e4m3 quantize-rescale;
+// the JAX kernels' _apply_epilogue) is the kernel's last step: the store
+// applies it (abft_common.cuh, Epilogue) to each value after alpha * acc +
+// beta * C, once every check has run, so it changes neither the checks nor
+// the grids; each thread reads back the elements it has just stored (from
+// L2) and writes them again. With gelu that is ~14 FP32 operations an
+// element and the CTA's bias floats, yet it measured +0.07-0.14 ms a launch
+// at 4096 on an H100, more than a separate pass over C in HBM would take
+// (PERF.md, section 6).
+//
 // Thresholds: the checks take each sub-tile's from SubTileThresholds. The
 // default build reads slots 4-6 of the scalar argument (threshold "static",
 // or "auto", whose per-call value the wrapper computes from the inputs); the
@@ -985,7 +995,7 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
     const __grid_constant__ CUtensorMap tbb, const float* __restrict__ C,
     float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
     int M, int N, int K, int bk, int check_every, float alpha, float beta,
-    Scalars sc, NoiseModel nm) {
+    Scalars sc, NoiseModel nm, Epilogue epi) {
   const WgSmem<T> sm;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
   const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
@@ -1000,13 +1010,20 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   WgMainloop<T> ml(sm);
   RunHook<T, Check> hook(sc, nm, bk, K, check_every, ti0, tj0, sm.check());
   ml.run(nst, hook);
-  ml.template store<true>(out, C, N, m0, n0, alpha, beta, M);
-  const int t = threadIdx.x, gn = N / T::SBN;
-  const int ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
-  if (t < T::NSUB && ti < M / T::SBM && tj < gn) {
-    det[ti * gn + tj] = hook.ck.n_det;
-    unc[ti * gn + tj] = hook.ck.unc();
-  }
+  const auto grids = [&] {
+    const int t = threadIdx.x, gn = N / T::SBN;
+    const int ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
+    if (t < T::NSUB && ti < M / T::SBM && tj < gn) {
+      det[ti * gn + tj] = hook.ck.n_det;
+      unc[ti * gn + tj] = hook.ck.unc();
+    }
+  };
+  // The grids go out before the store in bf16 and after it otherwise: the
+  // two orders keep the allocations these kernels had before the epilogue's
+  // call was added (bf16 and f32 respectively; PERF.md, section 6).
+  if constexpr (T::BF16) grids();
+  ml.template store<true>(out, C, N, m0, n0, alpha, beta, epi, M);
+  if constexpr (!T::BF16) grids();
 }
 
 // One launch of a sub-tiled kernel for sub-tile (bm, bn): `Of<bm, bn>`
@@ -1020,18 +1037,21 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // for a bf16 or int8 tile, bf16 or int8 (an int8 operand's rows 16-byte
 // aligned, tensor_map); `scalars` the
 // host array of the scalar argument, `nm` the noise model's constants (read
-// by the adaptive build). Returns 0 or the CUDA error, also when a tensor
-// map cannot be encoded or no sub-tile matches.
+// by the adaptive build), `epi` the fused epilogue (abft_common.cuh,
+// Epilogue), applied in the store after the last check. Returns 0 or the
+// CUDA error, also when a tensor map cannot be encoded or no sub-tile
+// matches.
 template <template <int, int> class Of>
 int launch_running(const void* A, const void* B, const float* C,
                    const void* MA, const void* MB, int n_rows, float* out,
                    int* det, int* unc, int M, int N, int K, int bm, int bn,
                    int bk, int check_every, float alpha, float beta,
                    const float* scalars, const NoiseModel& nm,
-                   cudaStream_t stream) {
+                   const Epilogue& epi, cudaStream_t stream) {
   Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
-  if (K % 8 || bk % 8 || check_every < 1) return (int)cudaErrorInvalidValue;
+  if (K % 8 || bk % 8 || check_every < 1 || !epi.valid())
+    return (int)cudaErrorInvalidValue;
 #define FTSG_LAUNCH_SUB(SBM_, SBN_)                                            \
   if (bm == SBM_ && bn == SBN_) {                                              \
     using T = typename Of<SBM_, SBN_>::type;                                   \
@@ -1055,7 +1075,7 @@ int launch_running(const void* A, const void* B, const float* C,
       return (int)e;                                                           \
     kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,    \
              T::SMEM, stream>>>(ta, tb, tm, tbb, C, out, det, unc, M, N, K,   \
-                                bk, check_every, alpha, beta, sc, nm);         \
+                                bk, check_every, alpha, beta, sc, nm, epi);    \
     return (int)cudaGetLastError();                                            \
   }
   FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)

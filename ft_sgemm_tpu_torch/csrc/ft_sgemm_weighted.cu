@@ -18,7 +18,9 @@
 // w = row in the tile + 1) of the register accumulator, per-column
 // localization by the weighted-residual ratio, the correction, and the
 // three-moment re-check (_moment_detect_correct). Correction precedes
-// alpha / beta.
+// alpha / beta, and the fused epilogue (bias, activation, quantize:
+// ops/ft_sgemm.py:1004-1007 for B5, :1063-1073 for B2) follows them in the
+// store (abft_common.cuh, Epilogue).
 //
 // What bounds B2 on an H100: B1's three TF32 tensor-core products per
 // multiply-add and split pass (gemm_wgmma.cuh). It adds a per-tile check
@@ -158,7 +160,7 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ C,
     const float* __restrict__ expm, float* __restrict__ out,
     int* __restrict__ det, int* __restrict__ unc, int M, int N, int K, int bk,
-    float alpha, float beta, Scalars sc) {
+    float alpha, float beta, Scalars sc, Epilogue epi) {
   const WgSmem<T> sm;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
   const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
@@ -180,7 +182,7 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     int n_hit, n_unc;
     wg_moment_check(ml, *reinterpret_cast<WgCheckSmem<T>*>(sm.base),
                     expm + (size_t)ti0 * 3 * N + n0, N, sc, n_hit, n_unc);
-    ml.store(out, C, N, m0, n0, alpha, beta);
+    ml.store(out, C, N, m0, n0, alpha, beta, epi);
     if (threadIdx.x == 0) {
       det[ti0 * gridDim.x + tj0] = n_hit;
       unc[ti0 * gridDim.x + tj0] = n_unc;
@@ -192,12 +194,17 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     const int gm = M / T::SBM, gn = N / T::SBN;
     PrecompCheck<T> ck(sc, NoiseModel{}, sm.base);
     ck.check(ml, expm, gm, N, ti0, n0);
-    ml.template store<true>(out, C, N, m0, n0, alpha, beta, M);
-    const int t = threadIdx.x, ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
-    if (t < T::NSUB && ti < gm && tj < gn) {
-      det[ti * gn + tj] = ck.n_det;
-      unc[ti * gn + tj] = ck.unc();
-    }
+    const auto grids = [&] {
+      const int t = threadIdx.x, ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
+      if (t < T::NSUB && ti < gm && tj < gn) {
+        det[ti * gn + tj] = ck.n_det;
+        unc[ti * gn + tj] = ck.unc();
+      }
+    };
+    // As in ft_running_wgmma_kernel: the order that keeps the allocation.
+    if constexpr (T::BF16) grids();
+    ml.template store<true>(out, C, N, m0, n0, alpha, beta, epi, M);
+    if constexpr (!T::BF16) grids();
   }
 }
 
@@ -205,16 +212,17 @@ template <class T>
 int launch_wgmma(const void* A, const void* B, const float* C,
                  const float* expm, float* out, int* det, int* unc, int M,
                  int N, int K, int bk, float alpha, float beta,
-                 const Scalars& sc, cudaStream_t stream) {
+                 const Scalars& sc, const Epilogue& epi,
+                 cudaStream_t stream) {
   CUtensorMap ta, tb;
-  if (bk % 8) return (int)cudaErrorInvalidValue;
+  if (bk % 8 || !epi.valid()) return (int)cudaErrorInvalidValue;
   if (const int rc = wgmma_setup<T>(ft_weighted_wgmma_kernel<T>, &ta, &tb, A,
                                     B, M, N, K))
     return rc;
   ft_weighted_wgmma_kernel<T>
       <<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,
           T::SMEM, stream>>>(ta, tb, C, expm, out, det, unc, M, N, K, bk,
-                             alpha, beta, sc);
+                             alpha, beta, sc, epi);
   return (int)cudaGetLastError();
 }
 
@@ -224,25 +232,28 @@ FTSG_NAMESPACE_END  // ftsg
 // B2 (no adaptive form: its expected moments are the wrapper's, and the
 // adaptive weighted strategy runs B5). `scalars` is a host array of 8
 // floats (contracts.SCALAR_SLOTS); `expm` the (M / bm, 3, N) expected
-// moments. Returns cudaGetLastError() (cudaErrorInvalidValue when no tile
-// matches).
+// moments; bias, act, quant and scale the fused epilogue (abft_common.cuh,
+// Epilogue), applied after the check. Returns cudaGetLastError()
+// (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_ft_weighted_precomp(
     const float* A, const float* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
-    int bk, float alpha, float beta, const float* scalars, void* stream) {
+    int bk, float alpha, float beta, const float* scalars, const float* bias,
+    int act, int quant, float scale, void* stream) {
   ftsg::Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
+  const ftsg::Epilogue epi{bias, act, quant, scale};
   const auto s = (cudaStream_t)stream;
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<BM_, BN_>>(                     \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
 #define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_>>(           \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
   FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
@@ -254,14 +265,16 @@ extern "C" int ftsg_ft_weighted_precomp(
 extern "C" int ftsg_ft_weighted_precomp_bf16(
     const void* A, const void* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
-    int bk, float alpha, float beta, const float* scalars, void* stream) {
+    int bk, float alpha, float beta, const float* scalars, const float* bias,
+    int act, int quant, float scale, void* stream) {
   ftsg::Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
+  const ftsg::Epilogue epi{bias, act, quant, scale};
   const auto s = (cudaStream_t)stream;
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>>(      \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
 #define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
@@ -269,7 +282,7 @@ extern "C" int ftsg_ft_weighted_precomp_bf16(
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_, 0, 0,       \
                                            ftsg::kNoBands, ftsg::kNoRows,  \
                                            ftsg::kBF16>>(                  \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
   FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
@@ -282,12 +295,13 @@ extern "C" int ftsg_ft_weighted_running_bf16(
     const void* A, const void* B, const float* C, float* out, int* det,
     int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
     float alpha, float beta, const float* scalars, float log2_t,
-    float c_rand, float c_bias, void* stream) {
+    float c_rand, float c_bias, const float* bias, int act, int quant,
+    float scale, void* stream) {
   return ftsg::launch_running<
       ftsg::WeightedOf<ftsg::kSumRows, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif
 
@@ -299,10 +313,11 @@ extern "C" int ftsg_ft_weighted_running(
     const float* A, const float* B, const float* C, float* out, int* det,
     int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
     float alpha, float beta, const float* scalars, float log2_t,
-    float c_rand, float c_bias, void* stream) {
+    float c_rand, float c_bias, const float* bias, int act, int quant,
+    float scale, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kSumRows>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      (cudaStream_t)stream);
+      {bias, act, quant, scale}, (cudaStream_t)stream);
 }
 #endif

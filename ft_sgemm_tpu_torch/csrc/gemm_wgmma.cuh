@@ -1699,6 +1699,36 @@ struct NoInject {
                                         int) {}
 };
 
+// The fused epilogue's pass over the elements one consumer thread of
+// WgMainloop::store has just written (rows r0 and r0 + 8, columns c0 + 8 j
+// and c0 + 8 j + 1 of the CTA's tile, j < nacc / 4): each read back (its
+// own write, from L2), put through the epilogue and written again, with no
+// barrier. It is not inlined: each library compiles it once, and the
+// kernels call it at their end, where little of them is live (ptxas still
+// allocates each kernel anew; the FT kernels write their grids before or
+// after the call, whichever keeps their allocation; PERF.md). Inlined, the
+// same loop moved the f32 rowcol kernels' spills (568 to 772 B at the
+// medium tile) and their identity times by up to 5 %; applied in registers
+// inside the unrolled store, the epilogue's 64 tanhf a thread tripled the
+// build.
+template <bool MASK>
+__device__ __noinline__ void epilogue_pass(float* out, int N, int M, int m0,
+                                           int n0, int r0, int c0, int nacc,
+                                           Epilogue epi) {
+#pragma unroll 4
+  for (int i = 0; i < nacc; i += 2) {
+    const int r = r0 + 8 * ((i >> 1) & 1), c = c0 + 8 * (i >> 2);
+    if (MASK && (m0 + r >= M || n0 + c >= N)) continue;
+    const size_t o = (size_t)(m0 + r) * N + n0 + c;
+    const float2 v = *reinterpret_cast<const float2*>(out + o);
+    const float2 b = epi.bias
+                         ? *reinterpret_cast<const float2*>(epi.bias + n0 + c)
+                         : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(out + o) =
+        make_float2(epi.apply(v.x, b.x), epi.apply(v.y, b.y));
+  }
+}
+
 // A consumer thread's part of the K loop and its accumulator. The tensor
 // cores truncate when they accumulate, so a long sum inside wgmma drifts by
 // up to an ulp per add (~11x cuBLAS's FP32 error at K = 4096); each stage's
@@ -2269,15 +2299,21 @@ struct WgMainloop {
     }
   }
 
-  // out = alpha * acc + beta * C for this CTA's tile, a float2 per
+  // out = epi(alpha * acc + beta * C) for this CTA's tile, a float2 per
   // column pair (out never aliases C); with MASK only the rows below M and
-  // columns below N (a CTA larger than the padded operands). int8: alpha *
-  // f32(acc) + beta * C with each product and the sum rounded on its own
-  // (no FMA contraction), as the plain version's torch ops round them.
+  // columns below N (a CTA larger than the padded operands; the epilogue
+  // reads the bias row only there too). int8: alpha * f32(acc) + beta * C
+  // with each product and the sum rounded on its own (no FMA contraction),
+  // as the plain version's torch ops round them. The fused epilogue
+  // (abft_common.cuh: Epilogue) runs after every check of the kernel: the
+  // store writes alpha * acc + beta * C as it always did, then, behind one
+  // uniform branch, epilogue_pass reads back this thread's elements and
+  // writes them through the epilogue.
   template <bool MASK = false>
   __device__ __forceinline__ void store(float* out, const float* C, int N,
                                         int m0, int n0, float alpha,
-                                        float beta, int M = 0) const {
+                                        float beta, const Epilogue& epi,
+                                        int M = 0) const {
 #pragma unroll
     for (int i = 0; i < T::NACC; i += 2) {
       if (MASK && (m0 + row(i) >= M || n0 + col(i) >= N)) continue;
@@ -2294,6 +2330,8 @@ struct WgMainloop {
             alpha * acc[i] + beta * c.x, alpha * acc[i + 1] + beta * c.y);
       }
     }
+    if (!epi.identity())
+      epilogue_pass<MASK>(out, N, M, m0, n0, row(0), col(0), T::NACC, epi);
   }
 };
 

@@ -47,6 +47,16 @@
 // 4096) against ~168 MB (A and B one byte an element, C read and written
 // in f32) at 3.35 TB/s (0.050 ms): operations.
 
+// The fused epilogue (ops/sgemm.py:98-101 of the JAX package: bias, relu or
+// gelu, int8 or e4m3 quantize-rescale; abft_common.cuh, Epilogue) is applied
+// by the store (WgMainloop::store): each thread reads back the tile elements
+// it has just written, from L2, and writes them again through the epilogue,
+// with no barrier and no pass over C in HBM. It adds ~14 FP32 operations an
+// element with gelu (tanhf as one) and the bias row's N floats of bytes,
+// under 1 % of the bound at 4096, but measured +0.07-0.14 ms a launch there
+// on an H100 (B1 bf16 0.286 -> 0.356 ms, fp8 0.227 -> 0.324): more than a
+// separate pass over C in HBM would take (PERF.md, section 6).
+
 #include "gemm_wgmma.cuh"
 
 // FTSG_FP8=1 compiles ftsg_sgemm_fp8 alone, into a library of its own
@@ -62,7 +72,8 @@ template <class T, bool RAGGED>
 __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ C,
-    float* __restrict__ out, int M, int N, int K, float alpha, float beta) {
+    float* __restrict__ out, int M, int N, int K, float alpha, float beta,
+    Epilogue epi) {
   const WgSmem<T> sm;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
   const int nst = (K + T::SK - 1) / T::SK;
@@ -76,19 +87,20 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
   WgMainloop<T> ml(sm);
   NoInject none;
   ml.run(nst, none);
-  ml.template store<RAGGED>(out, C, N, m0, n0, alpha, beta, M);
+  ml.template store<RAGGED>(out, C, N, m0, n0, alpha, beta, epi, M);
 }
 
 template <class T, bool RAGGED>
 int launch_wgmma(const void* A, const void* B, const float* C, float* out,
                  int M, int N, int K, float alpha, float beta,
-                 cudaStream_t stream) {
+                 const Epilogue& epi, cudaStream_t stream) {
   CUtensorMap ta, tb;
+  if (!epi.valid()) return (int)cudaErrorInvalidValue;
   const auto kernel = sgemm_wgmma_kernel<T, RAGGED>;
   if (const int rc = wgmma_setup<T>(kernel, &ta, &tb, A, B, M, N, K))
     return rc;
   kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,
-           T::SMEM, stream>>>(ta, tb, C, out, M, N, K, alpha, beta);
+           T::SMEM, stream>>>(ta, tb, C, out, M, N, K, alpha, beta, epi);
   return (int)cudaGetLastError();
 }
 
@@ -99,35 +111,43 @@ FTSG_NAMESPACE_END  // ftsg
 // the same tiles and CTAs; returns as ftsg_sgemm.
 extern "C" int ftsg_sgemm_fp8(const void* A, const void* B, const float* C,
                               float* out, int M, int N, int K, int bm, int bn,
-                              int bk, float alpha, float beta, void* stream) {
+                              int bk, float alpha, float beta,
+                              const float* bias, int act, int quant,
+                              float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const ftsg::Epilogue epi{bias, act, quant, scale};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kE4M3>, false>( \
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kE4M3>, true>(
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   return (int)cudaErrorInvalidValue;
 }
 #else
-// Launch on `stream` for one compiled tile (bk is not read); returns
-// cudaGetLastError() (cudaErrorInvalidValue when no tile matches).
+// Launch on `stream` for one compiled tile (bk is not read), with the fused
+// epilogue (bias row or null, activation and quantize codes, quantize
+// scale: abft_common.cuh, Epilogue) applied to the output; returns
+// cudaGetLastError() (cudaErrorInvalidValue when no tile matches or the
+// epilogue's codes are unknown).
 extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
                           float* out, int M, int N, int K, int bm, int bn,
-                          int bk, float alpha, float beta, void* stream) {
+                          int bk, float alpha, float beta, const float* bias,
+                          int act, int quant, float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const ftsg::Epilogue epi{bias, act, quant, scale};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<BM_, BN_>, false>(              \
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128>, true>(
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -136,17 +156,19 @@ extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
 extern "C" int ftsg_sgemm_bf16(const void* A, const void* B, const float* C,
                                float* out, int M, int N, int K, int bm,
                                int bn, int bk, float alpha, float beta,
-                               void* stream) {
+                               const float* bias, int act, int quant,
+                               float scale, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const ftsg::Epilogue epi{bias, act, quant, scale};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>, false>( \
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kBF16>, true>(
-        A, B, C, out, M, N, K, alpha, beta, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, s);
   return (int)cudaErrorInvalidValue;
 }
 #endif

@@ -29,6 +29,7 @@ library.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
@@ -36,8 +37,10 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -113,50 +116,113 @@ def ptxas_log(name: str) -> str:
     return so_path(name).with_suffix(".ptxas.txt").read_text()
 
 
-def build(names=KERNEL_LIBS) -> dict:
-    """Compile the named libraries that are not built yet, all in parallel;
-    returns {library: seconds from the start of the build to its
-    compiler's exit} (empty when all were built). Raises with the
-    compiler's output on failure."""
-    todo = [n for n in names if not so_path(n).exists()]
-    seconds = {}
-    if not todo:
-        return seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    exe = nvcc()
+# The background build: each library's state ("queued", "running",
+# "done"), the queue of those waiting for a compiler slot, the slot count
+# (None: no limit), the running compilers, and the seconds and failures of
+# those that have exited.
+_STATE: dict = {}
+_QUEUE: list = []
+_SLOTS = [None]
+_PROCS: dict = {}
+_SECONDS: dict = {}
+_FAILURES: dict = {}
+_COND = threading.Condition()
+
+
+def _dispatch() -> None:
+    """Start queued compilers while slots are free (``_COND`` held)."""
+    running = sum(state == "running" for state in _STATE.values())
+    while _QUEUE and (_SLOTS[0] is None or running < _SLOTS[0]):
+        name = _QUEUE.pop(0)
+        _STATE[name] = "running"
+        running += 1
+        threading.Thread(target=_compile, args=(name,), daemon=True).start()
+
+
+def _compile(name: str) -> None:
+    """One nvcc into a private file, renamed into place once it is whole;
+    then the next queued library takes the slot."""
     t0 = time.perf_counter()
-    jobs = []
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        out = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
-        source, defines = LIBRARIES[name]
-        proc = subprocess.Popen(
-            [exe, *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC / f"{source}.cu")],
-            stdout=out, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, tmp, proc, out))
-    failures = []
-    pending = list(jobs)
-    while pending:
-        for job in [j for j in pending if j[2].poll() is not None]:
-            pending.remove(job)
-            name, tmp, proc, out = job
-            seconds[name] = time.perf_counter() - t0
-            out.seek(0)
-            log = out.read()
-            out.close()
-            if proc.returncode:
-                failures.append(f"nvcc {name}.cu failed:\n{log}")
-                os.unlink(tmp)
-                continue
-            so_path(name).with_suffix(".ptxas.txt").write_text(log)
-            # Rename into place last: a concurrent loader never sees a
-            # half-written library.
-            os.replace(tmp, so_path(name))
-        time.sleep(0.1)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    source, defines = LIBRARIES[name]
+    proc = None
+    try:
+        with _COND:
+            proc = _PROCS[name] = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, *defines, "-o", tmp,
+                 str(CSRC / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)
+        log, _ = proc.communicate()
+    except OSError as e:
+        log = str(e)
+    _SECONDS[name] = time.perf_counter() - t0
+    if proc is None or proc.returncode:
+        _FAILURES[name] = f"nvcc {name} ({source}.cu) failed:\n{log}"
+        os.unlink(tmp)
+    else:
+        so_path(name).with_suffix(".ptxas.txt").write_text(log)
+        # Rename into place last: a concurrent loader never sees a
+        # half-written library.
+        os.replace(tmp, so_path(name))
+    with _COND:
+        _STATE[name] = "done"
+        _dispatch()
+        _COND.notify_all()
+
+
+def start(names=KERNEL_LIBS, slots=None) -> None:
+    """Queue one ``nvcc`` for each named library that is neither built nor
+    queued, and return at once. At most ``slots`` compilers run at a time
+    (None: every one at once); the others start in the order of ``names``
+    as slots free up. ``build`` and ``library`` wait for a library, and
+    move it to the front of the queue first."""
+    nvcc()  # raises here, without a toolkit, not in a compiler's thread
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _COND:
+        if slots is not None:
+            _SLOTS[0] = slots
+        for name in names:
+            if name not in _STATE and not so_path(name).exists():
+                _STATE[name] = "queued"
+                _QUEUE.append(name)
+        _dispatch()
+
+
+def build(names=KERNEL_LIBS) -> dict:
+    """Compile the named libraries that are not built yet, in parallel
+    (waiting for those that ``start`` queued); returns {library: seconds
+    from its compiler's start to its exit} for the ones compiled in this
+    process. Raises with the compiler's output on failure."""
+    start(names)
+    with _COND:
+        for name in reversed(names):
+            if name in _QUEUE:
+                _QUEUE.remove(name)
+                _QUEUE.insert(0, name)
+        _dispatch()
+        _COND.wait_for(lambda: all(_STATE.get(n, "done") == "done"
+                                   for n in names))
+    failures = [_FAILURES[n] for n in names if n in _FAILURES]
     if failures:
         raise RuntimeError("\n".join(failures))
-    return seconds
+    return {n: _SECONDS[n] for n in names if n in _SECONDS}
+
+
+@atexit.register
+def _stop() -> None:
+    """Kill the compilers still running when the process exits (each
+    ``nvcc`` leads a session of its own, with its ``cicc`` and ``ptxas``),
+    and start no queued one."""
+    with _COND:
+        _QUEUE.clear()
+        for proc in _PROCS.values():
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,6 +231,12 @@ def library(name: str) -> ctypes.CDLL:
     needed."""
     build((name,))
     return ctypes.CDLL(str(so_path(name)))
+
+
+# The fused epilogue's arguments of every entry point, just before its
+# stream (``csrc/abft_common.cuh::Epilogue``, ``common.epilogue_args``): the
+# bias row (or NULL), the activation and quantize codes, the quantize scale.
+EPILOGUE_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float]
 
 
 def bind(lib: ctypes.CDLL, fname: str, argtypes):

@@ -1,7 +1,8 @@
 """Helpers shared by the port's ops: device resolution, the input dtype and
 the operand casts, padding, the FP32 matmul setting, the correction-pad
-rule, the scalar argument, and the clean-residual noise model behind
-``threshold="auto"`` and ``threshold="adaptive"``.
+rule, the scalar argument, the clean-residual noise model behind
+``threshold="auto"`` and ``threshold="adaptive"``, and the fused epilogue
+(bias, activation, quantize) with its kernel arguments.
 
 Only what the port's kernels use of ``ft_sgemm_tpu/ops/common.py`` and
 ``ft_sgemm_tpu/ops/ft_sgemm.py`` lives here.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ft_sgemm_tpu_torch.configs import canonical_in_dtype
+from ft_sgemm_tpu_torch.configs import EpilogueSpec, canonical_in_dtype
 from ft_sgemm_tpu_torch.contracts import N_SCALAR_SLOTS
 
 # _correction_pads (ops/ft_sgemm.py:342-357): a correction of magnitude
@@ -107,6 +108,114 @@ def to_e4m3(t: torch.Tensor) -> torch.Tensor:
     JAX gives up to 464). Torch ops on ``t``'s device."""
     return torch.where(t.abs() > E4M3_OVERFLOW, torch.nan, t).to(
         torch.float8_e4m3fn)
+
+
+# The tanh GELU's constants (ft_sgemm_tpu/ops/common.py:495-496): sqrt(2/pi)
+# and the cubic term's coefficient, as the kernels take them in f32.
+GELU_SQRT_2_OVER_PI = 0.7978845608028654
+GELU_CUBIC = 0.044715
+# The kernels' codes of the epilogue's activation and quantize modes
+# (csrc/abft_common.cuh::Epilogue).
+EPILOGUE_ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
+EPILOGUE_QUANT_CODES = {"none": 0, "int8": 1, "float8_e4m3fn": 2}
+
+
+def pad_bias(bias, n: int, bn: int, device: torch.device) -> torch.Tensor:
+    """The fused-bias row (ft_sgemm_tpu/ops/common.py:444-452): ``bias`` as
+    a contiguous f32 vector on ``device``, checked against the TRUE output
+    width ``n``, zero-padded to the tile's padded N (a multiple of
+    ``bn``). The kernels read element ``n0 + col`` of it beside the output
+    column; the zero padding sits under the padded columns, which the
+    wrapper slices off."""
+    b = torch.as_tensor(bias, dtype=torch.float32, device=device).reshape(-1)
+    if b.shape[0] != n:
+        raise ValueError(
+            f"fused bias must have length N={n}, got {b.shape[0]}")
+    b = F.pad(b, (0, (-n) % bn)).contiguous()
+    return b.clone() if b.data_ptr() % 16 else b
+
+
+def bias_operand(op_name: str, epi, bias, n: int, bn: int,
+                 device: torch.device):
+    """The padded bias row of one call of an entry point (:func:`pad_bias`),
+    or None, with the JAX package's errors (ft_sgemm_tpu/ops/sgemm.py:
+    240-251, ops/ft_sgemm.py:1841-1852): a bias missing where the epilogue
+    fuses one, given where it does not, or not of length N."""
+    if epi.bias:
+        if bias is None:
+            raise ValueError(
+                f"{op_name}: epilogue {epi.spelling!r} fuses a bias — pass"
+                f" the bias=v argument with v of length N={n}")
+        return pad_bias(bias, n, bn, device)
+    if bias is not None:
+        raise ValueError(f"{op_name}: bias given but epilogue"
+                         f" {epi.spelling!r} does not fuse one")
+    return None
+
+
+def apply_epilogue(x: torch.Tensor, epi, bias_row=None) -> torch.Tensor:
+    """The fused epilogue on a corrected ``alpha*acc + beta*C`` output
+    (ft_sgemm_tpu/ops/common.py:461-500), in torch, in the JAX op order:
+    ``x + bias_row`` (a row broadcast over the output's rows), then ``relu``
+    (negatives to 0, NaN and -0 kept) or the tanh GELU ``0.5 * x * (1.0 +
+    tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))`` evaluated left
+    to right as written (not ``F.gelu(approximate="tanh")``, whose op
+    order differs), then the quantize: int8 ``clamp(round_half_even(x *
+    scale), -128, 127)`` (NaN stays NaN, as ``jnp.clip`` keeps it), or fp8
+    ``to_e4m3(x * scale)`` (NaN past 464, where torch's cast saturates).
+    The result stays f32, on the quantize's grid. The plain versions of the
+    kernels apply it to their output, :func:`~ft_sgemm_tpu_torch.ops.
+    reference.epilogue_reference` to an oracle's, and ``csrc/
+    abft_common.cuh::Epilogue`` is the same arithmetic op for op in every
+    kernel's store. ``epi`` is an :class:`EpilogueSpec` or None; the
+    identity returns ``x`` itself."""
+    if epi is None or epi.is_identity:
+        return x
+    if epi.bias:
+        if bias_row is None:
+            raise ValueError(
+                "apply_epilogue: epi.bias set but no bias_row operand")
+        x = x + bias_row
+    if epi.activation == "relu":
+        x = torch.where(x < 0.0, torch.zeros_like(x), x)
+    elif epi.activation == "gelu":
+        x = 0.5 * x * (1.0 + torch.tanh(
+            GELU_SQRT_2_OVER_PI * (x + GELU_CUBIC * x * x * x)))
+    if epi.quantize == "int8":
+        x = torch.clamp(torch.round(x * epi.scale), -128.0, 127.0)
+    elif epi.quantize == "float8_e4m3fn":
+        x = to_e4m3(x * epi.scale).to(torch.float32)
+    return x
+
+
+def epilogue_args(epi, bias_row=None, n: int = 0, device=None) -> tuple:
+    """The four trailing arguments of every kernel entry point before its
+    stream (``csrc/abft_common.cuh::Epilogue``): the bias row's address
+    (None without a bias), the activation code, the quantize code and the
+    quantize scale; ``(None, 0, 0, 1.0)`` for the identity. ``epi`` is an
+    :class:`EpilogueSpec` or None (the identity). The bias row is checked
+    first: with a bias, a contiguous, 16-byte aligned f32 vector of the
+    padded width ``n`` on ``device`` (:func:`pad_bias`); without one,
+    none."""
+    epi = epi or EpilogueSpec()
+    if bias_row is not None and not epi.bias:
+        raise ValueError("a bias row was given, but the epilogue"
+                         f" {epi.spelling!r} does not fuse one")
+    if epi.bias and bias_row is None:
+        raise ValueError(f"the epilogue {epi.spelling!r} fuses a bias, but"
+                         " no bias row was given")
+    if epi.bias and (bias_row.dtype != torch.float32
+                     or tuple(bias_row.shape) != (n,)
+                     or bias_row.device != device
+                     or not bias_row.is_contiguous()
+                     or bias_row.data_ptr() % 16):
+        raise ValueError(
+            f"the bias row must be a contiguous, 16-byte aligned float32"
+            f" ({n},) tensor on {device} (ops/common.pad_bias), got"
+            f" {bias_row.dtype} {tuple(bias_row.shape)} on {bias_row.device}")
+    return (bias_row.data_ptr() if epi.bias else None,
+            EPILOGUE_ACT_CODES[epi.activation],
+            EPILOGUE_QUANT_CODES[epi.quantize], float(epi.scale))
 
 
 def as_operand(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

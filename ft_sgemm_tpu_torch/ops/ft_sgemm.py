@@ -93,11 +93,19 @@ tile algorithm over all tiles at once (batched (gm, gn, bm, bn) tensors,
 a Python loop over K steps only): the same inject positions, cadence,
 residuals, localization and LEVEL counts. A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel or raises.
+
+The fused epilogue (``epilogue=``, ``configs.EpilogueSpec``: bias, relu or
+gelu, int8 or fp8 quantize-rescale; the JAX kernels' ``_apply_epilogue``)
+runs strictly after detect and correct: on the card inside every kernel's
+store (``csrc/abft_common.cuh::Epilogue``), in the plain versions on their
+output (``common.apply_epilogue``), so the checksums verify the
+pre-epilogue accumulator and the grids do not depend on it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -105,18 +113,35 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, check_kernel_legality
+from ft_sgemm_tpu_torch.configs import (
+    SHAPES,
+    EpilogueSpec,
+    KernelShape,
+    canonical_variant,
+    check_kernel_legality,
+    check_variant,
+)
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
-from ft_sgemm_tpu_torch.ops._build import bind, build, check_launch, check_operands, library
+from ft_sgemm_tpu_torch.ops._build import (
+    EPILOGUE_ARGS,
+    bind,
+    build,
+    check_launch,
+    check_operands,
+    library,
+)
 from ft_sgemm_tpu_torch.ops.common import (
     DEFAULT_THRESHOLD_MARGIN,
     NOISE_C_BIAS,
     NOISE_C_RAND,
     THRESHOLD_CAP,
     align_rows16,
+    apply_epilogue,
     as_f32,
     as_operand,
+    bias_operand,
     correction_pads,
+    epilogue_args,
     estimate_noise_floor,
     full_run_log2,
     pad_to,
@@ -449,7 +474,8 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
 
 def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                       check_every: Optional[int] = None, expm=None,
-                      moments=None, adaptive: bool = False):
+                      moments=None, adaptive: bool = False, epi=None,
+                      bias=None):
     """Plain PyTorch version of B2 (``expm`` given: precomputed moments, one
     final check), B5 (running moments from the operand, a check every
     ``check_every`` steps and after the last) and B6 (``moments`` given:
@@ -458,7 +484,8 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     at the check as ``_ft_kernel_fused`` adds them); ``adaptive``: each
     tile's thresholds at each check from its running moments of A's and B's
     own rows (B5, B6). bf16 and fp8 operands are summed as their f32
-    values.
+    values. ``epi`` (with the padded bias row ``bias``): the fused epilogue
+    on the output (:func:`_epilogue`).
     Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
@@ -495,7 +522,7 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
             acc, hits, bad = _moment_detect_correct(acc, *exps, thresholds)
             det += hits.to(torch.int32)
             unc = bad.to(torch.int32)
-    return _untile(alpha * acc + beta * c4), det, unc
+    return _epilogue(acc, c4, alpha, beta, epi, bias), det, unc
 
 
 def _check_exact(a, multifault=False, moments=None, adaptive=False) -> bool:
@@ -511,7 +538,7 @@ def _check_exact(a, multifault=False, moments=None, adaptive=False) -> bool:
 
 def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, multifault: bool, moments=None,
-                    adaptive: bool = False):
+                    adaptive: bool = False, epi=None, bias=None):
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
     B's (gn, 1, K) moment rows; in bf16 (gm, 6, K) and (gn, 3, K) of bf16
     terms, each term's expected sums kept apart and added at the check as
@@ -521,6 +548,7 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     operands run the exact mode step by step (``_ft_kernel_rowcol`` with
     exact=True): the accumulator, checksums, residuals and correction are
     integers reduced mod 2^32 where the JAX kernel's int32 would wrap.
+    ``epi``, ``bias``: as :func:`ft_weighted_plain`.
     Returns (out, det, unc)."""
     exact = _check_exact(a, multifault, moments, adaptive)
     strict_fp32()
@@ -572,20 +600,24 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                 acc, res_r, res_c, res_cw, thresholds, multifault, exact)
             det += hits.to(torch.int32)
             unc = bad.to(torch.int32)
-    return _epilogue(acc, c4, alpha, beta), det, unc
+    return _epilogue(acc, c4, alpha, beta, epi, bias), det, unc
 
 
-def _epilogue(acc, c4, alpha, beta) -> torch.Tensor:
-    """``alpha * acc + beta * C`` of the tiles, untiled; an integer (exact)
-    accumulator wrapped to int32 and widened to f32 first (each product and
-    the sum rounded on its own, as the int8 kernels store them)."""
+def _epilogue(acc, c4, alpha, beta, epi=None, bias=None) -> torch.Tensor:
+    """``epi(alpha * acc + beta * C)`` of the tiles, untiled: an integer
+    (exact) accumulator wrapped to int32 and widened to f32 first (each
+    product and the sum rounded on its own, as the int8 kernels store
+    them), then the fused epilogue ``epi`` (``common.apply_epilogue``; the
+    padded bias row ``bias``), after every check, as the kernels' store
+    applies it."""
     if not acc.is_floating_point():
         acc = wrap_int32(acc).to(torch.float32)
-    return _untile(alpha * acc + beta * c4)
+    return apply_epilogue(_untile(alpha * acc + beta * c4), epi, bias)
 
 
 def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, moments=None, adaptive: bool = False):
+                    check_every: int, moments=None, adaptive: bool = False,
+                    epi=None, bias=None):
     """Plain PyTorch version of B4 and, with ``moments`` = (A's (gm, 1, K),
     B's (gn, 1, K) plain moment rows; in bf16 (g, 3, K) of bf16 terms, every
     (A term) . (B term) product added, as ``_ft_kernel_global_mxu`` sums
@@ -596,6 +628,7 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     B's own rows, times sqrt(bn). bf16 and fp8 operands are summed as their
     f32 values; int8 operands run the exact mode (``_ft_kernel_global`` with
     exact=True: t_exp, the residual and its move are wrapping int32).
+    ``epi``, ``bias``: as :func:`ft_weighted_plain`.
     Returns (out, det, unc) with unc equal to det."""
     exact = _check_exact(a, moments=moments, adaptive=adaptive)
     strict_fp32()
@@ -635,7 +668,7 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
             else:
                 det += ((res - prev).abs() > thr).to(torch.int32)
             prev = res
-    return _epilogue(acc, c4, alpha, beta), det, det.clone()
+    return _epilogue(acc, c4, alpha, beta, epi, bias), det, det.clone()
 
 
 # --------------------------------------------------------------------------
@@ -645,9 +678,10 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 
 # The argument types of B5, B3 and B4, in every dtype: the operands and
 # outputs, M, N, K, bm, bn, bk, the cadence (B3: and multifault), then
-# alpha, beta, the scalar argument, the noise model and the stream.
+# alpha, beta, the scalar argument, the noise model, the fused epilogue
+# (``_build.EPILOGUE_ARGS``) and the stream.
 _DIMS = [_I] * 6
-_TAIL = [_F, _F, _P, _F, _F, _F, _P]
+_TAIL = [_F, _F, _P, _F, _F, _F] + EPILOGUE_ARGS + [_P]
 _VPU_ARGS = {"running": [_P] * 6 + _DIMS + [_I] + _TAIL,
              "rowcol": [_P] * 6 + _DIMS + [_I, _I] + _TAIL,
              "global": [_P] * 6 + _DIMS + [_I] + _TAIL}
@@ -658,7 +692,7 @@ _MXU_ARGS = {"fused": [_P] * 7 + _DIMS + [_I] + _TAIL,
 # Every kind's; B2's with the expected moments after C, no cadence and no
 # noise model.
 _ARGS = dict(_VPU_ARGS, **_MXU_ARGS,
-             precomp=[_P] * 7 + _DIMS + [_F, _F, _P, _P])
+             precomp=[_P] * 7 + _DIMS + [_F, _F, _P] + EPILOGUE_ARGS + [_P])
 
 
 def kernel_entry(kind: str, dtype=torch.float32, adaptive: bool = False):
@@ -726,14 +760,16 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 
 
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
-            scalars, adaptive=False):
+            scalars, adaptive=False, epi=None, bias=None):
     """Launch entry point ``name`` of the static or the adaptive build on
     validated operands, A and B f32 or bf16 (B2-B8 of the static build,
     B3-B8 of the adaptive one) or fp8 (B2-B5) or (static build, B3 and B4)
     int8, and count it on ``wrapper``: ``launches`` (f32, static),
     ``adaptive_launches`` (the adaptive build), and ``bf16_launches``,
     ``fp8_launches`` or ``int8_launches`` by dtype; an adaptive bf16 or fp8
-    launch counts in both of its counters. Raises on a launch error.
+    launch counts in both of its counters; a non-identity epilogue ``epi``
+    (with its padded bias row ``bias``), applied by the kernel's store after
+    its checks, also in ``epilogue_launches``. Raises on a launch error.
     fp8 A and B are widened to bf16, which holds every e4m3 value exactly,
     and run the bf16 build: the same products and checksums as the e4m3
     operands' (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
@@ -741,6 +777,7 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     Returns (out, det, unc)."""
     more, rows = ((), extra_in) if name in _MXU_ARGS else (extra_in, ())
     dims = check_operands(shape, a, b, c, *more, rows=rows)
+    epi_args = epilogue_args(epi, bias, c.shape[1], c.device)
     fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.bfloat16 if fp8 else a.dtype
     entries = (_bf16_entries(adaptive) if dtype == torch.bfloat16
@@ -768,7 +805,10 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
             *(t.data_ptr() for t in extra_in), out.data_ptr(), det.data_ptr(),
             unc.data_ptr(), *dims, *extra_args, alpha, beta, sc.ctypes.data,
-            *noise, torch.cuda.current_stream(a.device).cuda_stream)
+            *noise, *epi_args,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if epi is not None and not epi.is_identity:
+        wrapper.epilogue_launches += 1
     if adaptive:
         wrapper.adaptive_launches += 1
     if fp8:
@@ -784,57 +824,66 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
 
 
 def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
-                       scalars):
+                       scalars, epi=None, bias=None):
     """B2 on operands padded to the tile, with the (gm, 3, N) expected
     moments ``expm``; ``scalars`` the (8,) f32 scalar argument, a host array
-    (the plain versions also take a CPU tensor). Returns (out, det, unc). A
-    CPU tensor runs the plain version."""
+    (the plain versions also take a CPU tensor); ``epi`` the fused epilogue
+    (an ``EpilogueSpec`` or None) and ``bias`` its padded (N,)
+    bias row (``common.pad_bias``), as for every wrapper below. Returns
+    (out, det, unc). A CPU tensor runs the plain version."""
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
-                                 expm=expm)
+                                 expm=expm, epi=epi,
+                                 bias=bias)
     return _launch(ft_weighted_kernel, "precomp", shape, a, b, c, (expm,), (),
-                   alpha, beta, scalars)
+                   alpha, beta, scalars, epi=epi, bias=bias)
 
 
 def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
-                               scalars, check_every: int, adaptive=False):
+                               scalars, check_every: int, adaptive=False,
+                               epi=None, bias=None):
     """B5: the weighted check every ``check_every`` K steps and after the
     last, with running in-kernel moments; ``adaptive`` runs the adaptive
     build (each sub-tile's thresholds from its running moments and slot
     7's margin). Returns (out, det, unc)."""
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
-                                 check_every=check_every, adaptive=adaptive)
+                                 check_every=check_every, adaptive=adaptive,
+                                 epi=epi, bias=bias)
     return _launch(ft_weighted_running_kernel, "running", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars, adaptive)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
 
 
 def ft_rowcol_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                     check_every: int, multifault: bool, adaptive=False):
+                     check_every: int, multifault: bool, adaptive=False,
+                     epi=None, bias=None):
     """B3: the rowcol check every ``check_every`` K steps and after the
     last (``adaptive``: as B5). Returns (out, det, unc)."""
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every, multifault, adaptive=adaptive)
+                               check_every, multifault, adaptive=adaptive,
+                               epi=epi, bias=bias)
     return _launch(ft_rowcol_kernel, "rowcol", shape, a, b, c, (),
                    (check_every, int(multifault)), alpha, beta, scalars,
-                   adaptive)
+                   adaptive, epi, bias)
 
 
 def ft_global_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                     check_every: int, adaptive=False):
+                     check_every: int, adaptive=False, epi=None, bias=None):
     """B4: the detect-only scalar check every ``check_every`` K steps and
     after the last, encoded from the staged chunks (``adaptive``: as B5).
     Returns (out, det, unc), unc equal to det."""
     if a.device.type == "cpu":
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
-                               check_every, adaptive=adaptive)
+                               check_every, adaptive=adaptive,
+                               epi=epi, bias=bias)
     return _launch(ft_global_kernel, "global", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars, adaptive)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
 
 
 def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
-                         scalars, check_every: int, adaptive=False):
+                         scalars, check_every: int, adaptive=False, epi=None,
+                         bias=None):
     """B8: B4's check with ``t_exp`` from A's and B's plain moment rows
     ``ma`` (M/bm, 1, K) and ``mb`` (N/bn, 1, K) (``adaptive``: as B5, the
     moments of A's and B's own rows). Returns (out, det, unc)."""
@@ -842,13 +891,15 @@ def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
     if a.device.type == "cpu":
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, moments=(ma, mb),
-                               adaptive=adaptive)
+                               adaptive=adaptive, epi=epi,
+                               bias=bias)
     return _launch(ft_global_mxu_kernel, "global_mxu", shape, a, b, c,
-                   (ma, mb), (check_every,), alpha, beta, scalars, adaptive)
+                   (ma, mb), (check_every,), alpha, beta, scalars, adaptive,
+                   epi, bias)
 
 
 def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, adaptive=False):
+                    check_every: int, adaptive=False, epi=None, bias=None):
     """B6: B5's weighted check every ``check_every`` K steps and after the
     last, the expected moments encoded from A's moment rows ``ma``
     (M/bm, 3, K) (``adaptive``: as B8). Returns (out, det, unc)."""
@@ -856,14 +907,15 @@ def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  check_every=check_every, moments=ma,
-                                 adaptive=adaptive)
+                                 adaptive=adaptive,
+                                 epi=epi, bias=bias)
     return _launch(ft_fused_kernel, "fused", shape, a, b, c, (ma,),
-                   (check_every,), alpha, beta, scalars, adaptive)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
 
 
 def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
                          scalars, check_every: int, multifault: bool,
-                         adaptive=False):
+                         adaptive=False, epi=None, bias=None):
     """B7: B3's rowcol check, the expected sums encoded from A's plain and
     w moment rows ``ma`` (M/bm, 2, K) and B's plain rows ``mb``
     (N/bn, 1, K) (``adaptive``: as B8). Returns (out, det, unc)."""
@@ -871,10 +923,11 @@ def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, multifault, moments=(ma, mb),
-                               adaptive=adaptive)
+                               adaptive=adaptive, epi=epi,
+                               bias=bias)
     return _launch(ft_rowcol_mxu_kernel, "rowcol_mxu", shape, a, b, c,
                    (ma, mb), (check_every, int(multifault)), alpha, beta,
-                   scalars, adaptive)
+                   scalars, adaptive, epi, bias)
 
 
 for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
@@ -885,51 +938,57 @@ for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
     _w.bf16_launches = 0
     _w.fp8_launches = 0
     _w.int8_launches = 0
+    _w.epilogue_launches = 0
 
 
 def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
                scalars, check_every: int, multifault: bool = False,
-               plain: bool = False, adaptive: bool = False):
+               plain: bool = False, adaptive: bool = False, epi=None,
+               bias=None):
     """One launch of kernel ``kind`` (:func:`_plan`) on padded operands,
     with its wrapper-side inputs ``extra`` (:func:`kernel_inputs`);
     ``plain=True`` runs its plain version instead, on any device;
-    ``adaptive`` the adaptive build of B3-B8 (B2 has none). Returns (out,
-    det, unc)."""
+    ``adaptive`` the adaptive build of B3-B8 (B2 has none); ``epi`` the
+    fused epilogue with its padded bias row ``bias``. Returns (out, det,
+    unc)."""
     args = (shape, alpha, beta, scalars)
     ad = dict(adaptive=adaptive)
+    ep = dict(epi=epi, bias=bias)
     if kind == "precomp":
         if adaptive:
             raise ValueError("B2 has no adaptive build: the adaptive weighted"
                              " strategy runs B5 (_plan)")
         if plain:
-            return ft_weighted_plain(a, b, c, *args, expm=extra[0])
-        return ft_weighted_kernel(a, b, c, *extra, *args)
+            return ft_weighted_plain(a, b, c, *args, expm=extra[0], **ep)
+        return ft_weighted_kernel(a, b, c, *extra, *args, **ep)
     if kind == "running":
         if plain:
             return ft_weighted_plain(a, b, c, *args, check_every=check_every,
-                                     **ad)
-        return ft_weighted_running_kernel(a, b, c, *args, check_every, **ad)
+                                     **ad, **ep)
+        return ft_weighted_running_kernel(a, b, c, *args, check_every, **ad,
+                                          **ep)
     if kind == "fused":
         if plain:
             return ft_weighted_plain(a, b, c, *args, check_every=check_every,
-                                     moments=extra[0], **ad)
-        return ft_fused_kernel(a, b, c, *extra, *args, check_every, **ad)
+                                     moments=extra[0], **ad, **ep)
+        return ft_fused_kernel(a, b, c, *extra, *args, check_every, **ad, **ep)
     if kind in ("rowcol", "rowcol_mxu"):
         if plain:
             return ft_rowcol_plain(a, b, c, *args, check_every, multifault,
-                                   moments=extra or None, **ad)
+                                   moments=extra or None, **ad, **ep)
         if kind == "rowcol":
             return ft_rowcol_kernel(a, b, c, *args, check_every, multifault,
-                                    **ad)
+                                    **ad, **ep)
         return ft_rowcol_mxu_kernel(a, b, c, *extra, *args, check_every,
-                                    multifault, **ad)
+                                    multifault, **ad, **ep)
     if kind in ("global", "global_mxu"):
         if plain:
             return ft_global_plain(a, b, c, *args, check_every,
-                                   moments=extra or None, **ad)
+                                   moments=extra or None, **ad, **ep)
         if kind == "global":
-            return ft_global_kernel(a, b, c, *args, check_every, **ad)
-        return ft_global_mxu_kernel(a, b, c, *extra, *args, check_every, **ad)
+            return ft_global_kernel(a, b, c, *args, check_every, **ad, **ep)
+        return ft_global_mxu_kernel(a, b, c, *extra, *args, check_every, **ad,
+                                    **ep)
     raise ValueError(f"unknown kernel kind {kind!r}")
 
 
@@ -1010,11 +1069,13 @@ def make_ft_sgemm(
     in_dtype="float32",
     multifault: Optional[bool] = None,
     device=None,
+    variant=None,
+    epilogue=None,
 ):
     """Build the fused-ABFT SGEMM for one named shape (or ``KernelShape``).
 
-    Returns ``fn(a, b, c, inject=None) -> FtSgemmResult``; ``inject`` is an
-    :class:`InjectionSpec` (default: none). ``strategy`` is ``"weighted"``,
+    Returns ``fn(a, b, c, inject=None, bias=None) -> FtSgemmResult``;
+    ``inject`` is an :class:`InjectionSpec` (default: none). ``strategy`` is ``"weighted"``,
     ``"rowcol"``, ``"global"`` (detect only) or ``"fused"``; ``encode``
     ``"vpu"`` or ``"mxu"`` (``"fused"`` always encodes from moment rows).
     ``threshold`` is one static detection threshold (a float, or
@@ -1064,6 +1125,21 @@ def make_ft_sgemm(
     rows) under every threshold mode, ``"adaptive"`` on their adaptive bf16
     builds, which sum the moments of the rounded operands' own rows (not
     the term rows). fp8 with the mxu encodes is illegal (``ValueError``).
+
+    ``epilogue`` (an :class:`~ft_sgemm_tpu_torch.configs.EpilogueSpec` or a
+    spelling like ``"bias+relu"`` or ``"bias+gelu+qint8x0.5"``) fuses a
+    bias add, relu or gelu, and an int8 or fp8 quantize-rescale into the
+    kernel's store, strictly after detect and correct
+    (ops/ft_sgemm.py:1614-1621 of the JAX package): the checksums verify
+    the pre-epilogue accumulator, so the grids are those of the identity.
+    A fused bias is passed per call, ``fn(a, b, c, inject, bias=v)`` with
+    ``v`` of length N. ``variant`` (a
+    :class:`~ft_sgemm_tpu_torch.configs.KernelVariant`, a dict of its fields
+    or None) carries the cadence and the epilogue; an explicit
+    ``check_every`` or ``epilogue`` wins over the variant's. A pipeline
+    depth, grid order or dimension semantics other than the default raises
+    ``NotImplementedError`` (not ported yet); ``ring_overlap`` is ignored,
+    as the JAX package's single-device factories ignore it.
     """
     if isinstance(threshold, str):
         threshold_mode = threshold
@@ -1077,6 +1153,14 @@ def make_ft_sgemm(
         encode = "mxu"  # the fused strategy IS the weighted mxu encode
     adaptive = threshold_mode == "adaptive"
     exact = dtype == torch.int8
+    var = canonical_variant(variant)
+    if epilogue is not None:
+        var = dataclasses.replace(
+            var, epilogue=EpilogueSpec.parse(epilogue).spelling)
+    check_variant(var)
+    if check_every is None:
+        check_every = var.check_every
+    epi = var.epilogue_spec
     thresholds = (0.0,) * 3
     if exact:
         # Exact integer residuals: clean ones are 0, so "adaptive" is the
@@ -1121,11 +1205,13 @@ def make_ft_sgemm(
     # host waits.
     readback = {}
 
-    def fn(a, b, c, inject: Optional[InjectionSpec] = None) -> FtSgemmResult:
+    def fn(a, b, c, inject: Optional[InjectionSpec] = None,
+           bias=None) -> FtSgemmResult:
         inject = inject or InjectionSpec.none()
         a, b = (as_operand(x, dtype, dev) for x in (a, b))
         c = as_f32(c, dev)
         m, n = c.shape
+        row = bias_operand(fn.__name__, epi, bias, n, bn, dev)
         ap, bp = (align_rows16(pad_to(x, t, bk))
                   for x, t in ((a, bm), (b, bn)))
         cp = pad_to(c, bm, bn)
@@ -1144,18 +1230,23 @@ def make_ft_sgemm(
             scalars = readback["host"].numpy().copy()
         out, det, unc = run_kernel(kind, shape, ap, bp, cp, extra, alpha,
                                    beta, scalars, ce, mf,
-                                   adaptive=adaptive and not exact)
+                                   adaptive=adaptive and not exact, epi=epi,
+                                   bias=row)
         return FtSgemmResult(out[:m, :n], det, unc)
 
     fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"
                    + ("_mxu" if encode == "mxu" and strategy != "fused" else "")
                    + ("_adaptive" if adaptive else "")
-                   + ("" if in_dtype == "float32" else f"_{in_dtype}"))
+                   + ("" if in_dtype == "float32" else f"_{in_dtype}")
+                   + ("_epi_" + var.epilogue.replace("+", "_")
+                      if var.epilogue != "none" else ""))
     fn.shape_config = shape
     fn.strategy = strategy
     fn.encode = encode
     fn.in_dtype = in_dtype
     fn.threshold_mode = threshold_mode
+    fn.variant = var
+    fn.epilogue = var.epilogue
     return fn
 
 
@@ -1165,12 +1256,13 @@ def ft_sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0,
              threshold=REFERENCE_THRESHOLD,
              threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
              check_every: Optional[int] = None, in_dtype="float32",
-             multifault: Optional[bool] = None,
-             device=None) -> FtSgemmResult:
+             multifault: Optional[bool] = None, device=None, variant=None,
+             epilogue=None, bias=None) -> FtSgemmResult:
     """One-shot fused-ABFT SGEMM (see :func:`make_ft_sgemm`)."""
     return make_ft_sgemm(
         shape, alpha=alpha, beta=beta, strategy=strategy, encode=encode,
         threshold=threshold, threshold_margin=threshold_margin,
         check_every=check_every, in_dtype=in_dtype,
-        multifault=multifault, device=device,
-    )(a, b, c, inject)
+        multifault=multifault, device=device, variant=variant,
+        epilogue=epilogue,
+    )(a, b, c, inject, bias=bias)

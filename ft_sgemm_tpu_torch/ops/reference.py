@@ -29,7 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ft_sgemm_tpu_torch.configs import EpilogueSpec
 from ft_sgemm_tpu_torch.ops.common import (
+    apply_epilogue,
     as_f32,
     as_operand,
     resolve_device,
@@ -81,6 +83,72 @@ def sgemm_reference(a, b, c, alpha=1.0, beta=-1.5, *, in_dtype="float32",
     strict_fp32()
     a, b = (as_operand(x, dt, dev).float() for x in (a, b))
     return alpha * torch.matmul(a, b.T) + beta * c
+
+
+def epilogue_reference(x, epilogue, bias=None):
+    """The host twin of the kernels' fused epilogue
+    (ft_sgemm_tpu/ops/reference.py:63-101): bias -> activation -> quantize
+    on an already computed f32 output, through the same arithmetic as the
+    kernels' plain versions (``ops/common.apply_epilogue``), so the two
+    cannot drift; fp8 rounds as ``ops/common.to_e4m3`` (no ``ml_dtypes``).
+
+    ``epilogue`` is an :class:`~ft_sgemm_tpu_torch.configs.EpilogueSpec` or
+    a spelling string; ``bias`` a length-N (or (1, N)) vector when the spec
+    fuses one. A tensor ``x`` gives a tensor on its device (``bias`` moved
+    there); anything else is taken as a numpy array and gives one. Compose
+    with :func:`sgemm_reference` to check an epilogue-fused kernel end to
+    end.
+    """
+    epi = EpilogueSpec.parse(epilogue)
+    is_tensor = isinstance(x, torch.Tensor)
+    t = (x.to(torch.float32) if is_tensor
+         else torch.from_numpy(np.array(x, dtype=np.float32)))
+    if epi.bias and bias is None:
+        raise ValueError(
+            "epilogue_reference: spec fuses a bias but none given")
+    row = None
+    if epi.bias:
+        row = torch.as_tensor(bias, dtype=torch.float32,
+                              device=t.device).reshape(1, -1)
+    out = apply_epilogue(t, epi, row)
+    return out if is_tensor else out.numpy()
+
+
+# How far a GELU may lie from ``ops/common.apply_epilogue``'s on the same
+# input: tanh differs by an ulp or two between libraries (CUDA's tanhf,
+# torch's CPU and CUDA tanh, XLA's), and 1 + tanh cancels in the negative
+# tail, so the bound is in ulps of the input's magnitude, not the output's
+# (the JAX package's GELU on the CPU lies within 2 of the port's).
+GELU_TOLERANCE_ULPS = 4
+
+
+def epilogue_violations(got: torch.Tensor, x: torch.Tensor, epilogue,
+                        bias=None) -> torch.Tensor:
+    """Where ``got``, an output with the fused epilogue ``epilogue``, is not
+    that epilogue applied to ``x``, the same computation's output without
+    it (``ops/common.apply_epilogue``, on ``x``'s device): a bool mask.
+    Without gelu ``got`` must equal it element by element (NaN where it is
+    NaN). With gelu, the GELU may lie within :data:`GELU_TOLERANCE_ULPS`
+    ulps of its input's magnitude of the reference's, and a quantized
+    output anywhere between the quantize of that interval's two ends (the
+    quantize is monotone, so a tie the GELU's last ulps move may round
+    either way). ``bias`` is the length-N bias row when the spec fuses one.
+    """
+    epi = EpilogueSpec.parse(epilogue)
+    row = (None if not epi.bias else
+           torch.as_tensor(bias, dtype=torch.float32,
+                           device=x.device).reshape(1, -1))
+    want = apply_epilogue(x, epi, row)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if epi.activation != "gelu":
+        return ~same
+    g_in = apply_epilogue(x, EpilogueSpec(bias=epi.bias), row).abs()
+    tol = GELU_TOLERANCE_ULPS * (torch.nextafter(
+        g_in, torch.full_like(g_in, float("inf"))) - g_in)
+    g = apply_epilogue(x, EpilogueSpec(bias=epi.bias, activation="gelu"), row)
+    quant = EpilogueSpec(quantize=epi.quantize, scale=epi.scale)
+    lo, hi = apply_epilogue(g - tol, quant), apply_epilogue(g + tol, quant)
+    return ~(same | ((got >= lo) & (got <= hi)))
 
 
 def cpu_gemm(alpha, beta, a, b, c):

@@ -17,22 +17,44 @@ they land; the plain version multiplies the rounded values in FP32.
 (``common.to_e4m3``) and runs B1's fp8 build, one e4m3 wgmma per 32-deep k
 step, each k step's sum promoted into the f32 accumulator; its rows lie 16
 bytes apart (``common.align_rows16``).
+
+The fused epilogue (``epilogue=``: bias, relu or gelu, int8 or fp8
+quantize-rescale; ft_sgemm_tpu/ops/sgemm.py:98-101) runs inside B1's store on
+the card, after alpha * acc + beta * C (``csrc/abft_common.cuh::Epilogue``),
+and after the matmul in the plain version (``common.apply_epilogue``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
-from ft_sgemm_tpu_torch.configs import SHAPES, KernelShape, canonical_in_dtype
-from ft_sgemm_tpu_torch.ops._build import bind, check_launch, check_operands, library
+from ft_sgemm_tpu_torch.configs import (
+    SHAPES,
+    EpilogueSpec,
+    KernelShape,
+    canonical_in_dtype,
+    canonical_variant,
+    check_variant,
+)
+from ft_sgemm_tpu_torch.ops._build import (
+    EPILOGUE_ARGS,
+    bind,
+    check_launch,
+    check_operands,
+    library,
+)
 from ft_sgemm_tpu_torch.ops.common import (
     align_rows16,
+    apply_epilogue,
     as_f32,
     as_operand,
+    bias_operand,
     check_precision,
+    epilogue_args,
     pad_to,
     resolve_device,
     resolve_in_dtype,
@@ -49,30 +71,41 @@ def _entry(dtype: torch.dtype = torch.float32):
     lib, name = {torch.float32: ("sgemm", "ftsg_sgemm"),
                  torch.bfloat16: ("sgemm", "ftsg_sgemm_bf16"),
                  torch.float8_e4m3fn: ("sgemm_fp8", "ftsg_sgemm_fp8")}[dtype]
-    return bind(library(lib), name, [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P])
+    return bind(library(lib), name,
+                [_P] * 4 + [_I] * 6 + [_F] * 2 + EPILOGUE_ARGS + [_P])
 
 
-def sgemm_plain(a, b, c, alpha, beta) -> torch.Tensor:
+
+def sgemm_plain(a, b, c, alpha, beta, epi=None, bias=None) -> torch.Tensor:
     """Plain PyTorch version of B1: one FP32 matmul of the (rounded)
-    operands and the alpha/beta epilogue."""
+    operands, the alpha/beta epilogue, then the fused epilogue ``epi``
+    (an ``EpilogueSpec`` or None) with the padded bias row ``bias``."""
     strict_fp32()
-    return alpha * torch.matmul(a.float(), b.float().T) + beta * c
+    return apply_epilogue(alpha * torch.matmul(a.float(), b.float().T)
+                          + beta * c, epi, bias)
 
 
-def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
-                 ) -> torch.Tensor:
+def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float,
+                 epi=None, bias=None) -> torch.Tensor:
     """B1 on operands already padded to ``shape``'s tile: a new (M, N)
-    tensor ``alpha * a @ b.T + beta * c``, A and B both f32, both bf16 or
-    both fp8. A CUDA tensor launches the kernel (counted in ``launches``,
-    ``bf16_launches`` or ``fp8_launches``); a CPU tensor runs the plain
-    version."""
+    tensor ``epi(alpha * a @ b.T + beta * c)``, A and B both f32, both bf16
+    or both fp8; ``epi`` the fused epilogue (an ``EpilogueSpec`` or
+    None) and ``bias`` its padded (N,) bias row
+    (``common.pad_bias``). A CUDA tensor launches the kernel (counted in
+    ``launches``, ``bf16_launches`` or ``fp8_launches``, and a
+    non-identity epilogue also in ``epilogue_launches``); a CPU tensor runs
+    the plain version."""
     if a.device.type == "cpu":
-        return sgemm_plain(a, b, c, alpha, beta)
+        return sgemm_plain(a, b, c, alpha, beta, epi, bias)
     dims = check_operands(shape, a, b, c)
+    epi_args = epilogue_args(epi, bias, c.shape[1], c.device)
     out = torch.empty_like(c)
     fn = _entry(a.dtype)
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), *dims,
-            alpha, beta, torch.cuda.current_stream(a.device).cuda_stream)
+            alpha, beta, *epi_args,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if epi is not None and not epi.is_identity:
+        sgemm_kernel.epilogue_launches += 1
     if a.dtype == torch.bfloat16:
         sgemm_kernel.bf16_launches += 1
     elif a.dtype == torch.float8_e4m3fn:
@@ -86,17 +119,27 @@ def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float
 sgemm_kernel.launches = 0
 sgemm_kernel.bf16_launches = 0
 sgemm_kernel.fp8_launches = 0
+sgemm_kernel.epilogue_launches = 0
 
 
 def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
                beta: float = -1.5, precision: str = "highest",
-               in_dtype="float32", device=None):
+               in_dtype="float32", device=None, variant=None, epilogue=None):
     """Build the plain SGEMM for one named shape (or an explicit
     ``KernelShape``).
 
-    Returns ``fn(a, b, c) -> C`` with ``C = alpha*A@B.T + beta*C`` for
-    inputs of any (M, K)/(N, K)/(M, N) shapes (numpy arrays or tensors),
-    zero-padded to the tile and sliced back. ``in_dtype="bfloat16"`` rounds
+    Returns ``fn(a, b, c, bias=None) -> C`` with ``C = epilogue(alpha*A@B.T
+    + beta*C)`` for inputs of any (M, K)/(N, K)/(M, N) shapes (numpy arrays
+    or tensors), zero-padded to the tile and sliced back.
+    ``epilogue`` (an :class:`~ft_sgemm_tpu_torch.configs.EpilogueSpec` or
+    a spelling like ``"bias+relu"`` or ``"bias+gelu+qint8x0.5"``) fuses a
+    bias add, an activation and an int8 or fp8 quantize-rescale into B1's
+    store (ft_sgemm_tpu/ops/sgemm.py:160-262); a fused bias is passed per
+    call, ``fn(a, b, c, bias=v)`` with ``v`` of length N. ``variant`` (a
+    :class:`~ft_sgemm_tpu_torch.configs.KernelVariant`) carries the
+    epilogue too (``epilogue=`` wins); a pipeline depth, grid order or
+    dimension semantics other than the default raises
+    ``NotImplementedError`` (not ported yet). ``in_dtype="bfloat16"`` rounds
     A and B to bf16 on the device, ``"float8_e4m3fn"`` (aliases ``fp8``,
     ``fp8_e4m3``, ``float8_e4m3``) to e4m3 as the JAX package does (NaN
     past 464); C and the accumulator stay f32.
@@ -111,17 +154,25 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
     """
     dtype = resolve_in_dtype(in_dtype)
     check_precision(precision, dtype)
+    var = canonical_variant(variant)
+    if epilogue is not None:
+        var = dataclasses.replace(
+            var, epilogue=EpilogueSpec.parse(epilogue).spelling)
+    check_variant(var)
+    epi = var.epilogue_spec
     if isinstance(shape, str):
         shape = SHAPES[shape]
     dev = resolve_device(device)
 
-    def fn(a, b, c):
+    def fn(a, b, c, bias=None):
         a, b = (as_operand(x, dtype, dev) for x in (a, b))
         c = as_f32(c, dev)
         m, n = c.shape
+        row = bias_operand(fn.__name__, epi, bias, n, shape.bn, dev)
         out = sgemm_kernel(align_rows16(pad_to(a, shape.bm, shape.bk)),
                            align_rows16(pad_to(b, shape.bn, shape.bk)),
-                           pad_to(c, shape.bm, shape.bn), shape, alpha, beta)
+                           pad_to(c, shape.bm, shape.bn), shape, alpha, beta,
+                           epi, row)
         return out[:m, :n]
 
     name = canonical_in_dtype(in_dtype)
@@ -129,6 +180,7 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
         "" if name == "float32" else f"_{name}")
     fn.shape_config = shape
     fn.in_dtype = name
+    fn.variant = var
     return fn
 
 

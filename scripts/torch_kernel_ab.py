@@ -15,9 +15,19 @@ the weighted strategy runs it (the small tile), else at four checks per
 run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
 B3 and B5 only. Needs nvcc and a CUDA device:
 
-    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] PARENT_TREE CHANGED_TREE [TREE ...]
+    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] [--turns=N] PARENT_TREE CHANGED_TREE [TREE ...]
 
-``--tiles`` times only the named tiles.
+``--tiles`` times only the named tiles; ``--turns=N`` repeats the order
+and its reverse N times (default once).
+
+    python3 scripts/torch_kernel_ab.py --build-only PARENT_TREE CHANGED_TREE [TREE ...]
+
+times the builds instead: each tree whose ``csrc/_build`` is empty builds
+all its libraries (in parallel, one ``nvcc`` each, as the package builds
+them at first use) in a fresh process, the trees in turn, so that their
+builds do not share the machine's cores; one JSON line per tree, with the
+whole build's seconds, the slowest library's and each library's (from the
+start of the build to its compiler's exit).
 
 Prints the card's name and power limit, then one line per tree and turn:
 milliseconds per kernel and tile, and the ``err`` entries. A kernel whose
@@ -51,11 +61,12 @@ def _import_port(tree: str):
         raise RuntimeError(f"{tree} holds no ft_sgemm_tpu_torch package")
 
 
-def build(tree: str) -> None:
+def build(tree: str) -> dict:
+    """Build the tree's libraries; {library: seconds}, as ``_build.build``."""
     _import_port(tree)
     from ft_sgemm_tpu_torch.ops import _build
 
-    _build.build()
+    return _build.build()
 
 
 def measure(tree: str, tiles=TILES) -> dict:
@@ -132,11 +143,11 @@ def card() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def turns(script: str, trees, *measure_args, build_args=()):
+def turns(script: str, trees, *measure_args, build_args=(), n_turns=1):
     """Build every tree at once (``script --build TREE BUILD_ARGS``), then
     measure each in a fresh process per turn (``script --measure TREE
-    ARGS``), the trees in order and then reversed; yields (tree's name, the
-    JSON object on the measurement's last line)."""
+    ARGS``), the trees in order and then reversed, ``n_turns`` times;
+    yields (tree's name, the JSON object on the measurement's last line)."""
     t0 = time.perf_counter()
     builds = [(t, subprocess.Popen([sys.executable, script, "--build", t,
                                     *build_args],
@@ -149,7 +160,7 @@ def turns(script: str, trees, *measure_args, build_args=()):
             raise RuntimeError(f"{tree}: build failed:\n{log}")
     print(f"built {len(trees)} trees in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for tree in list(trees) + list(trees)[::-1]:
+    for tree in (list(trees) + list(trees)[::-1]) * n_turns:
         res = subprocess.run([sys.executable, script, "--measure", tree,
                               *measure_args], capture_output=True, text=True)
         if res.returncode:
@@ -159,24 +170,45 @@ def turns(script: str, trees, *measure_args, build_args=()):
                json.loads(res.stdout.strip().splitlines()[-1]))
 
 
+def build_times(trees) -> int:
+    """``--build-only``: each tree's build in a fresh process, in turn."""
+    for tree in trees:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, __file__, "--build", tree],
+                             capture_output=True, text=True)
+        if res.returncode:
+            print(f"{tree}: build failed:\n{res.stdout}{res.stderr}")
+            return 1
+        secs = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": tree, "total": time.perf_counter() - t0,
+                          "max": max(secs.values(), default=0.0),
+                          "secs": secs}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[1] == "--build":
-        build(argv[2])
+        print(json.dumps(build(argv[2])))
         return 0
     if len(argv) == 4 and argv[1] == "--measure":
         print(json.dumps(measure(argv[2], argv[3].split(","))))
         return 0
-    tiles = TILES
-    if len(argv) > 1 and argv[1].startswith("--tiles="):
-        tiles = tuple(argv[1][len("--tiles="):].split(","))
-        argv = argv[:1] + argv[2:]
-    trees = argv[1:]
-    if not trees or any(t.startswith("--") for t in trees):
+    opts = {a.split("=", 1)[0]: a.split("=", 1)[1] for a in argv[1:]
+            if a.startswith("--") and "=" in a}
+    tiles = tuple(opts.get("--tiles", ",".join(TILES)).split(","))
+    n_turns = int(opts.get("--turns", 1))
+    trees = [a for a in argv[1:] if not a.startswith("--")]
+    if not trees or set(opts) - {"--tiles", "--turns"} or any(
+            a.startswith("--") and "=" not in a and a != "--build-only"
+            for a in argv[1:]):
         print(__doc__)
         return 2
+    if "--build-only" in argv:
+        return build_times(trees)
     print(card(), flush=True)
     wrong = 0
-    for name, row in turns(__file__, trees, ",".join(tiles)):
+    for name, row in turns(__file__, trees, ",".join(tiles),
+                           n_turns=n_turns):
         wrong += list(row.values()).count("wrong")
         print(f"{name:19s} " + " ".join(
             f"{k}={v}" if isinstance(v, str) else

@@ -78,8 +78,9 @@ DEFAULT_KERNELS = ("B3", "B4", "B6", "B7", "B8")
 # each text found exactly once.
 VARIANTS = {
     "device-scalars": {"csrc/ft_sgemm_running.cuh": [
-        ("    Scalars sc, NoiseModel nm) {\n  const WgSmem<T> sm;\n",
-         "    const Scalars* __restrict__ scp, NoiseModel nm) {\n"
+        ("    Scalars sc, NoiseModel nm, Epilogue epi) {\n"
+         "  const WgSmem<T> sm;\n",
+         "    const Scalars* __restrict__ scp, NoiseModel nm, Epilogue epi) {\n"
          "  const Scalars sc = *scp;\n  const WgSmem<T> sm;\n"),
         ("template <template <int, int> class Of>\nint launch_running(",
          "__device__ Scalars g_scalars;\n\n"
@@ -91,8 +92,8 @@ VARIANTS = {
          " g_scalars))\n    return (int)e;\n"
          "  if (const cudaError_t e = cudaMemcpyAsync(scp, &sc, sizeof sc,\n"
          "          cudaMemcpyHostToDevice, stream))\n    return (int)e;\n"),
-        ("bk, check_every, alpha, beta, sc, nm);",
-         "bk, check_every, alpha, beta, scp, nm);"),
+        ("bk, check_every, alpha, beta, sc, nm, epi);",
+         "bk, check_every, alpha, beta, scp, nm, epi);"),
     ]},
 }
 # The same with the sub-tiled kernels built at the small tile only (a
@@ -173,11 +174,15 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
     from ft_sgemm_tpu_torch.utils.timing import cuda_ms
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # A tree with the fused epilogue takes its four arguments before the
+    # stream (ops/_build.EPILOGUE_ARGS): the identity's here.
+    epi = getattr(_build, "EPILOGUE_ARGS", [])
+    identity = (None, 0, 0, 1.0)[:len(epi)]
     entries = {}
     for kern, (lib, entry) in _libs(kernels, adaptive, bf16).items():
         kind = KERNELS[kern][1]
         entries[kern] = _build.bind(
-            _build.library(lib), entry, [p] * 4 + [i] * 6 + [f, f, p]
+            _build.library(lib), entry, [p] * 4 + [i] * 6 + [f, f] + epi + [p]
             if kind == "sgemm" else ft._ARGS[kind])
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
@@ -204,7 +209,8 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
                 def launch(fn=fn, kern=kern):
                     _build.check_launch(
                         fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                           out.data_ptr(), *dims, 1.0, -1.5, stream), kern)
+                           out.data_ptr(), *dims, 1.0, -1.5, *identity,
+                           stream), kern)
 
                 row[f"{kern} {name}"] = cuda_ms(launch, reps=5)
                 continue
@@ -221,7 +227,8 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
                     fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                        *(r.data_ptr() for r in rows), out.data_ptr(),
                        det.data_ptr(), unc.data_ptr(), *dims, *ints,
-                       1.0, -1.5, sc.ctypes.data, *noise, stream), kern)
+                       1.0, -1.5, sc.ctypes.data, *noise, *identity,
+                       stream), kern)
 
             row[f"{kern} {name}"] = cuda_ms(launch, reps=5)
             launch()

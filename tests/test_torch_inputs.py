@@ -7,6 +7,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from ft_sgemm_tpu import configs as jconfigs
 from ft_sgemm_tpu import contracts as jcontracts
@@ -40,6 +41,31 @@ def test_verify_matrix_same_verdicts():
     for out in (ref, ref + 0.005, ref * 1.02, ref + 0.5):
         assert (matrices.verify_matrix(ref, out, verbose=False)
                 == jmatrices.verify_matrix(ref, out, verbose=False))
+
+
+VERIFY_OUTS = {
+    "equal": lambda r: r,
+    "within": lambda r: r + 0.005,
+    "relative": lambda r: r * 1.02,
+    "off": lambda r: r + 0.5,
+    "nan_inf": lambda r: np.where(np.arange(r.size).reshape(r.shape) % 7 == 0,
+                                  np.float32(np.nan),
+                                  np.where(r > 1.5, np.float32(np.inf), r)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VERIFY_OUTS))
+def test_verify_matrix_tensors_same_verdicts(case):
+    # Tensors are compared on their device, in float64: the same verdict,
+    # count and first index as the host path and the JAX package's, with
+    # zeros in ref (relative error inf) and NaN and inf in out.
+    ref = np.linspace(-2.0, 2.0, 99, dtype=np.float32)
+    ref = np.concatenate([ref, np.zeros(1, np.float32)]).reshape(10, 10)
+    out = VERIFY_OUTS[case](ref).astype(np.float32)
+    want = jmatrices.verify_matrix(ref, out, verbose=False)
+    assert matrices.verify_matrix(torch.from_numpy(ref), torch.from_numpy(out),
+                                  verbose=False) == want
+    assert matrices.verify_matrix(ref, out, verbose=False) == want
 
 
 @pytest.mark.parametrize("kw", SPECS)
@@ -99,6 +125,12 @@ def test_libc_driver_inputs_equal():
     ja, jb = jruntime.generate_reference_driver_inputs(96)
     np.testing.assert_array_equal(a, ja)
     np.testing.assert_array_equal(b, jb)
+    # The draw is made once; a caller that writes into its copy leaves the
+    # next call's inputs as they were.
+    a[:] = 0.0
+    a2, b2 = runtime.generate_reference_driver_inputs(96)
+    np.testing.assert_array_equal(a2, ja)
+    np.testing.assert_array_equal(b2, jb)
 
 
 @pytest.mark.parametrize("kw", SPECS)

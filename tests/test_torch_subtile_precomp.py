@@ -54,7 +54,8 @@ from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 
 PROGRAM_TILES = ("small", "medium", "large", "tall", "wide", "huge")
 NARROW = ("small", "medium", "wide")
-# The smoke's kernel-vs-plain sizes (chip_smoke.SIZES).
+# Aligned, odd, and partly past the 128 x 128 CTA (chip_smoke.SIZES holds
+# 512 for the aligned one).
 CARD_SIZES = (1024, 1000, 300)
 
 
