@@ -271,6 +271,12 @@ EPI_BUILDS = tuple(
     + [(k, "float32", True) for k in ADAPTIVE_KINDS]
     + [(k, "bfloat16", True) for k in BF16_ADAPTIVE_KINDS]
     + [(k, "fp8", True) for k in LOWP_ADAPTIVE_KINDS])
+# The one-pass f32 builds (f32 precision "default", the "*_tf32"
+# libraries): B1-B8 static and B3-B8 adaptive, each with the spellings
+# against its identity launch too.
+EPI_ONE_PASS_BUILDS = tuple(
+    [("sgemm", False)] + [(k, False) for k in FT_KINDS]
+    + [(k, True) for k in ADAPTIVE_KINDS])
 # The grid bracket: B1 and one FT build of each source (and B3's int8
 # build, whose store rounds on its own), with alpha = 0, beta = 1 and A = B
 # = 0, so the output is C, which carries the quantizers' edge values.
@@ -280,10 +286,53 @@ EPI_BRACKET = (("sgemm", "float32", "small"), ("sgemm", "bfloat16", "huge"),
                ("global", "float32", "wide"), ("fused", "float32", "tall"))
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "fp8": torch.float8_e4m3fn, "int8": torch.int8}
+# The variant axes (configs.KernelVariant, ops/common.LaunchAxes): each
+# combination of VARIANT_AXES (every axis alone, then all three), every
+# body in every dtype it has (VARIANT_BUILDS; the adaptive f32 builds of
+# B3-B8 at depth 3, where their thresholds' run length counts grid steps),
+# held to its plain version at the tiles of VARIANT_TILES (the 64-row
+# tile's own CTA of B1 and B2, the sub-tiled CTA; at depth 3 also "test",
+# whose two-panel window is 256 columns, at the aligned size) and sizes
+# VARIANT_SIZES (aligned, and K = 300, a multiple of no window); each "nm"
+# launch equal bit for bit to its "mn" launch. The f32 precision "default"
+# (one TF32 pass) of B1-B8 under the default axes and all three, held to
+# its one-product plain version at every program tile (PROGRAM_TILES: each
+# is an instantiation of its own, and the program runs them all), the
+# adaptive one-pass builds of B3-B8 too, on operands that TF32 holds
+# exactly (ONE_PASS_EXACT), where a product's rounding is FP32's, as the
+# adaptive noise model has it; "high" equal bit for bit to "highest"
+# through the entry points.
+VARIANT_AXES = ({"pipeline_depth": 3}, {"grid_order": "nm"},
+                {"dim_semantics": "arbitrary"},
+                {"pipeline_depth": 3, "grid_order": "nm",
+                 "dim_semantics": "arbitrary"})
+VARIANT_TILES = ("small", "huge")
+VARIANT_SIZES = (512, 300)
+# Integers in [-9, 9] over 16: four mantissa bits, so TF32 holds them and
+# their products exactly, at the program's magnitude (about +-0.5).
+ONE_PASS_EXACT = 16.0
+VARIANT_BUILDS = tuple(
+    [(k, d) for d in ("float32", "bfloat16") for k in ("sgemm",) + FT_KINDS]
+    + [(k, "fp8") for k in BF16_KINDS] + [(k, "int8") for k in INT8_KINDS])
+# The f32 precision "default" on the program's path: its verification at
+# VERIFY_SIZE under every pair (ids 1-6 and 10 under the first), each
+# row's C held to the FP32 oracle within TF32's rounding, element by
+# element. A product of two TF32-rounded operands is off the FP32 product
+# by less than TF32_PRODUCT (2^-11 + 2^-11 + 2^-22) of |a b|, and each of
+# the K f32 additions of the kernel and of the oracle by at most F32_SUM
+# of the running sum (rounded or truncated): every element that no fault
+# hit within (TF32_PRODUCT + 2 K F32_SUM) of its (|A| |B|^T) element
+# (about 1.6 at 4096, where |C| reaches ~90: a zero written or a
+# miscorrection shows), a corrected one within three times TF32_PRODUCT of
+# its tile row's or column's sum of |A| |B|^T (an expected sum and a sum
+# of the accumulator, each that far off). A fault of 1e4 left in C is ~30
+# times the second bound at 4096.
+TF32_PRODUCT = 2.0 ** -10
+F32_SUM = 2.0 ** -23
 
 # The build runs beside the phases, which go in the order of what they load:
 # the f32 static libraries, then the f32 adaptive ones, then the bf16 and
-# fp8 ones. The card's machine has 8 cores, and nice levels there left the
+# fp8 ones, then the one-TF32-pass ones (``*_tf32``, f32 "default"). The card's machine has 8 cores, and nice levels there left the
 # libraries' finishing order as it was, so BUILD_SLOTS compilers run at a
 # time, in that order, each tier's longest compile first (the compile times
 # in PERF.md section 6): the f32 static libraries are done in about half
@@ -298,7 +347,11 @@ BUILD_ORDER = (
     "ft_sgemm_rowcol_adaptive_bf16", "ft_sgemm_rowcol_mxu_adaptive_bf16",
     "ft_sgemm_rowcol_bf16", "ft_sgemm_rowcol_mxu_bf16",
     "ft_sgemm_global_adaptive_bf16", "ft_sgemm_global_bf16",
-    "ft_sgemm_precomp_bf16", "sgemm_fp8")
+    "ft_sgemm_precomp_bf16", "sgemm_fp8", "ft_sgemm_aug_adaptive_tf32",
+    "ft_sgemm_aug_tf32", "ft_sgemm_weighted_adaptive_tf32",
+    "ft_sgemm_rowcol_tf32", "ft_sgemm_rowcol_adaptive_tf32",
+    "ft_sgemm_weighted_tf32", "ft_sgemm_global_adaptive_tf32",
+    "ft_sgemm_global_tf32", "sgemm_tf32")
 
 # The regression variant of B6 (the device-memory scalar argument, at the
 # small tile), built beside the kernels into this directory.
@@ -390,8 +443,19 @@ class Kernels:
             for label in ("bf16", "fp8")[:1 if kind in BF16_MXU_KINDS else 2]:
                 self.table[f"{KIND_NAMES[kind]}_adaptive_{label}"] = dict(
                     static, counter=f"{label}_launches")
+        # The f32 precision "default" (one TF32 pass) of B1-B8: the same
+        # kernels, counted apart too.
+        for kind in ("sgemm",) + FT_KINDS:
+            static = self.table[KIND_NAMES[kind]]
+            self.table[KIND_NAMES[kind] + "_default"] = dict(
+                static, counter="one_pass_launches")
         self.max_err = {name: 0.0 for name in self.table}
-        self.checked = {name: 0 for name in self.table}
+        # The adaptive one-pass builds of B3-B8, held to their plain
+        # versions in phase_variants; their launches count in the static
+        # one-pass rows' one_pass_launches, so they have no row of their own.
+        for kind in ADAPTIVE_KINDS:
+            self.max_err[KIND_NAMES[kind] + "_adaptive_default"] = 0.0
+        self.checked = {name: 0 for name in self.max_err}
 
     def zero_counts(self):
         for k in self.table.values():
@@ -402,25 +466,33 @@ class Kernels:
                 for name, k in self.table.items()}
 
     def calls(self, kind, shape, a, b, c, scalars=None, check_every=None,
-              multifault=False, adaptive=False, epi=None, bias=None):
+              multifault=False, adaptive=False, epi=None, bias=None,
+              axes=None):
         """(kernel thunk, plain thunk) for one launch of ``kind`` (its
         adaptive build with ``adaptive``) on padded operands, with the
         program's alpha and beta and the fused epilogue ``epi`` (its padded
-        bias row ``bias``; None: the identity). The wrapper-side inputs (B2's
+        bias row ``bias``; None: the identity), and the variant axes and
+        precision ``axes`` (``ops/common.LaunchAxes``; None: the defaults;
+        ``shape`` is then the grid step's). The wrapper-side inputs (B2's
         expected moments, the mxu kernels' moment rows) are made here,
         outside both thunks, as inputs of the kernel."""
+        from ft_sgemm_tpu_torch.ops.common import LaunchAxes
+
         ft, sg, al, be = self.ft, self.sg, self.alpha, self.beta
+        axes = axes or LaunchAxes()
         if kind == "sgemm":
-            return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be, epi, bias),
-                    lambda: sg.sgemm_plain(a, b, c, al, be, epi, bias))
+            return (lambda: sg.sgemm_kernel(a, b, c, shape, al, be, epi, bias,
+                                            axes),
+                    lambda: sg.sgemm_plain(a, b, c, al, be, epi, bias,
+                                           shape.bk // axes.unroll, axes))
         args = (kind, shape, a, b, c, ft.kernel_inputs(kind, a, b, shape), al,
                 be, scalars, check_every, multifault)
-        ep = dict(adaptive=adaptive, epi=epi, bias=bias)
+        ep = dict(adaptive=adaptive, epi=epi, bias=bias, axes=axes)
         return (lambda: ft.run_kernel(*args, **ep),
                 lambda: ft.run_kernel(*args, plain=True, **ep))
 
     def hold(self, kind, shape, a, b, c, scalars=None, check_every=None,
-             multifault=False, adaptive=False, scale_tol=None):
+             multifault=False, adaptive=False, scale_tol=None, axes=None):
         """One launch against its plain version on the same operands: (det,
         unc) grids equal, C within verify_matrix on every tile the kernel
         reports correctable (its rule, in float64 on the card, and every
@@ -433,10 +505,10 @@ class Kernels:
         (both round alpha * f32(acc) and beta * C on their own). With
         ``scale_tol`` (data far from the program's ±0.9, where 0.01 is no
         measure), C must be within scale_tol * max |C| of the plain
-        version's instead."""
-        name = kernel_name(kind, a, adaptive)
+        version's instead. ``axes``: as :meth:`calls`."""
+        name = kernel_name(kind, a, adaptive, axes is not None and axes.one_pass)
         run, plain = self.calls(kind, shape, a, b, c, scalars, check_every,
-                                multifault, adaptive)
+                                multifault, adaptive, axes=axes)
         got, want = run(), plain()
         torch.cuda.synchronize()
         self.last = got  # the kernel's result, for a caller's own checks
@@ -510,11 +582,13 @@ def bf16_control(oracle, what):
     return share
 
 
-def kernel_name(kind, a, adaptive=False):
-    """The ``Kernels`` table's name of kernel ``kind`` on A ``a``."""
+def kernel_name(kind, a, adaptive=False, one_pass=False):
+    """The ``Kernels`` table's name of kernel ``kind`` on A ``a`` (its
+    one-TF32-pass launches with ``one_pass``)."""
     return (KIND_NAMES[kind] + ("_adaptive" if adaptive else "")
             + {torch.bfloat16: "_bf16", torch.int8: "_int8",
-               torch.float8_e4m3fn: "_fp8"}.get(a.dtype, ""))
+               torch.float8_e4m3fn: "_fp8"}.get(a.dtype, "")
+            + ("_default" if one_pass else ""))
 
 
 def start_variant_build():
@@ -602,7 +676,7 @@ def ptxas_summary(text: str):
         serialized.setdefault(fn, set()).add(code)
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for 'sm_90a'"
                                r"(.*?)(?=Compiling entry function|$)", text, re.S):
-        kind = re.search(r"ftsg\d+(?:adaptive\d+)?(\w+?_kernel)I", fn).group(1)
+        kind = re.search(r"ftsg\d+(?:[a-z_]+\d+)?(\w+?_kernel)I", fn).group(1)
         dims = re.search(r"WgTileI((?:Li\d+E){5})", fn)
         rows = re.search(r"WgTileI(?:Li\d+E){6}Li(\d+)ELi(\d+)E", fn)
         ragged = re.search(r"EELb(\d)E", fn)
@@ -1322,6 +1396,7 @@ def phase_variant(kern: Kernels, so):
     from ft_sgemm_tpu_torch.ops.common import (
         NOISE_C_BIAS,
         NOISE_C_RAND,
+        LaunchAxes,
         epilogue_args,
         full_run_log2,
     )
@@ -1346,6 +1421,7 @@ def phase_variant(kern: Kernels, so):
         shape.bn, shape.bk, ce, kern.alpha, kern.beta, sc.ctypes.data,
         full_run_log2(n // shape.bk, shape.bk, shape.bm, shape.bn),
         NOISE_C_RAND, NOISE_C_BIAS, *epilogue_args(None),
+        *LaunchAxes().args(),
         torch.cuda.current_stream().cuda_stream), VARIANT)
     got = ft.run_kernel("fused", shape, a, b, c, (ma,), kern.alpha, kern.beta,
                         sc, ce)
@@ -1365,6 +1441,127 @@ def phase_variant(kern: Kernels, so):
     log(f"phase variant ({VARIANT}): B6 small at {n}, check every {ce},"
         f" detects {found} of {expected} faults, none uncorrectable, grids"
         f" equal to the by-value build's, max |dC| {dc}")
+
+
+def _same_launch(got, want) -> bool:
+    """Two launches' results (B1: C; B2-B8: (C, det, unc)) equal bit for
+    bit, NaN where NaN."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(x, y) if not x.is_floating_point()
+               else torch.equal(x.isnan(), y.isnan())
+               and torch.equal(x.nan_to_num(), y.nan_to_num())
+               for x, y in zip(got, want))
+
+
+def phase_variants(kern: Kernels):
+    """The variant axes and the f32 precision (VARIANT_AXES): every body in
+    every dtype it has (VARIANT_BUILDS) under a pipeline depth of 3, the
+    grid order "nm", the dimension semantics "arbitrary" and all three
+    together, against its plain version at VARIANT_TILES and VARIANT_SIZES
+    (and "test" at depth 3), with reference-like faults (the step's bk:
+    the schedule counts grid steps) at the cadence the program gives each
+    kernel's strategy (B5 at four checks a run, so that it checks inside
+    the run): grids equal, C within verify_matrix's rule (int8 bit for
+    bit). At depth 3 also the adaptive f32 builds of B3-B8, with
+    TINY_MAGNITUDE faults at the adaptive cadence. Each "nm" launch equals
+    its "mn" launch bit for bit. Then f32 "default" of B1-B8 (one TF32 pass)
+    under the default axes and all three, against the one-product plain
+    version at every tile of PROGRAM_TILES, and the adaptive one-pass
+    builds of B3-B8 there on ONE_PASS_EXACT operands; and "high" against
+    "highest" through make_sgemm and make_ft_sgemm, bit for bit."""
+    from ft_sgemm_tpu_torch.configs import SHAPES, KernelVariant
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops.common import launch_axes, step_shape
+
+    ft = kern.ft
+    gen = np.random.default_rng(31)
+    before = dict(kern.checked)
+    t0 = time.perf_counter()
+    hosts = {size: (_random(size, size, size, gen),
+                    _int8_host(size, size, size, gen, -9, 9))
+             for size in VARIANT_SIZES}
+    combos = [(KernelVariant(**ax), False) for ax in VARIANT_AXES]
+    combos += [(KernelVariant(), True), (combos[-1][0], True)]
+    same = 0
+    for var, one_pass in combos:
+        axes = launch_axes(var, one_pass)
+        builds = ([(k, "float32") for k in ("sgemm",) + FT_KINDS]
+                  if one_pass else VARIANT_BUILDS)
+        deep = var.pipeline_depth == 3 and not one_pass
+        tiles = (PROGRAM_TILES if one_pass
+                 else VARIANT_TILES + (("test",) if deep else ()))
+        for tile in tiles:
+            shape = step_shape(SHAPES[tile], var)
+            for size in VARIANT_SIZES[:1] if tile == "test" else VARIANT_SIZES:
+                inj = InjectionSpec.reference_like(size, shape.bk)
+                ops = {}
+                runs = [(kind, dt, False) for kind, dt in builds]
+                if deep or one_pass:
+                    runs += [(kind, "float32", True) for kind in ADAPTIVE_KINDS]
+                for kind, dt, adaptive in runs:
+                    key = "exact" if one_pass and adaptive else dt
+                    if key not in ops:
+                        host = hosts[size][dt == "int8" or key == "exact"]
+                        if key == "exact":
+                            host = tuple(x / ONE_PASS_EXACT for x in host)
+                        ops[key] = _padded(host, shape, TORCH_DTYPES[dt])
+                    a, b, c = ops[key]
+                    nk = a.shape[1] // shape.bk
+                    run_inj = (InjectionSpec.reference_like(
+                        size, shape.bk, magnitude=TINY_MAGNITUDE)
+                        if adaptive else inj)
+                    sc = (_adaptive_scalars if adaptive else _scalars)(run_inj)
+                    ce, mf = None, False
+                    if kind != "sgemm":
+                        strategy, encode = KIND_PAIR[kind]
+                        _, ce, mf = ft._plan(strategy, None, None, run_inj, nk,
+                                             shape.bn, encode, adaptive)
+                        ce = {"precomp": nk,
+                              "running": max(1, nk // 4)}.get(kind, ce)
+                        mf = mf and dt != "int8"
+                    kern.hold(kind, shape, a, b, c, sc, ce, mf,
+                              adaptive=adaptive, axes=axes)
+                    if axes.nm:
+                        got = kern.last
+                        mn, _ = kern.calls(kind, shape, a, b, c, sc, ce, mf,
+                                           adaptive, axes=axes._replace(nm=False))
+                        want = mn()
+                        torch.cuda.synchronize()
+                        if not _same_launch(got, want):
+                            raise AssertionError(
+                                f"{kernel_name(kind, a, adaptive, one_pass)}"
+                                f" {tile}"
+                                f" {size} {var}: grid order nm differs from"
+                                " mn")
+                        same += 1
+    done = {k: n - before[k] for k, n in kern.checked.items() if n - before[k]}
+    # "high" runs the 3xTF32 kernels as "highest" does.
+    from ft_sgemm_tpu_torch.ops.ft_sgemm import make_ft_sgemm
+    from ft_sgemm_tpu_torch.ops.sgemm import make_sgemm
+
+    size = VARIANT_SIZES[0]
+    a, b, c = _random(size, size, size, gen)
+    highs = 0
+    for tile in VARIANT_TILES:
+        inj = InjectionSpec.reference_like(size, SHAPES[tile].bk)
+        runs = {"B1": lambda p: make_sgemm(tile, precision=p)(a, b, c)}
+        for strategy, encode in ALL_PAIRS:
+            runs[f"{strategy}/{encode}"] = (
+                lambda p, s=strategy, e=encode: tuple(make_ft_sgemm(
+                    tile, strategy=s, encode=e, precision=p)(a, b, c, inj)))
+        for what, fn in runs.items():
+            if not _same_launch(fn("high"), fn("highest")):
+                raise AssertionError(f"{what} {tile}: precision high differs"
+                                     " from highest")
+            highs += 1
+    torch.cuda.synchronize()
+    log(f"phase variants: {done} comparisons with the plain versions pass"
+        f" (grids equal) under {[dict(ax) for ax in VARIANT_AXES]} and f32"
+        f" precision default; {same} nm launches equal to mn bit for bit;"
+        f" {highs} high launches equal to highest bit for bit; max |dC|"
+        f" { {k: kern.max_err[k] for k in done} }"
+        f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_adaptive_kernels(kern: Kernels, lowp=False):
@@ -1835,6 +2032,119 @@ def phase_main_path(kern: Kernels):
     return counts, tables
 
 
+def phase_default_path(kern: Kernels):
+    """The program at the f32 precision "default" (``run_verification(
+    precision="default")``, one TF32 pass): its verification at VERIFY_SIZE for ids 1-16 under the
+    weighted strategy and ids 11-16 under every other pair of ALL_PAIRS,
+    with the launch counters read around it. The verdicts are printed as
+    the program prints them: its 0.01 absolute AND relative is an FP32
+    gate, which one TF32 pass misses on elements near zero. The run holds
+    every FT row to all of its faults detected and none uncorrectable (the
+    detect-only global: every fault event detected, each uncorrected), and
+    C to the FP32 oracle within TF32's rounding, element by element
+    (TF32_PRODUCT, F32_SUM): the injected run's of each correcting FT row
+    (launched again through the program's own ``_build_ft``) off its
+    faults' elements within the clean bound of each element, at them
+    within three times TF32_PRODUCT of the largest tile row or column sum
+    of |A| |B|^T (of the huge tile, the widest); the clean run's of ids
+    1-6, 10 and each global row within each element's clean bound.
+    Returns the counts."""
+    import io
+
+    from ft_sgemm_tpu_torch import cli, runtime
+    from ft_sgemm_tpu_torch.configs import KERNEL_TABLE
+    from ft_sgemm_tpu_torch.ops.common import strict_fp32
+    from ft_sgemm_tpu_torch.ops.ft_sgemm import _inject_plain
+    from ft_sgemm_tpu_torch.ops.reference import sgemm_reference
+
+    kern.zero_counts()
+    t0 = time.perf_counter()
+    n = VERIFY_SIZE
+    a, b = (torch.from_numpy(x).cuda()
+            for x in runtime.generate_reference_driver_inputs(n))
+    c = torch.zeros((n, n), device="cuda")
+    want = sgemm_reference(a, b, c, kern.alpha, kern.beta, device="cuda")
+    strict_fp32()
+    t = abs(kern.alpha) * (a.abs() @ b.abs().T)
+    tiles = t.reshape(n // 128, 128, n // 128, 128)
+    clean_gate = (TF32_PRODUCT + 2 * n * F32_SUM) * t
+    gates = {"clean": 1.0,  # the worst share of an element's clean bound
+             "corrected": 3 * TF32_PRODUCT * float(max(
+                 tiles.sum(3).max(), tiles.sum(1).max()))}
+
+    def faults_of(ft, inj):
+        """The elements ``inj`` hits in a run of ``ft`` (the plain
+        versions' ``_inject_plain`` on a zero accumulator)."""
+        shape = ft.shape_config
+        acc = torch.zeros((n // shape.bm, n // shape.bn, shape.bm, shape.bn),
+                          device="cuda")
+        for k in range(n // shape.bk):
+            _inject_plain(acc, inj.as_operand(), k)
+        return (acc != 0).permute(0, 2, 1, 3).reshape(n, n)
+
+    def clean_share(got, off):
+        """The worst share of an element's clean bound over ``off``."""
+        return float(((got - want).abs()
+                      / clean_gate.clamp_min(torch.finfo(t.dtype).tiny))[off]
+                     .max())
+
+    verdicts, errs = {}, {}
+    for (strategy, encode), first in zip(ALL_PAIRS, [1] + [11] * 5):
+        details, out = {}, io.StringIO()
+        cli.run_verification(n, first, 16, out=out, strategy=strategy,
+                             encode=encode, details=details,
+                             precision="default")
+        for line in out.getvalue().splitlines():
+            log(f"phase default {strategy}/{encode}: {line}")
+            m = re.match(r"Verification of kernel\s+(\d+) .*: (\w+)", line)
+            if m:
+                verdicts[f"{strategy}/{encode} {m.group(1)}"] = m.group(2)
+        clean = [k for k in range(first, 11) if k in KERNEL_TABLE]
+        for kid, d in details.items():
+            want_unc = d["detected"] if strategy == "global" else 0
+            if d["uncorrectable"] != want_unc or d["detected"] != d["expected"]:
+                raise AssertionError(f"default {strategy}/{encode} id {kid}:"
+                                     f" {d}")
+            if strategy == "global":
+                clean.append(kid)
+                continue
+            ft, inj = cli._build_ft(kid, n, strategy, encode, "cuda",
+                                    precision="default")
+            got = ft(a, b, c, inj).c
+            hit = faults_of(ft, inj)
+            errs[f"{strategy}/{encode} {kid} clean"] = clean_share(got, ~hit)
+            errs[f"{strategy}/{encode} {kid} corrected"] = float(
+                (got - want).abs()[hit].max())
+        for kid in clean:
+            if kid > 10:
+                ft, _ = cli._build_ft(kid, n, strategy, encode, "cuda",
+                                      precision="default")
+                got = ft(a, b, c).c
+            else:
+                got = cli._build_callable(kid, n, True, strategy, encode,
+                                          "cuda", precision="default")(a, b, c)
+            errs[f"{strategy}/{encode} {kid} clean"] = clean_share(
+                got, torch.ones_like(got, dtype=torch.bool))
+    bad = {k: e for k, e in errs.items()
+           if not e <= gates[k.split()[-1]]}
+    if bad:
+        raise AssertionError(f"default precision: C past TF32's bounds"
+                             f" {gates}: {bad}")
+    counts = kern.counts()
+    log(f"phase default path: verdicts {verdicts}; worst share of the"
+        f" clean elements' bounds (clean) and max |dC| at the faults"
+        f" (corrected) {errs} (bounds {gates}, the clean bound"
+        f" {float(clean_gate.min())}-{float(clean_gate.max())});"
+        f" {time.perf_counter() - t0:.1f} s, launches"
+        f" { {k: n for k, n in counts.items() if k.endswith('_default')} }")
+    missing = [name for name, k in kern.table.items()
+               if k["counter"] == "one_pass_launches" and counts[name] == 0]
+    if missing:
+        raise AssertionError(f"one-pass kernels never launched on the"
+                             f" default path: {missing}")
+    return counts
+
+
 def _device_verify(want, got):
     """``verify_matrix``'s rule on the card: the number of elements off by
     more than 0.01 absolute AND 0.01 relative to ``want``."""
@@ -2240,17 +2550,19 @@ def work(kind, shape, n, check_every=None, multifault=False, adaptive=False,
 
 
 def _bound(flops: float, nbytes: float, tc_products: float = 0.0,
-           bf16: bool = False, int8: bool = False, fp8: bool = False):
+           bf16: bool = False, int8: bool = False, fp8: bool = False,
+           tf32_passes: int = 3):
     """(ms, bound_by): the larger of the operations over their peak rate
     and the bytes over the memory rate. ``tc_products`` of the flops are
-    products that run as three TF32 products each on the tensor cores (the
-    3xTF32 wgmma kernels), or once at the bf16 rate with ``bf16``, at the
-    int8 rate with ``int8``, at the fp8 rate with ``fp8``; the rest run at
-    the FP32 rate."""
+    products that run as ``tf32_passes`` TF32 products each on the tensor
+    cores (three in the 3xTF32 wgmma kernels, one under the f32 precision
+    "default"), or once at the bf16 rate with ``bf16``, at the int8 rate
+    with ``int8``, at the fp8 rate with ``fp8``; the rest run at the FP32
+    rate."""
     tc = (tc_products / PEAK_FP8_FLOPS if fp8 else
           tc_products / PEAK_INT8_OPS if int8 else
           tc_products / PEAK_BF16_FLOPS if bf16 else
-          3 * tc_products / PEAK_TF32_FLOPS)
+          tf32_passes * tc_products / PEAK_TF32_FLOPS)
     t_ops = tc + (flops - tc_products) / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -2319,23 +2631,27 @@ SUM_ROWS = {"running": (3, 0, 2), "fused": (3, 0, 1), "rowcol": (1, 1, 3),
             "global_mxu": (0, 2, 0)}
 
 
-def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
+def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False,
+                one_pass=False):
     """``-Xptxas -v``'s line (registers, spills) for the kernel that ``kind``
-    launches on ``shape`` in ``in_dtype`` ("bfloat16" or "fp8"; B2-B5 in fp8
+    launches on ``shape`` in ``in_dtype`` ("float32", "bfloat16" or "fp8";
+    B2-B5 in fp8
     run the bf16 kernels; each from the library ``ft.kernel_entry`` names;
     ``adaptive``: B3-B8's adaptive bf16 builds): B1 and B2 on the tile's
     own CTA at the 64-row tiles, else the 128 x 128 CTA (B1: the ragged
     one; B2-B8 over the tile as sub-tiles; B3 and B7 with one moment row,
-    two with multifault)."""
+    two with multifault; ``one_pass``: the f32 one-TF32-pass build)."""
     from ft_sgemm_tpu_torch.ops import _build
     from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
 
     kernel = FLOAT_KERNELS.get(kind, "ft_running_wgmma_kernel")
     e4m3 = in_dtype == "fp8" and kind == "sgemm"
+    f32 = in_dtype == "float32"
     if kind == "sgemm":
-        lib = "sgemm_fp8" if e4m3 else "sgemm"
+        lib = "sgemm_fp8" if e4m3 else "sgemm_tf32" if one_pass else "sgemm"
     else:
-        lib = ft.kernel_entry(kind, torch.bfloat16, adaptive)[0]
+        lib = ft.kernel_entry(kind, torch.float32 if f32 else torch.bfloat16,
+                              adaptive, one_pass)[0]
     own = (shape.bm, shape.bn) in _build.wgmma_tiles()
     if kind == "sgemm":  # with MOM, the sum-row sources and the ragged flag
         dims = [shape.bm, shape.bn] * 2 if own else [128] * 4
@@ -2350,10 +2666,126 @@ def float_ptxas(kind, shape, in_dtype, multifault=False, adaptive=False):
     tag = kernel + "<" + ",".join(map(str, dims)) + ","
     in_tag = ",e4m3>:" if e4m3 else ",bf16>:"
     lines = [x for x in ptxas_summary(_build.ptxas_log(lib))
-             if x.startswith(tag) and in_tag in x]
+             if (x.startswith(tag) or x.startswith(tag[:-1] + ">"))
+             and (not any(t in x for t in (",bf16>", ",s8>", ",e4m3>"))
+                  if f32 else in_tag in x)]
     if len(lines) != 1:
         raise AssertionError(f"ptxas lines for {tag}...{in_tag}: {lines}")
     return lines[0]
+
+
+# The f32 precision "default" rows: B1-B8 each on the first tile TIMED
+# gives it (the program's path at 4096).
+DEFAULT_TIMED = (("sgemm", "huge"), ("precomp", "huge"), ("rowcol", "huge"),
+                 ("global", "huge"), ("running", "small"), ("fused", "huge"),
+                 ("rowcol_mxu", "huge"), ("global_mxu", "huge"))
+# The variant-axis times: each kernel under each axes' variant against the
+# default axes, in turns on the same launch.
+AXES_TIMED = (("sgemm", "huge"), ("rowcol", "huge"))
+
+
+def phase_default_timing(kern: Kernels, counts):
+    """Each kernel at the f32 precision "default" (one TF32 wgmma a k step)
+    at 4096 on the tile and cadence the program gives it (DEFAULT_TIMED):
+    the kernel, its one-product plain version, torch.addmm with TF32
+    allowed (``torch.backends.cuda.matmul.allow_tf32``; the library's TF32
+    GEMM, one pass) for the same alpha*A@B.T + beta*C, the bound (the
+    tensor-core products once at the TF32 rate, ``tc_products``), the
+    registers (its one-pass build's, ``*_tf32``) and the 3xTF32 launch's
+    time beside it (``highest_ms``). Then B1 and B3
+    at huge under the grid order "nm" and the pipeline depth 3 against the
+    default axes, in turns (default, axis, axis, default). Returns the
+    ``kernels`` rows."""
+    from ft_sgemm_tpu_torch.configs import SHAPES, KernelVariant
+    from ft_sgemm_tpu_torch.injection import InjectionSpec
+    from ft_sgemm_tpu_torch.ops import _build
+    from ft_sgemm_tpu_torch.ops.common import (
+        LaunchAxes,
+        launch_axes,
+        step_shape,
+        strict_fp32,
+    )
+    from ft_sgemm_tpu_torch.utils.timing import cuda_ms
+
+    ft = kern.ft
+    n = TIMING_SIZE
+    gen = np.random.default_rng(11)
+    host = _random(n, n, n, gen)
+    one = LaunchAxes(one_pass=True)
+    rows = []
+
+    def plan(kind, shape, nk):
+        if kind == "sgemm":
+            return None, False
+        strategy, encode = KIND_PAIR[kind]
+        got, ce, mf = ft._plan(strategy, None, None,
+                               InjectionSpec.reference_like(n, shape.bk), nk,
+                               shape.bn, encode)
+        if got != kind:
+            raise AssertionError(f"the program runs {got} at {shape.name},"
+                                 f" not {kind}")
+        return ce, mf
+
+    for kind, tile in DEFAULT_TIMED:
+        shape = SHAPES[tile]
+        a, b, c = _padded(host, shape)
+        sc = _scalars(InjectionSpec.reference_like(n, shape.bk))
+        ce, mf = plan(kind, shape, n // shape.bk)
+        run, plain = kern.calls(kind, shape, a, b, c, sc, ce, mf, axes=one)
+        highest, _ = kern.calls(kind, shape, a, b, c, sc, ce, mf)
+        ms = cuda_ms(run, reps=5)
+        highest_ms = cuda_ms(highest, reps=5)
+        plain_ms = cuda_ms(plain)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            library_ms = cuda_ms(lambda: torch.addmm(
+                c, a, b.T, beta=kern.beta, alpha=kern.alpha), reps=5)
+        finally:
+            strict_fp32()
+        flops, nbytes = work(kind, shape, n, ce, mf)
+        bound_ms, bound_by = _bound(flops, nbytes,
+                                    tc_products(kind, shape, n, mf),
+                                    tf32_passes=1)
+        regs = float_ptxas(kind, shape, "float32", mf, one_pass=True)
+        name = KIND_NAMES[kind] + "_default"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": kern.table[name]["source"],
+            "replaces": kern.table[name]["replaces"],
+            "launches": counts[name], "max_abs_err": kern.max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "tile": tile,
+            "mainloop": "wgmma-tf32", "ptxas": regs,
+            "highest_ms": highest_ms})
+        log(f"phase timing {name} ({tile}, {n}, check every {ce}, multifault"
+            f" {mf}): kernel {ms:.3f} ms (3xTF32 {highest_ms:.3f} ms), plain"
+            f" {plain_ms:.3f} ms, torch.addmm TF32 {library_ms:.3f} ms, bound"
+            f" {bound_ms:.3f} ms ({bound_by}); {regs}")
+    for kind, tile in AXES_TIMED:
+        times = {}
+        for axis in ({"grid_order": "nm"}, {"pipeline_depth": 3}):
+            var = KernelVariant(**axis)
+            shape = step_shape(SHAPES[tile], var)
+            a, b, c = _padded(host, shape)
+            sc = _scalars(InjectionSpec.reference_like(n, shape.bk))
+            ce, mf = plan(kind, shape, n // shape.bk)
+            base, _ = kern.calls(kind, shape, a, b, c, sc, ce, mf)
+            if var.pipeline_depth == 3:  # the depth-2 launch on its own step
+                a0, b0, c0 = _padded(host, SHAPES[tile])
+                ce0, mf0 = plan(kind, SHAPES[tile], n // SHAPES[tile].bk)
+                base, _ = kern.calls(kind, SHAPES[tile], a0, b0, c0, sc, ce0,
+                                     mf0)
+            run, _ = kern.calls(kind, shape, a, b, c, sc, ce, mf,
+                                axes=launch_axes(var))
+            turns = [cuda_ms(f, reps=5) for f in (base, run, run, base)]
+            label = next(iter(axis.items()))
+            times[f"{label[0]}={label[1]}"] = (
+                (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+        log(f"phase timing axes {KIND_NAMES[kind]} ({tile}, {n}; default"
+            f" axes ms, axis ms, in turns): "
+            + ", ".join(f"{k}: {d:.4f} vs {v:.4f} ({(v / d - 1) * 100:+.1f} %)"
+                        for k, (d, v) in times.items()))
+    return rows
 
 
 def phase_float_timing(kern: Kernels, counts, in_dtype: str):
@@ -2859,7 +3291,7 @@ def phase_epilogue(kern: Kernels):
     from ft_sgemm_tpu_torch import cli, make_ft_sgemm, make_sgemm
     from ft_sgemm_tpu_torch.configs import SHAPES, EpilogueSpec
     from ft_sgemm_tpu_torch.injection import InjectionSpec
-    from ft_sgemm_tpu_torch.ops.common import apply_epilogue, pad_bias
+    from ft_sgemm_tpu_torch.ops.common import LaunchAxes, apply_epilogue, pad_bias
     from ft_sgemm_tpu_torch.ops.reference import (
         epilogue_reference,
         epilogue_violations,
@@ -2884,10 +3316,13 @@ def phase_epilogue(kern: Kernels):
     # the builds launch every library.
     from ft_sgemm_tpu_torch.ops import _build
 
-    libs = {("sgemm_fp8" if d == "fp8" else "sgemm") if k == "sgemm" else
-            ft.kernel_entry(k, torch.bfloat16 if d == "fp8" else
-                            TORCH_DTYPES[d], ad)[0]
-            for k, d, ad in EPI_BUILDS}
+    builds = ([build + (False,) for build in EPI_BUILDS]
+              + [(k, "float32", ad, True) for k, ad in EPI_ONE_PASS_BUILDS])
+    libs = {(("sgemm_fp8" if d == "fp8" else "sgemm_tf32" if op else "sgemm")
+             if k == "sgemm" else
+             ft.kernel_entry(k, torch.bfloat16 if d == "fp8" else
+                             TORCH_DTYPES[d], ad, op)[0])
+            for k, d, ad, op in builds}
     if set(_build.KERNEL_LIBS) - libs:
         raise AssertionError("libraries no epilogue build launches:"
                              f" {sorted(set(_build.KERNEL_LIBS) - libs)}")
@@ -2896,8 +3331,9 @@ def phase_epilogue(kern: Kernels):
     hosts = {d: _epi_host(n, d, gen) for d in TORCH_DTYPES}
     bias_host = (gen.standard_normal(n) * 2.0).astype(np.float32)
     errs = {}
-    for i, (kind, dtype, adaptive) in enumerate(EPI_BUILDS):
+    for i, (kind, dtype, adaptive, one_pass) in enumerate(builds):
         shape = SHAPES[PROGRAM_TILES[i % len(PROGRAM_TILES)]]
+        axes = LaunchAxes(one_pass=one_pass)
         a, b, c = _padded(hosts[dtype], shape, TORCH_DTYPES[dtype])
         inj = InjectionSpec.reference_like(n, shape.bk)
         ce, mf = _epi_cadence(ft, kind, shape, inj, a.shape[1] // shape.bk,
@@ -2905,15 +3341,17 @@ def phase_epilogue(kern: Kernels):
         sc = _adaptive_scalars(inj) if adaptive else _scalars(inj)
         row = pad_bias(bias_host, n, shape.bn, dev)
         wrapper = kern.table[KIND_NAMES[kind]]["wrapper"]
-        ident = kern.calls(kind, shape, a, b, c, sc, ce, mf, adaptive)[0]()
+        ident = kern.calls(kind, shape, a, b, c, sc, ce, mf, adaptive,
+                           axes=axes)[0]()
         before = wrapper.epilogue_launches
         for spelling in EPI_SPELLINGS:
             epi = EpilogueSpec.parse(spelling)
             got = kern.calls(kind, shape, a, b, c, sc, ce, mf, adaptive, epi,
-                             row)[0]()
+                             row, axes)[0]()
             torch.cuda.synchronize()
             what = (f"epilogue {spelling} {kind} {dtype}"
-                    f"{' adaptive' if adaptive else ''} {shape.name}")
+                    f"{' adaptive' if adaptive else ''}"
+                    f"{' one-pass' if one_pass else ''} {shape.name}")
             if kind != "sgemm":
                 if not (torch.equal(got[1], ident[1])
                         and torch.equal(got[2], ident[2])):
@@ -2936,7 +3374,7 @@ def phase_epilogue(kern: Kernels):
             raise AssertionError(f"{kind} {dtype}: {counted} epilogue"
                                  f" launches counted, not"
                                  f" {len(EPI_SPELLINGS)}")
-    log(f"phase epilogue kernels: {len(EPI_BUILDS)} builds x"
+    log(f"phase epilogue kernels: {len(builds)} builds x"
         f" {len(EPI_SPELLINGS)} spellings at {n} equal to their identity"
         f" launches through apply_epilogue (gelu within the stated ulps),"
         f" grids unchanged; max |dC| {max(errs.values()):.3g};"
@@ -3130,6 +3568,8 @@ def main() -> int:
     threshold_counts = run(phase_threshold_path, kern)
     so = run(phase_build, variant, t0)
     run(phase_variant, kern, so)
+    default_counts = run(phase_default_path, kern)
+    run(phase_variants, kern)
     run(phase_bf16_kernels, kern)
     run(phase_fp8_kernels, kern)
     run(phase_adaptive_kernels, kern, True)
@@ -3145,6 +3585,7 @@ def main() -> int:
     run(phase_roc, kern)
     epilogue_rows = run(phase_epilogue, kern)
     rows = run(phase_timing, kern, counts, threshold_counts)
+    rows += run(phase_default_timing, kern, default_counts)
     rows += run(phase_float_timing, kern, bf16_counts, "bfloat16")
     rows += run(phase_int8_timing, kern, int8_counts)
     rows += run(phase_float_timing, kern, fp8_counts, "fp8")

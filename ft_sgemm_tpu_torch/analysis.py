@@ -34,7 +34,6 @@ from ft_sgemm_tpu_torch.ops.common import (
     NOISE_C_RAND,
     THRESHOLD_CAP,
     as_operand,
-    check_precision,
     resolve_in_dtype,
     variance_bound_threshold,
 )
@@ -161,11 +160,12 @@ def measure_noise_floor(a, b, c, *, alpha: float = 1.0, beta: float = -1.5,
     (``ft_sgemm_tpu/analysis.py:41``), from the two-pass baseline (id 10),
     whose residuals are outputs: full-matrix row and column sums in f32,
     the worst case of the fused kernels' per-tile residuals. ``precision``
-    as :func:`ops.common.check_precision`."""
-    check_precision(precision, resolve_in_dtype(in_dtype))
+    as :func:`ops.common.check_precision`: f32 ``"default"`` measures the
+    floor of one-TF32-pass products (the baseline's products at that
+    precision, as the JAX package passes it on)."""
     res = abft_baseline_sgemm(a, b, c, alpha, beta, panel_k=panel_k,
-                              in_dtype=in_dtype, threshold=float("inf"),
-                              device=device)
+                              precision=precision, in_dtype=in_dtype,
+                              threshold=float("inf"), device=device)
     return float(max(res.max_row_residual, res.max_col_residual))
 
 
@@ -234,15 +234,15 @@ def detection_rate_sweep(
     kernels' detections, and C against the oracle of the same input mode
     (``verify_matrix``). Magnitudes below the threshold are designed
     misses; above it every fault must be caught. A named shape is the
-    port's tile (the JAX package's bf16 tile overrides are TPU tuning)."""
-    check_precision(precision, resolve_in_dtype(in_dtype,
-                                                allow_low_precision=True))
+    port's tile (the JAX package's bf16 tile overrides are TPU tuning).
+    ``precision`` goes to the kernels (``make_ft_sgemm``)."""
     a, b, c = (np.asarray(x, np.float32) for x in (a, b, c))
     k = a.shape[1]
     want = sgemm_reference(a, b, c, alpha, beta, in_dtype=in_dtype,
                            device=device)
     ft = make_ft_sgemm(shape, alpha=alpha, beta=beta, strategy=strategy,
-                       threshold=threshold, in_dtype=in_dtype, device=device)
+                       threshold=threshold, precision=precision,
+                       in_dtype=in_dtype, device=device)
     tile = ft.shape_config
     tiles = -(-a.shape[0] // tile.bm) * -(-b.shape[0] // tile.bn)
     points = []

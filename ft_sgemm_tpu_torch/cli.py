@@ -112,13 +112,13 @@ BETA = -1.5   # sgemm.cu:24,234
 
 
 def _build_ft(kernel_id: int, size: int, strategy: str, encode: str, device,
-              threshold="static", in_dtype="float32"):
+              threshold="static", in_dtype="float32", precision="highest"):
     """The fused-ABFT kernel + reference-like injection for one kernel id,
     the injection cadence following the tile the kernel runs."""
     _, shape, _ = kernel_for_id(kernel_id)
     ft = make_ft_sgemm(shape.name, alpha=ALPHA, beta=BETA, strategy=strategy,
                        encode=encode, threshold=threshold, in_dtype=in_dtype,
-                       device=device)
+                       precision=precision, device=device)
     return ft, InjectionSpec.reference_like(size, ft.shape_config.bk)
 
 
@@ -162,19 +162,22 @@ def _vendor(device, in_dtype="float32"):
 
 def _build_callable(kernel_id: int, size: int, inject_ft: bool,
                     strategy: str, encode: str, device, threshold="static",
-                    in_dtype="float32"):
-    """Return fn(a, b, c) -> (M, N) tensor for one kernel id."""
+                    in_dtype="float32", precision="highest"):
+    """Return fn(a, b, c) -> (M, N) tensor for one kernel id (``precision``:
+    that of ids 1-16; id 0, the oracle's GEMM, stays FP32)."""
     _, shape, is_abft = kernel_for_id(kernel_id)
     if kernel_id == 0:
         return _vendor(device, in_dtype)
     if kernel_id == 10:
         return lambda a, b, c: abft_baseline_sgemm(
-            a, b, c, ALPHA, BETA, in_dtype=in_dtype, device=device).c
+            a, b, c, ALPHA, BETA, precision=precision, in_dtype=in_dtype,
+            device=device).c
     if not is_abft:
         return make_sgemm(shape.name, alpha=ALPHA, beta=BETA,
-                          in_dtype=in_dtype, device=device)
+                          precision=precision, in_dtype=in_dtype,
+                          device=device)
     ft, inj = _build_ft(kernel_id, size, strategy, encode, device, threshold,
-                        in_dtype)
+                        in_dtype, precision)
     if not inject_ft:
         inj = InjectionSpec.none()
     return lambda a, b, c: ft(a, b, c, inj).c
@@ -223,7 +226,7 @@ def _host_inputs(size: int, in_dtype: str = "float32"):
 
 def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
                             encode: str, device, threshold="static",
-                            in_dtype="float32"):
+                            in_dtype="float32", precision="highest"):
     """Verification gate of the detect-only ``global`` strategy (the JAX
     package's cli.py:462-491): the output keeps the injected corruption by
     design, so the row passes when (a) the injected run detects exactly
@@ -231,7 +234,7 @@ def _verify_global_strategy(kernel_id: int, end_size: int, a, b, c, want,
     diff against the oracle. Returns (ok, status, injected result, expected
     events)."""
     ft, inj = _build_ft(kernel_id, end_size, "global", encode, device,
-                        threshold, in_dtype)
+                        threshold, in_dtype, precision)
     shape = ft.shape_config
     res = ft(a, b, c, inj)
     tiles = -(-end_size // shape.bm) * -(-end_size // shape.bn)
@@ -252,7 +255,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                      out=None, strategy: str = "weighted", device=None,
                      details: dict | None = None,
                      encode: str = "vpu", threshold="static",
-                     in_dtype="float32") -> bool:
+                     in_dtype="float32", precision="highest") -> bool:
     """Pass 1: diff every selected kernel against the ``torch.matmul``
     oracle (in bf16: the f32 product of the bf16-rounded inputs; in int8:
     the exact int32 product of the inputs scaled to the integer lattice;
@@ -260,11 +263,13 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
     in f32 print a skip line). A and B are the reference binary's
     post-``srand(10)`` buffers (``runtime.generate_reference_driver_inputs``);
     C starts zeroed. The FT rows run under ``threshold`` (a float or a mode
-    of ``configs.THRESHOLD_MODES``).
+    of ``configs.THRESHOLD_MODES``), ids 1-16 at ``precision`` (f32
+    ``"default"``: one TF32 pass, held to the same FP32 oracle and
+    tolerance).
 
     ``details``, when given, receives per FT id the detected, expected and
-    uncorrectable fault counts of the injected run and whether the row
-    passed. Under the detect-only ``global`` strategy ``detected`` counts
+    uncorrectable fault counts of the injected run, whether the row passed
+    and (correcting strategies) the injected run's largest |C - oracle|. Under the detect-only ``global`` strategy ``detected`` counts
     fault events and ``uncorrectable`` equals ``detected`` (nothing is
     corrected).
     """
@@ -284,6 +289,9 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         mode = " (threshold adaptive)" if threshold == "adaptive" else ""
         print(f"Verification in {dtype}{mode}: A and B rounded to {dtype},"
               f" against the f32 product of the rounded inputs", file=out)
+    elif precision == "default":
+        print("Verification at precision default: the products of ids 1-16"
+              " in one TF32 pass, against the FP32 product", file=out)
     all_ok = True
     for kernel_id in sorted(KERNEL_TABLE):
         if kernel_id < st_kernel or kernel_id > end_kernel:
@@ -297,7 +305,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
         if is_abft and kernel_id != 10 and strategy == "global":
             ok, status, res, expected = _verify_global_strategy(
                 kernel_id, end_size, a, b, c, want, encode, dev, threshold,
-                in_dtype)
+                in_dtype, precision)
             if details is not None:
                 details[kernel_id] = {
                     "detected": int(res.num_detected), "expected": expected,
@@ -306,7 +314,7 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
             # Correcting FT rows: diff gate PLUS the residual-after-correct
             # re-check.
             ft, inj = _build_ft(kernel_id, end_size, strategy, encode, dev,
-                                threshold, in_dtype)
+                                threshold, in_dtype, precision)
             res = ft(a, b, c, inj)
             ok, nbad, first = verify_matrix(want, res.c, verbose=False)
             unc = int(res.num_uncorrectable)
@@ -322,10 +330,11 @@ def run_verification(end_size: int, st_kernel: int, end_kernel: int,
                 details[kernel_id] = {
                     "detected": int(res.num_detected),
                     "expected": tiles * inj.expected_faults(end_size, shape.bk),
-                    "uncorrectable": unc, "passed": ok}
+                    "uncorrectable": unc, "passed": ok,
+                    "max_abs_err": float((res.c - want).abs().max())}
         else:
             fn = _build_callable(kernel_id, end_size, True, strategy, encode,
-                                 dev, in_dtype=in_dtype)
+                                 dev, in_dtype=in_dtype, precision=precision)
             ok, nbad, first = verify_matrix(want, fn(a, b, c), verbose=False)
             status = "pass" if ok else f"FAIL ({nbad} bad, first at {first})"
         all_ok &= ok

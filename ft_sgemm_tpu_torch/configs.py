@@ -194,12 +194,17 @@ def check_kernel_legality(*, strategy: str, encode: str,
 # The kernel-variant axes (ft_sgemm_tpu/configs.py:162-204), kept so the
 # port takes and reports the same descriptor. ``PIPELINE_DEPTHS``: K panels
 # the pipeline holds per operand stream (2: the historical double buffer;
-# 3: a two-panel K window). ``GRID_ORDERS``: the walk of the two output
-# grid dims, "mn" (M-major) or "nm"; K stays innermost. ``DIM_SEMANTICS``:
-# the Mosaic semantics of the output dims. ``RING_OVERLAP_MODES``: the hop
-# schedule of the ring collectives (ignored by the single-device factories).
-# The port runs the defaults of the first three only (ROADMAP Queue B item
-# 5); the factories refuse the others.
+# 3: a two-panel K window, so a grid step, the unit of the check cadence
+# and of the injection schedule, consumes two panels of bk columns; the
+# kernels take that window as their bk). ``GRID_ORDERS``: the walk of the
+# two output grid dims, "mn" (M-major) or "nm"; K stays innermost. On the
+# card the order is the CTA raster: "nm" puts the M tile on blockIdx.x, the
+# fastest-walked grid dimension (``csrc/abft_common.cuh::Variant``).
+# ``DIM_SEMANTICS``: the Mosaic semantics of the output dims, a scheduling
+# hint with no CUDA counterpart (every CTA of a launch is independent):
+# "arbitrary" runs the same kernel as "parallel". ``RING_OVERLAP_MODES``:
+# the hop schedule of the ring collectives (ignored by the single-device
+# factories).
 PIPELINE_DEPTHS = (2, 3)
 GRID_ORDERS = ("mn", "nm")
 DIM_SEMANTICS = ("parallel", "arbitrary")
@@ -347,9 +352,7 @@ class KernelVariant:
     stays hashable) and the ring hop schedule
     (:data:`RING_OVERLAP_MODES`, ignored by the single-device factories).
     ``KernelVariant()`` is the historical behavior. The port's factories
-    run the cadence and the epilogue axes; a non-default pipeline depth,
-    grid order or dimension semantics raises ``NotImplementedError`` there
-    (ROADMAP Queue B item 5).
+    run every axis but ``ring_overlap``.
     """
 
     pipeline_depth: int = 2
@@ -431,19 +434,12 @@ def canonical_variant(variant) -> KernelVariant:
 
 
 def check_variant(variant: KernelVariant) -> None:
-    """Raise ``NotImplementedError`` for the variant axes the port does not
-    run yet: a pipeline depth, grid order or dimension semantics other
-    than the default (ROADMAP Queue B item 5). The cadence and the
-    epilogue run; ``ring_overlap`` is accepted and ignored, as the JAX
-    package's single-device factories ignore it."""
-    for axis in ("pipeline_depth", "grid_order", "dim_semantics"):
-        value = getattr(variant, axis)
-        if value != getattr(DEFAULT_VARIANT, axis):
-            raise NotImplementedError(
-                f"KernelVariant.{axis}={value!r} is not ported yet: the"
-                " port runs the default pipeline depth, grid order and"
-                " dimension semantics only (ROADMAP Queue B item 5, the"
-                " variant axes)")
+    """Re-validate a variant's axes with the JAX package's ``ValueError``
+    (ft_sgemm_tpu/configs.py:357-380): every legal pipeline depth, grid
+    order and dimension semantics runs. The cadence and the epilogue run
+    too; ``ring_overlap`` is accepted and ignored, as the JAX package's
+    single-device factories ignore it."""
+    KernelVariant.__post_init__(variant)
 
 
 # The port's Hopper tile table: bm x bn and bk = ks are the paper's CUDA

@@ -12,6 +12,8 @@
 //                               which every kernel body applies after its
 //                               detect / correct (B1 ops/sgemm.py:98-101,
 //                               B2-B8 ops/ft_sgemm.py:632-1162)
+//   Variant                  <- ops/common.py::grid_and_maps, grid_ij
+//                               (:376-411)
 //
 // The kernels reduce the accumulator's column moments over their own
 // fragment maps (gemm_wgmma.cuh) and call weighted_column once per column.
@@ -41,6 +43,21 @@
 #define FTSG_BF16 0
 #endif
 
+// FTSG_ONE_PASS=1 builds the f32 kernels for the precision "default": one
+// TF32 wgmma per k step, a_hi b_hi, where 3xTF32 issues three
+// (gemm_wgmma.cuh: WgMainloop::mma3), for the product and the expected
+// sums that ride it; the f32 entry points alone (no int8, bf16 or fp8),
+// static or with FTSG_ADAPTIVE=1, libraries of their own (ops/_build
+// LIBRARIES, "*_tf32"), so that the 3xTF32 builds keep their code: a
+// run-time branch there moved ptxas's allocation and made B5 small 33 %
+// slower on an H100 (PERF.md, section 6).
+#ifndef FTSG_ONE_PASS
+#define FTSG_ONE_PASS 0
+#endif
+#if FTSG_ONE_PASS && FTSG_BF16
+#error "FTSG_ONE_PASS builds the f32 kernels"
+#endif
+
 // FTSG_KERNEL=n (2 .. 8) compiles kernel Bn's entry points alone (of those
 // the other macros select), so that the heaviest bf16 builds, B2 and B5 of
 // one source, B6 and B7 of another, build as libraries of their own, side
@@ -50,12 +67,18 @@
 #endif
 #define FTSG_HAS(n) (FTSG_KERNEL == 0 || FTSG_KERNEL == (n))
 
-// The two builds are loaded into one process and share their sources, so
-// the adaptive build's C++ symbols live in an inline namespace of their own:
-// no mangled name has two bodies (the C entry points are looked up per
-// library).
-#if FTSG_ADAPTIVE
+// The builds are loaded into one process and share their sources, so the
+// adaptive and one-pass builds' C++ symbols live in inline namespaces of
+// their own: no mangled name has two bodies (the C entry points are looked
+// up per library).
+#if FTSG_ADAPTIVE && FTSG_ONE_PASS
+#define FTSG_NAMESPACE_BEGIN namespace ftsg { inline namespace adaptive_one_pass {
+#define FTSG_NAMESPACE_END } }
+#elif FTSG_ADAPTIVE
 #define FTSG_NAMESPACE_BEGIN namespace ftsg { inline namespace adaptive {
+#define FTSG_NAMESPACE_END } }
+#elif FTSG_ONE_PASS
+#define FTSG_NAMESPACE_BEGIN namespace ftsg { inline namespace one_pass {
 #define FTSG_NAMESPACE_END } }
 #else
 #define FTSG_NAMESPACE_BEGIN namespace ftsg {
@@ -65,6 +88,7 @@
 FTSG_NAMESPACE_BEGIN
 
 constexpr bool kAdaptive = FTSG_ADAPTIVE != 0;
+constexpr bool kOnePass = FTSG_ONE_PASS != 0;
 
 // The kernels' scalar argument, passed by value. Slot meanings are
 // contracts.SCALAR_SLOTS, shared with the JAX kernels' SMEM operand.
@@ -88,6 +112,32 @@ enum Slot {
 // Passed by value; only the adaptive build reads them.
 struct NoiseModel {
   float log2_t, c_rand, c_bias;
+};
+
+// The variant axis a launch takes at run time (ops/common.LaunchAxes, the
+// JAX package's configs.KernelVariant), passed by value to every kernel.
+// `nm`: the grid order "nm", the CTA raster walking M tiles first
+// (blockIdx.x, the dimension the hardware walks first, is the M tile;
+// tests/test_torch_variants.py reads grid, tile_m and tile_n from here and
+// walks them against the JAX grid); "mn" puts the N tile there. A CTA reads its tile
+// through tile_m() / tile_n(), so its grid cells land by tile whatever the
+// order (grid_ij, ft_sgemm_tpu/ops/common.py:402). The pipeline depth
+// reaches the kernels as bk (the K window of one grid step), the dimension
+// semantics not at all (a Mosaic scheduling hint, with no CUDA
+// counterpart), and the f32 precision "default" as the FTSG_ONE_PASS build.
+struct Variant {
+  int nm;
+
+  __host__ bool valid() const { return nm == 0 || nm == 1; }
+  __host__ dim3 grid(int gm, int gn) const {
+    return nm ? dim3(gm, gn) : dim3(gn, gm);
+  }
+  __device__ __forceinline__ int tile_m() const {
+    return nm ? blockIdx.x : blockIdx.y;
+  }
+  __device__ __forceinline__ int tile_n() const {
+    return nm ? blockIdx.y : blockIdx.x;
+  }
 };
 
 // The fused epilogue, passed by value to every kernel and applied by its one

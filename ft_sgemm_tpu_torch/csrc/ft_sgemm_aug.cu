@@ -76,7 +76,8 @@
 // c_bias the noise model's constants (NoiseModel), read by the adaptive
 // build; bias, act, quant and scale the fused epilogue (abft_common.cuh,
 // Epilogue: ops/ft_sgemm.py:1159-1162 for B6, :750-753 for B7, of the JAX
-// package), applied in the store after the last check. Returns
+// package), applied in the store after the last check; grid_nm the
+// grid order (abft_common.cuh, Variant). Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile
 // matches or a tensor map cannot be encoded).
 extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
@@ -86,11 +87,11 @@ extern "C" int ftsg_ft_fused(const float* A, const float* B, const float* C,
                              const float* scalars, float log2_t, float c_rand,
                              float c_bias,
                              const float* bias, int act, int quant,
-                             float scale, void* stream) {
+                             float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kLoadRows>::At>(
       A, B, C, MA, nullptr, 3, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 
 // B7. `MA` is A's (M / bm, 2, K) plain and w rows, `MB` B's (N / bn, 1, K)
@@ -104,18 +105,20 @@ extern "C" int ftsg_ft_rowcol_mxu(const float* A, const float* B,
                                   const float* scalars, float log2_t,
                                   float c_rand, float c_bias,
                                   const float* bias, int act, int quant,
-                                  float scale, void* stream) {
+                                  float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
         A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+        alpha, beta, scalars, nm, {bias, act, quant, scale},
+        {grid_nm}, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kLoadBands, ftsg::kLoadRows>::At>(
       A, B, C, MA, MB, 2, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+      alpha, beta, scalars, nm, {bias, act, quant, scale},
+      {grid_nm}, s);
 }
 #endif
 
@@ -130,12 +133,12 @@ extern "C" int ftsg_ft_fused_bf16(const void* A, const void* B,
                                   const float* scalars, float log2_t,
                                   float c_rand, float c_bias,
                                   const float* bias, int act, int quant,
-                                  float scale, void* stream) {
+                                  float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<
       ftsg::WeightedOf<ftsg::kLoadRows, ftsg::kBF16>::At>(
       A, B, C, MA, nullptr, 9, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
@@ -153,17 +156,19 @@ extern "C" int ftsg_ft_rowcol_mxu_bf16(const void* A, const void* B,
                                        float log2_t, float c_rand,
                                        float c_bias,
                                        const float* bias, int act, int quant,
-                                       float scale, void* stream) {
+                                       float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<ftsg::RowcolOf<
         true, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
         A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
-        alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+        alpha, beta, scalars, nm, {bias, act, quant, scale},
+        {grid_nm}, s);
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kLoadBands, ftsg::kLoadRows, ftsg::kBF16>::At>(
       A, B, C, MA, MB, 6, out, det, unc, M, N, K, bm, bn, bk, check_every,
-      alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+      alpha, beta, scalars, nm, {bias, act, quant, scale},
+      {grid_nm}, s);
 }
 #endif

@@ -66,7 +66,8 @@
 // scale the fused epilogue (abft_common.cuh, Epilogue: ops/ft_sgemm.py:902-910
 // for B4, :822-825 for B8, of the JAX package), applied in the store after
 // the last check, which it does not change (B4 and B8 correct nothing, so
-// their faults stay in the output and go through the epilogue). Returns
+// their faults stay in the output and go through the epilogue); grid_nm
+// the grid order (abft_common.cuh, Variant). Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
 #if !FTSG_BF16
@@ -76,11 +77,11 @@ extern "C" int ftsg_ft_global(const float* A, const float* B, const float* C,
                               float alpha, float beta, const float* scalars,
                               float log2_t, float c_rand, float c_bias,
                               const float* bias, int act, int quant,
-                              float scale, void* stream) {
+                              float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
@@ -94,15 +95,15 @@ extern "C" int ftsg_ft_global_bf16(const void* A, const void* B,
                                    const float* scalars, float log2_t,
                                    float c_rand, float c_bias,
                                    const float* bias, int act, int quant,
-                                   float scale, void* stream) {
+                                   float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
-#if !FTSG_ADAPTIVE && !FTSG_BF16
+#if !FTSG_ADAPTIVE && !FTSG_BF16 && !FTSG_ONE_PASS
 // B4 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
 // as ftsg_ft_global.
 extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
@@ -113,11 +114,11 @@ extern "C" int ftsg_ft_global_int8(const void* A, const void* B,
                                    const float* scalars, float log2_t,
                                    float c_rand, float c_bias,
                                    const float* bias, int act, int quant,
-                                   float scale, void* stream) {
+                                   float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kSumBands, ftsg::kS8>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
@@ -133,11 +134,11 @@ extern "C" int ftsg_ft_global_mxu(const float* A, const float* B,
                                   const float* scalars, float log2_t,
                                   float c_rand, float c_bias,
                                   const float* bias, int act, int quant,
-                                  float scale, void* stream) {
+                                  float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::GlobalOf<ftsg::kLoadBands>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
@@ -153,11 +154,11 @@ extern "C" int ftsg_ft_global_mxu_bf16(const void* A, const void* B,
                                        const float* scalars, float log2_t,
                                        float c_rand, float c_bias,
                                        const float* bias, int act, int quant,
-                                       float scale, void* stream) {
+                                       float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<
       ftsg::GlobalOf<ftsg::kLoadBands, ftsg::kBF16>::At>(
       A, B, C, nullptr, MB, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif

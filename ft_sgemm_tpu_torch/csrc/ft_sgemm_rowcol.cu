@@ -64,7 +64,8 @@
 // (contracts.SCALAR_SLOTS); log2_t, c_rand and c_bias the noise model's
 // constants (NoiseModel), read by the adaptive build; bias, act, quant and
 // scale the fused epilogue (abft_common.cuh, Epilogue: ops/ft_sgemm.py:632-643
-// of the JAX package), applied in the store after the last check. Returns
+// of the JAX package), applied in the store after the last check;
+// grid_nm the grid order (abft_common.cuh, Variant). Returns
 // cudaGetLastError() (cudaErrorInvalidValue when no sub-tile matches or a
 // tensor map cannot be encoded).
 #if !FTSG_BF16
@@ -75,18 +76,20 @@ extern "C" int ftsg_ft_rowcol(const float* A, const float* B, const float* C,
                               const float* scalars, float log2_t,
                               float c_rand, float c_bias,
                               const float* bias, int act, int quant,
-                              float scale, void* stream) {
+                              float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<
         ftsg::RowcolOf<true, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
         A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale},
+        {grid_nm}, s);
   return ftsg::launch_running<
       ftsg::RowcolOf<false, ftsg::kSumBands, ftsg::kSumRowGroups>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale},
+      {grid_nm}, s);
 }
 #endif
 
@@ -100,22 +103,24 @@ extern "C" int ftsg_ft_rowcol_bf16(const void* A, const void* B,
                                    const float* scalars, float log2_t,
                                    float c_rand, float c_bias,
                                    const float* bias, int act, int quant,
-                                   float scale, void* stream) {
+                                   float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::NoiseModel nm{log2_t, c_rand, c_bias};
   if (multifault)
     return ftsg::launch_running<ftsg::RowcolOf<
         true, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
         A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+        check_every, alpha, beta, scalars, nm, {bias, act, quant, scale},
+        {grid_nm}, s);
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
-      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale}, s);
+      check_every, alpha, beta, scalars, nm, {bias, act, quant, scale},
+      {grid_nm}, s);
 }
 #endif
 
-#if !FTSG_ADAPTIVE && !FTSG_BF16
+#if !FTSG_ADAPTIVE && !FTSG_BF16 && !FTSG_ONE_PASS
 // B3 with int8 A and B (rows 16-byte aligned: tensor_map), exact; the rest
 // as ftsg_ft_rowcol, `multifault` 0 (else cudaErrorInvalidValue).
 extern "C" int ftsg_ft_rowcol_int8(const void* A, const void* B,
@@ -126,12 +131,12 @@ extern "C" int ftsg_ft_rowcol_int8(const void* A, const void* B,
                                    const float* scalars, float log2_t,
                                    float c_rand, float c_bias,
                                    const float* bias, int act, int quant,
-                                   float scale, void* stream) {
+                                   float scale, int grid_nm, void* stream) {
   if (multifault) return (int)cudaErrorInvalidValue;
   return ftsg::launch_running<ftsg::RowcolOf<
       false, ftsg::kSumBands, ftsg::kSumRowGroups, ftsg::kS8>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif

@@ -995,10 +995,10 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
     const __grid_constant__ CUtensorMap tbb, const float* __restrict__ C,
     float* __restrict__ out, int* __restrict__ det, int* __restrict__ unc,
     int M, int N, int K, int bk, int check_every, float alpha, float beta,
-    Scalars sc, NoiseModel nm, Epilogue epi) {
+    Scalars sc, NoiseModel nm, Epilogue epi, Variant v) {
   const WgSmem<T> sm;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
+  const int m0 = v.tile_m() * T::BM, n0 = v.tile_n() * T::BN;
+  const int ti0 = v.tile_m() * T::NBM, tj0 = v.tile_n() * T::NBN;
   const int nst = (K + T::SK - 1) / T::SK;
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
@@ -1038,7 +1038,9 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
 // aligned, tensor_map); `scalars` the
 // host array of the scalar argument, `nm` the noise model's constants (read
 // by the adaptive build), `epi` the fused epilogue (abft_common.cuh,
-// Epilogue), applied in the store after the last check. Returns 0 or the
+// Epilogue), applied in the store after the last check, `v` the grid order
+// (abft_common.cuh, Variant: the CTA raster; `bk` is the K window of one
+// grid step). Returns 0 or the
 // CUDA error, also when a tensor map cannot be encoded or no sub-tile
 // matches.
 template <template <int, int> class Of>
@@ -1047,10 +1049,11 @@ int launch_running(const void* A, const void* B, const float* C,
                    int* det, int* unc, int M, int N, int K, int bm, int bn,
                    int bk, int check_every, float alpha, float beta,
                    const float* scalars, const NoiseModel& nm,
-                   const Epilogue& epi, cudaStream_t stream) {
+                   const Epilogue& epi, const Variant& v,
+                   cudaStream_t stream) {
   Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
-  if (K % 8 || bk % 8 || check_every < 1 || !epi.valid())
+  if (K % 8 || bk % 8 || check_every < 1 || !epi.valid() || !v.valid())
     return (int)cudaErrorInvalidValue;
 #define FTSG_LAUNCH_SUB(SBM_, SBN_)                                            \
   if (bm == SBM_ && bn == SBN_) {                                              \
@@ -1073,9 +1076,9 @@ int launch_running(const void* A, const void* B, const float* C,
     if (const cudaError_t e = cudaFuncSetAttribute(                            \
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM))     \
       return (int)e;                                                           \
-    kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,    \
+    kernel<<<v.grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN), T::NT,  \
              T::SMEM, stream>>>(ta, tb, tm, tbb, C, out, det, unc, M, N, K,   \
-                                bk, check_every, alpha, beta, sc, nm, epi);    \
+                                bk, check_every, alpha, beta, sc, nm, epi, v); \
     return (int)cudaGetLastError();                                            \
   }
   FTSG_FOR_EACH_SUBTILE(FTSG_LAUNCH_SUB)

@@ -160,10 +160,10 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ C,
     const float* __restrict__ expm, float* __restrict__ out,
     int* __restrict__ det, int* __restrict__ unc, int M, int N, int K, int bk,
-    float alpha, float beta, Scalars sc, Epilogue epi) {
+    float alpha, float beta, Scalars sc, Epilogue epi, Variant v) {
   const WgSmem<T> sm;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  const int ti0 = blockIdx.y * T::NBM, tj0 = blockIdx.x * T::NBN;
+  const int m0 = v.tile_m() * T::BM, n0 = v.tile_n() * T::BN;
+  const int ti0 = v.tile_m() * T::NBM, tj0 = v.tile_n() * T::NBN;
   const int nst = (K + T::SK - 1) / T::SK;
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
@@ -183,9 +183,9 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) ft_weighted_wgmma_kernel(
     wg_moment_check(ml, *reinterpret_cast<WgCheckSmem<T>*>(sm.base),
                     expm + (size_t)ti0 * 3 * N + n0, N, sc, n_hit, n_unc);
     ml.store(out, C, N, m0, n0, alpha, beta, epi);
-    if (threadIdx.x == 0) {
-      det[ti0 * gridDim.x + tj0] = n_hit;
-      unc[ti0 * gridDim.x + tj0] = n_unc;
+    if (threadIdx.x == 0) {  // N is a multiple of BN here: N / BN tiles
+      det[ti0 * (N / T::BN) + tj0] = n_hit;
+      unc[ti0 * (N / T::BN) + tj0] = n_unc;
     }
   } else {
     static_assert(sizeof(typename PrecompCheck<T>::Smem) <=
@@ -212,17 +212,17 @@ template <class T>
 int launch_wgmma(const void* A, const void* B, const float* C,
                  const float* expm, float* out, int* det, int* unc, int M,
                  int N, int K, int bk, float alpha, float beta,
-                 const Scalars& sc, const Epilogue& epi,
+                 const Scalars& sc, const Epilogue& epi, const Variant& v,
                  cudaStream_t stream) {
   CUtensorMap ta, tb;
-  if (bk % 8 || !epi.valid()) return (int)cudaErrorInvalidValue;
+  if (bk % 8 || !epi.valid() || !v.valid()) return (int)cudaErrorInvalidValue;
   if (const int rc = wgmma_setup<T>(ft_weighted_wgmma_kernel<T>, &ta, &tb, A,
                                     B, M, N, K))
     return rc;
   ft_weighted_wgmma_kernel<T>
-      <<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,
+      <<<v.grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN), T::NT,
           T::SMEM, stream>>>(ta, tb, C, expm, out, det, unc, M, N, K, bk,
-                             alpha, beta, sc, epi);
+                             alpha, beta, sc, epi, v);
   return (int)cudaGetLastError();
 }
 
@@ -233,27 +233,29 @@ FTSG_NAMESPACE_END  // ftsg
 // adaptive weighted strategy runs B5). `scalars` is a host array of 8
 // floats (contracts.SCALAR_SLOTS); `expm` the (M / bm, 3, N) expected
 // moments; bias, act, quant and scale the fused epilogue (abft_common.cuh,
-// Epilogue), applied after the check. Returns cudaGetLastError()
+// Epilogue), applied after the check; grid_nm the grid order
+// (abft_common.cuh, Variant). Returns cudaGetLastError()
 // (cudaErrorInvalidValue when no tile matches).
 extern "C" int ftsg_ft_weighted_precomp(
     const float* A, const float* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
     int bk, float alpha, float beta, const float* scalars, const float* bias,
-    int act, int quant, float scale, void* stream) {
+    int act, int quant, float scale, int grid_nm, void* stream) {
   ftsg::Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
   const ftsg::Epilogue epi{bias, act, quant, scale};
+  const ftsg::Variant v{grid_nm};
   const auto s = (cudaStream_t)stream;
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<BM_, BN_>>(                     \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, v, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
 #define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_>>(           \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, v, s);
   FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
@@ -266,15 +268,16 @@ extern "C" int ftsg_ft_weighted_precomp_bf16(
     const void* A, const void* B, const float* C, const float* expm,
     float* out, int* det, int* unc, int M, int N, int K, int bm, int bn,
     int bk, float alpha, float beta, const float* scalars, const float* bias,
-    int act, int quant, float scale, void* stream) {
+    int act, int quant, float scale, int grid_nm, void* stream) {
   ftsg::Scalars sc;
   for (int i = 0; i < 8; ++i) sc.s[i] = scalars[i];
   const ftsg::Epilogue epi{bias, act, quant, scale};
+  const ftsg::Variant v{grid_nm};
   const auto s = (cudaStream_t)stream;
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>>(      \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, v, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
 #define FTSG_LAUNCH_SUB(BM_, BN_)                                          \
@@ -282,7 +285,7 @@ extern "C" int ftsg_ft_weighted_precomp_bf16(
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128, BM_, BN_, 0, 0,       \
                                            ftsg::kNoBands, ftsg::kNoRows,  \
                                            ftsg::kBF16>>(                  \
-        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, s);
+        A, B, C, expm, out, det, unc, M, N, K, bk, alpha, beta, sc, epi, v, s);
   FTSG_FOR_EACH_NARROW_TILE(FTSG_LAUNCH_SUB)
 #undef FTSG_LAUNCH_SUB
   return (int)cudaErrorInvalidValue;
@@ -296,12 +299,12 @@ extern "C" int ftsg_ft_weighted_running_bf16(
     int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
     float alpha, float beta, const float* scalars, float log2_t,
     float c_rand, float c_bias, const float* bias, int act, int quant,
-    float scale, void* stream) {
+    float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<
       ftsg::WeightedOf<ftsg::kSumRows, ftsg::kBF16>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif
 
@@ -314,10 +317,10 @@ extern "C" int ftsg_ft_weighted_running(
     int* unc, int M, int N, int K, int bm, int bn, int bk, int check_every,
     float alpha, float beta, const float* scalars, float log2_t,
     float c_rand, float c_bias, const float* bias, int act, int quant,
-    float scale, void* stream) {
+    float scale, int grid_nm, void* stream) {
   return ftsg::launch_running<ftsg::WeightedOf<ftsg::kSumRows>::At>(
       A, B, C, nullptr, nullptr, 0, out, det, unc, M, N, K, bm, bn, bk,
       check_every, alpha, beta, scalars, {log2_t, c_rand, c_bias},
-      {bias, act, quant, scale}, (cudaStream_t)stream);
+      {bias, act, quant, scale}, {grid_nm}, (cudaStream_t)stream);
 }
 #endif

@@ -28,7 +28,11 @@
 // hi); every 8-deep k step adds a_lo b_hi, a_hi b_lo and a_hi b_hi, small
 // terms first, into the stage's wgmma sum, which goes into the f32
 // accumulator once per stage (WgMainloop; the dropped a_lo b_lo is ~2^-22
-// of the product). Never bare TF32. wgmma reads B from shared memory only, so
+// of the product). Bare TF32 only in the FTSG_ONE_PASS build (the f32
+// precision "default"): each k step adds a_hi b_hi alone, one wgmma where
+// 3xTF32 issues three, and the expected sums that ride the product (below)
+// likewise; the split runs as before. wgmma reads B from shared memory
+// only, so
 // the producer's warps 1-3 split each landed stage of B in place (hi) and
 // into the second buffer (lo), then fence.proxy.async before wgmma reads
 // it; A's fragments are split in registers (wgmma takes a tf32 A from
@@ -1876,22 +1880,29 @@ struct WgMainloop {
   // One 8-deep k step into `part`: a_lo b_hi, a_hi b_lo, a_hi b_hi; the
   // first of them restarts `part` when `fresh`. With R > 0 the same three
   // terms of B's stage (this warpgroup's 64 rows) times the moment rows
-  // into `part_e`.
+  // into `part_e`. The FTSG_ONE_PASS build (precision "default") issues
+  // a_hi b_hi alone, for the product and for `part_e`.
   __device__ __forceinline__ void mma3(const uint32_t (&ah)[NF],
                                        const uint32_t (&al)[NF], int kk,
                                        uint64_t dh, uint64_t dl, bool fresh,
                                        int s) {
-    Wgmma<T::BN + T::XN>::run(part, &al[4 * kk], dh + 2 * kk, fresh ? 0 : 1);
-    Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
-    Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dh + 2 * kk, 1);
+    if constexpr (!kOnePass) {
+      Wgmma<T::BN + T::XN>::run(part, &al[4 * kk], dh + 2 * kk,
+                                fresh ? 0 : 1);
+      Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dl + 2 * kk, 1);
+    }
+    Wgmma<T::BN + T::XN>::run(part, &ah[4 * kk], dh + 2 * kk,
+                              fresh && kOnePass ? 0 : 1);
     if constexpr (T::R > 0) {
       const uint64_t bh = smem_desc(sm.b(s) + 64 * g * T::SK) + 2 * kk;
       const uint64_t bl = smem_desc(sm.blo(s) + 64 * g * T::SK) + 2 * kk;
       const uint64_t mh = smem_desc(sm.mhi(s)) + 2 * kk;
       const uint64_t ml = smem_desc(sm.mlo(s)) + 2 * kk;
-      WgmmaSS<T::R>::run(part_e, bl, mh, fresh ? 0 : 1);
-      WgmmaSS<T::R>::run(part_e, bh, ml, 1);
-      WgmmaSS<T::R>::run(part_e, bh, mh, 1);
+      if constexpr (!kOnePass) {
+        WgmmaSS<T::R>::run(part_e, bl, mh, fresh ? 0 : 1);
+        WgmmaSS<T::R>::run(part_e, bh, ml, 1);
+      }
+      WgmmaSS<T::R>::run(part_e, bh, mh, fresh && kOnePass ? 0 : 1);
     }
   }
 

@@ -73,9 +73,9 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ C,
     float* __restrict__ out, int M, int N, int K, float alpha, float beta,
-    Epilogue epi) {
+    Epilogue epi, Variant v) {
   const WgSmem<T> sm;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int m0 = v.tile_m() * T::BM, n0 = v.tile_n() * T::BN;
   const int nst = (K + T::SK - 1) / T::SK;
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
@@ -93,14 +93,14 @@ __global__ void __launch_bounds__(T::NT, T::MIN_CTAS) sgemm_wgmma_kernel(
 template <class T, bool RAGGED>
 int launch_wgmma(const void* A, const void* B, const float* C, float* out,
                  int M, int N, int K, float alpha, float beta,
-                 const Epilogue& epi, cudaStream_t stream) {
+                 const Epilogue& epi, const Variant& v, cudaStream_t stream) {
   CUtensorMap ta, tb;
-  if (!epi.valid()) return (int)cudaErrorInvalidValue;
+  if (!epi.valid() || !v.valid()) return (int)cudaErrorInvalidValue;
   const auto kernel = sgemm_wgmma_kernel<T, RAGGED>;
   if (const int rc = wgmma_setup<T>(kernel, &ta, &tb, A, B, M, N, K))
     return rc;
-  kernel<<<dim3((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM), T::NT,
-           T::SMEM, stream>>>(ta, tb, C, out, M, N, K, alpha, beta, epi);
+  kernel<<<v.grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN), T::NT,
+           T::SMEM, stream>>>(ta, tb, C, out, M, N, K, alpha, beta, epi, v);
   return (int)cudaGetLastError();
 }
 
@@ -113,62 +113,69 @@ extern "C" int ftsg_sgemm_fp8(const void* A, const void* B, const float* C,
                               float* out, int M, int N, int K, int bm, int bn,
                               int bk, float alpha, float beta,
                               const float* bias, int act, int quant,
-                              float scale, void* stream) {
+                              float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::Epilogue epi{bias, act, quant, scale};
+  const ftsg::Variant v{grid_nm};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kE4M3>, false>( \
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kE4M3>, true>(
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   return (int)cudaErrorInvalidValue;
 }
 #else
 // Launch on `stream` for one compiled tile (bk is not read), with the fused
 // epilogue (bias row or null, activation and quantize codes, quantize
-// scale: abft_common.cuh, Epilogue) applied to the output; returns
+// scale: abft_common.cuh, Epilogue) applied to the output, and the grid
+// order (grid_nm 1: "nm"; abft_common.cuh, Variant); returns
 // cudaGetLastError() (cudaErrorInvalidValue when no tile matches or the
 // epilogue's codes are unknown).
 extern "C" int ftsg_sgemm(const float* A, const float* B, const float* C,
                           float* out, int M, int N, int K, int bm, int bn,
                           int bk, float alpha, float beta, const float* bias,
-                          int act, int quant, float scale, void* stream) {
+                          int act, int quant, float scale, int grid_nm,
+                          void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::Epilogue epi{bias, act, quant, scale};
+  const ftsg::Variant v{grid_nm};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTile<BM_, BN_>, false>(              \
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTile<128, 128>, true>(
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   return (int)cudaErrorInvalidValue;
 }
 
+#if !FTSG_ONE_PASS
 // B1 with bf16 A and B (C and out f32), at the same tiles and CTAs; returns
 // as ftsg_sgemm.
 extern "C" int ftsg_sgemm_bf16(const void* A, const void* B, const float* C,
                                float* out, int M, int N, int K, int bm,
                                int bn, int bk, float alpha, float beta,
                                const float* bias, int act, int quant,
-                               float scale, void* stream) {
+                               float scale, int grid_nm, void* stream) {
   const auto s = (cudaStream_t)stream;
   const ftsg::Epilogue epi{bias, act, quant, scale};
+  const ftsg::Variant v{grid_nm};
 #define FTSG_LAUNCH_WGMMA(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_)                                              \
     return ftsg::launch_wgmma<ftsg::WgTileOf<BM_, BN_, ftsg::kBF16>, false>( \
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   FTSG_FOR_EACH_WGMMA_TILE(FTSG_LAUNCH_WGMMA)
 #undef FTSG_LAUNCH_WGMMA
   if (ftsg::narrow_tile(bm, bn))
     return ftsg::launch_wgmma<ftsg::WgTileOf<128, 128, ftsg::kBF16>, true>(
-        A, B, C, out, M, N, K, alpha, beta, epi, s);
+        A, B, C, out, M, N, K, alpha, beta, epi, v, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif  // !FTSG_ONE_PASS
 #endif

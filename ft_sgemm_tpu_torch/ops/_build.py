@@ -20,6 +20,10 @@ long pole of them all. B1's fp8 build (``ftsg_sgemm_fp8``) is B1's source once m
 with ``FTSG_FP8=1``, which compiles that entry point alone: a library of its
 own, so that it builds beside the others and leaves every other build as it
 was (B2-B5 in fp8 run their bf16 builds on the exactly widened operands).
+The f32 builds of every source, static and adaptive, build once more with
+``FTSG_ONE_PASS=1`` (``*_tf32``: the f32 precision "default", one TF32
+wgmma a k step where 3xTF32 issues three), libraries of their own, so that
+the 3xTF32 builds keep their code.
 Libraries build in parallel, one ``nvcc`` each, into
 ``csrc/_build/`` (ignored by git); a library's file name carries a digest
 of all sources and flags, so an edit rebuilds. ``-Xptxas -v`` output (the
@@ -54,11 +58,14 @@ BUILD_DIR = CSRC / "_build"
 # FTSG_KERNEL, so that no library is the long pole of the parallel build),
 # the adaptive libraries B3-B8 in f32 (ft_sgemm_weighted.cu leaves B2 out),
 # and the adaptive bf16 ones B3-B8 in bf16 (B4 and B8 in one, B6 and B7 each
-# alone).
+# alone). The "*_tf32" libraries are the f32 builds, static and adaptive,
+# once more with FTSG_ONE_PASS: one TF32 wgmma a k step (the f32 precision
+# "default").
 BF16 = ("-DFTSG_BF16=1",)
 ADAPTIVE = ("-DFTSG_ADAPTIVE=1",)
 ADAPTIVE_BF16 = ADAPTIVE + BF16
 FP8 = ("-DFTSG_FP8=1",)
+ONE_PASS = ("-DFTSG_ONE_PASS=1",)
 LIBRARIES = {
     "sgemm": ("sgemm", ()),
     "ft_sgemm_weighted": ("ft_sgemm_weighted", ()),
@@ -83,6 +90,16 @@ LIBRARIES = {
     "ft_sgemm_rowcol_mxu_adaptive_bf16": ("ft_sgemm_aug",
                                           ADAPTIVE_BF16 + ("-DFTSG_KERNEL=7",)),
     "sgemm_fp8": ("sgemm", FP8),
+    "sgemm_tf32": ("sgemm", ONE_PASS),
+    "ft_sgemm_weighted_tf32": ("ft_sgemm_weighted", ONE_PASS),
+    "ft_sgemm_rowcol_tf32": ("ft_sgemm_rowcol", ONE_PASS),
+    "ft_sgemm_global_tf32": ("ft_sgemm_global", ONE_PASS),
+    "ft_sgemm_aug_tf32": ("ft_sgemm_aug", ONE_PASS),
+    "ft_sgemm_weighted_adaptive_tf32": ("ft_sgemm_weighted",
+                                        ADAPTIVE + ONE_PASS),
+    "ft_sgemm_rowcol_adaptive_tf32": ("ft_sgemm_rowcol", ADAPTIVE + ONE_PASS),
+    "ft_sgemm_global_adaptive_tf32": ("ft_sgemm_global", ADAPTIVE + ONE_PASS),
+    "ft_sgemm_aug_adaptive_tf32": ("ft_sgemm_aug", ADAPTIVE + ONE_PASS),
 }
 KERNEL_LIBS = tuple(LIBRARIES)
 
@@ -237,6 +254,11 @@ def library(name: str) -> ctypes.CDLL:
 # stream (``csrc/abft_common.cuh::Epilogue``, ``common.epilogue_args``): the
 # bias row (or NULL), the activation and quantize codes, the quantize scale.
 EPILOGUE_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+
+# The variant axis argument of every entry point, after the epilogue's
+# (``csrc/abft_common.cuh::Variant``, ``common.LaunchAxes.args``): the grid
+# order (1: "nm").
+VARIANT_ARGS = [ctypes.c_int]
 
 
 def bind(lib: ctypes.CDLL, fname: str, argtypes):

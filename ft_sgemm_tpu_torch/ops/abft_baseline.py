@@ -21,8 +21,10 @@ import torch
 
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
 from ft_sgemm_tpu_torch.ops.common import (
+    LaunchAxes,
     as_f32,
     as_operand,
+    check_precision,
     pad_to,
     resolve_device,
     resolve_in_dtype,
@@ -43,7 +45,8 @@ def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
                         inject: InjectionSpec | None = None,
                         panel_k: int = PANEL_K,
                         threshold: float = REFERENCE_THRESHOLD,
-                        in_dtype="float32", device=None) -> AbftBaselineResult:
+                        precision: str = "highest", in_dtype="float32",
+                        device=None) -> AbftBaselineResult:
     """Two-pass checksum-verified ``C = alpha*A@B.T + beta*C``.
 
     ``inject`` adds a fault to one rotating element of C between pass 1 and
@@ -51,11 +54,16 @@ def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
     to a multiple of ``panel_k``. ``in_dtype="bfloat16"`` (or
     ``"float8_e4m3fn"``) rounds A and B to bf16 (e4m3) first; everything
     after is f32 (TF32 off). int8 raises ``ValueError``, as in the JAX
-    package. ``device=None`` runs
+    package. ``precision`` (``common.check_precision``): with f32 operands
+    ``"default"`` runs every product, the panel's and the checksum
+    updates', as one TF32 pass, both operands rounded to TF32 (the JAX
+    package runs its dots at that precision); ``"high"`` and ``"highest"``
+    are FP32. ``device=None`` runs
     on CUDA; the caller's ``c`` is never written.
     """
     inject = inject or InjectionSpec.none()
     dtype = resolve_in_dtype(in_dtype)
+    hi = LaunchAxes(one_pass=check_precision(precision, dtype)).hi
     dev = resolve_device(device)
     strict_fp32()
     a, b = (as_operand(x, dtype, dev).float() for x in (a, b))
@@ -72,13 +80,13 @@ def abft_baseline_sgemm(a, b, c, alpha: float = 1.0, beta: float = -1.5, *,
         ap = a[:, p * panel_k:(p + 1) * panel_k]
         bp = b[:, p * panel_k:(p + 1) * panel_k]
         # Pass 1: the panel's partial product, applied to C.
-        c_acc.addmm_(ap, bp.T, alpha=alpha)
+        c_acc.addmm_(hi(ap), hi(bp).T, alpha=alpha)
         if inject.enabled and p % inject.every == 0:
             # SDC between the GEMM pass and the checksum pass.
             c_acc[(p * 131 + 7) % m, (p * 61 + 3) % n] += inject.magnitude
         # Input-side checksum update (the reference's cublasSgemv).
-        r_exp += alpha * (ap @ bp.sum(0))
-        c_exp += alpha * (bp @ ap.sum(0))
+        r_exp += alpha * (hi(ap) @ hi(bp.sum(0)))
+        c_exp += alpha * (hi(bp) @ hi(ap.sum(0)))
         # Pass 2: a full re-read of C (the non-fused cost).
         max_r = torch.maximum(max_r, (r_exp - c_acc.sum(1)).abs().max())
         max_c = torch.maximum(max_c, (c_exp - c_acc.sum(0)).abs().max())

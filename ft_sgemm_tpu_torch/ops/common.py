@@ -1,16 +1,20 @@
 """Helpers shared by the port's ops: device resolution, the input dtype and
 the operand casts, padding, the FP32 matmul setting, the correction-pad
 rule, the scalar argument, the clean-residual noise model behind
-``threshold="auto"`` and ``threshold="adaptive"``, and the fused epilogue
-(bias, activation, quantize) with its kernel arguments.
+``threshold="auto"`` and ``threshold="adaptive"``, the fused epilogue
+(bias, activation, quantize) with its kernel arguments, the variant axes
+and the precision of a launch (step shape, CTA raster, one TF32 pass), and
+the GEMM cost model.
 
-Only what the port's kernels use of ``ft_sgemm_tpu/ops/common.py`` and
-``ft_sgemm_tpu/ops/ft_sgemm.py`` lives here.
+Only what the port's kernels and reports use of ``ft_sgemm_tpu/ops/
+common.py`` and ``ft_sgemm_tpu/ops/ft_sgemm.py`` lives here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,19 +68,92 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
 PRECISIONS = ("default", "high", "highest")
 
 
-def check_precision(precision: str, dtype: torch.dtype) -> None:
-    """Validate a ``precision`` (the JAX package's names, kept for parity):
-    an unknown name raises ``ValueError``; with float32 operands anything
-    but ``"highest"`` raises ``NotImplementedError`` (the f32 kernels run
-    3xTF32, FP32-accurate, only); a bf16 or fp8 product is one pass
-    whatever is asked."""
+def check_precision(precision: str, dtype: torch.dtype) -> bool:
+    """Validate a ``precision`` (the JAX package's names) and return whether
+    the product runs ONE TF32 pass. An unknown name raises ``ValueError``.
+    With float32 operands ``"highest"`` and ``"high"`` run 3xTF32
+    (FP32-accurate: the TPU's ``"high"`` is a three-pass bf16 product, and
+    3xTF32 is the port's three-pass product, so the two names run the same
+    kernels), and ``"default"`` runs one TF32 pass, ``hi . hi`` with ``hi``
+    each operand rounded to TF32 as ``cvt.rna`` rounds it
+    (:func:`tf32_rna`): one wgmma per k step on the card, where 3xTF32 runs
+    three. A bf16, fp8 or int8 product is one pass of its own dtype
+    whatever is asked, as the JAX package resolves it
+    (ft_sgemm_tpu/ops/common.py:219)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got"
                          f" {precision!r}")
-    if dtype == torch.float32 and precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r} with float32: the port's f32 kernels"
-            " run 3xTF32, FP32-accurate ('highest') only")
+    return dtype == torch.float32 and precision == "default"
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` bit for bit: f32 rounded to TF32's 10 mantissa
+    bits, to nearest with ties away from zero, on the bit pattern (so
+    subnormals round like normals, and the largest finite f32 rounds up to
+    inf). inf stays inf and NaN stays NaN. The ``hi`` of the 3xTF32 split
+    (``csrc/gemm_wgmma.cuh::split_tf32``) and the operands of a one-pass
+    product (precision ``"default"``)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
+
+
+class LaunchAxes(NamedTuple):
+    """What a kernel variant and a precision change in one launch of a
+    kernel or of its plain version (:func:`launch_axes`; the dimension
+    semantics change nothing). ``unroll``: the K panels of a grid step
+    (the kernels see the depth only as the step shape's bk,
+    :func:`step_shape`; the plain versions multiply panel by panel, as the
+    JAX kernels' ``sub_panels`` do). ``nm``: the grid order "nm", the
+    kernels' CTA raster (``csrc/abft_common.cuh::Variant``). ``one_pass``: the f32
+    precision "default" (:func:`check_precision`): the kernels' ``*_tf32``
+    builds, and in the plain versions both operands of every product
+    rounded to TF32, as the kernels' one hi . hi wgmma takes them."""
+
+    unroll: int = 1
+    nm: bool = False
+    one_pass: bool = False
+
+    def args(self) -> tuple:
+        """The argument every kernel entry point takes after the fused
+        epilogue's (``_build.VARIANT_ARGS``; ``csrc/abft_common.cuh::
+        Variant``): the grid order ("nm" 1)."""
+        return (int(self.nm),)
+
+    def hi(self, x: torch.Tensor) -> torch.Tensor:
+        """An operand of a product as the kernel multiplies it: rounded to
+        TF32 in one-pass mode, else as it is."""
+        return tf32_rna(x) if self.one_pass else x
+
+
+def launch_axes(variant, one_pass: bool = False) -> LaunchAxes:
+    """The :class:`LaunchAxes` of a ``configs.KernelVariant`` and the
+    one-pass flag of :func:`check_precision`."""
+    return LaunchAxes(variant.pipeline_depth - 1, variant.grid_order == "nm",
+                      bool(one_pass))
+
+
+def step_shape(shape, variant):
+    """The tile of one grid step under ``variant``: ``shape`` with bk the
+    K window ``kwin = bk * (pipeline_depth - 1)`` (ft_sgemm_tpu/ops/
+    ft_sgemm.py:1725-1735, 1797-1799), the unit the operands are padded
+    to, the check cadence and the injection schedule count, and the bk
+    the kernels take; ``shape`` itself at depth 2."""
+    unroll = variant.pipeline_depth - 1
+    if unroll == 1:
+        return shape
+    return dataclasses.replace(shape, bk=shape.bk * unroll)
+
+
+def sub_panels(a_blk: torch.Tensor, b_blk: torch.Tensor, unroll: int):
+    """One grid step's K window split into ``unroll`` panel operand pairs
+    along the last dimension (ft_sgemm_tpu/ops/common.py:414-428);
+    ``unroll == 1`` returns the window untouched."""
+    if unroll <= 1:
+        return [(a_blk, b_blk)]
+    sub = a_blk.shape[-1] // unroll
+    return [(a_blk[..., s * sub:(s + 1) * sub],
+             b_blk[..., s * sub:(s + 1) * sub]) for s in range(unroll)]
 
 
 def resolve_in_dtype(in_dtype, *, allow_low_precision: bool = False):
@@ -385,3 +462,100 @@ def full_run_log2(nk: int, bk: int, bm: int, bn: int) -> float:
     full padded run's accumulation length ``nk * bk * max(bm, bn)``
     (ops/ft_sgemm.py:382-388 of the JAX package)."""
     return float(np.log2(max(float(nk * bk) * float(max(bm, bn)), 2.0)))
+
+
+def _aug_rows(in_itemsize: int) -> int:
+    """Sublane-aligned augmented-row count of one operand's checksum rows
+    (ft_sgemm_tpu/configs.py:89-91), the unit of the cost model's mxu
+    encode."""
+    return {4: 8, 2: 16, 1: 32}[in_itemsize]
+
+
+def gemm_cost_breakdown(m: int, n: int, k: int, in_itemsize: int, *,
+                        block=None, strategy=None, multifault: bool = False,
+                        check_every=None) -> dict:
+    """Component-wise FLOPs / bytes of one ``C = alpha*A@B.T + beta*C``
+    pass (ft_sgemm_tpu/ops/common.py:228-312, the same numbers): the plain
+    GEMM (``base``) plus, for FT kernels, the checksum-``encode`` work and
+    the detect/correct ``check`` epilogue. Returns ``{"flops_base",
+    "flops_encode", "flops_check", "bytes_base", "bytes_encode",
+    "bytes_check"}``; :func:`gemm_cost_estimate` sums it.
+
+    - Encode flops: the vpu encode (``rowcol``, ``global``, ``weighted``)
+      re-reduces each operand block once per grid step,
+      ``3 k (streams_a n + streams_b m)``; the mxu encode (``fused``,
+      ``*_mxu``) widens the product by the augmented rows,
+      ``2 k (aug_a n + aug_b m)``, plus the wrapper's one-time reduction.
+    - Check flops: ``2 streams m n`` per check, ``ceil(nk / check_every)``
+      checks.
+    - Bytes: A and B at ``in_itemsize``, C read and written in f32, the
+      augmented rows, the precomp path's expected checksums and the
+      per-tile counters.
+
+    ``strategy`` takes the kernel-level value (``ops/ft_sgemm.
+    resolve_kernel_strategy``; ``weighted`` with ``check_every >= nk`` is
+    costed as the precomp body); ``None`` (plain callers) has no encode or
+    check terms. ``block`` is ``(bm, bn, bk)``.
+    """
+    flops_base = 2 * m * n * k
+    bytes_base = in_itemsize * (m * k + n * k) + 4 * 2 * m * n
+    flops_encode = flops_check = bytes_encode = bytes_check = 0
+    if strategy is not None:
+        bm, bn, bk = block
+        nk = max(1, -(-k // bk))
+        ce = nk if check_every is None else max(1, min(check_every, nk))
+        n_checks = -(-nk // ce)
+        precomp = strategy == "weighted" and ce >= nk
+        aug = _aug_rows(in_itemsize)
+        if strategy in ("fused", "rowcol_mxu", "global_mxu"):
+            aug_a = aug
+            aug_b = aug if strategy in ("rowcol_mxu", "global_mxu") else 0
+            flops_encode += 2 * k * (aug_a * n + aug_b * m)
+            flops_encode += 2 * (aug_a * m * k // max(bm, 1)
+                                 + aug_b * n * k // max(bn, 1))
+            bytes_encode += in_itemsize * k * (
+                aug_a * (m // bm) + aug_b * (n // bn))
+        elif precomp:
+            bytes_encode += 4 * 8 * (m // bm) * n
+        else:
+            streams_a = {"rowcol": 2 if multifault else 1,
+                         "global": 1, "weighted": 3}[strategy]
+            streams_b = 1
+            flops_encode += 3 * k * (streams_a * n + streams_b * m)
+        streams = {"rowcol": 3 if multifault else 2, "rowcol_mxu": 3,
+                   "global": 1, "global_mxu": 1,
+                   "weighted": 3, "fused": 3}.get(strategy, 2)
+        flops_check += 2 * streams * m * n * n_checks
+        bytes_check += 2 * 4 * (m // bm) * (n // bn)
+    return {"flops_base": int(flops_base),
+            "flops_encode": int(flops_encode),
+            "flops_check": int(flops_check),
+            "bytes_base": int(bytes_base),
+            "bytes_encode": int(bytes_encode),
+            "bytes_check": int(bytes_check)}
+
+
+class CostEstimate(NamedTuple):
+    """The three numbers of the JAX package's ``pl.CostEstimate``."""
+
+    flops: int
+    bytes_accessed: int
+    transcendentals: int
+
+
+def gemm_cost_estimate(m: int, n: int, k: int, in_itemsize: int, *,
+                       block=None, strategy=None, multifault: bool = False,
+                       check_every=None) -> CostEstimate:
+    """FLOPs and bytes of one ``C = alpha*A@B.T + beta*C`` pass, the summed
+    :func:`gemm_cost_breakdown` (ft_sgemm_tpu/ops/common.py:315-336): the
+    ``pl.CostEstimate`` every ``pallas_call`` of the JAX package hands its
+    scheduler, here a :class:`CostEstimate` for reports."""
+    parts = gemm_cost_breakdown(
+        m, n, k, in_itemsize, block=block, strategy=strategy,
+        multifault=multifault, check_every=check_every)
+    return CostEstimate(
+        flops=(parts["flops_base"] + parts["flops_encode"]
+               + parts["flops_check"]),
+        bytes_accessed=(parts["bytes_base"] + parts["bytes_encode"]
+                        + parts["bytes_check"]),
+        transcendentals=0)

@@ -94,6 +94,14 @@ a Python loop over K steps only): the same inject positions, cadence,
 residuals, localization and LEVEL counts. A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel or raises.
 
+The variant axes (``variant=``, ``configs.KernelVariant``) and the f32
+precision run in every body and build: at a pipeline depth of 3 a grid
+step is the two-panel K window (the kernels take it as their bk, the plain
+versions multiply panel by panel), the grid order is the CTA raster, the
+dimension semantics change nothing on the card, and ``precision=
+"default"`` runs one TF32 wgmma a k step where "highest" and "high" run
+three (``common.LaunchAxes``).
+
 The fused epilogue (``epilogue=``, ``configs.EpilogueSpec``: bias, relu or
 gelu, int8 or fp8 quantize-rescale; the JAX kernels' ``_apply_epilogue``)
 runs strictly after detect and correct: on the card inside every kernel's
@@ -124,6 +132,7 @@ from ft_sgemm_tpu_torch.configs import (
 from ft_sgemm_tpu_torch.injection import REFERENCE_THRESHOLD, InjectionSpec
 from ft_sgemm_tpu_torch.ops._build import (
     EPILOGUE_ARGS,
+    VARIANT_ARGS,
     bind,
     build,
     check_launch,
@@ -135,20 +144,25 @@ from ft_sgemm_tpu_torch.ops.common import (
     NOISE_C_BIAS,
     NOISE_C_RAND,
     THRESHOLD_CAP,
+    LaunchAxes,
     align_rows16,
     apply_epilogue,
     as_f32,
     as_operand,
     bias_operand,
+    check_precision,
     correction_pads,
     epilogue_args,
     estimate_noise_floor,
     full_run_log2,
+    launch_axes,
     pad_to,
     resolve_device,
     resolve_in_dtype,
     scalar_operand,
+    step_shape,
     strict_fp32,
+    sub_panels,
     variance_bound_threshold,
 )
 from ft_sgemm_tpu_torch.ops.reference import wrap_int32
@@ -324,6 +338,14 @@ def _untile(t4: torch.Tensor) -> torch.Tensor:
     return t4.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)
 
 
+def _step_product(acc, dot, a_k, b_k, axes: LaunchAxes) -> None:
+    """acc (gm, gn, bm, bn) += one grid step's tile product: one product per
+    K panel of the step (``axes.unroll``, as the JAX kernels' ``sub_panels``
+    dots, added in order), of operands rounded to TF32 in one-pass mode."""
+    for a_s, b_s in sub_panels(axes.hi(a_k), axes.hi(b_k), axes.unroll):
+        acc += dot("imk,jnk->ijmn", a_s, b_s)
+
+
 def _inject_plain(acc, scalars, k: int) -> None:
     """``_inject`` for every tile at step ``k``: the ordinal
     k//every + 3i + 5j picks row (131*ord + 7) % bm and column
@@ -475,7 +497,7 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
 def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                       check_every: Optional[int] = None, expm=None,
                       moments=None, adaptive: bool = False, epi=None,
-                      bias=None):
+                      bias=None, axes: LaunchAxes = LaunchAxes()):
     """Plain PyTorch version of B2 (``expm`` given: precomputed moments, one
     final check), B5 (running moments from the operand, a check every
     ``check_every`` steps and after the last) and B6 (``moments`` given:
@@ -485,7 +507,13 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     tile's thresholds at each check from its running moments of A's and B's
     own rows (B5, B6). bf16 and fp8 operands are summed as their f32
     values. ``epi`` (with the padded bias row ``bias``): the fused epilogue
-    on the output (:func:`_epilogue`).
+    on the output (:func:`_epilogue`). ``axes`` (``common.LaunchAxes``):
+    ``shape`` is the grid step's (bk the K window of a pipeline depth), the
+    step's product runs per K panel, and in one-pass mode (the f32
+    precision "default") both operands of every product, the tile product
+    and each expected-moment product, are rounded to TF32, as the kernels'
+    one hi . hi wgmma takes them; the adaptive moments stay those of the
+    operands. The same ``axes`` for every plain version below.
     Returns (out, det, unc)."""
     strict_fp32()
     a4, b4, c4, nk = _tiles(a.float(), b.float(), c, shape)
@@ -505,13 +533,14 @@ def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
-        acc += torch.einsum("imk,jnk->ijmn", a_k, b_k)
+        _step_product(acc, torch.einsum, a_k, b_k, axes)
         if expm is None:
+            hb = axes.hi(b_k)
             for exps, rows in zip(texps, terms):
                 s_a = (rows[:, :, k].unbind(1) if rows is not None else
                        (a_k.sum(1), (a_k * w).sum(1), (a_k * (w * w)).sum(1)))
                 for e, s in zip(exps, s_a):
-                    e += torch.einsum("jnk,ik->ijn", b_k, s)
+                    e += torch.einsum("jnk,ik->ijn", hb, axes.hi(s))
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
@@ -538,7 +567,8 @@ def _check_exact(a, multifault=False, moments=None, adaptive=False) -> bool:
 
 def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, multifault: bool, moments=None,
-                    adaptive: bool = False, epi=None, bias=None):
+                    adaptive: bool = False, epi=None, bias=None,
+                    axes: LaunchAxes = LaunchAxes()):
     """Plain PyTorch version of B3 and, with ``moments`` = (A's (gm, 2, K),
     B's (gn, 1, K) moment rows; in bf16 (gm, 6, K) and (gn, 3, K) of bf16
     terms, each term's expected sums kept apart and added at the check as
@@ -548,7 +578,7 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     operands run the exact mode step by step (``_ft_kernel_rowcol`` with
     exact=True): the accumulator, checksums, residuals and correction are
     integers reduced mod 2^32 where the JAX kernel's int32 would wrap.
-    ``epi``, ``bias``: as :func:`ft_weighted_plain`.
+    ``epi``, ``bias``, ``axes``: as :func:`ft_weighted_plain`.
     Returns (out, det, unc)."""
     exact = _check_exact(a, multifault, moments, adaptive)
     strict_fp32()
@@ -573,17 +603,18 @@ def ft_rowcol_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
-        acc += dot("imk,jnk->ijmn", a_k, b_k)
+        _step_product(acc, dot, a_k, b_k, axes)
+        ha, hb = axes.hi(a_k), axes.hi(b_k)
         for r, rows in zip(r_exp, mb):
-            r += dot("imk,jk->ijm", a_k,
-                     b_k.sum(1) if rows is None else rows[:, 0, k])
+            r += dot("imk,jk->ijm", ha, axes.hi(
+                b_k.sum(1) if rows is None else rows[:, 0, k]))
         for c_t, cw_t, rows in zip(c_exp, cw_exp, ma):
-            c_t += dot("jnk,ik->ijn", b_k,
-                       a_k.sum(1) if rows is None else rows[:, 0, k])
+            c_t += dot("jnk,ik->ijn", hb, axes.hi(
+                a_k.sum(1) if rows is None else rows[:, 0, k]))
             if multifault:
                 s_aw = ((a_k * w[None, :, None]).sum(1) if rows is None
                         else rows[:, 1, k])
-                cw_t += torch.einsum("jnk,ik->ijn", b_k, s_aw)
+                cw_t += torch.einsum("jnk,ik->ijn", hb, axes.hi(s_aw))
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
         if (k + 1) % check_every == 0 or k == nk - 1:
@@ -617,7 +648,7 @@ def _epilogue(acc, c4, alpha, beta, epi=None, bias=None) -> torch.Tensor:
 
 def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
                     check_every: int, moments=None, adaptive: bool = False,
-                    epi=None, bias=None):
+                    epi=None, bias=None, axes: LaunchAxes = LaunchAxes()):
     """Plain PyTorch version of B4 and, with ``moments`` = (A's (gm, 1, K),
     B's (gn, 1, K) plain moment rows; in bf16 (g, 3, K) of bf16 terms, every
     (A term) . (B term) product added, as ``_ft_kernel_global_mxu`` sums
@@ -628,7 +659,7 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     B's own rows, times sqrt(bn). bf16 and fp8 operands are summed as their
     f32 values; int8 operands run the exact mode (``_ft_kernel_global`` with
     exact=True: t_exp, the residual and its move are wrapping int32).
-    ``epi``, ``bias``: as :func:`ft_weighted_plain`.
+    ``epi``, ``bias``, ``axes``: as :func:`ft_weighted_plain`.
     Returns (out, det, unc) with unc equal to det."""
     exact = _check_exact(a, moments=moments, adaptive=adaptive)
     strict_fp32()
@@ -648,12 +679,13 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
     for k in range(nk):
         _inject_plain(acc, scalars, k)
         a_k, b_k = a4[:, :, k], b4[:, :, k]
-        acc += dot("imk,jnk->ijmn", a_k, b_k)
+        _step_product(acc, dot, a_k, b_k, axes)
         if moments is None:
             s_a, s_b = a_k.sum(1), b_k.sum(1)
-            t_exp += dot("ik,jk->ij", s_a, s_b) if exact else s_a @ s_b.T
+            t_exp += (dot("ik,jk->ij", s_a, s_b) if exact
+                      else axes.hi(s_a) @ axes.hi(s_b).T)
         else:
-            t_exp += _term_sum([ta[:, 0, k] @ tb[:, 0, k].T
+            t_exp += _term_sum([axes.hi(ta[:, 0, k]) @ axes.hi(tb[:, 0, k]).T
                                 for ta in ma for tb in mb])
         if adaptive:
             mom = _accumulate_moments(mom, a_k, b_k)
@@ -679,9 +711,10 @@ def ft_global_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,
 # The argument types of B5, B3 and B4, in every dtype: the operands and
 # outputs, M, N, K, bm, bn, bk, the cadence (B3: and multifault), then
 # alpha, beta, the scalar argument, the noise model, the fused epilogue
-# (``_build.EPILOGUE_ARGS``) and the stream.
+# (``_build.EPILOGUE_ARGS``), the variant axes (``_build.VARIANT_ARGS``)
+# and the stream.
 _DIMS = [_I] * 6
-_TAIL = [_F, _F, _P, _F, _F, _F] + EPILOGUE_ARGS + [_P]
+_TAIL = [_F, _F, _P, _F, _F, _F] + EPILOGUE_ARGS + VARIANT_ARGS + [_P]
 _VPU_ARGS = {"running": [_P] * 6 + _DIMS + [_I] + _TAIL,
              "rowcol": [_P] * 6 + _DIMS + [_I, _I] + _TAIL,
              "global": [_P] * 6 + _DIMS + [_I] + _TAIL}
@@ -692,35 +725,43 @@ _MXU_ARGS = {"fused": [_P] * 7 + _DIMS + [_I] + _TAIL,
 # Every kind's; B2's with the expected moments after C, no cadence and no
 # noise model.
 _ARGS = dict(_VPU_ARGS, **_MXU_ARGS,
-             precomp=[_P] * 7 + _DIMS + [_F, _F, _P] + EPILOGUE_ARGS + [_P])
+             precomp=[_P] * 7 + _DIMS + [_F, _F, _P] + EPILOGUE_ARGS
+             + VARIANT_ARGS + [_P])
 
 
-def kernel_entry(kind: str, dtype=torch.float32, adaptive: bool = False):
+def kernel_entry(kind: str, dtype=torch.float32, adaptive: bool = False,
+                 one_pass: bool = False):
     """The library and C entry point of FT kernel kind ``kind``'s build
     for ``dtype`` operands (torch.float32, torch.bfloat16 (fp8 runs it on
     the widened operands) or torch.int8 (B3, B4, static)), static or
-    ``adaptive``."""
+    ``adaptive``; f32 in one TF32 pass with ``one_pass`` (the ``*_tf32``
+    libraries)."""
+    if one_pass and dtype != torch.float32:
+        raise ValueError(f"one TF32 pass is an f32 build, not {dtype}")
     if dtype == torch.bfloat16:
         libs = ADAPTIVE_BF16_LIBS if adaptive else BF16_LIBS
         return libs[kind], ENTRY_POINTS[kind] + "_bf16"
-    return (F32_LIBS[kind] + ("_adaptive" if adaptive else ""),
+    return (F32_LIBS[kind] + ("_adaptive" if adaptive else "")
+            + ("_tf32" if one_pass else ""),
             ENTRY_POINTS[kind] + ("_int8" if dtype == torch.int8 else ""))
 
 
-def _bind_kind(kind, dtype=torch.float32, adaptive=False):
-    lib, entry = kernel_entry(kind, dtype, adaptive)
+def _bind_kind(kind, dtype=torch.float32, adaptive=False, one_pass=False):
+    lib, entry = kernel_entry(kind, dtype, adaptive, one_pass)
     return bind(library(lib), entry, _ARGS[kind])
 
 
 @functools.lru_cache(maxsize=None)
-def _entries(adaptive: bool = False):
+def _entries(adaptive: bool = False, one_pass: bool = False):
     """The C entry points of the static f32 build (``adaptive=False``: B2-B8,
     and B3's and B4's int8 builds by (kind, torch.int8)) or of the adaptive
-    one (``FTSG_ADAPTIVE``: B3-B8), by kernel kind."""
-    build(tuple(n + ("_adaptive" if adaptive else "") for n in FT_LIBS))
-    entries = {kind: _bind_kind(kind, adaptive=adaptive)
+    one (``FTSG_ADAPTIVE``: B3-B8), by kernel kind; with ``one_pass`` those
+    of its one-TF32-pass build (``FTSG_ONE_PASS``, f32 alone)."""
+    suffix = ("_adaptive" if adaptive else "") + ("_tf32" if one_pass else "")
+    build(tuple(n + suffix for n in FT_LIBS))
+    entries = {kind: _bind_kind(kind, adaptive=adaptive, one_pass=one_pass)
                for kind in ENTRY_POINTS if not adaptive or kind != "precomp"}
-    if not adaptive:  # int8 operands (the exact mode): B3, B4
+    if not adaptive and not one_pass:  # int8 (the exact mode): B3, B4
         for kind in ("rowcol", "global"):
             entries[kind, torch.int8] = _bind_kind(kind, torch.int8)
     return entries
@@ -760,7 +801,8 @@ def _check_rows(shape, a, b, ma, mb=None, n_a=1) -> None:
 
 
 def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
-            scalars, adaptive=False, epi=None, bias=None):
+            scalars, adaptive=False, epi=None, bias=None,
+            axes: LaunchAxes = LaunchAxes()):
     """Launch entry point ``name`` of the static or the adaptive build on
     validated operands, A and B f32 or bf16 (B2-B8 of the static build,
     B3-B8 of the adaptive one) or fp8 (B2-B5) or (static build, B3 and B4)
@@ -769,7 +811,11 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     ``fp8_launches`` or ``int8_launches`` by dtype; an adaptive bf16 or fp8
     launch counts in both of its counters; a non-identity epilogue ``epi``
     (with its padded bias row ``bias``), applied by the kernel's store after
-    its checks, also in ``epilogue_launches``. Raises on a launch error.
+    its checks, also in ``epilogue_launches``; ``axes`` the CTA raster
+    (``common.LaunchAxes.args``; ``shape`` is the grid step's) and the
+    build: one TF32 pass (f32 precision "default", the ``*_tf32``
+    libraries) with ``axes.one_pass``, a launch also counted in
+    ``one_pass_launches``. Raises on a launch error.
     fp8 A and B are widened to bf16, which holds every e4m3 value exactly,
     and run the bf16 build: the same products and checksums as the e4m3
     operands' (e4m3 wgmma keeps ~13 bits of a k step's sum, and a
@@ -780,8 +826,10 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     epi_args = epilogue_args(epi, bias, c.shape[1], c.device)
     fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.bfloat16 if fp8 else a.dtype
+    if axes.one_pass and dtype != torch.float32:
+        raise ValueError(f"one TF32 pass is an f32 build, not {a.dtype}")
     entries = (_bf16_entries(adaptive) if dtype == torch.bfloat16
-               else _entries(adaptive))
+               else _entries(adaptive, axes.one_pass))
     if dtype != torch.float32 and (name, dtype) not in entries:
         raise NotImplementedError(
             f"kernel {name!r} has no {str(a.dtype).removeprefix('torch.')}"
@@ -805,10 +853,12 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
             *(t.data_ptr() for t in extra_in), out.data_ptr(), det.data_ptr(),
             unc.data_ptr(), *dims, *extra_args, alpha, beta, sc.ctypes.data,
-            *noise, *epi_args,
+            *noise, *epi_args, *axes.args(),
             torch.cuda.current_stream(a.device).cuda_stream)
     if epi is not None and not epi.is_identity:
         wrapper.epilogue_launches += 1
+    if axes.one_pass:
+        wrapper.one_pass_launches += 1
     if adaptive:
         wrapper.adaptive_launches += 1
     if fp8:
@@ -824,24 +874,27 @@ def _launch(wrapper, name, shape, a, b, c, extra_in, extra_args, alpha, beta,
 
 
 def ft_weighted_kernel(a, b, c, expm, shape: KernelShape, alpha, beta,
-                       scalars, epi=None, bias=None):
+                       scalars, epi=None, bias=None,
+                       axes: LaunchAxes = LaunchAxes()):
     """B2 on operands padded to the tile, with the (gm, 3, N) expected
     moments ``expm``; ``scalars`` the (8,) f32 scalar argument, a host array
     (the plain versions also take a CPU tensor); ``epi`` the fused epilogue
     (an ``EpilogueSpec`` or None) and ``bias`` its padded (N,)
-    bias row (``common.pad_bias``), as for every wrapper below. Returns
+    bias row (``common.pad_bias``); ``axes`` the launch's variant axes and
+    precision (``common.LaunchAxes``; ``shape`` the grid step's,
+    ``common.step_shape``), as for every wrapper below. Returns
     (out, det, unc). A CPU tensor runs the plain version."""
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
-                                 expm=expm, epi=epi,
-                                 bias=bias)
+                                 expm=expm, epi=epi, bias=bias, axes=axes)
     return _launch(ft_weighted_kernel, "precomp", shape, a, b, c, (expm,), (),
-                   alpha, beta, scalars, epi=epi, bias=bias)
+                   alpha, beta, scalars, epi=epi, bias=bias, axes=axes)
 
 
 def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
                                scalars, check_every: int, adaptive=False,
-                               epi=None, bias=None):
+                               epi=None, bias=None,
+                               axes: LaunchAxes = LaunchAxes()):
     """B5: the weighted check every ``check_every`` K steps and after the
     last, with running in-kernel moments; ``adaptive`` runs the adaptive
     build (each sub-tile's thresholds from its running moments and slot
@@ -849,41 +902,44 @@ def ft_weighted_running_kernel(a, b, c, shape: KernelShape, alpha, beta,
     if a.device.type == "cpu":
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  check_every=check_every, adaptive=adaptive,
-                                 epi=epi, bias=bias)
+                                 epi=epi, bias=bias, axes=axes)
     return _launch(ft_weighted_running_kernel, "running", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias,
+                   axes)
 
 
 def ft_rowcol_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
                      check_every: int, multifault: bool, adaptive=False,
-                     epi=None, bias=None):
+                     epi=None, bias=None, axes: LaunchAxes = LaunchAxes()):
     """B3: the rowcol check every ``check_every`` K steps and after the
     last (``adaptive``: as B5). Returns (out, det, unc)."""
     if a.device.type == "cpu":
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, multifault, adaptive=adaptive,
-                               epi=epi, bias=bias)
+                               epi=epi, bias=bias, axes=axes)
     return _launch(ft_rowcol_kernel, "rowcol", shape, a, b, c, (),
                    (check_every, int(multifault)), alpha, beta, scalars,
-                   adaptive, epi, bias)
+                   adaptive, epi, bias, axes)
 
 
 def ft_global_kernel(a, b, c, shape: KernelShape, alpha, beta, scalars,
-                     check_every: int, adaptive=False, epi=None, bias=None):
+                     check_every: int, adaptive=False, epi=None, bias=None,
+                     axes: LaunchAxes = LaunchAxes()):
     """B4: the detect-only scalar check every ``check_every`` K steps and
     after the last, encoded from the staged chunks (``adaptive``: as B5).
     Returns (out, det, unc), unc equal to det."""
     if a.device.type == "cpu":
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, adaptive=adaptive,
-                               epi=epi, bias=bias)
+                               epi=epi, bias=bias, axes=axes)
     return _launch(ft_global_kernel, "global", shape, a, b, c, (),
-                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias,
+                   axes)
 
 
 def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
                          scalars, check_every: int, adaptive=False, epi=None,
-                         bias=None):
+                         bias=None, axes: LaunchAxes = LaunchAxes()):
     """B8: B4's check with ``t_exp`` from A's and B's plain moment rows
     ``ma`` (M/bm, 1, K) and ``mb`` (N/bn, 1, K) (``adaptive``: as B5, the
     moments of A's and B's own rows). Returns (out, det, unc)."""
@@ -892,14 +948,15 @@ def ft_global_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
         return ft_global_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, moments=(ma, mb),
                                adaptive=adaptive, epi=epi,
-                               bias=bias)
+                               bias=bias, axes=axes)
     return _launch(ft_global_mxu_kernel, "global_mxu", shape, a, b, c,
                    (ma, mb), (check_every,), alpha, beta, scalars, adaptive,
-                   epi, bias)
+                   epi, bias, axes)
 
 
 def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
-                    check_every: int, adaptive=False, epi=None, bias=None):
+                    check_every: int, adaptive=False, epi=None, bias=None,
+                    axes: LaunchAxes = LaunchAxes()):
     """B6: B5's weighted check every ``check_every`` K steps and after the
     last, the expected moments encoded from A's moment rows ``ma``
     (M/bm, 3, K) (``adaptive``: as B8). Returns (out, det, unc)."""
@@ -908,14 +965,16 @@ def ft_fused_kernel(a, b, c, ma, shape: KernelShape, alpha, beta, scalars,
         return ft_weighted_plain(a, b, c, shape, alpha, beta, scalars,
                                  check_every=check_every, moments=ma,
                                  adaptive=adaptive,
-                                 epi=epi, bias=bias)
+                                 epi=epi, bias=bias, axes=axes)
     return _launch(ft_fused_kernel, "fused", shape, a, b, c, (ma,),
-                   (check_every,), alpha, beta, scalars, adaptive, epi, bias)
+                   (check_every,), alpha, beta, scalars, adaptive, epi, bias,
+                   axes)
 
 
 def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
                          scalars, check_every: int, multifault: bool,
-                         adaptive=False, epi=None, bias=None):
+                         adaptive=False, epi=None, bias=None,
+                         axes: LaunchAxes = LaunchAxes()):
     """B7: B3's rowcol check, the expected sums encoded from A's plain and
     w moment rows ``ma`` (M/bm, 2, K) and B's plain rows ``mb``
     (N/bn, 1, K) (``adaptive``: as B8). Returns (out, det, unc)."""
@@ -924,10 +983,10 @@ def ft_rowcol_mxu_kernel(a, b, c, ma, mb, shape: KernelShape, alpha, beta,
         return ft_rowcol_plain(a, b, c, shape, alpha, beta, scalars,
                                check_every, multifault, moments=(ma, mb),
                                adaptive=adaptive, epi=epi,
-                               bias=bias)
+                               bias=bias, axes=axes)
     return _launch(ft_rowcol_mxu_kernel, "rowcol_mxu", shape, a, b, c,
                    (ma, mb), (check_every, int(multifault)), alpha, beta,
-                   scalars, adaptive, epi, bias)
+                   scalars, adaptive, epi, bias, axes)
 
 
 for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
@@ -939,21 +998,23 @@ for _w in (ft_weighted_kernel, ft_weighted_running_kernel, ft_rowcol_kernel,
     _w.fp8_launches = 0
     _w.int8_launches = 0
     _w.epilogue_launches = 0
+    _w.one_pass_launches = 0
 
 
 def run_kernel(kind: str, shape: KernelShape, a, b, c, extra, alpha, beta,
                scalars, check_every: int, multifault: bool = False,
                plain: bool = False, adaptive: bool = False, epi=None,
-               bias=None):
+               bias=None, axes: LaunchAxes = LaunchAxes()):
     """One launch of kernel ``kind`` (:func:`_plan`) on padded operands,
     with its wrapper-side inputs ``extra`` (:func:`kernel_inputs`);
     ``plain=True`` runs its plain version instead, on any device;
     ``adaptive`` the adaptive build of B3-B8 (B2 has none); ``epi`` the
-    fused epilogue with its padded bias row ``bias``. Returns (out, det,
-    unc)."""
+    fused epilogue with its padded bias row ``bias``; ``axes`` the variant
+    axes and precision (``common.LaunchAxes``; ``shape`` the grid step's).
+    Returns (out, det, unc)."""
     args = (shape, alpha, beta, scalars)
     ad = dict(adaptive=adaptive)
-    ep = dict(epi=epi, bias=bias)
+    ep = dict(epi=epi, bias=bias, axes=axes)
     if kind == "precomp":
         if adaptive:
             raise ValueError("B2 has no adaptive build: the adaptive weighted"
@@ -1066,6 +1127,7 @@ def make_ft_sgemm(
     threshold=REFERENCE_THRESHOLD,
     threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
     check_every: Optional[int] = None,
+    precision: str = "highest",
     in_dtype="float32",
     multifault: Optional[bool] = None,
     device=None,
@@ -1136,10 +1198,30 @@ def make_ft_sgemm(
     ``v`` of length N. ``variant`` (a
     :class:`~ft_sgemm_tpu_torch.configs.KernelVariant`, a dict of its fields
     or None) carries the cadence and the epilogue; an explicit
-    ``check_every`` or ``epilogue`` wins over the variant's. A pipeline
-    depth, grid order or dimension semantics other than the default raises
-    ``NotImplementedError`` (not ported yet); ``ring_overlap`` is ignored,
-    as the JAX package's single-device factories ignore it.
+    ``check_every`` or ``epilogue`` wins over the variant's. It carries the
+    variant axes too (ft_sgemm_tpu/ops/ft_sgemm.py:1725-1799):
+    ``pipeline_depth=3`` makes a grid step the two-panel K window ``kwin =
+    2 bk`` (``common.step_shape``): the operands are padded to it, and the
+    cadence, the injection schedule (ordinal ``k // every + 3 i + 5 j`` of
+    grid step k) and the adaptive thresholds' run length count grid steps,
+    so the checks and faults fall at other columns than at depth 2; the
+    kernels take ``kwin`` as their bk, and the plain versions multiply each
+    panel of a step on its own (``sub_panels``). ``grid_order="nm"`` walks
+    the CTAs M tile first (``csrc/abft_common.cuh::Variant``; the grids land by tile
+    all the same), and ``dim_semantics="arbitrary"``, a Mosaic scheduling
+    hint with no CUDA counterpart, runs the same kernel. ``ring_overlap``
+    is ignored, as the JAX package's single-device factories ignore it.
+
+    ``precision`` (the JAX package's names, ``common.check_precision``):
+    with f32, ``"highest"`` and ``"high"`` run the 3xTF32 kernels (the
+    TPU's ``"high"`` is a three-pass product, and 3xTF32 is the port's),
+    ``"default"`` the same kernels with one TF32 wgmma per k step, ``hi .
+    hi``, for the product and for the expected sums that ride it (the
+    wrapper's precomputed moments of B2 stay FP32, as the JAX package
+    computes them at "highest"); their residuals then carry TF32's
+    rounding, so a static threshold suits them and the noise model of
+    "auto" and "adaptive" (f32's) does not. A bf16, fp8 or int8 product is
+    one pass whatever is asked.
     """
     if isinstance(threshold, str):
         threshold_mode = threshold
@@ -1149,6 +1231,7 @@ def make_ft_sgemm(
         strategy=strategy, encode=encode, in_dtype=in_dtype,
         threshold_mode=threshold_mode, multifault=multifault)
     dtype = resolve_in_dtype(in_dtype, allow_low_precision=True)
+    one_pass = check_precision(precision, dtype)
     if strategy == "fused":
         encode = "mxu"  # the fused strategy IS the weighted mxu encode
     adaptive = threshold_mode == "adaptive"
@@ -1177,8 +1260,10 @@ def make_ft_sgemm(
                       else (float(threshold),) * 3)
     if isinstance(shape, str):
         shape = SHAPES[shape]
+    step = step_shape(shape, var)
+    axes = launch_axes(var, one_pass)
     dev = resolve_device(device)
-    bm, bn, bk = shape.block
+    bm, bn, bk = step.block  # bk: the K window of one grid step
 
     def scalars_for(inject, a, b, c):
         if threshold_mode != "auto":
@@ -1224,14 +1309,14 @@ def make_ft_sgemm(
             readback["host"].copy_(scalars, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
-        extra = kernel_inputs(kind, ap, bp, shape)
+        extra = kernel_inputs(kind, ap, bp, step)
         if isinstance(scalars, torch.Tensor) and scalars.is_cuda:
             ready.synchronize()
             scalars = readback["host"].numpy().copy()
-        out, det, unc = run_kernel(kind, shape, ap, bp, cp, extra, alpha,
+        out, det, unc = run_kernel(kind, step, ap, bp, cp, extra, alpha,
                                    beta, scalars, ce, mf,
                                    adaptive=adaptive and not exact, epi=epi,
-                                   bias=row)
+                                   bias=row, axes=axes)
         return FtSgemmResult(out[:m, :n], det, unc)
 
     fn.__name__ = (f"ft_sgemm_{shape.name}_{strategy}"
@@ -1245,6 +1330,7 @@ def make_ft_sgemm(
     fn.encode = encode
     fn.in_dtype = in_dtype
     fn.threshold_mode = threshold_mode
+    fn.precision = precision
     fn.variant = var
     fn.epilogue = var.epilogue
     return fn
@@ -1255,14 +1341,15 @@ def ft_sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0,
              strategy: str = "weighted", encode: str = "vpu",
              threshold=REFERENCE_THRESHOLD,
              threshold_margin: float = DEFAULT_THRESHOLD_MARGIN,
-             check_every: Optional[int] = None, in_dtype="float32",
-             multifault: Optional[bool] = None, device=None, variant=None,
-             epilogue=None, bias=None) -> FtSgemmResult:
+             check_every: Optional[int] = None, precision: str = "highest",
+             in_dtype="float32", multifault: Optional[bool] = None,
+             device=None, variant=None, epilogue=None,
+             bias=None) -> FtSgemmResult:
     """One-shot fused-ABFT SGEMM (see :func:`make_ft_sgemm`)."""
     return make_ft_sgemm(
         shape, alpha=alpha, beta=beta, strategy=strategy, encode=encode,
         threshold=threshold, threshold_margin=threshold_margin,
-        check_every=check_every, in_dtype=in_dtype,
+        check_every=check_every, precision=precision, in_dtype=in_dtype,
         multifault=multifault, device=device, variant=variant,
         epilogue=epilogue,
     )(a, b, c, inject, bias=bias)

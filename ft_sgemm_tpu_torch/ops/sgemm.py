@@ -18,6 +18,12 @@ they land; the plain version multiplies the rounded values in FP32.
 step, each k step's sum promoted into the f32 accumulator; its rows lie 16
 bytes apart (``common.align_rows16``).
 
+The variant axes (``variant=``): a pipeline depth of 3 pads K to and steps
+by the two-panel window (the plain version multiplies per panel), the grid
+order "nm" walks B1's CTAs M tile first, and the dimension semantics change
+nothing on the card. ``precision="default"`` with f32 runs one TF32 wgmma
+per k step on operands rounded to TF32; "high" runs 3xTF32 as "highest".
+
 The fused epilogue (``epilogue=``: bias, relu or gelu, int8 or fp8
 quantize-rescale; ft_sgemm_tpu/ops/sgemm.py:98-101) runs inside B1's store on
 the card, after alpha * acc + beta * C (``csrc/abft_common.cuh::Epilogue``),
@@ -42,12 +48,14 @@ from ft_sgemm_tpu_torch.configs import (
 )
 from ft_sgemm_tpu_torch.ops._build import (
     EPILOGUE_ARGS,
+    VARIANT_ARGS,
     bind,
     check_launch,
     check_operands,
     library,
 )
 from ft_sgemm_tpu_torch.ops.common import (
+    LaunchAxes,
     align_rows16,
     apply_epilogue,
     as_f32,
@@ -55,9 +63,11 @@ from ft_sgemm_tpu_torch.ops.common import (
     bias_operand,
     check_precision,
     epilogue_args,
+    launch_axes,
     pad_to,
     resolve_device,
     resolve_in_dtype,
+    step_shape,
     strict_fp32,
 )
 
@@ -65,47 +75,70 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype = torch.float32):
+def _entry(dtype: torch.dtype = torch.float32, one_pass: bool = False):
     """B1's entry point for f32, bf16 or fp8 operands (fp8 in a library of
-    its own, ``_build.LIBRARIES``)."""
-    lib, name = {torch.float32: ("sgemm", "ftsg_sgemm"),
+    its own, ``_build.LIBRARIES``), or for f32 in one TF32 pass
+    (``one_pass``, the library ``sgemm_tf32``)."""
+    if one_pass and dtype != torch.float32:
+        raise ValueError(f"one TF32 pass is an f32 build, not {dtype}")
+    lib, name = {torch.float32: ("sgemm_tf32" if one_pass else "sgemm",
+                                 "ftsg_sgemm"),
                  torch.bfloat16: ("sgemm", "ftsg_sgemm_bf16"),
                  torch.float8_e4m3fn: ("sgemm_fp8", "ftsg_sgemm_fp8")}[dtype]
     return bind(library(lib), name,
-                [_P] * 4 + [_I] * 6 + [_F] * 2 + EPILOGUE_ARGS + [_P])
+                [_P] * 4 + [_I] * 6 + [_F] * 2 + EPILOGUE_ARGS + VARIANT_ARGS
+                + [_P])
 
 
 
-def sgemm_plain(a, b, c, alpha, beta, epi=None, bias=None) -> torch.Tensor:
+def sgemm_plain(a, b, c, alpha, beta, epi=None, bias=None, panel: int = 0,
+                axes: LaunchAxes = LaunchAxes()) -> torch.Tensor:
     """Plain PyTorch version of B1: one FP32 matmul of the (rounded)
     operands, the alpha/beta epilogue, then the fused epilogue ``epi``
-    (an ``EpilogueSpec`` or None) with the padded bias row ``bias``."""
+    (an ``EpilogueSpec`` or None) with the padded bias row ``bias``. At a
+    pipeline depth of 3 (``axes.unroll`` > 1) one matmul per K panel of
+    ``panel`` columns, added in order, as the JAX kernel's ``sub_panels``
+    dots; under the f32 precision "default" (``axes.one_pass``) the
+    operands rounded to TF32 first, the one-product form of the kernel."""
     strict_fp32()
-    return apply_epilogue(alpha * torch.matmul(a.float(), b.float().T)
-                          + beta * c, epi, bias)
+    a, b = (axes.hi(x.float()) for x in (a, b))
+    if axes.unroll > 1 and panel:
+        acc = torch.zeros_like(c)
+        for k0 in range(0, a.shape[1], panel):
+            acc += torch.matmul(a[:, k0:k0 + panel], b[:, k0:k0 + panel].T)
+    else:
+        acc = torch.matmul(a, b.T)
+    return apply_epilogue(alpha * acc + beta * c, epi, bias)
 
 
 def sgemm_kernel(a, b, c, shape: KernelShape, alpha: float, beta: float,
-                 epi=None, bias=None) -> torch.Tensor:
+                 epi=None, bias=None,
+                 axes: LaunchAxes = LaunchAxes()) -> torch.Tensor:
     """B1 on operands already padded to ``shape``'s tile: a new (M, N)
     tensor ``epi(alpha * a @ b.T + beta * c)``, A and B both f32, both bf16
     or both fp8; ``epi`` the fused epilogue (an ``EpilogueSpec`` or
     None) and ``bias`` its padded (N,) bias row
-    (``common.pad_bias``). A CUDA tensor launches the kernel (counted in
-    ``launches``, ``bf16_launches`` or ``fp8_launches``, and a
-    non-identity epilogue also in ``epilogue_launches``); a CPU tensor runs
-    the plain version."""
+    (``common.pad_bias``); ``axes`` the variant axes and precision of the
+    launch (``common.LaunchAxes``: the CTA raster, one TF32 pass; ``shape``
+    is the grid step's, ``common.step_shape``). A CUDA tensor launches the
+    kernel (counted in ``launches``, ``bf16_launches`` or ``fp8_launches``,
+    a non-identity epilogue also in ``epilogue_launches``, a one-pass
+    launch also in ``one_pass_launches``); a CPU tensor runs the plain
+    version."""
     if a.device.type == "cpu":
-        return sgemm_plain(a, b, c, alpha, beta, epi, bias)
+        return sgemm_plain(a, b, c, alpha, beta, epi, bias,
+                           shape.bk // axes.unroll, axes)
     dims = check_operands(shape, a, b, c)
     epi_args = epilogue_args(epi, bias, c.shape[1], c.device)
     out = torch.empty_like(c)
-    fn = _entry(a.dtype)
+    fn = _entry(a.dtype, axes.one_pass)
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), *dims,
-            alpha, beta, *epi_args,
+            alpha, beta, *epi_args, *axes.args(),
             torch.cuda.current_stream(a.device).cuda_stream)
     if epi is not None and not epi.is_identity:
         sgemm_kernel.epilogue_launches += 1
+    if axes.one_pass:
+        sgemm_kernel.one_pass_launches += 1
     if a.dtype == torch.bfloat16:
         sgemm_kernel.bf16_launches += 1
     elif a.dtype == torch.float8_e4m3fn:
@@ -120,6 +153,7 @@ sgemm_kernel.launches = 0
 sgemm_kernel.bf16_launches = 0
 sgemm_kernel.fp8_launches = 0
 sgemm_kernel.epilogue_launches = 0
+sgemm_kernel.one_pass_launches = 0
 
 
 def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
@@ -136,24 +170,28 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
     bias add, an activation and an int8 or fp8 quantize-rescale into B1's
     store (ft_sgemm_tpu/ops/sgemm.py:160-262); a fused bias is passed per
     call, ``fn(a, b, c, bias=v)`` with ``v`` of length N. ``variant`` (a
-    :class:`~ft_sgemm_tpu_torch.configs.KernelVariant`) carries the
-    epilogue too (``epilogue=`` wins); a pipeline depth, grid order or
-    dimension semantics other than the default raises
-    ``NotImplementedError`` (not ported yet). ``in_dtype="bfloat16"`` rounds
+    :class:`~ft_sgemm_tpu_torch.configs.KernelVariant`, a dict of its
+    fields or None) carries the epilogue too (``epilogue=`` wins) and the
+    variant axes: ``pipeline_depth=3`` pads K to and steps by the two-panel
+    window ``kwin = 2 bk`` (``common.step_shape``; the plain version
+    multiplies each panel on its own, as ``sub_panels`` does),
+    ``grid_order="nm"`` walks B1's CTAs M tile first, and
+    ``dim_semantics="arbitrary"``, a Mosaic scheduling hint, runs the same
+    kernel. ``in_dtype="bfloat16"`` rounds
     A and B to bf16 on the device, ``"float8_e4m3fn"`` (aliases ``fp8``,
     ``fp8_e4m3``, ``float8_e4m3``) to e4m3 as the JAX package does (NaN
     past 464); C and the accumulator stay f32.
-    ``precision`` (the JAX package's names) is there for parity with its
-    ``make_sgemm`` and changes nothing: the f32 kernels are 3xTF32,
-    FP32-accurate, and take ``"highest"`` only (any other raises
-    ``NotImplementedError``); a bf16 or fp8 product is one pass whatever is
-    asked. int8 raises ``ValueError``, as in the JAX package (it needs the
-    FT kernels' exact path). ``device=None`` runs on CUDA.
+    ``precision`` (the JAX package's names; ``common.check_precision``):
+    with f32, ``"highest"`` and ``"high"`` run 3xTF32, FP32-accurate, and
+    ``"default"`` one TF32 wgmma per k step on operands rounded to TF32
+    (``hi . hi``); a bf16 or fp8 product is one pass whatever is asked.
+    int8 raises ``ValueError``, as in the JAX package (it needs the FT
+    kernels' exact path). ``device=None`` runs on CUDA.
     The caller's ``c`` is never written. The tile is the paper's for every
     dtype (the JAX package's bf16 tile overrides are TPU tuning).
     """
     dtype = resolve_in_dtype(in_dtype)
-    check_precision(precision, dtype)
+    one_pass = check_precision(precision, dtype)
     var = canonical_variant(variant)
     if epilogue is not None:
         var = dataclasses.replace(
@@ -162,6 +200,8 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
     epi = var.epilogue_spec
     if isinstance(shape, str):
         shape = SHAPES[shape]
+    step = step_shape(shape, var)
+    axes = launch_axes(var, one_pass)
     dev = resolve_device(device)
 
     def fn(a, b, c, bias=None):
@@ -169,10 +209,10 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
         c = as_f32(c, dev)
         m, n = c.shape
         row = bias_operand(fn.__name__, epi, bias, n, shape.bn, dev)
-        out = sgemm_kernel(align_rows16(pad_to(a, shape.bm, shape.bk)),
-                           align_rows16(pad_to(b, shape.bn, shape.bk)),
-                           pad_to(c, shape.bm, shape.bn), shape, alpha, beta,
-                           epi, row)
+        out = sgemm_kernel(align_rows16(pad_to(a, step.bm, step.bk)),
+                           align_rows16(pad_to(b, step.bn, step.bk)),
+                           pad_to(c, step.bm, step.bn), step, alpha, beta,
+                           epi, row, axes)
         return out[:m, :n]
 
     name = canonical_in_dtype(in_dtype)
@@ -180,12 +220,14 @@ def make_sgemm(shape: KernelShape | str, *, alpha: float = 1.0,
         "" if name == "float32" else f"_{name}")
     fn.shape_config = shape
     fn.in_dtype = name
+    fn.precision = precision
     fn.variant = var
     return fn
 
 
 def sgemm(a, b, c, shape: KernelShape | str = "huge", *, alpha=1.0, beta=-1.5,
-          in_dtype="float32", device=None):
+          precision="highest", in_dtype="float32", device=None, variant=None):
     """One-shot plain SGEMM (see :func:`make_sgemm`)."""
-    return make_sgemm(shape, alpha=alpha, beta=beta, in_dtype=in_dtype,
-                      device=device)(a, b, c)
+    return make_sgemm(shape, alpha=alpha, beta=beta, precision=precision,
+                      in_dtype=in_dtype, device=device, variant=variant
+                      )(a, b, c)

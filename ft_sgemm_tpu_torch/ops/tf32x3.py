@@ -17,7 +17,10 @@ of one 128 x 128 CTA), the expected-moment product's and the row sums'.
 Nothing on the main path calls them: the kernels' plain versions stay FP32
 (``ops/sgemm.sgemm_plain``, ``ops/ft_sgemm.ft_weighted_plain`` and the
 others), since 3xTF32 is how the kernel computes the FP32 function, not
-another function.
+another function. Under the f32 precision "default" the kernels run the
+one-product form, ``a_hi b_hi`` alone (``one_pass``): that is another
+function, and the plain versions then round both operands of every
+product to TF32 (``ops/common.LaunchAxes``).
 """
 
 from __future__ import annotations
@@ -25,22 +28,12 @@ from __future__ import annotations
 import torch
 
 from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
-from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32
+from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32, tf32_rna
 
 KK = 8       # K depth of one tf32 wgmma
 STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
 BF16_STAGE = 64  # the same in bf16: one 128-byte swizzle row of bf16
 CTA = 128    # rows and columns of the sub-tiled kernels' CTA
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` bit for bit: f32 rounded to TF32's 10 mantissa
-    bits, to nearest with ties away from zero, on the bit pattern (so
-    subnormals round like normals, and the largest finite f32 rounds up to
-    inf). inf stays inf and NaN stays NaN."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
-    return torch.where(torch.isnan(x), x, out)
 
 
 def split(x: torch.Tensor):
@@ -56,13 +49,17 @@ def _fault_steps(scalars, nk: int) -> set:
     return {k for k in range(nk) if scalars[0] > 0.0 and k % every == 0}
 
 
-def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=()):
+def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=(),
+                  one_pass: bool = False):
     """acc (gm, gn, bm, bn) += the 3xTF32 product of A (gm, bm, K) and
     B (gn, bn, K) as the wgmma mainloop sums it: per 8-column k step t
     three products into the stage sum ``part``, ``part`` into ``acc`` at
     every 32-column stage end and, when t starts a bk step (``cps`` k steps
-    each) in ``faults``, before ``on_fault(acc, k)``."""
+    each) in ``faults``, before ``on_fault(acc, k)``. ``one_pass`` (the f32
+    precision "default"): the one-product form, ``a_hi b_hi`` alone, with
+    ``hi`` rounded as the splitter rounds it."""
     (ah, al), (bh, bl) = split(a4), split(b4)
+    terms = ((ah, bh),) if one_pass else ((al, bh), (ah, bl), (ah, bh))
     nk8 = a4.shape[-1] // KK
     part = torch.zeros_like(acc)
     for t in range(nk8):
@@ -71,7 +68,7 @@ def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=()):
             part.zero_()
             on_fault(acc, t // cps)
         cols = slice(t * KK, (t + 1) * KK)
-        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        for x, y in terms:
             part += torch.einsum("imk,jnk->ijmn", x[..., cols], y[..., cols])
         if (t + 1) % (STAGE // KK) == 0 or t == nk8 - 1:
             acc += part
@@ -79,14 +76,16 @@ def _tile_product(a4, b4, acc, cps: int, on_fault=None, faults=()):
     return acc
 
 
-def sgemm_tf32x3(a, b, c, alpha: float, beta: float) -> torch.Tensor:
+def sgemm_tf32x3(a, b, c, alpha: float, beta: float,
+                 one_pass: bool = False) -> torch.Tensor:
     """``alpha * a @ b.T + beta * c`` as B1 computes it, on either CTA at
     every tile (one tile spans the whole output: the sum does not depend on
-    tiling)."""
+    tiling); ``one_pass``: one TF32 product a k step (precision
+    "default")."""
     strict_fp32()
     ap, bp = pad_to(a, 1, KK), pad_to(b, 1, KK)
     acc = torch.zeros((1, 1) + tuple(c.shape), device=c.device)
-    _tile_product(ap[None], bp[None], acc, 1)
+    _tile_product(ap[None], bp[None], acc, 1, one_pass=one_pass)
     return alpha * acc[0, 0] + beta * c
 
 

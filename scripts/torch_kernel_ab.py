@@ -15,10 +15,15 @@ the weighted strategy runs it (the small tile), else at four checks per
 run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
 B3 and B5 only. Needs nvcc and a CUDA device:
 
-    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] [--turns=N] PARENT_TREE CHANGED_TREE [TREE ...]
+    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] [--turns=N] [--dtype=D] PARENT_TREE CHANGED_TREE [TREE ...]
 
 ``--tiles`` times only the named tiles; ``--turns=N`` repeats the order
-and its reverse N times (default once).
+and its reverse N times (default once). ``--dtype`` (``float32``, the
+default; ``bfloat16``, ``fp8``, ``int8``) times that dtype's builds on A
+and B rounded to it (int8: the program's ``np.round(10 x)`` lattice):
+B1-B8 in bf16, B1-B5 in fp8 (B2-B5 on their bf16 builds, the wrapper
+widening), B3 and B4 in int8, each FT kernel held to its fault counts
+and, where it corrects, C to B1's plain version on the same operands.
 
     python3 scripts/torch_kernel_ab.py --build-only PARENT_TREE CHANGED_TREE [TREE ...]
 
@@ -69,8 +74,15 @@ def build(tree: str) -> dict:
     return _build.build()
 
 
-def measure(tree: str, tiles=TILES) -> dict:
-    """Milliseconds per launch of each kernel on each tile, in one tree."""
+# The kernels each dtype's builds hold (B1 and the FT kernels' ids).
+DTYPE_KERNELS = {"float32": ("B1", "B2", "B3", "B5", "B4", "B6", "B7", "B8"),
+                 "bfloat16": ("B1", "B2", "B3", "B5", "B4", "B6", "B7", "B8"),
+                 "fp8": ("B1", "B2", "B3", "B5", "B4"), "int8": ("B3", "B4")}
+
+
+def measure(tree: str, tiles=TILES, dtype: str = "float32") -> dict:
+    """Milliseconds per launch of each kernel on each tile, in one tree,
+    in ``dtype``."""
     _import_port(tree)
     import numpy as np
     import torch
@@ -86,11 +98,19 @@ def measure(tree: str, tiles=TILES) -> dict:
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
+    if dtype != "float32":
+        from ft_sgemm_tpu_torch.ops.common import as_operand
+
+        if dtype == "int8":
+            a, b = (torch.round(x * 10.0) for x in (a, b))
+        dt = {"bfloat16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+              "int8": torch.int8}[dtype]
+        a, b = (as_operand(x, dt, a.device) for x in (a, b))
     want = sg.sgemm_plain(a, b, c, 1.0, -1.5).cpu().numpy()
     strict_fp32()
     exact = a.double() @ b.double().T - 1.5 * c.double()
-    row = {"err cublas": float((torch.addmm(c, a, b.T, beta=-1.5).double()
-                                - exact).abs().max())}
+    row = {"err cublas": float((torch.addmm(
+        c, a.float(), b.float().T, beta=-1.5).double() - exact).abs().max())}
     for name in tiles:
         sh = SHAPES[name]
         nk = SIZE // sh.bk
@@ -99,7 +119,9 @@ def measure(tree: str, tiles=TILES) -> dict:
         kind, ce_w, _ = ft._plan("weighted", None, None, inj, nk, sh.bn)
         ce_w = ce_w if kind == "running" else max(1, nk // 4)
         _, ce_r, mf = ft._plan("rowcol", None, None, inj, nk, sh.bn)
-        expm = ft._expected_col_checksums(a, b, sh.bm)
+        expm = (ft._expected_col_checksums(a, b, sh.bm) if dtype != "int8"
+                else None)
+        mf = mf and dtype != "int8"
         runs = {
             "B1": lambda: sg.sgemm_kernel(a, b, c, sh, 1.0, -1.5),
             "B2": lambda: ft.ft_weighted_kernel(a, b, c, expm, sh, 1.0, -1.5, sc),
@@ -112,12 +134,16 @@ def measure(tree: str, tiles=TILES) -> dict:
         checked = ["B3", "B5"] + (["B2"] if kind == "precomp" else [])
         if hasattr(ft, "run_kernel"):
             for kern, (strategy, encode) in NEW_KERNELS.items():
+                if kern not in DTYPE_KERNELS[dtype]:
+                    continue
                 knd, ce, mfk = ft._plan(strategy, None, None, inj, nk, sh.bn,
                                         encode)
                 args = (knd, sh, a, b, c, ft.kernel_inputs(knd, a, b, sh), 1.0,
                         -1.5, sc, ce, mfk)
                 runs[kern] = functools.partial(ft.run_kernel, *args)
             checked += list(NEW_KERNELS)
+        runs = {k: f for k, f in runs.items() if k in DTYPE_KERNELS[dtype]}
+        checked = [k for k in checked if k in runs]
         expected = (SIZE // sh.bm) * (SIZE // sh.bn) * inj.expected_faults(SIZE, sh.bk)
         for kern in checked:
             out, det, unc = runs[kern]()
@@ -129,7 +155,9 @@ def measure(tree: str, tiles=TILES) -> dict:
                                             verbose=False)[0])
             if bad:
                 row[f"{kern} {name}"] = "wrong"
-        row[f"err B1 {name}"] = float((runs["B1"]().double() - exact).abs().max())
+        if "B1" in runs:
+            row[f"err B1 {name}"] = float(
+                (runs["B1"]().double() - exact).abs().max())
         for kern, fn in runs.items():
             if f"{kern} {name}" not in row:
                 row[f"{kern} {name}"] = cuda_ms(fn, reps=5)
@@ -190,24 +218,26 @@ def main(argv) -> int:
     if len(argv) == 3 and argv[1] == "--build":
         print(json.dumps(build(argv[2])))
         return 0
-    if len(argv) == 4 and argv[1] == "--measure":
-        print(json.dumps(measure(argv[2], argv[3].split(","))))
+    if len(argv) == 5 and argv[1] == "--measure":
+        print(json.dumps(measure(argv[2], argv[3].split(","), argv[4])))
         return 0
     opts = {a.split("=", 1)[0]: a.split("=", 1)[1] for a in argv[1:]
             if a.startswith("--") and "=" in a}
     tiles = tuple(opts.get("--tiles", ",".join(TILES)).split(","))
     n_turns = int(opts.get("--turns", 1))
+    dtype = opts.get("--dtype", "float32")
     trees = [a for a in argv[1:] if not a.startswith("--")]
-    if not trees or set(opts) - {"--tiles", "--turns"} or any(
-            a.startswith("--") and "=" not in a and a != "--build-only"
-            for a in argv[1:]):
+    if (not trees or set(opts) - {"--tiles", "--turns", "--dtype"}
+            or dtype not in DTYPE_KERNELS or any(
+                a.startswith("--") and "=" not in a and a != "--build-only"
+                for a in argv[1:])):
         print(__doc__)
         return 2
     if "--build-only" in argv:
         return build_times(trees)
     print(card(), flush=True)
     wrong = 0
-    for name, row in turns(__file__, trees, ",".join(tiles),
+    for name, row in turns(__file__, trees, ",".join(tiles), dtype,
                            n_turns=n_turns):
         wrong += list(row.values()).count("wrong")
         print(f"{name:19s} " + " ".join(

@@ -78,9 +78,10 @@ DEFAULT_KERNELS = ("B3", "B4", "B6", "B7", "B8")
 # each text found exactly once.
 VARIANTS = {
     "device-scalars": {"csrc/ft_sgemm_running.cuh": [
-        ("    Scalars sc, NoiseModel nm, Epilogue epi) {\n"
+        ("    Scalars sc, NoiseModel nm, Epilogue epi, Variant v) {\n"
          "  const WgSmem<T> sm;\n",
-         "    const Scalars* __restrict__ scp, NoiseModel nm, Epilogue epi) {\n"
+         "    const Scalars* __restrict__ scp, NoiseModel nm, Epilogue epi,\n"
+         "    Variant v) {\n"
          "  const Scalars sc = *scp;\n  const WgSmem<T> sm;\n"),
         ("template <template <int, int> class Of>\nint launch_running(",
          "__device__ Scalars g_scalars;\n\n"
@@ -92,8 +93,8 @@ VARIANTS = {
          " g_scalars))\n    return (int)e;\n"
          "  if (const cudaError_t e = cudaMemcpyAsync(scp, &sc, sizeof sc,\n"
          "          cudaMemcpyHostToDevice, stream))\n    return (int)e;\n"),
-        ("bk, check_every, alpha, beta, sc, nm, epi);",
-         "bk, check_every, alpha, beta, scp, nm, epi);"),
+        ("bk, check_every, alpha, beta, sc, nm, epi, v);",
+         "bk, check_every, alpha, beta, scp, nm, epi, v);"),
     ]},
 }
 # The same with the sub-tiled kernels built at the small tile only (a
@@ -178,11 +179,16 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
     # stream (ops/_build.EPILOGUE_ARGS): the identity's here.
     epi = getattr(_build, "EPILOGUE_ARGS", [])
     identity = (None, 0, 0, 1.0)[:len(epi)]
+    # A tree with the variant axes takes two more (ops/_build.
+    # VARIANT_ARGS): the default grid order and precision's here.
+    var = getattr(_build, "VARIANT_ARGS", [])
+    identity += (0, 0)[:len(var)]
     entries = {}
     for kern, (lib, entry) in _libs(kernels, adaptive, bf16).items():
         kind = KERNELS[kern][1]
         entries[kern] = _build.bind(
-            _build.library(lib), entry, [p] * 4 + [i] * 6 + [f, f] + epi + [p]
+            _build.library(lib), entry,
+            [p] * 4 + [i] * 6 + [f, f] + epi + var + [p]
             if kind == "sgemm" else ft._ARGS[kind])
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()

@@ -19,8 +19,8 @@ inputs.
   128 x 128 x 128 tile), in f32 and bf16, under rowcol and fused at the
   port's calibrated threshold, with magnitudes below it (designed misses)
   and 2, 4 and 64 times it: every point equal, field by field.
-- ``precision``: kept in the signatures; f32 with anything but "highest"
-  raises ``NotImplementedError`` where the port's ``make_sgemm`` does.
+- ``precision``: passed through to the baseline and the kernels as in the
+  JAX package (f32 "default" one TF32 pass); an unknown name raises.
 """
 
 import dataclasses
@@ -108,18 +108,28 @@ def test_detection_rate_sweep_like_jax(in_dtype, strategy):
 
 
 def test_precision_raises_where_the_entry_points_do():
+    # Named for the slice in which f32 below "highest" raised: every
+    # precision runs now, as in the JAX package; an unknown name raises.
+    # f32 "default" measures the floor of one-TF32-pass products, far
+    # above FP32's (TF32 keeps 11 bits); "high" is FP32's, as "highest".
     a, b, c = _inputs(64, 64, 64, 5)
     for fn in (analysis.measure_noise_floor, analysis.calibrate_threshold):
-        with pytest.raises(NotImplementedError, match="highest"):
-            fn(a, b, c, precision="default", device="cpu")
         with pytest.raises(ValueError, match="precision"):
             fn(a, b, c, precision="fastest", device="cpu")
         assert fn(a, b, c, precision="default", in_dtype="bfloat16",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="highest"):
-        analysis.detection_rate_sweep(a, b, c, [1.0], "test",
-                                      precision="high", device="cpu")
+    floors = {p: analysis.measure_noise_floor(a, b, c, precision=p,
+                                              device="cpu")
+              for p in ("default", "high", "highest")}
+    assert floors["high"] == floors["highest"]
+    assert floors["default"] > 16 * floors["highest"]
+    (p,) = analysis.detection_rate_sweep(a, b, c, [1e4], "test",
+                                         precision="high", device="cpu")
+    assert p.detection_rate == 1.0 and p.output_correct
     (p,) = analysis.detection_rate_sweep(a, b, c, [1e4], "test",
                                          precision="default",
                                          in_dtype="bfloat16", device="cpu")
     assert p.detection_rate == 1.0 and p.output_correct
+    (p,) = analysis.detection_rate_sweep(a, b, c, [1e4], "test",
+                                         precision="default", device="cpu")
+    assert p.detection_rate == 1.0

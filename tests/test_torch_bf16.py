@@ -99,9 +99,10 @@ def test_resolve_in_dtype_matches_jax(in_dtype, allow):
 
 
 def test_resolve_in_dtype_precision():
-    # make_sgemm takes the JAX package's precision names and none changes
-    # the result: bf16 is one pass whatever the caller asks, the port's f32
-    # kernels are FP32-accurate only, and an unknown name is refused.
+    # make_sgemm takes the JAX package's precision names: bf16 is one pass
+    # whatever the caller asks, f32 "high" is "highest" (3xTF32), f32
+    # "default" is one TF32 pass (the operands rounded to TF32, products
+    # exact in f32), and an unknown name is refused.
     rng = np.random.default_rng(3)
     a, b, c = (rng.standard_normal((16, 16)).astype(np.float32)
                for _ in range(3))
@@ -109,9 +110,13 @@ def test_resolve_in_dtype_precision():
                        device="cpu")(a, b, c) for p in common.PRECISIONS]
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
-    make_sgemm("test", precision="highest", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_sgemm("test", precision="default", device="cpu")
+    f32 = {p: make_sgemm("test", precision=p, device="cpu")(a, b, c)
+           for p in common.PRECISIONS}
+    assert torch.equal(f32["high"], f32["highest"])
+    a32, b32 = (common.tf32_rna(torch.from_numpy(x)) for x in (a, b))
+    torch.testing.assert_close(f32["default"], a32 @ b32.T - 1.5 * torch.from_numpy(c),
+                               rtol=0, atol=1e-5)
+    assert not torch.equal(f32["default"], f32["highest"])
     with pytest.raises(ValueError, match="precision"):
         make_sgemm("test", in_dtype="bfloat16", precision="fastest",
                    device="cpu")

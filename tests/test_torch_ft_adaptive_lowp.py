@@ -320,8 +320,9 @@ def test_adaptive_launch_routes_and_counts_by_dtype(monkeypatch, in_dtype):
         fn.__name__ = which
         return fn
 
-    monkeypatch.setattr(ft, "_entries", lambda adaptive=False: (
-        {"rowcol": entry("f32")} if adaptive else pytest.fail("static")))
+    monkeypatch.setattr(ft, "_entries", lambda adaptive=False, one_pass=False:
+                        ({"rowcol": entry("f32")} if adaptive
+                         else pytest.fail("static")))
     monkeypatch.setattr(ft, "_bf16_entries", lambda adaptive=False: (
         {("rowcol", torch.bfloat16): entry("bf16")} if adaptive
         else pytest.fail("static")))

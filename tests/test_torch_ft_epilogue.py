@@ -195,13 +195,29 @@ def test_make_sgemm_epilogue_matches_jax(in_dtype, epilogue):
                                   dict(grid_order="nm"),
                                   dict(dim_semantics="arbitrary")])
 def test_unported_variant_axes_raise(axis):
-    v = KernelVariant(**axis)
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
-        make_ft_sgemm(TILE, variant=v, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
-        make_sgemm(TILE, variant=v, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
-        make_ft_sgemm(TILE, variant=dict(axis), device="cpu")
+    # Named for the slice in which these axes raised; they run now: the
+    # factories take each axis (a variant or its dict) with an epilogue,
+    # and give the JAX package's grids and C.
+    a, b, c, bias = _operands(11)
+    inj, jinj = (InjectionSpec.reference_like(N, 128),
+                 JInjectionSpec.reference_like(N, 128))
+    v, jv = (KernelVariant(epilogue="bias", **axis),
+             JKernelVariant(epilogue="bias", **axis))
+    jres = jft.make_ft_sgemm("small", strategy="rowcol", tunable=False,
+                             variant=jv)(a, b, c, jinj, bias=bias)
+    for var in (v, dict(v.__dict__)):
+        res = make_ft_sgemm(TILE, strategy="rowcol", variant=var,
+                            device="cpu")(a, b, c, inj, bias=bias)
+        np.testing.assert_array_equal(res.detections.numpy(),
+                                      np.asarray(jres.detections))
+        np.testing.assert_array_equal(res.uncorrectable.numpy(),
+                                      np.asarray(jres.uncorrectable))
+        np.testing.assert_allclose(res.c.numpy(), np.asarray(jres.c),
+                                   atol=3e-2)
+    jout = jft.make_sgemm("small", tunable=False, variant=jv)(a, b, c,
+                                                               bias=bias)
+    out = make_sgemm(TILE, variant=v, device="cpu")(a, b, c, bias=bias)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=3e-2)
 
 
 def test_ring_overlap_is_accepted_and_ignored():

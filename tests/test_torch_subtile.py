@@ -43,7 +43,12 @@ from ft_sgemm_tpu_torch.interop import from_reference
 from ft_sgemm_tpu_torch.ops import _build
 from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
 from ft_sgemm_tpu_torch.ops import tf32x3
-from ft_sgemm_tpu_torch.ops.common import epilogue_args, pad_to, scalar_operand
+from ft_sgemm_tpu_torch.ops.common import (
+    LaunchAxes,
+    epilogue_args,
+    pad_to,
+    scalar_operand,
+)
 from ft_sgemm_tpu_torch.utils.matrices import verify_matrix
 
 JAX_TILES = {
@@ -261,7 +266,8 @@ def test_a_launch_error_raises(monkeypatch):
 
     entry.__name__ = "ftsg_ft_weighted_running"
     monkeypatch.setattr(ft, "_entries",
-                        lambda adaptive=False: {"running": entry})
+                        lambda adaptive=False, one_pass=False:
+                        {"running": entry})
     monkeypatch.setattr(ft, "check_operands",
                         lambda shape, *t, **kw: (16, 16, 16, 16, 16, 16))
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -331,5 +337,6 @@ def test_unknown_subtile_returns_an_error_on_card(cuda_device):
         a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
         det.data_ptr(), unc.data_ptr(), 64, 64, 64, 8, 8, 8, 1, 1.0, -1.5,
         sc.ctypes.data, 16.0, 32.0, 4.0, *epilogue_args(None),
+        *LaunchAxes().args(),
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
