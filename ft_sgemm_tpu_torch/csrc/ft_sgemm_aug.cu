@@ -19,8 +19,8 @@
 // CTA over the paper's (bm, bn) tile as sub-tiles, at every tile) with the
 // rows loaded by TMA as more boxes of each pipeline stage: B6 is B5's
 // kernel with A's 3 moment rows per row band loaded (kLoadRows); B7 is
-// B3's (RowcolCheck) with A's plain row (and, with multifault, its w row)
-// per row band loaded as the moment rows of the expected column sums
+// B3's (RowcolSplitCheck) with A's plain row (and, with multifault, its w
+// row) per row band loaded as the moment rows of the expected column sums
 // (kLoadRows, a 3-D box that takes the first 1 or 2 of the wrapper's 2
 // rows per band) and B's plain rows of the CTA's column bands loaded as
 // B's rows 128 .. 128 + NBN - 1 (kLoadBands), the extra product columns
@@ -31,16 +31,20 @@
 // bn, the 8 extra product columns) and the expected column sums (2 N K M /
 // bm, twice that with multifault), at 495 TFLOP/s, as B3. Against B3 the
 // producer's splitter warps no longer sum A's row bands and B's column
-// bands; they only split the loaded rows. What stays is B3's check, ~20
-// per run at the program's cadence, each on the correction path at
-// reference-like injection: it stalls the CTA's pipeline and costs five
-// consumer barriers (three when nothing flagged).
+// bands; they only split the loaded rows (in bf16 they have nothing to
+// do). What stayed was B3's check, ~20 per run, each on the correction
+// path at reference-like injection: in its single-phase form its body
+// cost 0.59-1.40 ms a launch at 4096 and a fault's drain 0.11 ms a run
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 5).
 //
 // What the design does about it: the rows ride the ring's own stages and
 // full barrier (their bytes counted exactly, their padding rows zeroed once
 // per ring slot), so the producer's only extra work is their hi / lo split;
 // both expected sums come out of the tensor cores beside the product, with
-// its precision, and the check is B3's (ft_sgemm_rowcol.cu).
+// its precision, and the check is B3's split-phase check
+// (ft_sgemm_rowcol.cu): the consumers post and go on, the splitter warps
+// decide (in bf16, where they split nothing) or, in f32 at the tiles of at
+// most four sub-tiles, the first producer warp between its loads.
 //
 // bf16 (ftsg_ft_fused_bf16, ftsg_ft_rowcol_mxu_bf16; FTSG_BF16 with
 // FTSG_KERNEL 6 and 7, a library each): A and B bf16 on the bf16 mainloop (one m64nNk16 wgmma a

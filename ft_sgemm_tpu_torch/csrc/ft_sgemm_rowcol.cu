@@ -11,8 +11,8 @@
 // whose count is a LEVEL. Correction precedes alpha / beta.
 //
 // B3 is ft_sgemm_running.cuh's sub-tiled kernel with the rowcol check
-// (RowcolCheck): 3xTF32 on wgmma, one 128 x 128 CTA over the paper's
-// (bm, bn) tile as sub-tiles, at every tile.
+// (RowcolSplitCheck and RowcolChecker): 3xTF32 on wgmma, one 128 x 128 CTA
+// over the paper's (bm, bn) tile as sub-tiles, at every tile.
 //
 // What bounds it on an H100: three TF32 tensor-core products per
 // multiply-add for the product (2 M N K), for the expected row sums (the
@@ -21,28 +21,34 @@
 // that with multifault), at 495 TFLOP/s. The producer's splitter warps sum
 // A's row bands and B's column bands beside the products. The program
 // checks ~20 times per run and, at reference-like injection, finds a fault
-// in nearly every sub-tile at every check, so the correction path is the
-// common one: each check stalls the CTA's pipeline, reads every
-// accumulator element twice and corrects in place, and costs five consumer
-// barriers (three when nothing flagged).
+// in nearly every sub-tile at every check. In the earlier single-phase
+// form the check ran on the consumers with five barriers and a correction
+// pass over every accumulator element; measured apart on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md, section 5; scripts/torch_variant_time.py)
+// its body cost 0.42-1.17 ms a launch at 4096, the splitter sums 0.42-1.00
+// ms, a fault's drain 0.02-0.05 ms a run, in every dtype more than the
+// tensor cores' bound.
 //
-// What the design does about it: both expected sums come out of the tensor
-// cores beside the product, with its precision, and never leave the SM; a
-// row's expected sums land in the quad of lanes that holds the row, so the
-// row residuals need two quad shuffles; the counts that decide each
-// sub-tile's correction (use_col, ambiguous) are shared-memory atomics;
-// the column sums are reduce-scattered (28 shuffles for a thread's 32
-// columns); the re-check's sums of the correction skip the warps and
-// column groups that made none; stages with a check or a fault are issued
-// in segments, so that the check's code is inlined once per call site
-// (gemm_wgmma.cuh, WgMainloop::mma_stage). A/B copies put the remaining
-// cost in the check and the splitter warps' sums (PERF.md).
+// What the design does about it: the check runs in two phases. At a check
+// the consumers drain once (the check reads acc at its k step), post their
+// rows' residuals and flags, their warps' column sums and E into a slot in
+// shared memory, arrive on an mbarrier (one arrival a warp) and go back to
+// issuing wgmma: no consumer barrier. A producer warp decides (the column
+// residuals and flags, use_col and ambiguous, the multifault localization,
+// the adaptive thresholds, the corrections as decisions per sub-tile, the
+// re-check from the decisions): the first warp between its TMA loads at
+// the tiles of at most four sub-tiles, the splitter warps between their
+// stages at the others. Each consumer thread adds the corrections on its
+// elements before the next check's post. Faults go into the accumulator
+// at stage ends, with no drain. The splitter sums stay (the next redesign
+// of B3's, ROADMAP Queue R). ptxas: 168 registers a thread; spills are in
+// PERF.md, section 6.
 //
 // bf16 (ftsg_ft_rowcol_bf16): A and B bf16 on the bf16 mainloop; the
 // splitter warps sum B's bands and A's row bands from the landed bf16
 // stages in f32 and carry each sum row as three bf16 terms (24 extra
 // product columns, three moment-row buffers), so both expected sums keep
-// f32 precision; the check is unchanged. It is a library of its own
+// f32 precision; the check is the same. It is a library of its own
 // (FTSG_BF16), and so is its adaptive build (FTSG_ADAPTIVE with FTSG_BF16),
 // which sums the rounded operands' moments per 8-column half step
 // (SubTileThresholds::kstep_bf16).

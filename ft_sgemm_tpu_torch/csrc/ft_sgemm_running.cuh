@@ -40,9 +40,15 @@
 // moment sums, and B3 and B4 the band sums of B, on the producer's
 // splitter warps, beside the products; B6, B7 and B8 load those rows and
 // only split them. A check stalls the CTA's pipeline (its k steps land
-// first) and costs a few shuffles per accumulator element and one to five
-// consumer barriers; B3, B4, B7 and B8 check ~20 times per run at the
-// program's cadence, B5 and B6 once or twice.
+// first); B3, B4, B7 and B8 check ~20 times per run at the program's
+// cadence, B5 and B6 once or twice. B4's, B5's, B6's and B8's checks then
+// cost a few shuffles per accumulator element and one to three consumer
+// barriers. B3's and B7's rowcol check corrects at nearly every check at
+// reference-like injection; in its earlier single-phase form the body (a
+// correction pass of ~400 shuffles a warp, five consumer barriers) cost
+// 0.4-1.4 ms a launch at 4096, more than its drains, and their splitter
+// sums 0.4-1.0 ms more for B3 (PERF.md, section 5; NVIDIA H100 80GB HBM3,
+// 700 W).
 //
 // What the design does about it: the products and the expected sums run on
 // the tensor cores from the same split stages, each promoted into an f32
@@ -52,8 +58,11 @@
 // they have landed, wherever the bk step ends (also inside a stage). Sums
 // over a sub-tile's columns reduce by warp shuffles (a 16-row sub-tile is
 // one warp's band) and one shared-memory pass over the warps of a band;
-// the counts per sub-tile are shared-memory atomics; B3 skips its
-// correction pass when nothing in the CTA flagged.
+// the counts per sub-tile are shared-memory atomics. B3 and B7 split their
+// check in two (RowcolSplitCheck, RowcolChecker): the consumers post their
+// sums and go on issuing wgmma, a producer warp decides, the corrections
+// come before the next check; their faults go into the accumulator at
+// stage ends with no drain (FragInject::fold).
 //
 // The fused epilogue (bias, relu or gelu, int8 or e4m3 quantize-rescale;
 // the JAX kernels' _apply_epilogue) is the kernel's last step: the store
@@ -71,7 +80,8 @@
 // build with FTSG_ADAPTIVE (threshold "adaptive") derives them at every
 // check from the sub-tile's running sums and sums of squares of A and B,
 // which the consumers add up as they issue each k step, with two more
-// consumer barriers a check.
+// consumer barriers a check (B3 and B7: the consumers post each warp's
+// sums, and the checker derives the thresholds).
 
 #pragma once
 
@@ -101,6 +111,11 @@ FTSG_NAMESPACE_BEGIN
 // place of the product (SHF.R.S32.HI Rs, RZ, 0x1f, Rt; LEA.HI Rs, Rs,
 // Racc), so the hit failed and two accumulator elements per thread never
 // got their faults (ROADMAP, Queue C).
+//
+// B3 and B7 defer their faults (fold): each goes into `acc` after the stage
+// sums before it are promoted, at a stage end or before a check's
+// snapshot, so no fault drains the pipeline; the unsigned hit test is the
+// same. The forms below are the other kernels'.
 //
 // In bf16 the fault restarts the stage sum `part` (the steps before it
 // promoted into `acc`) and the next wgmma accumulates onto it: ptxas then
@@ -189,6 +204,39 @@ struct FragInject {
   template <class M, class F>
   __device__ __forceinline__ void kstep(const M&, const F&, const F&, int,
                                         int) {}
+
+  // The deferred form (B3, B7: RunHook with a kDeferred check): every fault
+  // scheduled before k step `upto` + 1 goes into `acc` (the s32 bits in
+  // int8), in every dtype, after the stage sums that precede it have been
+  // promoted: at a stage end, or before a check's snapshot. No wgmma waits
+  // for it, and the check at or after its k step sees it.
+  __device__ __forceinline__ void fold(WgMainloop<T>& ml, int upto) {
+    while (fault_step() <= upto) {
+      const unsigned cs = col_stride;
+      if constexpr (T::S8) {
+        const uint32_t im = (uint32_t)__float2int_rn(mag);
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) {
+          const unsigned r = ml.row(i), c = ml.col(i);
+          const unsigned o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
+          const bool hit = r % T::SBM == (o * 131 + 7) % T::SBM &&
+                           c % T::SBN == (o * cs + 3) % T::SBN;
+          ml.acc[i] += hit ? im : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) {
+          const unsigned r = ml.row(i), c = ml.col(i);
+          const unsigned o = ord + 3 * (r / T::SBM) + 5 * (c / T::SBN);
+          const bool hit = r % T::SBM == (o * 131 + 7) % T::SBM &&
+                           c % T::SBN == (o * cs + 3) % T::SBN;
+          ml.acc[i] += hit ? mag : 0.f;
+        }
+      }
+      next += period;
+      ++ord;
+    }
+  }
 };
 
 // ------------------------------------------------------ thresholds ----
@@ -415,9 +463,11 @@ struct WeightedSmem {
 template <class T, class TH = SubTileThresholds<T, false, false>>
 struct WeightedCheck {
   static constexpr bool kSegmented = false;  // one or two checks per run
+  static constexpr bool kDeferred = false;
   // E's R rows, or B2's 3 per band (R = 0: no second product).
   static constexpr int ER = T::R > 0 ? T::R : 3 * T::NBM;
   using Smem = WeightedSmem<ER, T::BN, T::NCONS / 32, T::NBM, T::NSUB>;
+  static constexpr int kBytes = check_bytes<Smem, T::NSUB>();
   Smem& cm;
   TH th;
   int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
@@ -426,6 +476,7 @@ struct WeightedCheck {
                                            const NoiseModel& nm, void* scratch)
       : cm(*reinterpret_cast<Smem*>(scratch)),
         th(sc, nm, bound_scratch<Smem>(scratch)) {}
+  __device__ __forceinline__ int det() const { return n_det; }
   __device__ __forceinline__ int unc() const { return n_unc; }
 
   __device__ void check(WgMainloop<T>& ml) {
@@ -527,28 +578,412 @@ struct RowsOf {
 template <int BN>
 struct RowsOf<0, BN> {};
 
-// B3's check scratch, small enough for a four-stage ring with multifault
-// off at the 64- and 128-row tiles; sums and residuals of type V (f32, or
-// the s32 bits of the int8 check).
-template <int NWARPS, int BN, int NBM, int NSUB, int MROWS, bool MF,
-          class V = float>
-struct RowcolSubSmem {
-  union {
-    struct {
-      V e[MROWS][BN];  // expected column sums c_exp, cw_exp: row MOM b + v
-      V sums[MF ? 2 : 1][NWARPS][BN];  // per warp: column sums 1 (, w)
-    } in;  // until the column decisions
-    // then per warp: the correction's column sums d, |d| (, w d, w |d|)
-    V corr[MF ? 4 : 2][NWARPS][BN];
-  };
-  V res_c[NBM][BN];         // per band and column: the residuals
+// B3's and B7's check slot in shared memory (the 128 x 128 CTA, eight
+// consumer warps): what the consumers post at a check, the checker's
+// decisions, and the two mbarriers between them; sums and residuals of
+// type V (f32, or the s32 bits of the int8 check). One slot serves every
+// check: the consumers post check k + 1 only after they have applied check
+// k's corrections, which the checker publishes only after it has read
+// check k's posts.
+template <int NBM, int NBN, bool MF, class V>
+struct RowcolSlot {
+  static constexpr int BM = 128, BN = 128, NW = 8, NSUB = NBM * NBN;
+  static constexpr int MOM = MF ? 2 : 1;
+  uint64_t posted;   // every consumer warp arrives once it has posted
+  uint64_t decided;  // every checker thread arrives once it has decided
+  // Posted by the consumers.
+  V e[MOM * NBM][BN];   // expected column sums c_exp (, cw_exp): row MOM b + v
+  V sums[MOM][NW][BN];  // per warp: its 16 rows' column sums 1 (, w)
+  V res_r[NBN][BM];     // per column band and row: the row residual
+  float mom[NW][4];     // adaptive: per warp, the sums of a, a^2, b, b^2
+  // The checker's decisions.
+  V res_c[NBM][BN];  // per row band and column: the column residual
   RowsOf<MF ? NBM : 0, BN> res_cw;
-  // a flagged column's weighted fault row in the band (MF; else 0), -1
-  // when it lies outside; kUnflagged: the column did not flag
+  float thr[NSUB][2];  // adaptive: the check's thresholds (row/column, w)
+  // Per sub-tile: the sums of its flagged columns' and flagged rows'
+  // residuals (vs), of their magnitudes and the rows' w-weighted ones (fs),
+  // the counts of flagged rows, flagged columns, located columns (MF) and
+  // uncorrectable residuals, the grids' cells, and the one flagged row.
+  V vs[NSUB][2];
+  float fs[NSUB][4];
+  int cnt[4][NSUB];
+  int det[NSUB], unc[NSUB];
+  int rstar[NSUB];      // the highest flagged row in the band (-1: none)
+  unsigned gmask[NBM];  // per row band: its 8-column groups to correct
+  int flag[2];          // the checker's events (RowcolChecker::land)
+  // The flagged columns (row band b, column c as b BN + c) and rows
+  // (column band j, row r as j BM + r) of the check, and their counts;
+  // whether a sub-tile is ambiguous (MF).
+  short clist[NBM * BN];
+  short rlist[NBN * BM];
+  int ncl, nrl, any_amb;
+  // Per row band and column: kUnflagged, -1 (MF: the weighted row falls
+  // outside the band) or the fault row; per column band and row: flagged.
   signed char code[NBM][BN];
-  // per sub-tile: flagged rows, flagged columns, uncorrectable, located
-  // columns (MF)
-  int cnt[MF ? 4 : 3][NSUB];
+  unsigned char rflag[NBN][BM];
+  // Per sub-tile: 0 no correction, 1 the row residuals, 2 the column
+  // residuals (one flagged row, use_col), 3 by the weighted rows (MF,
+  // ambiguous).
+  unsigned char mode[NSUB];
+};
+
+// The rowcol check's second half (_rowcol_detect_correct), on producer
+// warps: the splitter warps (T::SPLITTERS threads, named barrier 3)
+// between their stages, or, at the tiles of at most four sub-tiles where
+// the splitters have work each stage (B3, whose splitter warps sum A's and
+// B's rows, and B7 in f32, whose split B), the first warp (32 threads)
+// between its TMA loads (kOnLoader). For each check the consumers post:
+// the column residuals against E and their flags, the multifault weighted
+// localization, in the adaptive build the thresholds from the posted
+// moment sums and the row flags (the static build's consumers flag their
+// rows), each flag counted per sub-tile by shared-memory atomics and put
+// in a list; then, per flag, use_col and ambiguous, the corrections as
+// decisions per sub-tile (code and res_c per column, the row flags, the
+// mode, and a mask of the 8-column groups they touch), and the re-check as
+// a LEVEL from the residuals less the corrections' row and column sums,
+// formed from the decisions (the same terms the consumers' accumulator
+// pass summed before). Three to six barriers of the checker a check, none
+// of the consumers'. It waits suspended (try_wait) where it has nothing to
+// do: a spinning warp took issue slots from the consumers beside it (B7
+// bf16 at the huge tile 0.97 ms with a checker that decides nothing,
+// against 0.59 with no check at all; PERF.md).
+template <class T, bool MF, class Slot>
+struct RowcolChecker {
+  static constexpr bool kOnLoader = T::SPLIT && T::NSUB <= 4;
+  static constexpr int NCK = kOnLoader ? 32 : T::SPLITTERS;
+  static constexpr int kUnflagged = -2;
+  using V = typename T::Acc;
+  Slot& cm;
+  int k = 0, chk, every8, nk8, it = 0;  // the next check, its k step
+  float thr0, thr1;                     // the static thresholds
+  NoiseModel nm;
+  float margin;
+
+  __device__ __forceinline__ RowcolChecker(const Scalars& sc,
+                                           const NoiseModel& nm_, int bk,
+                                           int K, int check_every,
+                                           void* scratch)
+      : cm(*reinterpret_cast<Slot*>(scratch)),
+        chk(min(check_every * (bk / 8), K / 8) - 1),
+        every8(check_every * (bk / 8)), nk8(K / 8),
+        thr0(sc.s[SLOT_THRESHOLD]), thr1(sc.s[SLOT_THR_M1]), nm(nm_),
+        margin(sc.s[SLOT_MARGIN]) {}
+
+  // Sub-tile sub's detection threshold (v = 0) and the w re-check's (1).
+  __device__ __forceinline__ float thr(int sub, int v) const {
+    if constexpr (kAdaptive)
+      return cm.thr[sub][v];
+    else
+      return v == 0 ? thr0 : thr1;
+  }
+  static __device__ __forceinline__ void sync() {
+    if constexpr (kOnLoader)
+      __syncwarp();
+    else
+      checker_sync<NCK>();
+  }
+
+  // kOnLoader: the first warp's loop, thread e. try_load(st) issues stage
+  // st's loads if its slot is free (the same answer in every lane), park(st)
+  // suspends the warp a while on that slot; the warp issues every load it
+  // can, decides a check once it is posted (issuing loads between its
+  // phases too), and otherwise waits suspended, on the next slot while
+  // loads remain and on the next post after, so that it takes no issue
+  // slots from the consumers.
+  template <class Load, class Park>
+  __device__ __forceinline__ void load(int nst, int e, Load&& try_load,
+                                       Park&& park) {
+    int st = 0;
+    const auto service = [&] {
+      while (st < nst && try_load(st)) ++st;
+    };
+    while (st < nst || chk != INT_MAX) {
+      service();
+      if (chk != INT_MAX &&
+          (st == nst || __shfl_sync(0xffffffffu,
+                                    mbar_test(&cm.posted, k & 1) ? 1 : 0, 0)))
+        decide(e, service);
+      else if (st < nst)
+        park(st);
+    }
+  }
+
+  // Wait until `full`'s phase of `parity` completes (a stage has landed),
+  // deciding every check posted meanwhile. The first splitter warp watches
+  // both barriers, suspended on `full` a while at a time, and tells the
+  // others which completed, so all take the same turns.
+  __device__ __forceinline__ void land(uint64_t* full, int parity, int e) {
+    for (;;) {
+      if (e < 32) {
+        int ev;
+        do {
+          const bool pst = chk != INT_MAX && mbar_test(&cm.posted, k & 1);
+          const bool fl = !pst && mbar_try(full, parity, 1000);
+          ev = __shfl_sync(0xffffffffu, pst ? 2 : fl ? 1 : 0, 0);
+        } while (ev == 0);
+        if (e == 0) cm.flag[it & 1] = ev;
+      }
+      checker_sync<NCK>();
+      const int ev = *reinterpret_cast<volatile int*>(&cm.flag[it & 1]);
+      ++it;
+      if (ev == 1) break;
+      decide(e, [] {});
+    }
+    mbar_wait(full, parity);  // each thread's own acquire of the stage
+  }
+  // After the last stage: every check left, each waited for suspended.
+  __device__ __forceinline__ void drain(int e) {
+    while (chk != INT_MAX) decide(e, [] {});
+  }
+
+  // Check k (after k step chk), once its posts are complete; service()
+  // between its phases (the loader's loads). The flags go into lists, so
+  // that after the residuals every phase costs per flag, not per row and
+  // column.
+  template <class Service>
+  __device__ __forceinline__ void decide(int e, const Service& service) {
+    constexpr int NBM = T::NBM, NBN = T::NBN, NSUB = T::NSUB;
+    constexpr int BM = T::BM, BN = T::BN, SBM = T::SBM, SBN = T::SBN;
+    constexpr int WPB = SBM / 16, MOM = MF ? 2 : 1;
+    mbar_wait(&cm.posted, k & 1);
+    if constexpr (kAdaptive) {  // SubTileThresholds::update's bound
+      constexpr int WA = SBM / 16, WB = SBN / 16;
+      constexpr int TMAX = SBM > SBN ? SBM : SBN;
+      constexpr float W1 = (float)(SBM / const_sqrt(3.0));
+      for (int sub = e; sub < NSUB; sub += NCK) {
+        const int bi = sub / NBN, bj = sub % NBN;
+        float sa1 = 0.f, sa2 = 0.f, sb1 = 0.f, sb2 = 0.f;
+#pragma unroll
+        for (int w = 0; w < WA; ++w) {
+          sa1 += cm.mom[bi * WA + w][0];
+          sa2 += cm.mom[bi * WA + w][1];
+        }
+#pragma unroll
+        for (int w = 0; w < WB; ++w) {
+          sb1 += cm.mom[bj * WB + w][2];
+          sb2 += cm.mom[bj * WB + w][3];
+        }
+        const float tk = (float)((chk + 1) * 8);
+        const float t = variance_bound_threshold(
+            sa1, sa2, sb1, sb2, tk * SBM, tk * SBN, tk * TMAX, nm, margin);
+        cm.thr[sub][0] = t;
+        cm.thr[sub][1] = t * W1;
+      }
+      sync();
+      service();
+    }
+    // Columns: residuals, flags, the weighted row (an unflagged column's
+    // weighted residual is re-checked here: nothing corrects it); then, in
+    // the adaptive build, the row flags.
+    if (e < NBM) cm.gmask[e] = 0u;
+    for (int jb = e; jb < NBM * BN; jb += NCK) {
+      const int bb = jb / BN, c = jb % BN, sub = bb * NBN + c / SBN;
+      V cs = 0;
+      float csw = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < WPB; ++wp) {
+        cs += cm.sums[0][bb * WPB + wp][c];
+        if constexpr (MF) csw += cm.sums[MOM - 1][bb * WPB + wp][c];
+      }
+      const V res = cm.e[MOM * bb][c] - cs;
+      const bool det = mag(res) > thr(sub, 0);
+      int code = det ? 0 : kUnflagged;
+      if constexpr (MF) {  // weighted_localize, in range or -1
+        const float res_w = cm.e[MOM * bb + MOM - 1][c] - csw;
+        cm.res_cw.v[bb][c] = res_w;
+        if (det) {
+          const int lr = __float2int_rn(res_w / res);
+          code = lr < 1 || lr > SBM ? -1 : lr - 1;
+          if (code >= 0) atomicAdd(&cm.cnt[2][sub], 1);
+        } else if (fabsf(res_w) > thr(sub, 1)) {
+          atomicAdd(&cm.cnt[3][sub], 1);
+        }
+      }
+      cm.res_c[bb][c] = res;
+      cm.code[bb][c] = (signed char)code;
+      if (det) {
+        atomicAdd(&cm.cnt[1][sub], 1);
+        cm.clist[atomicAdd(&cm.ncl, 1)] = (short)jb;
+      }
+    }
+    if constexpr (kAdaptive) {  // (the static build's consumers flag rows)
+      for (int jr = e; jr < NBN * BM; jr += NCK) {
+        const int j = jr / BM, r = jr % BM, sub = (r / SBM) * NBN + j;
+        const bool det = mag(cm.res_r[j][r]) > thr(sub, 0);
+        cm.rflag[j][r] = det;
+        if (det) {
+          atomicAdd(&cm.cnt[0][sub], 1);
+          atomicMax(&cm.rstar[sub], r % SBM);
+          cm.rlist[atomicAdd(&cm.nrl, 1)] = (short)jr;
+        }
+      }
+    }
+    sync();
+    service();
+    // Per sub-tile: the mode, the detections, and the sums the re-check
+    // subtracts: the flagged rows' residuals (one row: its own; several,
+    // in order) and, with one flagged row, the flagged columns' (in order).
+    for (int sub = e; sub < NSUB; sub += NCK) {
+      const int bb = sub / NBN, j = sub % NBN;
+      const int nr = cm.cnt[0][sub], nc = cm.cnt[1][sub];
+      const bool use_col = nr == 1 && nc > 1;
+      const bool amb = MF && nr > 1 && nc > 1;
+      const int m = amb ? 3 : nr > 0 && nc > 0 ? (use_col ? 2 : 1) : 0;
+      V sc = 0, sr = 0;
+      float sac = 0.f, sar = 0.f, swr = 0.f, swar = 0.f;
+      if (m == 1) {
+        const int lo = nr == 1 ? cm.rstar[sub] : 0;
+        const int hi = nr == 1 ? lo + 1 : SBM;
+        for (int x = lo; x < hi; ++x) {
+          if (!cm.rflag[j][bb * SBM + x]) continue;
+          const V rv = cm.res_r[j][bb * SBM + x];
+          sr += rv;
+          if constexpr (!T::S8) {
+            const float w = (float)(x + 1);
+            sar += fabsf(rv);
+            swr += w * rv;
+            swar += w * fabsf(rv);
+          }
+        }
+      } else if (m == 2) {
+        for (int x = 0; x < SBN; ++x) {
+          if (cm.code[bb][j * SBN + x] == kUnflagged) continue;
+          const V rc = cm.res_c[bb][j * SBN + x];
+          sc += rc;
+          if constexpr (!T::S8) sac += fabsf(rc);
+        }
+      }
+      if (amb) cm.any_amb = 1;
+      cm.mode[sub] = (unsigned char)m;
+      cm.vs[sub][0] = sc;
+      cm.vs[sub][1] = sr;
+      cm.fs[sub][0] = sac;
+      cm.fs[sub][1] = sar;
+      cm.fs[sub][2] = swr;
+      cm.fs[sub][3] = swar;
+      cm.det[sub] += amb ? cm.cnt[2][sub] : nr * nc;
+    }
+    sync();
+    service();
+    const int ncl = cm.ncl, nrl = cm.nrl;
+    // MF, an ambiguous sub-tile: the corrections' row sums by row, in the
+    // column sums' place (read by now).
+    float(*ars)[BM] = reinterpret_cast<float(*)[BM]>(&cm.sums[0][0][0]);
+    bool any_amb = false;
+    if constexpr (MF) {
+      static_assert(2 * NBN * BM <= MOM * Slot::NW * BN, "room for them");
+      any_amb = cm.any_amb != 0;
+      if (any_amb) {
+        for (int i = e; i < 2 * NBN * BM; i += NCK) (&ars[0][0])[i] = 0.f;
+        sync();
+        for (int i = e; i < ncl; i += NCK) {
+          const int jb = cm.clist[i], bb = jb / BN, c = jb % BN, j = c / SBN;
+          const int code = cm.code[bb][c];
+          if (cm.mode[bb * NBN + j] == 3 && code >= 0) {
+            const float rc = cm.res_c[bb][c];
+            atomicAdd(&ars[j][bb * SBM + code], rc);
+            atomicAdd(&ars[NBN + j][bb * SBM + code], fabsf(rc));
+          }
+        }
+        sync();
+        service();
+      }
+    }
+    // The re-check: each flagged column's residual less its corrections'
+    // sum (and w-weighted, MF), with the pads; the 8-column groups the
+    // consumers correct ...
+    for (int i = e; i < ncl; i += NCK) {
+      const int jb = cm.clist[i], bb = jb / BN, c = jb % BN;
+      const int sub = bb * NBN + c / SBN, m = cm.mode[sub];
+      const int code = cm.code[bb][c];
+      const V rc = cm.res_c[bb][c];
+      V s0 = 0;
+      float s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      if (m == 3 ? code >= 0 : m != 0) {
+        atomicOr(&cm.gmask[bb], 1u << (c / 8));
+        if (m == 1) {  // every flagged row's residual
+          s0 = cm.vs[sub][1];
+          s1 = cm.fs[sub][1];
+          s2 = cm.fs[sub][2];
+          s3 = cm.fs[sub][3];
+        } else {  // res_c, at row `code` (3) or the one flagged row (2)
+          s0 = rc;
+          if constexpr (!T::S8) {
+            const float w = (float)((m == 3 ? code : cm.rstar[sub]) + 1);
+            s1 = fabsf(rc);
+            s2 = w * rc;
+            s3 = w * fabsf(rc);
+          }
+        }
+      }
+      bool bad_c;
+      if constexpr (T::S8)
+        bad_c = mag(rc - s0) > thr(sub, 0);
+      else
+        bad_c = fabsf(rc - s0) > thr(sub, 0) + EPS8 * s1;
+      if (bad_c) atomicAdd(&cm.cnt[3][sub], 1);
+      if constexpr (MF) {
+        if (!bad_c &&
+            fabsf(cm.res_cw.v[bb][c] - s2) > thr(sub, 1) + EPS8 * s3)
+          atomicAdd(&cm.cnt[3][sub], 1);
+      }
+    }
+    // ... and each flagged row's, with the pads (the other rows of a
+    // sub-tile that is not ambiguous take no correction, and their
+    // residuals are under the threshold) ...
+    const auto recheck_row = [&](int j, int r) {
+      const int sub = (r / SBM) * NBN + j, m = cm.mode[sub];
+      const V x = cm.res_r[j][r];
+      V ds = 0;
+      float ads = 0.f;
+      if (m == 3) {
+        if constexpr (MF) {
+          ds = ars[j][r];
+          ads = ars[NBN + j][r];
+        }
+      } else if (m == 2) {
+        ds = cm.vs[sub][0];
+        ads = cm.fs[sub][0];
+      } else if (m == 1) {
+        const int nc = cm.cnt[1][sub];
+        ds = V(nc) * x;
+        if constexpr (!T::S8) ads = (float)nc * fabsf(x);
+      }
+      bool bad;
+      if constexpr (T::S8)
+        bad = mag(x - ds) > thr(sub, 0);
+      else
+        bad = fabsf(x - ds) > thr(sub, 0) + EPS8 * ads;
+      if (bad) atomicAdd(&cm.cnt[3][sub], 1);
+    };
+    for (int i = e; i < nrl; i += NCK) {
+      const int jr = cm.rlist[i];
+      recheck_row(jr / BM, jr % BM);
+    }
+    // ... and, MF, every unflagged row of an ambiguous sub-tile (a located
+    // fault may land on it).
+    if constexpr (MF) {
+      if (any_amb) {
+        for (int jr = e; jr < NBN * BM; jr += NCK) {
+          const int j = jr / BM, r = jr % BM;
+          if (cm.mode[(r / SBM) * NBN + j] == 3 && !cm.rflag[j][r])
+            recheck_row(j, r);
+        }
+      }
+    }
+    sync();
+    for (int sub = e; sub < NSUB; sub += NCK) {
+      cm.unc[sub] = cm.cnt[3][sub];  // LEVEL: the state after this check
+#pragma unroll
+      for (int v = 0; v < 4; ++v) cm.cnt[v][sub] = 0;
+      cm.rstar[sub] = -1;
+    }
+    if (e == 0) cm.ncl = cm.nrl = cm.any_amb = 0;
+    chk = chk == nk8 - 1 ? INT_MAX : min(chk + every8, nk8 - 1);
+    ++k;
+    mbar_arrive(&cm.decided);
+    service();
+  }
 };
 
 // One round of a reduce-scatter over lanes OFF apart: the lane with bit OFF
@@ -569,69 +1004,118 @@ __device__ __forceinline__ void scatter_round(V (&p)[NV][NQ][2], int l) {
       }
 }
 
-// B3's and B7's check (_rowcol_detect_correct) of every sub-tile, on consumer
-// threads only. The expected row sums of a thread's two rows are the
-// product's extra columns, band j at column BN + j in the lane of the quad
-// with lane % 4 == j / 2: the row sums over each band come from the thread's
-// own columns and two quad shuffles, and every lane of the quad forms all
-// its rows' residuals. The column sums of a warp's 16 rows are
-// reduce-scattered over the 8 lanes of a column (28 shuffles for 32
-// columns), then one shared-memory pass over the band's warps meets E.
-// Flags are counted per sub-tile by shared-memory atomics; a popcount
-// barrier skips the correction when nothing in the CTA flagged (the clean
-// path: three barriers). Otherwise every thread corrects its elements from
-// its sub-tiles' counts (use_col, ambiguous), and the re-check subtracts
-// the correction's row sums (quad shuffles) and column sums (shuffles, one
-// shared-memory pass; a warp with no correction in a column group skips
-// them) from the residuals, with the EPS8 pads: five barriers. (A cheaper
-// re-check for sub-tiles with one flagged row and column, behind one more
-// popcount barrier, was slower: PERF.md.)
+// B3's and B7's check (_rowcol_detect_correct), split in two phases: the
+// consumers' half. At a check (post, after the drain that lands the
+// product through its k step and the faults up to it) each consumer
+// thread posts its part of the residuals into the slot and goes back to
+// issuing wgmma: E's fragment; its rows' residuals per column band (the
+// row sums over its own columns and two quad shuffles, written by the
+// lane that holds the band's expected sums, the product's extra columns);
+// its warp's column sums (and w-weighted, multifault), reduce-scattered
+// over the 8 lanes of a column (28 shuffles for 32 columns); in the
+// adaptive build its warp's moment sums, in the static build its rows'
+// flags (into the checker's counts and list of flagged rows). Its warp
+// arrives on the slot's posted mbarrier (the first lane, after a warp
+// sync); no consumer barrier. The checker (RowcolChecker) decides while
+// the consumers issue the next stages; each thread applies the corrections
+// that fall on its elements (apply: the 8-column groups the checker marked
+// for its row band) just before the next check's post (after that check's
+// drain, when `acc` holds the product and faults through its k step) or
+// before the store, waiting on the decided mbarrier only there: the whole
+// check interval hides the checker. (Applied at the second stage end after
+// the check, the consumers waited for the checker: B7 bf16 at the huge
+// tile took 1.33 ms, the single-phase check 1.35; PERF.md.)
 //
 // int8 (T::S8, the exact check of _rowcol_detect_correct(exact=True),
 // ops/ft_sgemm.py:458, 469-472): every sum, residual and correction is s32
 // and wraps; a residual flags when mag(res) exceeds the threshold; the
 // correction is an integer add and the re-check compares the residuals
 // after it with no pads. Multifault is not built for int8.
-template <class T, bool MF, class TH = SubTileThresholds<T, false, false>>
-struct RowcolCheck {
+template <class T, bool MF, class Slot, class TH>
+struct RowcolSplitCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
+  static constexpr bool kDeferred = true;
+  static constexpr int kBytes = (int)sizeof(Slot);
   static constexpr int MOM = MF ? 2 : 1, NV = MF ? 2 : 1;
-  // The correction's column sums a warp shares: d and |d| (the pads; and w
-  // d, w |d| with multifault), d alone in int8.
-  static constexpr int NP = T::S8 ? 1 : 2 * NV;
-  static constexpr int kUnflagged = -2;  // code of a column that did not flag
+  static constexpr int kUnflagged = -2;
   static_assert(!T::S8 || !MF, "int8 localizes nothing by the weighted ratio");
+  static_assert(T::BM == Slot::BM && T::BN == Slot::BN &&
+                    T::NCONS == 32 * Slot::NW && T::NSUB == Slot::NSUB,
+                "the slot's CTA");
   using V = typename T::Acc;
-  using Smem = RowcolSubSmem<T::NCONS / 32, T::BN, T::NBM, T::NSUB,
-                             MOM * T::NBM, MF, V>;
-  Smem& cm;
+  using Checker = RowcolChecker<T, MF, Slot>;
+  Slot& cm;
   TH th;
-  int n_det = 0, n_unc = 0;  // sub-tile threadIdx.x (< NSUB)
+  int posted = 0;        // checks posted
+  bool pending = false;  // the last one's corrections are not in acc yet
 
-  __device__ __forceinline__ RowcolCheck(const Scalars& sc,
-                                         const NoiseModel& nm, void* scratch)
-      : cm(*reinterpret_cast<Smem*>(scratch)),
-        th(sc, nm, bound_scratch<Smem>(scratch)) {
-    // Ordered before the first check's use by its first barrier.
-    if (threadIdx.x < (MF ? 4 : 3) * T::NSUB) (&cm.cnt[0][0])[threadIdx.x] = 0;
+  __device__ __forceinline__ RowcolSplitCheck(const Scalars& sc,
+                                              const NoiseModel& nm,
+                                              void* scratch)
+      : cm(*reinterpret_cast<Slot*>(scratch)), th(sc, nm, scratch) {}
+
+  // Thread 0, before the CTA's first barrier: the mbarriers and counts.
+  static __device__ __forceinline__ void init_shared(void* scratch) {
+    Slot& m = *reinterpret_cast<Slot*>(scratch);
+    mbar_init(&m.posted, T::NCONS / 32);
+    mbar_init(&m.decided, Checker::NCK);
+    for (int i = 0; i < T::NSUB; ++i) {
+      m.det[i] = m.unc[i] = 0;
+      m.rstar[i] = -1;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) m.cnt[v][i] = 0;
+    }
+    m.ncl = m.nrl = m.any_amb = 0;
   }
-  __device__ __forceinline__ int unc() const { return n_unc; }
+  // Sub-tile threadIdx.x's cells (< NSUB), after finish().
+  __device__ __forceinline__ int det() const { return cm.det[threadIdx.x]; }
+  __device__ __forceinline__ int unc() const { return cm.unc[threadIdx.x]; }
 
-  __device__ void check(WgMainloop<T>& ml) {
-    constexpr int NQ = T::BN / 8, WPB = T::SBM / 16, NBN = T::NBN;
-    constexpr int GPB = T::SBN / 8;  // 8-column groups per column band
+  // The latest check's corrections on this thread's elements, once
+  // decided: in the marked 8-column groups of its row band (a warp-uniform
+  // branch each), res_c or res_r where a flagged row meets a flagged
+  // column, res_c at a located row in an ambiguous sub-tile.
+  __device__ __forceinline__ void apply(WgMainloop<T>& ml) {
+    constexpr int NQ = T::BN / 8;
+    mbar_wait(&cm.decided, (posted - 1) & 1);
+    pending = false;
+    const int r0 = ml.row(0), r1 = ml.row(2), b = r0 / T::SBM;
+    const unsigned gm = cm.gmask[b];
+    if (gm == 0u) return;
+#pragma unroll
+    for (int g8 = 0; g8 < NQ; ++g8) {
+      if (!((gm >> g8) & 1u)) continue;
+      const int j = 8 * g8 / T::SBN, m = cm.mode[b * T::NBN + j];
+      const int c = ml.col(4 * g8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r1 : r0, rr = r % T::SBM;
+        const bool rf = cm.rflag[j][r] != 0;
+        const V rv = cm.res_r[j][r];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int code = cm.code[b][c + cc];
+          const V rc = cm.res_c[b][c + cc];
+          const V d = m == 3 ? (code == rr ? rc : V(0))
+                             : (rf && code != kUnflagged ? (m == 2 ? rc : rv)
+                                                         : V(0));
+          ml.acc[4 * g8 + 2 * h + cc] += d;
+        }
+      }
+    }
+  }
+
+  // The check after k step `chk`: the previous check's corrections first
+  // (waiting for them if still pending), then this thread's posts.
+  __device__ __forceinline__ void post(WgMainloop<T>& ml, int chk) {
+    constexpr int NQ = T::BN / 8, NBN = T::NBN, GPB = T::SBN / 8;
     constexpr unsigned FULL = 0xffffffffu;
-    const int t = threadIdx.x, warp = t / 32, l = ml.l, q = l & 3;
-    const int b = ml.row(0) / T::SBM;  // the row band of both rows
-    const float w0 = (float)(ml.row(0) % T::SBM + 1);
-    const float w1 = (float)(ml.row(2) % T::SBM + 1);
-    consumer_sync<T::NCONS>();  // the last check's readers are done
+    if (pending) apply(ml);
+    __syncwarp();  // the warp's readers of the last decisions are done
+    const int warp = threadIdx.x / 32, l = ml.l, q = l & 3;
 #pragma unroll
     for (int i = 0; i < WgMainloop<T>::NEC; ++i)
-      if (ml.col(i) < MOM * T::NBM) cm.in.e[ml.col(i)][ml.row(i)] = ml.ecol(i);
-    // Row residuals per column band (bit 2 j + h of det_r: row h flagged).
-    V res_r[2][NBN];
-    unsigned det_r = 0u;
+      if (ml.col(i) < MOM * T::NBM) cm.e[ml.col(i)][ml.row(i)] = ml.ecol(i);
 #pragma unroll
     for (int j = 0; j < NBN; ++j) {
 #pragma unroll
@@ -640,20 +1124,30 @@ struct RowcolCheck {
 #pragma unroll
         for (int gg = 0; gg < GPB; ++gg)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) rs += ml.acc[4 * (j * GPB + gg) + 2 * h + c];
+          for (int c = 0; c < 2; ++c)
+            rs += ml.acc[4 * (j * GPB + gg) + 2 * h + c];
         rs += __shfl_xor_sync(FULL, rs, 1);
         rs += __shfl_xor_sync(FULL, rs, 2);
-        const V r_exp =
-            __shfl_sync(FULL, ml.xcol(2 * h + (j & 1)), (l & ~3) | (j >> 1));
-        res_r[h][j] = r_exp - rs;
-        if (mag(res_r[h][j]) > th.get(b * NBN + j, 0)) {
-          det_r |= 1u << (2 * j + h);
-          if (q == j >> 1) atomicAdd(&cm.cnt[0][b * NBN + j], 1);
+        if (q == j >> 1) {
+          const int r = ml.row(2 * h);
+          const V res = ml.xcol(2 * h + (j & 1)) - rs;
+          cm.res_r[j][r] = res;
+          if constexpr (!kAdaptive) {  // the static threshold's row flag
+            const bool det = mag(res) > th.get(0, 0);
+            cm.rflag[j][r] = det;
+            if (det) {
+              const int sub = (r / T::SBM) * NBN + j;
+              atomicAdd(&cm.cnt[0][sub], 1);
+              atomicMax(&cm.rstar[sub], r % T::SBM);
+              cm.rlist[atomicAdd(&cm.nrl, 1)] = (short)(j * T::BM + r);
+            }
+          }
         }
       }
     }
-    // Column sums (and w-weighted) of this warp's 16 rows.
     {
+      const float w0 = (float)(ml.row(0) % T::SBM + 1);
+      const float w1 = (float)(ml.row(2) % T::SBM + 1);
       V p[NV][NQ][2];
 #pragma unroll
       for (int g8 = 0; g8 < NQ; ++g8)
@@ -661,7 +1155,7 @@ struct RowcolCheck {
         for (int c = 0; c < 2; ++c) {
           const V x0 = ml.acc[4 * g8 + c], x1 = ml.acc[4 * g8 + 2 + c];
           p[0][g8][c] = x0 + x1;
-          if constexpr (MF) p[1][g8][c] = w0 * x0 + w1 * x1;
+          if constexpr (MF) p[NV - 1][g8][c] = w0 * x0 + w1 * x1;
         }
       static_assert(NQ == 16, "three rounds leave two groups a lane");
       scatter_round<16, 8>(p, l);
@@ -674,162 +1168,27 @@ struct RowcolCheck {
         for (int c = 0; c < 2; ++c)
 #pragma unroll
           for (int v = 0; v < NV; ++v)
-            cm.in.sums[v][warp][8 * (g0 + i) + 2 * q + c] = p[v][i][c];
+            cm.sums[v][warp][8 * (g0 + i) + 2 * q + c] = p[v][i][c];
     }
-    consumer_sync<T::NCONS>();
-    // One thread per (band, column): residuals, flags, the weighted row.
-    bool flag = det_r != 0u;
-    for (int jb = t; jb < T::NBM * T::BN; jb += T::NCONS) {
-      const int bb = jb / T::BN, c = jb % T::BN, sub = bb * NBN + c / T::SBN;
-      V cs = 0, csw = 0;
+    if constexpr (kAdaptive) {  // the warp's moment sums
+      float v[4] = {th.st[0], th.st[1], th.st[2], th.st[3]};
 #pragma unroll
-      for (int wp = 0; wp < WPB; ++wp) {
-        cs += cm.in.sums[0][bb * WPB + wp][c];
-        if constexpr (MF) csw += cm.in.sums[1][bb * WPB + wp][c];
-      }
-      const V res = cm.in.e[MOM * bb][c] - cs;
-      const bool det = mag(res) > th.get(sub, 0);
-      int code = det ? 0 : kUnflagged;
-      if constexpr (MF) {
-        const float res_w = cm.in.e[MOM * bb + 1][c] - csw;
-        cm.res_cw.v[bb][c] = res_w;
-        flag |= fabsf(res_w) > th.get(sub, 1);
-        if (det) {  // weighted_localize, in range or -1
-          const int lr = __float2int_rn(res_w / res);
-          code = lr < 1 || lr > T::SBM ? -1 : lr - 1;
-          if (code >= 0) atomicAdd(&cm.cnt[3][sub], 1);
-        }
-      }
-      cm.res_c[bb][c] = res;
-      cm.code[bb][c] = (signed char)code;
-      if (det) {
-        atomicAdd(&cm.cnt[1][sub], 1);
-        flag = true;
+      for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(FULL, v[i], off);
+      if (l == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cm.mom[warp][i] = v[i];
       }
     }
-    if (consumer_count<T::NCONS>(flag) == 0) {
-      if (t < T::NSUB) n_unc = 0;  // nothing flagged, nothing to correct
-      return;
-    }
-    // The correction, band by band, and its row and column sums.
-#pragma unroll
-    for (int j = 0; j < NBN; ++j) {
-      const int sub = b * NBN + j;
-      const int nr = cm.cnt[0][sub], nc = cm.cnt[1][sub];
-      const bool use_col = nr == 1 && nc > 1;
-      const bool amb = MF && nr > 1 && nc > 1;
-      V ds[2] = {0, 0};
-      float ads[2] = {0.f, 0.f};
-      bool any_r = false;
-#pragma unroll
-      for (int gg = 0; gg < GPB; ++gg) {
-        const int g8 = j * GPB + gg;
-        V d[2][2];
-        bool any = false;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = ml.col(4 * g8 + c), code = cm.code[b][col];
-          const V rc = code != kUnflagged ? cm.res_c[b][col] : V(0);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = ml.row(2 * h) % T::SBM;
-            const bool dr = (det_r >> (2 * j + h)) & 1u;
-            const V dd =
-                amb ? (code == r ? rc : V(0))
-                    : (dr && code != kUnflagged ? (use_col ? rc : res_r[h][j])
-                                                : V(0));
-            d[h][c] = dd;
-            ml.acc[4 * g8 + 2 * h + c] += dd;
-            ds[h] += dd;
-            if constexpr (!T::S8) ads[h] += fabsf(dd);
-            any |= dd != V(0);
-          }
-        }
-        any_r |= any;
-        V p[NP][2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          p[0][c] = d[0][c] + d[1][c];
-          if constexpr (!T::S8) {
-            p[1][c] = fabsf(d[0][c]) + fabsf(d[1][c]);
-            if constexpr (MF) {
-              p[2][c] = w0 * d[0][c] + w1 * d[1][c];
-              p[3][c] = w0 * fabsf(d[0][c]) + w1 * fabsf(d[1][c]);
-            }
-          }
-        }
-        if (__any_sync(FULL, any)) {
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1)
-#pragma unroll
-            for (int c = 0; c < 2; ++c)
-#pragma unroll
-              for (int v = 0; v < NP; ++v)
-                p[v][c] += __shfl_xor_sync(FULL, p[v][c], off);
-        }
-        if (l < 4) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-#pragma unroll
-            for (int v = 0; v < NP; ++v)
-              cm.corr[v][warp][ml.col(4 * g8 + c)] = p[v][c];
-        }
-      }
-      if (__any_sync(FULL, any_r)) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int off = 1; off < 4; off <<= 1) {
-            ds[h] += __shfl_xor_sync(FULL, ds[h], off);
-            if constexpr (!T::S8)
-              ads[h] += __shfl_xor_sync(FULL, ads[h], off);
-          }
-      }
-      if (q == j >> 1) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if constexpr (T::S8) {
-            if (mag(res_r[h][j] - ds[h]) > th.get(sub, 0))
-              atomicAdd(&cm.cnt[2][sub], 1);
-          } else {
-            if (fabsf(res_r[h][j] - ds[h]) > th.get(sub, 0) + EPS8 * ads[h])
-              atomicAdd(&cm.cnt[2][sub], 1);
-          }
-        }
-      }
-    }
-    consumer_sync<T::NCONS>();
-    // The column re-check: the residuals after the correction.
-    for (int jb = t; jb < T::NBM * T::BN; jb += T::NCONS) {
-      const int bb = jb / T::BN, c = jb % T::BN, sub = bb * NBN + c / T::SBN;
-      V s[NP];
-#pragma unroll
-      for (int v = 0; v < NP; ++v) s[v] = 0;
-#pragma unroll
-      for (int wp = 0; wp < WPB; ++wp)
-#pragma unroll
-        for (int v = 0; v < NP; ++v) s[v] += cm.corr[v][bb * WPB + wp][c];
-      bool bad_c;
-      if constexpr (T::S8) {
-        bad_c = mag(cm.res_c[bb][c] - s[0]) > th.get(sub, 0);
-      } else {
-        bad_c = fabsf(cm.res_c[bb][c] - s[0]) > th.get(sub, 0) + EPS8 * s[1];
-      }
-      if (bad_c) atomicAdd(&cm.cnt[2][sub], 1);
-      if constexpr (MF) {
-        if (!bad_c &&
-            fabsf(cm.res_cw.v[bb][c] - s[2]) > th.get(sub, 1) + EPS8 * s[3])
-          atomicAdd(&cm.cnt[2][sub], 1);
-      }
-    }
-    consumer_sync<T::NCONS>();
-    if (t < T::NSUB) {
-      const int nr = cm.cnt[0][t], nc = cm.cnt[1][t];
-      n_det += MF && nr > 1 && nc > 1 ? cm.cnt[MF ? 3 : 0][t] : nr * nc;
-      n_unc = cm.cnt[2][t];  // LEVEL: the state after the latest check
-#pragma unroll
-      for (int v = 0; v < (MF ? 4 : 3); ++v) cm.cnt[v][t] = 0;
-    }
+    __syncwarp();  // the warp's posts, before its first lane's arrival
+    if (l == 0) mbar_arrive(&cm.posted);
+    ++posted;
+    pending = true;
+  }
+
+  __device__ __forceinline__ void finish(WgMainloop<T>& ml) {
+    if (pending) apply(ml);
   }
 };
 
@@ -840,13 +1199,11 @@ template <bool MF, int BANDS, int ROWS, int IN = kF32>
 struct RowcolOf {
   template <int SBM, int SBN>
   struct At {
-    static constexpr int NBM = 128 / SBM, NSUB = NBM * (128 / SBN);
-    using Smem = RowcolSubSmem<8, 128, NBM, NSUB, (MF ? 2 : 1) * NBM, MF,
-                               AccOf<IN>>;
-    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1,
-                        check_bytes<Smem, NSUB>(), BANDS, ROWS, IN>;
-    using Check =
-        RowcolCheck<type, MF, SubTileThresholds<type, kAdaptive, false>>;
+    using Slot = RowcolSlot<128 / SBM, 128 / SBN, MF, AccOf<IN>>;
+    using type = WgTile<128, 128, SBM, SBN, MF ? 2 : 1, (int)sizeof(Slot),
+                        BANDS, ROWS, IN>;
+    using Check = RowcolSplitCheck<type, MF, Slot,
+                                   SubTileThresholds<type, kAdaptive, false>>;
   };
 };
 
@@ -870,8 +1227,10 @@ struct GlobalSubSmem {
 template <class T, class TH = SubTileThresholds<T, false, true>>
 struct GlobalCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
+  static constexpr bool kDeferred = false;
   using V = typename T::Acc;
   using Smem = GlobalSubSmem<T::NCONS / 32, T::NBN, V>;
+  static constexpr int kBytes = check_bytes<Smem, T::NSUB>();
   Smem& cm;
   TH th;
   V prev = 0;
@@ -881,6 +1240,7 @@ struct GlobalCheck {
                                          const NoiseModel& nm, void* scratch)
       : cm(*reinterpret_cast<Smem*>(scratch)),
         th(sc, nm, bound_scratch<Smem>(scratch)) {}
+  __device__ __forceinline__ int det() const { return n_det; }
   __device__ __forceinline__ int unc() const { return n_det; }
 
   __device__ void check(WgMainloop<T>& ml) {
@@ -937,12 +1297,16 @@ struct GlobalOf {
 // Fault injection and the checks of a sub-tiled kernel: a check (the
 // policy `Check`) after the last k step of every check_every-th bk step and
 // of the last. The check's cadence decides how the mainloop issues a stage
-// with a check or fault in it (kSegmented, WgMainloop::mma_stage).
+// with a check or fault in it (kSegmented, WgMainloop::mma_stage). A check
+// that defers (kDeferred: B3's and B7's RowcolSplitCheck) takes the faults
+// off the mainloop: they go into `acc` at stage ends and before checks
+// (FragInject::fold), so only the checks cut a stage, and the check posts
+// and returns (the corrections come at a later stage end).
 template <class T, class Check>
 struct RunHook {
   static constexpr bool kSegmented = Check::kSegmented;
-  static_assert(check_bytes<typename Check::Smem, T::NSUB>() <= T::CHECK_BYTES,
-                "the check fits its scratch");
+  static constexpr bool kDeferred = Check::kDeferred;
+  static_assert(Check::kBytes <= T::CHECK_BYTES, "the check fits its scratch");
   FragInject<T> inj;
   Check ck;
   int chk, every8, nk8;
@@ -954,12 +1318,16 @@ struct RunHook {
         chk(min(check_every * (bk / 8), K / 8) - 1),
         every8(check_every * (bk / 8)), nk8(K / 8) {}
 
-  __device__ __forceinline__ bool at(int t) const { return inj.at(t); }
+  __device__ __forceinline__ bool at(int t) const {
+    return !kDeferred && inj.at(t);
+  }
   __device__ __forceinline__ bool within(int st) const {
-    return inj.within(st) || chk < (st + 1) * T::KK;
+    return (!kDeferred && inj.within(st)) || chk < (st + 1) * T::KK;
   }
   __device__ __forceinline__ bool check_after(int t) const { return t == chk; }
-  __device__ __forceinline__ int fault_step() const { return inj.fault_step(); }
+  __device__ __forceinline__ int fault_step() const {
+    return kDeferred ? INT_MAX : inj.fault_step();
+  }
   __device__ __forceinline__ int check_step() const { return chk; }
   __device__ __forceinline__ void apply(WgMainloop<T>& ml, int t) {
     inj.apply(ml, t);
@@ -970,14 +1338,29 @@ struct RunHook {
     ck.th.kstep(ml, ah, al, kk, s);
   }
   __device__ __forceinline__ void check(WgMainloop<T>& ml) {
-    ck.th.update(ml, chk);
-    ck.check(ml);
+    if constexpr (kDeferred) {
+      inj.fold(ml, chk);
+      ck.post(ml, chk);
+    } else {
+      ck.th.update(ml, chk);
+      ck.check(ml);
+    }
     chk = chk == nk8 - 1 ? INT_MAX : min(chk + every8, nk8 - 1);
+  }
+  // kDeferred: stage st's sums are in `acc` (WgMainloop::step).
+  __device__ __forceinline__ void stage_end(WgMainloop<T>& ml, int st) {
+    inj.fold(ml, (st + 1) * T::KK - 1);
+  }
+  // After the K loop: the last check's corrections.
+  __device__ __forceinline__ void finish(WgMainloop<T>& ml) {
+    if constexpr (kDeferred) ck.finish(ml);
   }
 };
 
 // B5's producer sums its moment rows (WgSmem::sum_rows) and is faster with
-// more registers than the others' (PERF.md, findings).
+// more registers than the others' (PERF.md, findings). (The consumers get
+// only what the producer frees of the launch's 168 a thread: at 48 they
+// would keep 224.)
 template <class T>
 struct RunRegs {
   static constexpr int PRODUCER = T::ROWS == kSumRows ? 56 : 40;
@@ -1000,21 +1383,30 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   const int m0 = v.tile_m() * T::BM, n0 = v.tile_n() * T::BN;
   const int ti0 = v.tile_m() * T::NBM, tj0 = v.tile_n() * T::NBN;
   const int nst = (K + T::SK - 1) / T::SK;
+  if constexpr (Check::kDeferred) {
+    if (threadIdx.x == 0) Check::init_shared(sm.check());
+  }
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
     setmaxnreg_dec<RunRegs<T>::PRODUCER>();
-    sm.produce(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0);
+    if constexpr (Check::kDeferred) {  // its splitter warps check too
+      typename Check::Checker ck(sc, nm, bk, K, check_every, sm.check());
+      sm.produce_checked(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0, ck);
+    } else {
+      sm.produce(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0);
+    }
     return;
   }
   setmaxnreg_inc<RunRegs<T>::CONSUMER>();
   WgMainloop<T> ml(sm);
   RunHook<T, Check> hook(sc, nm, bk, K, check_every, ti0, tj0, sm.check());
   ml.run(nst, hook);
+  hook.finish(ml);
   const auto grids = [&] {
     const int t = threadIdx.x, gn = N / T::SBN;
     const int ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
     if (t < T::NSUB && ti < M / T::SBM && tj < gn) {
-      det[ti * gn + tj] = hook.ck.n_det;
+      det[ti * gn + tj] = hook.ck.det();
       unc[ti * gn + tj] = hook.ck.unc();
     }
   };

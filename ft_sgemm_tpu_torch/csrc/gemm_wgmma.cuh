@@ -360,6 +360,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// Whether the barrier's phase of parity `parity` has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait up to about `ns` nanoseconds, suspended (no instructions issued),
+// for the barrier's phase of parity `parity`; whether it completed.
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity, int ns) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity), "r"(ns)
+      : "memory");
+  return done != 0;
+}
+
 // TMA: the (rows, SK) box at (k0, row0) of `map` into `dst`, completing on
 // `bar` with the box's bytes.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -418,6 +446,13 @@ __device__ __forceinline__ int consumer_count(bool pred) {
       : "r"((int)pred), "n"(NT)
       : "memory");
   return n;
+}
+
+// Named barrier 3 over the producer's NT splitter threads when they
+// check (the rowcol kernels' checker warps).
+template <int NT>
+__device__ __forceinline__ void checker_sync() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(NT) : "memory");
 }
 
 // Move registers between warpgroups (every warp of the group runs it).
@@ -1686,7 +1721,126 @@ struct WgSmem {
       }
     }
   }
+
+  // produce() for B3 and B7, whose checks the producer decides (`ck`, a
+  // RowcolChecker): the splitter warps while they wait for a stage to land
+  // and after the last stage, or (CK::kOnLoader) the first warp between its
+  // loads. The other kernels keep produce(), so that their code stays as
+  // it was (with a form shared with this one, B2 bf16 at the tall tile ran
+  // 4.9 % slower; PERF.md).
+  template <class CK>
+  __device__ __forceinline__ void produce_checked(
+      const CUtensorMap* ta, const CUtensorMap* tb, int m0, int n0, int nst,
+      const CUtensorMap* tm, int ti0, const CUtensorMap* tbb, int tj0,
+      CK& ck) const {
+    const int p = threadIdx.x - T::NCONS;
+    // The TMA loads of stage st, by the first thread, once its slot is free.
+    const auto issue = [&](int st) {
+      const int s = st % T::STAGES;
+      mbar_expect_tx(full(s), T::TX_BYTES);
+      tma_load(a(s), ta, full(s), st * T::SK, m0);
+      tma_load(b(s), tb, full(s), st * T::SK, n0);
+      if constexpr (T::BANDS == kLoadBands && T::BF16) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t)  // (groups, 3, K): term t of the bands
+          tma_load3(bw(s) + (T::BN + 8 * t) * 32, tbb, full(s), st * T::SK,
+                    t, tj0);
+      } else if constexpr (T::BANDS == kLoadBands) {
+        tma_load(b(s) + T::BN * T::SK, tbb, full(s), st * T::SK, tj0);
+      }
+      if constexpr (T::ROWS == kLoadRows && T::BF16) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t)  // (groups, 3, planes, K): term t
+          tma_load4(mw(s, t), tm, full(s), st * T::SK, 0, t, ti0);
+      } else if constexpr (T::ROWS == kLoadRows) {
+        tma_load3(mhi(s), tm, full(s), st * T::SK, 0, ti0);
+      }
+    };
+    if (p < 32) {
+      if constexpr (CK::kOnLoader) {
+        // The first warp loads, and checks between its loads.
+        ck.load(
+            nst, p,
+            [&](int st) {
+              const int s = st % T::STAGES;
+              const bool free = st < T::STAGES ||
+                                mbar_test(empty(s), (st / T::STAGES - 1) & 1);
+              if (!__shfl_sync(0xffffffffu, free ? 1 : 0, 0)) return false;
+              if (p == 0) issue(st);
+              return true;
+            },
+            [&](int st) {  // suspended a while for stage st's slot
+              mbar_try(empty(st % T::STAGES), (st / T::STAGES - 1) & 1, 1000);
+            });
+      } else if (p == 0) {
+        for (int st = 0; st < nst; ++st) {
+          if (st >= T::STAGES)
+            mbar_wait(empty(st % T::STAGES), (st / T::STAGES - 1) & 1);
+          issue(st);
+        }
+      }
+    } else if (p >= 32) {
+      const int e = p - 32;
+      // Stage st has landed (a checker decides posted checks meanwhile).
+      const auto land = [&](int st) {
+        if constexpr (!CK::kOnLoader)
+          ck.land(full(st % T::STAGES), (st / T::STAGES) & 1, e);
+        else
+          mbar_wait(full(st % T::STAGES), (st / T::STAGES) & 1);
+      };
+      if constexpr (T::S8) {
+        for (int s = 0; s < T::STAGES; ++s) zero_pads_s8(s, e);
+        for (int st = 0; st < nst; ++st) {
+          land(st);
+          sum_bands_s8(st, e);
+          fence_proxy_async();  // the digit rows are visible to wgmma
+          mbar_arrive(ready(st % T::STAGES));
+        }
+      } else if constexpr (!T::BF16) {
+        if constexpr (PADS) {
+          for (int s = 0; s < T::STAGES; ++s) zero_pads(s, e);
+        }
+        for (int st = 0; st < nst; ++st) {
+          const int s = st % T::STAGES;
+          land(st);
+          split_b(st, e);
+          if constexpr (T::ROWS == kLoadRows)
+            split4(mhi(s), mlo(s), T::M_BOX / 16, e);
+          if constexpr (T::ROWS == kSumRows) sum_rows(s, e);
+          fence_proxy_async();  // the split is visible to wgmma
+          mbar_arrive(ready(s));
+        }
+      } else if constexpr (T::SPLIT) {
+        if constexpr (PADS) {
+          for (int s = 0; s < T::STAGES; ++s) zero_pads_bf16(s, e);
+        }
+        for (int st = 0; st < nst; ++st) {
+          const int s = st % T::STAGES;
+          land(st);
+          if constexpr (T::ROWS == kSumRows) {
+            sum_rows_bf16(s, e);
+          } else {
+            sum_bands_bf16(st, e);
+          }
+          fence_proxy_async();  // the sum rows are visible to wgmma
+          mbar_arrive(ready(s));
+        }
+      }
+      if constexpr (!CK::kOnLoader) ck.drain(e);
+    }
+  }
 };
+
+// Whether a hook defers its faults to stage ends (Hook::kDeferred; B3's
+// and B7's RunHook, whose checks also defer their corrections): it then
+// reports no fault to the mainloop (at() false, fault_step() INT_MAX), so
+// that a stage is cut only at its checks, and takes stage_end(ml, st)
+// after each stage's promotion.
+template <class Hook, class = void>
+struct Deferred : std::false_type {};
+template <class Hook>
+struct Deferred<Hook, std::void_t<decltype(Hook::kDeferred)>>
+    : std::bool_constant<Hook::kDeferred> {};
 
 // No fault injection and no check inside the K loop (B1).
 struct NoInject {
@@ -2014,7 +2168,8 @@ struct WgMainloop {
   }
 
   // mma_stage in int8 (the checks' hooks, kSegmented): the same events at
-  // the same 8-column k steps. A stage with an event is issued in segments
+  // the same 8-column k steps (B3's deferred hook: the checks alone, its
+  // faults added at stage ends). A stage with an event is issued in segments
   // that each end at a check; a 32-deep k step that a check splits is
   // issued in parts (mma_s8_part). A fault goes into `acc` before the part
   // of a k step it falls in, once the wgmmas before it have landed: a part
@@ -2071,7 +2226,8 @@ struct WgMainloop {
     wgmma_commit();
   }
 
-  // mma_stage in bf16: the same events at the same 8-column k steps. A k
+  // mma_stage in bf16: the same events at the same 8-column k steps (B3's
+  // and B7's deferred hooks: the checks alone). A k
   // step that an event splits is issued as its two halves around it; the
   // unrolled form looks one 8-column step ahead for a fault (at(t + 1)) or
   // a check (check_after(t)) inside each 16-deep step. A bf16 fault
@@ -2194,11 +2350,15 @@ struct WgMainloop {
   // steps so far land and go into `acc` before the fault does; at a check,
   // the steps so far land and go into `acc` (and `acc_e`), then the check
   // runs and the stage sums restart from zero. A hook that sets kSegmented
-  // (B3's and B4's checks, ~20 per run) has a stage with events issued in
-  // segments that each end at one, so that its large check is inlined once
-  // per call site of mma_stage and not once per k step (their kernels ran
-  // 0.5-0.8 ms faster); the other hooks keep the unrolled form, which
-  // segments made slower (B2 at the 64-row tiles 22-44 %; PERF.md).
+  // (the checks of B3, B4, B7 and B8, ~20 per run) has a stage with events
+  // issued in segments that each end at one, so that its large check is
+  // inlined once per call site of mma_stage and not once per k step (their
+  // kernels ran 0.5-0.8 ms faster); the other hooks keep the unrolled form,
+  // which segments made slower (B2 at the 64-row tiles 22-44 %; PERF.md).
+  // A hook that defers (Deferred: B3's and B7's) shows the mainloop no
+  // fault, so that only its checks cut a stage, each with one drain, and
+  // it adds the faults at stage ends (step) and each check's corrections
+  // before the next check.
   template <class Hook>
   __device__ __forceinline__ void mma_stage(int st, const uint32_t (&ah)[NF],
                                             const uint32_t (&al)[NF],
@@ -2286,7 +2446,9 @@ struct WgMainloop {
   }
 
   // Stage st on registers (ch, cl) while stage st + 1 is prepared into
-  // (nh, nl); then add st's sum into acc and release st's slot.
+  // (nh, nl); then add st's sum into acc and release st's slot. A hook
+  // that defers its events (kDeferred: B3's and B7's, RunHook) sees the
+  // stage end, once `part` is in `acc` (hook.stage_end).
   template <class Hook>
   __device__ __forceinline__ void step(int st, int nst, Hook& hook,
                                        const uint32_t (&ch)[NF],
@@ -2296,6 +2458,7 @@ struct WgMainloop {
     if (st + 1 < nst) prepare(st + 1, nh, nl);
     wgmma_wait_all();
     promote();
+    if constexpr (Deferred<Hook>::value) hook.stage_end(*this, st);
     mbar_arrive(sm.empty(st % T::STAGES));
   }
 

@@ -456,6 +456,16 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
     per-tile hits, per-tile uncorrectable level). ``exact``: wrapped int32
     residuals (int64), ``mag`` against the f32 threshold, an integer
     correction and a re-check without pads."""
+    delta, hits, bad = _rowcol_decide(acc, res_r, res_c, res_cw, thresholds,
+                                      multifault, exact)
+    return acc + delta, hits, bad
+
+
+def _rowcol_decide(acc, res_r, res_c, res_cw, thresholds, multifault: bool,
+                   exact: bool = False):
+    """:func:`_rowcol_detect_correct`'s decisions: (the correction, per-tile
+    hits, per-tile uncorrectable level), the correction not yet added to
+    ``acc`` (the rowcol kernels add it at a later stage end)."""
     thr, thr_m1 = thresholds[:2]
     bm = acc.shape[-2]
     mag = _mag32 if exact else torch.abs
@@ -491,7 +501,7 @@ def _rowcol_detect_correct(acc, res_r, res_c, res_cw, thresholds,
         res_cw2 = res_cw - (delta * w).sum(-2)
         _, pad_w = correction_pads(delta, -2, w)
         bad = bad + ((res_cw2.abs() > thr_m1 + pad_w) & ~bad_c).sum(-1)
-    return acc + delta, hit.sum((-2, -1)), bad
+    return delta, hit.sum((-2, -1)), bad
 
 
 def ft_weighted_plain(a, b, c, shape: KernelShape, alpha, beta, scalars,

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
-from ft_sgemm_tpu_torch.ops.common import pad_to, strict_fp32, tf32_rna
+from ft_sgemm_tpu_torch.ops.common import EPS8, pad_to, strict_fp32, tf32_rna
 
 KK = 8       # K depth of one tf32 wgmma
 STAGE = 32   # K columns per pipeline stage (gemm_wgmma.cuh WgTile::SK)
@@ -126,7 +126,8 @@ def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
 
 
 def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
-                    check, moments=None, band_sums=False, band_rows=None):
+                    check, moments=None, band_sums=False, band_rows=None,
+                    deferred=False):
     """The sub-tiled wgmma kernel (``csrc/ft_sgemm_running.cuh``) on padded
     operands: per 8-column k step the 3xTF32 product into the stage sum
     and, beside it, the 3xTF32 expected column sums ``B_tile . M^T`` of the
@@ -140,7 +141,12 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
     ``check_every``-th bk step and of the last, also inside a stage).
     ``check(acc, exp, r_exp)`` with exp (gm, gn, MOM, bn) and r_exp (gm,
     gn, bm) returns (corrected acc, per-tile hits, per-tile uncorrectable
-    level). Returns (out, det, unc) like ``ops/ft_sgemm.ft_weighted_plain``."""
+    level). ``deferred`` (B3, B7: ``RowcolSplitCheck``): a fault is added
+    into ``acc`` at the stage end that promotes its stage, or before a
+    check's snapshot if that comes first, and ``check`` returns the
+    correction instead of the corrected acc, added before the next
+    check's snapshot (after that check's faults) or before the output.
+    Returns (out, det, unc) like ``ops/ft_sgemm.ft_weighted_plain``."""
     strict_fp32()
     a4, b4, c4, nk = ft._tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -172,10 +178,22 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
             total.add_(stage)
             stage.zero_()
 
+    kk_stage = STAGE // KK
+    pending, delta = [], None
+
+    def fold():
+        # The deferred faults, in their order, into acc.
+        for f in pending:
+            ft._inject_plain(acc, scalars, f)
+        pending.clear()
+
     for t in range(nk8):
         if t % cps == 0 and t // cps in faults:
-            promote()
-            ft._inject_plain(acc, scalars, t // cps)
+            if deferred:
+                pending.append(t // cps)
+            else:
+                promote()
+                ft._inject_plain(acc, scalars, t // cps)
         cols = slice(t * KK, (t + 1) * KK)
         for x, y in ((al, bh), (ah, bl), (ah, bh)):
             part += torch.einsum("imk,jnk->ijmn", x[..., cols], y[..., cols])
@@ -188,12 +206,22 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         s = (t + 1) // cps - 1   # the bk step that k step t ends, if any
         if (t + 1) % cps == 0 and ((s + 1) % check_every == 0 or s == nk - 1):
             promote()
-            corrected, hits, level = check(acc, exp, r_exp)
-            acc.copy_(corrected)
+            if deferred:
+                fold()
+                if delta is not None:
+                    acc += delta
+                delta, hits, level = check(acc, exp, r_exp)
+            else:
+                corrected, hits, level = check(acc, exp, r_exp)
+                acc.copy_(corrected)
             det += hits.to(torch.int32)
             unc = level.to(torch.int32)
-        if (t + 1) % (STAGE // KK) == 0 or t == nk8 - 1:
+        if (t + 1) % kk_stage == 0 or t == nk8 - 1:
             promote()
+            if deferred:
+                fold()
+    if delta is not None:
+        acc += delta
     return ft._untile(alpha * acc + beta * c4), det, unc
 
 
@@ -214,6 +242,96 @@ def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         moments=moments)
 
 
+def rowcol_split_decide(res_r, res_c, res_cw, thresholds, multifault: bool,
+                        exact: bool = False):
+    """The split-phase rowcol check's decisions as the kernels form them
+    (``csrc/ft_sgemm_running.cuh``: ``RowcolChecker::decide`` and
+    ``RowcolSplitCheck::apply``), over (gm, gn) tiles of residuals: the row
+    and column flags, each flagged column's code (its weighted row with
+    ``multifault``, -1 outside the tile), the mode of each tile (0 nothing
+    to correct, 1 the row residuals, 2 the column residuals: one flagged
+    row and several flagged columns, 3 ambiguous: the weighted rows), the
+    correction each element takes from those, and the re-check as a LEVEL
+    from the residuals less the corrections' row and column sums, formed
+    from the decisions (the sums of the flagged columns' and rows'
+    residuals) and not from the corrected accumulator. ``exact``: wrapped
+    int32 residuals held as int64, as ``_rowcol_detect_correct(exact=
+    True)``. Returns (correction, per-tile hits, per-tile uncorrectable),
+    as ``ops/ft_sgemm._rowcol_decide``."""
+    thr, thr_m1 = thresholds[:2]
+    bm, bn = res_r.shape[-1], res_c.shape[-1]
+    mag = ft._mag32 if exact else torch.abs
+    zero = torch.zeros((), dtype=res_r.dtype)
+    rflag, cflag = mag(res_r) > thr, mag(res_c) > thr
+    nr, nc = rflag.sum(-1), cflag.sum(-1)
+    if multifault:
+        safe = torch.where(cflag, res_c, torch.ones_like(res_c))
+        lr = torch.round(res_cw / safe).to(torch.int64)
+        code = torch.where((lr < 1) | (lr > bm), -1, lr - 1)
+        code = torch.where(cflag, code, -2)
+    else:
+        code = torch.where(cflag, 0, -2)
+    use_col = (nr == 1) & (nc > 1)
+    amb = multifault & (nr > 1) & (nc > 1)
+    mode = torch.where(amb, 3, torch.where((nr > 0) & (nc > 0),
+                                           torch.where(use_col, 2, 1), 0))
+    hits = torch.where(amb, (code >= 0).sum(-1), nr * nc)
+    rows = torch.arange(bm)
+    m4 = mode[..., None, None]
+    hit_amb = code[..., None, :] == rows[:, None]
+    hit_rc = rflag[..., :, None] & (code != -2)[..., None, :]
+    val = torch.where(m4 == 2, res_c[..., None, :], res_r[..., :, None])
+    delta = torch.where(m4 == 3, torch.where(hit_amb, res_c[..., None, :], zero),
+                        torch.where((m4 != 0) & hit_rc, val, zero))
+    if exact:
+        delta = ft.wrap_int32(delta)
+    # The sums the re-check subtracts, per tile.
+    w = torch.arange(1, bm + 1, dtype=torch.float32)
+    fr = torch.where(rflag, res_r, zero)
+    fc = torch.where(cflag, res_c, zero)
+    sc, sr = fc.sum(-1), fr.sum(-1)
+    rstar = torch.where(rflag, rows, -1).max(-1).values
+    # Rows: a flagged row, or any row of an ambiguous tile.
+    ds = torch.where(mode[..., None] == 3, torch.where(
+        hit_amb, res_c[..., None, :], zero).sum(-1),
+        torch.where(mode[..., None] == 2, sc[..., None],
+                    torch.where(mode[..., None] == 1,
+                                nc[..., None].to(res_r.dtype) * res_r, zero)))
+    seen = (mode[..., None] == 3) | rflag
+    # Columns: the corrections in a column, at most one but in mode 1.
+    col = torch.where(mode[..., None] == 3, code >= 0,
+                      (mode[..., None] != 0) & (code != -2))
+    s0 = torch.where(col, torch.where(mode[..., None] == 1, sr[..., None],
+                                      res_c), zero)
+    if exact:
+        bad_r = seen & (ft._mag32(ft.wrap_int32(res_r - ds)) > thr)
+        bad_c = ft._mag32(ft.wrap_int32(res_c - s0)) > thr
+        return delta, hits, bad_r.sum(-1) + bad_c.sum(-1)
+    ads = torch.where(mode[..., None] == 3, torch.where(
+        hit_amb, res_c[..., None, :].abs(), 0.0).sum(-1),
+        torch.where(mode[..., None] == 2, fc.abs().sum(-1)[..., None],
+                    torch.where(mode[..., None] == 1,
+                                nc[..., None] * res_r.abs(), 0.0)))
+    bad_r = seen & ((res_r - ds).abs() > thr + EPS8 * ads)
+    s1 = torch.where(col, torch.where(mode[..., None] == 1,
+                                      fr.abs().sum(-1)[..., None],
+                                      res_c.abs()), 0.0)
+    bad_c = (res_c - s0).abs() > thr + EPS8 * s1
+    bad = bad_r.sum(-1) + bad_c.sum(-1)
+    if multifault:
+        wrow = torch.where(mode[..., None] == 3, code + 1,
+                           rstar[..., None] + 1).to(torch.float32)
+        s2 = torch.where(col, torch.where(
+            mode[..., None] == 1, (w * fr).sum(-1)[..., None],
+            wrow * res_c), 0.0)
+        s3 = torch.where(col, torch.where(
+            mode[..., None] == 1, (w * fr.abs()).sum(-1)[..., None],
+            wrow * res_c.abs()), 0.0)
+        bad = bad + (~bad_c & ((res_cw - s2).abs()
+                               > thr_m1 + EPS8 * s3)).sum(-1)
+    return delta, hits, bad
+
+
 def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
                      multifault: bool, rows=None):
     """B3 (``rows`` None) and B7 (``rows`` = A's (gm, 2, K) and B's (gn, 1,
@@ -222,24 +340,28 @@ def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
     A's plain (and, with ``multifault``, w) moment rows of each tile, summed
     in the kernel (B3) or the first one or two of the loaded rows (B7); the
     expected row sums from B's column-band sums, summed from the split B
-    (B3) or the loaded rows (B7); each check is ``_rowcol_detect_correct``.
-    Returns (out, det, unc) like ``ops/ft_sgemm.ft_rowcol_plain``."""
+    (B3) or the loaded rows (B7); each check is the checker's decisions
+    (:func:`rowcol_split_decide`), its faults and corrections deferred to
+    stage ends as the split-phase check defers them. Returns (out, det,
+    unc) like ``ops/ft_sgemm.ft_rowcol_plain``."""
     w = ft._weights(shape.bm, a.device)[:, None]
     thresholds = [float(t) for t in scalars[4:6]]
 
     def check(acc, exp, r_exp):
         res_cw = exp[:, :, 1] - (acc * w).sum(-2) if multifault else None
-        return ft._rowcol_detect_correct(
-            acc, r_exp - acc.sum(-1), exp[:, :, 0] - acc.sum(-2), res_cw,
+        return rowcol_split_decide(
+            r_exp - acc.sum(-1), exp[:, :, 0] - acc.sum(-2), res_cw,
             thresholds, multifault)
 
     mom = 2 if multifault else 1
     if rows is None:
         return _subtile_tf32x3(
             a, b, c, shape, alpha, beta, scalars, check_every, check,
-            moments=ft._tile_moments(a, shape.bm, mom), band_sums=True)
+            moments=ft._tile_moments(a, shape.bm, mom), band_sums=True,
+            deferred=True)
     return _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every,
-                           check, moments=rows[0][:, :mom], band_rows=rows[1])
+                           check, moments=rows[0][:, :mom], band_rows=rows[1],
+                           deferred=True)
 
 
 def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,

@@ -2,7 +2,8 @@
 
 Each TREE is a directory that holds a copy of the ``ft_sgemm_tpu_torch``
 package: a ``git archive`` of a commit, or such a copy with one change.
-The script builds every tree's kernels at once, then times B1-B8 at
+The script builds every tree's kernels at once (the libraries the
+dtype's kernels load), then times B1-B8 at
 M = N = K = 4096 on the huge, large, tall, small, medium and wide tiles,
 after checking each FT kernel's fault counts and output (B4 and B8,
 detect only: their event counts), and reports B1's largest error against a float64 product
@@ -66,12 +67,29 @@ def _import_port(tree: str):
         raise RuntimeError(f"{tree} holds no ft_sgemm_tpu_torch package")
 
 
-def build(tree: str) -> dict:
-    """Build the tree's libraries; {library: seconds}, as ``_build.build``."""
+# The libraries each dtype's measurement loads (those a tree has): the
+# static f32 builds (B3's and B4's int8 builds among them), the static
+# bf16 builds (fp8 runs B2-B5 on them) and B1's fp8 build.
+F32_LIBS = ("sgemm", "ft_sgemm_weighted", "ft_sgemm_rowcol", "ft_sgemm_global",
+            "ft_sgemm_aug")
+BF16_LIBS = ("sgemm", "ft_sgemm_precomp_bf16", "ft_sgemm_weighted_bf16",
+             "ft_sgemm_rowcol_bf16", "ft_sgemm_global_bf16",
+             "ft_sgemm_fused_bf16", "ft_sgemm_rowcol_mxu_bf16")
+DTYPE_LIBS = {"float32": F32_LIBS, "bfloat16": BF16_LIBS,
+              "fp8": BF16_LIBS + ("sgemm_fp8",),
+              "int8": ("ft_sgemm_rowcol", "ft_sgemm_global")}
+
+
+def build(tree: str, dtype: str = "") -> dict:
+    """Build the tree's libraries (with ``dtype``, only those its
+    measurement loads); {library: seconds}, as ``_build.build``."""
     _import_port(tree)
     from ft_sgemm_tpu_torch.ops import _build
 
-    return _build.build()
+    if not dtype:
+        return _build.build()
+    return _build.build(tuple(n for n in DTYPE_LIBS[dtype]
+                              if n in _build.LIBRARIES))
 
 
 # The kernels each dtype's builds hold (B1 and the FT kernels' ids).
@@ -215,8 +233,8 @@ def build_times(trees) -> int:
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--build":
-        print(json.dumps(build(argv[2])))
+    if len(argv) in (3, 4) and argv[1] == "--build":
+        print(json.dumps(build(*argv[2:])))
         return 0
     if len(argv) == 5 and argv[1] == "--measure":
         print(json.dumps(measure(argv[2], argv[3].split(","), argv[4])))
@@ -238,7 +256,7 @@ def main(argv) -> int:
     print(card(), flush=True)
     wrong = 0
     for name, row in turns(__file__, trees, ",".join(tiles), dtype,
-                           n_turns=n_turns):
+                           build_args=(dtype,), n_turns=n_turns):
         wrong += list(row.values()).count("wrong")
         print(f"{name:19s} " + " ".join(
             f"{k}={v}" if isinstance(v, str) else

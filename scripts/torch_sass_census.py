@@ -18,16 +18,26 @@ tile, and listed
 when the labels start with one of the named tiles (default: every kernel).
 Needs nvcc and cuobjdump:
 
-    python3 scripts/torch_sass_census.py [TREE] [--tiles=128,128,16,16;64,64]
+    python3 scripts/torch_sass_census.py [TREE] [--tiles=128,128,16,16;64,64] [--libs=ft_sgemm_rowcol]
+
+``--libs=a,b`` builds and lists only the named libraries. The column
+MISMOD counts the pattern of a signed modulo whose sign fix reads another
+register than the one it shifted (``SHF.R.S32.HI Rs, RZ, 0x1f, Rt`` and,
+within the next 8 instructions, ``LEA.HI Rd, Rs, Rx, ...`` with Rx not
+Rt, and Rx no arithmetic right shift of Rt): the ptxas miscompile that
+once lost fault adds (ROADMAP Queue C,
+``csrc/ft_sgemm_running.cuh``: FragInject's unsigned hit test); SGNMOD
+counts every such shift.
 
 ``--diff`` takes two trees instead, builds both, and says for every
 kernel of the first tree's libraries, static and adaptive, whether the
 second tree's kernel of the same label in the same library (or, for a
 kernel that a split moved, in a library the first tree lacks, static or
 adaptive alike) has the same instructions in the same order (operands
-included, addresses not):
+included, addresses not); ``--libs=a,b`` builds and compares only those
+libraries:
 
-    python3 scripts/torch_sass_census.py --diff PARENT_TREE TREE
+    python3 scripts/torch_sass_census.py --diff PARENT_TREE TREE [--libs=a,b]
 """
 
 from __future__ import annotations
@@ -41,6 +51,32 @@ import sys
 
 CLASSES = ("FFMA", "LDS", "STS", "LDG", "LDGSTS", "LDL", "STL", "BAR", "SHFL",
            "HGMMA", "IGMMA", "QGMMA", "UTMALDG", "WARPGROUP")
+PATTERNS = ("SGNMOD", "MISMOD")
+
+
+def signed_mods(body: str):
+    """(signed-modulo sign shifts, those whose LEA.HI reads another register
+    than the one shifted) in one kernel's SASS. A register that is itself
+    an arithmetic right shift of the one shifted (``(x >> 5) / 8`` takes
+    x's sign) does not count."""
+    ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([^;]*);", body)
+    shifts, bad = 0, 0
+    for i, text in enumerate(ins):
+        m = re.match(r"SHF\.R\.S32\.HI (R\d+), RZ, 0x1f, (R\d+)", text)
+        if not m:
+            continue
+        shifts += 1
+        rs, rt = m.groups()
+        for later in ins[i + 1:i + 9]:
+            lea = re.match(r"LEA\.HI (?:\S+), (R\d+), (R\d+)", later)
+            if lea and lea.group(1) == rs:
+                rx = lea.group(2)
+                same_sign = any(re.match(
+                    rf"SHF\.R\.S32\.HI {rx}, RZ, 0x[0-9a-f]+, {rt}\b", x)
+                    for x in ins[max(0, i - 10):i + 9])
+                bad += rx != rt and not same_sign
+                break
+    return shifts, bad
 
 
 def cuobjdump() -> str:
@@ -77,6 +113,7 @@ def census(sass: str) -> dict:
                          body)
         counts = collections.Counter(ops)
         out[label] = {c: counts.get(c, 0) for c in CLASSES}
+        out[label].update(zip(PATTERNS, signed_mods(body)))
         out[label]["total"] = len(ops)
     return out
 
@@ -92,20 +129,25 @@ def instructions(sass: str) -> dict:
             for label, body in _kernels(sass)}
 
 
-def diff(old_tree: str, new_tree: str) -> int:
-    """Print, per kernel of OLD_TREE's libraries, whether NEW_TREE compiles
-    it to the same instruction sequence."""
+def diff(old_tree: str, new_tree: str, names=None) -> int:
+    """Print, per kernel of OLD_TREE's libraries (or of the libraries
+    ``names``), whether NEW_TREE compiles it to the same instruction
+    sequence."""
     roots = [pathlib.Path(t).resolve() for t in (old_tree, new_tree)]
     # Each tree's libraries, built in a process of its own (the packages
     # share their module names), both at once.
+    arg = "" if names is None else repr(tuple(names))
     builds = [subprocess.Popen([
         sys.executable, "-c", f"import sys; sys.path.insert(0, {str(r)!r});"
-        " from ft_sgemm_tpu_torch.ops import _build; _build.build()"])
+        f" from ft_sgemm_tpu_torch.ops import _build; _build.build({arg})"])
         for r in roots]
     if any(b.wait() for b in builds):
         raise RuntimeError("a tree did not build")
-    libs = {tree: {so.name.split("-")[0]: so for so in
-                   (r / "ft_sgemm_tpu_torch/csrc/_build").glob("lib*.so")}
+    # Each tree's built libraries, by name (the newest build of a name).
+    libs = {tree: {so.name.split("-")[0]: so for so in sorted(
+                (r / "ft_sgemm_tpu_torch/csrc/_build").glob("lib*.so"),
+                key=lambda so: so.stat().st_mtime)
+                if names is None or so.name[3:].split("-")[0] in names}
             for tree, r in zip((old_tree, new_tree), roots)}
     for lib, so in sorted(libs[old_tree].items()):
         if "hostutils" in lib or lib not in libs[new_tree]:
@@ -130,30 +172,36 @@ def diff(old_tree: str, new_tree: str) -> int:
 
 def main(argv) -> int:
     if "--diff" in argv:
-        return diff(*(a for a in argv[1:] if not a.startswith("--")))
+        libs = next((tuple(a.split("=", 1)[1].split(",")) for a in argv[1:]
+                     if a.startswith("--libs=")), None)
+        return diff(*(a for a in argv[1:] if not a.startswith("--")),
+                    names=libs)
     tree = next((a for a in argv[1:] if not a.startswith("--")), ".")
-    tiles = ("",)
+    tiles, names = ("",), None
     for a in argv[1:]:
         if a.startswith("--tiles="):
             tiles = tuple(a.split("=", 1)[1].split(";"))
+        if a.startswith("--libs="):
+            names = tuple(a.split("=", 1)[1].split(","))
     root = pathlib.Path(tree).resolve()
     sys.path.insert(0, str(root))
     from ft_sgemm_tpu_torch.ops import _build
 
-    _build.build()
+    # A tree from before the adaptive libraries names its sources instead.
+    names = names or getattr(_build, "KERNEL_LIBS", None) or _build.KERNEL_SOURCES
+    _build.build(names)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"{'kernel':48s}" + "".join(f"{c:>8s}" for c in CLASSES + ("total",)))
-    # A tree from before the adaptive libraries names its sources instead.
-    for name in getattr(_build, "KERNEL_LIBS", None) or _build.KERNEL_SOURCES:
+    cols = CLASSES + PATTERNS + ("total",)
+    print(f"{'kernel':48s}" + "".join(f"{c:>8s}" for c in cols))
+    for name in names:
         print(name)
         sass = _dump(_build.so_path(name))
         for label, counts in sorted(census(sass).items()):
             dims = label[label.index("<") + 1:label.index(">")] + ","
             if any(dims.startswith(f"{tile},".lstrip(",")) for tile in tiles):
-                print(f"{label:48s}" + "".join(
-                    f"{counts[c]:8d}" for c in CLASSES + ("total",)))
+                print(f"{label:48s}" + "".join(f"{counts[c]:8d}" for c in cols))
     return 0
 
 

@@ -23,10 +23,13 @@ fresh process per turn, the trees in order and then reversed
 ``--dtype=bfloat16`` times the bf16 builds of B1-B8 (the ``*_bf16`` entry
 points, from the libraries that the tree's ``ops/ft_sgemm.kernel_entry``
 names, so a tree must have that table; A and B rounded to bf16);
+``--dtype=int8`` the int8 builds of B3 and B4 (static, multifault off) on
+the program's ``round(10 x)`` operands;
 ``--threshold=adaptive`` builds and times the adaptive builds of B3-B8 at
 the adaptive cadence (the default margin in slot 7), with
 ``--dtype=bfloat16`` their adaptive bf16 builds; ``--magnitude=M``
-sets the reference-like faults' magnitude (default 1e4; 0: no faults).
+sets the reference-like faults' magnitude (default 1e4; 0: no faults, at
+the reference-like schedule's cadence and multifault setting).
 Prints the card's name and power limit, then one line per tree and turn:
 milliseconds per launch, and the detections and uncorrectable counts each
 FT launch reported.
@@ -44,6 +47,20 @@ and took unsigned hit tests (a ptxas fault; ROADMAP Queue C);
 
     python3 scripts/torch_variant_time.py --variant=device-scalars VAR
     python3 scripts/torch_variant_time.py --kernels=B6,B5 --tiles=small,huge . VAR
+
+``rowcol-check-returns`` (the rowcol check returns at once after its
+drain) and ``one-final-check`` (every kernel checks once, after the last
+k step) split a rowcol kernel's time into its parts
+(``rowcol-checker-on-splitters`` moves B3's and B7's f32 checker to the
+splitter warps): with ``--magnitude=0``
+and without, the mainloop and splitter sums (one final check, no faults),
+the drains at the checks (returning check against one final check, no
+faults), the fault drains (returning check, faults against none) and the
+check body (the tree against its returning check):
+
+    python3 scripts/torch_variant_time.py --variant=rowcol-check-returns RET
+    python3 scripts/torch_variant_time.py --variant=one-final-check ONE
+    python3 scripts/torch_variant_time.py --kernels=B3,B7,B4 --tiles=huge,small --dtype=bfloat16 --magnitude=0 . RET ONE
 """
 
 from __future__ import annotations
@@ -97,6 +114,42 @@ VARIANTS = {
          "bk, check_every, alpha, beta, scp, nm, epi, v);"),
     ]},
 }
+# The parts of the rowcol kernels (B3, B7), timed apart: a check that
+# returns at once after its drain (the consumers drain and post nothing, the
+# checker decides nothing, nothing is corrected), and the cadence at one
+# final check (every kernel of the tree). A tree with the single-phase
+# rowcol check took the first as a `return;` at the top of its
+# RowcolCheck::check and the second as RunHook's first check step alone.
+_RUNHOOK_CHK = ("ck(sc, nm, scratch),\n"
+                "        chk(min(check_every * (bk / 8), K / 8) - 1),")
+_CHECKER_CHK = ("cm(*reinterpret_cast<Slot*>(scratch)),\n"
+                "        chk(min(check_every * (bk / 8), K / 8) - 1),")
+VARIANTS["rowcol-check-returns"] = {"csrc/ft_sgemm_running.cuh": [
+    ("      inj.fold(ml, chk);\n      ck.post(ml, chk);\n",
+     "      inj.fold(ml, chk);\n"),
+    (_CHECKER_CHK, _CHECKER_CHK.replace(
+        "min(check_every * (bk / 8), K / 8) - 1", "INT_MAX"))]}
+VARIANTS["one-final-check"] = {"csrc/ft_sgemm_running.cuh": [
+    (x, x.replace("min(check_every * (bk / 8), K / 8) - 1", "K / 8 - 1"))
+    for x in (_RUNHOOK_CHK, _CHECKER_CHK)]}
+# The rowcol checker deciding nothing (it takes each post and publishes no
+# correction at once): the consumers' own part of the split-phase check.
+VARIANTS["rowcol-checker-decides-nothing"] = {"csrc/ft_sgemm_running.cuh": [
+    ("    mbar_wait(&cm.posted, k & 1);\n",
+     "    mbar_wait(&cm.posted, k & 1);\n"
+     "    if (e < T::NBM) cm.gmask[e] = 0u;\n"
+     "    chk = chk == nk8 - 1 ? INT_MAX : min(chk + every8, nk8 - 1);\n"
+     "    ++k;\n    mbar_arrive(&cm.decided);\n    return;\n")]}
+# The rowcol checker on the splitter warps at every tile (as at the
+# small tile and as B7 in bf16), not on the first producer warp.
+VARIANTS["rowcol-checker-on-splitters"] = {"csrc/ft_sgemm_running.cuh": [
+    ("  static constexpr bool kOnLoader = T::SPLIT && T::NSUB <= 4;\n",
+     "  static constexpr bool kOnLoader = false;\n")]}
+# ... or on the first producer warp at every tile where the splitter warps
+# work (B3, and B7 in f32).
+VARIANTS["rowcol-checker-on-loader"] = {"csrc/ft_sgemm_running.cuh": [
+    ("  static constexpr bool kOnLoader = T::SPLIT && T::NSUB <= 4;\n",
+     "  static constexpr bool kOnLoader = T::SPLIT;\n")]}
 # The same with the sub-tiled kernels built at the small tile only (a
 # quicker build of the kernel that the change moved: chip_smoke.py's
 # regression phase; its C++ symbols in a namespace of their own, so that it
@@ -131,13 +184,15 @@ def write_variant(name: str, dest: str) -> None:
         path.write_text(text)
 
 
-def _libs(kernels, adaptive: bool, bf16: bool = False) -> dict:
-    """Each kernel's (library, entry point) in the imported tree."""
+def _libs(kernels, adaptive: bool, bf16=False) -> dict:
+    """Each kernel's (library, entry point) in the imported tree; ``bf16``
+    True, False or "int8"."""
     import torch
 
     from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
 
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = (torch.int8 if bf16 == "int8" else
+             torch.bfloat16 if bf16 else torch.float32)
     return {k: (("sgemm", "ftsg_sgemm" + ("_bf16" if bf16 else ""))
                 if KERNELS[k][1] == "sgemm"
                 else ft.kernel_entry(KERNELS[k][1], dtype, adaptive))
@@ -193,15 +248,24 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
     gen = np.random.default_rng(1)
     a, b, c = (torch.from_numpy(generate_random_matrix(SIZE, SIZE, rng=gen)).cuda()
                for _ in range(3))
-    if bf16:
+    if bf16 == "int8":
+        from ft_sgemm_tpu_torch.ops.common import as_operand
+
+        a, b = (as_operand(torch.round(x * 10.0), torch.int8, x.device)
+                for x in (a, b))
+    elif bf16:
         a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     out = torch.empty_like(c)
     stream = torch.cuda.current_stream().cuda_stream
     row = {}
     for name in tiles:
         sh = SHAPES[name]
-        inj = (InjectionSpec.reference_like(SIZE, sh.bk, magnitude=magnitude)
-               if magnitude else InjectionSpec.none())
+        # The plan (cadence, multifault) is the reference-like schedule's
+        # also without faults, so that --magnitude=0 removes the faults
+        # alone.
+        ref = InjectionSpec.reference_like(SIZE, sh.bk,
+                                           magnitude=magnitude or 1e4)
+        inj = ref if magnitude else InjectionSpec.none()
         sc = (scalar_operand(inj, (0.0,) * 3, DEFAULT_THRESHOLD_MARGIN)
               if adaptive else
               scalar_operand(inj, (REFERENCE_THRESHOLD,) * 3))
@@ -220,10 +284,10 @@ def measure(tree: str, kernels, tiles, adaptive: bool = False,
 
                 row[f"{kern} {name}"] = cuda_ms(launch, reps=5)
                 continue
-            _, ce, mf = ft._plan(pair[0], None, None, inj, SIZE // sh.bk,
+            _, ce, mf = ft._plan(pair[0], None, None, ref, SIZE // sh.bk,
                                  sh.bn, pair[1], adaptive)
             rows = ft.kernel_inputs(kind, a, b, sh)
-            ints = (ce, int(mf))[:n_int]
+            ints = (ce, int(mf) if bf16 != "int8" else 0)[:n_int]
             noise = () if kind == "precomp" else (
                 full_run_log2(SIZE // sh.bk, sh.bk, sh.bm, sh.bn),
                 NOISE_C_RAND, NOISE_C_BIAS)
@@ -250,7 +314,8 @@ def main(argv) -> int:
     tiles = tuple(opts.get("--tiles", ",".join(TILES)).split(","))
     adaptive = opts.get("--threshold", "static") == "adaptive"
     magnitude = float(opts.get("--magnitude", 1e4))
-    bf16 = opts.get("--dtype", "float32") == "bfloat16"
+    dtype = opts.get("--dtype", "float32")
+    bf16 = "int8" if dtype == "int8" else dtype == "bfloat16"
     args = [a for a in argv[1:] if not (a.startswith("--") and "=" in a)]
     if "--variant" in opts and len(args) == 1 and opts["--variant"] in VARIANTS:
         write_variant(opts["--variant"], args[0])
@@ -265,6 +330,8 @@ def main(argv) -> int:
     trees = args
     if (not trees or any(t.startswith("--") for t in trees)
             or not set(kernels) <= set(KERNELS)
+            or dtype not in ("float32", "bfloat16", "int8")
+            or bf16 == "int8" and (adaptive or set(kernels) - {"B3", "B4"})
             or adaptive and not set(kernels) <= set(KERNELS) - {"B1", "B2"}):
         print(__doc__)
         return 2
@@ -272,7 +339,7 @@ def main(argv) -> int:
     picks = (f"--kernels={','.join(kernels)}",
              f"--threshold={'adaptive' if adaptive else 'static'}",
              f"--tiles={','.join(tiles)}", f"--magnitude={magnitude}",
-             f"--dtype={'bfloat16' if bf16 else 'float32'}")
+             f"--dtype={dtype}")
     for name, row in turns(__file__, trees, *picks,
                            build_args=picks[:2] + picks[4:]):
         print(f"{name:19s} " + " ".join(

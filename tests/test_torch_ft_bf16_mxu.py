@@ -268,7 +268,7 @@ def _bf16_rows(m, k, bm, n_moments, seed):
 def test_term_boxes_land_where_the_checks_read(sub, kernel, mom):
     # A's three term boxes of a bf16 stage (64 columns) of B6 or B7: box t
     # puts term t of moment v of row band b at row MOM b + v of term buffer
-    # t, where WeightedCheck (cm.e[3 b + v]) and RowcolCheck (cm.in.e[MOM b
+    # t, where WeightedCheck (cm.e[3 b + v]) and RowcolSplitCheck (cm.e[MOM b
     # + v]) read E; the rows from MOM NBM to R stay zero; past K (a ragged
     # last stage) and past the last band the boxes read zero. E = B . M^T
     # summed over the three terms is B times band b's f32 moment v.

@@ -216,8 +216,8 @@ def test_band_row_box_fills_the_cta_bands(sub):
 @pytest.mark.parametrize("mf", [False, True])
 def test_moment_box_orders_rows_as_the_check_reads(sub, mf):
     # B7's 3-D box (SK, MOM, NBM) of the wrapper's (gm, 2, K) rows lands
-    # moment v of row band b at moment row MOM b + v, where RowcolCheck
-    # reads it (cm.in.e[MOM * bb + v]); rows MOM * NBM .. R stay zero.
+    # moment v of row band b at moment row MOM b + v, where RowcolSplitCheck
+    # reads it (cm.e[MOM * bb + v]); rows MOM * NBM .. R stay zero.
     sbm, _ = sub
     nbm, mom = 128 // sbm, 2 if mf else 1
     r = tf32x3.moment_rows(sbm, mom)

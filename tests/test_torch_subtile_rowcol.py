@@ -181,8 +181,8 @@ def test_subtile_model_matches_plain_at_port_tiles(name, kernel, schedule,
 
 @pytest.mark.parametrize("sub", SUBTILES, ids=[f"{m}x{n}" for m, n in SUBTILES])
 def test_row_sums_land_in_the_rows_quad(sub):
-    # RowcolCheck / GlobalCheck read the expected sum of row h, band j from
-    # lane (l & ~3) | (j >> 1) of the quad, at extra element 2 h + (j & 1).
+    # RowcolSplitCheck / GlobalCheck read the expected sum of row h, band
+    # j at lane (l & ~3) | (j >> 1) of the quad, extra element 2 h + (j & 1).
     sbm, sbn = sub
     nbn = 128 // sbn
     fm = tf32x3.row_sum_fragment_map(sbn)          # (256, 4, 2)
