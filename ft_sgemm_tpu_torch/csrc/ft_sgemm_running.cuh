@@ -41,9 +41,9 @@
 // splitter warps, beside the products; B6, B7 and B8 load those rows and
 // only split them. A check stalls the CTA's pipeline (its k steps land
 // first); B3, B4, B7 and B8 check ~20 times per run at the program's
-// cadence, B5 and B6 once or twice. B4's, B5's, B6's and B8's checks then
-// cost a few shuffles per accumulator element and one to three consumer
-// barriers. B3's and B7's rowcol check corrects at nearly every check at
+// cadence, B5 and B6 once or twice. B5's, B6's and B8's checks then cost a
+// few shuffles per accumulator element and one to three consumer barriers;
+// B4's posts its warps' sums and returns. B3's and B7's rowcol check corrects at nearly every check at
 // reference-like injection; in its earlier single-phase form the body (a
 // correction pass of ~400 shuffles a warp, five consumer barriers) cost
 // 0.4-1.4 ms a launch at 4096, more than its drains, and their splitter
@@ -61,8 +61,12 @@
 // the counts per sub-tile are shared-memory atomics. B3 and B7 split their
 // check in two (RowcolSplitCheck, RowcolChecker): the consumers post their
 // sums and go on issuing wgmma, a producer warp decides, the corrections
-// come before the next check; their faults go into the accumulator at
-// stage ends with no drain (FragInject::fold).
+// come before the next check; B4 likewise (GlobalSplitCheck,
+// GlobalChecker), with nothing to correct. B3, B4, B5 and B7 add their
+// faults into the accumulator at stage ends with no drain
+// (FragInject::fold). B5's splitter warps sum its moment rows and B4's
+// its band rows in lane groups that keep every splitter thread busy, with
+// no scratch and no barrier between them (WgSmem::sum_rows, split_bands).
 //
 // The fused epilogue (bias, relu or gelu, int8 or e4m3 quantize-rescale;
 // the JAX kernels' _apply_epilogue) is the kernel's last step: the store
@@ -112,8 +116,8 @@ FTSG_NAMESPACE_BEGIN
 // Racc), so the hit failed and two accumulator elements per thread never
 // got their faults (ROADMAP, Queue C).
 //
-// B3 and B7 defer their faults (fold): each goes into `acc` after the stage
-// sums before it are promoted, at a stage end or before a check's
+// B3, B4, B5 and B7 defer their faults (fold): each goes into `acc` after
+// the stage sums before it are promoted, at a stage end or before a check's
 // snapshot, so no fault drains the pipeline; the unsigned hit test is the
 // same. The forms below are the other kernels'.
 //
@@ -205,7 +209,8 @@ struct FragInject {
   __device__ __forceinline__ void kstep(const M&, const F&, const F&, int,
                                         int) {}
 
-  // The deferred form (B3, B7: RunHook with a kDeferred check): every fault
+  // The deferred form (B3, B4, B5, B7: RunHook whose check folds the
+  // faults, kFoldFaults): every fault
   // scheduled before k step `upto` + 1 goes into `acc` (the s32 bits in
   // int8), in every dtype, after the stage sums that precede it have been
   // promoted: at a stage end, or before a check's snapshot. No wgmma waits
@@ -463,7 +468,8 @@ struct WeightedSmem {
 template <class T, class TH = SubTileThresholds<T, false, false>>
 struct WeightedCheck {
   static constexpr bool kSegmented = false;  // one or two checks per run
-  static constexpr bool kDeferred = false;
+  static constexpr bool kPosts = false;
+  static constexpr bool kFoldFaults = false;
   // E's R rows, or B2's 3 per band (R = 0: no second product).
   static constexpr int ER = T::R > 0 ? T::R : 3 * T::NBM;
   using Smem = WeightedSmem<ER, T::BN, T::NCONS / 32, T::NBM, T::NSUB>;
@@ -552,6 +558,15 @@ struct WeightedCheck {
   }
 };
 
+// B5's check: WeightedCheck with its faults taken off the mainloop, into
+// `acc` at stage ends and before the check (FragInject::fold), so that no
+// fault drains the pipeline.
+template <class T, class TH>
+struct WeightedFoldCheck : WeightedCheck<T, TH> {
+  static constexpr bool kFoldFaults = true;
+  using WeightedCheck<T, TH>::WeightedCheck;
+};
+
 // B5 (ROWS = kSumRows) and B6 (kLoadRows): 3 moment rows per row band; A
 // and B of type IN (InType).
 template <int ROWS, int IN = kF32>
@@ -563,8 +578,10 @@ struct WeightedOf {
                               NSUB>;
     using type = WgTile<128, 128, SBM, SBN, 3, check_bytes<Smem, NSUB>(),
                         kNoBands, ROWS, IN>;
-    using Check =
-        WeightedCheck<type, SubTileThresholds<type, kAdaptive, false>>;
+    using TH = SubTileThresholds<type, kAdaptive, false>;
+    using Check = std::conditional_t<ROWS == kSumRows,
+                                     WeightedFoldCheck<type, TH>,
+                                     WeightedCheck<type, TH>>;
   };
 };
 
@@ -1034,7 +1051,8 @@ __device__ __forceinline__ void scatter_round(V (&p)[NV][NQ][2], int l) {
 template <class T, bool MF, class Slot, class TH>
 struct RowcolSplitCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
-  static constexpr bool kDeferred = true;
+  static constexpr bool kPosts = true;
+  static constexpr bool kFoldFaults = true;
   static constexpr int kBytes = (int)sizeof(Slot);
   static constexpr int MOM = MF ? 2 : 1, NV = MF ? 2 : 1;
   static constexpr int kUnflagged = -2;
@@ -1214,7 +1232,8 @@ struct GlobalSubSmem {
   V part[2][NWARPS][NBN];  // by check parity: each warp's band sums
 };
 
-// B4's and B8's check (_ft_kernel_global) of every sub-tile: res = t_exp - the
+// B8's check (_ft_kernel_global_mxu; B4 runs it split in two,
+// GlobalSplitCheck) of every sub-tile: res = t_exp - the
 // sub-tile's total, where t_exp is the total of its rows' expected sums
 // (the product's extra columns), taken as one sum of the differences: each
 // thread's share per column band, a warp's butterfly, one shared-memory
@@ -1227,7 +1246,8 @@ struct GlobalSubSmem {
 template <class T, class TH = SubTileThresholds<T, false, true>>
 struct GlobalCheck {
   static constexpr bool kSegmented = true;  // ~20 checks per run
-  static constexpr bool kDeferred = false;
+  static constexpr bool kPosts = false;
+  static constexpr bool kFoldFaults = false;
   using V = typename T::Acc;
   using Smem = GlobalSubSmem<T::NCONS / 32, T::NBN, V>;
   static constexpr int kBytes = check_bytes<Smem, T::NSUB>();
@@ -1278,17 +1298,230 @@ struct GlobalCheck {
   }
 };
 
-// B4 (BANDS = kSumBands) and B8 (kLoadBands): no moment rows; B's band
-// rows as the product's extra columns; A and B of type IN.
+// B4's check slot (the 128 x 128 CTA, NW = 8 consumer warps), by check
+// parity: each warp's band sums (and, adaptive, its moment sums of a, a^2,
+// b, b^2), the mbarrier its warps arrive on once posted, and the one the
+// checker threads arrive on once they have read it.
+template <int NW, int NBN, class V>
+struct GlobalSlot {
+  uint64_t posted[2];
+  uint64_t read[2];
+  V part[2][NW][NBN];
+  float mom[2][NW][4];
+};
+
+// B4's check, the checker's half: on the first producer warp, between its
+// TMA loads (load; on the splitter warps, whose band sums then shared their
+// registers with the checker's state, B4 ran 8-15 % slower in f32 and bf16;
+// PERF.md, findings). Lane e keeps sub-tiles e, e + 32, ..'s previous
+// residuals and event counts: a residual is the sum of its band's warps'
+// posts, an EVENT when mag(res - prev) exceeds the threshold (adaptive: the
+// variance bound from the posted moment sums, as SubTileThresholds::update
+// forms it, times sqrt(SBN)); after the last check it writes its
+// sub-tiles' grid cells (B4 corrects nothing: unc = det). Every lane
+// arrives on the slot's `read` once it has passed a check.
+template <class T, class Slot>
+struct GlobalChecker {
+  static constexpr bool kOnLoader = true;
+  static constexpr int NCK = 32;
+  static constexpr int PER = (T::NSUB + NCK - 1) / NCK;  // sub-tiles a lane
+  using V = typename T::Acc;
+  Slot& cm;
+  int k = 0, every8, nk8, chk;  // the next check, its k step
+  float thr0;
+  NoiseModel nm;
+  float margin;
+  V prev[PER];
+  int n_det[PER];
+
+  __device__ __forceinline__ GlobalChecker(const Scalars& sc,
+                                           const NoiseModel& nm_, int bk,
+                                           int K, int check_every,
+                                           void* scratch)
+      : cm(*reinterpret_cast<Slot*>(scratch)),
+        every8(check_every * (bk / 8)), nk8(K / 8),
+        chk(min(every8, nk8) - 1), thr0(sc.s[SLOT_THRESHOLD]), nm(nm_),
+        margin(sc.s[SLOT_MARGIN]) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      prev[i] = V(0);
+      n_det[i] = 0;
+    }
+  }
+
+  // Check k, once posted.
+  __device__ __forceinline__ void decide(int e) {
+    constexpr int NBN = T::NBN, WPB = T::SBM / 16;
+    const int b = k & 1;
+    mbar_wait(&cm.posted[b], (k >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int sub = e + NCK * i;
+      if (sub >= T::NSUB) break;
+      const int bb = sub / NBN, j = sub % NBN;
+      V res = 0;
+#pragma unroll
+      for (int wp = 0; wp < WPB; ++wp) res += cm.part[b][bb * WPB + wp][j];
+      float thr = thr0;
+      if constexpr (kAdaptive) {
+        constexpr int WA = T::SBM / 16, WB = T::SBN / 16;
+        constexpr int TMAX = T::SBM > T::SBN ? T::SBM : T::SBN;
+        constexpr float SQRT_BN = (float)const_sqrt((double)T::SBN);
+        float sa1 = 0.f, sa2 = 0.f, sb1 = 0.f, sb2 = 0.f;
+#pragma unroll
+        for (int w = 0; w < WA; ++w) {
+          sa1 += cm.mom[b][bb * WA + w][0];
+          sa2 += cm.mom[b][bb * WA + w][1];
+        }
+#pragma unroll
+        for (int w = 0; w < WB; ++w) {
+          sb1 += cm.mom[b][j * WB + w][2];
+          sb2 += cm.mom[b][j * WB + w][3];
+        }
+        const float tk = (float)((chk + 1) * 8);
+        thr = variance_bound_threshold(sa1, sa2, sb1, sb2, tk * T::SBM,
+                                       tk * T::SBN, tk * TMAX, nm, margin);
+        thr *= SQRT_BN;
+      }
+      n_det[i] += mag(res - prev[i]) > thr ? 1 : 0;
+      prev[i] = res;
+    }
+    mbar_arrive(&cm.read[b]);
+    chk = chk == nk8 - 1 ? INT_MAX : min(chk + every8, nk8 - 1);
+    ++k;
+  }
+  // The first warp's loop, lane e (RowcolChecker::load): every load it can
+  // issue, each check once posted, else suspended on the next slot while
+  // loads remain.
+  template <class Load, class Park>
+  __device__ __forceinline__ void load(int nst, int e, Load&& try_load,
+                                       Park&& park) {
+    int st = 0;
+    while (st < nst || chk != INT_MAX) {
+      while (st < nst && try_load(st)) ++st;
+      if (chk != INT_MAX &&
+          (st == nst ||
+           __shfl_sync(0xffffffffu, mbar_test(&cm.posted[k & 1],
+                                              (k >> 1) & 1) ? 1 : 0, 0)))
+        decide(e);
+      else if (st < nst)
+        park(st);
+    }
+  }
+  // The grid cells of this lane's sub-tiles, after the last check.
+  __device__ __forceinline__ void grids(int* det, int* unc, int M, int N,
+                                        int ti0, int tj0) const {
+    const int e = (int)threadIdx.x - T::NCONS;
+    if (e >= NCK) return;
+    const int gn = N / T::SBN;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int sub = e + NCK * i;
+      const int ti = ti0 + sub / T::NBN, tj = tj0 + sub % T::NBN;
+      if (sub < T::NSUB && ti < M / T::SBM && tj < gn) {
+        det[ti * gn + tj] = n_det[i];
+        unc[ti * gn + tj] = n_det[i];
+      }
+    }
+  }
+};
+
+// B4's check (_ft_kernel_global), the consumers' half: after the drain
+// that lands the product and the faults through its k step, each thread's
+// (expected - accumulated) share per column band and a warp's butterfly,
+// as GlobalCheck forms them (in the adaptive build the warp's moment sums
+// too), posted by the warp's first lane into the slot of the check's
+// parity, which then arrives on its `posted` mbarrier; the consumers go
+// back to issuing wgmma at once. No consumer barrier: the checker
+// (GlobalChecker, on the first producer warp) decides while the next
+// stages run. A post waits only for
+// the checker to have read the slot two checks back.
+template <class T, class Slot, class TH>
+struct GlobalSplitCheck {
+  static constexpr bool kSegmented = true;  // ~20 checks per run
+  static constexpr bool kPosts = true;
+  static constexpr bool kFoldFaults = true;
+  static constexpr bool kCheckerGrids = true;
+  static constexpr int kBytes = (int)sizeof(Slot);
+  using V = typename T::Acc;
+  using Checker = GlobalChecker<T, Slot>;
+  Slot& cm;
+  TH th;
+  int k = 0;  // checks posted
+
+  __device__ __forceinline__ GlobalSplitCheck(const Scalars& sc,
+                                              const NoiseModel& nm,
+                                              void* scratch)
+      : cm(*reinterpret_cast<Slot*>(scratch)), th(sc, nm, scratch) {}
+
+  // Thread 0, before the CTA's first barrier: the mbarriers.
+  static __device__ __forceinline__ void init_shared(void* scratch) {
+    Slot& m = *reinterpret_cast<Slot*>(scratch);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&m.posted[i], T::NCONS / 32);
+      mbar_init(&m.read[i], Checker::NCK);
+    }
+  }
+
+  __device__ __forceinline__ void post(WgMainloop<T>& ml, int) {
+    constexpr int NBN = T::NBN, GPB = T::SBN / 8;
+    constexpr unsigned FULL = 0xffffffffu;
+    const int l = ml.l, warp = threadIdx.x / 32, b = k & 1;
+    V v[NBN];
+#pragma unroll
+    for (int j = 0; j < NBN; ++j) {
+      v[j] = (l & 3) == j >> 1 ? ml.xcol(j & 1) + ml.xcol(2 + (j & 1)) : V(0);
+#pragma unroll
+      for (int gg = 0; gg < GPB; ++gg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[j] -= ml.acc[4 * (j * GPB + gg) + e];
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+      for (int j = 0; j < NBN; ++j) v[j] += __shfl_xor_sync(FULL, v[j], off);
+    float m4[4];
+    if constexpr (kAdaptive) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m4[i] = th.st[i];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m4[i] += __shfl_xor_sync(FULL, m4[i], off);
+    }
+    if (l == 0) {
+      if (k >= 2) mbar_wait(&cm.read[b], ((k - 2) >> 1) & 1);
+#pragma unroll
+      for (int j = 0; j < NBN; ++j) cm.part[b][warp][j] = v[j];
+      if constexpr (kAdaptive) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cm.mom[b][warp][i] = m4[i];
+      }
+      mbar_arrive(&cm.posted[b]);
+    }
+    ++k;
+  }
+  __device__ __forceinline__ void finish(WgMainloop<T>&) {}
+};
+
+// B4 (BANDS = kSumBands: GlobalSplitCheck) and B8 (kLoadBands:
+// GlobalCheck): no moment rows; B's band rows as the product's extra
+// columns; A and B of type IN.
 template <int BANDS, int IN = kF32>
 struct GlobalOf {
   template <int SBM, int SBN>
   struct At {
+    static constexpr bool kSplit = BANDS == kSumBands;
+    using Slot = GlobalSlot<8, 128 / SBN, AccOf<IN>>;
     using Smem = GlobalSubSmem<8, 128 / SBN, AccOf<IN>>;
     using type = WgTile<128, 128, SBM, SBN, 0,
-                        check_bytes<Smem, (128 / SBM) * (128 / SBN)>(), BANDS,
-                        kNoRows, IN>;
-    using Check = GlobalCheck<type, SubTileThresholds<type, kAdaptive, true>>;
+                        kSplit ? (int)sizeof(Slot)
+                               : check_bytes<Smem, (128 / SBM) * (128 / SBN)>(),
+                        BANDS, kNoRows, IN>;
+    using TH = SubTileThresholds<type, kAdaptive, true>;
+    using Check = std::conditional_t<kSplit, GlobalSplitCheck<type, Slot, TH>,
+                                     GlobalCheck<type, TH>>;
   };
 };
 
@@ -1298,14 +1531,17 @@ struct GlobalOf {
 // policy `Check`) after the last k step of every check_every-th bk step and
 // of the last. The check's cadence decides how the mainloop issues a stage
 // with a check or fault in it (kSegmented, WgMainloop::mma_stage). A check
-// that defers (kDeferred: B3's and B7's RowcolSplitCheck) takes the faults
-// off the mainloop: they go into `acc` at stage ends and before checks
-// (FragInject::fold), so only the checks cut a stage, and the check posts
-// and returns (the corrections come at a later stage end).
+// that folds the faults (kFoldFaults: B3, B4, B5, B7) takes them off the
+// mainloop: they go into `acc` at stage ends and before checks
+// (FragInject::fold), so only the checks cut a stage (kDeferred, what the
+// mainloop sees). A check that posts (kPosts: B3's and B7's
+// RowcolSplitCheck, B4's GlobalSplitCheck) hands its sums to the
+// producer's checker and returns (B3's and B7's corrections come before
+// the next check).
 template <class T, class Check>
 struct RunHook {
   static constexpr bool kSegmented = Check::kSegmented;
-  static constexpr bool kDeferred = Check::kDeferred;
+  static constexpr bool kDeferred = Check::kFoldFaults;
   static_assert(Check::kBytes <= T::CHECK_BYTES, "the check fits its scratch");
   FragInject<T> inj;
   Check ck;
@@ -1338,10 +1574,11 @@ struct RunHook {
     ck.th.kstep(ml, ah, al, kk, s);
   }
   __device__ __forceinline__ void check(WgMainloop<T>& ml) {
-    if constexpr (kDeferred) {
+    if constexpr (Check::kPosts) {
       inj.fold(ml, chk);
       ck.post(ml, chk);
     } else {
+      if constexpr (kDeferred) inj.fold(ml, chk);
       ck.th.update(ml, chk);
       ck.check(ml);
     }
@@ -1353,17 +1590,29 @@ struct RunHook {
   }
   // After the K loop: the last check's corrections.
   __device__ __forceinline__ void finish(WgMainloop<T>& ml) {
-    if constexpr (kDeferred) ck.finish(ml);
+    if constexpr (Check::kPosts) ck.finish(ml);
   }
 };
 
+// Whether the check's producer half writes the grids (B4's
+// GlobalChecker); else the consumers write them after the K loop.
+template <class Check, class = void>
+struct CheckerGrids : std::false_type {};
+template <class Check>
+struct CheckerGrids<Check, std::void_t<decltype(Check::kCheckerGrids)>>
+    : std::bool_constant<Check::kCheckerGrids> {};
+
 // B5's producer sums its moment rows (WgSmem::sum_rows) and is faster with
-// more registers than the others' (PERF.md, findings). (The consumers get
-// only what the producer frees of the launch's 168 a thread: at 48 they
-// would keep 224.)
+// more registers than the others': at 40, B5 ran 23 % slower in f32 at the
+// small tile and 17-27 % in bf16; so is B4's in f32 and int8 (split_bands:
+// up to 7 % at 56), not in bf16 (5-8 % slower; PERF.md, findings). (The
+// consumers get only what the producer frees of the launch's 168 a thread:
+// at 56 they keep 224, at 48 also 224.)
 template <class T>
 struct RunRegs {
-  static constexpr int PRODUCER = T::ROWS == kSumRows ? 56 : 40;
+  static constexpr bool kB4 = T::BANDS == kSumBands && T::ROWS == kNoRows;
+  static constexpr int PRODUCER =
+      T::ROWS == kSumRows || (kB4 && !T::BF16) ? 56 : 40;
   static constexpr int CONSUMER = T::consumer_regs(PRODUCER);
 };
 
@@ -1383,15 +1632,17 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   const int m0 = v.tile_m() * T::BM, n0 = v.tile_n() * T::BN;
   const int ti0 = v.tile_m() * T::NBM, tj0 = v.tile_n() * T::NBN;
   const int nst = (K + T::SK - 1) / T::SK;
-  if constexpr (Check::kDeferred) {
+  constexpr bool kCheckerGrids = CheckerGrids<Check>::value;
+  if constexpr (Check::kPosts) {
     if (threadIdx.x == 0) Check::init_shared(sm.check());
   }
   sm.init();
   if (threadIdx.x >= T::NCONS) {  // the producer warpgroup
     setmaxnreg_dec<RunRegs<T>::PRODUCER>();
-    if constexpr (Check::kDeferred) {  // its splitter warps check too
+    if constexpr (Check::kPosts) {  // its splitter warps check too
       typename Check::Checker ck(sc, nm, bk, K, check_every, sm.check());
       sm.produce_checked(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0, ck);
+      if constexpr (kCheckerGrids) ck.grids(det, unc, M, N, ti0, tj0);
     } else {
       sm.produce(&ta, &tb, m0, n0, nst, &tm, ti0, &tbb, tj0);
     }
@@ -1403,19 +1654,21 @@ __global__ void __launch_bounds__(T::NT, 1) ft_running_wgmma_kernel(
   ml.run(nst, hook);
   hook.finish(ml);
   const auto grids = [&] {
-    const int t = threadIdx.x, gn = N / T::SBN;
-    const int ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
-    if (t < T::NSUB && ti < M / T::SBM && tj < gn) {
-      det[ti * gn + tj] = hook.ck.det();
-      unc[ti * gn + tj] = hook.ck.unc();
+    if constexpr (!kCheckerGrids) {
+      const int t = threadIdx.x, gn = N / T::SBN;
+      const int ti = ti0 + t / T::NBN, tj = tj0 + t % T::NBN;
+      if (t < T::NSUB && ti < M / T::SBM && tj < gn) {
+        det[ti * gn + tj] = hook.ck.det();
+        unc[ti * gn + tj] = hook.ck.unc();
+      }
     }
   };
   // The grids go out before the store in bf16 and after it otherwise: the
   // two orders keep the allocations these kernels had before the epilogue's
   // call was added (bf16 and f32 respectively; PERF.md, section 6).
-  if constexpr (T::BF16) grids();
+  if constexpr (T::BF16 && !kCheckerGrids) grids();
   ml.template store<true>(out, C, N, m0, n0, alpha, beta, epi, M);
-  if constexpr (!T::BF16) grids();
+  if constexpr (!T::BF16 && !kCheckerGrids) grids();
 }
 
 // One launch of a sub-tiled kernel for sub-tile (bm, bn): `Of<bm, bn>`

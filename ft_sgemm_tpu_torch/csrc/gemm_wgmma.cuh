@@ -154,10 +154,12 @@ inline bool narrow_tile(int bm, int bn) {
 // Where a stage's moment rows come from: none (B1, B2, B4, B8), a TMA box
 // of the MOM rows per row band that the check reads out of the wrapper's
 // (gm, rows, K) moment rows (B6: 3 of 3; B7: 1, or 2 with multifault, of
-// 2; in bf16 one box per term of the wrapper's (gm, 3 rows, K)), or sums over A's landed stage by the splitter warps, one job per
-// sub-tile row band and column after B's split (B5: WgSmem::sum_rows) or
-// in 8-row groups beside B's split (B3: WgSmem::split_b). B5 on the 8-row
-// groups ran 13-30 % slower at the 16- to 64-row sub-tiles (PERF.md).
+// 2; in bf16 one box per term of the wrapper's (gm, 3 rows, K)), or sums
+// over A's landed stage by the splitter warps, one job per sub-tile row
+// band and column (shared by 8 lanes at the 128-row sub-tile) after B's
+// split (B5: WgSmem::sum_rows) or in 8-row groups beside B's split (B3:
+// WgSmem::split_b). B5 on the 8-row groups ran 13-30 % slower at the 16-
+// to 64-row sub-tiles (PERF.md).
 enum MomentRows {
   kNoRows = 0,
   kLoadRows = 1,
@@ -167,8 +169,9 @@ enum MomentRows {
 
 // Where B's band rows (rows BN .. BN + NBN - 1 of B's stage, the operand of
 // the expected row sums) come from: none (B1, B2, B5, B6), sums over B's
-// landed stage by the splitter warps in 8-row groups (B3, B4:
-// WgSmem::split_b), or a TMA box of the wrapper's (N / SBN, K) band rows
+// landed stage by the splitter warps, in 8-row groups (B3: WgSmem::split_b)
+// or per band by lane groups (B4: WgSmem::split_bands), or a TMA box of the
+// wrapper's (N / SBN, K) band rows
 // (B7, B8), which the splitter warps only split (in bf16 one box per term
 // of the wrapper's (N / SBN, 3, K), not split).
 enum BandRows {
@@ -265,10 +268,12 @@ struct WgTile {
   static constexpr int M_BOX = ROWS == kLoadRows ? MOM * NBM * 128 : 0;
   static constexpr int TX_BYTES = A_BYTES + B_BOX + NTERM * (BAND_BOX + M_BOX);
   static constexpr int CHECK_BYTES = CHECK_;
-  // The splitters' 8-row sums (WgSmem::split_b) of B (kSumBands) and of A's
-  // moments (kSumRowGroups), rows of SK floats per stage.
-  static constexpr int PROD_ROWS = (BANDS == kSumBands ? BN / 8 : 0) +
-                                   (ROWS == kSumRowGroups ? MOM * BM / 8 : 0);
+  // The splitters' 8-row sums (WgSmem::split_b) of B (B3's kSumBands) and
+  // of A's moments (kSumRowGroups), rows of SK floats per stage; B4's band
+  // sums need none (WgSmem::split_bands).
+  static constexpr int PROD_ROWS =
+      (BANDS == kSumBands && ROWS == kSumRowGroups ? BN / 8 : 0) +
+      (ROWS == kSumRowGroups ? MOM * BM / 8 : 0);
   // The ring's 3 * stages mbarriers, padded to keep what follows 16-byte
   // aligned (float4 stores).
   static constexpr __host__ __device__ int bar_bytes(int stages) {
@@ -504,6 +509,35 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 // row r stored at chunk c ^ (r & 7).
 __device__ __forceinline__ int swz_word(int r, int p) {
   return r * 32 + (((p >> 2) ^ (r & 7)) << 2) + (p & 3);
+}
+
+// The sums of N values over the G lanes of an aligned lane group (u = the
+// lane's index in it), in rounds over the lane bits OFF = G / 2 .. 1, the
+// highest first, each adding the partner's copy: every total is the same
+// tree over the group's lanes, pairs by the highest bit first
+// (ops/tf32x3.lane_tree repeats it). While more than KEEP values are left,
+// a round also halves them: the lane with the bit set keeps the upper half.
+// After the call v[0 .. KEEP - 1] holds the totals of block (u & G / 2 ? 1 :
+// 0) * N / 2 + (u & G / 4 ? 1 : 0) * N / 4 + .. (KEEP values each), the same
+// in every lane of the bits below the halving rounds.
+template <int OFF, int N, int KEEP, class V, int NV>
+__device__ __forceinline__ void lane_rounds(V (&v)[NV], int u) {
+  if constexpr (OFF >= 1) {
+    if constexpr (N > KEEP) {
+      const bool up = (u & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const V send = up ? v[i] : v[i + N / 2];
+        const V keep = up ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      lane_rounds<OFF / 2, N / 2, KEEP>(v, u);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], OFF);
+      lane_rounds<OFF / 2, N, KEEP>(v, u);
+    }
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -1197,35 +1231,66 @@ struct WgSmem {
     }
   }
 
-  // B5's moment rows of stage s: for each sub-tile row band b and column k,
-  // the sums of A's rows with weights 1, w, w^2 (w = row in the band + 1)
-  // into rows 3b .. 3b + 2, split hi / lo, in the swizzled K-major layout
-  // of a TMA box; the padding rows are zero.
+  // B5's moment rows (kSumRows): for each sub-tile row band b and column k
+  // of the stage, the sums of A's rows with weights 1, w, w^2 (w = row in
+  // the band + 1), rows 3 b .. 3 b + 2. A job is one (band, column); at the
+  // 128-row sub-tiles G = 8 lanes of a warp share it, lane u summing rows
+  // u, u + 8, .. (16 of them, in order), and the lanes' sums meet by
+  // shuffles over the lane bits 4, 2, 1 (ops/tf32x3.moment_rows_b5 repeats
+  // the order); below, one lane sums the band's rows (G = 1). Warp w takes
+  // the jobs' sets x = w, w + 3, .. < ROW_SETS (the band x / G, chunk G (gw
+  // / 4) + x % G and column 4 chunk + gw % 4 of the stage for the lane's
+  // group gw = lane / G), so that the 32 lanes of a load read 32 banks.
+  // (One lane a job summing the band's 128 rows left two of the three warps
+  // idle at the 128-row sub-tiles, and the sums set the pace of B5 there;
+  // lane groups at the 64- and 32-row sub-tiles made B5 3-9 % slower than
+  // one lane a job; PERF.md.)
+  static constexpr int ROW_LANES = T::SBM == 128 ? 8 : 1;
+  static constexpr int ROW_N = T::SBM / ROW_LANES;  // rows a lane
+  static constexpr int ROW_SETS = T::NBM * ROW_LANES;
+  __device__ __forceinline__ int row_job(int e, int x, int& band) const {
+    constexpr int G = ROW_LANES;
+    const int gw = (e & 31) / G;
+    band = x / G;
+    return 4 * (G * (gw >> 2) + x % G) + (gw & 3);
+  }
+
+  // The moment rows of stage s in f32, split hi / lo in the swizzled
+  // K-major layout of a TMA box; the padding rows are zero.
   __device__ __forceinline__ void sum_rows(int s, int e) const {
+    constexpr int G = ROW_LANES;
+    const int u = (e & 31) % G;
     const float* a_ = a(s);
     float* hi = mhi(s);
     float* lo = mlo(s);
-    for (int j = e; j < T::NBM * T::SK; j += T::SPLITTERS) {
-      const int band = j / T::SK, k = j % T::SK;
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int x = e >> 5; x < ROW_SETS; x += 3) {
+      int band;
+      const int k = row_job(e, x, band);
+      float sv[3] = {0.f, 0.f, 0.f};
 #pragma unroll 8
-      for (int rr = 0; rr < T::SBM; ++rr) {
-        const int r = band * T::SBM + rr;
-        const float x = a_[r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)];
+      for (int i = 0; i < ROW_N; ++i) {
+        const int rr = u + G * i, r = band * T::SBM + rr;
+        const float v = a_[r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)];
         const float w = (float)(rr + 1);
-        s0 += x;
-        s1 += w * x;
-        s2 += (w * w) * x;
+        sv[0] += v;
+        sv[1] = fmaf(w, v, sv[1]);
+        sv[2] = fmaf(w * w, v, sv[2]);
       }
-      const float sv[3] = {s0, s1, s2};
 #pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const int r = 3 * band + v;
-        const int o = r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
-        uint32_t h, l;
-        split_tf32(sv[v], h, l);
-        hi[o] = __uint_as_float(h);
-        lo[o] = __uint_as_float(l);
+      for (int off = G / 2; off >= 1; off >>= 1)
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          sv[v] += __shfl_xor_sync(0xffffffffu, sv[v], off);
+      if (u == 0) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const int r = 3 * band + v;
+          const int o = r * T::SK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+          uint32_t h, l;
+          split_tf32(sv[v], h, l);
+          hi[o] = __uint_as_float(h);
+          lo[o] = __uint_as_float(l);
+        }
       }
     }
     for (int j = 3 * T::NBM * T::SK + e; j < T::R * T::SK; j += T::SPLITTERS)
@@ -1251,41 +1316,53 @@ struct WgSmem {
       mw(s, 0)[z] = mw(s, 1)[z] = mw(s, 2)[z] = 0u;
   }
 
-  // bf16 B5's moment rows of stage s: for each sub-tile row band b and
-  // column pair, the f32 sums of A's bf16 rows with weights 1, w, w^2 (w =
-  // row in the band + 1) as rows 3 b .. 3 b + 2 of the three term buffers;
-  // the padding rows are zero.
+  // The moment rows of stage s in bf16 (sum_rows' jobs, a job a column
+  // pair): the f32 sums of A's bf16 values as the three bf16 terms of
+  // rows 3 b .. 3 b + 2 of the term buffers; the padding rows are zero.
   __device__ __forceinline__ void sum_rows_bf16(int s, int e) const {
+    constexpr int G = ROW_LANES;
+    const int u = (e & 31) % G;
     const uint32_t* a_ = aw(s);
-    for (int j = e; j < T::NBM * 32; j += T::SPLITTERS) {
-      const int band = j / 32, p = j % 32;
+    for (int x = e >> 5; x < ROW_SETS; x += 3) {
+      int band;
+      const int p = row_job(e, x, band);
       float sv[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll 8
-      for (int rr = 0; rr < T::SBM; ++rr) {
-        const uint32_t x = a_[swz_word(band * T::SBM + rr, p)];
-        const float x0 = bf16_lo(x), x1 = bf16_hi(x);
+      for (int i = 0; i < ROW_N; ++i) {
+        const int rr = u + G * i;
+        const uint32_t v = a_[swz_word(band * T::SBM + rr, p)];
+        const float x0 = bf16_lo(v), x1 = bf16_hi(v);
         const float w = (float)(rr + 1);
         sv[0][0] += x0;
         sv[0][1] += x1;
-        sv[1][0] += w * x0;
-        sv[1][1] += w * x1;
-        sv[2][0] += (w * w) * x0;
-        sv[2][1] += (w * w) * x1;
+        sv[1][0] = fmaf(w, x0, sv[1][0]);
+        sv[1][1] = fmaf(w, x1, sv[1][1]);
+        sv[2][0] = fmaf(w * w, x0, sv[2][0]);
+        sv[2][1] = fmaf(w * w, x1, sv[2][1]);
       }
 #pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        uint32_t w3[3];
-        bf16x3(sv[v][0], sv[v][1], w3);
-        const int o = swz_word(3 * band + v, p);
+      for (int off = G / 2; off >= 1; off >>= 1)
 #pragma unroll
-        for (int t = 0; t < 3; ++t) mw(s, t)[o] = w3[t];
+        for (int v = 0; v < 3; ++v)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            sv[v][c] += __shfl_xor_sync(0xffffffffu, sv[v][c], off);
+      if (u == 0) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          uint32_t w3[3];
+          bf16x3(sv[v][0], sv[v][1], w3);
+          const int o = swz_word(3 * band + v, p);
+#pragma unroll
+          for (int t = 0; t < 3; ++t) mw(s, t)[o] = w3[t];
+        }
       }
     }
     for (int z = 3 * T::NBM * 32 + e; z < T::R * 32; z += T::SPLITTERS)
       mw(s, 0)[z] = mw(s, 1)[z] = mw(s, 2)[z] = 0u;
   }
 
-  // bf16 B3's and B4's sum rows of stage st: B's column-band sums
+  // bf16 B3's sum rows of stage st: B's column-band sums
   // (kSumBands) as rows BN + 8 t + j (term t, band j) of B's stage, and
   // A's row-band moment sums (kSumRowGroups) as row MOM b + v of the term
   // buffers, all f32 sums of the bf16 values. A job sums 8 rows of one
@@ -1417,7 +1494,7 @@ struct WgSmem {
     }
   }
 
-  // int8 B3's and B4's sum rows of stage st: B's column-band sums
+  // int8 B3's sum rows of stage st: B's column-band sums
   // (kSumBands) as the digit rows BN + j (lo) and BN + 8 + j (hi) of B's
   // stage, and A's row-band sums (kSumRowGroups, MOM = 1) as rows b (lo) and
   // 8 + b (hi) of the moment buffer; exact integer sums. A job sums 8 rows of
@@ -1505,6 +1582,153 @@ struct WgSmem {
       asm volatile("bar.sync 2, %0;\n" ::"n"(T::SPLITTERS) : "memory");
   }
 
+  // B4's band rows (kSumBands without moment rows): for each column band j
+  // the sums of its SBN rows of B, one job per (band, 16-byte chunk of the
+  // stage), G = SBN / 4 lanes of a warp a job, lane u taking rows u, u + G,
+  // .. (BAND_ROWS of them) in order, the lanes' sums meeting by lane_rounds (a
+  // column's total in one lane of each pair .. group of lanes below the
+  // halving rounds), with no scratch and no barrier between the splitter
+  // warps: each warp takes the jobs' sets x = warp, warp + 3, .. <
+  // BAND_SETS (at G >= 8 jobs x 32 / G + gw, gw = lane / G; at G = 4 band
+  // x, chunk 4 (gw % 2) + gw / 2, so that the lanes of a 16-byte phase read
+  // 8 banks' chunks).
+  // (In 8-row sums through the producer scratch, a named barrier and a
+  // second pass a stage, B4 in f32 ran 0.5-0.7 ms slower than B8, which
+  // only splits; PERF.md.)
+  static constexpr int BAND_LANES = T::SBN / 4;
+  // Rows a lane, and the jobs' sets (32 lanes each) of a stage.
+  static constexpr int BAND_ROWS = T::SBN / BAND_LANES;
+  static constexpr int BAND_SETS = T::NBN * 8 * BAND_LANES / 32;
+  __device__ __forceinline__ void band_job(int e, int x, int& j,
+                                           int& c) const {
+    constexpr int G = BAND_LANES;
+    const int gw = (e & 31) / G;
+    if constexpr (G < 8) {
+      j = x;
+      c = 4 * (gw & 1) + (gw >> 1);
+    } else {
+      const int jb = x * (32 / G) + gw;
+      j = jb / 8;
+      c = jb % 8;
+    }
+  }
+
+  // f32: B's stage s split hi / lo in place (as split4) and, in the same
+  // pass, row BN + j of the band sums of B's f32 values (as B8's wrapper and
+  // the plain version sum them; hi + lo differs by ~2^-22 of a value), split
+  // the same way.
+  __device__ __forceinline__ void split_bands(int s, int e) const {
+    constexpr int G = BAND_LANES;
+    const int u = (e & 31) % G;
+    float4* hi4 = reinterpret_cast<float4*>(b(s));
+    float4* lo4 = reinterpret_cast<float4*>(blo(s));
+    for (int x = e >> 5; x < BAND_SETS; x += 3) {
+      int j, c;
+      band_job(e, x, j, c);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BAND_ROWS; ++i) {
+        const int r = j * T::SBN + u + G * i, o = r * 8 + (c ^ (r & 7));
+        const float4 x4 = hi4[o];
+        uint32_t h[4], l[4];
+        split_tf32(x4.x, h[0], l[0]);
+        split_tf32(x4.y, h[1], l[1]);
+        split_tf32(x4.z, h[2], l[2]);
+        split_tf32(x4.w, h[3], l[3]);
+        hi4[o] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                             __uint_as_float(h[2]), __uint_as_float(h[3]));
+        lo4[o] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                             __uint_as_float(l[2]), __uint_as_float(l[3]));
+        v[0] += x4.x;
+        v[1] += x4.y;
+        v[2] += x4.z;
+        v[3] += x4.w;
+      }
+      lane_rounds<G / 2, 4, 1>(v, u);
+      if ((u & (G / 4 - 1)) == 0) {
+        const int k = 4 * c + (u & (G / 2) ? 2 : 0) + (u & (G / 4) ? 1 : 0);
+        const int n = T::BN + j;
+        const int o = n * T::SK + (((k >> 2) ^ (n & 7)) << 2) + (k & 3);
+        uint32_t h, l;
+        split_tf32(v[0], h, l);
+        b(s)[o] = __uint_as_float(h);
+        blo(s)[o] = __uint_as_float(l);
+      }
+    }
+  }
+
+  // bf16: the band sums (f32 sums of the bf16 values) of stage s as the
+  // three bf16 terms of rows BN + 8 t + j, a lane group's column pair each.
+  __device__ __forceinline__ void band_sums_bf16(int s, int e) const {
+    constexpr int G = BAND_LANES;
+    const int u = (e & 31) % G;
+    const uint4* b4 = reinterpret_cast<const uint4*>(b(s));
+    for (int x = e >> 5; x < BAND_SETS; x += 3) {
+      int j, c;
+      band_job(e, x, j, c);
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BAND_ROWS; ++i) {
+        const int r = j * T::SBN + u + G * i;
+        const uint4 x4 = b4[r * 8 + (c ^ (r & 7))];
+        const uint32_t w4[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[2 * q] += bf16_lo(w4[q]);
+          v[2 * q + 1] += bf16_hi(w4[q]);
+        }
+      }
+      lane_rounds<G / 2, 8, 2>(v, u);
+      if ((u & (G / 4 - 1)) == 0) {
+        const int p = 4 * c + (u & (G / 2) ? 2 : 0) + (u & (G / 4) ? 1 : 0);
+        uint32_t w3[3];
+        bf16x3(v[0], v[1], w3);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) bw(s)[swz_word(T::BN + 8 * t + j, p)] = w3[t];
+      }
+    }
+  }
+
+  // int8: the band sums of stage s, exact, as the digit rows BN + j (lo) and
+  // BN + 8 + j (hi): each byte biased to x + 128, two columns a word in
+  // 16-bit lanes (a band's 128 * 255 < 2^16, so no lane carries into the
+  // next, also after the lanes' sums), a lane group's 4-column word each.
+  __device__ __forceinline__ void band_sums_s8(int s, int e) const {
+    constexpr int G = BAND_LANES;
+    const int u = (e & 31) % G;
+    const uint4* b4 = reinterpret_cast<const uint4*>(b(s));
+    for (int x = e >> 5; x < BAND_SETS; x += 3) {
+      int j, c;
+      band_job(e, x, j, c);
+      // v[2 q]: columns 4 q and 4 q + 2 of word q; v[2 q + 1]: 4 q + 1, 4 q + 3.
+      uint32_t v[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < BAND_ROWS; ++i) {
+        const int r = j * T::SBN + u + G * i;
+        const uint4 x4 = b4[r * 8 + (c ^ (r & 7))];
+        const uint32_t w4[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t y = w4[q] ^ 0x80808080u;  // x + 128 per byte
+          v[2 * q] += y & 0x00ff00ffu;
+          v[2 * q + 1] += (y >> 8) & 0x00ff00ffu;
+        }
+      }
+      lane_rounds<G / 2, 8, 2>(v, u);
+      if ((u & (G / 4 - 1)) == 0) {
+        const int p = 4 * c + (u & (G / 2) ? 2 : 0) + (u & (G / 4) ? 1 : 0);
+        constexpr int BIAS = 128 * T::SBN;
+        uint32_t lo, hi;
+        digits(make_int4((int)(v[0] & 0xffffu) - BIAS,
+                         (int)(v[1] & 0xffffu) - BIAS,
+                         (int)(v[0] >> 16) - BIAS, (int)(v[1] >> 16) - BIAS),
+               lo, hi);
+        bw(s)[swz_word(T::BN + j, p)] = lo;
+        bw(s)[swz_word(T::BN + 8 + j, p)] = hi;
+      }
+    }
+  }
+
   // Those rows of ring slot s, zeroed once before the first stage. (Zeroed
   // in each slot's first stage instead, inside the splitters' stage loop,
   // they made B6 5-10 % slower; PERF.md.)
@@ -1518,8 +1742,8 @@ struct WgSmem {
   }
 
   // B's stage s split like split4: B's box and, where loaded (kLoadBands),
-  // its band rows; with kSumBands also B's column-band sums (B3, B4) and,
-  // with kSumRowGroups, A's row-band moment sums (B3).
+  // its band rows; with kSumBands also B's column-band sums and, with
+  // kSumRowGroups, A's row-band moment sums (B3; B4's: split_bands).
   // Row BN + j (j < NBN; the rest zero) of B's stage is the sum of the rows
   // of column band j (of hi + lo, the value the product multiplies), split
   // hi / lo in the same swizzled layout, so that the product's extra column
@@ -1679,16 +1903,9 @@ struct WgSmem {
         }
       }
     } else if (p >= 32) {
+      // (B3 and B4, the int8 kernels among them, run produce_checked.)
       if constexpr (T::F8) {
         // B1 in fp8: the consumers take B's stage as landed.
-      } else if constexpr (T::S8) {
-        for (int s = 0; s < T::STAGES; ++s) zero_pads_s8(s, p - 32);
-        for (int st = 0; st < nst; ++st) {
-          mbar_wait(full(st % T::STAGES), (st / T::STAGES) & 1);
-          sum_bands_s8(st, p - 32);
-          fence_proxy_async();  // the digit rows are visible to wgmma
-          mbar_arrive(ready(st % T::STAGES));
-        }
       } else if constexpr (!T::BF16) {
         if constexpr (PADS) {
           for (int s = 0; s < T::STAGES; ++s) zero_pads(s, p - 32);
@@ -1710,11 +1927,7 @@ struct WgSmem {
         for (int st = 0; st < nst; ++st) {
           const int s = st % T::STAGES;
           mbar_wait(full(s), (st / T::STAGES) & 1);
-          if constexpr (T::ROWS == kSumRows) {
-            sum_rows_bf16(s, p - 32);
-          } else {
-            sum_bands_bf16(st, p - 32);
-          }
+          sum_rows_bf16(s, p - 32);  // B5: the only bf16 splitting here
           fence_proxy_async();  // the sum rows are visible to wgmma
           mbar_arrive(ready(s));
         }
@@ -1722,10 +1935,10 @@ struct WgSmem {
     }
   }
 
-  // produce() for B3 and B7, whose checks the producer decides (`ck`, a
-  // RowcolChecker): the splitter warps while they wait for a stage to land
-  // and after the last stage, or (CK::kOnLoader) the first warp between its
-  // loads. The other kernels keep produce(), so that their code stays as
+  // produce() for B3, B4 and B7, whose checks the producer decides (`ck`,
+  // a RowcolChecker or B4's GlobalChecker): the splitter warps while they
+  // wait for a stage to land and after the last stage, or (CK::kOnLoader)
+  // the first warp between its loads. The other kernels keep produce(), so that their code stays as
   // it was (with a form shared with this one, B2 bf16 at the tall tile ran
   // 4.9 % slower; PERF.md).
   template <class CK>
@@ -1788,11 +2001,15 @@ struct WgSmem {
         else
           mbar_wait(full(st % T::STAGES), (st / T::STAGES) & 1);
       };
+      constexpr bool LANES = T::ROWS == kNoRows;  // B4's band sums
       if constexpr (T::S8) {
         for (int s = 0; s < T::STAGES; ++s) zero_pads_s8(s, e);
         for (int st = 0; st < nst; ++st) {
           land(st);
-          sum_bands_s8(st, e);
+          if constexpr (LANES)
+            band_sums_s8(st % T::STAGES, e);
+          else
+            sum_bands_s8(st, e);
           fence_proxy_async();  // the digit rows are visible to wgmma
           mbar_arrive(ready(st % T::STAGES));
         }
@@ -1803,7 +2020,10 @@ struct WgSmem {
         for (int st = 0; st < nst; ++st) {
           const int s = st % T::STAGES;
           land(st);
-          split_b(st, e);
+          if constexpr (LANES && T::BANDS == kSumBands)
+            split_bands(s, e);
+          else
+            split_b(st, e);
           if constexpr (T::ROWS == kLoadRows)
             split4(mhi(s), mlo(s), T::M_BOX / 16, e);
           if constexpr (T::ROWS == kSumRows) sum_rows(s, e);
@@ -1819,6 +2039,8 @@ struct WgSmem {
           land(st);
           if constexpr (T::ROWS == kSumRows) {
             sum_rows_bf16(s, e);
+          } else if constexpr (LANES) {
+            band_sums_bf16(s, e);
           } else {
             sum_bands_bf16(st, e);
           }
@@ -1831,8 +2053,8 @@ struct WgSmem {
   }
 };
 
-// Whether a hook defers its faults to stage ends (Hook::kDeferred; B3's
-// and B7's RunHook, whose checks also defer their corrections): it then
+// Whether a hook defers its faults to stage ends (Hook::kDeferred; the
+// RunHook of B3, B4, B5 and B7): it then
 // reports no fault to the mainloop (at() false, fault_step() INT_MAX), so
 // that a stage is cut only at its checks, and takes stage_end(ml, st)
 // after each stage's promotion.
@@ -2447,8 +2669,8 @@ struct WgMainloop {
 
   // Stage st on registers (ch, cl) while stage st + 1 is prepared into
   // (nh, nl); then add st's sum into acc and release st's slot. A hook
-  // that defers its events (kDeferred: B3's and B7's, RunHook) sees the
-  // stage end, once `part` is in `acc` (hook.stage_end).
+  // that defers its faults (kDeferred: B3's, B4's, B5's and B7's RunHook)
+  // sees the stage end, once `part` is in `acc` (hook.stage_end).
   template <class Hook>
   __device__ __forceinline__ void step(int st, int nst, Hook& hook,
                                        const uint32_t (&ch)[NF],

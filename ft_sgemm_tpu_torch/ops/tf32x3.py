@@ -125,9 +125,61 @@ def wgmma_fragment_map(bm: int, bn: int) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(row, col), -1)
 
 
+def lane_tree(x: torch.Tensor) -> torch.Tensor:
+    """The total over the last dim (G lanes, a power of two) as the kernels'
+    lane rounds add it (``gemm_wgmma.cuh::lane_rounds`` and the shuffle
+    loops of ``WgSmem::sum_rows``): lane u and lane u + G / 2 first, then
+    the halves' totals likewise, in f32."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def moment_rows_b5(ap: torch.Tensor, sbm: int) -> torch.Tensor:
+    """(gm, 3, K): B5's moment rows of each (sbm, K) row tile of a padded A
+    (f32; bf16 as exact f32 values) in the order B5's splitter warps sum them
+    (``WgSmem::sum_rows``, ``sum_rows_bf16``): G lanes a column (8 at sbm =
+    128, else 1: ``WgSmem::ROW_LANES``), lane u adding rows u, u + G, .. in
+    order, the moments w and
+    w^2 as ``fmaf(w, x, s)`` and ``fmaf(w * w, x, s)`` (w = row + 1; here
+    in float64, rounded once to f32: the fused result but where that double
+    rounding differs, rare and below f32's own rounding), then the lanes'
+    sums by :func:`lane_tree`."""
+    m, kdim = ap.shape
+    g = 8 if sbm == 128 else 1
+    n = sbm // g
+    x = ap.float().reshape(m // sbm, n, g, kdim)  # row u + g i at [i, u]
+    w = torch.arange(1, sbm + 1, dtype=torch.float32).reshape(n, g)
+    sums = [torch.zeros((m // sbm, g, kdim)) for _ in range(3)]
+    for i in range(n):
+        xi = x[:, i]
+        wi = w[i][None, :, None]
+        sums[0] = sums[0] + xi
+        sums[1] = (wi.double() * xi.double() + sums[1].double()).float()
+        sums[2] = ((wi * wi).double() * xi.double()
+                   + sums[2].double()).float()
+    return torch.stack([lane_tree(v.transpose(1, 2)) for v in sums], 1)
+
+
+def band_sums_b4(bv: torch.Tensor, sbn: int) -> torch.Tensor:
+    """(gn, K): B4's column-band sums of B's values bv (gn, sbn, K) in the
+    order its splitter warps add them (``WgSmem::split_bands``,
+    ``band_sums_bf16``): G = sbn / 4 lanes a column
+    (``WgSmem::BAND_LANES``), lane u adding rows u, u + G, u + 2 G, u + 3 G
+    in order, then the lanes' sums by :func:`lane_tree`."""
+    gn, _, kdim = bv.shape
+    g = sbn // 4
+    x = bv.reshape(gn, sbn // g, g, kdim)
+    s = torch.zeros((gn, g, kdim))
+    for i in range(sbn // g):
+        s = s + x[:, i]
+    return lane_tree(s.transpose(1, 2))
+
+
 def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
                     check, moments=None, band_sums=False, band_rows=None,
-                    deferred=False):
+                    deferred=False, fold=False):
     """The sub-tiled wgmma kernel (``csrc/ft_sgemm_running.cuh``) on padded
     operands: per 8-column k step the 3xTF32 product into the stage sum
     and, beside it, the 3xTF32 expected column sums ``B_tile . M^T`` of the
@@ -146,7 +198,11 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
     check's snapshot if that comes first, and ``check`` returns the
     correction instead of the corrected acc, added before the next
     check's snapshot (after that check's faults) or before the output.
-    Returns (out, det, unc) like ``ops/ft_sgemm.ft_weighted_plain``."""
+    ``fold`` (B4, B5): the faults go in at stage ends and before checks as
+    with ``deferred``, the checks' corrections at once. ``band_sums`` is
+    True (B3: the kernel's 8-row sums, modelled by a plain sum) or "lanes"
+    (B4: :func:`band_sums_b4`). Returns (out, det, unc) like
+    ``ops/ft_sgemm.ft_weighted_plain``."""
     strict_fp32()
     a4, b4, c4, nk = ft._tiles(a, b, c, shape)
     gm, gn, bm, bn = c4.shape
@@ -162,11 +218,13 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         part_e = torch.zeros_like(exp)
         sums.append((exp, part_e))
     if band_sums or band_rows is not None:
-        # B3, B4: the splitter warps sum the split B (hi + lo, what the
+        # B3: the splitter warps sum the split B (hi + lo, what the
         # product multiplies) over each column band, then split the sums;
-        # B7, B8: they split the loaded f32 band rows.
-        sh, sl = split((bh + bl).sum(1) if band_rows is None
-                       else band_rows[:, 0])
+        # B4: B's f32 values (band_sums_b4); B7, B8: they split the loaded
+        # f32 band rows.
+        sh, sl = split(band_rows[:, 0] if band_rows is not None
+                       else band_sums_b4(b4.reshape(gn, bn, -1), shape.bn)
+                       if band_sums == "lanes" else (bh + bl).sum(1))
         r_exp = torch.zeros((gm, gn, bm), device=a.device)
         part_r = torch.zeros_like(r_exp)
         sums.append((r_exp, part_r))
@@ -181,7 +239,7 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
     kk_stage = STAGE // KK
     pending, delta = [], None
 
-    def fold():
+    def fold_pending():
         # The deferred faults, in their order, into acc.
         for f in pending:
             ft._inject_plain(acc, scalars, f)
@@ -189,7 +247,7 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
 
     for t in range(nk8):
         if t % cps == 0 and t // cps in faults:
-            if deferred:
+            if deferred or fold:
                 pending.append(t // cps)
             else:
                 promote()
@@ -206,8 +264,9 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         s = (t + 1) // cps - 1   # the bk step that k step t ends, if any
         if (t + 1) % cps == 0 and ((s + 1) % check_every == 0 or s == nk - 1):
             promote()
+            if deferred or fold:
+                fold_pending()
             if deferred:
-                fold()
                 if delta is not None:
                     acc += delta
                 delta, hits, level = check(acc, exp, r_exp)
@@ -218,8 +277,8 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
             unc = level.to(torch.int32)
         if (t + 1) % kk_stage == 0 or t == nk8 - 1:
             promote()
-            if deferred:
-                fold()
+            if deferred or fold:
+                fold_pending()
     if delta is not None:
         acc += delta
     return ft._untile(alpha * acc + beta * c4), det, unc
@@ -228,18 +287,20 @@ def _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
 def ft_running_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
                       moments=None):
     """B5 (``moments`` None: A's moment sums of each tile, formed in the
-    kernel) and B6 (``moments``: A's (gm, 3, K) moment rows) as the wgmma
-    kernel computes them (:func:`_subtile_tf32x3`); each check is
+    kernel, :func:`moment_rows_b5`, its faults folded at stage ends) and B6
+    (``moments``: A's (gm, 3, K) moment rows, its faults added at once) as
+    the wgmma kernel computes them (:func:`_subtile_tf32x3`); each check is
     ``_moment_detect_correct``. Returns (out, det, unc) like
     ``ops/ft_sgemm.ft_weighted_plain``."""
-    if moments is None:
-        moments = ft._tile_moments(a, shape.bm)
+    b5 = moments is None
+    if b5:
+        moments = moment_rows_b5(a, shape.bm)
     thresholds = [float(t) for t in scalars[4:7]]
     return _subtile_tf32x3(
         a, b, c, shape, alpha, beta, scalars, check_every,
         lambda acc, exp, _: ft._moment_detect_correct(acc, *exp.unbind(2),
                                                       thresholds),
-        moments=moments)
+        moments=moments, fold=b5)
 
 
 def rowcol_split_decide(res_r, res_c, res_cw, thresholds, multifault: bool,
@@ -366,13 +427,14 @@ def ft_rowcol_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
 
 def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
                      rows=None):
-    """B4 (``rows`` None) and B8 (``rows`` = A's and B's (g, 1, K) moment
-    rows; only B's are read) as the wgmma kernel computes them
-    (:func:`_subtile_tf32x3`): each tile's residual is the sum over its
-    rows of (expected row sum - the row's accumulator sum), one event when
-    it moved by more than the threshold since the previous check. Returns
-    (out, det, unc) like ``ops/ft_sgemm.ft_global_plain``, unc equal to
-    det."""
+    """B4 (``rows`` None: its band sums :func:`band_sums_b4`, its faults
+    folded at stage ends) and B8 (``rows`` = A's and B's (g, 1, K) moment
+    rows; only B's are read; its faults added at once) as the wgmma kernel
+    computes them (:func:`_subtile_tf32x3`): each tile's residual is the sum
+    over its rows of (expected row sum - the row's accumulator sum), one
+    event when it moved by more than the threshold since the previous
+    check. Returns (out, det, unc) like ``ops/ft_sgemm.ft_global_plain``,
+    unc equal to det."""
     thr = float(scalars[4])
     state = {}
 
@@ -385,8 +447,9 @@ def ft_global_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every: int,
         return acc, events, state["det"]
 
     return _subtile_tf32x3(a, b, c, shape, alpha, beta, scalars, check_every,
-                           check, band_sums=rows is None,
-                           band_rows=None if rows is None else rows[1])
+                           check, band_sums="lanes" if rows is None else False,
+                           band_rows=None if rows is None else rows[1],
+                           fold=rows is None)
 
 
 def row_sum_fragment_map(sbn: int) -> torch.Tensor:

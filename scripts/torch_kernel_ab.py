@@ -16,10 +16,12 @@ the weighted strategy runs it (the small tile), else at four checks per
 run. A tree whose package predates B4, B6, B7 and B8 is timed on B1, B2,
 B3 and B5 only. Needs nvcc and a CUDA device:
 
-    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] [--turns=N] [--dtype=D] PARENT_TREE CHANGED_TREE [TREE ...]
+    python3 scripts/torch_kernel_ab.py [--tiles=huge,small] [--turns=N] [--dtype=D] [--kernels=B4,B5] PARENT_TREE CHANGED_TREE [TREE ...]
 
 ``--tiles`` times only the named tiles; ``--turns=N`` repeats the order
-and its reverse N times (default once). ``--dtype`` (``float32``, the
+and its reverse N times (default once); ``--kernels`` builds and times
+only the named kernels (each tree's libraries of them, as its
+``ops/ft_sgemm.kernel_entry`` names them). ``--dtype`` (``float32``, the
 default; ``bfloat16``, ``fp8``, ``int8``) times that dtype's builds on A
 and B rounded to it (int8: the program's ``np.round(10 x)`` lattice):
 B1-B8 in bf16, B1-B5 in fp8 (B2-B5 on their bf16 builds, the wrapper
@@ -80,16 +82,37 @@ DTYPE_LIBS = {"float32": F32_LIBS, "bfloat16": BF16_LIBS,
               "int8": ("ft_sgemm_rowcol", "ft_sgemm_global")}
 
 
-def build(tree: str, dtype: str = "") -> dict:
+def build(tree: str, dtype: str = "", kernels: str = "") -> dict:
     """Build the tree's libraries (with ``dtype``, only those its
-    measurement loads); {library: seconds}, as ``_build.build``."""
+    measurement loads; with ``kernels``, only those of the named kernels);
+    {library: seconds}, as ``_build.build``."""
     _import_port(tree)
     from ft_sgemm_tpu_torch.ops import _build
 
     if not dtype:
         return _build.build()
-    return _build.build(tuple(n for n in DTYPE_LIBS[dtype]
-                              if n in _build.LIBRARIES))
+    names = DTYPE_LIBS[dtype]
+    if kernels:
+        names = _kernel_libs(kernels.split(","), dtype)
+    return _build.build(tuple(n for n in names if n in _build.LIBRARIES))
+
+
+# The kind of each FT kernel (ops/ft_sgemm.kernel_entry).
+KINDS = {"B2": "precomp", "B3": "rowcol", "B4": "global", "B5": "running",
+         "B6": "fused", "B7": "rowcol_mxu", "B8": "global_mxu"}
+
+
+def _kernel_libs(kernels, dtype: str) -> tuple:
+    """The libraries that hold the named kernels' builds in ``dtype``."""
+    import torch
+
+    from ft_sgemm_tpu_torch.ops import ft_sgemm as ft
+
+    dt = {"float32": torch.float32, "int8": torch.int8}.get(dtype,
+                                                           torch.bfloat16)
+    return tuple(dict.fromkeys(
+        ("sgemm_fp8" if dtype == "fp8" else "sgemm") if k == "B1"
+        else ft.kernel_entry(KINDS[k], dt, False)[0] for k in kernels))
 
 
 # The kernels each dtype's builds hold (B1 and the FT kernels' ids).
@@ -98,9 +121,10 @@ DTYPE_KERNELS = {"float32": ("B1", "B2", "B3", "B5", "B4", "B6", "B7", "B8"),
                  "fp8": ("B1", "B2", "B3", "B5", "B4"), "int8": ("B3", "B4")}
 
 
-def measure(tree: str, tiles=TILES, dtype: str = "float32") -> dict:
+def measure(tree: str, tiles=TILES, dtype: str = "float32",
+            kernels=None) -> dict:
     """Milliseconds per launch of each kernel on each tile, in one tree,
-    in ``dtype``."""
+    in ``dtype`` (``kernels``: only those)."""
     _import_port(tree)
     import numpy as np
     import torch
@@ -160,7 +184,8 @@ def measure(tree: str, tiles=TILES, dtype: str = "float32") -> dict:
                         -1.5, sc, ce, mfk)
                 runs[kern] = functools.partial(ft.run_kernel, *args)
             checked += list(NEW_KERNELS)
-        runs = {k: f for k, f in runs.items() if k in DTYPE_KERNELS[dtype]}
+        runs = {k: f for k, f in runs.items() if k in DTYPE_KERNELS[dtype]
+                and (not kernels or k in kernels)}
         checked = [k for k in checked if k in runs]
         expected = (SIZE // sh.bm) * (SIZE // sh.bn) * inj.expected_faults(SIZE, sh.bk)
         for kern in checked:
@@ -233,20 +258,25 @@ def build_times(trees) -> int:
 
 
 def main(argv) -> int:
-    if len(argv) in (3, 4) and argv[1] == "--build":
+    if len(argv) in (3, 4, 5) and argv[1] == "--build":
         print(json.dumps(build(*argv[2:])))
         return 0
-    if len(argv) == 5 and argv[1] == "--measure":
-        print(json.dumps(measure(argv[2], argv[3].split(","), argv[4])))
+    if len(argv) in (5, 6) and argv[1] == "--measure":
+        print(json.dumps(measure(argv[2], argv[3].split(","), argv[4],
+                                 argv[5].split(",") if len(argv) == 6
+                                 else None)))
         return 0
     opts = {a.split("=", 1)[0]: a.split("=", 1)[1] for a in argv[1:]
             if a.startswith("--") and "=" in a}
     tiles = tuple(opts.get("--tiles", ",".join(TILES)).split(","))
     n_turns = int(opts.get("--turns", 1))
     dtype = opts.get("--dtype", "float32")
+    kernels = opts.get("--kernels", "")
     trees = [a for a in argv[1:] if not a.startswith("--")]
-    if (not trees or set(opts) - {"--tiles", "--turns", "--dtype"}
-            or dtype not in DTYPE_KERNELS or any(
+    if (not trees or set(opts) - {"--tiles", "--turns", "--dtype", "--kernels"}
+            or dtype not in DTYPE_KERNELS
+            or not set(filter(None, kernels.split(","))) <= set(
+                DTYPE_KERNELS[dtype]) or any(
                 a.startswith("--") and "=" not in a and a != "--build-only"
                 for a in argv[1:])):
         print(__doc__)
@@ -256,7 +286,10 @@ def main(argv) -> int:
     print(card(), flush=True)
     wrong = 0
     for name, row in turns(__file__, trees, ",".join(tiles), dtype,
-                           build_args=(dtype,), n_turns=n_turns):
+                           *([kernels] if kernels else []),
+                           build_args=(dtype,) + ((kernels,) if kernels
+                                                  else ()),
+                           n_turns=n_turns):
         wrong += list(row.values()).count("wrong")
         print(f"{name:19s} " + " ".join(
             f"{k}={v}" if isinstance(v, str) else

@@ -34,10 +34,10 @@ Prints the card's name and power limit, then one line per tree and turn:
 milliseconds per launch, and the detections and uncorrectable counts each
 FT launch reported.
 
-    python3 scripts/torch_variant_time.py --variant=NAME DIR
+    python3 scripts/torch_variant_time.py --variant=NAME [--from=TREE] DIR
 
-writes this checkout's package with one named change (``VARIANTS``) into
-DIR, a tree for the runs above. ``device-scalars`` hands B3-B8 their
+writes this checkout's package (or TREE's) with one named change
+(``VARIANTS``) into DIR, a tree for the runs above. ``device-scalars`` hands B3-B8 their
 scalar argument through device memory instead of by value: no arithmetic
 changes, only where each consumer thread reads it from. On an H100 it made
 B6 at the small tile report fewer detections than the by-value build on
@@ -61,6 +61,21 @@ check body (the tree against its returning check):
     python3 scripts/torch_variant_time.py --variant=rowcol-check-returns RET
     python3 scripts/torch_variant_time.py --variant=one-final-check ONE
     python3 scripts/torch_variant_time.py --kernels=B3,B7,B4 --tiles=huge,small --dtype=bfloat16 --magnitude=0 . RET ONE
+
+The same for B4 and B5: ``splitter-sums-zero`` (B5's moment sums and B4's
+band sums write zeros; B4's split of B stays), ``global-check-returns``
+(B4's check returns after its drain), ``one-final-check`` and
+``adaptive-sums-skipped`` (the adaptive build's running sums of A and B
+skipped); they apply to the earlier form of the kernels (B5's moment
+sums one lane a job, B4's band sums in 8-row groups, ``GlobalCheck``) and
+to the lane-group form that replaced it. ``b5-sums-by-thread`` (the
+earlier moment sums, in the lane-group tree), ``b5-lanes-everywhere``,
+``producer-40``,
+``b4-producer-40``, ``b4-producer-56``, ``faults-at-once`` and
+``b4-sums-8-row-groups`` time the redesign's parts:
+
+    python3 scripts/torch_variant_time.py --variant=splitter-sums-zero --from=PARENT ZERO
+    python3 scripts/torch_variant_time.py --kernels=B1,B4,B5 --tiles=huge,small --magnitude=0 PARENT ZERO
 """
 
 from __future__ import annotations
@@ -129,9 +144,12 @@ VARIANTS["rowcol-check-returns"] = {"csrc/ft_sgemm_running.cuh": [
      "      inj.fold(ml, chk);\n"),
     (_CHECKER_CHK, _CHECKER_CHK.replace(
         "min(check_every * (bk / 8), K / 8) - 1", "INT_MAX"))]}
+_GLOBAL_CHK = "        chk(min(every8, nk8) - 1), thr0(sc.s[SLOT_THRESHOLD]), nm(nm_),"
 VARIANTS["one-final-check"] = {"csrc/ft_sgemm_running.cuh": [
     (x, x.replace("min(check_every * (bk / 8), K / 8) - 1", "K / 8 - 1"))
-    for x in (_RUNHOOK_CHK, _CHECKER_CHK)]}
+    for x in (_RUNHOOK_CHK, _CHECKER_CHK)] + [
+    [(_GLOBAL_CHK, _GLOBAL_CHK.replace("min(every8, nk8) - 1", "nk8 - 1")),
+     ("", "")]]}
 # The rowcol checker deciding nothing (it takes each post and publishes no
 # correction at once): the consumers' own part of the split-phase check.
 VARIANTS["rowcol-checker-decides-nothing"] = {"csrc/ft_sgemm_running.cuh": [
@@ -150,6 +168,124 @@ VARIANTS["rowcol-checker-on-splitters"] = {"csrc/ft_sgemm_running.cuh": [
 VARIANTS["rowcol-checker-on-loader"] = {"csrc/ft_sgemm_running.cuh": [
     ("  static constexpr bool kOnLoader = T::SPLIT && T::NSUB <= 4;\n",
      "  static constexpr bool kOnLoader = T::SPLIT;\n")]}
+# The parts of B4 and B5 (the weighted and global kernels), timed apart.
+# An edit that is a list holds alternatives, the first whose text the tree
+# holds once applied: the lane-group form (lane groups, GlobalSplitCheck;
+# first, since B3 keeps the earlier band-sum functions and B8 GlobalCheck)
+# and the earlier one (B5's sums one thread a job, B4's in 8-row groups
+# through the producer scratch, GlobalCheck). Their splitter sums
+# writing zeros: B5's moment rows (every row band and column, f32 and bf16)
+# and B4's band rows of B (B's split alone in f32, as B8's; nothing summed
+# in bf16 and int8); B3's own sums stay.
+_B4_ZERO_F32 = ("    if constexpr (T::BANDS == kSumBands && T::ROWS != kSumRowGroups) {\n"
+                "      split4(b(s), blo(s), T::B_BOX / 16, e);\n"
+                "      for (int z = T::BN * T::SK + e; z < (T::BN + T::NBN) * T::SK;\n"
+                "           z += T::SPLITTERS)\n"
+                "        b(s)[z] = blo(s)[z] = 0.f;\n"
+                "      return;\n    }\n")
+_B4_ZERO_BF16 = ("    if constexpr (T::ROWS != kSumRowGroups) {\n"
+                 "      for (int z = e; z < T::NBN * 32; z += T::SPLITTERS)\n"
+                 "        for (int t = 0; t < 3; ++t)\n"
+                 "          bw(s)[swz_word(T::BN + 8 * t + z / 32, z % 32)] = 0u;\n"
+                 "      return;\n    }\n")
+_B4_ZERO_S8 = ("    if constexpr (T::ROWS != kSumRowGroups) {\n"
+               "      for (int z = e; z < T::NBN * 32; z += T::SPLITTERS)\n"
+               "        bw(s)[swz_word(T::BN + z / 32, z % 32)] =\n"
+               "            bw(s)[swz_word(T::BN + 8 + z / 32, z % 32)] = 0u;\n"
+               "      return;\n    }\n")
+_PR17_SPLIT_B = ("  __device__ __forceinline__ void split_b(int st, int e) const {\n"
+                 "    const int s = st % T::STAGES;\n")
+_PR17_BANDS_BF16 = ("  __device__ __forceinline__ void sum_bands_bf16(int st, int e)"
+                    " const {\n    const int s = st % T::STAGES;\n")
+_PR17_BANDS_S8 = ("  __device__ __forceinline__ void sum_bands_s8(int st, int e)"
+                  " const {\n    const int s = st % T::STAGES;\n")
+_LANES_F32 = "  __device__ __forceinline__ void split_bands(int s, int e) const {\n"
+_LANES_BF16 = ("  __device__ __forceinline__ void band_sums_bf16(int s, int e)"
+               " const {\n")
+_LANES_S8 = "  __device__ __forceinline__ void band_sums_s8(int s, int e) const {\n"
+VARIANTS["splitter-sums-zero"] = {"csrc/gemm_wgmma.cuh": [
+    [("#pragma unroll 8\n      for (int rr = 0; rr < T::SBM; ++rr) {\n"
+      "        const int r = band * T::SBM + rr;\n",
+      "#pragma unroll 8\n      for (int rr = 0; rr < 0; ++rr) {\n"
+      "        const int r = band * T::SBM + rr;\n"),
+     ("      for (int i = 0; i < ROW_N; ++i) {\n"
+      "        const int rr = u + G * i, r = band * T::SBM + rr;\n",
+      "      for (int i = 0; i < 0; ++i) {\n"
+      "        const int rr = u + G * i, r = band * T::SBM + rr;\n")],
+    [("      for (int rr = 0; rr < T::SBM; ++rr) {\n"
+      "        const uint32_t x = a_[swz_word(band * T::SBM + rr, p)];",
+      "      for (int rr = 0; rr < 0; ++rr) {\n"
+      "        const uint32_t x = a_[swz_word(band * T::SBM + rr, p)];"),
+     ("      for (int i = 0; i < ROW_N; ++i) {\n"
+      "        const int rr = u + G * i;\n",
+      "      for (int i = 0; i < 0; ++i) {\n"
+      "        const int rr = u + G * i;\n")],
+    [(_LANES_F32, _LANES_F32 + _B4_ZERO_F32),
+     (_PR17_SPLIT_B, _PR17_SPLIT_B + _B4_ZERO_F32)],
+    [(_LANES_BF16, _LANES_BF16 + _B4_ZERO_BF16),
+     (_PR17_BANDS_BF16, _PR17_BANDS_BF16 + _B4_ZERO_BF16)],
+    [(_LANES_S8, _LANES_S8 + _B4_ZERO_S8),
+     (_PR17_BANDS_S8, _PR17_BANDS_S8 + _B4_ZERO_S8)],
+]}
+# B4's check returning at once after its drain (its thresholds too, in the
+# adaptive build): the drains alone; in the split form the consumers post
+# nothing and the checker waits for nothing.
+VARIANTS["global-check-returns"] = {"csrc/ft_sgemm_running.cuh": [
+    [("  __device__ __forceinline__ void post(WgMainloop<T>& ml, int) {\n",
+      "  __device__ __forceinline__ void post(WgMainloop<T>& ml, int) {\n"
+      "    return;\n"),
+     ("  __device__ void check(WgMainloop<T>& ml) {\n"
+      "    constexpr int NBN = T::NBN, GPB = T::SBN / 8, WPB = T::SBM / 16;\n",
+      "  __device__ void check(WgMainloop<T>& ml) {\n    return;\n"
+      "    constexpr int NBN = T::NBN, GPB = T::SBN / 8, WPB = T::SBM / 16;\n")],
+    [("  template <class M>\n  __device__ void update(const M& ml, int t) {\n",
+      "  template <class M>\n  __device__ void update(const M& ml, int t) {\n"
+      "    if constexpr (GLOBAL) return;\n")],
+    [("        chk(min(every8, nk8) - 1), thr0(sc.s[SLOT_THRESHOLD]), nm(nm_),",
+      "        chk(INT_MAX), thr0(sc.s[SLOT_THRESHOLD]), nm(nm_),"),
+     ("", "")]]}
+# The adaptive build's running sums of A and B skipped (every kernel; the
+# thresholds then come from zero sums).
+VARIANTS["adaptive-sums-skipped"] = {"csrc/ft_sgemm_running.cuh": [
+    ("                                        int kk, int s) {\n"
+     "    if constexpr (T::BF16) {\n      kstep_bf16(ml, ah, kk, s);",
+     "                                        int kk, int s) {\n    return;\n"
+     "    if constexpr (T::BF16) {\n      kstep_bf16(ml, ah, kk, s);")]}
+# The parts of the redesign, timed apart: B5's moment sums one lane a job at
+# every tile (the earlier form), or in lane groups of SBM / 16 at
+# every tile; B4's and B5's producer at 40 registers, B4's at 40, or at 56
+# in every dtype; their faults added at once (not folded); B4's band sums
+# in the earlier 8-row groups through the producer scratch (with its posted
+# check and folded faults).
+VARIANTS["b5-sums-by-thread"] = {"csrc/gemm_wgmma.cuh": [
+    ("  static constexpr int ROW_LANES = T::SBM == 128 ? 8 : 1;\n",
+     "  static constexpr int ROW_LANES = 1;\n")]}
+VARIANTS["b5-lanes-everywhere"] = {"csrc/gemm_wgmma.cuh": [
+    ("  static constexpr int ROW_LANES = T::SBM == 128 ? 8 : 1;\n",
+     "  static constexpr int ROW_LANES = T::SBM / 16;\n")]}
+_REGS = ("  static constexpr int PRODUCER =\n"
+         "      T::ROWS == kSumRows || (kB4 && !T::BF16) ? 56 : 40;\n")
+VARIANTS["producer-40"] = {"csrc/ft_sgemm_running.cuh": [
+    (_REGS, "  static constexpr int PRODUCER = 40;\n")]}
+VARIANTS["b4-producer-40"] = {"csrc/ft_sgemm_running.cuh": [
+    (_REGS, "  static constexpr int PRODUCER = T::ROWS == kSumRows ? 56 : 40;\n")]}
+VARIANTS["b4-producer-56"] = {"csrc/ft_sgemm_running.cuh": [
+    (_REGS, "  static constexpr int PRODUCER =\n"
+            "      T::ROWS == kSumRows || kB4 ? 56 : 40;\n")]}
+VARIANTS["faults-at-once"] = {"csrc/ft_sgemm_running.cuh": [
+    ("struct WeightedFoldCheck : WeightedCheck<T, TH> {\n"
+     "  static constexpr bool kFoldFaults = true;\n",
+     "struct WeightedFoldCheck : WeightedCheck<T, TH> {\n"
+     "  static constexpr bool kFoldFaults = false;\n"),
+    ("  static constexpr bool kFoldFaults = true;\n"
+     "  static constexpr bool kCheckerGrids = true;\n",
+     "  static constexpr bool kFoldFaults = false;\n"
+     "  static constexpr bool kCheckerGrids = true;\n")]}
+VARIANTS["b4-sums-8-row-groups"] = {"csrc/gemm_wgmma.cuh": [
+    ("      constexpr bool LANES = T::ROWS == kNoRows;  // B4's band sums\n",
+     "      constexpr bool LANES = false;\n"),
+    ("      (BANDS == kSumBands && ROWS == kSumRowGroups ? BN / 8 : 0) +\n",
+     "      (BANDS == kSumBands ? BN / 8 : 0) +\n")]}
 # The same with the sub-tiled kernels built at the small tile only (a
 # quicker build of the kernel that the change moved: chip_smoke.py's
 # regression phase; its C++ symbols in a namespace of their own, so that it
@@ -166,21 +302,28 @@ VARIANTS["device-scalars-small"] = {
          "#define FTSG_NAMESPACE_END } }\n")]}
 
 
-def write_variant(name: str, dest: str) -> None:
-    """This checkout's package, with the change ``VARIANTS[name]``, in
-    ``dest`` (which must not exist yet); its build directory is not
-    copied."""
-    src = pathlib.Path(__file__).resolve().parents[1] / "ft_sgemm_tpu_torch"
+def write_variant(name: str, dest: str, tree: str = "") -> None:
+    """This checkout's package (or the one under ``tree``), with the change
+    ``VARIANTS[name]``, in ``dest`` (which must not exist yet); its build
+    directory is not copied. An edit that is a list holds alternatives:
+    the first whose text the package holds once applies (an empty text:
+    none needed)."""
+    root = (pathlib.Path(tree) if tree
+            else pathlib.Path(__file__).resolve().parents[1])
+    src = root / "ft_sgemm_tpu_torch"
     pkg = pathlib.Path(dest) / "ft_sgemm_tpu_torch"
     shutil.copytree(src, pkg, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
     for rel, edits in VARIANTS[name].items():
         path = pkg / rel
         text = path.read_text()
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {rel} does not hold {old!r} once")
-            text = text.replace(old, new)
+        for edit in edits:
+            for old, new in edit if isinstance(edit, list) else [edit]:
+                if not old or text.count(old) == 1:
+                    text = text.replace(old, new) if old else text
+                    break
+            else:
+                raise RuntimeError(f"{name}: {rel} does not hold {edit!r} once")
         path.write_text(text)
 
 
@@ -318,7 +461,7 @@ def main(argv) -> int:
     bf16 = "int8" if dtype == "int8" else dtype == "bfloat16"
     args = [a for a in argv[1:] if not (a.startswith("--") and "=" in a)]
     if "--variant" in opts and len(args) == 1 and opts["--variant"] in VARIANTS:
-        write_variant(opts["--variant"], args[0])
+        write_variant(opts["--variant"], args[0], opts.get("--from", ""))
         return 0
     if len(args) == 2 and args[0] in ("--build", "--measure"):
         if args[0] == "--build":
